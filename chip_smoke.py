@@ -179,9 +179,10 @@ def main():
         cfg_s = SpikingConfig(time_steps=T)
         agree = (lif_scan(out_k, cfg_s)[0] == lif_scan(out_p, cfg_s)[0]
                  ).float().mean()
+        diff = float((out_k.float() - out_p.float()).abs().max())
         log(f"fused_layer {dt} random-normal weights (information only): "
-            f"max abs diff {float((out_k.float() - out_p.float()).abs().max())}"
-            f", spike agreement of LIF(out) {float(agree):.6f}")
+            f"max abs diff {diff}, spike agreement of LIF(out) "
+            f"{float(agree):.6f}")
     timing = {}
     for dt in (torch.bfloat16, torch.float32):
         args, kw = layer_operands(3, dt, dyadic_weights=False)

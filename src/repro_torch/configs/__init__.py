@@ -1,7 +1,7 @@
 """Config registry: ``get_config(name)`` for the architectures the port
 runs so far (the two Spikingformer vision configs)."""
 from . import spikingformer_4_256, spikingformer_8_512
-from .base import ModelConfig, RunShape, VisionSpec
+from .base import ModelConfig
 
 _MODULES = {
     "spikingformer-4-256": spikingformer_4_256,

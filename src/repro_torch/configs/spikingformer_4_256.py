@@ -13,7 +13,7 @@ CONFIG = ModelConfig(
     spiking=SpikingConfig(time_steps=4),
     # overlap='auto' runs the fused layer program on the card
     # (core/engine.resolve_overlap)
-    engine=EngineConfig(mode="auto", sparse="auto", overlap="auto"),
+    engine=EngineConfig(sparse="auto", overlap="auto"),
 )
 
 SMOKE = CONFIG.replace(

@@ -11,7 +11,7 @@ CONFIG = ModelConfig(
     d_ff=2048, vocab_size=1000,
     vision=VisionSpec(img_size=224, in_channels=3, sps_stages=4),
     spiking=SpikingConfig(time_steps=4),
-    engine=EngineConfig(mode="auto", sparse="auto", overlap="auto"),
+    engine=EngineConfig(sparse="auto", overlap="auto"),
 )
 
 SMOKE = CONFIG.replace(

@@ -40,17 +40,12 @@ class EngineConfig:
     the fields of ``repro.core.engine.EngineConfig`` that the layer
     program reads, with the same meaning and validation. ``block_m`` is
     the L-block of the layer program's occupancy skip."""
-    mode: str = "auto"
     sparse: str = "tile"
     block_m: int = 128
     min_flops: int = 1 << 22
     overlap: str = "off"
-    weights: str = "fp32"
 
     def __post_init__(self):
-        if self.weights not in ("fp32", "int8", "int4"):
-            raise ValueError(f"unknown weights datapath {self.weights!r} "
-                             f"(expected fp32|int8|int4)")
         if self.sparse not in SPARSE_PATHS + ("auto",):
             raise ValueError(f"unknown sparse datapath {self.sparse!r} "
                              f"(expected tile|decoded|auto)")
@@ -139,18 +134,18 @@ def resolve_layer_plan(engine: Optional[EngineConfig], x=None,
                      resolve_sparse_path(engine, x))
 
 
-class _LayerSpec(NamedTuple):
-    """Static closure of a layer-program step."""
-    family: str
-    num_heads: int
-    head_dim: int
-    scale: float
-    causal: bool
-    scfg: Any                   # SpikingConfig
-    eps: float
-    overlap: str                # off | fused
-    sparse: str                 # tile
-    l_block: int
+def spike_linear(p, x, *, engine=None, counts=False):
+    """The sparse engine's per-matmul dispatch (dense vs block-sparse
+    spike matmul). Not ported yet: the eval layer program does not call
+    it, the training slice does."""
+    raise _not_ported("spike_linear (the spike_matmul kernel)",
+                      "queue 2 item 1")
+
+
+def ssa_step(p, st, cfg, s, *, train=False, engine=None):
+    """The SSA bundle step of the sequential composition. Not ported yet."""
+    raise _not_ported("ssa_step (the sequential composition)",
+                      "queue 1 item 3")
 
 
 def _layer_linear(p: Dict[str, Any], dtype: torch.dtype):
@@ -227,17 +222,14 @@ def layer_step(p: Dict[str, Any], st: Dict[str, Any], cfg, x: torch.Tensor,
             torch.stack([_bn_rows(p, st, f"bn_{n}") for n in "qkv"]),
             _bn_rows(p, st, "bn_o"), aux1, _bn_rows(p, st, "bn_2"),
             p["delta"])
-    spec = _LayerSpec("bn", heads, hd, 1.0 / math.sqrt(hd), False,
-                      cfg.spiking, 1e-5, plan.overlap, plan.sparse,
-                      engine.block_m if engine else 128)
-    kw = dict(family=spec.family, num_heads=heads, head_dim=hd,
-              scale=spec.scale, causal=spec.causal, eps=spec.eps)
-    if spec.overlap == "off":
-        y = reference_layer(*args, spec.scfg, **kw)
+    scfg = cfg.spiking
+    kw = dict(family="bn", num_heads=heads, head_dim=hd,
+              scale=1.0 / math.sqrt(hd), eps=1e-5)
+    if plan.overlap == "off":
+        y = reference_layer(*args, scfg, **kw)
     else:
         y, _ = fused_layer(
-            *args, sparse=spec.sparse, pipeline=False,
-            binarize_scores=spec.scfg.binarize_scores,
-            decay=spec.scfg.decay, v_th=spec.scfg.v_threshold,
-            soft_reset=spec.scfg.soft_reset, l_block=spec.l_block, **kw)
+            *args, sparse=plan.sparse, decay=scfg.decay,
+            v_th=scfg.v_threshold, soft_reset=scfg.soft_reset,
+            l_block=engine.block_m if engine else 128, **kw)
     return y, dict(st)

@@ -11,16 +11,17 @@
 // hd=32, F=1024) the layer is about 13.4 G multiply-adds of {0,1} spikes
 // (or small integer counts) against weights, on ~25 MB of input and
 // output, so it is bound by operations (~27 us at the bf16 tensor-core
-// peak against ~8 us for the bytes). This first version runs the
-// products on CUDA cores in fp32, so it sits far above that bound; a
-// later version moves the contractions to wgmma.
+// peak against ~8 us for the bytes). In bf16 both launches run their
+// products on the tensor cores with mma.sync (fp32 keeps CUDA-core
+// loops), launch B staging each weight chunk once for all timesteps.
+// wgmma / TMA pipelines are later work.
 //
 // Design. The TPU grid keeps every head's q/k/v spikes for all T in
 // VMEM (~786 KB at full width), which no SM can hold. The layer is split
 // into two launches instead:
 //   A. attention_phase, one block per (head, b): for each t, the head's
-//      q/k/v projection of the (L, D) spike slab, staged through shared
-//      memory in K-chunks, skipping dark L-blocks; the epilogue (scale,
+//      q/k/v projection of the (L, D) spike slab, staged whole in shared
+//      memory, skipping dark L-blocks; the epilogue (scale,
 //      BN, LIF with the membrane in registers across t) emits spikes as
 //      bit planes; scores are AND-popcounts of those bits, binarized in
 //      place; the context is a popcount of score bits against the
@@ -30,8 +31,9 @@
 //      sum over heads, then scale, bn_o, residual (x1 is parked in the
 //      output) and the input LIF into bit planes; up per ff-chunk + bn_1
 //      + LIF into hidden bit planes; down as one fixed-order sum over
-//      chunks + bn_2 + residual. Every predicate is evaluated on the
-//      whole L-block, so the counts are those of the TPU kernel.
+//      chunks + bn_2 + residual. Spike operands are expanded from the bit
+//      planes straight into mma fragments. Every predicate is evaluated
+//      on the whole L-block, so the counts are those of the TPU kernel.
 // Counts are summed with int32 atomicAdd (order-free); no float atomics.
 //
 // Rounding follows the plain version (kernels/fused_layer.py) step by
@@ -45,13 +47,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int NT = 256;      // threads per block, both launches
-constexpr int KC = 32;       // contraction chunk staged through shared memory
+constexpr int KC = 64;       // launch B contraction chunk, staged in shared memory
 constexpr int MAX_L = 64;    // launch A holds all rows of one (t, b) slab
-constexpr int MAX_HD = 64;
-constexpr int MAXR = 16;     // launch A rows per thread: L / (NT / hd)
+constexpr int MAX_HD = 32;   // q/k spikes of a row fit one 32-bit word
 constexpr int TILE = 64;     // launch B output tile: 64 rows x 64 columns
 constexpr int N_PHASES = 8;
 
@@ -106,8 +109,44 @@ __device__ __forceinline__ bool lif_step(float& u, float y, const Lif& p) {
 }
 
 // ---------------------------------------------------------------------------
+// tensor-core helpers: bf16 mma.sync m16n8k16 with fp32 accumulation
+// ---------------------------------------------------------------------------
+
+// two consecutive spike bits of `word` as a packed pair of bf16 {0, 1}
+__device__ __forceinline__ uint32_t bit_pair(uint32_t word, int bit) {
+  return ((word >> bit) & 1u) * 0x3F80u | ((word >> (bit + 1)) & 1u) * 0x3F800000u;
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---------------------------------------------------------------------------
 // launch A: projections + binary attention, one block per (head, b)
 // ---------------------------------------------------------------------------
+//
+// The head's slice of w3 is staged once, transposed to [3 hd][D], and each
+// timestep's (L, D) spike slab is staged whole, so the projection runs
+// without further barriers. It is an (L x D) x (D x 3 hd) product: warp w
+// owns rows 16 (w % 4) + [0, 16) and the n8-tiles w / 4, w / 4 + 2, ... of
+// the 3 hd columns; slot (j, c) is accumulator c of its j-th tile. In bf16
+// a k16 step is an mma.sync, in fp32 a CUDA-core loop over the same slots.
+
+constexpr int MAXJ = 3 * MAX_HD / 8 / 2;   // n8-tiles per warp in launch A
+
+// shared-memory row of the staged slab and w^T: D plus 16 bytes, so the
+// eight rows a warp's fragment loads touch fall in distinct banks
+template <typename T>
+__host__ __device__ constexpr int row_pad() { return 16 / (int)sizeof(T); }
 
 template <typename T>
 __global__ void __launch_bounds__(NT)
@@ -119,39 +158,53 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
   using A = Act<T>;
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int qd = heads * hd, nlb = (l + l_block - 1) / l_block;
-  const int lw = (l + 31) / 32;
+  const int lw = (l + 31) / 32, n3 = 3 * hd, ntiles = n3 / 8;
+  const int ldk = d + row_pad<T>(), vec = 16 / (int)sizeof(T);
   const float delta = *delta_p;
 
-  __shared__ float s_chunk[MAX_L * KC];
-  __shared__ float w_chunk[3 * KC * MAX_HD];
-  __shared__ uint32_t qbits[MAX_L * 2], kbits[MAX_L * 2];  // [row][hd word]
+  extern __shared__ __align__(16) unsigned char dyn_a[];
+  T* wt = (T*)dyn_a;                    // [3 hd][ldk]: w3 head slice, transposed
+  T* slab = wt + (size_t)n3 * ldk;      // [MAX_L][ldk]: one timestep's spikes
+  __shared__ uint32_t qbits[MAX_L], kbits[MAX_L];          // [row] bits of hd
   __shared__ uint32_t vbits_t[MAX_HD * 2];                 // [col][L word]
   __shared__ uint32_t abits[MAX_L * 2];                    // [query][key word]
-  __shared__ uint32_t ctx_mask[2];
+  __shared__ uint32_t key_mask[2], ctx_mask[2];  // live key columns
   __shared__ int row_live[MAX_L], blk_live[MAX_L], k_live[MAX_L],
       c_live[MAX_L];
+  __shared__ bool passes[MAX_HD + 1];  // binarized score of a count
 
-  // thread -> one column of the head, rows rg, rg + nrg, ...
-  const int col = tid % hd, rg = tid / hd, nrg = NT / hd;
-  const int nrow = rg < l ? (l - rg + nrg - 1) / nrg : 0;
-  float u[3][MAXR];
-#pragma unroll
-  for (int j = 0; j < 3; ++j)
-#pragma unroll
-    for (int i = 0; i < MAXR; ++i) u[j][i] = 0.f;
+  for (int i = tid; i < n3 * d; i += NT) {
+    const int k = i / n3, n = i % n3;
+    wt[n * ldk + k] = w3[((size_t)(n / hd) * d + k) * qd + h * hd + n % hd];
+  }
+  for (int i = l * ldk + tid; i < MAX_L * ldk; i += NT) slab[i] = T(0.f);
+  // a score is an integer count c <= hd; binarize each once:
+  // fma32(c, scale, -delta) >= 0
+  for (int c = tid; c <= hd; c += NT) passes[c] = fma32((float)c, scale, -delta) >= 0.f;
+
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, tig = lane % 4;
+  const int r_lo = (warp % 4) * 16 + g, jt0 = warp / 4;
+  float u[MAXJ][4] = {};
   int n_proj = 0, n_qkt = 0, n_qktv = 0;  // per L-block, thread tid < nlb
 
-  const int warp = tid / 32, lane = tid % 32;
   for (int t = 0; t < nt; ++t) {
-    const T* slab = s + ((size_t)t * nb + b) * l * d;
-    for (int r = warp; r < l; r += NT / 32) {
-      bool any = false;
-      for (int k = lane; k < d; k += 32) any |= A::load(slab + (size_t)r * d + k) != 0.f;
-      any = __any_sync(0xffffffffu, any);
-      if (lane == 0) row_live[r] = any;
+    const T* src = s + ((size_t)t * nb + b) * l * d;
+    for (int i = tid; i < MAX_L; i += NT) {
+      row_live[i] = 0;
+      qbits[i] = kbits[i] = 0u;
     }
-    for (int i = tid; i < MAX_L * 2; i += NT) qbits[i] = kbits[i] = abits[i] = 0u;
+    for (int i = tid; i < MAX_L * 2; i += NT) abits[i] = 0u;
     for (int i = tid; i < MAX_HD * 2; i += NT) vbits_t[i] = 0u;
+    __syncthreads();
+    // stage the slab in 16-byte vectors; a row is live when any of its
+    // values is non-zero (the sign bit masked: -0 is dark)
+    const uint32_t mag = sizeof(T) == 2 ? 0x7FFF7FFFu : 0x7FFFFFFFu;
+    for (int i = tid; i < l * (d / vec); i += NT) {
+      const int r = i / (d / vec), kv = i % (d / vec);
+      const uint4 v = *reinterpret_cast<const uint4*>(src + (size_t)r * d + kv * vec);
+      *reinterpret_cast<uint4*>(slab + (size_t)r * ldk + kv * vec) = v;
+      if ((v.x | v.y | v.z | v.w) & mag) row_live[r] = 1;
+    }
     __syncthreads();
     if (tid < nlb) {
       int any = 0;
@@ -160,55 +213,58 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
     }
     __syncthreads();
 
-    // q/k/v projection: dark L-blocks skip their products
-    float acc[3][MAXR];
-    bool live[MAXR];
+    // q/k/v projection; a warp whose rows all lie in dark L-blocks skips
+    // its products (they would add exact zeros)
+    float acc[MAXJ][4] = {};
+    bool warp_live = false;
+    for (int r = (warp % 4) * 16; r < min(l, (warp % 4) * 16 + 16); ++r)
+      warp_live |= blk_live[r / l_block] != 0;
+    if (warp_live) {
+      if constexpr (std::is_same<T, float>::value) {
+        for (int k = 0; k < d; ++k) {
+          const float a_lo = slab[r_lo * ldk + k], a_hi = slab[(r_lo + 8) * ldk + k];
 #pragma unroll
-    for (int i = 0; i < MAXR; ++i) {
-      live[i] = i < nrow && blk_live[(rg + i * nrg) / l_block];
+          for (int j = 0; j < MAXJ; ++j) {
+            const int jt = jt0 + 2 * j;
+            if (jt >= ntiles) break;
 #pragma unroll
-      for (int j = 0; j < 3; ++j) acc[j][i] = 0.f;
-    }
-    for (int k0 = 0; k0 < d; k0 += KC) {
-      __syncthreads();
-      for (int i = tid; i < l * KC; i += NT) {
-        const int r = i / KC, kk = i % KC;
-        s_chunk[i] = k0 + kk < d ? A::load(slab + (size_t)r * d + k0 + kk) : 0.f;
-      }
-      for (int i = tid; i < 3 * KC * hd; i += NT) {
-        const int j = i / (KC * hd), kk = (i / hd) % KC, c = i % hd;
-        w_chunk[i] = k0 + kk < d
-            ? A::load(w3 + ((size_t)j * d + k0 + kk) * qd + h * hd + c) : 0.f;
-      }
-      __syncthreads();
-      for (int kk = 0; kk < KC; ++kk) {
-        const float w0 = w_chunk[kk * hd + col];
-        const float w1 = w_chunk[(KC + kk) * hd + col];
-        const float w2 = w_chunk[(2 * KC + kk) * hd + col];
+            for (int c = 0; c < 2; ++c) {
+              const float wv = wt[(jt * 8 + tig * 2 + c) * ldk + k];
+              acc[j][c] = fmaf(a_lo, wv, acc[j][c]);
+              acc[j][2 + c] = fmaf(a_hi, wv, acc[j][2 + c]);
+            }
+          }
+        }
+      } else {
+        for (int k0 = 0; k0 < d; k0 += 16) {
+          const T* pa = slab + r_lo * ldk + k0 + tig * 2;
+          const uint32_t a[4] = {ld_pair(pa), ld_pair(pa + 8 * ldk),
+                                 ld_pair(pa + 8), ld_pair(pa + 8 * ldk + 8)};
 #pragma unroll
-        for (int i = 0; i < MAXR; ++i) {
-          if (live[i]) {
-            const float sv = s_chunk[(rg + i * nrg) * KC + kk];
-            acc[0][i] = fmaf(sv, w0, acc[0][i]);
-            acc[1][i] = fmaf(sv, w1, acc[1][i]);
-            acc[2][i] = fmaf(sv, w2, acc[2][i]);
+          for (int j = 0; j < MAXJ; ++j) {
+            const int jt = jt0 + 2 * j;
+            if (jt >= ntiles) break;
+            const T* pb = wt + (jt * 8 + g) * ldk + k0 + tig * 2;
+            mma_bf16(acc[j], a, ld_pair(pb), ld_pair(pb + 8));
           }
         }
       }
     }
     // epilogue: scale, BN, LIF -> spike bits (v stored transposed)
-    const int c = h * hd + col;
 #pragma unroll
-    for (int i = 0; i < MAXR; ++i) {
-      if (i >= nrow) continue;
-      const int r = rg + i * nrg;
+    for (int j = 0; j < MAXJ; ++j) {
+      const int jt = jt0 + 2 * j;
+      if (jt >= ntiles) break;
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        float y = A::round(__fmul_rn(acc[j][i], sc3[j * qd + c]));
-        y = A::round(bn_eval(y, auxp + (size_t)j * 4 * qd, qd, c));
-        if (!lif_step<T>(u[j][i], y, lif)) continue;
-        if (j == 0) atomicOr(&qbits[r * 2 + col / 32], 1u << (col % 32));
-        else if (j == 1) atomicOr(&kbits[r * 2 + col / 32], 1u << (col % 32));
+      for (int c = 0; c < 4; ++c) {
+        const int r = r_lo + (c & 2) * 4, n = jt * 8 + tig * 2 + (c & 1);
+        if (r >= l) continue;
+        const int p = n / hd, col = n % hd, ch = h * hd + col;
+        float y = A::round(__fmul_rn(acc[j][c], sc3[p * qd + ch]));
+        y = A::round(bn_eval(y, auxp + (size_t)p * 4 * qd, qd, ch));
+        if (!lif_step<T>(u[j][c], y, lif)) continue;
+        if (p == 0) atomicOr(&qbits[r], 1u << col);
+        else if (p == 1) atomicOr(&kbits[r], 1u << col);
         else atomicOr(&vbits_t[col * 2 + r / 32], 1u << (r % 32));
       }
     }
@@ -219,9 +275,13 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
     if (tid < nlb) {
       const int r0 = tid * l_block, r1 = min(l, r0 + l_block);
       bool kany = false, vany = false;
-      for (int r = r0; r < r1; ++r) kany |= (kbits[r * 2] | kbits[r * 2 + 1]) != 0u;
-      for (int cc = 0; cc < hd; ++cc)
-        for (int r = r0; r < r1; ++r) vany |= (vbits_t[cc * 2 + r / 32] >> (r % 32)) & 1u;
+      for (int r = r0; r < r1; ++r) kany |= kbits[r] != 0u;
+      for (int w = 0; w < lw; ++w) {          // the block's rows in word w
+        const int lo = max(r0, 32 * w), hi = min(r1, 32 * w + 32);
+        if (lo >= hi) continue;
+        const uint32_t m = (hi - lo == 32 ? ~0u : (1u << (hi - lo)) - 1u) << (lo - 32 * w);
+        for (int cc = 0; cc < hd; ++cc) vany |= (vbits_t[cc * 2 + w] & m) != 0u;
+      }
       const bool kl = kany || delta <= 0.f;
       k_live[tid] = kl;
       c_live[tid] = kl && vany;
@@ -231,25 +291,24 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
     }
     __syncthreads();
     if (tid < lw) {
-      uint32_t m = 0u;
-      for (int jj = 0; jj < 32; ++jj) {
-        const int j = tid * 32 + jj;
-        if (j < l && c_live[j / l_block]) m |= 1u << jj;
+      uint32_t km = 0u, cm = 0u;
+      for (int jj = 0; jj < 32 && tid * 32 + jj < l; ++jj) {
+        const int lb = (tid * 32 + jj) / l_block;
+        km |= (uint32_t)k_live[lb] << jj;
+        cm |= (uint32_t)c_live[lb] << jj;
       }
-      ctx_mask[tid] = m;
+      key_mask[tid] = km;
+      ctx_mask[tid] = cm;
     }
-    // scores: AND-popcount of q and k bits, binarized as
-    // fma32(count, scale, -delta) >= 0
+    __syncthreads();
+    // scores: AND-popcount of q and k bits over live key blocks, binarized
     for (int w = tid; w < l * lw; w += NT) {
       const int i = w / lw, jw = w % lw;
+      const uint32_t live = key_mask[jw], q = qbits[i];
       uint32_t word = 0u;
-      for (int jj = 0; jj < 32; ++jj) {
-        const int j = jw * 32 + jj;
-        if (j >= l || !k_live[j / l_block]) continue;
-        const int cnt = __popc(qbits[i * 2] & kbits[j * 2]) +
-                        __popc(qbits[i * 2 + 1] & kbits[j * 2 + 1]);
-        if (fma32((float)cnt, scale, -delta) >= 0.f) word |= 1u << jj;
-      }
+      for (int jj = 0; jj < 32; ++jj)
+        if ((live >> jj & 1u) && passes[__popc(q & kbits[jw * 32 + jj])])
+          word |= 1u << jj;
       abits[i * 2 + jw] = word;
     }
     __syncthreads();
@@ -277,45 +336,169 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
 // ---------------------------------------------------------------------------
 // launch B: wo + MLP, one block per (L-block, b)
 // ---------------------------------------------------------------------------
+//
+// Each product is a 64-row x 64-column output tile accumulated over
+// KC-deep K-chunks in ascending k, for all timesteps at once, so a weight
+// chunk is staged once and serves every t. A thread owns 16 slots of the
+// tile: warp w holds rows 16 (w % 4) + [0, 16) and columns 32 (w / 4) +
+// [0, 32); slot q = 4 j + c is accumulator c of the warp's m16n8 tile j.
+// In bf16 a chunk is KC / 16 tensor-core mma.sync steps (bf16 x bf16 -> fp32;
+// spikes, integer counts and bf16 weights are exact operands); in fp32
+// it is a CUDA-core loop over the same slots.
 
-// acc[i][j] += sum_k a(row ty + 16 i, k) * W[k, c0 + tx + 16 j] over the
-// live K-chunks, k ascending; a() and live() are uniform over the block
-template <typename T, class FA, class FL>
-__device__ __forceinline__ void tile_gemm(float (&acc)[4][4], int k_dim, int n,
-                                          FA a_at, const T* __restrict__ w,
-                                          int ldw, int c0, int ncols,
-                                          FL chunk_live, float* as, float* ws) {
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  for (int k0 = 0; k0 < k_dim; k0 += KC) {
-    if (!chunk_live(k0)) continue;
+constexpr int MAX_T = 4;       // timesteps whose accumulators launch B holds
+constexpr int LDS = KC + 8;    // padded row of the staged A and W^T tiles
+
+__device__ __forceinline__ int slot_row(int q) {
+  return (threadIdx.x / 32 % 4) * 16 + threadIdx.x % 32 / 4 + (q & 2) * 4;
+}
+
+__device__ __forceinline__ int slot_col(int q) {
+  return threadIdx.x / 128 * 32 + q / 4 * 8 + threadIdx.x % 4 * 2 + (q & 1);
+}
+
+// One KC x TILE chunk of a row-major weight W[k][c], in flight through
+// registers: each thread holds NV 16-byte vectors of it. `load` reads
+// W[k0:k0+KC, c0:c0+TILE] (zero outside k_dim x ncols; ldw, c0 and ncols
+// are multiples of a vector); `store` writes it to shared memory, bf16 as
+// the transposed tile W^T[TILE][LDS], fp32 as W[KC][TILE].
+template <typename T>
+struct WeightChunk {
+  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int NV = KC * TILE / VEC / NT;
+  uint4 v[NV];
+
+  __device__ __forceinline__ void load(const T* __restrict__ w, int ldw,
+                                       int k0, int k_dim, int c0, int ncols) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int idx = threadIdx.x + i * NT;
+      const int kk = idx / (TILE / VEC), cc = idx % (TILE / VEC) * VEC;
+      v[i] = k0 + kk < k_dim && c0 + cc < ncols
+          ? *reinterpret_cast<const uint4*>(w + (size_t)(k0 + kk) * ldw + c0 + cc)
+          : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+
+  __device__ __forceinline__ void store(void* buf) const {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int idx = threadIdx.x + i * NT;
+      const int kk = idx / (TILE / VEC), cc = idx % (TILE / VEC) * VEC;
+      if constexpr (std::is_same<T, float>::value) {
+        *reinterpret_cast<uint4*>((float*)buf + kk * TILE + cc) = v[i];
+      } else {
+        const T* e = reinterpret_cast<const T*>(&v[i]);
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) ((T*)buf)[(cc + q) * LDS + kk] = e[q];
+      }
+    }
+  }
+};
+
+// Runs body(k0, mask) over the K-chunks k0 = 0, KC, ... whose timestep
+// mask live(k0) is non-zero, in ascending order, with W[k0] staged in
+// `wbuf`; the next live chunk's weights are read into registers while
+// body runs, so their latency hides behind the products. live() and body
+// are uniform over the block.
+template <typename T, class Live, class Body>
+__device__ __forceinline__ void chunk_loop(int k_dim, const T* __restrict__ w,
+                                           int ldw, int c0, int ncols,
+                                           Live live, Body body, void* wbuf) {
+  auto next = [&](int k0) {
+    while (k0 < k_dim && !live(k0)) k0 += KC;
+    return k0;
+  };
+  WeightChunk<T> chunk;
+  int k0 = next(0);
+  if (k0 < k_dim) chunk.load(w, ldw, k0, k_dim, c0, ncols);
+  while (k0 < k_dim) {
+    const int k1 = next(k0 + KC);
+    __syncthreads();                    // the previous chunk is consumed
+    chunk.store(wbuf);
+    if (k1 < k_dim) chunk.load(w, ldw, k1, k_dim, c0, ncols);
     __syncthreads();
-    for (int i = tid; i < TILE * KC; i += NT) {
-      const int r = i / KC, kk = i % KC;
-      as[r * (KC + 1) + kk] = r < n && k0 + kk < k_dim ? a_at(r, k0 + kk) : 0.f;
-    }
-    for (int i = tid; i < KC * TILE; i += NT) {
-      const int kk = i / TILE, cc = i % TILE;
-      ws[i] = k0 + kk < k_dim && c0 + cc < ncols
-          ? Act<T>::load(w + (size_t)(k0 + kk) * ldw + c0 + cc) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < KC; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = as[(ty + 16 * i) * (KC + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ws[kk * TILE + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
+    body(k0, live(k0));
+    k0 = k1;
   }
 }
 
-__device__ __forceinline__ float bit_at(const uint32_t* bits, int k) {
-  return (float)((bits[k >> 5] >> (k & 31)) & 1u);
+// stage A[0:TILE, k0:k0+KC] of a row-major (n, k_dim) matrix as [TILE][LDS]
+template <typename T>
+__device__ __forceinline__ void stage_a(const T* __restrict__ a, int k_dim,
+                                        int n, int k0, void* buf) {
+  for (int i = threadIdx.x; i < TILE * KC; i += NT) {
+    const int r = i / KC, kk = i % KC;
+    const bool in = r < n && k0 + kk < k_dim;
+    if constexpr (std::is_same<T, float>::value)
+      ((float*)buf)[r * LDS + kk] = in ? a[(size_t)r * k_dim + k0 + kk] : 0.f;
+    else
+      ((T*)buf)[r * LDS + kk] = in ? a[(size_t)r * k_dim + k0 + kk]
+                                   : __float2bfloat16_rn(0.f);
+  }
+}
+
+// acc += A[:, k0:k0+KC] W[k0:k0+KC, tile] for one timestep; A is the staged
+// tile `a_tile`, or, when `a_bits` is set, spike bits (`wpr` words a row)
+template <typename T>
+__device__ __forceinline__ void chunk_product(float (&acc)[16],
+                                              const void* wbuf,
+                                              const void* a_tile,
+                                              const uint32_t* a_bits, int wpr,
+                                              int k0) {
+  const int g = threadIdx.x % 32 / 4, tig = threadIdx.x % 4;
+  const int r_lo = slot_row(0), cw = threadIdx.x / 128 * 32;
+  if constexpr (std::is_same<T, float>::value) {
+    const float* ws = (const float*)wbuf;
+    const float* as = (const float*)a_tile;
+    for (int kk = 0; kk < KC; ++kk) {
+      float a_lo, a_hi;
+      if (a_bits) {
+        const int k = k0 + kk;
+        a_lo = (float)((a_bits[r_lo * wpr + k / 32] >> (k % 32)) & 1u);
+        a_hi = (float)((a_bits[(r_lo + 8) * wpr + k / 32] >> (k % 32)) & 1u);
+      } else {
+        a_lo = as[r_lo * LDS + kk];
+        a_hi = as[(r_lo + 8) * LDS + kk];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float wv = ws[kk * TILE + cw + j * 8 + tig * 2 + c];
+          acc[4 * j + c] = fmaf(a_lo, wv, acc[4 * j + c]);
+          acc[4 * j + 2 + c] = fmaf(a_hi, wv, acc[4 * j + 2 + c]);
+        }
+    }
+  } else {
+    const T* wt = (const T*)wbuf;
+    const T* as = (const T*)a_tile;
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks) {
+      uint32_t a[4];
+      if (a_bits) {
+        const int word = k0 / 32 + ks / 2;
+        const uint32_t lo = a_bits[r_lo * wpr + word];
+        const uint32_t hi = a_bits[(r_lo + 8) * wpr + word];
+        const int bit = ks % 2 * 16 + tig * 2;
+        a[0] = bit_pair(lo, bit);
+        a[1] = bit_pair(hi, bit);
+        a[2] = bit_pair(lo, bit + 8);
+        a[3] = bit_pair(hi, bit + 8);
+      } else {
+        const T* p = as + r_lo * LDS + ks * 16 + tig * 2;
+        a[0] = ld_pair(p);
+        a[1] = ld_pair(p + 8 * LDS);
+        a[2] = ld_pair(p + 8);
+        a[3] = ld_pair(p + 8 * LDS + 8);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const T* p = wt + (cw + j * 8 + g) * LDS + ks * 16 + tig * 2;
+        mma_bf16(acc + 4 * j, a, ld_pair(p), ld_pair(p + 8));
+      }
+    }
+  }
 }
 
 template <typename T>
@@ -333,16 +516,15 @@ mlp_phase(const T* __restrict__ x, const T* __restrict__ ctx,
   const int r0 = lb * l_block, n = min(l, r0 + l_block) - r0;
   const int qd = heads * hd, ffc = ff / heads, nlb = gridDim.x;
   const int dw = (d + 31) / 32, fw = (ff + 31) / 32;
-  const int ty = tid / 16, tx = tid % 16;
 
   extern __shared__ uint32_t dyn[];
-  uint32_t* s2bits = dyn;                           // [t][TILE][dw]
-  uint32_t* hbits = s2bits + (size_t)nt * TILE * dw; // [t][TILE][fw]
+  uint32_t* s2bits = dyn;                            // [t][TILE][dw]
+  uint32_t* hbits = s2bits + (size_t)nt * TILE * dw;  // [t][TILE][fw]
   int* head_live = (int*)(hbits + (size_t)nt * TILE * fw);  // [t][heads]
-  int* hid_live = head_live + nt * heads;           // [t][heads]
-  int* s2_live = hid_live + nt * heads;             // [t]
-  __shared__ float as[TILE * (KC + 1)];
-  __shared__ float ws[KC * TILE];
+  int* hid_live = head_live + nt * heads;            // [t][heads]
+  int* s2_live = hid_live + nt * heads;              // [t]
+  __shared__ __align__(16) float wbuf[KC * TILE];    // weight chunk
+  __shared__ __align__(16) float abuf[TILE * LDS];   // context chunk
 
   const size_t nwords = (size_t)nt * TILE * (dw + fw) + (size_t)nt * (2 * heads + 1);
   for (size_t i = tid; i < nwords; i += NT) dyn[i] = 0u;
@@ -354,99 +536,122 @@ mlp_phase(const T* __restrict__ x, const T* __restrict__ ctx,
   }
   __syncthreads();
 
-  // wo (sum over heads in order) + bn_o + residual + input LIF
+  // wo: the sum over heads in order (dark head blocks skipped), then
+  // scale, bn_o, residual (x1 parked in `out`) and the input LIF
   for (int c0 = 0; c0 < d; c0 += TILE) {
-    float u[4][4] = {};
-    for (int t = 0; t < nt; ++t) {
-      const T* ctx_t = ctx + (((size_t)t * nb + b) * l + r0) * qd;
-      const int* hl = head_live + t * heads;
-      float acc[4][4] = {};
-      tile_gemm<T>(acc, qd, n,
-                   [&](int r, int k) { return A::load(ctx_t + (size_t)r * qd + k); },
-                   wo, d, c0, d,
-                   [&](int k0) {
-                     for (int hh = k0 / hd; hh <= (min(k0 + KC, qd) - 1) / hd; ++hh)
-                       if (hl[hh]) return true;
-                     return false;
-                   },
-                   as, ws);
+    float acc[MAX_T][16] = {}, u[16] = {};
+    chunk_loop<T>(
+        qd, wo, d, c0, d,
+        [&](int k0) {                      // bit t: some head of the chunk lit
+          int live = 0;
+          for (int t = 0; t < nt; ++t)
+            for (int hh = k0 / hd; hh <= (min(k0 + KC, qd) - 1) / hd; ++hh)
+              if (head_live[t * heads + hh]) live |= 1 << t;
+          return live;
+        },
+        [&](int k0, int live) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = ty + 16 * i, c = c0 + tx + 16 * j;
-          if (r >= n || c >= d) continue;
-          float y = A::round(__fmul_rn(acc[i][j], sco[c]));
-          y = A::round(bn_eval(y, auxo, d, c));
-          const size_t off = (((size_t)t * nb + b) * l + r0 + r) * d + c;
-          const float x1 = A::round(__fadd_rn(A::load(x + off), y));
-          A::store(out + off, x1);
-          if (lif_step<T>(u[i][j], x1, lif)) {
-            atomicOr(&s2bits[((size_t)t * TILE + r) * dw + c / 32], 1u << (c % 32));
-            s2_live[t] = 1;
+          for (int t = 0; t < MAX_T; ++t) {
+            if (!(live >> t & 1)) continue;
+            __syncthreads();
+            stage_a<T>(ctx + (((size_t)t * nb + b) * l + r0) * qd, qd, n, k0,
+                       abuf);
+            __syncthreads();
+            chunk_product<T>(acc[t], wbuf, abuf, nullptr, 0, k0);
           }
+        },
+        wbuf);
+#pragma unroll
+    for (int t = 0; t < MAX_T; ++t) {
+      if (t >= nt) break;
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const int r = slot_row(q), c = c0 + slot_col(q);
+        if (r >= n || c >= d) continue;
+        float y = A::round(__fmul_rn(acc[t][q], sco[c]));
+        y = A::round(bn_eval(y, auxo, d, c));
+        const size_t off = (((size_t)t * nb + b) * l + r0 + r) * d + c;
+        const float x1 = A::round(__fadd_rn(A::load(x + off), y));
+        A::store(out + off, x1);
+        if (lif_step<T>(u[q], x1, lif)) {
+          atomicOr(&s2bits[((size_t)t * TILE + r) * dw + c / 32], 1u << (c % 32));
+          s2_live[t] = 1;
         }
+      }
     }
   }
   __syncthreads();
 
-  // up per ff-chunk + bn_1 + LIF -> hidden spike bits
+  // up, per ff-chunk: s2 spikes x w1 chunk, then scale, bn_1, LIF
+  int s2_mask = 0;
+  for (int t = 0; t < nt; ++t) s2_mask |= s2_live[t] << t;
   for (int hh = 0; hh < heads; ++hh)
     for (int c0 = 0; c0 < ffc; c0 += TILE) {
-      float u[4][4] = {};
-      for (int t = 0; t < nt; ++t) {
-        float acc[4][4] = {};
-        if (s2_live[t]) {
-          const uint32_t* bits_t = s2bits + (size_t)t * TILE * dw;
-          tile_gemm<T>(acc, d, n,
-                       [&](int r, int k) { return bit_at(bits_t + (size_t)r * dw, k); },
-                       w1 + hh * ffc, ff, c0, ffc, [](int) { return true; }, as, ws);
-        }
+      float acc[MAX_T][16] = {}, u[16] = {};
+      chunk_loop<T>(
+          d, w1 + hh * ffc, ff, c0, ffc, [&](int) { return s2_mask; },
+          [&](int k0, int live) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+            for (int t = 0; t < MAX_T; ++t)
+              if (live >> t & 1)
+                chunk_product<T>(acc[t], wbuf, nullptr,
+                                 s2bits + (size_t)t * TILE * dw, dw, k0);
+          },
+          wbuf);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int r = ty + 16 * i, cc = c0 + tx + 16 * j;
-            if (r >= n || cc >= ffc) continue;
-            const int f = hh * ffc + cc;
-            float y = A::round(__fmul_rn(acc[i][j], sc1[f]));
-            y = A::round(bn_eval(y, aux1, ff, f));
-            if (lif_step<T>(u[i][j], y, lif)) {
-              atomicOr(&hbits[((size_t)t * TILE + r) * fw + f / 32], 1u << (f % 32));
-              hid_live[t * heads + hh] = 1;
-            }
+      for (int t = 0; t < MAX_T; ++t) {
+        if (t >= nt) break;
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          const int r = slot_row(q), cc = c0 + slot_col(q);
+          if (r >= n || cc >= ffc) continue;
+          const int f = hh * ffc + cc;
+          float y = A::round(__fmul_rn(acc[t][q], sc1[f]));
+          y = A::round(bn_eval(y, aux1, ff, f));
+          if (lif_step<T>(u[q], y, lif)) {
+            atomicOr(&hbits[((size_t)t * TILE + r) * fw + f / 32], 1u << (f % 32));
+            hid_live[t * heads + hh] = 1;
           }
+        }
       }
     }
   __syncthreads();
 
-  // down (sum over ff-chunks in order) + bn_2 + residual
-  for (int c0 = 0; c0 < d; c0 += TILE)
-    for (int t = 0; t < nt; ++t) {
-      const uint32_t* bits_t = hbits + (size_t)t * TILE * fw;
-      const int* hl = hid_live + t * heads;
-      float acc[4][4] = {};
-      tile_gemm<T>(acc, ff, n,
-                   [&](int r, int k) { return bit_at(bits_t + (size_t)r * fw, k); },
-                   w2, d, c0, d,
-                   [&](int k0) {
-                     for (int hh = k0 / ffc; hh <= (min(k0 + KC, ff) - 1) / ffc; ++hh)
-                       if (hl[hh]) return true;
-                     return false;
-                   },
-                   as, ws);
+  // down: the sum over ff-chunks in order (dark chunk blocks skipped),
+  // then scale, bn_2 and the residual
+  for (int c0 = 0; c0 < d; c0 += TILE) {
+    float acc[MAX_T][16] = {};
+    chunk_loop<T>(
+        ff, w2, d, c0, d,
+        [&](int k0) {                      // bit t: some ff-chunk of it lit
+          int live = 0;
+          for (int t = 0; t < nt; ++t)
+            for (int hh = k0 / ffc; hh <= (min(k0 + KC, ff) - 1) / ffc; ++hh)
+              if (hid_live[t * heads + hh]) live |= 1 << t;
+          return live;
+        },
+        [&](int k0, int live) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+          for (int t = 0; t < MAX_T; ++t)
+            if (live >> t & 1)
+              chunk_product<T>(acc[t], wbuf, nullptr,
+                               hbits + (size_t)t * TILE * fw, fw, k0);
+        },
+        wbuf);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = ty + 16 * i, c = c0 + tx + 16 * j;
-          if (r >= n || c >= d) continue;
-          float y = A::round(__fmul_rn(acc[i][j], sc2[c]));
-          y = A::round(bn_eval(y, aux2, d, c));
-          const size_t off = (((size_t)t * nb + b) * l + r0 + r) * d + c;
-          A::store(out + off, A::round(__fadd_rn(A::load(out + off), y)));
-        }
+    for (int t = 0; t < MAX_T; ++t) {
+      if (t >= nt) break;
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const int r = slot_row(q), c = c0 + slot_col(q);
+        if (r >= n || c >= d) continue;
+        float y = A::round(__fmul_rn(acc[t][q], sc2[c]));
+        y = A::round(bn_eval(y, aux2, d, c));
+        const size_t off = (((size_t)t * nb + b) * l + r0 + r) * d + c;
+        A::store(out + off, A::round(__fadd_rn(A::load(out + off), y)));
+      }
     }
+  }
 
   if (tid < heads) {
     int n_wo = 0, n_up = 0, n_down = 0;
@@ -472,12 +677,16 @@ cudaError_t launch(const void* x, const void* s, const void* w3,
                    int heads, int hd, int ff, int l_block, void* ctx,
                    void* out, int* counts, cudaStream_t stream) {
   const int nlb = (l + l_block - 1) / l_block;
+  const size_t dyn_a = (size_t)(3 * hd + MAX_L) * (d + row_pad<T>()) * sizeof(T);
   const size_t dyn = 4 * ((size_t)nt * TILE * ((d + 31) / 32 + (ff + 31) / 32) +
                           (size_t)nt * (2 * heads + 1));
   cudaError_t err = cudaFuncSetAttribute(
+      attention_phase<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn_a);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
       mlp_phase<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   if (err != cudaSuccess) return err;
-  attention_phase<T><<<dim3(heads, nb), NT, 0, stream>>>(
+  attention_phase<T><<<dim3(heads, nb), NT, dyn_a, stream>>>(
       (const T*)s, (const T*)w3, sc3, auxp, delta, scale, lif, nt, nb, l, d,
       heads, hd, l_block, (T*)ctx, counts);
   err = cudaGetLastError();

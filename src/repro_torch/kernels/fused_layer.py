@@ -45,8 +45,8 @@ LAUNCHES = {"fused_layer": 0}
 
 # shape limits of the CUDA kernel (csrc/fused_layer.cu)
 MAX_L = 64
-MAX_HEAD_DIM = 64
-_THREADS = 256
+MAX_HEAD_DIM = 32
+MAX_T = 4
 
 
 def reset_launches() -> None:
@@ -194,7 +194,8 @@ def fused_layer(x: torch.Tensor, s: torch.Tensor, w3: torch.Tensor,
                 sparse: str = "tile", pipeline: bool = False,
                 binarize_scores: bool = True, decay: float = 0.5,
                 v_th: float = 1.0, soft_reset: bool = False,
-                eps: float = 1e-5, l_block: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+                eps: float = 1e-5, l_block: int = 128
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused whole-layer step (forward only), the signature of the JAX
     ``fused_layer``.
 
@@ -293,12 +294,15 @@ def fused_layer_cuda(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
             raise ValueError("x, s and the weights must share one dtype")
     t, b, l, d = x.shape
     ff = w1.shape[1]
-    if l > MAX_L:
-        raise ValueError(f"fused_layer kernel takes L <= {MAX_L}, got {l}")
-    if head_dim > MAX_HEAD_DIM or _THREADS % head_dim:
-        raise ValueError(f"fused_layer kernel takes a head_dim that divides "
-                         f"{_THREADS} and is <= {MAX_HEAD_DIM}, got "
-                         f"{head_dim}")
+    if l > MAX_L or t > MAX_T:
+        raise ValueError(f"fused_layer kernel takes L <= {MAX_L} and "
+                         f"T <= {MAX_T}, got L={l}, T={t}")
+    if head_dim > MAX_HEAD_DIM or head_dim % 8 or d % 16 or \
+            (ff // num_heads) % 8:
+        raise ValueError(f"fused_layer kernel takes head_dim a multiple of 8 "
+                         f"up to {MAX_HEAD_DIM}, D a multiple of 16 and "
+                         f"F / H a multiple of 8, got head_dim={head_dim}, "
+                         f"D={d}, F={ff}, H={num_heads}")
     act = tuple(a.contiguous() for a in act)
     f32 = tuple(a.contiguous() for a in f32)
     nlb = -(-l // l_block)

@@ -139,7 +139,7 @@ def _sps(params, state, cfg: ModelConfig, images):
         y, _ = nn.batchnorm(p["bn"], state["sps"][i], x)
         x = y
         if i < len(params["sps"]) - 1:
-            x = _lif(x, cfg)                             # spikes feed the next conv
+            x = _lif(x, cfg)                 # spikes feed the next conv
         if pools[i]:
             x = _fold_t(nn.maxpool2, x)
     tt, b, h, w, d = x.shape

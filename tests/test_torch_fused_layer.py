@@ -146,3 +146,22 @@ def test_unported_variants_raise(variant):
     kw = dict(_kw(heads, hd), **variant)
     with pytest.raises(NotImplementedError):
         TFL.fused_layer(*targs, l_block=l_block, **kw)
+
+
+@pytest.mark.parametrize("bad", ["long_l", "long_t", "half", "mixed"])
+def test_kernel_launcher_rejects_operands_before_launching(bad):
+    """The CUDA launcher checks shapes and dtypes before it builds or
+    calls the kernel, so these raise here too, where there is no card."""
+    t = 5 if bad == "long_t" else 2
+    l = 65 if bad == "long_l" else 13
+    heads, hd, d, ff = 2, 8, 16, 16
+    args, kw = TFL.prepare(*to_torch(layer_ops(7, t, 1, l, d, heads, hd, ff)),
+                           num_heads=heads, head_dim=hd,
+                           scale=1.0 / math.sqrt(hd), decay=0.5, v_th=1.0,
+                           soft_reset=False, eps=1e-5, l_block=8)
+    if bad == "half":
+        args = (args[0].half(), args[1].half()) + args[2:]
+    if bad == "mixed":
+        args = args[:2] + (args[2].double(),) + args[3:]
+    with pytest.raises(ValueError):
+        TFL.fused_layer_cuda(*args, **kw)

@@ -15,6 +15,7 @@
 import os
 import subprocess
 import sys
+import textwrap
 import types
 
 import pytest
@@ -27,12 +28,12 @@ import numpy as np  # noqa: E402
 
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.core import engine as JE  # noqa: E402
-from repro.launch.steps import build_prefill_step as jbuild_prefill  # noqa: E402,E501
+from repro.launch.steps import (  # noqa: E402
+    build_prefill_step as jbuild_prefill)
 from repro.models import registry as JR  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import engine as TE  # noqa: E402
-from repro_torch.kernels import fused_layer as TFL  # noqa: E402
 from repro_torch.launch.steps import build_prefill_step  # noqa: E402
 from repro_torch.models import registry as TR  # noqa: E402
 
@@ -162,7 +163,11 @@ def test_dispatch_rules_on_cpu_and_cuda_tensors():
         TE.resolve_overlap(TE.EngineConfig(overlap="pipeline"), _on("cuda"))
     with pytest.raises(NotImplementedError):
         TE.resolve_sparse_path(TE.EngineConfig(sparse="decoded"))
-    for bad in (dict(overlap="x"), dict(sparse="x"), dict(weights="x")):
+    for unported in (lambda: TE.spike_linear({}, None),
+                     lambda: TE.ssa_step({}, {}, None, None)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            unported()
+    for bad in (dict(overlap="x"), dict(sparse="x")):
         with pytest.raises(ValueError):
             TE.EngineConfig(**bad)
 
@@ -197,18 +202,21 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    code = (
-        "import importlib, importlib.util, pkgutil, sys\n"
-        "import repro_torch\n"
-        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "spec = importlib.util.spec_from_file_location('chip_smoke', "
-        "'chip_smoke.py')\n"
-        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',"
-        " 'repro')]\n"
-        "assert not bad, bad\n"
-        "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
+    """Every module of the port, and chip_smoke.py, load without jax or
+    the JAX package (checked in a fresh interpreter)."""
+    code = textwrap.dedent("""
+        import importlib, importlib.util, pkgutil, sys
+        import repro_torch
+        for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+            importlib.import_module(m.name)
+        spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                      "chip_smoke.py")
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+        assert not bad, bad
+        print(len([m for m in sys.modules if m.startswith("repro_torch")]))
+    """)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)

@@ -12,7 +12,6 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
-import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.core import spiking as jsp  # noqa: E402
@@ -20,7 +19,8 @@ from repro.models import nn as jnn  # noqa: E402
 from repro_torch.core import spiking as tsp  # noqa: E402
 from repro_torch.models import nn as tnn  # noqa: E402
 
-from _torch_helpers import EPS, agreeing_variances, dyadic, jit_rsqrt  # noqa: E402,E501
+from _torch_helpers import (  # noqa: E402
+    EPS, agreeing_variances, dyadic, jit_rsqrt)
 
 
 @pytest.mark.parametrize("soft_reset", [False, True])
