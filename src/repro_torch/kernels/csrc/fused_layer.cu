@@ -13,8 +13,9 @@
 // output, so it is bound by operations (~27 us at the bf16 tensor-core
 // peak against ~8 us for the bytes). In bf16 both launches run their
 // products on the tensor cores with mma.sync (fp32 keeps CUDA-core
-// loops), launch B staging each weight chunk once for all timesteps.
-// wgmma / TMA pipelines are later work.
+// loops); launch B stages each weight chunk once for all timesteps and
+// reads the next chunk into registers while the current one's products
+// run. wgmma / TMA pipelines are later work.
 //
 // Design. The TPU grid keeps every head's q/k/v spikes for all T in
 // VMEM (~786 KB at full width), which no SM can hold. The layer is split
