@@ -9,7 +9,10 @@ device; exits non-zero without one). It
 2. holds each kernel against its plain PyTorch version on the card at
    the full width of Spikingformer-4-256 (T=4, B=64, L=64, D=256, H=8,
    hd=32, F=1024): bitwise in bf16 and fp32 on dyadic weights, and as
-   information on random-normal weights; times both with CUDA events;
+   information on random-normal weights; times both with CUDA events.
+   It repeats the bitwise check with several L-blocks per sequence
+   (``l_block < L``, one L-block of a sequence dark), which the main
+   path does not reach;
 3. drives the main path: the published Spikingformer-4-256 config, seeded
    random weights, ``build_prefill_step`` answering 4 requests of 64
    images, with every layer's launch of the fused kernel counted;
@@ -48,6 +51,13 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 # full width of Spikingformer-4-256 at a 64-image batch
 T, B, L, D, H, HD, FF = 4, 64, 64, 256, 8, 32, 1024
+FULL = (T, B, L, D, H, HD, FF)
+# (what, (T, B, L, D, H, hd, F), l_block) with several L-blocks a sequence:
+# the SMOKE width, the full width with a ragged last block, and an L that
+# is not a multiple of the block
+MULTI_BLOCK = [("SMOKE width", (2, 8, 16, 64, 4, 16, 128), 8),
+               ("full width, ragged blocks", (4, 16, 64, 256, 8, 32, 1024), 24),
+               ("SMOKE width, L=13", (2, 8, 13, 64, 4, 16, 128), 8)]
 REQUESTS, REQUEST_BATCH = 4, 64
 
 
@@ -60,11 +70,16 @@ def dyadic(gen, shape, bits=8):
     return k.float() * 2.0 ** -bits
 
 
-def layer_operands(seed, dtype, dyadic_weights):
-    """Fused-layer operands at full width (the layout layer_step builds)."""
+def layer_operands(seed, dtype, dyadic_weights, shape=FULL, l_block=64):
+    """Fused-layer operands (the layout layer_step builds): one dark
+    (t=0, b=0) slab and, with several L-blocks, the first L-block of
+    batch row 1 dark at every t."""
+    T, B, L, D, H, HD, FF = shape
     gen = torch.Generator().manual_seed(seed)
     x = torch.randint(-64, 224, (T, B, L, D), generator=gen).float() / 128
-    x[0, 0] = 0.0                                  # one dark slab
+    x[0, 0] = 0.0
+    if l_block < L:
+        x[:, 1, :l_block] = 0.0
     x = x.to(dtype)
     s = lif_scan(x, SpikingConfig(time_steps=T))[0]
 
@@ -89,7 +104,7 @@ def layer_operands(seed, dtype, dyadic_weights):
     ops = ops[:2] + tuple(w.to(dtype) for w in ops[2:6]) + ops[6:]
     return FL.prepare(*ops, num_heads=H, head_dim=HD,
                       scale=1.0 / math.sqrt(HD), decay=0.5, v_th=1.0,
-                      soft_reset=False, eps=1e-5, l_block=64)
+                      soft_reset=False, eps=1e-5, l_block=l_block)
 
 
 def cuda_ms(fn, warmup=3, runs=20):
@@ -134,19 +149,20 @@ def layer_bound_ms(args, counts, dtype, l_block=64):
                                        else "bytes")
 
 
-def check_layer_kernel(dtype):
+def check_layer_kernel(dtype, what="full width", shape=FULL, l_block=64):
     """Kernel vs plain version on the card, dyadic weights: bitwise."""
-    args, kw = layer_operands(1, dtype, dyadic_weights=True)
+    args, kw = layer_operands(1, dtype, True, shape, l_block)
     out_k, cnt_k = FL.fused_layer_cuda(*args, **kw)
     out_p, cnt_p = FL.fused_layer_plain(*args, **kw)
     torch.cuda.synchronize()
     err = float((out_k.float() - out_p.float()).abs().max())
     if not (torch.equal(out_k, out_p) and torch.equal(cnt_k, cnt_p)):
-        raise AssertionError(f"fused_layer {dtype}: kernel != plain version "
-                             f"(max abs diff {err}, counts equal "
+        raise AssertionError(f"fused_layer {dtype} {what}: kernel != plain "
+                             f"version (max abs diff {err}, counts equal "
                              f"{torch.equal(cnt_k, cnt_p)})")
-    log(f"fused_layer {dtype} dyadic: bitwise equal to the plain version; "
-        f"counts per phase {cnt_k.sum(dim=(0, 2)).tolist()}")
+    log(f"fused_layer {dtype} {what}, l_block {kw['l_block']}, dyadic: "
+        f"bitwise equal to the plain version; counts per phase and L-block "
+        f"{cnt_k.sum(dim=0).t().tolist()}")
     return err
 
 
@@ -172,6 +188,9 @@ def main():
     # --- kernel against its plain version, full width ------------------
     max_err = max(check_layer_kernel(dt)
                   for dt in (torch.bfloat16, torch.float32))
+    max_err = max([max_err] + [check_layer_kernel(dt, *case)
+                               for case in MULTI_BLOCK
+                               for dt in (torch.bfloat16, torch.float32)])
     for dt in (torch.bfloat16, torch.float32):
         args, kw = layer_operands(2, dt, dyadic_weights=False)
         out_k, _ = FL.fused_layer_cuda(*args, **kw)
@@ -213,7 +232,7 @@ def main():
         req_ms.append(1e3 * (time.perf_counter() - t0))
         outs.append(logits)
     launches = FL.LAUNCHES["fused_layer"]
-    want = cfg.num_layers * REQUESTS
+    want = FL.LAUNCHES_PER_CALL * cfg.num_layers * REQUESTS
     log(f"main path: {REQUESTS} requests x {REQUEST_BATCH} images, "
         f"per-request ms {[round(m, 3) for m in req_ms]}, fused_layer "
         f"launches {launches}")

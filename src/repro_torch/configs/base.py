@@ -35,7 +35,6 @@ class ModelConfig:
     # builders (core/engine.py); None = no engine
     engine: Optional[EngineConfig] = None
     dtype: str = "bfloat16"
-    remat: bool = True
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

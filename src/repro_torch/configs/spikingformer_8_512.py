@@ -18,4 +18,4 @@ SMOKE = CONFIG.replace(
     num_layers=2, d_model=64, num_heads=4, head_dim=16, d_ff=128,
     vocab_size=10,
     vision=VisionSpec(img_size=32, in_channels=3, sps_stages=4),
-    spiking=SpikingConfig(time_steps=2), dtype="float32", remat=False)
+    spiking=SpikingConfig(time_steps=2), dtype="float32")

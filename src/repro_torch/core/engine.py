@@ -39,10 +39,11 @@ class EngineConfig:
     """Dual-engine dispatch knobs (per model, set on ModelConfig.engine):
     the fields of ``repro.core.engine.EngineConfig`` that the layer
     program reads, with the same meaning and validation. ``block_m`` is
-    the L-block of the layer program's occupancy skip."""
+    the L-block of the layer program's occupancy skip. JAX's
+    ``min_flops`` is left out: the port's 'auto' does not read it (see
+    :func:`resolve_overlap`)."""
     sparse: str = "tile"
     block_m: int = 128
-    min_flops: int = 1 << 22
     overlap: str = "off"
 
     def __post_init__(self):
@@ -100,26 +101,26 @@ def resolve_sparse_path(engine: Optional[EngineConfig], x=None) -> str:
     raise _not_ported("sparse='decoded'", "queue 2 item 4")
 
 
-def resolve_overlap(engine: Optional[EngineConfig], x=None,
-                    flops: int = 0) -> str:
+def resolve_overlap(engine: Optional[EngineConfig], x=None) -> str:
     """Fused-vs-sequential decision for a layer step.
 
     JAX fuses under 'auto' when the input is concrete, off the TPU, and
-    the flops reach ``min_flops``. A PyTorch tensor is always concrete,
-    and the fused kernel's home is now the card, where it is built and
-    checked against its plain version. So 'auto' fuses when ``x`` lies on
-    a CUDA device and the layer clears ``min_flops``, and stays 'off'
-    otherwise: the published config launches the kernel on the card, and
-    CPU runs of 'auto' take the oracle, as JAX does under jit."""
+    the flops reach ``min_flops``; the flop floor keeps small layers out
+    of interpret mode. A PyTorch tensor is always concrete, and the fused
+    kernel's home is now the card, where it is built and checked against
+    its plain version and has no interpret mode. So 'auto' fuses whenever
+    ``x`` lies on a CUDA device, whatever the layer's size, and the
+    wrapper there launches the kernel or raises; on the CPU 'auto' stays
+    'off' and takes the oracle, as JAX does under jit."""
     if engine is None:
         return "off"
     if engine.overlap == "pipeline":
         raise _not_ported("overlap='pipeline'", "queue 2 item 3")
     if engine.overlap in ("off", "fused"):
         return engine.overlap
-    if x is None or x.device.type != "cuda":
-        return "off"
-    return "fused" if flops >= engine.min_flops else "off"
+    if x is not None and x.device.type == "cuda":
+        return "fused"
+    return "off"
 
 
 class LayerPlan(NamedTuple):
@@ -128,9 +129,8 @@ class LayerPlan(NamedTuple):
     sparse: str
 
 
-def resolve_layer_plan(engine: Optional[EngineConfig], x=None,
-                       flops: int = 0) -> LayerPlan:
-    return LayerPlan(resolve_overlap(engine, x, flops),
+def resolve_layer_plan(engine: Optional[EngineConfig], x=None) -> LayerPlan:
+    return LayerPlan(resolve_overlap(engine, x),
                      resolve_sparse_path(engine, x))
 
 
@@ -193,7 +193,6 @@ def layer_step(p: Dict[str, Any], st: Dict[str, Any], cfg, x: torch.Tensor,
     layer program ``fused_layer`` (the CUDA kernel for CUDA tensors)."""
     from repro_torch.kernels.fused_layer import fused_layer, reference_layer
     engine = engine if engine is not None else get_engine()
-    t, b, l, d = x.shape
     heads, hd = cfg.num_heads, cfg.head_dim
     lin_names = ("wq", "wk", "wv", "wo", "w1", "w2")
     eligible = (not train
@@ -203,12 +202,8 @@ def layer_step(p: Dict[str, Any], st: Dict[str, Any], cfg, x: torch.Tensor,
     if not eligible:
         raise _not_ported("the sequential (train / ineligible) layer "
                           "composition", "queue 1 items 3 and 5")
-    flops = 6 * (t * b * l) * d * cfg.q_dim \
-        + 4 * (t * b * heads) * l * l * hd \
-        + 2 * (t * b * l) * cfg.q_dim * d \
-        + 4 * (t * b * l) * d * cfg.d_ff
     s = lif_scan(x, cfg.spiking)[0]
-    plan = resolve_layer_plan(engine, s, flops)
+    plan = resolve_layer_plan(engine, s)
     dtype = x.dtype
     w3 = torch.stack([_layer_linear(p[w], dtype)[0]
                       for w in ("wq", "wk", "wv")])
@@ -231,5 +226,5 @@ def layer_step(p: Dict[str, Any], st: Dict[str, Any], cfg, x: torch.Tensor,
         y, _ = fused_layer(
             *args, sparse=plan.sparse, decay=scfg.decay,
             v_th=scfg.v_threshold, soft_reset=scfg.soft_reset,
-            l_block=engine.block_m if engine else 128, **kw)
+            l_block=engine.block_m, **kw)
     return y, dict(st)

@@ -40,8 +40,10 @@ FAMILIES = ("bn", "rope")
 LAYER_PHASES = ("q", "k", "v", "qkt", "qktv", "wo", "up", "down")
 N_PHASES = len(LAYER_PHASES)
 
-# layer-program launches on the card (one per call that runs the kernel)
+# kernel launches on the card: each call of the CUDA layer program
+# launches two kernels (attention_phase, then mlp_phase) and counts both
 LAUNCHES = {"fused_layer": 0}
+LAUNCHES_PER_CALL = 2
 
 # shape limits of the CUDA kernel (csrc/fused_layer.cu)
 MAX_L = 64
@@ -156,8 +158,7 @@ def fused_layer_plain(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
 def reference_layer(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
                     delta, scfg: SpikingConfig, *, family: str,
                     num_heads: int, head_dim: int, scale: float,
-                    causal: bool = False, eps: float = 1e-5
-                    ) -> torch.Tensor:
+                    eps: float = 1e-5) -> torch.Tensor:
     """The sequential oracle: the SSA bundle via ``reference_bundle``,
     then wo + bn_o + residual, the input LIF and the spiking MLP, on the
     same raw operands the kernel sees (aux rows carry the variance)."""
@@ -178,7 +179,7 @@ def reference_layer(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
 
     ctx = reference_bundle(s, w3, sc3, auxp, delta, scfg, family=family,
                            num_heads=num_heads, head_dim=head_dim,
-                           scale=scale, causal=causal, eps=eps)
+                           scale=scale, eps=eps)
     x1 = x + bn(lin(ctx, wo, sco), auxo)
     s2 = lif_scan(x1, scfg)[0]
     hid = lif_scan(bn(lin(s2, w1, sc1), aux1), scfg)[0]
@@ -321,5 +322,5 @@ def fused_layer_cuda(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
     if rc != 0:
         raise RuntimeError(f"fused_layer kernel launch failed: "
                            f"{lib.fused_layer_error(rc).decode()}")
-    LAUNCHES["fused_layer"] += 1
+    LAUNCHES["fused_layer"] += LAUNCHES_PER_CALL
     return out, counts

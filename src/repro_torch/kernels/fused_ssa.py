@@ -27,8 +27,7 @@ def reference_bundle(x: torch.Tensor, w3: torch.Tensor,
                      scale3: Optional[torch.Tensor], aux: torch.Tensor,
                      delta, scfg: SpikingConfig, *, family: str,
                      num_heads: int, head_dim: int, scale: float,
-                     causal: bool = False, eps: float = 1e-5
-                     ) -> torch.Tensor:
+                     eps: float = 1e-5) -> torch.Tensor:
     """x: (T, B, L, D) spikes; w3: (3, D, H*hd); aux: (3, 4, H*hd) BN rows
     [mean, var, scale, bias]. Returns the context (T, B, L, H*hd)."""
     if family != "bn":
@@ -52,7 +51,5 @@ def reference_bundle(x: torch.Tensor, w3: torch.Tensor,
     q, k, v = (u.reshape(t * b, l, num_heads, head_dim).transpose(1, 2)
                for u in projected)
     attn = binary_scores(q, k, scale, delta)
-    if causal:
-        attn = torch.tril(attn)
     ctx = (attn @ v.float()).to(q.dtype)
     return ctx.transpose(1, 2).reshape(t, b, l, q_dim)

@@ -1,17 +1,16 @@
 """Where the time of the port's inference step goes, on the GPU.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile [--requests 3]
+    PYTHONPATH=src python -m repro_torch.launch.profile
 
 Runs the published Spikingformer-4-256 config (seeded random weights)
 through ``build_prefill_step`` on batches of 64 images: two warm-up
-requests, then ``--requests`` requests under ``torch.profiler``. Prints
+requests, then three requests under ``torch.profiler``. Prints
 the wall time per request, the device time per request summed by kernel
 name, and the device's busy share (kernel time over wall time), then one
 JSON line with the same numbers. Needs a CUDA device.
 """
 from __future__ import annotations
 
-import argparse
 import json
 import time
 
@@ -22,6 +21,11 @@ from repro_torch.configs import get_config
 from repro_torch.launch.steps import build_prefill_step
 from repro_torch.models import registry
 
+ARCH = "spikingformer-4-256"
+BATCH = 64
+REQUESTS = 3
+TOP = 12
+
 
 def _device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
@@ -30,24 +34,18 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="spikingformer-4-256")
-    ap.add_argument("--batch", type=int, default=64)
-    ap.add_argument("--requests", type=int, default=3)
-    ap.add_argument("--top", type=int, default=12)
-    args = ap.parse_args(argv)
+def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(args.arch)
+    cfg = get_config(ARCH)
     params = registry.init(cfg, seed=0)
     step = build_prefill_step(cfg)
     gen = torch.Generator().manual_seed(1)
     v = cfg.vision
-    batches = [{"images": torch.rand((args.batch, v.img_size, v.img_size,
+    batches = [{"images": torch.rand((BATCH, v.img_size, v.img_size,
                                       v.in_channels), generator=gen).cuda()}
-               for _ in range(args.requests + 2)]
+               for _ in range(REQUESTS + 2)]
     for batch in batches[:2]:
         step(params, batch)
     torch.cuda.synchronize()
@@ -57,20 +55,20 @@ def main(argv=None):
         for batch in batches[2:]:
             step(params, batch)
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / args.requests
+        wall_ms = 1e3 * (time.perf_counter() - t0) / REQUESTS
     by_kernel = {}
     for evt in prof.key_averages():
         us = _device_us(evt)
         if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + us
-    per_req = {k: v / 1e3 / args.requests for k, v in by_kernel.items()}
+    per_req = {k: v / 1e3 / REQUESTS for k, v in by_kernel.items()}
     device_ms = sum(per_req.values())
-    print(f"{args.arch}, {args.requests} requests x {args.batch} images: "
+    print(f"{ARCH}, {REQUESTS} requests x {BATCH} images: "
           f"wall {wall_ms:.3f} ms/request, device {device_ms:.3f} "
           f"ms/request, busy share {device_ms / wall_ms:.3f}")
-    for name, ms in sorted(per_req.items(), key=lambda kv: -kv[1])[:args.top]:
+    for name, ms in sorted(per_req.items(), key=lambda kv: -kv[1])[:TOP]:
         print(f"  {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  {name[:90]}")
-    print(json.dumps({"arch": args.arch, "batch": args.batch,
+    print(json.dumps({"arch": ARCH, "batch": BATCH,
                       "wall_ms_per_request": wall_ms,
                       "device_ms_per_request": device_ms,
                       "busy_share": device_ms / wall_ms,

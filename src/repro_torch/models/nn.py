@@ -89,13 +89,13 @@ def conv2d(p, x: torch.Tensor) -> torch.Tensor:
     kh, kw = w.shape[2:]
     pad = ((kw - 1) // 2, kw // 2, (kh - 1) // 2, kh // 2)
     xc = F.pad(x.float().permute(0, 3, 1, 2), pad)
-    # the reference convolves in full fp32; cuDNN would default to TF32
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    # the reference convolves in full fp32; cuDNN would default to TF32.
+    # The scope turns TF32 off for this call only and passes the other
+    # cuDNN settings through as the caller left them.
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
         y = F.conv2d(xc, w)
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 

@@ -139,24 +139,25 @@ def test_init_tree_layout_matches_jax(arch):
     np.testing.assert_array_equal(ts["blocks"]["bn_q"]["var"], 1.0)
 
 
-BIG = 1 << 40
-
-
 def _on(kind):
     return types.SimpleNamespace(device=torch.device(kind))
 
 
 def test_dispatch_rules_on_cpu_and_cuda_tensors():
+    """'auto' fuses every layer on a CUDA tensor (the card has no flop
+    floor: the kernel runs or raises) and takes the oracle on the CPU."""
     auto = TE.EngineConfig(overlap="auto", sparse="auto")
-    assert TE.resolve_overlap(auto, _on("cuda"), BIG) == "fused"
-    assert TE.resolve_overlap(auto, _on("cuda"), 10) == "off"
-    assert TE.resolve_overlap(auto, _on("cpu"), BIG) == "off"
-    assert TE.resolve_overlap(None, _on("cuda"), BIG) == "off"
+    assert not hasattr(auto, "min_flops")
+    assert TE.resolve_overlap(auto, _on("cuda")) == "fused"
+    assert TE.resolve_layer_plan(auto, _on("cuda")) == ("fused", "tile")
+    assert TE.resolve_overlap(auto, _on("cpu")) == "off"
+    assert TE.resolve_overlap(auto, None) == "off"
+    assert TE.resolve_overlap(None, _on("cuda")) == "off"
     for ov in ("off", "fused"):
         eng = TE.EngineConfig(overlap=ov)
         for dev in ("cpu", "cuda"):
-            assert TE.resolve_overlap(eng, _on(dev), 0) == ov
-            assert TE.resolve_layer_plan(eng, _on(dev), 0) == (ov, "tile")
+            assert TE.resolve_overlap(eng, _on(dev)) == ov
+            assert TE.resolve_layer_plan(eng, _on(dev)) == (ov, "tile")
     for dev in ("cpu", "cuda"):
         assert TE.resolve_sparse_path(auto, _on(dev)) == "tile"
     with pytest.raises(NotImplementedError):
