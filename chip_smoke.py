@@ -5,24 +5,40 @@ Run from the root of a checkout: ``python3 chip_smoke.py`` (one CUDA
 device; exits non-zero without one). It
 
 1. builds every CUDA kernel of the port from ``src/repro_torch/kernels/
-   csrc`` (``nvcc`` for sm_90a) and prints the build time;
+   csrc`` (one ``nvcc`` for sm_90a per source, all at once) and prints
+   each build's time and ``ptxas`` lines;
 2. holds each kernel against its plain PyTorch version on the card at
-   the full width of Spikingformer-4-256 (T=4, B=64, L=64, D=256, H=8,
-   hd=32, F=1024): bitwise in bf16 and fp32 on dyadic weights, and as
-   information on random-normal weights; times both with CUDA events.
-   It repeats the bitwise check with several L-blocks per sequence
-   (``l_block < L``, one L-block of a sequence dark), which the main
-   path does not reach;
-3. drives the main path: the published Spikingformer-4-256 config, seeded
-   random weights, ``build_prefill_step`` answering 4 requests of 64
-   images, with every layer's launch of the fused kernel counted;
-4. checks the output: finite logits of the right shape, and, on a small
-   batch with dyadic weights, the fused path equal bitwise to the
-   sequential oracle (``overlap='off'``).
+   the shapes of Spikingformer-4-256 (T=4, B=64, L=64, D=256, H=8,
+   hd=32, F=1024), bitwise in bf16 and fp32 on dyadic weights, and times
+   both with CUDA events:
+   * the fused layer program (eval), also on random-normal weights (as
+     information) and with several L-blocks per sequence (``l_block <
+     L``, one L-block of a sequence dark);
+   * ``spike_matmul`` at the six products of a training layer (q, k, v,
+     wo on integer counts, w1, w2; M = 16384) with dark tiles, and at
+     ragged shapes with and without bias;
+   * ``spike_attention`` at BH = 2048, L = 64, d = 32, at an L that is
+     not a multiple of the query block with ``causal=True``, and with
+     analog scores (within a stated tolerance);
+3. drives the main paths, each with every launch count set to 0 just
+   before and read just after:
+   * inference: the published config, seeded random weights,
+     ``build_prefill_step`` answering 4 requests of 64 images (the fused
+     kernel in every layer);
+   * training: ``build_train_step`` with AdamW under a warmup-cosine
+     schedule, 6 steps of 64 synthetic images (``spike_matmul`` 24 and
+     ``spike_attention`` 4 times a step, the fused kernel never);
+4. checks the outputs: finite logits of the right shape and, on 8 images
+   with dyadic weights, the fused path equal bitwise to the sequential
+   oracle (``overlap='off'``); finite losses and grad norms, every param
+   moved; and one train step through the kernels equal bitwise (loss,
+   every gradient, the new BN state) to the same step with the kernels
+   swapped for their plain versions.
 
 It prints the card's name and power limit, a JSON line of per-kernel
 numbers, and last a JSON line ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import json
 import math
 import os
@@ -35,15 +51,20 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.engine import use_engine  # noqa: E402
 from repro_torch.core.spiking import SpikingConfig, lif_scan  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import fused_layer as FL  # noqa: E402
-from repro_torch.launch.steps import build_prefill_step  # noqa: E402
+from repro_torch.kernels import spike_attention as SA  # noqa: E402
+from repro_torch.kernels import spike_matmul as SM  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
+from repro_torch.launch.train import make_batch_fn  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
-from repro_torch.tree import tree_map  # noqa: E402
+from repro_torch.optim import adamw, warmup_cosine  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 CUDA cores,
 # HBM3 bandwidth
@@ -59,6 +80,21 @@ MULTI_BLOCK = [("SMOKE width", (2, 8, 16, 64, 4, 16, 128), 8),
                ("full width, ragged blocks", (4, 16, 64, 256, 8, 32, 1024), 24),
                ("SMOKE width, L=13", (2, 8, 13, 64, 4, 16, 128), 8)]
 REQUESTS, REQUEST_BATCH = 4, 64
+# the six spike products of a training layer: (what, K, N, counts on the
+# left); M = T * B * L
+M_TRAIN = T * B * L
+MATMULS = [("q", D, H * HD, False), ("k", D, H * HD, False),
+           ("v", D, H * HD, False), ("wo", H * HD, D, True),
+           ("w1", D, FF, False), ("w2", FF, D, False)]
+# ragged (M, K, N): scalar loads (K, N not multiples of the 16-byte
+# vector) and vector loads with ragged tiles
+MATMUL_RAGGED = [(1000, 100, 70), (1000, 264, 200)]
+# spike_attention (BH, L, d, causal): the training shape, and an L that is
+# not a multiple of the 64-query block
+ATTENTION = [(T * B * H, L, HD, False), (64, 77, HD, True)]
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR = 6, 64, 2e-3
+ALL_KERNELS = {"fused_layer": FL, "spike_matmul": SM,
+               "spike_attention": SA}
 
 
 def log(msg):
@@ -107,19 +143,22 @@ def layer_operands(seed, dtype, dyadic_weights, shape=FULL, l_block=64):
                       soft_reset=False, eps=1e-5, l_block=l_block)
 
 
-def cuda_ms(fn, warmup=3, runs=20):
-    """Median device time of ``fn`` in ms (CUDA events around each run)."""
+def cuda_ms(fn, warmup=3, calls=20, repeats=5):
+    """Time per call of ``fn`` in ms: CUDA events around ``calls`` calls
+    back to back, so the host's per-call work overlaps the device's
+    wherever the device is the slower; the median of ``repeats`` runs."""
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(runs):
+    for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -164,6 +203,258 @@ def check_layer_kernel(dtype, what="full width", shape=FULL, l_block=64):
         f"bitwise equal to the plain version; counts per phase and L-block "
         f"{cnt_k.sum(dim=0).t().tolist()}")
     return err
+
+
+def reset_launches():
+    for mod in ALL_KERNELS.values():
+        mod.reset_launches()
+
+
+def launches():
+    return {name: mod.LAUNCHES[name] for name, mod in ALL_KERNELS.items()}
+
+
+def spikes(gen, shape, density, counts=False):
+    """{0,1} spikes (or integer counts up to L) with dark tiles: the
+    first 256 rows, and columns [0, 64) of rows [256, 1024)."""
+    s = (torch.rand(shape, generator=gen) < density).float()
+    if counts:
+        s = s * torch.randint(1, L + 1, shape, generator=gen).float()
+    s[:256] = 0.0
+    s[256:1024, :64] = 0.0
+    return s
+
+
+def matmul_operands(seed, m, k, n, dtype, counts=False, bias=False):
+    gen = torch.Generator().manual_seed(seed)
+    s = spikes(gen, (m, k), 0.2, counts)
+    w = dyadic(gen, (k, n)) * 0.25
+    b = dyadic(gen, (n,)) if bias else None
+    ops = (s.to(dtype), w.to(dtype), b)
+    return tuple(None if a is None else a.cuda() for a in ops)
+
+
+def check_matmul(dtype, what, m, k, n, counts=False, bias=False):
+    """spike_matmul kernel vs plain version, dyadic weights: bitwise."""
+    s, w, b = matmul_operands(4, m, k, n, dtype, counts, bias)
+    got = SM.spike_matmul_cuda(s, w, b)
+    want = SM.spike_matmul_plain(s, w, b)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"spike_matmul {dtype} {what}: kernel != plain "
+                             f"version (max abs diff {err})")
+    tm, tk = SM.SKIP_TILE
+    occ = SM.block_occupancy(F.pad(s, (0, -k % tk, 0, -m % tm)), tm, tk)
+    log(f"spike_matmul {dtype} {what} M={m} K={k} N={n}"
+        f"{' counts' if counts else ''}{' bias' if bias else ''}: bitwise "
+        f"equal to the plain version; live skip tiles "
+        f"{int(occ.sum())}/{occ.numel()}")
+    return err
+
+
+def matmul_bound_ms(s, w, out):
+    """Bytes: s and w read once, the output written once; operations: the
+    multiply-adds of the live skip tiles at the operands' peak."""
+    tm, tk = SM.SKIP_TILE
+    m, k = s.shape
+    occ = SM.block_occupancy(F.pad(s, (0, -k % tk, 0, -m % tm)), tm, tk)
+    ops_s = 2 * float(occ.sum()) * tm * tk * w.shape[1] / PEAK_FLOPS[s.dtype]
+    n_bytes = (s.numel() * s.element_size() + w.numel() * w.element_size()
+               + out.numel() * out.element_size())
+    bytes_s = n_bytes / PEAK_BYTES
+    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def time_matmuls():
+    """The six products of one training layer, bf16 as the engine calls
+    them, each timed (cuda_ms): kernel, plain version, torch.matmul on the
+    same operands."""
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    bound_by = set()
+    for what, k, n, counts in MATMULS:
+        s, w, _ = matmul_operands(5, M_TRAIN, k, n, torch.bfloat16, counts)
+        row = dict(ms=cuda_ms(lambda: SM.spike_matmul_cuda(s, w)),
+                   plain_ms=cuda_ms(lambda: SM.spike_matmul_plain(s, w)),
+                   library_ms=cuda_ms(lambda: torch.matmul(s, w)))
+        out = SM.spike_matmul_cuda(s, w)
+        row["bound_ms"], by = matmul_bound_ms(s, w, out)
+        bound_by.add(by)
+        for key in total:
+            total[key] += row[key]
+        log(f"spike_matmul bf16 {what} M={M_TRAIN} K={k} N={n}: kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"torch.matmul {row['library_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.5f} ms ({by})")
+    total["bound_by"] = "/".join(sorted(bound_by))
+    log(f"spike_matmul, the six products of a layer: {total}")
+    return total
+
+
+def attention_operands(seed, bh, l, d, dtype):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = ((torch.rand((bh, l, d), generator=gen) < p).float()
+               for p in (0.15, 0.15, 0.2))
+    k[0, :16] = 0.0                     # a dark key block
+    return tuple(a.to(dtype).cuda() for a in (q, k, v))
+
+
+def check_attention(dtype, bh, l, d, causal, binarize=True):
+    """spike_attention kernel vs plain version: bitwise on binarized
+    scores; with analog scores within L * d * scale * 2^-23, as the
+    context sums up to L analog scores in another order."""
+    q, k, v = attention_operands(6, bh, l, d, dtype)
+    kw = dict(scale=1.0 / math.sqrt(d), delta=0.3, causal=causal,
+              binarize_scores=binarize)
+    got = SA.spike_attention_cuda(q, k, v, **kw)
+    want = SA.spike_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = 0.0 if binarize else l * d * kw["scale"] * 2.0 ** -23
+    if binarize and not torch.equal(got, want) or err > tol:
+        raise AssertionError(f"spike_attention {dtype} BH={bh} L={l} d={d} "
+                             f"causal={causal} binarize={binarize}: kernel "
+                             f"!= plain version (max abs diff {err})")
+    agree = "bitwise equal to" if binarize else f"within {tol:.3g} of"
+    log(f"spike_attention {dtype} BH={bh} L={l} d={d} causal={causal} "
+        f"binarize={binarize}: {agree} the plain version (max abs diff "
+        f"{err}), context mean {float(got.float().mean()):.4f}")
+    return err
+
+
+def time_attention():
+    """The training shape, bf16 (cuda_ms). No single PyTorch call
+    computes binarized attention (scaled_dot_product_attention applies a
+    softmax), so there is no library time. Bound: q, k, v read once and
+    the context written once, or both products' multiply-adds at the
+    bf16 tensor peak."""
+    bh, l, d, _ = ATTENTION[0]
+    q, k, v = attention_operands(7, bh, l, d, torch.bfloat16)
+    kw = dict(scale=1.0 / math.sqrt(d),
+              delta=torch.tensor(0.3, device=q.device))
+    ms = cuda_ms(lambda: SA.spike_attention_cuda(q, k, v, **kw))
+    plain_ms = cuda_ms(lambda: SA.spike_attention_plain(q, k, v, **kw))
+    ops_s = 2 * 2 * bh * l * l * d / PEAK_FLOPS[torch.bfloat16]
+    bytes_s = 4 * q.numel() * q.element_size() / PEAK_BYTES
+    bound = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                 bound_ms=1e3 * max(ops_s, bytes_s),
+                 bound_by="operations" if ops_s >= bytes_s else "bytes")
+    log(f"spike_attention bf16 BH={bh} L={l} d={d}: {bound}")
+    return bound
+
+
+class plain_kernels:
+    """Within the scope, the CUDA launchers of the spike kernels run their
+    plain versions on the card's tensors instead (and count nothing)."""
+
+    def __enter__(self):
+        self.saved = (SM.spike_matmul_cuda, SA.spike_attention_cuda)
+        SM.spike_matmul_cuda = SM.spike_matmul_plain
+        SA.spike_attention_cuda = SA.spike_attention_plain
+
+    def __exit__(self, *exc):
+        SM.spike_matmul_cuda, SA.spike_attention_cuda = self.saved
+
+
+def dyadic_params(params):
+    """Params on the 2^-8 grid, BN biases raised by 1/4 so layers fire."""
+    dy = tree_map(lambda a: torch.round(a * 256) / 256
+                  if a.is_floating_point() else a, params)
+    for bn in [p["bn"] for p in dy["sps"]] + [
+            v for k, v in dy["blocks"].items() if k.startswith("bn_")]:
+        bn["bias"] = bn["bias"] + 0.25
+    return dy
+
+
+def train_path(cfg):
+    """The training main path: 6 AdamW steps of 64 images on the
+    published config, with the launch counts of the whole run."""
+    dev = torch.device("cuda")
+    opt = adamw(warmup_cosine(TRAIN_LR, max(1, TRAIN_STEPS // 20),
+                              TRAIN_STEPS))
+    step_fn = steps.build_train_step(cfg, opt)
+    params = registry.init(cfg, seed=0)
+    opt_state = opt.init(params)
+    model_state = registry.init_state(cfg)
+    batch_fn = make_batch_fn(cfg, TRAIN_BATCH)
+    batches = [batch_fn(i) for i in range(TRAIN_STEPS)]
+    p = params
+    torch.cuda.synchronize()
+    reset_launches()
+    step_ms, metrics = [], []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        p, opt_state, _, m, model_state = step_fn(p, opt_state, i, batch,
+                                                  model_state)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        metrics.append({k: float(v) for k, v in m.items()})
+    counts = launches()
+    log(f"train path: {TRAIN_STEPS} steps x {TRAIN_BATCH} images on {dev}, "
+        f"ms per step {[round(x, 3) for x in step_ms]}, launches {counts}")
+    log(f"train path: losses {[round(m['loss'], 4) for m in metrics]}, "
+        f"grad norms {[round(m['grad_norm'], 4) for m in metrics]}, "
+        f"fire rates {[round(m['fire_rate'], 4) for m in metrics]}")
+    want = {"fused_layer": 0,
+            "spike_matmul": 6 * cfg.num_layers * TRAIN_STEPS,
+            "spike_attention": cfg.num_layers * TRAIN_STEPS}
+    if counts != want:
+        raise AssertionError(f"train path launches {counts}, expected {want}")
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               for m in metrics):
+        raise AssertionError(f"non-finite train metrics {metrics}")
+    still = [i for i, (a, b) in enumerate(zip(tree_leaves(params),
+                                              tree_leaves(p)))
+             if torch.equal(a, b)]
+    if still:
+        raise AssertionError(f"param leaves {still} did not move")
+    log(f"train path: every one of {len(tree_leaves(p))} param leaves moved, "
+        f"max abs param {max(float(a.abs().max()) for a in tree_leaves(p))}")
+    return counts
+
+
+def check_train_gradients(cfg):
+    """One train step's loss, gradients and new BN state through the
+    kernels (mode='sparse', binary='mxu_kernel') against the same step
+    with the kernels swapped for their plain versions, on 8 images with
+    dyadic params: bitwise, since every kernel input is exact and the
+    backward is the same PyTorch code on the same forward values."""
+    cfg = cfg.replace(engine=cfg.engine.replace(mode="sparse",
+                                                binary="mxu_kernel"))
+    params = dyadic_params(registry.init(cfg, seed=2))
+    gen = torch.Generator().manual_seed(3)
+    v = cfg.vision
+    batch = {"images": (torch.randint(0, 256, (8, v.img_size, v.img_size,
+                                               v.in_channels),
+                                      generator=gen) / 256.0).cuda(),
+             "labels": torch.randint(0, cfg.vocab_size, (8,),
+                                     generator=gen).cuda()}
+    state = registry.init_state(cfg)
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    for plain in (False, True):
+        reset_launches()
+        with (plain_kernels() if plain else contextlib.nullcontext()):
+            loss, aux, grads = steps.value_and_grad(cfg, params, batch, state)
+        runs.append([loss] + tree_leaves(grads) + tree_leaves(aux["state"]))
+        want = {"fused_layer": 0,
+                "spike_matmul": 0 if plain else 6 * cfg.num_layers,
+                "spike_attention": 0 if plain else cfg.num_layers}
+        if launches() != want:
+            what = "plain versions" if plain else "kernels"
+            raise AssertionError(f"gradient check through the {what} "
+                                 f"launched {launches()}, expected {want}")
+    torch.cuda.synchronize()
+    differ = [i for i, (a, b) in enumerate(zip(*runs))
+              if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"train step through the kernels != through the "
+                             f"plain versions at leaves {differ} (0 = loss)")
+    log(f"check: one train step through the kernels == through the plain "
+        f"versions, bitwise (loss {float(runs[0][0]):.6f}, "
+        f"{len(tree_leaves(grads))} gradients, "
+        f"{len(tree_leaves(aux['state']))} BN state leaves)")
 
 
 def main():
@@ -213,17 +504,33 @@ def main():
         log(f"fused_layer {dt} full width: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
 
-    # --- the main path --------------------------------------------------
+    # --- spike kernels against their plain versions ---------------------
+    dtypes = (torch.bfloat16, torch.float32)
+    matmul_err = max(
+        [check_matmul(dt, what, M_TRAIN, k, n, counts)
+         for dt in dtypes for what, k, n, counts in MATMULS[2:]]
+        + [check_matmul(dt, "ragged", m, k, n, bias=bias)
+           for dt in dtypes for m, k, n in MATMUL_RAGGED
+           for bias in (False, True)])
+    attn_err = max([check_attention(dt, *case) for dt in dtypes
+                    for case in ATTENTION]
+                   + [check_attention(torch.float32, 16, 40, HD, causal,
+                                      binarize=False)
+                      for causal in (False, True)])
+    matmul_timing = time_matmuls()
+    attn_timing = time_attention()
+
+    # --- the inference main path ----------------------------------------
     cfg = get_config("spikingformer-4-256")
     params = registry.init(cfg, seed=0)
-    step = build_prefill_step(cfg)
+    step = steps.build_prefill_step(cfg)
     gen = torch.Generator().manual_seed(1)
     v = cfg.vision
     requests = [{"images": torch.rand((REQUEST_BATCH, v.img_size, v.img_size,
                                        v.in_channels), generator=gen)}
                 for _ in range(REQUESTS)]
     torch.cuda.synchronize()
-    FL.reset_launches()
+    reset_launches()
     req_ms, outs = [], []
     for batch in requests:
         t0 = time.perf_counter()
@@ -231,13 +538,14 @@ def main():
         torch.cuda.synchronize()
         req_ms.append(1e3 * (time.perf_counter() - t0))
         outs.append(logits)
-    launches = FL.LAUNCHES["fused_layer"]
-    want = FL.LAUNCHES_PER_CALL * cfg.num_layers * REQUESTS
+    eval_counts = launches()
+    want = {"fused_layer": FL.LAUNCHES_PER_CALL * cfg.num_layers * REQUESTS,
+            "spike_matmul": 0, "spike_attention": 0}
     log(f"main path: {REQUESTS} requests x {REQUEST_BATCH} images, "
-        f"per-request ms {[round(m, 3) for m in req_ms]}, fused_layer "
-        f"launches {launches}")
-    if launches != want:
-        raise AssertionError(f"fused_layer launched {launches} times, "
+        f"per-request ms {[round(m, 3) for m in req_ms]}, launches "
+        f"{eval_counts}")
+    if eval_counts != want:
+        raise AssertionError(f"inference path launches {eval_counts}, "
                              f"expected {want}")
     for logits in outs:
         if logits.shape != (REQUEST_BATCH, cfg.vocab_size) or \
@@ -245,11 +553,7 @@ def main():
             raise AssertionError(f"bad logits {tuple(logits.shape)}")
 
     # --- output check: fused == sequential oracle on a small batch ------
-    dy = tree_map(lambda a: torch.round(a * 256) / 256
-                  if a.is_floating_point() else a, params)
-    for bn in [p["bn"] for p in dy["sps"]] + [
-            v for k, v in dy["blocks"].items() if k.startswith("bn_")]:
-        bn["bias"] = bn["bias"] + 0.25
+    dy = dyadic_params(params)
     small = {"images": (torch.randint(0, 256, (8, v.img_size, v.img_size,
                                                 v.in_channels),
                                        generator=gen) / 256.0).cuda()}
@@ -264,14 +568,26 @@ def main():
         f"fire rate {float(res['fused'][1]['fire_rate']):.4f}, logit std "
         f"{float(res['fused'][0].std()):.4f}")
 
+    # --- the training main path, then its gradient check ---------------
+    train_counts = train_path(cfg)
+    check_train_gradients(cfg)
+
     ms, plain_ms, bound_ms, bound_by = timing[torch.bfloat16]
-    log(json.dumps({"kernels": [{
-        "name": "fused_layer", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fused_layer.cu",
-        "replaces": "src/repro/kernels/fused_layer.py:420",
-        "launches": launches, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+    csrc = "src/repro_torch/kernels/csrc/"
+    rows = [dict(name="fused_layer", source=csrc + "fused_layer.cu",
+                 replaces="src/repro/kernels/fused_layer.py:420",
+                 launches=eval_counts["fused_layer"], max_abs_err=max_err,
+                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by=bound_by, library_ms=None),
+            dict(name="spike_matmul", source=csrc + "spike_matmul.cu",
+                 replaces="src/repro/kernels/spike_matmul.py:128",
+                 launches=train_counts["spike_matmul"],
+                 max_abs_err=matmul_err, **matmul_timing),
+            dict(name="spike_attention", source=csrc + "spike_attention.cu",
+                 replaces="src/repro/kernels/spike_attention.py:78",
+                 launches=train_counts["spike_attention"],
+                 max_abs_err=attn_err, **attn_timing)]
+    log(json.dumps({"kernels": [dict(route="cuda", **r) for r in rows]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

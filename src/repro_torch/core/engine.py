@@ -1,17 +1,25 @@
-"""Dual-engine dispatch for the layer program (the subset the eval path
-of the vision family needs).
+"""Dual-engine dispatch: per-matmul and per-attention engine selection,
+and the layer program (the subset the vision family's eval and train
+paths need).
 
 Mirrors ``repro.core.engine``: ``EngineConfig`` and its validation, the
 ambient engine (``use_engine`` / ``engine_scope``), the static dispatch
-rules, and the eligible branch of ``layer_step``, which hands a whole
-encoder layer either to the sequential oracle (``overlap='off'``) or to
-the fused layer program (``overlap='fused'``, ``kernels/fused_layer``).
+rules, ``spike_linear`` (dense vs the ``spike_matmul`` kernel, with the
+dense-transpose backward of the JAX custom VJP), the sequential branch
+of ``ssa_step``, and ``layer_step``: an eligible eval layer goes either
+to the sequential oracle (``overlap='off'``) or to the fused layer
+program (``overlap='fused'``, ``kernels/fused_layer``); train mode and
+ineligible layers take the sequential composition.
+
+The port's 'auto' rules read the device, not JAX's flop floor: on a CUDA
+tensor 'auto' always picks the kernel, whose wrapper launches it or
+raises; on the CPU it picks the plain path, as JAX does for small shapes
+and under jit.
 
 Not ported yet, and raising ``NotImplementedError`` instead of falling
-back silently: ``sparse='decoded'``, ``overlap='pipeline'``, the
-ineligible / train branch of ``layer_step``, ``ssa_step``,
-``spike_linear`` and the sequential composition (ROADMAP queue 1 items
-3 and 5, queue 2).
+back silently: ``sparse='decoded'``, ``overlap='pipeline'``, the fused
+SSA bundle (``ssa_step`` with ``overlap='fused'``) and quantized weights
+(ROADMAP queue 1 item 6, queue 2).
 """
 from __future__ import annotations
 
@@ -27,6 +35,8 @@ from repro_torch.core.spiking import lif_scan
 
 SPARSE_PATHS = ("tile", "decoded")
 OVERLAP_MODES = ("off", "fused", "pipeline")
+ENGINE_MODES = ("dense", "sparse")
+BINARY_MODES = ("jnp", "mxu_kernel", "popcount")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -37,16 +47,36 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Dual-engine dispatch knobs (per model, set on ModelConfig.engine):
-    the fields of ``repro.core.engine.EngineConfig`` that the layer
-    program reads, with the same meaning and validation. ``block_m`` is
-    the L-block of the layer program's occupancy skip. JAX's
-    ``min_flops`` is left out: the port's 'auto' does not read it (see
-    :func:`resolve_overlap`)."""
+    the fields of ``repro.core.engine.EngineConfig`` that the port reads,
+    with the same defaults and meaning.
+
+    mode: 'dense' | 'sparse' | 'auto' — spike x weight products through
+      the dense product or the ``spike_matmul`` kernel;
+    binary: 'jnp' | 'mxu_kernel' | 'popcount' | 'auto' — spiking
+      attention through the plain oracle or the ``spike_attention``
+      kernel ('popcount' is not ported);
+    sparse: 'tile' | 'decoded' | 'auto' — the sparse datapath;
+    block_m: the L-block of the layer program's occupancy skip;
+    overlap: 'off' | 'fused' | 'pipeline' | 'auto' — the layer program.
+
+    JAX's ``min_flops`` is left out: the port's 'auto' does not read it
+    (see :func:`resolve_mode`). So are the TPU kernels' VMEM tile sizes
+    (``block_n``, ``block_k``, ``attn_block_q``, ``attn_block_k``): the
+    CUDA kernels choose their own tiles, and the values they compute do
+    not depend on the tiling."""
+    mode: str = "auto"
     sparse: str = "tile"
     block_m: int = 128
+    binary: str = "auto"
     overlap: str = "off"
 
     def __post_init__(self):
+        if self.mode not in ENGINE_MODES + ("auto",):
+            raise ValueError(f"unknown engine mode {self.mode!r} "
+                             f"(expected dense|sparse|auto)")
+        if self.binary not in BINARY_MODES + ("auto",):
+            raise ValueError(f"unknown binary engine mode {self.binary!r} "
+                             f"(expected jnp|mxu_kernel|popcount|auto)")
         if self.sparse not in SPARSE_PATHS + ("auto",):
             raise ValueError(f"unknown sparse datapath {self.sparse!r} "
                              f"(expected tile|decoded|auto)")
@@ -90,6 +120,35 @@ def engine_scope(cfg) -> contextlib.AbstractContextManager:
     return use_engine(engine)
 
 
+def _on_cuda(x) -> bool:
+    return x is not None and x.device.type == "cuda"
+
+
+def resolve_mode(engine: Optional[EngineConfig], x=None) -> str:
+    """Dense-vs-sparse decision for a spike x weight product on ``x``.
+
+    'auto' picks the ``spike_matmul`` kernel for every CUDA tensor,
+    whatever its size (the wrapper launches it or raises), and the dense
+    product on the CPU; explicit values are honoured everywhere."""
+    if engine is None:
+        return "dense"
+    if engine.mode in ENGINE_MODES:
+        return engine.mode
+    return "sparse" if _on_cuda(x) else "dense"
+
+
+def resolve_binary_mode(engine: Optional[EngineConfig], x=None) -> str:
+    """Binary-engine decision for a spiking attention on ``x``: 'auto'
+    picks the ``spike_attention`` kernel ('mxu_kernel') for every CUDA
+    tensor and the plain oracle ('jnp') on the CPU; explicit values are
+    honoured everywhere ('popcount' raises where it is dispatched)."""
+    if engine is None:
+        return "jnp"
+    if engine.binary in BINARY_MODES:
+        return engine.binary
+    return "mxu_kernel" if _on_cuda(x) else "jnp"
+
+
 def resolve_sparse_path(engine: Optional[EngineConfig], x=None) -> str:
     """Tile-vs-decoded decision for the projection datapath.
 
@@ -118,9 +177,7 @@ def resolve_overlap(engine: Optional[EngineConfig], x=None) -> str:
         raise _not_ported("overlap='pipeline'", "queue 2 item 3")
     if engine.overlap in ("off", "fused"):
         return engine.overlap
-    if x is not None and x.device.type == "cuda":
-        return "fused"
-    return "off"
+    return "fused" if _on_cuda(x) else "off"
 
 
 class LayerPlan(NamedTuple):
@@ -134,18 +191,92 @@ def resolve_layer_plan(engine: Optional[EngineConfig], x=None) -> LayerPlan:
                      resolve_sparse_path(engine, x))
 
 
-def spike_linear(p, x, *, engine=None, counts=False):
-    """The sparse engine's per-matmul dispatch (dense vs block-sparse
-    spike matmul). Not ported yet: the eval layer program does not call
-    it, the training slice does."""
-    raise _not_ported("spike_linear (the spike_matmul kernel)",
-                      "queue 2 item 1")
+def dense_spike_linear(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """The dense reference: fp32-accumulated product + bias, cast back to
+    the activation dtype — term for term what the sparse kernel computes."""
+    y = x.float() @ p["w"].float()
+    if "b" in p:
+        y = y + p["b"].float()
+    return y.to(x.dtype)
 
 
-def ssa_step(p, st, cfg, s, *, train=False, engine=None):
-    """The SSA bundle step of the sequential composition. Not ported yet."""
-    raise _not_ported("ssa_step (the sequential composition)",
-                      "queue 1 item 3")
+class _SparseMatmul(torch.autograd.Function):
+    """The ``spike_matmul`` kernel forward, its fp32 accumulator rounded
+    once to the activation dtype in the kernel's store, with the
+    dense-transpose backward of ``repro.core.engine._sparse_bwd`` (the
+    cotangent of that rounding is the upcast ``g``, as in JAX)."""
+
+    @staticmethod
+    def forward(ctx, s2d, w, b):
+        from repro_torch.kernels.spike_matmul import spike_matmul
+        ctx.save_for_backward(s2d, w, b)
+        return spike_matmul(s2d, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        s2d, w, b = ctx.saved_tensors
+        g32 = g.float()
+        ds = (g32 @ w.float().t()).to(s2d.dtype)
+        dw = (s2d.float().t() @ g32).to(w.dtype)
+        db = None if b is None else g32.sum(dim=0).to(b.dtype)
+        return ds, dw, db
+
+
+def spike_linear(p: Dict[str, Any], x: torch.Tensor, *,
+                 engine: Optional[EngineConfig] = None,
+                 counts: bool = False) -> torch.Tensor:
+    """Dual-engine linear layer for spike inputs ({0,1} spikes, or with
+    ``counts=True`` the integer counts of a binary-attention context,
+    which only the quantized datapath treats differently). Leading dims
+    fold into the sparse engine's M; the fp32 accumulator is rounded once
+    to ``x.dtype`` (JAX's cast, fused into the kernel's store).
+    ``engine=None`` uses the ambient engine; no engine means dense."""
+    engine = engine if engine is not None else get_engine()
+    if "qw" in p:
+        raise _not_ported("quantized weights", "queue 1 item 6")
+    if resolve_mode(engine, x) == "dense":
+        return dense_spike_linear(p, x)
+    resolve_sparse_path(engine, x)         # 'decoded' raises
+    k, n = x.shape[-1], p["w"].shape[-1]
+    out = _SparseMatmul.apply(x.reshape(-1, k), p["w"], p.get("b"))
+    return out.reshape(*x.shape[:-1], n)
+
+
+def ssa_step(p: Dict[str, Any], st: Dict[str, Any], cfg, s: torch.Tensor, *,
+             train: bool = False, engine: Optional[EngineConfig] = None):
+    """The vision-family SSA bundle: Q/K/V projections (+ BatchNorm +
+    LIF) and binary attention. s: (T, B, L, D) {0,1} spikes; st: the
+    bn_q/bn_k/bn_v running stats. Returns (ctx (T, B, L, q_dim), new BN
+    state).
+
+    Eligible eval bundles under ``overlap='fused'`` would run the fused
+    bundle kernel, which is not ported yet and raises; everything else
+    runs the sequential composition below (train mode always)."""
+    from repro_torch.core.attention import spiking_attention
+    from repro_torch.models import nn
+    engine = engine if engine is not None else get_engine()
+    t, b, l, _ = s.shape
+    heads, hd = cfg.num_heads, cfg.head_dim
+    names = (("q", "wq"), ("k", "wk"), ("v", "wv"))
+    eligible = not train and not any("b" in p[w] for _, w in names)
+    if eligible and resolve_overlap(engine, s) == "fused":
+        raise _not_ported("the fused SSA bundle (ssa_step with "
+                          "overlap='fused')", "queue 2 item 6")
+    new_st = dict(st)
+
+    def proj(name, w):
+        cur = nn.linear(p[w], s, spikes=True)
+        y, new_st[f"bn_{name}"] = nn.batchnorm(
+            p[f"bn_{name}"], st[f"bn_{name}"],
+            cur.reshape(-1, cur.shape[-1]), train=train)
+        return lif_scan(y.reshape(cur.shape), cfg.spiking)[0]
+
+    # (T,B,L,q_dim) -> (T*B, H, L, hd) for the binary-attention primitive
+    fold = lambda u: u.reshape(t * b, l, heads, hd).transpose(1, 2)
+    q_s, k_s, v_s = (fold(proj(n, w)) for n, w in names)
+    ctx = spiking_attention(q_s, k_s, v_s, cfg.spiking,
+                            delta_score=p["delta"])
+    return ctx.transpose(1, 2).reshape(t, b, l, cfg.q_dim), new_st
 
 
 def _layer_linear(p: Dict[str, Any], dtype: torch.dtype):
@@ -186,11 +317,14 @@ def layer_step(p: Dict[str, Any], st: Dict[str, Any], cfg, x: torch.Tensor,
                engine: Optional[EngineConfig] = None):
     """The vision-family layer program: input LIF + SSA bundle + wo/bn_o
     + pre-neuron residual + spiking MLP + residual, as one engine-owned
-    step. x: (T, B, L, D) membrane currents. Returns (y, BN state).
+    step. x: (T, B, L, D) membrane currents. Returns (y, new BN state).
 
-    Only the eligible eval branch is ported: ``overlap='off'`` runs the
-    sequential oracle ``reference_layer`` and ``overlap='fused'`` the
-    layer program ``fused_layer`` (the CUDA kernel for CUDA tensors)."""
+    An eligible eval layer runs the sequential oracle ``reference_layer``
+    (``overlap='off'``) or the layer program ``fused_layer``
+    (``overlap='fused'``; the CUDA kernel for CUDA tensors). Train mode
+    (batch statistics) and ineligible layers run the sequential
+    composition, which hands the SSA bundle to :func:`ssa_step` and the
+    spike products to :func:`spike_linear`, threading the BN state."""
     from repro_torch.kernels.fused_layer import fused_layer, reference_layer
     engine = engine if engine is not None else get_engine()
     heads, hd = cfg.num_heads, cfg.head_dim
@@ -199,10 +333,10 @@ def layer_step(p: Dict[str, Any], st: Dict[str, Any], cfg, x: torch.Tensor,
                 and not any("b" in p[w] for w in lin_names)
                 and cfg.spiking.binarize_scores
                 and not cfg.spiking.binarize_context)
-    if not eligible:
-        raise _not_ported("the sequential (train / ineligible) layer "
-                          "composition", "queue 1 items 3 and 5")
     s = lif_scan(x, cfg.spiking)[0]
+    if not eligible:
+        return _sequential_layer(p, st, cfg, x, s, train=train,
+                                 engine=engine)
     plan = resolve_layer_plan(engine, s)
     dtype = x.dtype
     w3 = torch.stack([_layer_linear(p[w], dtype)[0]
@@ -228,3 +362,26 @@ def layer_step(p: Dict[str, Any], st: Dict[str, Any], cfg, x: torch.Tensor,
             v_th=scfg.v_threshold, soft_reset=scfg.soft_reset,
             l_block=engine.block_m, **kw)
     return y, dict(st)
+
+
+def _sequential_layer(p, st, cfg, x, s, *, train, engine):
+    """The sequential composition of one layer (JAX ``layer_step``'s
+    fallback, term for term)."""
+    from repro_torch.models import nn
+    t, b, l, d = x.shape
+    ctx, bundle_st = ssa_step(p, {n: st[n] for n in ("bn_q", "bn_k", "bn_v")},
+                              cfg, s, train=train, engine=engine)
+    new_st = dict(st, **bundle_st)
+
+    def linear_bn(u, w, bn):
+        # ctx carries integer counts, not {0,1} spikes: dark blocks are
+        # dark all the same, so it rides the sparse engine too
+        y = nn.linear(p[w], u, spikes=True, counts=w == "wo")
+        y, new_st[bn] = nn.batchnorm(p[bn], st[bn], y.reshape(-1, y.shape[-1]),
+                                     train=train)
+        return y.reshape(*u.shape[:-1], -1)
+
+    x = x + linear_bn(ctx, "wo", "bn_o")            # pre-neuron residual
+    s2 = lif_scan(x, cfg.spiking)[0]
+    h = lif_scan(linear_bn(s2, "w1", "bn_1"), cfg.spiking)[0]
+    return x + linear_bn(h, "w2", "bn_2"), new_st   # pre-neuron residual

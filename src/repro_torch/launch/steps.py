@@ -1,19 +1,93 @@
-"""Step builders (the inference step so far).
+"""Step builders: the training step and the inference step.
 
 As in ``repro.launch.steps``, every builder wraps its forward in
 ``engine_scope(cfg)``, so one config knob (``ModelConfig.engine``) drives
-the dual-engine dispatch of the whole forward.
+the dual-engine dispatch of the whole forward. Steps run on the GPU
+unless the caller names another device.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import engine_scope
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import registry
+from repro_torch.optim import Optimizer
+from repro_torch.tree import tree_leaves, tree_unflatten
+
+STATEFUL = ("spikingformer", "cifarnet")
+
+
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+    return nll.mean()
+
+
+def loss_from_forward(cfg: ModelConfig, logits, batch) -> torch.Tensor:
+    if cfg.family not in STATEFUL:
+        raise NotImplementedError(
+            f"the {cfg.family} family's loss is not ported to PyTorch yet "
+            f"(ROADMAP queue 1 item 7)")
+    return softmax_xent(logits, batch["labels"])
+
+
+def value_and_grad(cfg: ModelConfig, params, batch, model_state
+                   ) -> Tuple[torch.Tensor, Dict[str, Any], Any]:
+    """Train-mode loss of a stateful (vision) model and its gradient with
+    respect to every param leaf: (loss, aux, grads) with grads in the
+    params' tree layout and dtypes."""
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    # the stem's convolutions run in full fp32, as the reference does, in
+    # the backward too: nn.conv2d turns cuDNN's TF32 default off for its
+    # forward call only, and autograd runs the backward after it returns
+    cudnn = torch.backends.cudnn
+    no_tf32 = cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                          deterministic=cudnn.deterministic,
+                          allow_tf32=False)
+    with engine_scope(cfg), torch.enable_grad(), no_tf32:
+        logits, aux = registry.forward(tree_unflatten(params, leaves), cfg,
+                                       batch, train=True, state=model_state)
+        loss = loss_from_forward(cfg, logits, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    return loss.detach(), aux, tree_unflatten(params, grads)
+
+
+def build_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
+                     compress: bool = False, qat: Optional[str] = None,
+                     device: DeviceLike = None) -> Callable:
+    """(params, opt_state, step, batch, model_state) ->
+    (params, opt_state, step + 1, metrics, model_state) for the stateful
+    vision family, on ``device`` (the GPU by default). ``model_state`` is
+    the BN running-stats tree; metrics are loss, grad_norm and fire_rate
+    as 0-d tensors."""
+    if compress:
+        raise NotImplementedError("gradient compression is not ported to "
+                                  "PyTorch yet (ROADMAP queue 1 item 5)")
+    if qat is not None:
+        raise NotImplementedError("quantization-aware training is not "
+                                  "ported to PyTorch yet (ROADMAP queue 1 "
+                                  "item 6)")
+    if cfg.family not in STATEFUL:
+        raise NotImplementedError(
+            f"training the {cfg.family} family is not ported to PyTorch yet "
+            f"(ROADMAP queue 1 item 7)")
+    dev = resolve_device(device)
+
+    def train_step(params, opt_state, step, batch, model_state):
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        loss, aux, grads = value_and_grad(cfg, params, batch, model_state)
+        new_params, new_opt = optimizer.update(grads, opt_state, params,
+                                               step)
+        metrics = {"loss": loss, "grad_norm": new_opt["grad_norm"],
+                   "fire_rate": aux["fire_rate"]}
+        return new_params, new_opt, step + 1, metrics, aux["state"]
+    return train_step
 
 
 def build_prefill_step(cfg: ModelConfig, *,

@@ -51,8 +51,22 @@ def linear_init(gen, d_in: int, d_out: int, *, bias: bool = False,
     return p
 
 
-def linear(p, x: torch.Tensor) -> torch.Tensor:
-    """Dense linear in the activation dtype (fp32 accumulation)."""
+def linear(p, x: torch.Tensor, *, spikes: bool = False,
+           counts: bool = False) -> torch.Tensor:
+    """Linear layer in the activation dtype (fp32 accumulation).
+
+    ``spikes=True`` marks a {0,1} spike input (``counts=True``: the
+    integer counts binary attention emits); with an engine installed such
+    call sites go through the sparse engine's dispatch
+    (``core.engine.spike_linear``). Otherwise this is the plain dense
+    path."""
+    if "qw" in p:
+        raise NotImplementedError("quantized weights are not ported to "
+                                  "PyTorch yet (ROADMAP queue 1 item 6)")
+    if spikes:
+        from repro_torch.core import engine as _engine  # lazy: no cycle
+        if _engine.get_engine() is not None:
+            return _engine.spike_linear(p, x, counts=counts)
     y = (x.float() @ p["w"].float()).to(x.dtype)
     if "b" in p:
         y = y + p["b"]
@@ -69,12 +83,29 @@ def batchnorm_state_init(d: int):
             "var": torch.ones((d,), dtype=torch.float32)}
 
 
-def batchnorm(p, state, x: torch.Tensor, eps: float = 1e-5):
-    """Eval BN over all leading axes (train mode comes with the training
-    slice); returns (y, state)."""
-    y = bn_affine(x.float(), state["mean"], torch.rsqrt(state["var"] + eps),
-                  p["scale"].float(), p["bias"].float())
-    return y.to(x.dtype), state
+def batchnorm(p, state, x: torch.Tensor, *, train: bool = False,
+              momentum: float = 0.9, eps: float = 1e-5):
+    """BN over all leading axes; returns (y, new_state).
+
+    Train mode normalises with the batch mean and population variance
+    (``unbiased=False``, as ``jnp.var``) and differentiates through them;
+    the running stats become ``momentum * old + (1 - momentum) * batch``
+    and carry no gradient (JAX returns them as aux)."""
+    x32 = x.float()
+    if train:
+        axes = tuple(range(x.ndim - 1))
+        mu = x32.mean(dim=axes)
+        var = x32.var(dim=axes, unbiased=False)
+        with torch.no_grad():
+            new_state = {
+                "mean": momentum * state["mean"] + (1 - momentum) * mu,
+                "var": momentum * state["var"] + (1 - momentum) * var}
+    else:
+        mu, var = state["mean"], state["var"]
+        new_state = state
+    y = bn_affine(x32, mu, torch.rsqrt(var + eps), p["scale"].float(),
+                  p["bias"].float())
+    return y.to(x.dtype), new_state
 
 
 def conv2d_init(gen, c_in: int, c_out: int, ksize: int = 3,

@@ -1,11 +1,12 @@
-"""Spikingformer — the paper's evaluated vision workload (§V-A), eval
-forward.
+"""Spikingformer — the paper's evaluated vision workload (§V-A).
 
 Mirrors ``repro.models.spikingformer``: SPS conv stem -> encoder blocks
 (each the engine's layer program) -> rate-decoded classification head,
 with pre-neuron residuals. Params and BN state keep the JAX tree layout
 (HWIO conv weights, per-layer block leaves stacked on a leading axis).
-The CIFAR-Net path and training are still to be ported.
+``forward(train=True)`` normalises with batch statistics and threads the
+BN running stats through the stem and the blocks. The CIFAR-Net path is
+still to be ported.
 """
 from __future__ import annotations
 
@@ -129,50 +130,50 @@ def _fold_t(f, x, *args, **kw):
     return y.reshape(t, -1, *y.shape[1:])
 
 
-def _sps(params, state, cfg: ModelConfig, images):
-    """images: (B, H, W, C) -> (tokens (T, B, L, D), sps state)."""
+def _sps(params, state, cfg: ModelConfig, images, train: bool):
+    """images: (B, H, W, C) -> (tokens (T, B, L, D), new sps state)."""
     t = cfg.spiking.time_steps
     x = images[None].expand(t, *images.shape)            # direct coding
     pools = _sps_pools(cfg)
+    new_state = []
     for i, p in enumerate(params["sps"]):
         x = _fold_t(lambda u: nn.conv2d(p["conv"], u), x)
-        y, _ = nn.batchnorm(p["bn"], state["sps"][i], x)
-        x = y
+        x, st = nn.batchnorm(p["bn"], state["sps"][i], x, train=train)
+        new_state.append(st)
         if i < len(params["sps"]) - 1:
             x = _lif(x, cfg)                 # spikes feed the next conv
         if pools[i]:
             x = _fold_t(nn.maxpool2, x)
     tt, b, h, w, d = x.shape
-    return x.reshape(tt, b, h * w, d), state["sps"]
+    return x.reshape(tt, b, h * w, d), new_state
 
 
-def _block(p, st, cfg: ModelConfig, x):
+def _block(p, st, cfg: ModelConfig, x, train: bool):
     """One encoder layer, owned by the engine (core.engine.layer_step)."""
-    return layer_step(p, st, cfg, x)
+    return layer_step(p, st, cfg, x, train=train)
 
 
 def forward(params, cfg: ModelConfig, batch, *, train: bool = False,
             state: Optional[Dict] = None):
-    """batch: {'images': (B, H, W, C)} -> (logits (B, classes), aux).
+    """batch: {'images': (B, H, W, C)} -> (logits (B, classes), aux) with
+    aux {'state': new BN running stats, 'fire_rate'}.
 
     Images are taken in the config's dtype, as ``launch/steps.
     batch_struct`` declares them in the JAX package."""
     _check_family(cfg)
-    if train:
-        raise NotImplementedError(
-            "training is not ported to PyTorch yet (ROADMAP queue 1 item 5)")
     images = batch["images"].to(dtype_of(cfg))
     if state is None:
         state = init_state(cfg, device=images.device)
-    x, sps_state = _sps(params, state, cfg, images)
+    x, sps_state = _sps(params, state, cfg, images, train)
     blocks_state = []
     for i in range(cfg.num_layers):
         bp = tree_map(lambda a: a[i], params["blocks"])
         bst = tree_map(lambda a: a[i], state["blocks"])
-        x, new_bst = _block(bp, bst, cfg, x)
+        x, new_bst = _block(bp, bst, cfg, x, train)
         blocks_state.append(new_bst)
     spikes = _lif(x, cfg)
     rate = spikes.float().mean(dim=(0, 2))                # (B, D)
     logits = nn.linear(params["head"], rate.to(x.dtype)).float()
     new_state = {"sps": sps_state, "blocks": tree_map(_stack, *blocks_state)}
-    return logits, {"state": new_state, "fire_rate": spikes.float().mean()}
+    return logits, {"state": new_state,
+                    "fire_rate": spikes.detach().float().mean()}

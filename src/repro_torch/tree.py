@@ -1,7 +1,7 @@
 """Minimal pytree helpers for the nested dict / list param trees."""
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Iterable, List
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -14,3 +14,16 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
     return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of ``tree`` in the order :func:`tree_map` visits them."""
+    out: List[Any] = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(tree: Any, leaves: Iterable[Any]) -> Any:
+    """A tree of ``tree``'s structure holding ``leaves`` in order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)

@@ -145,7 +145,9 @@ def _on(kind):
 
 def test_dispatch_rules_on_cpu_and_cuda_tensors():
     """'auto' fuses every layer on a CUDA tensor (the card has no flop
-    floor: the kernel runs or raises) and takes the oracle on the CPU."""
+    floor: the kernel runs or raises) and takes the oracle on the CPU; the
+    same rule sends spike products and spiking attention to their kernels
+    on the card and to the plain paths on the CPU."""
     auto = TE.EngineConfig(overlap="auto", sparse="auto")
     assert not hasattr(auto, "min_flops")
     assert TE.resolve_overlap(auto, _on("cuda")) == "fused"
@@ -153,6 +155,10 @@ def test_dispatch_rules_on_cpu_and_cuda_tensors():
     assert TE.resolve_overlap(auto, _on("cpu")) == "off"
     assert TE.resolve_overlap(auto, None) == "off"
     assert TE.resolve_overlap(None, _on("cuda")) == "off"
+    assert TE.resolve_mode(auto, _on("cuda")) == "sparse"
+    assert TE.resolve_binary_mode(auto, _on("cuda")) == "mxu_kernel"
+    assert TE.resolve_mode(auto, _on("cpu")) == "dense"
+    assert TE.resolve_binary_mode(auto, _on("cpu")) == "jnp"
     for ov in ("off", "fused"):
         eng = TE.EngineConfig(overlap=ov)
         for dev in ("cpu", "cuda"):
@@ -164,32 +170,68 @@ def test_dispatch_rules_on_cpu_and_cuda_tensors():
         TE.resolve_overlap(TE.EngineConfig(overlap="pipeline"), _on("cuda"))
     with pytest.raises(NotImplementedError):
         TE.resolve_sparse_path(TE.EngineConfig(sparse="decoded"))
-    for unported in (lambda: TE.spike_linear({}, None),
-                     lambda: TE.ssa_step({}, {}, None, None)):
+    # spike_linear and the sequential ssa_step are ported; the fused SSA
+    # bundle (kernel #6) and quantized weights are not
+    tcfg = get_config("spikingformer-4-256", smoke=True)
+    bp, st = _block_leaves(tcfg)
+    s = torch.ones((2, 1, 16, tcfg.d_model))
+    y = TE.spike_linear(bp["wq"], s, engine=TE.EngineConfig(mode="sparse"))
+    assert y.shape == (2, 1, 16, tcfg.q_dim)
+    bundle_st = {n: st[n] for n in ("bn_q", "bn_k", "bn_v")}
+    ctx, _ = TE.ssa_step(bp, bundle_st, tcfg, s,
+                         engine=TE.EngineConfig(overlap="off"))
+    assert ctx.shape == (2, 1, 16, tcfg.q_dim)
+    for unported in (
+            lambda: TE.spike_linear({"qw": bp["wq"]["w"]}, s),
+            lambda: TE.ssa_step(bp, bundle_st, tcfg, s,
+                                engine=TE.EngineConfig(overlap="fused"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             unported()
-    for bad in (dict(overlap="x"), dict(sparse="x")):
+    for bad in (dict(overlap="x"), dict(sparse="x"), dict(mode="x"),
+                dict(binary="x")):
         with pytest.raises(ValueError):
             TE.EngineConfig(**bad)
 
 
+def _block_leaves(tcfg):
+    """Layer 0's params and BN state of a seeded SMOKE model (CPU)."""
+    p = TR.init(tcfg, 0, device="cpu")
+    st = TR.init_state(tcfg, device="cpu")["blocks"]
+    layer0 = lambda tree: {k: (v[0] if torch.is_tensor(v) else layer0(v))
+                           for k, v in tree.items()}
+    return layer0(p["blocks"]), layer0(st)
+
+
 def test_unported_layer_paths_raise():
+    """Training runs now (train-mode forward and the sequential layer
+    step); what is still unported raises naming its ROADMAP item: the
+    cifarnet family, sparse='decoded', overlap='pipeline' and the fused
+    SSA bundle of an ineligible eval layer."""
     tcfg = get_config("spikingformer-4-256", smoke=True)
     p = TR.init(tcfg, 0, device="cpu")
-    batch = {"images": torch.zeros((1, 16, 16, 3))}
-    with pytest.raises(NotImplementedError):
-        TR.forward(p, tcfg, batch, train=True)
-    bp = {k: v[0] for k, v in p["blocks"].items() if not isinstance(v, dict)}
-    bp.update({k: {kk: vv[0] for kk, vv in v.items()}
-               for k, v in p["blocks"].items() if isinstance(v, dict)})
-    st = {k: {kk: vv[0] for kk, vv in v.items()} for k, v in
-          TR.init_state(tcfg, device="cpu")["blocks"].items()}
-    x = torch.zeros((2, 1, 16, tcfg.d_model))
-    with pytest.raises(NotImplementedError):
-        TE.layer_step(bp, st, tcfg, x, train=True)
-    with pytest.raises(NotImplementedError):
-        TR.init(get_config("spikingformer-4-256").replace(family="cifarnet"),
-                device="cpu")
+    batch = {"images": torch.rand((2, 16, 16, 3))}
+    logits, aux = TR.forward(p, tcfg, batch, train=True)
+    assert logits.shape == (2, tcfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert float(aux["state"]["blocks"]["bn_q"]["mean"].abs().sum()) > 0
+    bp, st = _block_leaves(tcfg)
+    x = torch.rand((2, 1, 16, tcfg.d_model)) * 2
+    y, new_st = TE.layer_step(bp, st, tcfg, x, train=True)
+    assert y.shape == x.shape and set(new_st) == set(st)
+    biased = dict(bp, wo=dict(bp["wo"], b=torch.zeros(tcfg.d_model)))
+    cases = [
+        lambda: TR.init(get_config("spikingformer-4-256").replace(
+            family="cifarnet"), device="cpu"),
+        lambda: TE.layer_step(bp, st, tcfg, x, engine=TE.EngineConfig(
+            overlap="fused", sparse="decoded")),
+        lambda: TE.layer_step(bp, st, tcfg, x, engine=TE.EngineConfig(
+            overlap="pipeline")),
+        lambda: TE.layer_step(biased, st, tcfg, x, engine=TE.EngineConfig(
+            overlap="fused")),
+    ]
+    for case in cases:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            case()
 
 
 def test_entry_points_default_to_the_gpu(monkeypatch):
