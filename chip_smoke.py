@@ -20,20 +20,32 @@ device; exits non-zero without one). It
    * ``spike_attention`` at BH = 2048, L = 64, d = 32, at an L that is
      not a multiple of the query block with ``causal=True``, and with
      analog scores (within a stated tolerance);
-3. drives the main paths, each with every launch count set to 0 just
-   before and read just after:
+   * ``gather_spike_matmul`` (the decoded datapath) at the six products
+     of a training layer, on ragged fine-grained spikes (rows from empty
+     to dense, all-zero groups), random-normal and dyadic weights, and at
+     ragged shapes with and without bias; on dyadic weights also bitwise
+     against ``spike_matmul``;
+   * the fused layer's decoded variant, as the tile one, and on dyadic
+     weights bitwise against the tile variant;
+3. drives the main paths, each with every launch count and every
+   ``sparse='auto'`` decision count set to 0 just before and read just
+   after, each three times: with the published ``sparse='auto'`` (its
+   launches checked against the decisions it recorded), with
+   ``sparse='tile'`` and with ``sparse='decoded'``:
    * inference: the published config, seeded random weights,
-     ``build_prefill_step`` answering 4 requests of 64 images (the fused
-     kernel in every layer);
+     ``build_prefill_step`` answering 4 requests of 64 images (2 fused
+     layer launches a layer, the tile or the decoded variant);
    * training: ``build_train_step`` with AdamW under a warmup-cosine
-     schedule, 6 steps of 64 synthetic images (``spike_matmul`` 24 and
-     ``spike_attention`` 4 times a step, the fused kernel never);
+     schedule, 6 steps of 64 synthetic images (per step 24 sparse
+     products, ``spike_matmul`` or ``gather_spike_matmul``, and
+     ``spike_attention`` 4 times; the fused kernel never);
 4. checks the outputs: finite logits of the right shape and, on 8 images
-   with dyadic weights, the fused path equal bitwise to the sequential
-   oracle (``overlap='off'``); finite losses and grad norms, every param
-   moved; and one train step through the kernels equal bitwise (loss,
-   every gradient, the new BN state) to the same step with the kernels
-   swapped for their plain versions.
+   with dyadic weights, the fused path ('auto' and 'decoded') equal
+   bitwise to the sequential oracle (``overlap='off'``); finite losses
+   and grad norms, every param moved; and, for each sparse setting, one
+   train step through the kernels equal bitwise (loss, every gradient,
+   the new BN state) to the same step with the kernels swapped for their
+   plain versions. It prints ``layer_sparsities`` of one request.
 
 It prints the card's name and power limit, a JSON line of per-kernel
 numbers, and last a JSON line ``{"ok": true, "device": {...}}``.
@@ -54,15 +66,18 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import engine as E  # noqa: E402
 from repro_torch.core.engine import use_engine  # noqa: E402
 from repro_torch.core.spiking import SpikingConfig, lif_scan  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import fused_layer as FL  # noqa: E402
 from repro_torch.kernels import spike_attention as SA  # noqa: E402
+from repro_torch.kernels import spike_decode as SD  # noqa: E402
 from repro_torch.kernels import spike_matmul as SM  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.train import make_batch_fn  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
+from repro_torch.models.spikingformer import layer_sparsities  # noqa: E402
 from repro_torch.optim import adamw, warmup_cosine  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -93,8 +108,7 @@ MATMUL_RAGGED = [(1000, 100, 70), (1000, 264, 200)]
 # not a multiple of the 64-query block
 ATTENTION = [(T * B * H, L, HD, False), (64, 77, HD, True)]
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR = 6, 64, 2e-3
-ALL_KERNELS = {"fused_layer": FL, "spike_matmul": SM,
-               "spike_attention": SA}
+KERNEL_MODULES = (FL, SM, SA, SD)
 
 
 def log(msg):
@@ -106,7 +120,8 @@ def dyadic(gen, shape, bits=8):
     return k.float() * 2.0 ** -bits
 
 
-def layer_operands(seed, dtype, dyadic_weights, shape=FULL, l_block=64):
+def layer_operands(seed, dtype, dyadic_weights, shape=FULL, l_block=64,
+                   sparse="tile"):
     """Fused-layer operands (the layout layer_step builds): one dark
     (t=0, b=0) slab and, with several L-blocks, the first L-block of
     batch row 1 dark at every t."""
@@ -140,7 +155,8 @@ def layer_operands(seed, dtype, dyadic_weights, shape=FULL, l_block=64):
     ops = ops[:2] + tuple(w.to(dtype) for w in ops[2:6]) + ops[6:]
     return FL.prepare(*ops, num_heads=H, head_dim=HD,
                       scale=1.0 / math.sqrt(HD), decay=0.5, v_th=1.0,
-                      soft_reset=False, eps=1e-5, l_block=l_block)
+                      soft_reset=False, eps=1e-5, l_block=l_block,
+                      sparse=sparse)
 
 
 def cuda_ms(fn, warmup=3, calls=20, repeats=5):
@@ -162,11 +178,13 @@ def cuda_ms(fn, warmup=3, calls=20, repeats=5):
     return statistics.median(times)
 
 
-def layer_bound_ms(args, counts, dtype, l_block=64):
-    """Least time for the layer on the card: the executed sub-blocks'
-    multiply-adds at the dtype's peak, or each input read once and each
-    output written once at the memory rate, whichever is larger."""
-    x = args[0]
+def layer_bound_ms(args, counts, dtype, l_block=64, decoded=False):
+    """Least time for the layer on the card: the executed multiply-adds
+    at the dtype's peak, or each input read once and each output written
+    once at the memory rate, whichever is larger. The executed work is
+    that of the executed sub-blocks; a decoded projection's is one
+    multiply-add per live spike and output column."""
+    x, s = args[0], args[1]
     nlb = counts.shape[-1]
     rows = torch.tensor([min(L, (lb + 1) * l_block) - lb * l_block
                          for lb in range(nlb)], dtype=torch.float64)
@@ -175,9 +193,11 @@ def layer_bound_ms(args, counts, dtype, l_block=64):
     macs_per_row = torch.tensor([D * HD] * 3 + [L * HD, L * HD, HD * D,
                                                 D * ffc, ffc * D],
                                 dtype=torch.float64)
-    macs = float((c * rows[None, None, :]
-                  * macs_per_row[None, :, None]).sum())
-    ops_s = 2 * macs / PEAK_FLOPS[dtype]
+    per_phase = (c * rows[None, None, :]
+                 * macs_per_row[None, :, None]).sum(dim=(0, 2))
+    if decoded:
+        per_phase[:3] = float((s != 0).sum()) * H * HD
+    ops_s = 2 * float(per_phase.sum()) / PEAK_FLOPS[dtype]
     es = x.element_size()
     n_bytes = (3 * x.numel() * es
                + sum(w.numel() for w in args[2:6]) * es
@@ -188,30 +208,58 @@ def layer_bound_ms(args, counts, dtype, l_block=64):
                                        else "bytes")
 
 
-def check_layer_kernel(dtype, what="full width", shape=FULL, l_block=64):
-    """Kernel vs plain version on the card, dyadic weights: bitwise."""
-    args, kw = layer_operands(1, dtype, True, shape, l_block)
+def check_layer_kernel(dtype, what="full width", shape=FULL, l_block=64,
+                       sparse="tile"):
+    """Kernel vs plain version on the card, dyadic weights: bitwise; the
+    decoded variant also bitwise against the tile variant."""
+    args, kw = layer_operands(1, dtype, True, shape, l_block, sparse)
     out_k, cnt_k = FL.fused_layer_cuda(*args, **kw)
     out_p, cnt_p = FL.fused_layer_plain(*args, **kw)
     torch.cuda.synchronize()
     err = float((out_k.float() - out_p.float()).abs().max())
+    name = f"fused_layer {sparse} {dtype} {what}"
     if not (torch.equal(out_k, out_p) and torch.equal(cnt_k, cnt_p)):
-        raise AssertionError(f"fused_layer {dtype} {what}: kernel != plain "
-                             f"version (max abs diff {err}, counts equal "
+        raise AssertionError(f"{name}: kernel != plain version (max abs diff "
+                             f"{err}, counts equal "
                              f"{torch.equal(cnt_k, cnt_p)})")
-    log(f"fused_layer {dtype} {what}, l_block {kw['l_block']}, dyadic: "
-        f"bitwise equal to the plain version; counts per phase and L-block "
+    extra = ""
+    if kw["decoded"]:
+        out_t, _ = FL.fused_layer_cuda(*args, **dict(kw, decoded=False))
+        if not torch.equal(out_k, out_t):
+            raise AssertionError(f"{name}: decoded kernel != tile kernel on "
+                                 f"dyadic weights")
+        extra = " and to the tile variant"
+    log(f"{name}, l_block {kw['l_block']}, dyadic: bitwise equal to the "
+        f"plain version{extra}; counts per phase and L-block "
         f"{cnt_k.sum(dim=0).t().tolist()}")
     return err
 
 
-def reset_launches():
-    for mod in ALL_KERNELS.values():
+def reset_counts():
+    """Every launch count and every sparse='auto' decision count to 0."""
+    for mod in KERNEL_MODULES:
         mod.reset_launches()
+    E.reset_sparse_decisions()
 
 
 def launches():
-    return {name: mod.LAUNCHES[name] for name, mod in ALL_KERNELS.items()}
+    counts = {}
+    for mod in KERNEL_MODULES:
+        counts.update(mod.LAUNCHES)
+    return counts
+
+
+def sparse_split(engine, n):
+    """(tile, decoded) datapath calls among ``n``: from the engine's
+    explicit path, or for 'auto' from the decisions it recorded, which
+    must number ``n``."""
+    if engine.sparse != "auto":
+        return (n, 0) if engine.sparse == "tile" else (0, n)
+    tile, dec = E.SPARSE_DECISIONS["tile"], E.SPARSE_DECISIONS["decoded"]
+    if tile + dec != n:
+        raise AssertionError(f"sparse='auto' decided {E.SPARSE_DECISIONS} "
+                             f"for {n} calls")
+    return tile, dec
 
 
 def spikes(gen, shape, density, counts=False):
@@ -225,10 +273,27 @@ def spikes(gen, shape, density, counts=False):
     return s
 
 
-def matmul_operands(seed, m, k, n, dtype, counts=False, bias=False):
+def ragged_spikes(gen, shape, counts=False):
+    """Ragged, fine-grained spikes (or integer counts up to L): each
+    row's density uniform in [0, 0.6), the first 256 rows dark (whole
+    dark groups) and rows [256, 272) dense, so the groups get different
+    pow2 capacities and chunks are skipped."""
+    s = (torch.rand(shape, generator=gen)
+         < torch.rand((shape[0], 1), generator=gen) * 0.6).float()
+    s[:256] = 0.0
+    s[256:272] = 1.0
+    if counts:
+        s = s * torch.randint(1, L + 1, shape, generator=gen).float()
+    return s
+
+
+def matmul_operands(seed, m, k, n, dtype, counts=False, bias=False,
+                    ragged=False, weights="dyadic"):
     gen = torch.Generator().manual_seed(seed)
-    s = spikes(gen, (m, k), 0.2, counts)
-    w = dyadic(gen, (k, n)) * 0.25
+    s = (ragged_spikes(gen, (m, k), counts) if ragged
+         else spikes(gen, (m, k), 0.2, counts))
+    w = (dyadic(gen, (k, n)) * 0.25 if weights == "dyadic"
+         else torch.randn((k, n), generator=gen) / math.sqrt(k))
     b = dyadic(gen, (n,)) if bias else None
     ops = (s.to(dtype), w.to(dtype), b)
     return tuple(None if a is None else a.cuda() for a in ops)
@@ -253,6 +318,43 @@ def check_matmul(dtype, what, m, k, n, counts=False, bias=False):
     return err
 
 
+def gather_schedule(s, block_m=128, c_block=128):
+    """The decoded schedule of s as the wrapper builds it."""
+    m, k = s.shape
+    bm = min(block_m, m)
+    occ = (SD.pad_to_multiple(s, 0, bm) != 0).sum(-1, dtype=torch.int32)
+    return SD.build_schedule(occ, bm, min(c_block, k), cap=k)
+
+
+def check_gather(dtype, what, m, k, n, counts=False, bias=False,
+                 weights="dyadic"):
+    """gather_spike_matmul kernel vs plain version on ragged spikes:
+    bitwise for any weights (both sum each row's live products in
+    ascending k, one rounded product and sum at a time); on dyadic
+    weights also bitwise against spike_matmul."""
+    s, w, b = matmul_operands(8, m, k, n, dtype, counts, bias, ragged=True,
+                              weights=weights)
+    got = SD.gather_spike_matmul_cuda(s, w, b)
+    want = SD.gather_spike_matmul_plain(s, w, b)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    name = (f"gather_spike_matmul {dtype} {what} M={m} K={k} N={n} "
+            f"{weights}{' counts' if counts else ''}{' bias' if bias else ''}")
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: kernel != plain version (max abs "
+                             f"diff {err})")
+    extra = ""
+    if weights == "dyadic":
+        if not torch.equal(got, SM.spike_matmul_cuda(s, w, b)):
+            raise AssertionError(f"{name}: != spike_matmul on dyadic weights")
+        extra = " and to spike_matmul"
+    sched = gather_schedule(s)
+    log(f"{name}: bitwise equal to the plain version{extra}; executed "
+        f"chunks {int(sched['executed'])}/{sched['total']}, group "
+        f"capacities {sorted(set(sched['caps'].tolist()))}")
+    return err
+
+
 def matmul_bound_ms(s, w, out):
     """Bytes: s and w read once, the output written once; operations: the
     multiply-adds of the live skip tiles at the operands' peak."""
@@ -267,29 +369,62 @@ def matmul_bound_ms(s, w, out):
                                        else "bytes")
 
 
-def time_matmuls():
+def gather_bound_ms(s, w, out):
+    """Bytes: s, w, the output and the staged schedule (row order int64,
+    sorted occupancies int32) once each; operations: one multiply-add
+    per live entry and output column, at the operands' peak."""
+    m, k = s.shape
+    mp = -(-m // min(128, m)) * min(128, m)
+    ops_s = 2 * float((s != 0).sum()) * w.shape[1] / PEAK_FLOPS[s.dtype]
+    n_bytes = (s.numel() * s.element_size() + w.numel() * w.element_size()
+               + out.numel() * out.element_size() + 12 * mp)
+    bytes_s = n_bytes / PEAK_BYTES
+    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def time_products(name, kernel, plain, bound):
     """The six products of one training layer, bf16 as the engine calls
-    them, each timed (cuda_ms): kernel, plain version, torch.matmul on the
-    same operands."""
+    them, on the spikes of the spike_matmul timing, each timed (cuda_ms):
+    kernel, plain version, torch.matmul on the same operands."""
     total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     bound_by = set()
     for what, k, n, counts in MATMULS:
         s, w, _ = matmul_operands(5, M_TRAIN, k, n, torch.bfloat16, counts)
-        row = dict(ms=cuda_ms(lambda: SM.spike_matmul_cuda(s, w)),
-                   plain_ms=cuda_ms(lambda: SM.spike_matmul_plain(s, w)),
+        row = dict(ms=cuda_ms(lambda: kernel(s, w)),
+                   plain_ms=cuda_ms(lambda: plain(s, w)),
                    library_ms=cuda_ms(lambda: torch.matmul(s, w)))
-        out = SM.spike_matmul_cuda(s, w)
-        row["bound_ms"], by = matmul_bound_ms(s, w, out)
+        row["bound_ms"], by = bound(s, w, kernel(s, w))
         bound_by.add(by)
         for key in total:
             total[key] += row[key]
-        log(f"spike_matmul bf16 {what} M={M_TRAIN} K={k} N={n}: kernel "
+        log(f"{name} bf16 {what} M={M_TRAIN} K={k} N={n}: kernel "
             f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
             f"torch.matmul {row['library_ms']:.4f} ms, bound "
             f"{row['bound_ms']:.5f} ms ({by})")
     total["bound_by"] = "/".join(sorted(bound_by))
-    log(f"spike_matmul, the six products of a layer: {total}")
+    log(f"{name}, the six products of a layer: {total}")
     return total
+
+
+def time_gather_parts():
+    """Where a gather product's time goes (cuda_ms, bf16, the operands of
+    time_products): the schedule's staging alone (stage_rows) and the
+    kernel alone on a staged schedule (launch_gather)."""
+    parts = dict(staging_ms=0.0, kernel_ms=0.0)
+    for what, k, n, counts in MATMULS:
+        s, w, _ = matmul_operands(5, M_TRAIN, k, n, torch.bfloat16, counts)
+        bm = min(128, s.shape[0])
+        order, sorted_occ = SD.stage_rows(s, bm)
+        row = dict(staging_ms=cuda_ms(lambda: SD.stage_rows(s, bm)),
+                   kernel_ms=cuda_ms(lambda: SD.launch_gather(
+                       s, w, None, order, sorted_occ, block_m=bm,
+                       c_block=min(128, k))))
+        for key in parts:
+            parts[key] += row[key]
+        log(f"gather_spike_matmul bf16 {what}: staging {row['staging_ms']:.4f}"
+            f" ms, kernel alone {row['kernel_ms']:.4f} ms")
+    log(f"gather_spike_matmul, the six products of a layer: {parts}")
 
 
 def attention_operands(seed, bh, l, d, dtype):
@@ -349,12 +484,15 @@ class plain_kernels:
     plain versions on the card's tensors instead (and count nothing)."""
 
     def __enter__(self):
-        self.saved = (SM.spike_matmul_cuda, SA.spike_attention_cuda)
+        self.saved = (SM.spike_matmul_cuda, SA.spike_attention_cuda,
+                      SD.gather_spike_matmul_cuda)
         SM.spike_matmul_cuda = SM.spike_matmul_plain
         SA.spike_attention_cuda = SA.spike_attention_plain
+        SD.gather_spike_matmul_cuda = SD.gather_spike_matmul_plain
 
     def __exit__(self, *exc):
-        SM.spike_matmul_cuda, SA.spike_attention_cuda = self.saved
+        (SM.spike_matmul_cuda, SA.spike_attention_cuda,
+         SD.gather_spike_matmul_cuda) = self.saved
 
 
 def dyadic_params(params):
@@ -367,9 +505,43 @@ def dyadic_params(params):
     return dy
 
 
+def inference_path(cfg, params, requests):
+    """``build_prefill_step`` answering ``requests``: per-request times,
+    the launch counts of the whole run (2 fused-layer launches a layer,
+    of the variant the sparse datapath names), finite logits."""
+    step = steps.build_prefill_step(cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    req_ms, outs = [], []
+    for batch in requests:
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        req_ms.append(1e3 * (time.perf_counter() - t0))
+        outs.append(logits)
+    counts = launches()
+    tile, dec = sparse_split(cfg.engine, cfg.num_layers * len(requests))
+    log(f"inference path, sparse={cfg.engine.sparse!r}: {len(requests)} "
+        f"requests x {REQUEST_BATCH} images, per-request ms "
+        f"{[round(m, 3) for m in req_ms]}, sparse decisions "
+        f"{dict(E.SPARSE_DECISIONS)}, launches {counts}")
+    want = dict.fromkeys(counts, 0)
+    want["fused_layer"] = FL.LAUNCHES_PER_CALL * tile
+    want["fused_layer_decoded"] = FL.LAUNCHES_PER_CALL * dec
+    if counts != want:
+        raise AssertionError(f"inference path launches {counts}, expected "
+                             f"{want}")
+    for logits in outs:
+        if logits.shape != (REQUEST_BATCH, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"bad logits {tuple(logits.shape)}")
+    return counts
+
+
 def train_path(cfg):
-    """The training main path: 6 AdamW steps of 64 images on the
-    published config, with the launch counts of the whole run."""
+    """A training main path: 6 AdamW steps of 64 images, with the launch
+    counts of the whole run (24 sparse products a step, through the
+    kernel of the datapath each took)."""
     dev = torch.device("cuda")
     opt = adamw(warmup_cosine(TRAIN_LR, max(1, TRAIN_STEPS // 20),
                               TRAIN_STEPS))
@@ -381,7 +553,7 @@ def train_path(cfg):
     batches = [batch_fn(i) for i in range(TRAIN_STEPS)]
     p = params
     torch.cuda.synchronize()
-    reset_launches()
+    reset_counts()
     step_ms, metrics = [], []
     for i, batch in enumerate(batches):
         t0 = time.perf_counter()
@@ -391,16 +563,19 @@ def train_path(cfg):
         step_ms.append(1e3 * (time.perf_counter() - t0))
         metrics.append({k: float(v) for k, v in m.items()})
     counts = launches()
-    log(f"train path: {TRAIN_STEPS} steps x {TRAIN_BATCH} images on {dev}, "
-        f"ms per step {[round(x, 3) for x in step_ms]}, launches {counts}")
-    log(f"train path: losses {[round(m['loss'], 4) for m in metrics]}, "
+    what = f"train path, sparse={cfg.engine.sparse!r}"
+    tile, dec = sparse_split(cfg.engine, 6 * cfg.num_layers * TRAIN_STEPS)
+    log(f"{what}: {TRAIN_STEPS} steps x {TRAIN_BATCH} images on {dev}, "
+        f"ms per step {[round(x, 3) for x in step_ms]}, sparse decisions "
+        f"{dict(E.SPARSE_DECISIONS)}, launches {counts}")
+    log(f"{what}: losses {[round(m['loss'], 4) for m in metrics]}, "
         f"grad norms {[round(m['grad_norm'], 4) for m in metrics]}, "
         f"fire rates {[round(m['fire_rate'], 4) for m in metrics]}")
-    want = {"fused_layer": 0,
-            "spike_matmul": 6 * cfg.num_layers * TRAIN_STEPS,
-            "spike_attention": cfg.num_layers * TRAIN_STEPS}
+    want = dict.fromkeys(counts, 0)
+    want.update(spike_matmul=tile, gather_spike_matmul=dec,
+                spike_attention=cfg.num_layers * TRAIN_STEPS)
     if counts != want:
-        raise AssertionError(f"train path launches {counts}, expected {want}")
+        raise AssertionError(f"{what} launches {counts}, expected {want}")
     if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                for m in metrics):
         raise AssertionError(f"non-finite train metrics {metrics}")
@@ -409,17 +584,18 @@ def train_path(cfg):
              if torch.equal(a, b)]
     if still:
         raise AssertionError(f"param leaves {still} did not move")
-    log(f"train path: every one of {len(tree_leaves(p))} param leaves moved, "
+    log(f"{what}: every one of {len(tree_leaves(p))} param leaves moved, "
         f"max abs param {max(float(a.abs().max()) for a in tree_leaves(p))}")
     return counts
 
 
 def check_train_gradients(cfg):
     """One train step's loss, gradients and new BN state through the
-    kernels (mode='sparse', binary='mxu_kernel') against the same step
-    with the kernels swapped for their plain versions, on 8 images with
-    dyadic params: bitwise, since every kernel input is exact and the
-    backward is the same PyTorch code on the same forward values."""
+    kernels (mode='sparse', binary='mxu_kernel', the config's sparse
+    datapath) against the same step with the kernels swapped for their
+    plain versions, on 8 images with dyadic params: bitwise, since every
+    kernel sums in its plain version's order or over exact terms, and
+    the backward is the same PyTorch code on the same forward values."""
     cfg = cfg.replace(engine=cfg.engine.replace(mode="sparse",
                                                 binary="mxu_kernel"))
     params = dyadic_params(registry.init(cfg, seed=2))
@@ -434,13 +610,15 @@ def check_train_gradients(cfg):
     torch.backends.cudnn.deterministic = True
     runs = []
     for plain in (False, True):
-        reset_launches()
+        reset_counts()
         with (plain_kernels() if plain else contextlib.nullcontext()):
             loss, aux, grads = steps.value_and_grad(cfg, params, batch, state)
         runs.append([loss] + tree_leaves(grads) + tree_leaves(aux["state"]))
-        want = {"fused_layer": 0,
-                "spike_matmul": 0 if plain else 6 * cfg.num_layers,
-                "spike_attention": 0 if plain else cfg.num_layers}
+        tile, dec = sparse_split(cfg.engine, 6 * cfg.num_layers)
+        want = dict.fromkeys(launches(), 0)
+        if not plain:
+            want.update(spike_matmul=tile, gather_spike_matmul=dec,
+                        spike_attention=cfg.num_layers)
         if launches() != want:
             what = "plain versions" if plain else "kernels"
             raise AssertionError(f"gradient check through the {what} "
@@ -451,10 +629,11 @@ def check_train_gradients(cfg):
     if differ:
         raise AssertionError(f"train step through the kernels != through the "
                              f"plain versions at leaves {differ} (0 = loss)")
-    log(f"check: one train step through the kernels == through the plain "
-        f"versions, bitwise (loss {float(runs[0][0]):.6f}, "
-        f"{len(tree_leaves(grads))} gradients, "
-        f"{len(tree_leaves(aux['state']))} BN state leaves)")
+    log(f"check, sparse={cfg.engine.sparse!r}: one train step through the "
+        f"kernels == through the plain versions, bitwise (loss "
+        f"{float(runs[0][0]):.6f}, {len(tree_leaves(grads))} gradients, "
+        f"{len(tree_leaves(aux['state']))} BN state leaves; sparse decisions "
+        f"{tile} tile, {dec} decoded)")
 
 
 def main():
@@ -476,36 +655,44 @@ def main():
         lines = [ln for ln in text.splitlines() if "ptxas info" in ln]
         log(f"nvcc {name}.cu {sec:.1f} s\n  " + "\n  ".join(lines))
 
-    # --- kernel against its plain version, full width ------------------
-    max_err = max(check_layer_kernel(dt)
-                  for dt in (torch.bfloat16, torch.float32))
-    max_err = max([max_err] + [check_layer_kernel(dt, *case)
-                               for case in MULTI_BLOCK
-                               for dt in (torch.bfloat16, torch.float32)])
-    for dt in (torch.bfloat16, torch.float32):
-        args, kw = layer_operands(2, dt, dyadic_weights=False)
-        out_k, _ = FL.fused_layer_cuda(*args, **kw)
-        out_p, _ = FL.fused_layer_plain(*args, **kw)
-        cfg_s = SpikingConfig(time_steps=T)
-        agree = (lif_scan(out_k, cfg_s)[0] == lif_scan(out_p, cfg_s)[0]
-                 ).float().mean()
-        diff = float((out_k.float() - out_p.float()).abs().max())
-        log(f"fused_layer {dt} random-normal weights (information only): "
-            f"max abs diff {diff}, spike agreement of LIF(out) "
-            f"{float(agree):.6f}")
-    timing = {}
-    for dt in (torch.bfloat16, torch.float32):
-        args, kw = layer_operands(3, dt, dyadic_weights=False)
-        ms = cuda_ms(lambda: FL.fused_layer_cuda(*args, **kw))
-        plain_ms = cuda_ms(lambda: FL.fused_layer_plain(*args, **kw))
-        _, counts = FL.fused_layer_cuda(*args, **kw)
-        bound_ms, bound_by = layer_bound_ms(args, counts, dt)
-        timing[dt] = (ms, plain_ms, bound_ms, bound_by)
-        log(f"fused_layer {dt} full width: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    # --- fused layer against its plain version ---------------------------
+    dtypes = (torch.bfloat16, torch.float32)
+    layer_err = {}
+    for sparse in ("tile", "decoded"):
+        layer_err[sparse] = max(
+            [check_layer_kernel(dt, sparse=sparse) for dt in dtypes]
+            + [check_layer_kernel(dt, *case, sparse=sparse)
+               for case in MULTI_BLOCK for dt in dtypes])
+    for sparse in ("tile", "decoded"):
+        for dt in dtypes:
+            args, kw = layer_operands(2, dt, False, sparse=sparse)
+            out_k, _ = FL.fused_layer_cuda(*args, **kw)
+            out_p, _ = FL.fused_layer_plain(*args, **kw)
+            cfg_s = SpikingConfig(time_steps=T)
+            agree = (lif_scan(out_k, cfg_s)[0] == lif_scan(out_p, cfg_s)[0]
+                     ).float().mean()
+            diff = float((out_k.float() - out_p.float()).abs().max())
+            log(f"fused_layer {sparse} {dt} random-normal weights "
+                f"(information only): max abs diff {diff}, spike agreement "
+                f"of LIF(out) {float(agree):.6f}")
+    layer_timing = {}
+    for sparse in ("tile", "decoded"):
+        for dt in dtypes:
+            args, kw = layer_operands(3, dt, False, sparse=sparse)
+            ms = cuda_ms(lambda: FL.fused_layer_cuda(*args, **kw))
+            plain_ms = cuda_ms(lambda: FL.fused_layer_plain(*args, **kw))
+            _, counts = FL.fused_layer_cuda(*args, **kw)
+            bound_ms, bound_by = layer_bound_ms(args, counts, dt,
+                                                decoded=kw["decoded"])
+            layer_timing[sparse, dt] = dict(ms=ms, plain_ms=plain_ms,
+                                            bound_ms=bound_ms,
+                                            bound_by=bound_by,
+                                            library_ms=None)
+            log(f"fused_layer {sparse} {dt} full width: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                f"({bound_by})")
 
     # --- spike kernels against their plain versions ---------------------
-    dtypes = (torch.bfloat16, torch.float32)
     matmul_err = max(
         [check_matmul(dt, what, M_TRAIN, k, n, counts)
          for dt in dtypes for what, k, n, counts in MATMULS[2:]]
@@ -517,40 +704,39 @@ def main():
                    + [check_attention(torch.float32, 16, 40, HD, causal,
                                       binarize=False)
                       for causal in (False, True)])
-    matmul_timing = time_matmuls()
+    gather_err = max(
+        [check_gather(dt, what, M_TRAIN, k, n, counts, weights=wk)
+         for dt in dtypes for what, k, n, counts in MATMULS
+         for wk in ("normal", "dyadic")]
+        + [check_gather(dt, "ragged", m, k, n, bias=bias)
+           for dt in dtypes for m, k, n in MATMUL_RAGGED
+           for bias in (False, True)])
+    matmul_timing = time_products("spike_matmul", SM.spike_matmul_cuda,
+                                  SM.spike_matmul_plain, matmul_bound_ms)
+    gather_timing = time_products("gather_spike_matmul",
+                                  SD.gather_spike_matmul_cuda,
+                                  SD.gather_spike_matmul_plain,
+                                  gather_bound_ms)
+    time_gather_parts()
     attn_timing = time_attention()
 
-    # --- the inference main path ----------------------------------------
+    # --- the inference main paths ----------------------------------------
     cfg = get_config("spikingformer-4-256")
     params = registry.init(cfg, seed=0)
-    step = steps.build_prefill_step(cfg)
     gen = torch.Generator().manual_seed(1)
     v = cfg.vision
     requests = [{"images": torch.rand((REQUEST_BATCH, v.img_size, v.img_size,
                                        v.in_channels), generator=gen)}
                 for _ in range(REQUESTS)]
-    torch.cuda.synchronize()
-    reset_launches()
-    req_ms, outs = [], []
-    for batch in requests:
-        t0 = time.perf_counter()
-        logits = step(params, batch)
-        torch.cuda.synchronize()
-        req_ms.append(1e3 * (time.perf_counter() - t0))
-        outs.append(logits)
-    eval_counts = launches()
-    want = {"fused_layer": FL.LAUNCHES_PER_CALL * cfg.num_layers * REQUESTS,
-            "spike_matmul": 0, "spike_attention": 0}
-    log(f"main path: {REQUESTS} requests x {REQUEST_BATCH} images, "
-        f"per-request ms {[round(m, 3) for m in req_ms]}, launches "
-        f"{eval_counts}")
-    if eval_counts != want:
-        raise AssertionError(f"inference path launches {eval_counts}, "
-                             f"expected {want}")
-    for logits in outs:
-        if logits.shape != (REQUEST_BATCH, cfg.vocab_size) or \
-                not bool(torch.isfinite(logits).all()):
-            raise AssertionError(f"bad logits {tuple(logits.shape)}")
+    engines = {sp: cfg.replace(engine=cfg.engine.replace(sparse=sp))
+               for sp in ("auto", "tile", "decoded")}
+    eval_counts = {sp: inference_path(c, params, requests)
+                   for sp, c in engines.items()}
+    with use_engine(cfg.engine):
+        sparsities = layer_sparsities(params, cfg,
+                                      {"images": requests[0]["images"].cuda()})
+    log(f"layer sparsities of one request: "
+        f"{[(n, round(s, 4)) for n, s in sparsities]}")
 
     # --- output check: fused == sequential oracle on a small batch ------
     dy = dyadic_params(params)
@@ -558,35 +744,50 @@ def main():
                                                 v.in_channels),
                                        generator=gen) / 256.0).cuda()}
     res = {}
-    for ov in ("off", "fused"):
-        with use_engine(cfg.engine.replace(overlap=ov)), \
+    for ov, sparse in (("off", "tile"), ("fused", "auto"),
+                       ("fused", "decoded")):
+        with use_engine(cfg.engine.replace(overlap=ov, sparse=sparse)), \
                 torch.inference_mode():
-            res[ov] = registry.forward(dy, cfg, small)
-    if not torch.equal(res["off"][0], res["fused"][0]):
-        raise AssertionError("fused logits differ from the sequential oracle")
-    log(f"check: fused logits == oracle logits on 8 images (dyadic weights), "
-        f"fire rate {float(res['fused'][1]['fire_rate']):.4f}, logit std "
-        f"{float(res['fused'][0].std()):.4f}")
+            res[ov, sparse] = registry.forward(dy, cfg, small)
+    for key in (("fused", "auto"), ("fused", "decoded")):
+        if not torch.equal(res["off", "tile"][0], res[key][0]):
+            raise AssertionError(f"fused logits, sparse={key[1]!r}, differ "
+                                 f"from the sequential oracle")
+    log(f"check: fused logits (sparse 'auto' and 'decoded') == oracle logits "
+        f"on 8 images (dyadic weights), fire rate "
+        f"{float(res['fused', 'decoded'][1]['fire_rate']):.4f}, logit std "
+        f"{float(res['fused', 'decoded'][0].std()):.4f}")
 
-    # --- the training main path, then its gradient check ---------------
-    train_counts = train_path(cfg)
-    check_train_gradients(cfg)
+    # --- the training main paths, then their gradient checks ------------
+    train_counts = {sp: train_path(c) for sp, c in engines.items()}
+    for c in engines.values():
+        check_train_gradients(c)
 
-    ms, plain_ms, bound_ms, bound_by = timing[torch.bfloat16]
     csrc = "src/repro_torch/kernels/csrc/"
+    bf16 = torch.bfloat16
     rows = [dict(name="fused_layer", source=csrc + "fused_layer.cu",
                  replaces="src/repro/kernels/fused_layer.py:420",
-                 launches=eval_counts["fused_layer"], max_abs_err=max_err,
-                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                 bound_by=bound_by, library_ms=None),
+                 launches=eval_counts["tile"]["fused_layer"],
+                 max_abs_err=layer_err["tile"],
+                 **layer_timing["tile", bf16]),
             dict(name="spike_matmul", source=csrc + "spike_matmul.cu",
                  replaces="src/repro/kernels/spike_matmul.py:128",
-                 launches=train_counts["spike_matmul"],
+                 launches=train_counts["tile"]["spike_matmul"],
                  max_abs_err=matmul_err, **matmul_timing),
             dict(name="spike_attention", source=csrc + "spike_attention.cu",
                  replaces="src/repro/kernels/spike_attention.py:78",
-                 launches=train_counts["spike_attention"],
-                 max_abs_err=attn_err, **attn_timing)]
+                 launches=train_counts["tile"]["spike_attention"],
+                 max_abs_err=attn_err, **attn_timing),
+            dict(name="gather_spike_matmul",
+                 source=csrc + "gather_spike_matmul.cu",
+                 replaces="src/repro/kernels/spike_decode.py:294",
+                 launches=train_counts["decoded"]["gather_spike_matmul"],
+                 max_abs_err=gather_err, **gather_timing),
+            dict(name="fused_layer_decoded", source=csrc + "fused_layer.cu",
+                 replaces="src/repro/kernels/fused_layer.py:420",
+                 launches=eval_counts["decoded"]["fused_layer_decoded"],
+                 max_abs_err=layer_err["decoded"],
+                 **layer_timing["decoded", bf16])]
     log(json.dumps({"kernels": [dict(route="cuda", **r) for r in rows]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -3,23 +3,29 @@ and the layer program (the subset the vision family's eval and train
 paths need).
 
 Mirrors ``repro.core.engine``: ``EngineConfig`` and its validation, the
-ambient engine (``use_engine`` / ``engine_scope``), the static dispatch
-rules, ``spike_linear`` (dense vs the ``spike_matmul`` kernel, with the
+ambient engine (``use_engine`` / ``engine_scope``), the dispatch rules,
+``spike_linear`` (dense, or the sparse engine's tile kernel
+``spike_matmul`` or decoded kernel ``gather_spike_matmul``, with the
 dense-transpose backward of the JAX custom VJP), the sequential branch
 of ``ssa_step``, and ``layer_step``: an eligible eval layer goes either
 to the sequential oracle (``overlap='off'``) or to the fused layer
-program (``overlap='fused'``, ``kernels/fused_layer``); train mode and
-ineligible layers take the sequential composition.
+program (``overlap='fused'``, ``kernels/fused_layer``, with the tile or
+the decoded projection datapath); train mode and ineligible layers take
+the sequential composition.
 
-The port's 'auto' rules read the device, not JAX's flop floor: on a CUDA
-tensor 'auto' always picks the kernel, whose wrapper launches it or
-raises; on the CPU it picks the plain path, as JAX does for small shapes
-and under jit.
+The port's 'auto' rules for ``mode``, ``binary`` and ``overlap`` read
+the device, not JAX's flop floor: on a CUDA tensor 'auto' always picks
+the kernel, whose wrapper launches it or raises; on the CPU it picks the
+plain path, as JAX does for small shapes and under jit. ``sparse='auto'``
+follows JAX's rule for concrete inputs on every device, since a PyTorch
+tensor is always concrete: it reads the occupancy histogram
+(``kernels/spike_decode.choose_sparse_path``) and counts each decision in
+:data:`SPARSE_DECISIONS`.
 
 Not ported yet, and raising ``NotImplementedError`` instead of falling
-back silently: ``sparse='decoded'``, ``overlap='pipeline'``, the fused
-SSA bundle (``ssa_step`` with ``overlap='fused'``) and quantized weights
-(ROADMAP queue 1 item 6, queue 2).
+back silently: ``overlap='pipeline'``, the fused SSA bundle
+(``ssa_step`` with ``overlap='fused'``) and quantized weights (ROADMAP
+queue 1 item 6, queue 2).
 """
 from __future__ import annotations
 
@@ -51,22 +57,31 @@ class EngineConfig:
     with the same defaults and meaning.
 
     mode: 'dense' | 'sparse' | 'auto' — spike x weight products through
-      the dense product or the ``spike_matmul`` kernel;
+      the dense product or the sparse engine's kernel (``spike_matmul``
+      or ``gather_spike_matmul``, as ``sparse`` resolves);
     binary: 'jnp' | 'mxu_kernel' | 'popcount' | 'auto' — spiking
       attention through the plain oracle or the ``spike_attention``
       kernel ('popcount' is not ported);
-    sparse: 'tile' | 'decoded' | 'auto' — the sparse datapath;
-    block_m: the L-block of the layer program's occupancy skip;
+    sparse: 'tile' | 'decoded' | 'auto' — the sparse datapath: the tile
+      skip, the decoded gather, or per call from the occupancy histogram
+      (:func:`resolve_sparse_path`);
+    block_m: the row group of the decoded schedule and of the tile
+      fraction 'auto' reads, and the L-block of the layer program's
+      occupancy skips;
+    block_k: the decoded path's compacted chunk (``c_block``) and the
+      tile width 'auto' reads — it decides the decoded capacities and the
+      executed-chunk counts, so it is kept;
     overlap: 'off' | 'fused' | 'pipeline' | 'auto' — the layer program.
 
     JAX's ``min_flops`` is left out: the port's 'auto' does not read it
-    (see :func:`resolve_mode`). So are the TPU kernels' VMEM tile sizes
-    (``block_n``, ``block_k``, ``attn_block_q``, ``attn_block_k``): the
-    CUDA kernels choose their own tiles, and the values they compute do
-    not depend on the tiling."""
+    (see :func:`resolve_mode`). So are the TPU kernels' other VMEM tile
+    sizes (``block_n``, ``attn_block_q``, ``attn_block_k``): the CUDA
+    kernels choose their own tiles, and the values they compute do not
+    depend on them."""
     mode: str = "auto"
     sparse: str = "tile"
     block_m: int = 128
+    block_k: int = 128
     binary: str = "auto"
     overlap: str = "off"
 
@@ -83,6 +98,11 @@ class EngineConfig:
         if self.overlap not in OVERLAP_MODES + ("auto",):
             raise ValueError(f"unknown overlap mode {self.overlap!r} "
                              f"(expected off|fused|pipeline|auto)")
+        for name in ("block_m", "block_k"):
+            if not isinstance(getattr(self, name), int) or \
+                    getattr(self, name) < 1:
+                raise ValueError(f"{name} must be a positive int, got "
+                                 f"{getattr(self, name)!r}")
 
     def replace(self, **kw) -> "EngineConfig":
         return dataclasses.replace(self, **kw)
@@ -149,15 +169,37 @@ def resolve_binary_mode(engine: Optional[EngineConfig], x=None) -> str:
     return "mxu_kernel" if _on_cuda(x) else "jnp"
 
 
-def resolve_sparse_path(engine: Optional[EngineConfig], x=None) -> str:
-    """Tile-vs-decoded decision for the projection datapath.
+# 'auto' decisions of resolve_sparse_path since the last reset, by path
+SPARSE_DECISIONS = {"tile": 0, "decoded": 0}
 
-    The JAX rule resolves 'auto' to 'tile' on a TPU (and under jit); on
-    the GPU the decoded gather is not ported yet, so 'auto' resolves
-    'tile' on every device, and an explicit 'decoded' raises."""
-    if engine is None or engine.sparse in ("tile", "auto"):
+
+def reset_sparse_decisions() -> None:
+    for path in SPARSE_DECISIONS:
+        SPARSE_DECISIONS[path] = 0
+
+
+def resolve_sparse_path(engine: Optional[EngineConfig], x=None) -> str:
+    """Tile-vs-decoded decision for the sparse datapath on spikes ``x``
+    (any shape; the last dim is K).
+
+    Explicit 'tile' and 'decoded' are honoured everywhere. 'auto' takes
+    JAX's rule for concrete spikes on every device (a PyTorch tensor is
+    always concrete): ``choose_sparse_path`` on ``x`` reshaped to (-1, K)
+    with the engine's ``block_m`` and ``block_k``; without spikes it
+    resolves 'tile'. Each 'auto' decision reads two fractions back from
+    the device (one synchronisation on the card) and is counted in
+    :data:`SPARSE_DECISIONS`."""
+    if engine is None:
         return "tile"
-    raise _not_ported("sparse='decoded'", "queue 2 item 4")
+    if engine.sparse in SPARSE_PATHS:
+        return engine.sparse
+    if x is None:
+        return "tile"
+    from repro_torch.kernels.spike_decode import choose_sparse_path
+    path = choose_sparse_path(x.reshape(-1, x.shape[-1]), engine.block_m,
+                              engine.block_k)
+    SPARSE_DECISIONS[path] += 1
+    return path
 
 
 def resolve_overlap(engine: Optional[EngineConfig], x=None) -> str:
@@ -174,7 +216,7 @@ def resolve_overlap(engine: Optional[EngineConfig], x=None) -> str:
     if engine is None:
         return "off"
     if engine.overlap == "pipeline":
-        raise _not_ported("overlap='pipeline'", "queue 2 item 3")
+        raise _not_ported("overlap='pipeline'", "queue 2 #1d")
     if engine.overlap in ("off", "fused"):
         return engine.overlap
     return "fused" if _on_cuda(x) else "off"
@@ -187,6 +229,8 @@ class LayerPlan(NamedTuple):
 
 
 def resolve_layer_plan(engine: Optional[EngineConfig], x=None) -> LayerPlan:
+    """One plan for a whole-layer step: the overlap grid and the sparse
+    datapath of its projections, decided on the layer's input spikes."""
     return LayerPlan(resolve_overlap(engine, x),
                      resolve_sparse_path(engine, x))
 
@@ -201,15 +245,21 @@ def dense_spike_linear(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
 
 
 class _SparseMatmul(torch.autograd.Function):
-    """The ``spike_matmul`` kernel forward, its fp32 accumulator rounded
-    once to the activation dtype in the kernel's store, with the
-    dense-transpose backward of ``repro.core.engine._sparse_bwd`` (the
+    """The sparse engine's kernel forward — ``spike_matmul`` on the tile
+    path, ``gather_spike_matmul`` on the decoded path — its fp32
+    accumulator rounded once to the activation dtype in the kernel's
+    store, with the dense-transpose backward of
+    ``repro.core.engine._sparse_bwd``, the same for both paths (the
     cotangent of that rounding is the upcast ``g``, as in JAX)."""
 
     @staticmethod
-    def forward(ctx, s2d, w, b):
-        from repro_torch.kernels.spike_matmul import spike_matmul
+    def forward(ctx, s2d, w, b, path, block_m, block_k):
         ctx.save_for_backward(s2d, w, b)
+        if path == "decoded":
+            from repro_torch.kernels.spike_decode import gather_spike_matmul
+            return gather_spike_matmul(s2d, w, b, block_m=block_m,
+                                       c_block=block_k)
+        from repro_torch.kernels.spike_matmul import spike_matmul
         return spike_matmul(s2d, w, b)
 
     @staticmethod
@@ -219,7 +269,7 @@ class _SparseMatmul(torch.autograd.Function):
         ds = (g32 @ w.float().t()).to(s2d.dtype)
         dw = (s2d.float().t() @ g32).to(w.dtype)
         db = None if b is None else g32.sum(dim=0).to(b.dtype)
-        return ds, dw, db
+        return ds, dw, db, None, None, None
 
 
 def spike_linear(p: Dict[str, Any], x: torch.Tensor, *,
@@ -236,9 +286,11 @@ def spike_linear(p: Dict[str, Any], x: torch.Tensor, *,
         raise _not_ported("quantized weights", "queue 1 item 6")
     if resolve_mode(engine, x) == "dense":
         return dense_spike_linear(p, x)
-    resolve_sparse_path(engine, x)         # 'decoded' raises
     k, n = x.shape[-1], p["w"].shape[-1]
-    out = _SparseMatmul.apply(x.reshape(-1, k), p["w"], p.get("b"))
+    x2d = x.reshape(-1, k)
+    out = _SparseMatmul.apply(x2d, p["w"], p.get("b"),
+                              resolve_sparse_path(engine, x2d),
+                              engine.block_m, engine.block_k)
     return out.reshape(*x.shape[:-1], n)
 
 
@@ -261,7 +313,7 @@ def ssa_step(p: Dict[str, Any], st: Dict[str, Any], cfg, s: torch.Tensor, *,
     eligible = not train and not any("b" in p[w] for _, w in names)
     if eligible and resolve_overlap(engine, s) == "fused":
         raise _not_ported("the fused SSA bundle (ssa_step with "
-                          "overlap='fused')", "queue 2 item 6")
+                          "overlap='fused')", "queue 2 #6")
     new_st = dict(st)
 
     def proj(name, w):
@@ -321,7 +373,10 @@ def layer_step(p: Dict[str, Any], st: Dict[str, Any], cfg, x: torch.Tensor,
 
     An eligible eval layer runs the sequential oracle ``reference_layer``
     (``overlap='off'``) or the layer program ``fused_layer``
-    (``overlap='fused'``; the CUDA kernel for CUDA tensors). Train mode
+    (``overlap='fused'``; the CUDA kernel for CUDA tensors), whose q/k/v
+    projections take the plan's sparse datapath (the L-block tile skip,
+    or the decoded gather with ``c_block = block_k`` and ``l_block =
+    block_m``, as in JAX). Train mode
     (batch statistics) and ineligible layers run the sequential
     composition, which hands the SSA bundle to :func:`ssa_step` and the
     spike products to :func:`spike_linear`, threading the BN state."""
@@ -360,7 +415,7 @@ def layer_step(p: Dict[str, Any], st: Dict[str, Any], cfg, x: torch.Tensor,
         y, _ = fused_layer(
             *args, sparse=plan.sparse, decay=scfg.decay,
             v_th=scfg.v_threshold, soft_reset=scfg.soft_reset,
-            l_block=engine.block_m, **kw)
+            l_block=engine.block_m, c_block=engine.block_k, **kw)
     return y, dict(st)
 
 

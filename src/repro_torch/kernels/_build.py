@@ -22,7 +22,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("fused_layer", "spike_matmul", "spike_attention")
+SOURCES = ("fused_layer", "spike_matmul", "spike_attention",
+           "gather_spike_matmul")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # name -> (build seconds, compiler output) for sources built in this process

@@ -2,7 +2,7 @@
 //
 // Replaces: src/repro/kernels/fused_layer.py::fused_layer (the Pallas
 // kernel `_kernel`, grid (B, 8 phases, H)) for the vision family's eval
-// layer: family 'bn', sparse='tile', not pipelined. It computes one
+// layer: family 'bn', sparse='tile' or 'decoded', not pipelined. It computes one
 // encoder layer: q/k/v spike projections + BN + LIF, binarized scores,
 // context, wo + bn_o + residual + input LIF, up + bn_1 + LIF, down +
 // bn_2 + residual; and the (H, 8, n_l_blocks) map of executed sub-blocks.
@@ -15,7 +15,8 @@
 // products on the tensor cores with mma.sync (fp32 keeps CUDA-core
 // loops); launch B stages each weight chunk once for all timesteps and
 // reads the next chunk into registers while the current one's products
-// run. wgmma / TMA pipelines are later work.
+// run. wgmma / TMA pipelines are later work. The decoded variant's
+// projection (below) is a CUDA-core walk over live spikes instead.
 //
 // Design. The TPU grid keeps every head's q/k/v spikes for all T in
 // VMEM (~786 KB at full width), which no SM can hold. The layer is split
@@ -36,6 +37,24 @@
 //      planes straight into mma fragments. Every predicate is evaluated
 //      on the whole L-block, so the counts are those of the TPU kernel.
 // Counts are summed with int32 atomicAdd (order-free); no float atomics.
+//
+// The decoded variant (sparse='decoded'; `_kernel` with decoded=True, the
+// q/k/v `project` phases at fused_layer.py:152-215, staged by
+// spike_decode.slab_decode) changes only the projection of launch A. The
+// TPU staging materialises each row's compacted indices and values and
+// per-L-block capacities min(pow2ceil(max occupancy), Cp); here the block
+// decodes the staged slab itself: each warp walks its rows one 32-entry
+// word at a time, a warp ballot marks the live spikes and __ffs visits
+// them in ascending k (the order of the compacted slots), and for each
+// live spike the lanes add the value times the spike's row of the head's
+// q/k/v weights (staged untransposed, [D][3 hd]) with one fp32 product
+// and one fp32 sum, three columns a lane. Chunks of c_block slots at or
+// past an L-block's capacity hold no live spike, so they are skipped by
+// construction; the executed chunks, ceil(capacity / c_block) per
+// (t, b, L-block), go to the q/k/v counts. The epilogue and launch B are
+// the tile variant's. It is CUDA-core work in both dtypes: the sum order
+// is the plain version's, so the variant is bitwise equal to its plain
+// version for any weights, and to the tile variant on dyadic weights.
 //
 // Rounding follows the plain version (kernels/fused_layer.py) step by
 // step: fp32 accumulation, cast to the activation dtype, BN as
@@ -95,6 +114,11 @@ struct Lif {
   int soft;
 };
 
+// smallest power of two >= x (0 -> 0, 1 -> 1): spike_decode.pow2ceil
+__device__ __forceinline__ int pow2ceil(int x) {
+  return x <= 1 ? max(x, 0) : 1 << (32 - __clz(x - 1));
+}
+
 // one LIF step in the activation dtype (core/spiking.lif_step); returns
 // the spike
 template <typename T>
@@ -143,19 +167,24 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4],
 // a k16 step is an mma.sync, in fp32 a CUDA-core loop over the same slots.
 
 constexpr int MAXJ = 3 * MAX_HD / 8 / 2;   // n8-tiles per warp in launch A
+// decoded projection: warp w owns rows DEC_ROWS w + [0, DEC_ROWS), lane
+// owns columns lane + 32 c of the 3 hd
+constexpr int DEC_ROWS = MAX_L / (NT / 32);
+constexpr int DEC_COLS = 3 * MAX_HD / 32;
 
 // shared-memory row of the staged slab and w^T: D plus 16 bytes, so the
 // eight rows a warp's fragment loads touch fall in distinct banks
 template <typename T>
 __host__ __device__ constexpr int row_pad() { return 16 / (int)sizeof(T); }
 
-template <typename T>
+template <typename T, bool DEC>
 __global__ void __launch_bounds__(NT)
 attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
                 const float* __restrict__ sc3, const float* __restrict__ auxp,
                 const float* __restrict__ delta_p, float scale, Lif lif,
                 int nt, int nb, int l, int d, int heads, int hd, int l_block,
-                T* __restrict__ ctx, int* __restrict__ counts) {
+                int c_block, int cp, T* __restrict__ ctx,
+                int* __restrict__ counts) {
   using A = Act<T>;
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int qd = heads * hd, nlb = (l + l_block - 1) / l_block;
@@ -164,19 +193,21 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
   const float delta = *delta_p;
 
   extern __shared__ __align__(16) unsigned char dyn_a[];
-  T* wt = (T*)dyn_a;                    // [3 hd][ldk]: w3 head slice, transposed
+  T* wt = (T*)dyn_a;                    // w3 head slice: [3 hd][ldk], transposed
+                                        // (decoded: [D][3 hd])
   T* slab = wt + (size_t)n3 * ldk;      // [MAX_L][ldk]: one timestep's spikes
   __shared__ uint32_t qbits[MAX_L], kbits[MAX_L];          // [row] bits of hd
   __shared__ uint32_t vbits_t[MAX_HD * 2];                 // [col][L word]
   __shared__ uint32_t abits[MAX_L * 2];                    // [query][key word]
   __shared__ uint32_t key_mask[2], ctx_mask[2];  // live key columns
   __shared__ int row_live[MAX_L], blk_live[MAX_L], k_live[MAX_L],
-      c_live[MAX_L];
+      c_live[MAX_L], row_occ[MAX_L];
   __shared__ bool passes[MAX_HD + 1];  // binarized score of a count
 
   for (int i = tid; i < n3 * d; i += NT) {
     const int k = i / n3, n = i % n3;
-    wt[n * ldk + k] = w3[((size_t)(n / hd) * d + k) * qd + h * hd + n % hd];
+    wt[DEC ? k * n3 + n : n * ldk + k] =
+        w3[((size_t)(n / hd) * d + k) * qd + h * hd + n % hd];
   }
   for (int i = l * ldk + tid; i < MAX_L * ldk; i += NT) slab[i] = T(0.f);
   // a score is an integer count c <= hd; binarize each once:
@@ -185,7 +216,8 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
 
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, tig = lane % 4;
   const int r_lo = (warp % 4) * 16 + g, jt0 = warp / 4;
-  float u[MAXJ][4] = {};
+  constexpr int AJ = DEC ? DEC_ROWS : MAXJ, AC = DEC ? DEC_COLS : 4;
+  float u[AJ][AC] = {};       // LIF membranes of the thread's slots, across t
   int n_proj = 0, n_qkt = 0, n_qktv = 0;  // per L-block, thread tid < nlb
 
   for (int t = 0; t < nt; ++t) {
@@ -214,59 +246,99 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
     }
     __syncthreads();
 
-    // q/k/v projection; a warp whose rows all lie in dark L-blocks skips
-    // its products (they would add exact zeros)
-    float acc[MAXJ][4] = {};
-    bool warp_live = false;
-    for (int r = (warp % 4) * 16; r < min(l, (warp % 4) * 16 + 16); ++r)
-      warp_live |= blk_live[r / l_block] != 0;
-    if (warp_live) {
-      if constexpr (std::is_same<T, float>::value) {
-        for (int k = 0; k < d; ++k) {
-          const float a_lo = slab[r_lo * ldk + k], a_hi = slab[(r_lo + 8) * ldk + k];
+    // epilogue of one projection slot: scale, BN, LIF -> spike bits (v
+    // stored transposed)
+    auto emit = [&](float a, float& uu, int r, int n) {
+      const int p = n / hd, col = n % hd, ch = h * hd + col;
+      float y = A::round(__fmul_rn(a, sc3[p * qd + ch]));
+      y = A::round(bn_eval(y, auxp + (size_t)p * 4 * qd, qd, ch));
+      if (!lif_step<T>(uu, y, lif)) return;
+      if (p == 0) atomicOr(&qbits[r], 1u << col);
+      else if (p == 1) atomicOr(&kbits[r], 1u << col);
+      else atomicOr(&vbits_t[col * 2 + r / 32], 1u << (r % 32));
+    };
+    float acc[AJ][AC] = {};
+    if constexpr (DEC) {
+      // decoded q/k/v projection: each row's live spikes in ascending k
 #pragma unroll
-          for (int j = 0; j < MAXJ; ++j) {
-            const int jt = jt0 + 2 * j;
-            if (jt >= ntiles) break;
+      for (int i = 0; i < DEC_ROWS; ++i) {
+        const int r = warp * DEC_ROWS + i;
+        if (r >= l) break;
+        const T* srow = slab + (size_t)r * ldk;
+        int occ = 0;
+        for (int k0 = 0; k0 < d; k0 += 32) {
+          uint32_t live = __ballot_sync(
+              0xFFFFFFFFu, k0 + lane < d && A::load(srow + k0 + lane) != 0.f);
+          occ += __popc(live);
+          while (live) {
+            const int k = k0 + __ffs(live) - 1;
+            live &= live - 1u;
+            const float a = A::load(srow + k);
+            const T* wrow = wt + (size_t)k * n3;
 #pragma unroll
-            for (int c = 0; c < 2; ++c) {
-              const float wv = wt[(jt * 8 + tig * 2 + c) * ldk + k];
-              acc[j][c] = fmaf(a_lo, wv, acc[j][c]);
-              acc[j][2 + c] = fmaf(a_hi, wv, acc[j][2 + c]);
+            for (int c = 0; c < DEC_COLS; ++c) {
+              const int n = lane + 32 * c;
+              if (n < n3)
+                acc[i][c] = __fadd_rn(acc[i][c], __fmul_rn(a, A::load(wrow + n)));
             }
           }
         }
-      } else {
-        for (int k0 = 0; k0 < d; k0 += 16) {
-          const T* pa = slab + r_lo * ldk + k0 + tig * 2;
-          const uint32_t a[4] = {ld_pair(pa), ld_pair(pa + 8 * ldk),
-                                 ld_pair(pa + 8), ld_pair(pa + 8 * ldk + 8)};
+        if (lane == 0) row_occ[r] = occ;
+      }
 #pragma unroll
-          for (int j = 0; j < MAXJ; ++j) {
-            const int jt = jt0 + 2 * j;
-            if (jt >= ntiles) break;
-            const T* pb = wt + (jt * 8 + g) * ldk + k0 + tig * 2;
-            mma_bf16(acc[j], a, ld_pair(pb), ld_pair(pb + 8));
+      for (int i = 0; i < DEC_ROWS; ++i) {
+        const int r = warp * DEC_ROWS + i;
+        if (r >= l) break;
+#pragma unroll
+        for (int c = 0; c < DEC_COLS; ++c)
+          if (lane + 32 * c < n3) emit(acc[i][c], u[i][c], r, lane + 32 * c);
+      }
+    } else {
+      // q/k/v projection; a warp whose rows all lie in dark L-blocks skips
+      // its products (they would add exact zeros)
+      bool warp_live = false;
+      for (int r = (warp % 4) * 16; r < min(l, (warp % 4) * 16 + 16); ++r)
+        warp_live |= blk_live[r / l_block] != 0;
+      if (warp_live) {
+        if constexpr (std::is_same<T, float>::value) {
+          for (int k = 0; k < d; ++k) {
+            const float a_lo = slab[r_lo * ldk + k], a_hi = slab[(r_lo + 8) * ldk + k];
+#pragma unroll
+            for (int j = 0; j < MAXJ; ++j) {
+              const int jt = jt0 + 2 * j;
+              if (jt >= ntiles) break;
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const float wv = wt[(jt * 8 + tig * 2 + c) * ldk + k];
+                acc[j][c] = fmaf(a_lo, wv, acc[j][c]);
+                acc[j][2 + c] = fmaf(a_hi, wv, acc[j][2 + c]);
+              }
+            }
+          }
+        } else {
+          for (int k0 = 0; k0 < d; k0 += 16) {
+            const T* pa = slab + r_lo * ldk + k0 + tig * 2;
+            const uint32_t a[4] = {ld_pair(pa), ld_pair(pa + 8 * ldk),
+                                   ld_pair(pa + 8), ld_pair(pa + 8 * ldk + 8)};
+#pragma unroll
+            for (int j = 0; j < MAXJ; ++j) {
+              const int jt = jt0 + 2 * j;
+              if (jt >= ntiles) break;
+              const T* pb = wt + (jt * 8 + g) * ldk + k0 + tig * 2;
+              mma_bf16(acc[j], a, ld_pair(pb), ld_pair(pb + 8));
+            }
           }
         }
       }
-    }
-    // epilogue: scale, BN, LIF -> spike bits (v stored transposed)
 #pragma unroll
-    for (int j = 0; j < MAXJ; ++j) {
-      const int jt = jt0 + 2 * j;
-      if (jt >= ntiles) break;
+      for (int j = 0; j < MAXJ; ++j) {
+        const int jt = jt0 + 2 * j;
+        if (jt >= ntiles) break;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = r_lo + (c & 2) * 4, n = jt * 8 + tig * 2 + (c & 1);
-        if (r >= l) continue;
-        const int p = n / hd, col = n % hd, ch = h * hd + col;
-        float y = A::round(__fmul_rn(acc[j][c], sc3[p * qd + ch]));
-        y = A::round(bn_eval(y, auxp + (size_t)p * 4 * qd, qd, ch));
-        if (!lif_step<T>(u[j][c], y, lif)) continue;
-        if (p == 0) atomicOr(&qbits[r], 1u << col);
-        else if (p == 1) atomicOr(&kbits[r], 1u << col);
-        else atomicOr(&vbits_t[col * 2 + r / 32], 1u << (r % 32));
+        for (int c = 0; c < 4; ++c) {
+          const int r = r_lo + (c & 2) * 4;
+          if (r < l) emit(acc[j][c], u[j][c], r, jt * 8 + tig * 2 + (c & 1));
+        }
       }
     }
     __syncthreads();
@@ -286,7 +358,13 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
       const bool kl = kany || delta <= 0.f;
       k_live[tid] = kl;
       c_live[tid] = kl && vany;
-      n_proj += blk_live[tid];
+      if constexpr (DEC) {   // executed chunks: ceil(capacity / c_block)
+        int mx = 0;
+        for (int r = r0; r < r1; ++r) mx = max(mx, row_occ[r]);
+        n_proj += (min(pow2ceil(mx), cp) + c_block - 1) / c_block;
+      } else {
+        n_proj += blk_live[tid];
+      }
       n_qkt += kl;
       n_qktv += kl && vany;
     }
@@ -675,21 +753,23 @@ cudaError_t launch(const void* x, const void* s, const void* w3,
                    const float* sc2, const float* auxp, const float* auxo,
                    const float* aux1, const float* aux2, const float* delta,
                    float scale, Lif lif, int nt, int nb, int l, int d,
-                   int heads, int hd, int ff, int l_block, void* ctx,
-                   void* out, int* counts, cudaStream_t stream) {
+                   int heads, int hd, int ff, int l_block, int decoded,
+                   int c_block, int cp, void* ctx, void* out, int* counts,
+                   cudaStream_t stream) {
   const int nlb = (l + l_block - 1) / l_block;
   const size_t dyn_a = (size_t)(3 * hd + MAX_L) * (d + row_pad<T>()) * sizeof(T);
   const size_t dyn = 4 * ((size_t)nt * TILE * ((d + 31) / 32 + (ff + 31) / 32) +
                           (size_t)nt * (2 * heads + 1));
+  auto attention = decoded ? attention_phase<T, true> : attention_phase<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_phase<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn_a);
+      attention, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn_a);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(
       mlp_phase<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   if (err != cudaSuccess) return err;
-  attention_phase<T><<<dim3(heads, nb), NT, dyn_a, stream>>>(
+  attention<<<dim3(heads, nb), NT, dyn_a, stream>>>(
       (const T*)s, (const T*)w3, sc3, auxp, delta, scale, lif, nt, nb, l, d,
-      heads, hd, l_block, (T*)ctx, counts);
+      heads, hd, l_block, c_block, cp, (T*)ctx, counts);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   mlp_phase<T><<<dim3(nlb, nb), NT, dyn, stream>>>(
@@ -701,27 +781,31 @@ cudaError_t launch(const void* x, const void* s, const void* w3,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = success).
+// dtype: 0 = float32, 1 = bfloat16; decoded: the decoded q/k/v
+// projections with chunks of c_block compacted slots and padded width cp.
+// Returns a cudaError_t (0 = success).
 extern "C" int fused_layer_forward(
     int dtype, const void* x, const void* s, const void* w3, const void* wo,
     const void* w1, const void* w2, const void* sc3, const void* sco,
     const void* sc1, const void* sc2, const void* auxp, const void* auxo,
     const void* aux1, const void* aux2, const void* delta, float scale,
     float decay, float vth, int soft_reset, int nt, int nb, int l, int d,
-    int heads, int hd, int ff, int l_block, void* ctx, void* out,
-    void* counts, void* stream) {
+    int heads, int hd, int ff, int l_block, int decoded, int c_block, int cp,
+    void* ctx, void* out, void* counts, void* stream) {
   const Lif lif{decay, vth, soft_reset};
   const auto f = [](const void* p) { return (const float*)p; };
   if (dtype == 0)
     return launch<float>(x, s, w3, wo, w1, w2, f(sc3), f(sco), f(sc1),
                          f(sc2), f(auxp), f(auxo), f(aux1), f(aux2), f(delta),
                          scale, lif, nt, nb, l, d, heads, hd, ff, l_block,
-                         ctx, out, (int*)counts, (cudaStream_t)stream);
+                         decoded, c_block, cp, ctx, out, (int*)counts,
+                         (cudaStream_t)stream);
   if (dtype == 1)
     return launch<__nv_bfloat16>(
         x, s, w3, wo, w1, w2, f(sc3), f(sco), f(sc1), f(sc2), f(auxp),
         f(auxo), f(aux1), f(aux2), f(delta), scale, lif, nt, nb, l, d, heads,
-        hd, ff, l_block, ctx, out, (int*)counts, (cudaStream_t)stream);
+        hd, ff, l_block, decoded, c_block, cp, ctx, out, (int*)counts,
+        (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 

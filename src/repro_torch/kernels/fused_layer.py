@@ -1,15 +1,20 @@
 """Fused whole-layer step — the layer program of the dual-engine overlay.
 
 Port of ``repro.kernels.fused_layer`` for the vision family (``bn``
-epilogues), the L-block tile skip (``sparse='tile'``) and the fused
-(not pipelined) schedule. Three functions of one layer:
+epilogues) and the fused (not pipelined) schedule, with either
+projection datapath: the L-block tile skip (``sparse='tile'``) or the
+decoded gather (``sparse='decoded'``: the q/k/v projections contract
+each row's live spikes in ascending k, in chunks of ``c_block``
+compacted slots under per-L-block pow2 capacities, staged by
+``spike_decode.slab_decode``; wo, up and down keep the L-block tile
+skip, as in JAX). Three functions of one layer:
 
 * :func:`reference_layer` — the sequential oracle, term for term the
   JAX ``reference_layer``;
 * :func:`fused_layer_plain` — the plain PyTorch version of the kernel:
   the same arithmetic as the CUDA kernel, plus the ``(H, 8, n_l_blocks)``
   map of executed sub-blocks per (head, phase, L-block) with the TPU
-  kernel's predicates;
+  kernel's predicates (for decoded q/k/v: executed gather chunks);
 * :func:`fused_layer` — the wrapper: CPU tensors take the plain version,
   CUDA tensors launch ``csrc/fused_layer.cu`` through
   :func:`fused_layer_cuda` (two launches: attention per (head, b), then
@@ -40,9 +45,10 @@ FAMILIES = ("bn", "rope")
 LAYER_PHASES = ("q", "k", "v", "qkt", "qktv", "wo", "up", "down")
 N_PHASES = len(LAYER_PHASES)
 
-# kernel launches on the card: each call of the CUDA layer program
-# launches two kernels (attention_phase, then mlp_phase) and counts both
-LAUNCHES = {"fused_layer": 0}
+# kernel launches on the card, by projection datapath: each call of the
+# CUDA layer program launches two kernels (attention_phase, then
+# mlp_phase) and counts both
+LAUNCHES = {"fused_layer": 0, "fused_layer_decoded": 0}
 LAUNCHES_PER_CALL = 2
 
 # shape limits of the CUDA kernel (csrc/fused_layer.cu)
@@ -52,7 +58,8 @@ MAX_T = 4
 
 
 def reset_launches() -> None:
-    LAUNCHES["fused_layer"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _check_variant(family, sparse, pipeline, causal, binarize_scores):
@@ -62,14 +69,13 @@ def _check_variant(family, sparse, pipeline, causal, binarize_scores):
     if sparse not in ("tile", "decoded"):
         raise ValueError(f"unknown fused-layer sparse path {sparse!r}")
     for off, what in ((family == "rope", "the rope family"),
-                      (sparse == "decoded", "sparse='decoded'"),
                       (pipeline, "pipeline=True"),
                       (causal, "causal attention"),
                       (not binarize_scores, "analog attention scores")):
         if off:
             raise NotImplementedError(
                 f"{what} of the fused layer is not ported to PyTorch yet "
-                f"(ROADMAP queue 2 item 3)")
+                f"(ROADMAP queue 2 #1)")
 
 
 def _lif(u: torch.Tensor, decay: float, v_th: float, soft_reset: bool):
@@ -100,17 +106,37 @@ def _block_any(u: torch.Tensor, l_block: int, groups: int = 1
     return m.amax(dim=(3, 5)).transpose(2, 3).bool()
 
 
+def _decoded_projections(s, w3, l_block, c_block):
+    """The decoded q/k/v projections: for each row, the sum over its live
+    spikes in ascending k (``spike_decode.gather_sum``, the kernel's
+    order), as fp32 (3, T, B, L, H*hd); and the executed gather chunks
+    per (T, B, L-block): chunk ci runs when ci * c_block is below the
+    L-block's capacity."""
+    from repro_torch.kernels.spike_decode import gather_sum, slab_decode
+    idx, vals, caps, c_block = slab_decode(s, l_block=l_block,
+                                           c_block=c_block)
+    n_slots = int(caps.max()) if caps.numel() else 0
+    cur = torch.stack([gather_sum(idx, vals, w, n_slots).transpose(0, 1)
+                       for w in w3])
+    chunks = -(-caps.transpose(0, 1) // c_block)
+    return cur, chunks
+
+
 def fused_layer_plain(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
                       delta, *, num_heads: int, head_dim: int, scale: float,
                       decay: float, v_th: float, soft_reset: bool,
-                      l_block: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                      l_block: int, decoded: bool = False,
+                      c_block: int = 128
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the kernel. The aux rows carry the inverse std
     (:func:`_inv_rows`). Skipped sub-blocks contribute exact zeros, so
-    the output is the dense composition; the counts follow the kernel's
-    predicates: a projection / wo / up / down sub-block runs when its
-    input rows of the L-block are not all zero, a score block when its
-    key rows are not all dark (or delta <= 0), a context block when
-    additionally its value rows are not all dark."""
+    the output is the dense composition (with ``decoded``, the q/k/v
+    projections are summed in the decoded kernel's order instead); the
+    counts follow the kernel's predicates: a projection / wo / up / down
+    sub-block runs when its input rows of the L-block are not all zero, a
+    score block when its key rows are not all dark (or delta <= 0), a
+    context block when additionally its value rows are not all dark; a
+    decoded projection counts its executed gather chunks."""
     t, b, l, d = x.shape
     heads, hd = num_heads, head_dim
     dt = x.dtype
@@ -135,7 +161,14 @@ def fused_layer_plain(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
     def cols(live):                                   # blocks -> columns
         return live.repeat_interleave(l_block, dim=-1)[..., None, :l]
 
-    q, k, v = (lif(bn(lin(s, w3[j], sc3[j]), auxp[j])) for j in range(3))
+    if decoded:
+        cur, chunks = _decoded_projections(s, w3, l_block, c_block)
+        proj = [(cur[j] * sc3[j].float()).to(dt) for j in range(3)]
+        proj_counts = count(chunks[:, :, None])
+    else:
+        proj = [lin(s, w3[j], sc3[j]) for j in range(3)]
+        proj_counts = count(_block_any(s, l_block))
+    q, k, v = (lif(bn(proj[j], auxp[j])) for j in range(3))
     delta_t = torch.as_tensor(delta, dtype=torch.float32, device=x.device)
     k_live = _block_any(k, l_block, heads) | (delta_t <= 0)
     c_live = k_live & _block_any(v, l_block, heads)
@@ -147,8 +180,7 @@ def fused_layer_plain(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
     hid = lif(bn(lin(s2, w1, sc1), aux1))
     out = x1 + bn(lin(hid, w2, sc2), aux2)
     counts = torch.stack([
-        count(_block_any(s, l_block)), count(_block_any(s, l_block)),
-        count(_block_any(s, l_block)), count(k_live), count(c_live),
+        proj_counts, proj_counts, proj_counts, count(k_live), count(c_live),
         count(_block_any(ctx, l_block, heads)),
         count(_block_any(s2, l_block)),
         count(_block_any(hid, l_block, heads))], dim=1)
@@ -195,7 +227,7 @@ def fused_layer(x: torch.Tensor, s: torch.Tensor, w3: torch.Tensor,
                 sparse: str = "tile", pipeline: bool = False,
                 binarize_scores: bool = True, decay: float = 0.5,
                 v_th: float = 1.0, soft_reset: bool = False,
-                eps: float = 1e-5, l_block: int = 128
+                eps: float = 1e-5, l_block: int = 128, c_block: int = 128
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused whole-layer step (forward only), the signature of the JAX
     ``fused_layer``.
@@ -205,6 +237,9 @@ def fused_layer(x: torch.Tensor, s: torch.Tensor, w3: torch.Tensor,
     with F a multiple of ``num_heads``; scales: fp32 (scale3 (3, H*hd),
     scale_o (D,), scale_1 (F,), scale_2 (D,)) or None; auxp (3, 4, H*hd),
     auxo (4, D), aux1 (4, F), aux2 (4, D) BN rows [mean, var, scale, bias].
+    ``sparse``: 'tile' or 'decoded' (the q/k/v projection datapath);
+    ``l_block``: the L-block of the occupancy skips and decoded
+    capacities; ``c_block``: the decoded chunk of compacted slots.
 
     Returns (layer output (T, B, L, D) in the activation dtype, counts
     (H, 8, ceil(L / l_block)) int32 — executed sub-blocks per head,
@@ -213,7 +248,8 @@ def fused_layer(x: torch.Tensor, s: torch.Tensor, w3: torch.Tensor,
     args, kw = prepare(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
                        delta, num_heads=num_heads, head_dim=head_dim,
                        scale=scale, decay=decay, v_th=v_th,
-                       soft_reset=soft_reset, eps=eps, l_block=l_block)
+                       soft_reset=soft_reset, eps=eps, l_block=l_block,
+                       sparse=sparse, c_block=c_block)
     if x.device.type == "cpu":
         return fused_layer_plain(*args, **kw)
     if x.device.type != "cuda":
@@ -224,12 +260,13 @@ def fused_layer(x: torch.Tensor, s: torch.Tensor, w3: torch.Tensor,
 
 def prepare(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2, delta, *,
             num_heads, head_dim, scale, decay, v_th, soft_reset, eps,
-            l_block):
+            l_block, sparse="tile", c_block=128):
     """Checks the operands of :func:`fused_layer` and returns the
     ``(args, kwargs)`` that :func:`fused_layer_plain` and
     :func:`fused_layer_cuda` both take: fp32 scales (ones for None), BN
-    rows with the inverse std, delta as a 1-element fp32 tensor, and
-    ``l_block`` clipped to L."""
+    rows with the inverse std, delta as a 1-element fp32 tensor,
+    ``l_block`` clipped to L, ``decoded`` for ``sparse='decoded'`` and
+    ``c_block`` clipped to D (as ``slab_decode`` clips it)."""
     t, b, l, d = x.shape
     q_dim = num_heads * head_dim
     ff = w1.shape[1]
@@ -256,12 +293,13 @@ def prepare(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2, delta, *,
                             ).reshape(1)
     kw = dict(num_heads=num_heads, head_dim=head_dim, scale=scale,
               decay=decay, v_th=v_th, soft_reset=soft_reset,
-              l_block=max(1, min(l_block, l)))
+              l_block=max(1, min(l_block, l)), decoded=sparse == "decoded",
+              c_block=max(1, min(c_block, d)))
     return (x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2, delta), kw
 
 
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 15
-             + [ctypes.c_float] * 3 + [ctypes.c_int] * 9
+             + [ctypes.c_float] * 3 + [ctypes.c_int] * 12
              + [ctypes.c_void_p] * 4)
 
 
@@ -278,9 +316,10 @@ def _library():
 
 def fused_layer_cuda(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
                      delta, *, num_heads, head_dim, scale, decay, v_th,
-                     soft_reset, l_block):
+                     soft_reset, l_block, decoded=False, c_block=128):
     """Launch the CUDA layer program on PyTorch's current stream, on the
-    operands :func:`prepare` returns."""
+    operands :func:`prepare` returns; ``decoded`` selects the decoded
+    q/k/v projections (counted under ``fused_layer_decoded``)."""
     dtypes = {torch.float32: 0, torch.bfloat16: 1}
     if x.dtype not in dtypes:
         raise ValueError(f"fused_layer kernel takes float32 or bfloat16, "
@@ -314,13 +353,15 @@ def fused_layer_cuda(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
                          device=x.device)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    cp = -(-d // c_block) * c_block
     rc = lib.fused_layer_forward(
         dtypes[x.dtype], *(a.data_ptr() for a in act + f32),
         float(scale), float(decay), float(v_th), int(soft_reset),
-        t, b, l, d, num_heads, head_dim, ff, l_block,
-        ctx.data_ptr(), out.data_ptr(), counts.data_ptr(), stream)
+        t, b, l, d, num_heads, head_dim, ff, l_block, int(decoded), c_block,
+        cp, ctx.data_ptr(), out.data_ptr(), counts.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"fused_layer kernel launch failed: "
                            f"{lib.fused_layer_error(rc).decode()}")
-    LAUNCHES["fused_layer"] += LAUNCHES_PER_CALL
+    LAUNCHES["fused_layer_decoded" if decoded else "fused_layer"] += \
+        LAUNCHES_PER_CALL
     return out, counts

@@ -1,7 +1,7 @@
 """The SSA bundle's sequential oracle (``repro.kernels.fused_ssa.
 reference_bundle``), ``bn`` family: Q/K/V projections with fp32
 accumulation -> BN affine -> LIF -> binary attention. The fused bundle
-kernel itself is still to be ported (ROADMAP queue 2 item 6)."""
+kernel itself is still to be ported (ROADMAP queue 2 #6)."""
 from __future__ import annotations
 
 from typing import Optional

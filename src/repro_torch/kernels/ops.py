@@ -65,7 +65,7 @@ def binary_attention(q, k, v, *, scale: float, delta, alpha: float = 4.0,
     if use_popcount:
         raise NotImplementedError(
             "the bit-packed popcount score kernel (binary='popcount') is not "
-            "ported to PyTorch yet (ROADMAP queue 2 item 8)")
+            "ported to PyTorch yet (ROADMAP queue 2 #8)")
     delta = torch.as_tensor(delta, dtype=torch.float32, device=q.device)
     return _BinaryAttention.apply(q, k, v, delta, alpha, scale, causal,
                                   binarize_scores)

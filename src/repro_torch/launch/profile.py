@@ -1,9 +1,10 @@
 """Where the time of the port's inference and training steps goes, on the
 GPU.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile
+    PYTHONPATH=src python -m repro_torch.launch.profile [--sparse decoded]
 
-Runs the published Spikingformer-4-256 config (seeded random weights) on
+Runs the published Spikingformer-4-256 config (seeded random weights;
+``--sparse`` sets its sparse datapath, 'auto' by default) on
 batches of 64 images through ``build_prefill_step`` and through
 ``build_train_step`` (AdamW, warmup-cosine): two warm-up calls of each,
 then three under ``torch.profiler``. For each step it prints the wall
@@ -13,6 +14,7 @@ with the same numbers. Needs a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import time
 
@@ -38,7 +40,7 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _profile(what: str, call) -> None:
+def _profile(what: str, sparse: str, call) -> None:
     """Profile ``call(i)`` for i in 2..4 after two warm-up calls."""
     for i in range(2):
         call(i)
@@ -57,12 +59,13 @@ def _profile(what: str, call) -> None:
             by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + us
     per_call = {k: v / 1e3 / CALLS for k, v in by_kernel.items()}
     device_ms = sum(per_call.values())
-    print(f"{ARCH} {what}, {CALLS} calls x {BATCH} images: "
-          f"wall {wall_ms:.3f} ms/call, device {device_ms:.3f} ms/call, "
+    print(f"{ARCH} {what}, sparse={sparse!r}, {CALLS} calls x {BATCH} "
+          f"images: wall {wall_ms:.3f} ms/call, device {device_ms:.3f} ms/call, "
           f"busy share {device_ms / wall_ms:.3f}")
     for name, ms in sorted(per_call.items(), key=lambda kv: -kv[1])[:TOP]:
         print(f"  {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  {name[:90]}")
     print(json.dumps({"arch": ARCH, "step": what, "batch": BATCH,
+                      "sparse": sparse,
                       "wall_ms_per_call": wall_ms,
                       "device_ms_per_call": device_ms,
                       "busy_share": device_ms / wall_ms,
@@ -71,17 +74,26 @@ def _profile(what: str, call) -> None:
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--sparse", default=None,
+                    choices=["tile", "decoded", "auto"],
+                    help="the engine's sparse datapath (default: the "
+                         "config's)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(ARCH)
+    if args.sparse is not None:
+        cfg = cfg.replace(engine=cfg.engine.replace(sparse=args.sparse))
     params = registry.init(cfg, seed=0)
     prefill = build_prefill_step(cfg)
     gen = torch.Generator().manual_seed(1)
     v = cfg.vision
     images = [torch.rand((BATCH, v.img_size, v.img_size, v.in_channels),
                          generator=gen).cuda() for _ in range(CALLS + 2)]
-    _profile("prefill", lambda i: prefill(params, {"images": images[i]}))
+    _profile("prefill", cfg.engine.sparse,
+             lambda i: prefill(params, {"images": images[i]}))
 
     opt = adamw(warmup_cosine(2e-3, 1, CALLS + 2))
     train_step = build_train_step(cfg, opt)
@@ -93,7 +105,7 @@ def main():
         p, o, _, _, st = train_step(carry[0], carry[1], i, batches[i],
                                     carry[2])
         carry[:] = [p, o, st]
-    _profile("train", train)
+    _profile("train", cfg.engine.sparse, train)
 
 
 if __name__ == "__main__":

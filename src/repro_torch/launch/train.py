@@ -11,11 +11,13 @@ Examples:
       --arch spikingformer-4-256 --smoke --steps 20 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch spikingformer-4-256 --steps 6 --batch 64      # on the GPU
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch spikingformer-4-256 --steps 6 --batch 64 --sparse decoded
 """
 from __future__ import annotations
 
 import argparse
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.data import DataConfig, make_pipeline
@@ -40,10 +42,14 @@ def make_batch_fn(cfg, batch_size: int) -> Callable:
 
 
 def train(arch: str, smoke: bool, total_steps: int, batch: int, lr: float,
-          seed: int = 0, device: DeviceLike = None) -> List[float]:
+          seed: int = 0, device: DeviceLike = None,
+          sparse: Optional[str] = None) -> List[float]:
     """Train ``arch`` from random weights (``seed``) for ``total_steps``
-    steps; returns the loss of each step."""
+    steps; returns the loss of each step. ``sparse`` overrides the
+    engine's sparse datapath (tile | decoded | auto)."""
     cfg = get_config(arch, smoke=smoke)
+    if sparse is not None:
+        cfg = cfg.replace(engine=cfg.engine.replace(sparse=sparse))
     dev = resolve_device(device)
     opt = adamw(warmup_cosine(lr, max(1, total_steps // 20), total_steps))
     batch_fn = make_batch_fn(cfg, batch)
@@ -79,9 +85,13 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU)")
+    ap.add_argument("--sparse", default=None,
+                    choices=["tile", "decoded", "auto"],
+                    help="the engine's sparse datapath (default: the "
+                         "config's)")
     args = ap.parse_args()
     train(args.arch, args.smoke, args.steps, args.batch, args.lr, args.seed,
-          args.device)
+          args.device, args.sparse)
 
 
 if __name__ == "__main__":

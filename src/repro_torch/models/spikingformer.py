@@ -5,12 +5,13 @@ Mirrors ``repro.models.spikingformer``: SPS conv stem -> encoder blocks
 with pre-neuron residuals. Params and BN state keep the JAX tree layout
 (HWIO conv weights, per-layer block leaves stacked on a leading axis).
 ``forward(train=True)`` normalises with batch statistics and threads the
-BN running stats through the stem and the blocks. The CIFAR-Net path is
-still to be ported.
+BN running stats through the stem and the blocks. ``layer_sparsities``
+measures the per-layer spike sparsity (the paper's Fig. 11). The
+CIFAR-Net path is still to be ported.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -177,3 +178,25 @@ def forward(params, cfg: ModelConfig, batch, *, train: bool = False,
     new_state = {"sps": sps_state, "blocks": tree_map(_stack, *blocks_state)}
     return logits, {"state": new_state,
                     "fire_rate": spikes.detach().float().mean()}
+
+
+def layer_sparsities(params, cfg: ModelConfig, batch,
+                     state: Optional[Dict] = None) -> List[Tuple[str, float]]:
+    """Per-layer spike sparsity (Fig. 11): [(layer name, 1 - fire rate)]
+    for the stem's output spikes and each encoder layer's input spikes,
+    measured on ``batch`` in eval mode — what the decoded datapath's gain
+    and ``sparse='auto'``'s choice depend on."""
+    _check_family(cfg)
+    images = batch["images"].to(dtype_of(cfg))
+    if state is None:
+        state = init_state(cfg, device=images.device)
+    out: List[Tuple[str, float]] = []
+    with torch.no_grad():
+        x, _ = _sps(params, state, cfg, images, train=False)
+        out.append(("sps", float(1.0 - _lif(x, cfg).mean())))
+        for i in range(cfg.num_layers):
+            bp = tree_map(lambda a: a[i], params["blocks"])
+            bst = tree_map(lambda a: a[i], state["blocks"])
+            out.append((f"block{i}.in", float(1.0 - _lif(x, cfg).mean())))
+            x, _ = _block(bp, bst, cfg, x, train=False)
+    return out

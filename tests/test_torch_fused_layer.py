@@ -11,7 +11,8 @@ against the JAX package.
   the projection phases count live spike blocks, and a dark slab or an
   all-zero input gives the closed forms of ``tests/test_fused_layer.py``;
 * the wrapper takes the plain version for CPU tensors and launches
-  nothing; unported variants raise ``NotImplementedError``.
+  nothing; unported variants raise ``NotImplementedError`` (the decoded
+  variant is held against JAX in ``test_torch_spike_decode.py``).
 
 The CUDA kernel itself is held against the plain version on the card by
 ``chip_smoke.py``.
@@ -136,7 +137,7 @@ def test_wrapper_runs_plain_version_on_cpu_and_launches_nothing():
 
 
 @pytest.mark.parametrize("variant", [dict(family="rope"),
-                                     dict(sparse="decoded"),
+                                     dict(sparse="decoded", pipeline=True),
                                      dict(pipeline=True),
                                      dict(causal=True),
                                      dict(binarize_scores=False)])

@@ -2,9 +2,10 @@
 
 * whole forward: JAX ``registry.init`` params (dyadic-rounded) and a BN
   state with agreeing variances, converted by ``repro_torch.interop``;
-  the port's forward with ``overlap`` off and fused equals jitted JAX
-  ``registry.forward`` (overlap off) bitwise on the logits, for both
-  vision SMOKE configs;
+  the port's forward with ``overlap`` off, fused with the tile path and
+  fused with the decoded path equals jitted JAX ``registry.forward``
+  (overlap off) bitwise on the logits, for both vision SMOKE configs;
+  ``layer_sparsities`` equals JAX's;
 * entry point: the port's ``build_prefill_step`` against JAX's on
   ``init_state`` (var = 1, where XLA's and torch's rsqrt differ by one
   ulp), within a stated tolerance and with the same argmax;
@@ -84,11 +85,34 @@ def test_forward_bitwise_against_jitted_jax(arch):
     tp = interop.to_torch(params, device="cpu")
     ts = interop.to_torch(state, device="cpu")
     tb = interop.to_torch(batch, device="cpu")
-    for overlap in ("off", "fused"):
-        with TE.use_engine(tcfg.engine.replace(overlap=overlap)):
+    for overlap, sparse in (("off", "tile"), ("fused", "tile"),
+                            ("fused", "decoded")):
+        with TE.use_engine(tcfg.engine.replace(overlap=overlap,
+                                               sparse=sparse)):
             logits, aux = TR.forward(tp, tcfg, tb, state=ts)
-        np.testing.assert_array_equal(logits.numpy(), want, err_msg=overlap)
+        np.testing.assert_array_equal(logits.numpy(), want,
+                                      err_msg=f"{overlap} {sparse}")
         assert 0 < float(aux["fire_rate"]) < 1
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_layer_sparsities_match_jax(arch):
+    """Per-layer sparsity (Fig. 11) on the same params, state and images:
+    the spikes agree bitwise, the means to 1e-6 (fp32 sums in another
+    order)."""
+    from repro.models.spikingformer import layer_sparsities as jsparsities
+    from repro_torch.models.spikingformer import layer_sparsities
+    cfg, tcfg, params, state, batch = _setup(arch, seed=2)
+    with JE.use_engine(cfg.engine.replace(overlap="off")):
+        want = jsparsities(params, cfg, batch, state)
+    got = layer_sparsities(interop.to_torch(params, device="cpu"), tcfg,
+                           interop.to_torch(batch, device="cpu"),
+                           interop.to_torch(state, device="cpu"))
+    assert [n for n, _ in got] == [n for n, _ in want]
+    assert len(got) == cfg.num_layers + 1
+    np.testing.assert_allclose([v for _, v in got], [v for _, v in want],
+                               rtol=0, atol=1e-6)
+    assert all(0 < v < 1 for _, v in got)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -147,11 +171,13 @@ def test_dispatch_rules_on_cpu_and_cuda_tensors():
     """'auto' fuses every layer on a CUDA tensor (the card has no flop
     floor: the kernel runs or raises) and takes the oracle on the CPU; the
     same rule sends spike products and spiking attention to their kernels
-    on the card and to the plain paths on the CPU."""
+    on the card and to the plain paths on the CPU. sparse='auto' reads the
+    spikes' occupancy on every device; explicit paths are honoured."""
     auto = TE.EngineConfig(overlap="auto", sparse="auto")
     assert not hasattr(auto, "min_flops")
     assert TE.resolve_overlap(auto, _on("cuda")) == "fused"
-    assert TE.resolve_layer_plan(auto, _on("cuda")) == ("fused", "tile")
+    assert TE.resolve_layer_plan(auto.replace(sparse="tile"),
+                                 _on("cuda")) == ("fused", "tile")
     assert TE.resolve_overlap(auto, _on("cpu")) == "off"
     assert TE.resolve_overlap(auto, None) == "off"
     assert TE.resolve_overlap(None, _on("cuda")) == "off"
@@ -164,12 +190,15 @@ def test_dispatch_rules_on_cpu_and_cuda_tensors():
         for dev in ("cpu", "cuda"):
             assert TE.resolve_overlap(eng, _on(dev)) == ov
             assert TE.resolve_layer_plan(eng, _on(dev)) == (ov, "tile")
-    for dev in ("cpu", "cuda"):
-        assert TE.resolve_sparse_path(auto, _on(dev)) == "tile"
+    dense = torch.ones((2, 1, 16, 64))
+    assert TE.resolve_sparse_path(auto, dense) == "tile"
+    assert TE.resolve_layer_plan(auto, dense) == ("off", "tile")
+    for path in ("tile", "decoded"):
+        for dev in ("cpu", "cuda"):
+            assert TE.resolve_sparse_path(TE.EngineConfig(sparse=path),
+                                          _on(dev)) == path
     with pytest.raises(NotImplementedError):
         TE.resolve_overlap(TE.EngineConfig(overlap="pipeline"), _on("cuda"))
-    with pytest.raises(NotImplementedError):
-        TE.resolve_sparse_path(TE.EngineConfig(sparse="decoded"))
     # spike_linear and the sequential ssa_step are ported; the fused SSA
     # bundle (kernel #6) and quantized weights are not
     tcfg = get_config("spikingformer-4-256", smoke=True)
@@ -205,8 +234,8 @@ def _block_leaves(tcfg):
 def test_unported_layer_paths_raise():
     """Training runs now (train-mode forward and the sequential layer
     step); what is still unported raises naming its ROADMAP item: the
-    cifarnet family, sparse='decoded', overlap='pipeline' and the fused
-    SSA bundle of an ineligible eval layer."""
+    cifarnet family, overlap='pipeline' (with either sparse path) and the
+    fused SSA bundle of an ineligible eval layer."""
     tcfg = get_config("spikingformer-4-256", smoke=True)
     p = TR.init(tcfg, 0, device="cpu")
     batch = {"images": torch.rand((2, 16, 16, 3))}
@@ -223,7 +252,7 @@ def test_unported_layer_paths_raise():
         lambda: TR.init(get_config("spikingformer-4-256").replace(
             family="cifarnet"), device="cpu"),
         lambda: TE.layer_step(bp, st, tcfg, x, engine=TE.EngineConfig(
-            overlap="fused", sparse="decoded")),
+            overlap="pipeline", sparse="decoded")),
         lambda: TE.layer_step(bp, st, tcfg, x, engine=TE.EngineConfig(
             overlap="pipeline")),
         lambda: TE.layer_step(biased, st, tcfg, x, engine=TE.EngineConfig(

@@ -274,14 +274,15 @@ def test_synthetic_images_equal_the_jax_packages_bitwise():
 # --- the whole train step --------------------------------------------------
 
 
-def _train_setup(seed=0, batch=8):
-    """JAX and port SMOKE configs on the kernel modes, numpy dyadic params
-    (BN affines drawn on the grid), init BN state and a batch of
-    synthetic images rounded to k/256."""
+def _train_setup(seed=0, batch=8, **engine):
+    """JAX and port SMOKE configs on the kernel modes (and the ``engine``
+    fields given), numpy dyadic params (BN affines drawn on the grid),
+    init BN state and a batch of synthetic images rounded to k/256."""
     cfg = jget_config(ARCH, smoke=True)
-    cfg = cfg.replace(engine=cfg.engine.replace(**KERNEL_MODES))
+    cfg = cfg.replace(engine=cfg.engine.replace(**KERNEL_MODES, **engine))
     tcfg = get_config(ARCH, smoke=True)
-    tcfg = tcfg.replace(engine=tcfg.engine.replace(**KERNEL_MODES))
+    tcfg = tcfg.replace(engine=tcfg.engine.replace(**KERNEL_MODES,
+                                                   **engine))
     rng = np.random.default_rng(seed)
     params = jax.tree_util.tree_map(
         lambda a: np.asarray(jnp.round(a * 256) / 256),
@@ -345,7 +346,18 @@ def test_train_step_against_the_jitted_jax_train_step():
       lr * g / (|g| + eps), which turns a gradient difference d into up
       to lr * d * eps / (|g| + eps)^2 for gradients near eps = 1e-8; a
       flipped gradient sign would move a param by 2 lr = 2e-3."""
-    cfg, tcfg, params, state, batch = _train_setup()
+    _check_train_step()
+
+
+def test_decoded_train_step_against_the_jitted_jax_train_step():
+    """sparse='decoded' on both sides: the six spike products of every
+    layer run the decoded gather (the port's plain version, JAX's
+    interpret-mode kernel under jit), with the tolerances above."""
+    _check_train_step(sparse="decoded")
+
+
+def _check_train_step(**engine):
+    cfg, tcfg, params, state, batch = _train_setup(**engine)
     flips = _flipped_spikes(cfg, tcfg, params, state, batch)
     print("flipped spikes per layer (stem, blocks):", flips)
     assert sum(f for f, _ in flips) == 0, flips
@@ -474,7 +486,7 @@ def test_unported_training_modes_raise_naming_roadmap():
             engine=TE.EngineConfig(binary="popcount")),
         lambda: TE.spike_linear({"qw": p["w"]}, s,
                                 engine=TE.EngineConfig(mode="sparse")),
-        lambda: TE.spike_linear(p, s, engine=TE.EngineConfig(
+        lambda: TE.spike_linear({"qw": p["w"]}, s, engine=TE.EngineConfig(
             mode="sparse", sparse="decoded")),
         lambda: make_pipeline(DataConfig(kind="lm", global_batch=2)),
     ]
