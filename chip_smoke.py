@@ -18,8 +18,9 @@ device; exits non-zero without one). It
      wo on integer counts, w1, w2; M = 16384) with dark tiles, and at
      ragged shapes with and without bias;
    * ``spike_attention`` at BH = 2048, L = 64, d = 32, at an L that is
-     not a multiple of the query block with ``causal=True``, and with
-     analog scores (within a stated tolerance);
+     not a multiple of the query block with ``causal=True``, at the bf16
+     LM prefill's causal BH = 256, L = 512, and with analog scores
+     (within a stated tolerance);
    * ``gather_spike_matmul`` (the decoded datapath) at the six products
      of a training layer, on ragged fine-grained spikes (rows from empty
      to dense, all-zero groups), random-normal and dyadic weights, and at
@@ -27,6 +28,11 @@ device; exits non-zero without one). It
      against ``spike_matmul``;
    * the fused layer's decoded variant, as the tile one, and on dyadic
      weights bitwise against the tile variant;
+   * the fused layer's rope family (the token family's layer) at the
+     int8 spikingformer-lm prefill's shape (T=4, B=8, S=512, D=256,
+     H=8, hd=32, F=1024), at a ragged S=200, at S=64 and at SMOKE width,
+     on int8 codes with random per-channel fp32 scales: counts equal and
+     outputs bitwise equal, bf16 and fp32;
 3. drives the main paths, each with every launch count and every
    ``sparse='auto'`` decision count set to 0 just before and read just
    after, each three times: with the published ``sparse='auto'`` (its
@@ -39,13 +45,25 @@ device; exits non-zero without one). It
      schedule, 6 steps of 64 synthetic images (per step 24 sparse
      products, ``spike_matmul`` or ``gather_spike_matmul``, and
      ``spike_attention`` 4 times; the fused kernel never);
+   * spikingformer-lm, once each: the int8 tree through
+     ``build_prefill_step`` for 3 requests of 8 x 512 tokens (2
+     ``fused_layer_rope`` launches a layer call; 'auto' decides 'tile'
+     on every analog ln1 output), the bf16 tree likewise (1 causal
+     ``spike_attention`` launch a layer call), the int8 server (8 slots,
+     16 requests of 100-500 prompt tokens, 32 new tokens each, tokens
+     per second; its decode step and chunked prefill are plain PyTorch and
+     launch no kernel) and one int8 Spikingformer-4-256 request;
 4. checks the outputs: finite logits of the right shape and, on 8 images
    with dyadic weights, the fused path ('auto' and 'decoded') equal
    bitwise to the sequential oracle (``overlap='off'``); finite losses
    and grad norms, every param moved; and, for each sparse setting, one
    train step through the kernels equal bitwise (loss, every gradient,
    the new BN state) to the same step with the kernels swapped for their
-   plain versions. It prints ``layer_sparsities`` of one request.
+   plain versions; the LM prefills (int8 and bf16, one 8 x 512 request)
+   through the kernels equal bitwise to them through the plain versions;
+   each server request's first token equal to the argmax of the prefill
+   step's last-position logits wherever their top-2 margin exceeds
+   SERVE_MARGIN. It prints ``layer_sparsities`` of one request.
 
 It prints the card's name and power limit, a JSON line of per-kernel
 numbers, and last a JSON line ``{"ok": true, "device": {...}}``.
@@ -58,6 +76,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -75,10 +95,13 @@ from repro_torch.kernels import spike_attention as SA  # noqa: E402
 from repro_torch.kernels import spike_decode as SD  # noqa: E402
 from repro_torch.kernels import spike_matmul as SM  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
+from repro_torch.launch.serve import BatchedServer, Request  # noqa: E402
 from repro_torch.launch.train import make_batch_fn  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.models.spikingformer import layer_sparsities  # noqa: E402
+from repro_torch.models.nn import rmsnorm, rope_table  # noqa: E402
 from repro_torch.optim import adamw, warmup_cosine  # noqa: E402
+from repro_torch.quant import quantize_tree, quantize_weight  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 CUDA cores,
@@ -104,10 +127,27 @@ MATMULS = [("q", D, H * HD, False), ("k", D, H * HD, False),
 # ragged (M, K, N): scalar loads (K, N not multiples of the 16-byte
 # vector) and vector loads with ragged tiles
 MATMUL_RAGGED = [(1000, 100, 70), (1000, 264, 200)]
-# spike_attention (BH, L, d, causal): the training shape, and an L that is
-# not a multiple of the 64-query block
-ATTENTION = [(T * B * H, L, HD, False), (64, 77, HD, True)]
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR = 6, 64, 2e-3
+# spikingformer-lm at full width (T=4, D=256, H=8, hd=32, F=1024): the
+# rope family of the fused layer at a prefill of 8 x 512 tokens, a ragged
+# S=200 (a partial L-block) and S=64; l_block is the engine's block_m
+LM_FULL = (4, 8, 512, 256, 8, 32, 1024)
+ROPE_CASES = [("S=512", LM_FULL, 128),
+              ("ragged S=200", (4, 8, 200, 256, 8, 32, 1024), 128),
+              ("S=64", (4, 8, 64, 256, 8, 32, 1024), 128),
+              ("SMOKE width, S=13", (2, 2, 13, 64, 4, 16, 128), 8)]
+LM_REQUESTS, LM_BATCH, LM_PROMPT = 3, 8, 512
+# spike_attention (BH, L, d, causal): the training shape, an L that is not
+# a multiple of the 64-query block, and the bf16 LM prefill's causal shape
+ATTENTION = [(T * B * H, L, HD, False), (64, 77, HD, True),
+             (T * LM_BATCH * H, LM_PROMPT, HD, True)]
+# the server: slots, requests, prompt lengths, new tokens, cache length
+SERVE_SLOTS, SERVE_REQUESTS, SERVE_NEW, SERVE_MAX_LEN = 8, 16, 32, 1024
+SERVE_PROMPTS = (100, 500)
+# a first token is held to the prefill step's argmax only where the
+# prefill logits' top-2 margin exceeds this (the decode path sums its
+# products in another order than the fused kernel)
+SERVE_MARGIN = 0.1
 KERNEL_MODULES = (FL, SM, SA, SD)
 
 
@@ -178,34 +218,95 @@ def cuda_ms(fn, warmup=3, calls=20, repeats=5):
     return statistics.median(times)
 
 
-def layer_bound_ms(args, counts, dtype, l_block=64, decoded=False):
+def layer_bound_ms(args, counts, dtype, l_block=64, decoded=False,
+                   shape=FULL, causal=False):
     """Least time for the layer on the card: the executed multiply-adds
     at the dtype's peak, or each input read once and each output written
     once at the memory rate, whichever is larger. The executed work is
-    that of the executed sub-blocks; a decoded projection's is one
-    multiply-add per live spike and output column."""
+    that of the executed sub-blocks (a causal score or context block
+    counts only its (query, key) pairs on or below the diagonal); a
+    decoded projection's is one multiply-add per live spike and output
+    column."""
+    _, _, L, D, H, HD, FF = shape
     x, s = args[0], args[1]
     nlb = counts.shape[-1]
     rows = torch.tensor([min(L, (lb + 1) * l_block) - lb * l_block
                          for lb in range(nlb)], dtype=torch.float64)
+    pairs = rows * L
+    if causal:              # keys j of the block meet queries j .. L-1
+        pairs = torch.tensor([sum(L - j for j in range(
+            lb * l_block, min(L, (lb + 1) * l_block))) for lb in range(nlb)],
+            dtype=torch.float64)
     c = counts.double().cpu()
     ffc = FF // H
-    macs_per_row = torch.tensor([D * HD] * 3 + [L * HD, L * HD, HD * D,
-                                                D * ffc, ffc * D],
-                                dtype=torch.float64)
-    per_phase = (c * rows[None, None, :]
-                 * macs_per_row[None, :, None]).sum(dim=(0, 2))
+    per_block = torch.stack([rows * D * HD] * 3 + [pairs * HD, pairs * HD]
+                            + [rows * HD * D, rows * D * ffc, rows * ffc * D])
+    per_phase = (c * per_block[None]).sum(dim=(0, 2))
     if decoded:
         per_phase[:3] = float((s != 0).sum()) * H * HD
     ops_s = 2 * float(per_phase.sum()) / PEAK_FLOPS[dtype]
     es = x.element_size()
     n_bytes = (3 * x.numel() * es
                + sum(w.numel() for w in args[2:6]) * es
-               + sum(a.numel() * 4 for a in (*args[6], *args[7:12]))
+               + sum(a.numel() * 4 for a in (*args[6], *args[7:12])
+                     if a is not None)
                + counts.numel() * 4)
     bytes_s = n_bytes / PEAK_BYTES
     return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s
                                        else "bytes")
+
+
+def rope_operands(seed, dtype, shape=LM_FULL, l_block=128):
+    """Rope-family operands as ``layer_step_causal`` builds them for an
+    int8 layer: a residual stream with one all-zero token, its ln1 output
+    (a random norm scale), int8 codes of random-normal weights with their
+    per-channel fp32 scales, the RoPE table, a random ln2 scale."""
+    T, B, L, D, H, HD, FF = shape
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((T, B, L, D), generator=gen) * 0.5
+    x[:, :, min(3, L - 1)] = 0.0
+    s = rmsnorm({"scale": 1.0 + 0.1 * torch.randn((D,), generator=gen)}, x)
+
+    def quant(k, n):
+        q = quantize_weight(torch.randn((k, n), generator=gen) / math.sqrt(k))
+        return q["qw"].float(), q["scale"]
+    (wq, sq), (wk, sk), (wv, sv) = (quant(D, H * HD) for _ in range(3))
+    (wo, so), (w1, s1), (w2, s2) = quant(H * HD, D), quant(D, FF), quant(FF, D)
+    cos, sin = rope_table(torch.arange(L), HD, 10000.0)
+    ops = (x.to(dtype), s.to(dtype), torch.stack([wq, wk, wv]).to(dtype),
+           wo.to(dtype), w1.to(dtype), w2.to(dtype),
+           (torch.stack([sq, sk, sv]), so, s1, s2), torch.stack([cos, sin]),
+           (1.0 + 0.1 * torch.randn((1, D), generator=gen)), None, None,
+           torch.tensor(0.3))
+    ops = tree_map(lambda a: None if a is None else a.cuda(), ops)
+    return FL.prepare(*ops, num_heads=H, head_dim=HD,
+                      scale=1.0 / math.sqrt(HD), decay=0.5, v_th=1.0,
+                      soft_reset=False, eps=1e-5, l_block=l_block,
+                      family="rope", causal=True)
+
+
+def check_rope_kernel(dtype, what, shape, l_block):
+    """The rope family, kernel vs plain version on int8 codes: counts
+    equal and outputs bitwise equal (the analog products are summed in
+    one order by both; the spike and count products are exact)."""
+    args, kw = rope_operands(11, dtype, shape, l_block)
+    out_k, cnt_k = FL.fused_layer_cuda(*args, **kw)
+    out_p, cnt_p = FL.fused_layer_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((out_k.float() - out_p.float()).abs().max())
+    name = f"fused_layer_rope {dtype} {what} {tuple(shape)}"
+    if not (torch.equal(out_k, out_p) and torch.equal(cnt_k, cnt_p)):
+        cfg_s = SpikingConfig(time_steps=shape[0])
+        flips = int((lif_scan(out_k, cfg_s)[0]
+                     != lif_scan(out_p, cfg_s)[0]).sum())
+        raise AssertionError(f"{name}: kernel != plain version (max abs diff "
+                             f"{err}, counts equal "
+                             f"{torch.equal(cnt_k, cnt_p)}, LIF(out) spikes "
+                             f"that differ {flips})")
+    log(f"{name}, l_block {kw['l_block']}: bitwise equal to the plain "
+        f"version; counts per phase {cnt_k.sum(dim=(0, 2)).tolist()}, "
+        f"output std {float(out_k.float().std()):.4f}")
+    return err
 
 
 def check_layer_kernel(dtype, what="full width", shape=FULL, l_block=64,
@@ -458,41 +559,42 @@ def check_attention(dtype, bh, l, d, causal, binarize=True):
     return err
 
 
-def time_attention():
-    """The training shape, bf16 (cuda_ms). No single PyTorch call
-    computes binarized attention (scaled_dot_product_attention applies a
-    softmax), so there is no library time. Bound: q, k, v read once and
-    the context written once, or both products' multiply-adds at the
-    bf16 tensor peak."""
-    bh, l, d, _ = ATTENTION[0]
+def time_attention(bh, l, d, causal):
+    """bf16 (cuda_ms). No single PyTorch call computes binarized
+    attention (scaled_dot_product_attention applies a softmax), so there
+    is no library time. Bound: q, k, v read once and the context written
+    once, or both products' multiply-adds at the bf16 tensor peak (with
+    ``causal``, only the query-key pairs on or below the diagonal)."""
     q, k, v = attention_operands(7, bh, l, d, torch.bfloat16)
     kw = dict(scale=1.0 / math.sqrt(d),
-              delta=torch.tensor(0.3, device=q.device))
+              delta=torch.tensor(0.3, device=q.device), causal=causal)
     ms = cuda_ms(lambda: SA.spike_attention_cuda(q, k, v, **kw))
     plain_ms = cuda_ms(lambda: SA.spike_attention_plain(q, k, v, **kw))
-    ops_s = 2 * 2 * bh * l * l * d / PEAK_FLOPS[torch.bfloat16]
+    pairs = l * (l + 1) // 2 if causal else l * l
+    ops_s = 2 * 2 * bh * pairs * d / PEAK_FLOPS[torch.bfloat16]
     bytes_s = 4 * q.numel() * q.element_size() / PEAK_BYTES
     bound = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                  bound_ms=1e3 * max(ops_s, bytes_s),
                  bound_by="operations" if ops_s >= bytes_s else "bytes")
-    log(f"spike_attention bf16 BH={bh} L={l} d={d}: {bound}")
+    log(f"spike_attention bf16 BH={bh} L={l} d={d} causal={causal}: {bound}")
     return bound
 
 
 class plain_kernels:
-    """Within the scope, the CUDA launchers of the spike kernels run their
-    plain versions on the card's tensors instead (and count nothing)."""
+    """Within the scope, the CUDA launchers of the kernels run their plain
+    versions on the card's tensors instead (and count nothing)."""
 
     def __enter__(self):
         self.saved = (SM.spike_matmul_cuda, SA.spike_attention_cuda,
-                      SD.gather_spike_matmul_cuda)
+                      SD.gather_spike_matmul_cuda, FL.fused_layer_cuda)
         SM.spike_matmul_cuda = SM.spike_matmul_plain
         SA.spike_attention_cuda = SA.spike_attention_plain
         SD.gather_spike_matmul_cuda = SD.gather_spike_matmul_plain
+        FL.fused_layer_cuda = FL.fused_layer_plain
 
     def __exit__(self, *exc):
         (SM.spike_matmul_cuda, SA.spike_attention_cuda,
-         SD.gather_spike_matmul_cuda) = self.saved
+         SD.gather_spike_matmul_cuda, FL.fused_layer_cuda) = self.saved
 
 
 def dyadic_params(params):
@@ -636,6 +738,185 @@ def check_train_gradients(cfg):
         f"{tile} tile, {dec} decoded)")
 
 
+def time_rope_kernel():
+    """#1c at the prefill's shape (LM_FULL), bf16 int8 codes: kernel and
+    plain version (cuda_ms; the plain version, ~1000 sequential k-steps,
+    over fewer calls) and the bound of its executed work."""
+    args, kw = rope_operands(3, torch.bfloat16)
+    ms = cuda_ms(lambda: FL.fused_layer_cuda(*args, **kw))
+    plain_ms = cuda_ms(lambda: FL.fused_layer_plain(*args, **kw), warmup=1,
+                       calls=2, repeats=3)
+    _, counts = FL.fused_layer_cuda(*args, **kw)
+    bound_ms, bound_by = layer_bound_ms(args, counts, torch.bfloat16,
+                                        kw["l_block"], shape=LM_FULL,
+                                        causal=True)
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None)
+    log(f"fused_layer_rope bf16 {LM_FULL}: {row}")
+    return row
+
+
+def lm_config(quantize):
+    """The published spikingformer-lm with seeded random weights; with
+    ``quantize`` the int8 tree and the int8 weights declaration, as
+    ``launch/serve.py --quantize int8`` loads it."""
+    cfg = get_config("spikingformer-lm")
+    params = registry.init(cfg, seed=0)
+    if quantize:
+        params = quantize_tree(params, "int8")
+        cfg = cfg.replace(engine=cfg.engine.replace(weights="int8"))
+    return cfg, params
+
+
+def lm_prefill_path(cfg, params, requests, what):
+    """``build_prefill_step`` answering ``requests`` of LM_BATCH x
+    LM_PROMPT tokens, the counts reset just before: the int8 model runs
+    2 ``fused_layer_rope`` launches a layer call and 'auto' decides
+    'tile' on every analog ln1 output; the bf16 model's layers are not
+    eligible for the layer program and run 1 causal ``spike_attention``
+    a layer call. Per-request times, finite logits."""
+    step = steps.build_prefill_step(cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    req_ms, outs = [], []
+    for batch in requests:
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        req_ms.append(1e3 * (time.perf_counter() - t0))
+        outs.append(logits)
+    counts, decisions = launches(), dict(E.SPARSE_DECISIONS)
+    n = cfg.num_layers * len(requests)
+    log(f"lm prefill path, {what}: {len(requests)} requests x {LM_BATCH} x "
+        f"{LM_PROMPT} tokens, per-request ms {[round(m, 3) for m in req_ms]}"
+        f", sparse decisions {decisions}, launches {counts}")
+    want = dict.fromkeys(counts, 0)
+    if what == "int8":
+        want["fused_layer_rope"] = FL.LAUNCHES_PER_CALL * n
+        want_dec = {"tile": n, "decoded": 0}
+    else:
+        want["spike_attention"] = n
+        want_dec = {"tile": 0, "decoded": 0}
+    if counts != want or decisions != want_dec:
+        raise AssertionError(f"lm prefill path {what}: launches {counts}, "
+                             f"decisions {decisions}; expected {want}, "
+                             f"{want_dec}")
+    for logits in outs:
+        if logits.shape != (LM_BATCH, LM_PROMPT, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"bad lm logits {tuple(logits.shape)}")
+    return counts, req_ms
+
+
+def check_lm_prefill(cfg, params, batch, what):
+    """The prefill of one main-path request (LM_BATCH x LM_PROMPT tokens)
+    through the kernels == through their plain versions, bitwise."""
+    step = steps.build_prefill_step(cfg)
+    got = step(params, batch)
+    with plain_kernels():
+        want = step(params, batch)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"lm prefill {what}: through the kernels != "
+                             f"through the plain versions (max abs diff "
+                             f"{float((got - want).abs().max())})")
+    log(f"check, lm prefill {what}: logits through the kernels == through "
+        f"the plain versions bitwise on {LM_BATCH} x {LM_PROMPT} tokens, "
+        f"logit std {float(got.std()):.4f}")
+
+
+def serve_path(cfg, params):
+    """The int8 server at full width: SERVE_REQUESTS requests with random
+    prompts of SERVE_PROMPTS tokens over SERVE_SLOTS slots, SERVE_NEW new
+    tokens each, cache SERVE_MAX_LEN. Tokens per second on the host clock
+    around the synchronised run; the run launches no kernel and makes no
+    'auto' decision. Each request's first generated token
+    equals the argmax of the prefill step's last-position logits on its
+    prompt wherever their top-2 margin exceeds SERVE_MARGIN."""
+    rng = np.random.default_rng(5)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab_size, int(rng.integers(SERVE_PROMPTS[0],
+                                            SERVE_PROMPTS[1] + 1))
+    ).astype(np.int32), max_new_tokens=SERVE_NEW)
+        for i in range(SERVE_REQUESTS)]
+    server = BatchedServer(cfg, params, SERVE_SLOTS, SERVE_MAX_LEN,
+                           trace_logits=True)
+    for r in reqs:
+        server.submit(r)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    waves = server.run()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = launches()
+    n_gen = sum(len(r.generated) for r in server.completed)
+    n_pre = sum(len(r.prompt) for r in server.completed)
+    row = dict(seconds=sec, waves=waves, generated=n_gen, prompt=n_pre,
+               tokens_per_s=(n_gen + n_pre) / sec,
+               generated_per_s=n_gen / sec, kv=server.kv_cache_stats())
+    decisions = dict(E.SPARSE_DECISIONS)
+    log(f"serve path, int8: {row}; launches {counts}, sparse decisions "
+        f"{decisions}")
+    if counts != dict.fromkeys(counts, 0) or any(decisions.values()):
+        raise AssertionError(f"serve path: launches {counts}, decisions "
+                             f"{decisions}; the decode step and its chunked "
+                             f"prefill are plain PyTorch and launch nothing")
+    if len(server.completed) != SERVE_REQUESTS or \
+            any(len(r.generated) != SERVE_NEW for r in server.completed):
+        raise AssertionError("the server did not complete every request")
+    prefill = steps.build_prefill_step(cfg)
+    checked, max_diff = 0, 0.0
+    for r in server.completed:
+        want = prefill(params, {"tokens": torch.from_numpy(r.prompt)[None]
+                                .cuda()})[0, -1]
+        got = torch.from_numpy(r.logit_trace[0]).cuda()
+        max_diff = max(max_diff, float((got - want).abs().max()))
+        top2 = want.topk(2).values
+        if float(top2[0] - top2[1]) > SERVE_MARGIN:
+            checked += 1
+            if r.generated[0] != int(want.argmax()):
+                raise AssertionError(f"request {r.rid}: first token "
+                                     f"{r.generated[0]} != prefill argmax "
+                                     f"{int(want.argmax())}")
+    log(f"check, serve: {checked} of {len(server.completed)} requests with "
+        f"a top-2 margin above {SERVE_MARGIN}: first token == the prefill "
+        f"step's argmax; max abs diff of the first-token logits, decode "
+        f"path vs prefill step: {max_diff}")
+    return row
+
+
+def vision_int8_path():
+    """One int8 Spikingformer-4-256 request of 64 images: every layer is
+    all-quantized, so eligible for the layer program: 2 fused-layer
+    launches a layer, the variant the 'auto' decisions name."""
+    cfg = get_config("spikingformer-4-256")
+    params = quantize_tree(registry.init(cfg, seed=0), "int8")
+    cfg = cfg.replace(engine=cfg.engine.replace(weights="int8"))
+    gen = torch.Generator().manual_seed(6)
+    v = cfg.vision
+    batch = {"images": torch.rand((REQUEST_BATCH, v.img_size, v.img_size,
+                                   v.in_channels), generator=gen)}
+    step = steps.build_prefill_step(cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = launches()
+    tile, dec = sparse_split(cfg.engine, cfg.num_layers)
+    want = dict.fromkeys(counts, 0)
+    want["fused_layer"] = FL.LAUNCHES_PER_CALL * tile
+    want["fused_layer_decoded"] = FL.LAUNCHES_PER_CALL * dec
+    log(f"vision int8 request: {ms:.3f} ms (first call), launches {counts}")
+    if counts != want or logits.shape != (REQUEST_BATCH, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"vision int8 request: launches {counts} "
+                             f"(expected {want}), logits "
+                             f"{tuple(logits.shape)}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -692,6 +973,11 @@ def main():
                 f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
                 f"({bound_by})")
 
+    # --- the rope family (#1c) against its plain version ----------------
+    rope_err = max(check_rope_kernel(dt, *case) for dt in dtypes
+                   for case in ROPE_CASES)
+    rope_timing = time_rope_kernel()
+
     # --- spike kernels against their plain versions ---------------------
     matmul_err = max(
         [check_matmul(dt, what, M_TRAIN, k, n, counts)
@@ -718,7 +1004,8 @@ def main():
                                   SD.gather_spike_matmul_plain,
                                   gather_bound_ms)
     time_gather_parts()
-    attn_timing = time_attention()
+    attn_timing = time_attention(*ATTENTION[0])
+    time_attention(*ATTENTION[-1])
 
     # --- the inference main paths ----------------------------------------
     cfg = get_config("spikingformer-4-256")
@@ -758,6 +1045,22 @@ def main():
         f"{float(res['fused', 'decoded'][1]['fire_rate']):.4f}, logit std "
         f"{float(res['fused', 'decoded'][0].std()):.4f}")
 
+    # --- spikingformer-lm: int8 and bf16 prefill, the int8 server -------
+    lm_q = lm_config(quantize=True)
+    lm_bf16 = lm_config(quantize=False)
+    gen = torch.Generator().manual_seed(7)
+    lm_requests = [{"tokens": torch.randint(0, lm_q[0].vocab_size,
+                                            (LM_BATCH, LM_PROMPT),
+                                            generator=gen)}
+                   for _ in range(LM_REQUESTS)]
+    lm_counts, _ = lm_prefill_path(*lm_q, lm_requests, "int8")
+    lm_prefill_path(*lm_bf16, lm_requests, "bf16")
+    lm_check = {"tokens": lm_requests[0]["tokens"].cuda()}
+    check_lm_prefill(*lm_q, lm_check, "int8")
+    check_lm_prefill(*lm_bf16, lm_check, "bf16")
+    serve_path(*lm_q)
+    vision_int8_path()
+
     # --- the training main paths, then their gradient checks ------------
     train_counts = {sp: train_path(c) for sp, c in engines.items()}
     for c in engines.values():
@@ -787,7 +1090,11 @@ def main():
                  replaces="src/repro/kernels/fused_layer.py:420",
                  launches=eval_counts["decoded"]["fused_layer_decoded"],
                  max_abs_err=layer_err["decoded"],
-                 **layer_timing["decoded", bf16])]
+                 **layer_timing["decoded", bf16]),
+            dict(name="fused_layer_rope", source=csrc + "fused_layer.cu",
+                 replaces="src/repro/kernels/fused_layer.py:420",
+                 launches=lm_counts["fused_layer_rope"], max_abs_err=rope_err,
+                 **rope_timing)]
     log(json.dumps({"kernels": [dict(route="cuda", **r) for r in rows]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

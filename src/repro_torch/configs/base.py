@@ -1,5 +1,5 @@
-"""Config dataclasses (the subset of ``repro.configs.base`` the vision
-family uses). Every config module exports ``CONFIG`` (the published
+"""Config dataclasses (the subset of ``repro.configs.base`` that the
+vision family and the token family's spiking LM use). Every config module exports ``CONFIG`` (the published
 shape) and ``SMOKE`` (a reduced same-family config for CPU tests)."""
 from __future__ import annotations
 
@@ -8,6 +8,10 @@ from typing import Optional
 
 from repro_torch.core.engine import EngineConfig
 from repro_torch.core.spiking import SpikingConfig
+
+
+ATTN_TYPES = ("full", "swa", "local_global")
+ACTIVATIONS = ("silu", "gelu", "relu2")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,7 +25,7 @@ class VisionSpec:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # spikingformer | cifarnet
+    family: str                      # spikingformer | cifarnet | dense
     num_layers: int
     d_model: int
     num_heads: int
@@ -29,6 +33,17 @@ class ModelConfig:
     head_dim: int
     d_ff: int
     vocab_size: int
+    # attention (token family)
+    attn_type: str = "full"          # full | swa | local_global
+    window: int = 4096
+    global_every: int = 6            # local_global: one global layer per N
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    # mlp (token family)
+    act: str = "silu"                # silu | gelu | relu2
+    gated: bool = True
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
     vision: Optional[VisionSpec] = None
     spiking: Optional[SpikingConfig] = None
     # dual-engine dispatch installed around the forward by the step
@@ -36,12 +51,28 @@ class ModelConfig:
     engine: Optional[EngineConfig] = None
     dtype: str = "bfloat16"
 
+    def __post_init__(self):
+        if self.attn_type not in ATTN_TYPES:
+            raise ValueError(f"unknown attn_type {self.attn_type!r} "
+                             f"(expected {'|'.join(ATTN_TYPES)})")
+        if self.act not in ACTIVATIONS:
+            raise ValueError(f"unknown act {self.act!r} "
+                             f"(expected {'|'.join(ACTIVATIONS)})")
+        for name in ("window", "global_every"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1, got "
+                                 f"{getattr(self, name)}")
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
     @property
     def q_dim(self) -> int:
         return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,17 +1,19 @@
 """Dual-engine dispatch: per-matmul and per-attention engine selection,
 and the layer program (the subset the vision family's eval and train
-paths need).
+paths and the token family's spiking LM need).
 
 Mirrors ``repro.core.engine``: ``EngineConfig`` and its validation, the
 ambient engine (``use_engine`` / ``engine_scope``), the dispatch rules,
 ``spike_linear`` (dense, or the sparse engine's tile kernel
 ``spike_matmul`` or decoded kernel ``gather_spike_matmul``, with the
-dense-transpose backward of the JAX custom VJP), the sequential branch
-of ``ssa_step``, and ``layer_step``: an eligible eval layer goes either
-to the sequential oracle (``overlap='off'``) or to the fused layer
-program (``overlap='fused'``, ``kernels/fused_layer``, with the tile or
-the decoded projection datapath); train mode and ineligible layers take
-the sequential composition.
+dense-transpose backward of the JAX custom VJP), ``dense_quant_linear``
+(the quantized dense reference), the sequential branches of ``ssa_step``
+and ``ssa_step_causal``, and the two layer programs: ``layer_step``
+(vision, ``bn`` epilogues) and ``layer_step_causal`` (token family,
+RoPE / rmsnorm epilogues, causal). An eligible eval layer goes either to
+the sequential oracle (``overlap='off'``) or to the fused layer program
+(``overlap='fused'``, ``kernels/fused_layer``); train mode and
+ineligible layers take the sequential composition.
 
 The port's 'auto' rules for ``mode``, ``binary`` and ``overlap`` read
 the device, not JAX's flop floor: on a CUDA tensor 'auto' always picks
@@ -24,8 +26,9 @@ tensor is always concrete: it reads the occupancy histogram
 
 Not ported yet, and raising ``NotImplementedError`` instead of falling
 back silently: ``overlap='pipeline'``, the fused SSA bundle
-(``ssa_step`` with ``overlap='fused'``) and quantized weights (ROADMAP
-queue 1 item 6, queue 2).
+(``ssa_step`` / ``ssa_step_causal`` with ``overlap='fused'``) and the
+int8 sparse kernels that quantized spike products reach on the sparse
+path (ROADMAP queue 2).
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ SPARSE_PATHS = ("tile", "decoded")
 OVERLAP_MODES = ("off", "fused", "pipeline")
 ENGINE_MODES = ("dense", "sparse")
 BINARY_MODES = ("jnp", "mxu_kernel", "popcount")
+WEIGHT_DATAPATHS = ("fp32", "int8", "int4")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -71,7 +75,12 @@ class EngineConfig:
     block_k: the decoded path's compacted chunk (``c_block``) and the
       tile width 'auto' reads — it decides the decoded capacities and the
       executed-chunk counts, so it is kept;
-    overlap: 'off' | 'fused' | 'pipeline' | 'auto' — the layer program.
+    overlap: 'off' | 'fused' | 'pipeline' | 'auto' — the layer program;
+    packed_kv: spiking decode caches store K/V bit-packed (32-bit words)
+      and score against them with AND-popcount;
+    weights: the declared weight datapath, 'fp32' | 'int8' | 'int4'
+      (``launch/serve.py --quantize`` sets it); :func:`spike_linear`
+      checks that it is handed such codes.
 
     JAX's ``min_flops`` is left out: the port's 'auto' does not read it
     (see :func:`resolve_mode`). So are the TPU kernels' other VMEM tile
@@ -83,9 +92,14 @@ class EngineConfig:
     block_m: int = 128
     block_k: int = 128
     binary: str = "auto"
+    packed_kv: bool = True
     overlap: str = "off"
+    weights: str = "fp32"
 
     def __post_init__(self):
+        if self.weights not in WEIGHT_DATAPATHS:
+            raise ValueError(f"unknown weights datapath {self.weights!r} "
+                             f"(expected fp32|int8|int4)")
         if self.mode not in ENGINE_MODES + ("auto",):
             raise ValueError(f"unknown engine mode {self.mode!r} "
                              f"(expected dense|sparse|auto)")
@@ -244,6 +258,30 @@ def dense_spike_linear(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def _unpacked_qw(p: Dict[str, Any], k: int) -> torch.Tensor:
+    """int8 weight codes of a quantized param dict (int4 nibbles are
+    unpacked here; storage stays packed)."""
+    qw = p["qw"]
+    if qw.dtype == torch.uint8:
+        from repro_torch.quant.quantize import unpack_int4
+        qw = unpack_int4(qw, k)
+    return qw
+
+
+def dense_quant_linear(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """The quantized dense reference: fp32-accumulated product against the
+    int codes cast to the activation dtype, the per-output-channel scale
+    (+ bias, as one fused multiply-add, the jitted reference's rounding)
+    in the epilogue, cast back to the activation dtype. On analog inputs
+    this is weight-only quantized compute."""
+    from repro_torch.models.nn import fma32
+    qw = _unpacked_qw(p, x.shape[-1])
+    acc = x.float() @ qw.to(x.dtype).float()
+    if "b" in p:        # jitted XLA contracts acc * scale + b into an FMA
+        return fma32(acc, p["scale"].float(), p["b"].float()).to(x.dtype)
+    return (acc * p["scale"].float()).to(x.dtype)
+
+
 class _SparseMatmul(torch.autograd.Function):
     """The sparse engine's kernel forward — ``spike_matmul`` on the tile
     path, ``gather_spike_matmul`` on the decoded path — its fp32
@@ -282,10 +320,25 @@ def spike_linear(p: Dict[str, Any], x: torch.Tensor, *,
     to ``x.dtype`` (JAX's cast, fused into the kernel's store).
     ``engine=None`` uses the ambient engine; no engine means dense."""
     engine = engine if engine is not None else get_engine()
-    if "qw" in p:
-        raise _not_ported("quantized weights", "queue 1 item 6")
+    quantized = "qw" in p
+    if engine is not None and engine.weights != "fp32":
+        # the declared datapath is a contract: a config serving int8 must
+        # be handed int8 codes (an int4 declaration accepts int8-stored
+        # codes too, which the int4 quantizer keeps for odd K)
+        if not (quantized and (engine.weights == "int4"
+                               or p["qw"].dtype == torch.int8)):
+            actual = "fp32 (unquantized)" if not quantized \
+                else "packed int4"
+            raise ValueError(
+                f"engine declares weights={engine.weights!r} but this "
+                f"linear's params are {actual} (quantize_tree the params "
+                f"or fix EngineConfig.weights)")
     if resolve_mode(engine, x) == "dense":
-        return dense_spike_linear(p, x)
+        return dense_quant_linear(p, x) if quantized \
+            else dense_spike_linear(p, x)
+    if quantized:
+        raise _not_ported("the int8 sparse kernels (quant_spike_matmul, "
+                          "quant_gather_spike_matmul)", "queue 2 #3/#5")
     k, n = x.shape[-1], p["w"].shape[-1]
     x2d = x.reshape(-1, k)
     out = _SparseMatmul.apply(x2d, p["w"], p.get("b"),
@@ -310,7 +363,9 @@ def ssa_step(p: Dict[str, Any], st: Dict[str, Any], cfg, s: torch.Tensor, *,
     t, b, l, _ = s.shape
     heads, hd = cfg.num_heads, cfg.head_dim
     names = (("q", "wq"), ("k", "wk"), ("v", "wv"))
-    eligible = not train and not any("b" in p[w] for _, w in names)
+    quant = ["qw" in p[w] for _, w in names]
+    eligible = (not train and (all(quant) or not any(quant))
+                and not any("b" in p[w] for _, w in names))
     if eligible and resolve_overlap(engine, s) == "fused":
         raise _not_ported("the fused SSA bundle (ssa_step with "
                           "overlap='fused')", "queue 2 #6")
@@ -331,10 +386,19 @@ def ssa_step(p: Dict[str, Any], st: Dict[str, Any], cfg, s: torch.Tensor, *,
     return ctx.transpose(1, 2).reshape(t, b, l, cfg.q_dim), new_st
 
 
-def _layer_linear(p: Dict[str, Any], dtype: torch.dtype):
-    """(weight, fp32 ones scale) for one fp layer linear."""
+def _layer_quant_w3(p, names, d: int, dtype: torch.dtype):
+    """(stacked q/k/v codes in the activation dtype, (3, q_dim) scales)
+    for an all-quantized layer."""
+    w3 = torch.stack([_unpacked_qw(p[w], d) for w in names]).to(dtype)
+    sc3 = torch.stack([p[w]["scale"].float() for w in names])
+    return w3, sc3
+
+
+def _layer_linear(p: Dict[str, Any], k: int, dtype: torch.dtype):
+    """(weight codes or weights in the activation dtype, fp32 scale or
+    ones) for one layer linear, quantized or native."""
     if "qw" in p:
-        raise _not_ported("quantized weights", "queue 1 item 6")
+        return _unpacked_qw(p, k).to(dtype), p["scale"].float()
     w = p["w"]
     return w.to(dtype), torch.ones(w.shape[-1], dtype=torch.float32,
                                    device=w.device)
@@ -383,8 +447,11 @@ def layer_step(p: Dict[str, Any], st: Dict[str, Any], cfg, x: torch.Tensor,
     from repro_torch.kernels.fused_layer import fused_layer, reference_layer
     engine = engine if engine is not None else get_engine()
     heads, hd = cfg.num_heads, cfg.head_dim
+    d = x.shape[-1]
     lin_names = ("wq", "wk", "wv", "wo", "w1", "w2")
+    quant = ["qw" in p[w] for w in lin_names]
     eligible = (not train
+                and (all(quant) or not any(quant))
                 and not any("b" in p[w] for w in lin_names)
                 and cfg.spiking.binarize_scores
                 and not cfg.spiking.binarize_context)
@@ -394,12 +461,15 @@ def layer_step(p: Dict[str, Any], st: Dict[str, Any], cfg, x: torch.Tensor,
                                  engine=engine)
     plan = resolve_layer_plan(engine, s)
     dtype = x.dtype
-    w3 = torch.stack([_layer_linear(p[w], dtype)[0]
-                      for w in ("wq", "wk", "wv")])
-    sc3 = torch.ones((3, cfg.q_dim), dtype=torch.float32, device=x.device)
-    wo, sco = _layer_linear(p["wo"], dtype)
-    w1, sc1 = _layer_linear(p["w1"], dtype)
-    w2, sc2 = _layer_linear(p["w2"], dtype)
+    if all(quant):
+        w3, sc3 = _layer_quant_w3(p, ("wq", "wk", "wv"), d, dtype)
+    else:
+        w3 = torch.stack([p[w]["w"].to(dtype) for w in ("wq", "wk", "wv")])
+        sc3 = torch.ones((3, cfg.q_dim), dtype=torch.float32,
+                         device=x.device)
+    wo, sco = _layer_linear(p["wo"], cfg.q_dim, dtype)
+    w1, sc1 = _layer_linear(p["w1"], d, dtype)
+    w2, sc2 = _layer_linear(p["w2"], cfg.d_ff, dtype)
     aux1 = _bn_rows(p, st, "bn_1")
     w1, w2, sc1, aux1 = _pad_ff(w1, w2, sc1, aux1, heads)
     args = (x, s, w3, wo, w1, w2, (sc3, sco, sc1, sc2),
@@ -440,3 +510,118 @@ def _sequential_layer(p, st, cfg, x, s, *, train, engine):
     s2 = lif_scan(x, cfg.spiking)[0]
     h = lif_scan(linear_bn(s2, "w1", "bn_1"), cfg.spiking)[0]
     return x + linear_bn(h, "w2", "bn_2"), new_st   # pre-neuron residual
+
+
+def ssa_step_causal(p: Dict[str, Any], cfg, h: torch.Tensor, positions, *,
+                    train: bool = False,
+                    engine: Optional[EngineConfig] = None) -> torch.Tensor:
+    """The token-family SSA bundle (causal, RoPE epilogues): Q/K/V
+    projections (+ RoPE + LIF) and causal binary attention. h: (T, B, S,
+    D) normed currents (post ln1); positions: (S,). Returns the pre-wo
+    context (T, B, S, q_dim).
+
+    An eligible bundle under ``overlap='fused'`` would run the fused
+    bundle kernel, which is not ported yet and raises; everything else
+    runs the sequential composition (JAX's eligibility, term for term)."""
+    from repro_torch.core.attention import spiking_attention
+    from repro_torch.models.transformer import _project_qkv
+    engine = engine if engine is not None else get_engine()
+    t, b, s_len, _ = h.shape
+    names = ("wq", "wk", "wv")
+    quant = ["qw" in p[w] for w in names]
+    positions = torch.as_tensor(positions)
+    eligible = (not cfg.qk_norm
+                and cfg.num_kv_heads == cfg.num_heads
+                and (all(quant) or not any(quant))
+                and not any("b" in p[w] for w in names)
+                and (all(quant) or h.dtype == torch.float32)
+                and cfg.head_dim % 2 == 0
+                and positions.ndim == 1)
+    if eligible and resolve_overlap(engine, h) == "fused":
+        raise _not_ported("the fused SSA bundle (ssa_step_causal with "
+                          "overlap='fused')", "queue 2 #6")
+    q, k, v = _project_qkv(p, cfg, h, positions, repeat_kv=True)
+    q, k, v = (lif_scan(u, cfg.spiking)[0] for u in (q, k, v))
+    # (T, B, S, H, hd) -> (T*B, H, S, hd)
+    fold = lambda u: u.reshape(-1, *u.shape[2:]).transpose(1, 2)
+    ctx = spiking_attention(fold(q), fold(k), fold(v), cfg.spiking,
+                            delta_score=p["delta"], causal=True,
+                            engine=engine)
+    return ctx.transpose(1, 2).reshape(t, b, s_len, cfg.q_dim)
+
+
+def layer_step_causal(p: Dict[str, Any], cfg, x: torch.Tensor, positions,
+                      *, train: bool = False,
+                      engine: Optional[EngineConfig] = None
+                      ) -> torch.Tensor:
+    """The token-family layer program: ln1 + SSA bundle + wo + residual +
+    ln2 + spiking MLP + residual. x: (T, B, S, D) residual-stream
+    currents; positions: (S,). Returns the new residual stream.
+
+    Eligibility is JAX's: no qk_norm, no GQA, a plain (up, down) MLP,
+    all-or-none quantization, bias-free linears, fp32 activations unless
+    quantized, even head_dim, 1-D positions, binarized scores with an
+    analog context. An eligible layer runs the sequential oracle
+    ``reference_layer`` (``overlap='off'``) or the layer program
+    ``fused_layer`` with family 'rope' (``overlap='fused'``: the CUDA
+    kernel for CUDA tensors; a 'decoded' plan takes the tile projection,
+    as in JAX, since the projection input is analog). Others run the
+    sequential composition through :func:`ssa_step_causal`. Eval only:
+    the port has no LM training yet (ROADMAP queue 1 item 7)."""
+    from repro_torch.kernels.fused_layer import fused_layer, reference_layer
+    from repro_torch.models import nn
+    if train:
+        raise _not_ported("training the token family", "queue 1 item 7")
+    engine = engine if engine is not None else get_engine()
+    t, b, s_len, d = x.shape
+    heads, hd = cfg.num_heads, cfg.head_dim
+    h = nn.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    mlp = p["mlp"]
+    lin_ps = [p["wq"], p["wk"], p["wv"], p["wo"], mlp.get("up"),
+              mlp.get("down")]
+    quant = ["qw" in q for q in lin_ps if q is not None]
+    positions = torch.as_tensor(positions)
+    eligible = (not cfg.qk_norm
+                and cfg.num_kv_heads == cfg.num_heads
+                and set(mlp) == {"up", "down"}
+                and (all(quant) or not any(quant))
+                and not any(q is not None and "b" in q for q in lin_ps)
+                and (all(quant) or x.dtype == torch.float32)
+                and hd % 2 == 0
+                and positions.ndim == 1
+                and cfg.spiking.binarize_scores
+                and not cfg.spiking.binarize_context)
+    if not eligible:
+        attn = ssa_step_causal(p, cfg, h, positions, engine=engine)
+        x = x + nn.linear(p["wo"], attn)
+        h2 = nn.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        hidden = lif_scan(nn.linear(mlp["up"], h2), cfg.spiking)[0]
+        return x + nn.linear(mlp["down"], hidden)
+    plan = resolve_layer_plan(engine, h)
+    dtype = x.dtype
+    if all(quant):
+        w3, sc3 = _layer_quant_w3(p, ("wq", "wk", "wv"), d, dtype)
+    else:
+        w3 = torch.stack([p[w]["w"] for w in ("wq", "wk", "wv")])
+        sc3 = torch.ones((3, cfg.q_dim), dtype=torch.float32,
+                         device=x.device)
+    d_ff = (mlp["up"]["qw"] if "qw" in mlp["up"] else mlp["up"]["w"]
+            ).shape[-1]
+    wo, sco = _layer_linear(p["wo"], cfg.q_dim, dtype)
+    w1, sc1 = _layer_linear(mlp["up"], d, dtype)
+    w2, sc2 = _layer_linear(mlp["down"], d_ff, dtype)
+    w1, w2, sc1, _ = _pad_ff(w1, w2, sc1, None, heads)
+    cos, sin = nn.rope_table(positions, hd, cfg.rope_theta)
+    args = (x, h, w3, wo, w1, w2, (sc3, sco, sc1, sc2),
+            torch.stack([cos, sin]),
+            p["ln2"]["scale"].float().reshape(1, d), None, None, p["delta"])
+    scfg = cfg.spiking
+    kw = dict(family="rope", num_heads=heads, head_dim=hd,
+              scale=1.0 / math.sqrt(hd), causal=True,
+              norm_eps=cfg.norm_eps)
+    if plan.overlap == "off":
+        return reference_layer(*args, scfg, **kw)
+    y, _ = fused_layer(*args, sparse=plan.sparse, decay=scfg.decay,
+                       v_th=scfg.v_threshold, soft_reset=scfg.soft_reset,
+                       l_block=engine.block_m, c_block=engine.block_k, **kw)
+    return y

@@ -1,41 +1,55 @@
 // Fused layer program of the dual-engine overlay, for Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/fused_layer.py::fused_layer (the Pallas
-// kernel `_kernel`, grid (B, 8 phases, H)) for the vision family's eval
-// layer: family 'bn', sparse='tile' or 'decoded', not pipelined. It computes one
-// encoder layer: q/k/v spike projections + BN + LIF, binarized scores,
-// context, wo + bn_o + residual + input LIF, up + bn_1 + LIF, down +
-// bn_2 + residual; and the (H, 8, n_l_blocks) map of executed sub-blocks.
+// kernel `_kernel`, grid (B, 8 phases, H)), not pipelined, for both
+// epilogue families:
+//   bn   (the vision family's eval layer, sparse='tile' or 'decoded'):
+//        q/k/v spike projections + BN + LIF, binarized scores, context,
+//        wo + bn_o + residual + input LIF, up + bn_1 + LIF, down + bn_2 +
+//        residual;
+//   rope (the token family's layer, sparse='tile', causal): q/k/v
+//        projections of the analog ln1 output + RoPE on q and k + LIF,
+//        causal binarized scores, context, wo + residual + ln2 rmsnorm,
+//        up of the analog ln2 output + LIF, down + residual; no BN;
+// and the (H, 8, n_l_blocks) map of executed sub-blocks.
 //
 // What bounds it: at Spikingformer-4-256 (T=4, B=64, L=64, D=256, H=8,
 // hd=32, F=1024) the layer is about 13.4 G multiply-adds of {0,1} spikes
 // (or small integer counts) against weights, on ~25 MB of input and
 // output, so it is bound by operations (~27 us at the bf16 tensor-core
-// peak against ~8 us for the bytes). In bf16 both launches run their
-// products on the tensor cores with mma.sync (fp32 keeps CUDA-core
+// peak against ~8 us for the bytes); spikingformer-lm's prefill at B=8,
+// L=512 is of the same size. In bf16 both launches run their spike and
+// count products on the tensor cores with mma.sync (fp32 keeps CUDA-core
 // loops); launch B stages each weight chunk once for all timesteps and
 // reads the next chunk into registers while the current one's products
-// run. wgmma / TMA pipelines are later work. The decoded variant's
-// projection (below) is a CUDA-core walk over live spikes instead.
+// run. The rope family's two analog products (q/k/v of ln1, up of ln2)
+// are CUDA-core loops in ascending k in both dtypes: an analog sum is
+// exact in no order, and this one is the plain version's, so kernel and
+// plain version agree bitwise. wgmma / TMA pipelines are later work.
 //
 // Design. The TPU grid keeps every head's q/k/v spikes for all T in
 // VMEM (~786 KB at full width), which no SM can hold. The layer is split
 // into two launches instead:
-//   A. attention_phase, one block per (head, b): for each t, the head's
-//      q/k/v projection of the (L, D) spike slab, staged whole in shared
-//      memory, skipping dark L-blocks; the epilogue (scale,
-//      BN, LIF with the membrane in registers across t) emits spikes as
-//      bit planes; scores are AND-popcounts of those bits, binarized in
-//      place; the context is a popcount of score bits against the
-//      transposed value bits. Spikes never leave shared memory; the
-//      context (integer counts) goes to a (T, B, L, H*hd) scratch.
-//   B. mlp_phase, one block per (L-block, b): wo as one fixed-order fp32
-//      sum over heads, then scale, bn_o, residual (x1 is parked in the
-//      output) and the input LIF into bit planes; up per ff-chunk + bn_1
-//      + LIF into hidden bit planes; down as one fixed-order sum over
-//      chunks + bn_2 + residual. Spike operands are expanded from the bit
-//      planes straight into mma fragments. Every predicate is evaluated
-//      on the whole L-block, so the counts are those of the TPU kernel.
+//   A. attention_phase, one block per (head, b): the sequence in tiles of
+//      64 rows, each (t, tile) slab staged in shared memory and projected
+//      (dark rows skipped); the epilogue (scale, BN or RoPE, LIF with the
+//      membrane in registers across t) emits spikes as bits kept for the
+//      whole sequence; then per timestep one warp a query row scores 32
+//      keys a ballot (AND-popcount of q and k bits, binarized, causal or
+//      not) and counts the context against the transposed value bits.
+//      Spikes never leave shared memory; the context (integer counts)
+//      goes to a (T, B, L, H*hd) scratch.
+//   B. mlp_phase, one block per 64-row tile of an L-block and b: wo as
+//      one fixed-order fp32 sum over heads, then scale, then bn_o,
+//      residual (x1 is parked in the output) and the input LIF into bit
+//      planes (bn), or residual and ln2 into a (T, B, L, D) scratch
+//      (rope); up per ff-chunk + bn_1 + LIF into hidden bit planes; down
+//      as one fixed-order sum over chunks + bn_2 + residual. Spike
+//      operands are expanded from the bit planes straight into mma
+//      fragments. Every predicate of the counts is evaluated on the whole
+//      L-block (the tiles of one L-block merge their flags with atomicOr,
+//      and the last of them to arrive counts), so the counts are those
+//      of the TPU kernel.
 // Counts are summed with int32 atomicAdd (order-free); no float atomics.
 //
 // The decoded variant (sparse='decoded'; `_kernel` with decoded=True, the
@@ -59,9 +73,12 @@
 // Rounding follows the plain version (kernels/fused_layer.py) step by
 // step: fp32 accumulation, cast to the activation dtype, BN as
 // (y - mean) * inv_std rounded and then fma32 (a float64 product and sum
-// rounded once, XLA's contracted FMA), LIF and the residual in the
-// activation dtype, each product and sum rounded with __fmul_rn /
-// __fadd_rn so nvcc contracts nothing the plain version rounds apart.
+// rounded once, XLA's contracted FMA), RoPE as fma32(x1, cos, -(x2 sin))
+// and fma32(x2, cos, x1 sin) (XLA's contraction), ln2's sum of squares as
+// a pairwise tree and its rsqrt as a float64 1 / sqrt rounded once, LIF
+// and the residual in the activation dtype, each product and sum rounded
+// with __fmul_rn / __fadd_rn so nvcc contracts nothing the plain version
+// rounds apart.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,7 +90,8 @@ namespace {
 
 constexpr int NT = 256;      // threads per block, both launches
 constexpr int KC = 64;       // launch B contraction chunk, staged in shared memory
-constexpr int MAX_L = 64;    // launch A holds all rows of one (t, b) slab
+constexpr int L_TILE = 64;   // rows of a launch A slab
+constexpr int MAX_D = 1024;  // rope: launch B's rmsnorm holds a row in registers
 constexpr int MAX_HD = 32;   // q/k spikes of a row fit one 32-bit word
 constexpr int TILE = 64;     // launch B output tile: 64 rows x 64 columns
 constexpr int N_PHASES = 8;
@@ -146,6 +164,12 @@ __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// the two bf16 values of a pair (element k in the low half) as floats
+__device__ __forceinline__ float pair_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float pair_hi(uint32_t v) {
+  return __uint_as_float(v & 0xFFFF0000u);
+}
+
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -159,17 +183,29 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4],
 // launch A: projections + binary attention, one block per (head, b)
 // ---------------------------------------------------------------------------
 //
-// The head's slice of w3 is staged once, transposed to [3 hd][D], and each
-// timestep's (L, D) spike slab is staged whole, so the projection runs
-// without further barriers. It is an (L x D) x (D x 3 hd) product: warp w
-// owns rows 16 (w % 4) + [0, 16) and the n8-tiles w / 4, w / 4 + 2, ... of
-// the 3 hd columns; slot (j, c) is accumulator c of its j-th tile. In bf16
-// a k16 step is an mma.sync, in fp32 a CUDA-core loop over the same slots.
+// The head's slice of w3 is staged once, transposed to [3 hd][D]. The
+// sequence is walked in tiles of 64 rows (outer) and timesteps (inner),
+// so the LIF membranes of a tile's slots stay in registers across t;
+// each (t, tile) spike slab is staged in shared memory and projected, and
+// its q/k/v spikes are kept as bits for the whole sequence ([t][row] words
+// of hd bits for q and k, [t][column][row word] for v). After the last
+// tile, per timestep: the block occupancies, then one warp per query row
+// scores a 32-key word with a ballot and adds the context counts of its
+// lanes' columns.
+//
+// Projection: an (L x D) x (D x 3 hd) product; warp w owns rows
+// 16 (w % 4) + [0, 16) of the tile and the n8-tiles w / 4, w / 4 + 2, ...
+// of the 3 hd columns; slot (j, c) is accumulator c of its j-th tile. For
+// spikes in bf16 a k16 step is an mma.sync; in fp32, and for the rope
+// family's analog input in both dtypes, a CUDA-core loop over the same
+// slots in ascending k (the rope family's sum is one fp32 product and one
+// fp32 sum a term, the plain version's order, since analog sums are not
+// exact in any order).
 
 constexpr int MAXJ = 3 * MAX_HD / 8 / 2;   // n8-tiles per warp in launch A
 // decoded projection: warp w owns rows DEC_ROWS w + [0, DEC_ROWS), lane
 // owns columns lane + 32 c of the 3 hd
-constexpr int DEC_ROWS = MAX_L / (NT / 32);
+constexpr int DEC_ROWS = L_TILE / (NT / 32);
 constexpr int DEC_COLS = 3 * MAX_HD / 32;
 
 // shared-memory row of the staged slab and w^T: D plus 16 bytes, so the
@@ -177,31 +213,53 @@ constexpr int DEC_COLS = 3 * MAX_HD / 32;
 template <typename T>
 __host__ __device__ constexpr int row_pad() { return 16 / (int)sizeof(T); }
 
-template <typename T, bool DEC>
+// launch A's dynamic shared memory, carved in this order (host and device)
+struct SmemA {
+  size_t wt, slab, qbits, kbits, vbits, keym, ctxm, blkv, total;
+  __host__ __device__ SmemA(int tsize, int nt, int l, int d, int hd, int nlb) {
+    const int n3 = 3 * hd, ldk = d + 16 / tsize, lw = (l + 31) / 32;
+    const size_t slab_row = (size_t)ldk * tsize > (size_t)n3 * 4 ? (size_t)ldk * tsize
+                                                                  : (size_t)n3 * 4;
+    wt = 0;
+    slab = wt + ((size_t)n3 * ldk * tsize + 15) / 16 * 16;
+    qbits = slab + L_TILE * slab_row;
+    kbits = qbits + (size_t)nt * l * 4;
+    vbits = kbits + (size_t)nt * l * 4;
+    keym = vbits + (size_t)nt * hd * lw * 4;
+    ctxm = keym + (size_t)nt * lw * 4;
+    blkv = ctxm + (size_t)nt * lw * 4;
+    total = blkv + (size_t)nt * nlb * 4;
+  }
+};
+
+template <typename T, bool DEC, bool ROPE>
 __global__ void __launch_bounds__(NT)
 attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
                 const float* __restrict__ sc3, const float* __restrict__ auxp,
                 const float* __restrict__ delta_p, float scale, Lif lif,
-                int nt, int nb, int l, int d, int heads, int hd, int l_block,
-                int c_block, int cp, T* __restrict__ ctx,
+                int causal, int nt, int nb, int l, int d, int heads, int hd,
+                int l_block, int c_block, int cp, T* __restrict__ ctx,
                 int* __restrict__ counts) {
   using A = Act<T>;
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int qd = heads * hd, nlb = (l + l_block - 1) / l_block;
-  const int lw = (l + 31) / 32, n3 = 3 * hd, ntiles = n3 / 8;
+  const int lw = (l + 31) / 32, n3 = 3 * hd, ntiles = n3 / 8, half = hd / 2;
   const int ldk = d + row_pad<T>(), vec = 16 / (int)sizeof(T);
   const float delta = *delta_p;
 
   extern __shared__ __align__(16) unsigned char dyn_a[];
-  T* wt = (T*)dyn_a;                    // w3 head slice: [3 hd][ldk], transposed
+  const SmemA lay(sizeof(T), nt, l, d, hd, nlb);
+  T* wt = (T*)(dyn_a + lay.wt);         // w3 head slice: [3 hd][ldk], transposed
                                         // (decoded: [D][3 hd])
-  T* slab = wt + (size_t)n3 * ldk;      // [MAX_L][ldk]: one timestep's spikes
-  __shared__ uint32_t qbits[MAX_L], kbits[MAX_L];          // [row] bits of hd
-  __shared__ uint32_t vbits_t[MAX_HD * 2];                 // [col][L word]
-  __shared__ uint32_t abits[MAX_L * 2];                    // [query][key word]
-  __shared__ uint32_t key_mask[2], ctx_mask[2];  // live key columns
-  __shared__ int row_live[MAX_L], blk_live[MAX_L], k_live[MAX_L],
-      c_live[MAX_L], row_occ[MAX_L];
+  T* slab = (T*)(dyn_a + lay.slab);     // [L_TILE][ldk]: one (t, tile) slab
+  float* yproj = (float*)slab;          // rope: [L_TILE][3 hd] scaled projections
+  uint32_t* qbits = (uint32_t*)(dyn_a + lay.qbits);   // [t][row] bits of hd
+  uint32_t* kbits = (uint32_t*)(dyn_a + lay.kbits);
+  uint32_t* vbits_t = (uint32_t*)(dyn_a + lay.vbits); // [t][col][row word]
+  uint32_t* key_mask = (uint32_t*)(dyn_a + lay.keym); // [t][row word]: live keys
+  uint32_t* ctx_mask = (uint32_t*)(dyn_a + lay.ctxm); // [t][row word]: live contexts
+  int* blkv = (int*)(dyn_a + lay.blkv);  // [t][L-block]: live (tile) / max occupancy
+  __shared__ int row_live[L_TILE];
   __shared__ bool passes[MAX_HD + 1];  // binarized score of a count
 
   for (int i = tid; i < n3 * d; i += NT) {
@@ -209,7 +267,8 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
     wt[DEC ? k * n3 + n : n * ldk + k] =
         w3[((size_t)(n / hd) * d + k) * qd + h * hd + n % hd];
   }
-  for (int i = l * ldk + tid; i < MAX_L * ldk; i += NT) slab[i] = T(0.f);
+  const size_t nwords = (lay.total - lay.qbits) / 4;
+  for (size_t i = tid; i < nwords; i += NT) qbits[i] = 0u;
   // a score is an integer count c <= hd; binarize each once:
   // fma32(c, scale, -delta) >= 0
   for (int c = tid; c <= hd; c += NT) passes[c] = fma32((float)c, scale, -delta) >= 0.f;
@@ -217,203 +276,262 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, tig = lane % 4;
   const int r_lo = (warp % 4) * 16 + g, jt0 = warp / 4;
   constexpr int AJ = DEC ? DEC_ROWS : MAXJ, AC = DEC ? DEC_COLS : 4;
-  float u[AJ][AC] = {};       // LIF membranes of the thread's slots, across t
-  int n_proj = 0, n_qkt = 0, n_qktv = 0;  // per L-block, thread tid < nlb
+  const uint32_t mag = sizeof(T) == 2 ? 0x7FFF7FFFu : 0x7FFFFFFFu;
 
-  for (int t = 0; t < nt; ++t) {
-    const T* src = s + ((size_t)t * nb + b) * l * d;
-    for (int i = tid; i < MAX_L; i += NT) {
-      row_live[i] = 0;
-      qbits[i] = kbits[i] = 0u;
-    }
-    for (int i = tid; i < MAX_L * 2; i += NT) abits[i] = 0u;
-    for (int i = tid; i < MAX_HD * 2; i += NT) vbits_t[i] = 0u;
-    __syncthreads();
-    // stage the slab in 16-byte vectors; a row is live when any of its
-    // values is non-zero (the sign bit masked: -0 is dark)
-    const uint32_t mag = sizeof(T) == 2 ? 0x7FFF7FFFu : 0x7FFFFFFFu;
-    for (int i = tid; i < l * (d / vec); i += NT) {
-      const int r = i / (d / vec), kv = i % (d / vec);
-      const uint4 v = *reinterpret_cast<const uint4*>(src + (size_t)r * d + kv * vec);
-      *reinterpret_cast<uint4*>(slab + (size_t)r * ldk + kv * vec) = v;
-      if ((v.x | v.y | v.z | v.w) & mag) row_live[r] = 1;
-    }
-    __syncthreads();
-    if (tid < nlb) {
-      int any = 0;
-      for (int r = tid * l_block; r < min(l, (tid + 1) * l_block); ++r) any |= row_live[r];
-      blk_live[tid] = any;
-    }
-    __syncthreads();
+  for (int r0 = 0; r0 < l; r0 += L_TILE) {
+    const int nr = min(L_TILE, l - r0);
+    float u[AJ][AC] = {};       // LIF membranes of the thread's slots, across t
+    for (int t = 0; t < nt; ++t) {
+      const T* src = s + (((size_t)t * nb + b) * l + r0) * d;
+      __syncthreads();          // the previous slab (and yproj) is consumed
+      for (int i = tid; i < L_TILE; i += NT) row_live[i] = 0;
+      for (int i = nr * ldk + tid; i < L_TILE * ldk; i += NT) slab[i] = T(0.f);
+      __syncthreads();
+      // stage the slab in 16-byte vectors; a row is live when any of its
+      // values is non-zero (the sign bit masked: -0 is dark)
+      for (int i = tid; i < nr * (d / vec); i += NT) {
+        const int r = i / (d / vec), kv = i % (d / vec);
+        const uint4 v = *reinterpret_cast<const uint4*>(src + (size_t)r * d + kv * vec);
+        *reinterpret_cast<uint4*>(slab + (size_t)r * ldk + kv * vec) = v;
+        if ((v.x | v.y | v.z | v.w) & mag) row_live[r] = 1;
+      }
+      __syncthreads();
+      if (!DEC)
+        for (int r = tid; r < nr; r += NT)
+          if (row_live[r]) atomicOr(&blkv[t * nlb + (r0 + r) / l_block], 1);
 
-    // epilogue of one projection slot: scale, BN, LIF -> spike bits (v
-    // stored transposed)
-    auto emit = [&](float a, float& uu, int r, int n) {
-      const int p = n / hd, col = n % hd, ch = h * hd + col;
-      float y = A::round(__fmul_rn(a, sc3[p * qd + ch]));
-      y = A::round(bn_eval(y, auxp + (size_t)p * 4 * qd, qd, ch));
-      if (!lif_step<T>(uu, y, lif)) return;
-      if (p == 0) atomicOr(&qbits[r], 1u << col);
-      else if (p == 1) atomicOr(&kbits[r], 1u << col);
-      else atomicOr(&vbits_t[col * 2 + r / 32], 1u << (r % 32));
-    };
-    float acc[AJ][AC] = {};
-    if constexpr (DEC) {
-      // decoded q/k/v projection: each row's live spikes in ascending k
+      // epilogue of one projection slot of row r (tile row) and column n:
+      // LIF -> spike bits (v stored transposed)
+      auto emit = [&](float y, float& uu, int r, int n) {
+        const int p = n / hd, col = n % hd, row = r0 + r;
+        if (!lif_step<T>(uu, y, lif)) return;
+        if (p == 0) atomicOr(&qbits[t * l + row], 1u << col);
+        else if (p == 1) atomicOr(&kbits[t * l + row], 1u << col);
+        else atomicOr(&vbits_t[((size_t)t * hd + col) * lw + row / 32], 1u << (row % 32));
+      };
+      // the projection epilogue before the LIF: scale, cast, BN
+      auto bn_proj = [&](float a, int n) {
+        const int p = n / hd, ch = h * hd + n % hd;
+        const float y = A::round(__fmul_rn(a, sc3[p * qd + ch]));
+        return A::round(bn_eval(y, auxp + (size_t)p * 4 * qd, qd, ch));
+      };
+      float acc[AJ][AC] = {};
+      if constexpr (DEC) {
+        // decoded q/k/v projection: each row's live spikes in ascending k
 #pragma unroll
-      for (int i = 0; i < DEC_ROWS; ++i) {
-        const int r = warp * DEC_ROWS + i;
-        if (r >= l) break;
-        const T* srow = slab + (size_t)r * ldk;
-        int occ = 0;
-        for (int k0 = 0; k0 < d; k0 += 32) {
-          uint32_t live = __ballot_sync(
-              0xFFFFFFFFu, k0 + lane < d && A::load(srow + k0 + lane) != 0.f);
-          occ += __popc(live);
-          while (live) {
-            const int k = k0 + __ffs(live) - 1;
-            live &= live - 1u;
-            const float a = A::load(srow + k);
-            const T* wrow = wt + (size_t)k * n3;
+        for (int i = 0; i < DEC_ROWS; ++i) {
+          const int r = warp * DEC_ROWS + i;
+          if (r >= nr) break;
+          const T* srow = slab + (size_t)r * ldk;
+          int occ = 0;
+          for (int k0 = 0; k0 < d; k0 += 32) {
+            uint32_t live = __ballot_sync(
+                0xFFFFFFFFu, k0 + lane < d && A::load(srow + k0 + lane) != 0.f);
+            occ += __popc(live);
+            while (live) {
+              const int k = k0 + __ffs(live) - 1;
+              live &= live - 1u;
+              const float a = A::load(srow + k);
+              const T* wrow = wt + (size_t)k * n3;
 #pragma unroll
-            for (int c = 0; c < DEC_COLS; ++c) {
-              const int n = lane + 32 * c;
-              if (n < n3)
-                acc[i][c] = __fadd_rn(acc[i][c], __fmul_rn(a, A::load(wrow + n)));
-            }
-          }
-        }
-        if (lane == 0) row_occ[r] = occ;
-      }
-#pragma unroll
-      for (int i = 0; i < DEC_ROWS; ++i) {
-        const int r = warp * DEC_ROWS + i;
-        if (r >= l) break;
-#pragma unroll
-        for (int c = 0; c < DEC_COLS; ++c)
-          if (lane + 32 * c < n3) emit(acc[i][c], u[i][c], r, lane + 32 * c);
-      }
-    } else {
-      // q/k/v projection; a warp whose rows all lie in dark L-blocks skips
-      // its products (they would add exact zeros)
-      bool warp_live = false;
-      for (int r = (warp % 4) * 16; r < min(l, (warp % 4) * 16 + 16); ++r)
-        warp_live |= blk_live[r / l_block] != 0;
-      if (warp_live) {
-        if constexpr (std::is_same<T, float>::value) {
-          for (int k = 0; k < d; ++k) {
-            const float a_lo = slab[r_lo * ldk + k], a_hi = slab[(r_lo + 8) * ldk + k];
-#pragma unroll
-            for (int j = 0; j < MAXJ; ++j) {
-              const int jt = jt0 + 2 * j;
-              if (jt >= ntiles) break;
-#pragma unroll
-              for (int c = 0; c < 2; ++c) {
-                const float wv = wt[(jt * 8 + tig * 2 + c) * ldk + k];
-                acc[j][c] = fmaf(a_lo, wv, acc[j][c]);
-                acc[j][2 + c] = fmaf(a_hi, wv, acc[j][2 + c]);
+              for (int c = 0; c < DEC_COLS; ++c) {
+                const int n = lane + 32 * c;
+                if (n < n3)
+                  acc[i][c] = __fadd_rn(acc[i][c], __fmul_rn(a, A::load(wrow + n)));
               }
             }
           }
-        } else {
-          for (int k0 = 0; k0 < d; k0 += 16) {
-            const T* pa = slab + r_lo * ldk + k0 + tig * 2;
-            const uint32_t a[4] = {ld_pair(pa), ld_pair(pa + 8 * ldk),
-                                   ld_pair(pa + 8), ld_pair(pa + 8 * ldk + 8)};
+          if (lane == 0) atomicMax(&blkv[t * nlb + (r0 + r) / l_block], occ);
+        }
 #pragma unroll
-            for (int j = 0; j < MAXJ; ++j) {
-              const int jt = jt0 + 2 * j;
-              if (jt >= ntiles) break;
-              const T* pb = wt + (jt * 8 + g) * ldk + k0 + tig * 2;
-              mma_bf16(acc[j], a, ld_pair(pb), ld_pair(pb + 8));
+        for (int i = 0; i < DEC_ROWS; ++i) {
+          const int r = warp * DEC_ROWS + i;
+          if (r >= nr) break;
+#pragma unroll
+          for (int c = 0; c < DEC_COLS; ++c) {
+            const int n = lane + 32 * c;
+            if (n < n3) emit(bn_proj(acc[i][c], n), u[i][c], r, n);
+          }
+        }
+      } else {
+        // q/k/v projection; a warp whose rows are all dark skips its
+        // products (they would add exact zeros)
+        bool warp_live = false;
+        for (int r = (warp % 4) * 16; r < min(nr, (warp % 4) * 16 + 16); ++r)
+          warp_live |= row_live[r] != 0;
+        if (warp_live) {
+          if constexpr (ROPE && !std::is_same<T, float>::value) {
+            // analog bf16 x bf16: every product is exact in fp32, so one
+            // fmaf rounds as the plain version's product-then-sum; two k
+            // a step from bf16 pairs
+            for (int k = 0; k < d; k += 2) {
+              const uint32_t p_lo = ld_pair(slab + r_lo * ldk + k);
+              const uint32_t p_hi = ld_pair(slab + (r_lo + 8) * ldk + k);
+              const float a0_lo = pair_lo(p_lo), a1_lo = pair_hi(p_lo);
+              const float a0_hi = pair_lo(p_hi), a1_hi = pair_hi(p_hi);
+#pragma unroll
+              for (int j = 0; j < MAXJ; ++j) {
+                const int jt = jt0 + 2 * j;
+                if (jt >= ntiles) break;
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                  const uint32_t pw = ld_pair(wt + (jt * 8 + tig * 2 + c) * ldk + k);
+                  const float w0 = pair_lo(pw), w1 = pair_hi(pw);
+                  acc[j][c] = fmaf(a1_lo, w1, fmaf(a0_lo, w0, acc[j][c]));
+                  acc[j][2 + c] = fmaf(a1_hi, w1, fmaf(a0_hi, w0, acc[j][2 + c]));
+                }
+              }
+            }
+          } else if constexpr (ROPE || std::is_same<T, float>::value) {
+            for (int k = 0; k < d; ++k) {
+              const float a_lo = A::load(slab + r_lo * ldk + k);
+              const float a_hi = A::load(slab + (r_lo + 8) * ldk + k);
+#pragma unroll
+              for (int j = 0; j < MAXJ; ++j) {
+                const int jt = jt0 + 2 * j;
+                if (jt >= ntiles) break;
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                  const float wv = A::load(wt + (jt * 8 + tig * 2 + c) * ldk + k);
+                  if constexpr (ROPE) {
+                    acc[j][c] = __fadd_rn(acc[j][c], __fmul_rn(a_lo, wv));
+                    acc[j][2 + c] = __fadd_rn(acc[j][2 + c], __fmul_rn(a_hi, wv));
+                  } else {
+                    acc[j][c] = fmaf(a_lo, wv, acc[j][c]);
+                    acc[j][2 + c] = fmaf(a_hi, wv, acc[j][2 + c]);
+                  }
+                }
+              }
+            }
+          } else {
+            for (int k0 = 0; k0 < d; k0 += 16) {
+              const T* pa = slab + r_lo * ldk + k0 + tig * 2;
+              const uint32_t a[4] = {ld_pair(pa), ld_pair(pa + 8 * ldk),
+                                     ld_pair(pa + 8), ld_pair(pa + 8 * ldk + 8)};
+#pragma unroll
+              for (int j = 0; j < MAXJ; ++j) {
+                const int jt = jt0 + 2 * j;
+                if (jt >= ntiles) break;
+                const T* pb = wt + (jt * 8 + g) * ldk + k0 + tig * 2;
+                mma_bf16(acc[j], a, ld_pair(pb), ld_pair(pb + 8));
+              }
             }
           }
         }
-      }
+        if constexpr (ROPE) {
+          // scale and cast into yproj, then rotate q and k against their
+          // partner column (col +- hd / 2 of the same head)
+          __syncthreads();      // the slab is consumed: yproj aliases it
 #pragma unroll
-      for (int j = 0; j < MAXJ; ++j) {
-        const int jt = jt0 + 2 * j;
-        if (jt >= ntiles) break;
+          for (int j = 0; j < MAXJ; ++j) {
+            const int jt = jt0 + 2 * j;
+            if (jt >= ntiles) break;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int r = r_lo + (c & 2) * 4;
-          if (r < l) emit(acc[j][c], u[j][c], r, jt * 8 + tig * 2 + (c & 1));
+            for (int c = 0; c < 4; ++c) {
+              const int n = jt * 8 + tig * 2 + (c & 1), r = r_lo + (c & 2) * 4;
+              yproj[r * n3 + n] =
+                  A::round(__fmul_rn(acc[j][c], sc3[(n / hd) * qd + h * hd + n % hd]));
+            }
+          }
+          __syncthreads();
+        }
+#pragma unroll
+        for (int j = 0; j < MAXJ; ++j) {
+          const int jt = jt0 + 2 * j;
+          if (jt >= ntiles) break;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int r = r_lo + (c & 2) * 4, n = jt * 8 + tig * 2 + (c & 1);
+            if (r >= nr) continue;
+            float y;
+            if constexpr (ROPE) {
+              y = yproj[r * n3 + n];
+              const int col = n % hd;
+              if (n / hd < 2) {     // q, k: [x1 cos - x2 sin, x2 cos + x1 sin]
+                const int i = col % half;
+                const float cs = auxp[(size_t)(r0 + r) * half + i];
+                const float sn = auxp[((size_t)l + r0 + r) * half + i];
+                const float other = yproj[r * n3 + n + (col < half ? half : -half)];
+                y = col < half ? fma32(y, cs, -__fmul_rn(other, sn))
+                               : fma32(y, cs, __fmul_rn(other, sn));
+                y = A::round(y);
+              }
+            } else {
+              y = bn_proj(acc[j][c], n);
+            }
+            emit(y, u[j][c], r, n);
+          }
         }
       }
     }
-    __syncthreads();
+  }
+  __syncthreads();
 
-    // key / value block occupancy; an all-dark key block scores zeros,
-    // which binarize to zero unless delta <= 0
-    if (tid < nlb) {
-      const int r0 = tid * l_block, r1 = min(l, r0 + l_block);
+  // per timestep: key / value block occupancy (an all-dark key block
+  // scores zeros, which binarize to zero unless delta <= 0), live-key and
+  // live-context masks, then scores and context
+  for (int lb = tid; lb < nlb; lb += NT) {
+    const int r0 = lb * l_block, r1 = min(l, r0 + l_block);
+    int n_proj = 0, n_qkt = 0, n_qktv = 0;
+    for (int t = 0; t < nt; ++t) {
       bool kany = false, vany = false;
-      for (int r = r0; r < r1; ++r) kany |= kbits[r] != 0u;
-      for (int w = 0; w < lw; ++w) {          // the block's rows in word w
+      for (int r = r0; r < r1; ++r) kany |= kbits[t * l + r] != 0u;
+      for (int w = r0 / 32; w <= (r1 - 1) / 32; ++w) {   // the block's rows in word w
         const int lo = max(r0, 32 * w), hi = min(r1, 32 * w + 32);
-        if (lo >= hi) continue;
         const uint32_t m = (hi - lo == 32 ? ~0u : (1u << (hi - lo)) - 1u) << (lo - 32 * w);
-        for (int cc = 0; cc < hd; ++cc) vany |= (vbits_t[cc * 2 + w] & m) != 0u;
+        for (int cc = 0; cc < hd; ++cc)
+          vany |= (vbits_t[((size_t)t * hd + cc) * lw + w] & m) != 0u;
       }
       const bool kl = kany || delta <= 0.f;
-      k_live[tid] = kl;
-      c_live[tid] = kl && vany;
-      if constexpr (DEC) {   // executed chunks: ceil(capacity / c_block)
-        int mx = 0;
-        for (int r = r0; r < r1; ++r) mx = max(mx, row_occ[r]);
-        n_proj += (min(pow2ceil(mx), cp) + c_block - 1) / c_block;
-      } else {
-        n_proj += blk_live[tid];
+      if (kl) {
+        for (int r = r0; r < r1; ++r) {
+          atomicOr(&key_mask[t * lw + r / 32], 1u << (r % 32));
+          if (vany) atomicOr(&ctx_mask[t * lw + r / 32], 1u << (r % 32));
+        }
       }
+      const int bv = blkv[t * nlb + lb];
+      if constexpr (DEC)        // executed chunks: ceil(capacity / c_block)
+        n_proj += (min(pow2ceil(bv), cp) + c_block - 1) / c_block;
+      else
+        n_proj += bv;
       n_qkt += kl;
       n_qktv += kl && vany;
     }
-    __syncthreads();
-    if (tid < lw) {
-      uint32_t km = 0u, cm = 0u;
-      for (int jj = 0; jj < 32 && tid * 32 + jj < l; ++jj) {
-        const int lb = (tid * 32 + jj) / l_block;
-        km |= (uint32_t)k_live[lb] << jj;
-        cm |= (uint32_t)c_live[lb] << jj;
-      }
-      key_mask[tid] = km;
-      ctx_mask[tid] = cm;
-    }
-    __syncthreads();
-    // scores: AND-popcount of q and k bits over live key blocks, binarized
-    for (int w = tid; w < l * lw; w += NT) {
-      const int i = w / lw, jw = w % lw;
-      const uint32_t live = key_mask[jw], q = qbits[i];
-      uint32_t word = 0u;
-      for (int jj = 0; jj < 32; ++jj)
-        if ((live >> jj & 1u) && passes[__popc(q & kbits[jw * 32 + jj])])
-          word |= 1u << jj;
-      abits[i * 2 + jw] = word;
-    }
-    __syncthreads();
-    // context: popcount of score bits against value columns over live
-    // key blocks (integer counts, exact in the activation dtype)
-    for (int o = tid; o < l * hd; o += NT) {
-      const int i = o / hd, cc = o % hd;
-      int n = 0;
-      for (int jw = 0; jw < lw; ++jw)
-        n += __popc(abits[i * 2 + jw] & vbits_t[cc * 2 + jw] & ctx_mask[jw]);
-      A::store(ctx + (((size_t)t * nb + b) * l + i) * qd + h * hd + cc, (float)n);
-    }
-    __syncthreads();
-  }
-  if (tid < nlb) {
-    int* cnt = counts + (size_t)h * N_PHASES * nlb + tid;
+    int* cnt = counts + (size_t)h * N_PHASES * nlb + lb;
     atomicAdd(cnt + 0 * nlb, n_proj);
     atomicAdd(cnt + 1 * nlb, n_proj);
     atomicAdd(cnt + 2 * nlb, n_proj);
     atomicAdd(cnt + 3 * nlb, n_qkt);
     atomicAdd(cnt + 4 * nlb, n_qktv);
   }
+  __syncthreads();
+  // scores: a warp per (t, query row); lane j scores key 32 jw + j by the
+  // AND-popcount of its q and k bits, binarized, over live (and, when
+  // causal, past) keys; the ballot is the score word. Context: lane c
+  // (c < hd) counts the score bits against value column c over live
+  // context blocks (integer counts, exact in the activation dtype).
+  for (int task = warp; task < nt * l; task += NT / 32) {
+    const int t = task / l, i = task % l;
+    const uint32_t q = qbits[t * l + i];
+    const int last = causal ? i / 32 : lw - 1;
+    int n = 0;
+    for (int jw = 0; jw <= last; ++jw) {
+      const int key = jw * 32 + lane;
+      const bool pass = key < l && (!causal || key <= i) &&
+                        (key_mask[t * lw + jw] >> lane & 1u) &&
+                        passes[__popc(q & kbits[t * l + min(key, l - 1)])];
+      const uint32_t word = __ballot_sync(0xFFFFFFFFu, pass);
+      if (lane < hd)
+        n += __popc(word & vbits_t[((size_t)t * hd + lane) * lw + jw] &
+                    ctx_mask[t * lw + jw]);
+    }
+    if (lane < hd)
+      A::store(ctx + (((size_t)t * nb + b) * l + i) * qd + h * hd + lane, (float)n);
+  }
 }
 
 // ---------------------------------------------------------------------------
-// launch B: wo + MLP, one block per (L-block, b)
+// launch B: wo + MLP, one block per (64-row tile of an L-block, b)
 // ---------------------------------------------------------------------------
 //
 // Each product is a 64-row x 64-column output tile accumulated over
@@ -518,8 +636,11 @@ __device__ __forceinline__ void stage_a(const T* __restrict__ a, int k_dim,
 }
 
 // acc += A[:, k0:k0+KC] W[k0:k0+KC, tile] for one timestep; A is the staged
-// tile `a_tile`, or, when `a_bits` is set, spike bits (`wpr` words a row)
-template <typename T>
+// tile `a_tile`, or, when `a_bits` is set, spike bits (`wpr` words a row).
+// ANALOG: an analog staged tile, summed on CUDA cores in ascending k, each
+// term rounded as the plain version's product-then-sum (the plain
+// version's order).
+template <typename T, bool ANALOG = false>
 __device__ __forceinline__ void chunk_product(float (&acc)[16],
                                               const void* wbuf,
                                               const void* a_tile,
@@ -527,7 +648,41 @@ __device__ __forceinline__ void chunk_product(float (&acc)[16],
                                               int k0) {
   const int g = threadIdx.x % 32 / 4, tig = threadIdx.x % 4;
   const int r_lo = slot_row(0), cw = threadIdx.x / 128 * 32;
-  if constexpr (std::is_same<T, float>::value) {
+  if constexpr (ANALOG && !std::is_same<T, float>::value) {
+    // bf16 x bf16 products are exact in fp32: one fmaf a term rounds as
+    // the plain version's product-then-sum; two kk a step from bf16 pairs
+    const T* as = (const T*)a_tile;
+    const T* wt = (const T*)wbuf;
+    for (int kk = 0; kk < KC; kk += 2) {
+      const uint32_t p_lo = ld_pair(as + r_lo * LDS + kk);
+      const uint32_t p_hi = ld_pair(as + (r_lo + 8) * LDS + kk);
+      const float a0_lo = pair_lo(p_lo), a1_lo = pair_hi(p_lo);
+      const float a0_hi = pair_lo(p_hi), a1_hi = pair_hi(p_hi);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const uint32_t pw = ld_pair(wt + (cw + j * 8 + tig * 2 + c) * LDS + kk);
+          const float w0 = pair_lo(pw), w1 = pair_hi(pw);
+          acc[4 * j + c] = fmaf(a1_lo, w1, fmaf(a0_lo, w0, acc[4 * j + c]));
+          acc[4 * j + 2 + c] = fmaf(a1_hi, w1, fmaf(a0_hi, w0, acc[4 * j + 2 + c]));
+        }
+    }
+  } else if constexpr (ANALOG) {       // fp32: a rounded product, then the sum
+    const float* as = (const float*)a_tile;
+    for (int kk = 0; kk < KC; ++kk) {
+      const float a_lo = as[r_lo * LDS + kk];
+      const float a_hi = as[(r_lo + 8) * LDS + kk];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float wv = ((const float*)wbuf)[kk * TILE + cw + j * 8 + tig * 2 + c];
+          acc[4 * j + c] = __fadd_rn(acc[4 * j + c], __fmul_rn(a_lo, wv));
+          acc[4 * j + 2 + c] = __fadd_rn(acc[4 * j + 2 + c], __fmul_rn(a_hi, wv));
+        }
+    }
+  } else if constexpr (std::is_same<T, float>::value) {
     const float* ws = (const float*)wbuf;
     const float* as = (const float*)a_tile;
     for (int kk = 0; kk < KC; ++kk) {
@@ -580,21 +735,28 @@ __device__ __forceinline__ void chunk_product(float (&acc)[16],
   }
 }
 
-template <typename T>
+template <typename T, bool ROPE>
 __global__ void __launch_bounds__(NT)
 mlp_phase(const T* __restrict__ x, const T* __restrict__ ctx,
           const T* __restrict__ wo, const T* __restrict__ w1,
           const T* __restrict__ w2, const float* __restrict__ sco,
           const float* __restrict__ sc1, const float* __restrict__ sc2,
           const float* __restrict__ auxo, const float* __restrict__ aux1,
-          const float* __restrict__ aux2, Lif lif, int nt, int nb, int l,
-          int d, int heads, int hd, int ff, int l_block, T* __restrict__ out,
-          int* __restrict__ counts) {
+          const float* __restrict__ aux2, Lif lif, float norm_eps, int nt,
+          int nb, int l, int d, int heads, int hd, int ff, int l_block,
+          T* __restrict__ s2g, T* __restrict__ out, int* __restrict__ counts,
+          int* __restrict__ flags) {
   using A = Act<T>;
-  const int lb = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int r0 = lb * l_block, n = min(l, r0 + l_block) - r0;
-  const int qd = heads * hd, ffc = ff / heads, nlb = gridDim.x;
+  // block (x, b): tile x % tpb of L-block x / tpb, TILE rows (an L-block
+  // of more than TILE rows spans several blocks)
+  const int tpb = (l_block + TILE - 1) / TILE;
+  const int lb = blockIdx.x / tpb, b = blockIdx.y, tid = threadIdx.x;
+  const int blk1 = min(l, (lb + 1) * l_block);
+  const int r0 = lb * l_block + blockIdx.x % tpb * TILE;
+  const int n = max(0, min(TILE, blk1 - r0));
+  const int qd = heads * hd, ffc = ff / heads, nlb = gridDim.x / tpb;
   const int dw = (d + 31) / 32, fw = (ff + 31) / 32;
+  const int warp = tid / 32, lane = tid % 32;
 
   extern __shared__ uint32_t dyn[];
   uint32_t* s2bits = dyn;                            // [t][TILE][dw]
@@ -603,78 +765,47 @@ mlp_phase(const T* __restrict__ x, const T* __restrict__ ctx,
   int* hid_live = head_live + nt * heads;            // [t][heads]
   int* s2_live = hid_live + nt * heads;              // [t]
   __shared__ __align__(16) float wbuf[KC * TILE];    // weight chunk
-  __shared__ __align__(16) float abuf[TILE * LDS];   // context chunk
+  __shared__ __align__(16) float abuf[TILE * LDS];   // context / s2 chunk
+  __shared__ int last_of_group;
 
-  const size_t nwords = (size_t)nt * TILE * (dw + fw) + (size_t)nt * (2 * heads + 1);
-  for (size_t i = tid; i < nwords; i += NT) dyn[i] = 0u;
-  __syncthreads();
-  for (int t = 0; t < nt; ++t) {
-    const T* ctx_t = ctx + (((size_t)t * nb + b) * l + r0) * qd;
-    for (int i = tid; i < n * qd; i += NT)
-      if (A::load(ctx_t + i) != 0.f) head_live[t * heads + (i % qd) / hd] = 1;
-  }
+  const size_t ntile = (size_t)nt * TILE * (dw + fw) + (size_t)nt * (2 * heads + 1);
+  for (size_t i = tid; i < ntile; i += NT) dyn[i] = 0u;
   __syncthreads();
 
-  // wo: the sum over heads in order (dark head blocks skipped), then
-  // scale, bn_o, residual (x1 parked in `out`) and the input LIF
-  for (int c0 = 0; c0 < d; c0 += TILE) {
-    float acc[MAX_T][16] = {}, u[16] = {};
-    chunk_loop<T>(
-        qd, wo, d, c0, d,
-        [&](int k0) {                      // bit t: some head of the chunk lit
-          int live = 0;
-          for (int t = 0; t < nt; ++t)
-            for (int hh = k0 / hd; hh <= (min(k0 + KC, qd) - 1) / hd; ++hh)
-              if (head_live[t * heads + hh]) live |= 1 << t;
-          return live;
-        },
-        [&](int k0, int live) {
-#pragma unroll
-          for (int t = 0; t < MAX_T; ++t) {
-            if (!(live >> t & 1)) continue;
-            __syncthreads();
-            stage_a<T>(ctx + (((size_t)t * nb + b) * l + r0) * qd, qd, n, k0,
-                       abuf);
-            __syncthreads();
-            chunk_product<T>(acc[t], wbuf, abuf, nullptr, 0, k0);
-          }
-        },
-        wbuf);
-#pragma unroll
-    for (int t = 0; t < MAX_T; ++t) {
-      if (t >= nt) break;
-#pragma unroll
-      for (int q = 0; q < 16; ++q) {
-        const int r = slot_row(q), c = c0 + slot_col(q);
-        if (r >= n || c >= d) continue;
-        float y = A::round(__fmul_rn(acc[t][q], sco[c]));
-        y = A::round(bn_eval(y, auxo, d, c));
-        const size_t off = (((size_t)t * nb + b) * l + r0 + r) * d + c;
-        const float x1 = A::round(__fadd_rn(A::load(x + off), y));
-        A::store(out + off, x1);
-        if (lif_step<T>(u[q], x1, lif)) {
-          atomicOr(&s2bits[((size_t)t * TILE + r) * dw + c / 32], 1u << (c % 32));
-          s2_live[t] = 1;
-        }
-      }
+  // every skip below is exact (a dark input adds exact zeros); the
+  // counts read the whole L-block's flags, merged across its tiles
+  if (n > 0) {
+    for (int t = 0; t < nt; ++t) {
+      const T* ctx_t = ctx + (((size_t)t * nb + b) * l + r0) * qd;
+      for (int i = tid; i < n * qd; i += NT)
+        if (A::load(ctx_t + i) != 0.f) head_live[t * heads + (i % qd) / hd] = 1;
     }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // up, per ff-chunk: s2 spikes x w1 chunk, then scale, bn_1, LIF
-  int s2_mask = 0;
-  for (int t = 0; t < nt; ++t) s2_mask |= s2_live[t] << t;
-  for (int hh = 0; hh < heads; ++hh)
-    for (int c0 = 0; c0 < ffc; c0 += TILE) {
+    // wo: the sum over heads in order (dark head blocks skipped), then
+    // scale; bn: bn_o, residual (x1 parked in `out`) and the input LIF;
+    // rope: the residual (x1 parked in `out`)
+    for (int c0 = 0; c0 < d; c0 += TILE) {
       float acc[MAX_T][16] = {}, u[16] = {};
       chunk_loop<T>(
-          d, w1 + hh * ffc, ff, c0, ffc, [&](int) { return s2_mask; },
+          qd, wo, d, c0, d,
+          [&](int k0) {                      // bit t: some head of the chunk lit
+            int live = 0;
+            for (int t = 0; t < nt; ++t)
+              for (int hh = k0 / hd; hh <= (min(k0 + KC, qd) - 1) / hd; ++hh)
+                if (head_live[t * heads + hh]) live |= 1 << t;
+            return live;
+          },
           [&](int k0, int live) {
 #pragma unroll
-            for (int t = 0; t < MAX_T; ++t)
-              if (live >> t & 1)
-                chunk_product<T>(acc[t], wbuf, nullptr,
-                                 s2bits + (size_t)t * TILE * dw, dw, k0);
+            for (int t = 0; t < MAX_T; ++t) {
+              if (!(live >> t & 1)) continue;
+              __syncthreads();
+              stage_a<T>(ctx + (((size_t)t * nb + b) * l + r0) * qd, qd, n, k0,
+                         abuf);
+              __syncthreads();
+              chunk_product<T>(acc[t], wbuf, abuf, nullptr, 0, k0);
+            }
           },
           wbuf);
 #pragma unroll
@@ -682,62 +813,170 @@ mlp_phase(const T* __restrict__ x, const T* __restrict__ ctx,
         if (t >= nt) break;
 #pragma unroll
         for (int q = 0; q < 16; ++q) {
-          const int r = slot_row(q), cc = c0 + slot_col(q);
-          if (r >= n || cc >= ffc) continue;
-          const int f = hh * ffc + cc;
-          float y = A::round(__fmul_rn(acc[t][q], sc1[f]));
-          y = A::round(bn_eval(y, aux1, ff, f));
-          if (lif_step<T>(u[q], y, lif)) {
-            atomicOr(&hbits[((size_t)t * TILE + r) * fw + f / 32], 1u << (f % 32));
-            hid_live[t * heads + hh] = 1;
+          const int r = slot_row(q), c = c0 + slot_col(q);
+          if (r >= n || c >= d) continue;
+          float y = A::round(__fmul_rn(acc[t][q], sco[c]));
+          if (!ROPE) y = A::round(bn_eval(y, auxo, d, c));
+          const size_t off = (((size_t)t * nb + b) * l + r0 + r) * d + c;
+          const float x1 = A::round(__fadd_rn(A::load(x + off), y));
+          A::store(out + off, x1);
+          if (!ROPE && lif_step<T>(u[q], x1, lif)) {
+            atomicOr(&s2bits[((size_t)t * TILE + r) * dw + c / 32], 1u << (c % 32));
+            s2_live[t] = 1;
           }
         }
       }
     }
-  __syncthreads();
+    __syncthreads();
 
-  // down: the sum over ff-chunks in order (dark chunk blocks skipped),
-  // then scale, bn_2 and the residual
-  for (int c0 = 0; c0 < d; c0 += TILE) {
-    float acc[MAX_T][16] = {};
-    chunk_loop<T>(
-        ff, w2, d, c0, d,
-        [&](int k0) {                      // bit t: some ff-chunk of it lit
-          int live = 0;
-          for (int t = 0; t < nt; ++t)
-            for (int hh = k0 / ffc; hh <= (min(k0 + KC, ff) - 1) / ffc; ++hh)
-              if (hid_live[t * heads + hh]) live |= 1 << t;
-          return live;
-        },
-        [&](int k0, int live) {
+    if constexpr (ROPE) {
+      // ln2 (rmsnorm), a warp per (t, row): the sum of squares as a
+      // pairwise tree over D zero-padded to a power of two (element i
+      // meets i + P/2, then i + P/4, ...: the plain version's order), the
+      // mean, one rsqrt as a float64 1 / sqrt rounded once, then
+      // (x * rsqrt) * scale in the activation dtype, parked in s2g
+      int p2 = 32;
+      while (p2 < d) p2 *= 2;
+      const int per = p2 / 32;
+      for (int task = warp; task < nt * n; task += NT / 32) {
+        const int t = task / n, r = task % n;
+        const size_t row = (((size_t)t * nb + b) * l + r0 + r) * d;
+        float v[MAX_D / 32];
 #pragma unroll
-          for (int t = 0; t < MAX_T; ++t)
-            if (live >> t & 1)
-              chunk_product<T>(acc[t], wbuf, nullptr,
-                               hbits + (size_t)t * TILE * fw, fw, k0);
-        },
-        wbuf);
+        for (int j = 0; j < MAX_D / 32; ++j) {
+          const int c = lane + 32 * j;
+          const float xv = j < per && c < d ? A::load(out + row + c) : 0.f;
+          v[j] = __fmul_rn(xv, xv);
+        }
 #pragma unroll
-    for (int t = 0; t < MAX_T; ++t) {
-      if (t >= nt) break;
+        for (int w = MAX_D / 64; w >= 1; w /= 2)
+          if (w < per)
 #pragma unroll
-      for (int q = 0; q < 16; ++q) {
-        const int r = slot_row(q), c = c0 + slot_col(q);
-        if (r >= n || c >= d) continue;
-        float y = A::round(__fmul_rn(acc[t][q], sc2[c]));
-        y = A::round(bn_eval(y, aux2, d, c));
-        const size_t off = (((size_t)t * nb + b) * l + r0 + r) * d + c;
-        A::store(out + off, A::round(__fadd_rn(A::load(out + off), y)));
+            for (int j = 0; j < w; ++j) v[j] = __fadd_rn(v[j], v[j + w]);
+        float ss = v[0];
+#pragma unroll
+        for (int o = 16; o >= 1; o /= 2) ss = __fadd_rn(ss, __shfl_down_sync(0xFFFFFFFFu, ss, o));
+        ss = __shfl_sync(0xFFFFFFFFu, ss, 0);
+        const float var = __fadd_rn(__fdiv_rn(ss, (float)d), norm_eps);
+        const float rs = __double2float_rn(__ddiv_rn(1.0, __dsqrt_rn((double)var)));
+        bool any = false;
+        for (int c = lane; c < d; c += 32) {
+          const float y = A::round(__fmul_rn(__fmul_rn(A::load(out + row + c), rs), auxo[c]));
+          A::store(s2g + row + c, y);
+          any |= y != 0.f;
+        }
+        if (__any_sync(0xFFFFFFFFu, any) && lane == 0) s2_live[t] = 1;
+      }
+      __syncthreads();
+    }
+
+    // up, per ff-chunk: s2 x w1 chunk, then scale (+ bn_1), LIF
+    int s2_mask = 0;
+    for (int t = 0; t < nt; ++t) s2_mask |= s2_live[t] << t;
+    for (int hh = 0; hh < heads; ++hh)
+      for (int c0 = 0; c0 < ffc; c0 += TILE) {
+        float acc[MAX_T][16] = {}, u[16] = {};
+        chunk_loop<T>(
+            d, w1 + hh * ffc, ff, c0, ffc, [&](int) { return s2_mask; },
+            [&](int k0, int live) {
+#pragma unroll
+              for (int t = 0; t < MAX_T; ++t) {
+                if (!(live >> t & 1)) continue;
+                if constexpr (ROPE) {
+                  __syncthreads();
+                  stage_a<T>(s2g + (((size_t)t * nb + b) * l + r0) * d, d, n, k0,
+                             abuf);
+                  __syncthreads();
+                  chunk_product<T, true>(acc[t], wbuf, abuf, nullptr, 0, k0);
+                } else {
+                  chunk_product<T>(acc[t], wbuf, nullptr,
+                                   s2bits + (size_t)t * TILE * dw, dw, k0);
+                }
+              }
+            },
+            wbuf);
+#pragma unroll
+        for (int t = 0; t < MAX_T; ++t) {
+          if (t >= nt) break;
+#pragma unroll
+          for (int q = 0; q < 16; ++q) {
+            const int r = slot_row(q), cc = c0 + slot_col(q);
+            if (r >= n || cc >= ffc) continue;
+            const int f = hh * ffc + cc;
+            float y = A::round(__fmul_rn(acc[t][q], sc1[f]));
+            if (!ROPE) y = A::round(bn_eval(y, aux1, ff, f));
+            if (lif_step<T>(u[q], y, lif)) {
+              atomicOr(&hbits[((size_t)t * TILE + r) * fw + f / 32], 1u << (f % 32));
+              hid_live[t * heads + hh] = 1;
+            }
+          }
+        }
+      }
+    __syncthreads();
+
+    // down: the sum over ff-chunks in order (dark chunk blocks skipped),
+    // then scale (+ bn_2) and the residual
+    for (int c0 = 0; c0 < d; c0 += TILE) {
+      float acc[MAX_T][16] = {};
+      chunk_loop<T>(
+          ff, w2, d, c0, d,
+          [&](int k0) {                      // bit t: some ff-chunk of it lit
+            int live = 0;
+            for (int t = 0; t < nt; ++t)
+              for (int hh = k0 / ffc; hh <= (min(k0 + KC, ff) - 1) / ffc; ++hh)
+                if (hid_live[t * heads + hh]) live |= 1 << t;
+            return live;
+          },
+          [&](int k0, int live) {
+#pragma unroll
+            for (int t = 0; t < MAX_T; ++t)
+              if (live >> t & 1)
+                chunk_product<T>(acc[t], wbuf, nullptr,
+                                 hbits + (size_t)t * TILE * fw, fw, k0);
+          },
+          wbuf);
+#pragma unroll
+      for (int t = 0; t < MAX_T; ++t) {
+        if (t >= nt) break;
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          const int r = slot_row(q), c = c0 + slot_col(q);
+          if (r >= n || c >= d) continue;
+          float y = A::round(__fmul_rn(acc[t][q], sc2[c]));
+          if (!ROPE) y = A::round(bn_eval(y, aux2, d, c));
+          const size_t off = (((size_t)t * nb + b) * l + r0 + r) * d + c;
+          A::store(out + off, A::round(__fadd_rn(A::load(out + off), y)));
+        }
       }
     }
   }
+  __syncthreads();
 
-  if (tid < heads) {
+  // merge the tile's flags into its L-block's: per (b, L-block, t) a
+  // mask of live heads for wo and for down and a flag for up, then an
+  // arrival count; the group's last block turns the masks into counts
+  int* grp = flags + ((size_t)b * nlb + lb) * (3 * nt + 1);
+  for (int t = tid; t < nt; t += NT) {
+    int m_wo = 0, m_down = 0;
+    for (int hh = 0; hh < heads; ++hh) {
+      m_wo |= head_live[t * heads + hh] << hh;
+      m_down |= hid_live[t * heads + hh] << hh;
+    }
+    atomicOr(grp + 3 * t, m_wo);
+    atomicOr(grp + 3 * t + 1, s2_live[t]);
+    atomicOr(grp + 3 * t + 2, m_down);
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last_of_group = atomicAdd(grp + 3 * nt, 1) == tpb - 1;
+  __syncthreads();
+  if (last_of_group && tid < heads) {
+    __threadfence();
     int n_wo = 0, n_up = 0, n_down = 0;
     for (int t = 0; t < nt; ++t) {
-      n_wo += head_live[t * heads + tid];
-      n_up += s2_live[t];
-      n_down += hid_live[t * heads + tid];
+      n_wo += atomicOr(grp + 3 * t, 0) >> tid & 1;
+      n_up += atomicOr(grp + 3 * t + 1, 0) != 0;
+      n_down += atomicOr(grp + 3 * t + 2, 0) >> tid & 1;
     }
     int* cnt = counts + (size_t)tid * N_PHASES * nlb + lb;
     atomicAdd(cnt + 5 * nlb, n_wo);
@@ -752,60 +991,68 @@ cudaError_t launch(const void* x, const void* s, const void* w3,
                    const float* sc3, const float* sco, const float* sc1,
                    const float* sc2, const float* auxp, const float* auxo,
                    const float* aux1, const float* aux2, const float* delta,
-                   float scale, Lif lif, int nt, int nb, int l, int d,
-                   int heads, int hd, int ff, int l_block, int decoded,
-                   int c_block, int cp, void* ctx, void* out, int* counts,
+                   float scale, Lif lif, float norm_eps, int rope, int causal,
+                   int nt, int nb, int l, int d, int heads, int hd, int ff,
+                   int l_block, int decoded, int c_block, int cp, void* ctx,
+                   void* s2g, void* out, int* counts, int* flags,
                    cudaStream_t stream) {
-  const int nlb = (l + l_block - 1) / l_block;
-  const size_t dyn_a = (size_t)(3 * hd + MAX_L) * (d + row_pad<T>()) * sizeof(T);
+  const int nlb = (l + l_block - 1) / l_block, tpb = (l_block + TILE - 1) / TILE;
+  const size_t dyn_a = SmemA(sizeof(T), nt, l, d, hd, nlb).total;
   const size_t dyn = 4 * ((size_t)nt * TILE * ((d + 31) / 32 + (ff + 31) / 32) +
                           (size_t)nt * (2 * heads + 1));
-  auto attention = decoded ? attention_phase<T, true> : attention_phase<T, false>;
+  auto attention = rope ? attention_phase<T, false, true>
+                        : decoded ? attention_phase<T, true, false>
+                                  : attention_phase<T, false, false>;
+  auto mlp = rope ? mlp_phase<T, true> : mlp_phase<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
       attention, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn_a);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      mlp_phase<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  err = cudaFuncSetAttribute(mlp, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dyn);
   if (err != cudaSuccess) return err;
   attention<<<dim3(heads, nb), NT, dyn_a, stream>>>(
-      (const T*)s, (const T*)w3, sc3, auxp, delta, scale, lif, nt, nb, l, d,
-      heads, hd, l_block, c_block, cp, (T*)ctx, counts);
+      (const T*)s, (const T*)w3, sc3, auxp, delta, scale, lif, causal, nt, nb,
+      l, d, heads, hd, l_block, c_block, cp, (T*)ctx, counts);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  mlp_phase<T><<<dim3(nlb, nb), NT, dyn, stream>>>(
+  mlp<<<dim3(nlb * tpb, nb), NT, dyn, stream>>>(
       (const T*)x, (const T*)ctx, (const T*)wo, (const T*)w1, (const T*)w2,
-      sco, sc1, sc2, auxo, aux1, aux2, lif, nt, nb, l, d, heads, hd, ff,
-      l_block, (T*)out, counts);
+      sco, sc1, sc2, auxo, aux1, aux2, lif, norm_eps, nt, nb, l, d, heads, hd,
+      ff, l_block, (T*)s2g, (T*)out, counts, flags);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; decoded: the decoded q/k/v
-// projections with chunks of c_block compacted slots and padded width cp.
-// Returns a cudaError_t (0 = success).
+// dtype: 0 = float32, 1 = bfloat16; rope: the token family (analog
+// projection input, RoPE, ln2 rmsnorm, no BN); causal: mask future keys;
+// decoded: the decoded q/k/v projections with chunks of c_block
+// compacted slots and padded width cp. Returns a cudaError_t (0 =
+// success).
 extern "C" int fused_layer_forward(
     int dtype, const void* x, const void* s, const void* w3, const void* wo,
     const void* w1, const void* w2, const void* sc3, const void* sco,
     const void* sc1, const void* sc2, const void* auxp, const void* auxo,
     const void* aux1, const void* aux2, const void* delta, float scale,
-    float decay, float vth, int soft_reset, int nt, int nb, int l, int d,
-    int heads, int hd, int ff, int l_block, int decoded, int c_block, int cp,
-    void* ctx, void* out, void* counts, void* stream) {
+    float decay, float vth, int soft_reset, float norm_eps, int rope,
+    int causal, int nt, int nb, int l, int d, int heads, int hd, int ff,
+    int l_block, int decoded, int c_block, int cp, void* ctx, void* s2g,
+    void* out, void* counts, void* flags, void* stream) {
   const Lif lif{decay, vth, soft_reset};
   const auto f = [](const void* p) { return (const float*)p; };
   if (dtype == 0)
     return launch<float>(x, s, w3, wo, w1, w2, f(sc3), f(sco), f(sc1),
                          f(sc2), f(auxp), f(auxo), f(aux1), f(aux2), f(delta),
-                         scale, lif, nt, nb, l, d, heads, hd, ff, l_block,
-                         decoded, c_block, cp, ctx, out, (int*)counts,
+                         scale, lif, norm_eps, rope, causal, nt, nb, l, d,
+                         heads, hd, ff, l_block, decoded, c_block, cp, ctx,
+                         s2g, out, (int*)counts, (int*)flags,
                          (cudaStream_t)stream);
   if (dtype == 1)
     return launch<__nv_bfloat16>(
         x, s, w3, wo, w1, w2, f(sc3), f(sco), f(sc1), f(sc2), f(auxp),
-        f(auxo), f(aux1), f(aux2), f(delta), scale, lif, nt, nb, l, d, heads,
-        hd, ff, l_block, decoded, c_block, cp, ctx, out, (int*)counts,
-        (cudaStream_t)stream);
+        f(auxo), f(aux1), f(aux2), f(delta), scale, lif, norm_eps, rope,
+        causal, nt, nb, l, d, heads, hd, ff, l_block, decoded, c_block, cp,
+        ctx, s2g, out, (int*)counts, (int*)flags, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,13 +1,22 @@
 """Fused whole-layer step — the layer program of the dual-engine overlay.
 
-Port of ``repro.kernels.fused_layer`` for the vision family (``bn``
-epilogues) and the fused (not pipelined) schedule, with either
-projection datapath: the L-block tile skip (``sparse='tile'``) or the
-decoded gather (``sparse='decoded'``: the q/k/v projections contract
-each row's live spikes in ascending k, in chunks of ``c_block``
-compacted slots under per-L-block pow2 capacities, staged by
-``spike_decode.slab_decode``; wo, up and down keep the L-block tile
-skip, as in JAX). Three functions of one layer:
+Port of ``repro.kernels.fused_layer`` for the fused (not pipelined)
+schedule and both epilogue families:
+
+* ``bn`` — the vision family's eval layer, with either projection
+  datapath: the L-block tile skip (``sparse='tile'``) or the decoded
+  gather (``sparse='decoded'``: the q/k/v projections contract each
+  row's live spikes in ascending k, in chunks of ``c_block`` compacted
+  slots under per-L-block pow2 capacities, staged by
+  ``spike_decode.slab_decode``; wo, up and down keep the L-block tile
+  skip, as in JAX);
+* ``rope`` — the token family's layer: q/k/v projections of the analog
+  ln1 output, RoPE on q and k, causal (or full) binarized attention, wo
+  + residual, the ln2 rmsnorm, an up projection of the analog ln2 output,
+  LIF and down + residual, with no BN. ``sparse='decoded'`` degenerates
+  to the tile skip here, as in JAX: the projection input is analog.
+
+Three functions of one layer:
 
 * :func:`reference_layer` — the sequential oracle, term for term the
   JAX ``reference_layer``;
@@ -18,14 +27,28 @@ skip, as in JAX). Three functions of one layer:
 * :func:`fused_layer` — the wrapper: CPU tensors take the plain version,
   CUDA tensors launch ``csrc/fused_layer.cu`` through
   :func:`fused_layer_cuda` (two launches: attention per (head, b), then
-  wo + MLP per (L-block, b)) or raise.
+  wo + MLP per (64-row tile of an L-block, b)) or raise.
 
-Rounding rules shared by all three (and the kernel): projections
-accumulate in fp32 and are cast to the activation dtype before BN; BN
-runs in fp32 as ``fma32((y - mean) * inv_std, scale, bias)``; the
+Rounding rules shared by the plain version and the kernel: projections
+accumulate in fp32 and are cast to the activation dtype before the
+epilogue; BN runs in fp32 as ``fma32((y - mean) * inv_std, scale,
+bias)`` with the inverse std from :func:`_inv_rows` (``torch.rsqrt(var
++ eps)`` per channel, computed once); RoPE is ``nn.rope_rotate``; the
 residual adds in the activation dtype; LIF runs in the activation dtype.
-The kernel path and the plain version take the inverse std from
-:func:`_inv_rows` (``torch.rsqrt(var + eps)`` per channel, computed once).
+The rope family adds two rules of its own, since its analog sums are
+exact in no order:
+
+* its two analog products (q/k/v of ln1, up of ln2) are summed in
+  ascending k, one fp32 product and one fp32 sum a term
+  (:func:`_seq_matmul`); the kernel runs them on CUDA cores in that
+  order. The spike and count products (wo, down) are exact in any order
+  on integer codes and dyadic weights and keep ``@``;
+* ln2 (:func:`_rms_plain`) sums the squares as a pairwise tree over D
+  zero-padded to a power of two (element i meets i + P/2, then i + P/4,
+  ...) and takes its rsqrt as a float64 ``1 / sqrt`` rounded once. The
+  oracle keeps ``nn.rmsnorm`` (mean, ``torch.rsqrt``), so the plain
+  version and the oracle differ within a stated tolerance, and the
+  oracle and JAX by the rsqrt gap of ``models/nn``.
 """
 from __future__ import annotations
 
@@ -36,8 +59,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.spiking import SpikingConfig, lif_scan, lif_step
-from repro_torch.kernels.fused_ssa import binary_scores, reference_bundle
-from repro_torch.models.nn import bn_affine
+from repro_torch.kernels.fused_ssa import (binary_scores, reference_bundle,
+                                           rope_heads)
+from repro_torch.models.nn import bn_affine, rmsnorm
 
 FAMILIES = ("bn", "rope")
 # per-head phases of the layer program: three sparse projections, the
@@ -45,16 +69,21 @@ FAMILIES = ("bn", "rope")
 LAYER_PHASES = ("q", "k", "v", "qkt", "qktv", "wo", "up", "down")
 N_PHASES = len(LAYER_PHASES)
 
-# kernel launches on the card, by projection datapath: each call of the
-# CUDA layer program launches two kernels (attention_phase, then
-# mlp_phase) and counts both
-LAUNCHES = {"fused_layer": 0, "fused_layer_decoded": 0}
+# kernel launches on the card, by variant (bn tile, bn decoded, rope):
+# each call of the CUDA layer program launches two kernels
+# (attention_phase, then mlp_phase) and counts both
+LAUNCHES = {"fused_layer": 0, "fused_layer_decoded": 0,
+            "fused_layer_rope": 0}
 LAUNCHES_PER_CALL = 2
 
-# shape limits of the CUDA kernel (csrc/fused_layer.cu)
-MAX_L = 64
+# shape limits of the CUDA kernel (csrc/fused_layer.cu): launch A keeps
+# every q/k/v spike bit of the sequence in shared memory (so L is bounded
+# by :func:`smem_a`), launch B's rmsnorm holds a row in registers
+L_TILE = 64
 MAX_HEAD_DIM = 32
 MAX_T = 4
+MAX_D_ROPE = 1024
+SMEM_LIMIT = 232448 - 512      # per block, less launch A's static arrays
 
 
 def reset_launches() -> None:
@@ -62,15 +91,13 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _check_variant(family, sparse, pipeline, causal, binarize_scores):
+def _check_variant(family, sparse, pipeline, binarize_scores):
     if family not in FAMILIES:
         raise ValueError(f"unknown fused-layer family {family!r} "
                          f"(expected bn|rope)")
     if sparse not in ("tile", "decoded"):
         raise ValueError(f"unknown fused-layer sparse path {sparse!r}")
-    for off, what in ((family == "rope", "the rope family"),
-                      (pipeline, "pipeline=True"),
-                      (causal, "causal attention"),
+    for off, what in ((pipeline, "pipeline=True"),
                       (not binarize_scores, "analog attention scores")):
         if off:
             raise NotImplementedError(
@@ -106,6 +133,33 @@ def _block_any(u: torch.Tensor, l_block: int, groups: int = 1
     return m.amax(dim=(3, 5)).transpose(2, 3).bool()
 
 
+def _seq_matmul(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """fp32 ``u @ w`` summed in ascending k, one fp32 product and one fp32
+    sum a term: the rope kernel's order for its analog products."""
+    u32, w32 = u.float(), w.float()
+    acc = torch.zeros((*u.shape[:-1], w.shape[-1]), dtype=torch.float32,
+                      device=u.device)
+    for k in range(u.shape[-1]):
+        acc.add_(u32[..., k, None] * w32[k])
+    return acc
+
+
+def _rms_plain(x1: torch.Tensor, scale: torch.Tensor, eps: float
+               ) -> torch.Tensor:
+    """The rope kernel's ln2: sum of squares as a pairwise tree over D
+    zero-padded to a power of two, the mean, a float64 ``1 / sqrt``
+    rounded once, then ``(x * rsqrt) * scale`` in the activation dtype."""
+    x32 = x1.float()
+    d = x32.shape[-1]
+    v = F.pad(x32 * x32, (0, (1 << (d - 1).bit_length()) - d))
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    var = v / d + torch.tensor(eps, dtype=torch.float32)
+    rs = (1.0 / torch.sqrt(var.double())).float()
+    return (x32 * rs * scale.float()).to(x1.dtype)
+
+
 def _decoded_projections(s, w3, l_block, c_block):
     """The decoded q/k/v projections: for each row, the sum over its live
     spikes in ascending k (``spike_decode.gather_sum``, the kernel's
@@ -126,10 +180,13 @@ def fused_layer_plain(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
                       delta, *, num_heads: int, head_dim: int, scale: float,
                       decay: float, v_th: float, soft_reset: bool,
                       l_block: int, decoded: bool = False,
-                      c_block: int = 128
+                      c_block: int = 128, family: str = "bn",
+                      causal: bool = False, norm_eps: float = 1e-6
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the kernel. The aux rows carry the inverse std
-    (:func:`_inv_rows`). Skipped sub-blocks contribute exact zeros, so
+    """Plain version of the kernel. The bn aux rows carry the inverse std
+    (:func:`_inv_rows`); the rope family reads the (2, L, hd/2) cos / sin
+    table from ``auxp`` and the ln2 scale from ``auxo`` and ignores
+    ``aux1`` / ``aux2``. Skipped sub-blocks contribute exact zeros, so
     the output is the dense composition (with ``decoded``, the q/k/v
     projections are summed in the decoded kernel's order instead); the
     counts follow the kernel's predicates: a projection / wo / up / down
@@ -161,24 +218,41 @@ def fused_layer_plain(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
     def cols(live):                                   # blocks -> columns
         return live.repeat_interleave(l_block, dim=-1)[..., None, :l]
 
+    rope = family == "rope"
     if decoded:
         cur, chunks = _decoded_projections(s, w3, l_block, c_block)
         proj = [(cur[j] * sc3[j].float()).to(dt) for j in range(3)]
         proj_counts = count(chunks[:, :, None])
-    else:
-        proj = [lin(s, w3[j], sc3[j]) for j in range(3)]
+    elif rope:
+        proj = [(_seq_matmul(s, w3[j]) * sc3[j].float()).to(dt)
+                for j in range(3)]
+        proj = [rope_heads(proj[0], auxp, heads),
+                rope_heads(proj[1], auxp, heads), proj[2]]
         proj_counts = count(_block_any(s, l_block))
-    q, k, v = (lif(bn(proj[j], auxp[j])) for j in range(3))
+    else:
+        proj = [bn(lin(s, w3[j], sc3[j]), auxp[j]) for j in range(3)]
+        proj_counts = count(_block_any(s, l_block))
+    if decoded:
+        proj = [bn(proj[j], auxp[j]) for j in range(3)]
+    q, k, v = (lif(u) for u in proj)
     delta_t = torch.as_tensor(delta, dtype=torch.float32, device=x.device)
     k_live = _block_any(k, l_block, heads) | (delta_t <= 0)
     c_live = k_live & _block_any(v, l_block, heads)
     a = binary_scores(per_head(q), per_head(k), scale, delta)
+    if causal:
+        a = a.tril()
     ctx = ((a * cols(c_live)) @ per_head(v).float()).to(dt)
     ctx = ctx.transpose(2, 3).reshape(t, b, l, heads * hd)
-    x1 = x + bn(lin(ctx, wo, sco), auxo)
-    s2 = lif(x1)
-    hid = lif(bn(lin(s2, w1, sc1), aux1))
-    out = x1 + bn(lin(hid, w2, sc2), aux2)
+    if rope:
+        x1 = x + lin(ctx, wo, sco)
+        s2 = _rms_plain(x1, auxo[0], norm_eps)
+        hid = lif((_seq_matmul(s2, w1) * sc1.float()).to(dt))
+        out = x1 + lin(hid, w2, sc2)
+    else:
+        x1 = x + bn(lin(ctx, wo, sco), auxo)
+        s2 = lif(x1)
+        hid = lif(bn(lin(s2, w1, sc1), aux1))
+        out = x1 + bn(lin(hid, w2, sc2), aux2)
     counts = torch.stack([
         proj_counts, proj_counts, proj_counts, count(k_live), count(c_live),
         count(_block_any(ctx, l_block, heads)),
@@ -190,10 +264,13 @@ def fused_layer_plain(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
 def reference_layer(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
                     delta, scfg: SpikingConfig, *, family: str,
                     num_heads: int, head_dim: int, scale: float,
-                    eps: float = 1e-5) -> torch.Tensor:
+                    causal: bool = False, eps: float = 1e-5,
+                    norm_eps: float = 1e-6) -> torch.Tensor:
     """The sequential oracle: the SSA bundle via ``reference_bundle``,
-    then wo + bn_o + residual, the input LIF and the spiking MLP, on the
-    same raw operands the kernel sees (aux rows carry the variance)."""
+    then wo + epilogue + residual, the input LIF (bn) or ln2 (rope), and
+    the spiking MLP, on the same raw operands the kernel sees (bn aux
+    rows carry the variance; rope: the cos / sin table and the ln2
+    scale)."""
     if scales is None:
         sc3 = sco = sc1 = sc2 = None
     else:
@@ -211,7 +288,12 @@ def reference_layer(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
 
     ctx = reference_bundle(s, w3, sc3, auxp, delta, scfg, family=family,
                            num_heads=num_heads, head_dim=head_dim,
-                           scale=scale, eps=eps)
+                           scale=scale, causal=causal, eps=eps)
+    if family == "rope":
+        x1 = x + lin(ctx, wo, sco)
+        s2 = rmsnorm({"scale": auxo[0]}, x1, norm_eps)
+        hid = lif_scan(lin(s2, w1, sc1), scfg)[0]
+        return x1 + lin(hid, w2, sc2)
     x1 = x + bn(lin(ctx, wo, sco), auxo)
     s2 = lif_scan(x1, scfg)[0]
     hid = lif_scan(bn(lin(s2, w1, sc1), aux1), scfg)[0]
@@ -221,35 +303,40 @@ def reference_layer(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
 def fused_layer(x: torch.Tensor, s: torch.Tensor, w3: torch.Tensor,
                 wo: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
                 scales: Optional[Tuple[torch.Tensor, ...]],
-                auxp: torch.Tensor, auxo: torch.Tensor, aux1: torch.Tensor,
-                aux2: torch.Tensor, delta, *, family: str, num_heads: int,
-                head_dim: int, scale: float, causal: bool = False,
-                sparse: str = "tile", pipeline: bool = False,
-                binarize_scores: bool = True, decay: float = 0.5,
-                v_th: float = 1.0, soft_reset: bool = False,
-                eps: float = 1e-5, l_block: int = 128, c_block: int = 128
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                auxp: torch.Tensor, auxo: torch.Tensor,
+                aux1: Optional[torch.Tensor], aux2: Optional[torch.Tensor],
+                delta, *, family: str, num_heads: int, head_dim: int,
+                scale: float, causal: bool = False, sparse: str = "tile",
+                pipeline: bool = False, binarize_scores: bool = True,
+                decay: float = 0.5, v_th: float = 1.0,
+                soft_reset: bool = False, eps: float = 1e-5,
+                norm_eps: float = 1e-6, l_block: int = 128,
+                c_block: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused whole-layer step (forward only), the signature of the JAX
     ``fused_layer``.
 
     x: (T, B, L, D) layer input (the residual stream); s: (T, B, L, D)
-    ``LIF(x)`` spikes; w3 (3, D, H*hd), wo (H*hd, D), w1 (D, F), w2 (F, D)
-    with F a multiple of ``num_heads``; scales: fp32 (scale3 (3, H*hd),
-    scale_o (D,), scale_1 (F,), scale_2 (D,)) or None; auxp (3, 4, H*hd),
-    auxo (4, D), aux1 (4, F), aux2 (4, D) BN rows [mean, var, scale, bias].
-    ``sparse``: 'tile' or 'decoded' (the q/k/v projection datapath);
+    ``LIF(x)`` spikes (bn) or the ln1-normed currents (rope); w3
+    (3, D, H*hd), wo (H*hd, D), w1 (D, F), w2 (F, D) with F a multiple of
+    ``num_heads``; scales: fp32 (scale3 (3, H*hd), scale_o (D,), scale_1
+    (F,), scale_2 (D,)) or None. Family 'bn': auxp (3, 4, H*hd), auxo
+    (4, D), aux1 (4, F), aux2 (4, D) BN rows [mean, var, scale, bias];
+    family 'rope': auxp the (2, L, hd/2) [cos; sin] table, auxo the
+    (1, D) ln2 scale, aux1 / aux2 ignored. ``sparse``: 'tile' or
+    'decoded' (the q/k/v projection datapath; rope takes 'tile');
     ``l_block``: the L-block of the occupancy skips and decoded
     capacities; ``c_block``: the decoded chunk of compacted slots.
 
     Returns (layer output (T, B, L, D) in the activation dtype, counts
     (H, 8, ceil(L / l_block)) int32 — executed sub-blocks per head,
     phase (:data:`LAYER_PHASES`) and L-block)."""
-    _check_variant(family, sparse, pipeline, causal, binarize_scores)
+    _check_variant(family, sparse, pipeline, binarize_scores)
     args, kw = prepare(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
                        delta, num_heads=num_heads, head_dim=head_dim,
                        scale=scale, decay=decay, v_th=v_th,
                        soft_reset=soft_reset, eps=eps, l_block=l_block,
-                       sparse=sparse, c_block=c_block)
+                       sparse=sparse, c_block=c_block, family=family,
+                       causal=causal, norm_eps=norm_eps)
     if x.device.type == "cpu":
         return fused_layer_plain(*args, **kw)
     if x.device.type != "cuda":
@@ -260,21 +347,31 @@ def fused_layer(x: torch.Tensor, s: torch.Tensor, w3: torch.Tensor,
 
 def prepare(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2, delta, *,
             num_heads, head_dim, scale, decay, v_th, soft_reset, eps,
-            l_block, sparse="tile", c_block=128):
+            l_block, sparse="tile", c_block=128, family="bn", causal=False,
+            norm_eps=1e-6):
     """Checks the operands of :func:`fused_layer` and returns the
     ``(args, kwargs)`` that :func:`fused_layer_plain` and
     :func:`fused_layer_cuda` both take: fp32 scales (ones for None), BN
-    rows with the inverse std, delta as a 1-element fp32 tensor,
-    ``l_block`` clipped to L, ``decoded`` for ``sparse='decoded'`` and
-    ``c_block`` clipped to D (as ``slab_decode`` clips it)."""
+    rows with the inverse std (bn) or the fp32 table and ln2 scale with
+    ``aux1`` / ``aux2`` None (rope), delta as a 1-element fp32 tensor,
+    ``l_block`` clipped to L, ``decoded`` for ``sparse='decoded'`` on the
+    bn family and ``c_block`` clipped to D (as ``slab_decode`` clips
+    it)."""
     t, b, l, d = x.shape
     q_dim = num_heads * head_dim
     ff = w1.shape[1]
     shapes = {"s": (s.shape, x.shape), "w3": (w3.shape, (3, d, q_dim)),
               "wo": (wo.shape, (q_dim, d)), "w2": (w2.shape, (ff, d)),
-              "w1": (w1.shape, (d, ff)), "auxp": (auxp.shape, (3, 4, q_dim)),
-              "auxo": (auxo.shape, (4, d)), "aux1": (aux1.shape, (4, ff)),
-              "aux2": (aux2.shape, (4, d))}
+              "w1": (w1.shape, (d, ff))}
+    if family == "bn":
+        shapes.update(auxp=(auxp.shape, (3, 4, q_dim)),
+                      auxo=(auxo.shape, (4, d)), aux1=(aux1.shape, (4, ff)),
+                      aux2=(aux2.shape, (4, d)))
+    else:
+        if head_dim % 2:
+            raise ValueError("the rope family takes an even head_dim")
+        shapes.update(auxp=(auxp.shape, (2, l, head_dim // 2)),
+                      auxo=(auxo.shape, (1, d)))
     for name, (got, want) in shapes.items():
         if tuple(got) != tuple(want):
             raise ValueError(f"{name} has shape {tuple(got)}, expected "
@@ -287,20 +384,37 @@ def prepare(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2, delta, *,
                   torch.ones((d,), device=dev), torch.ones((ff,), device=dev),
                   torch.ones((d,), device=dev))
     scales = tuple(a.float().contiguous() for a in scales)
-    auxp, auxo, aux1, aux2 = (_inv_rows(a, eps) for a in
-                              (auxp, auxo, aux1, aux2))
+    if family == "bn":
+        auxp, auxo, aux1, aux2 = (_inv_rows(a, eps) for a in
+                                  (auxp, auxo, aux1, aux2))
+    else:
+        auxp, auxo, aux1, aux2 = auxp.float(), auxo.float(), None, None
     delta = torch.as_tensor(delta, dtype=torch.float32, device=dev
                             ).reshape(1)
     kw = dict(num_heads=num_heads, head_dim=head_dim, scale=scale,
               decay=decay, v_th=v_th, soft_reset=soft_reset,
-              l_block=max(1, min(l_block, l)), decoded=sparse == "decoded",
-              c_block=max(1, min(c_block, d)))
+              l_block=max(1, min(l_block, l)),
+              decoded=sparse == "decoded" and family == "bn",
+              c_block=max(1, min(c_block, d)), family=family, causal=causal,
+              norm_eps=norm_eps)
     return (x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2, delta), kw
 
 
+def smem_a(elem_size: int, t: int, l: int, d: int, head_dim: int,
+           nlb: int) -> int:
+    """Launch A's dynamic shared memory in bytes (``SmemA`` in the CUDA
+    source): the head's w3 slice, one 64-row slab, and the q/k/v spike
+    bits, masks and block flags of the whole sequence."""
+    n3, ldk, lw = 3 * head_dim, d + 16 // elem_size, -(-l // 32)
+    wt = -(-n3 * ldk * elem_size // 16) * 16
+    slab = L_TILE * max(ldk * elem_size, n3 * 4)
+    return wt + slab + 4 * (2 * t * l + t * head_dim * lw + 2 * t * lw
+                            + t * nlb)
+
+
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 15
-             + [ctypes.c_float] * 3 + [ctypes.c_int] * 12
-             + [ctypes.c_void_p] * 4)
+             + [ctypes.c_float] * 3 + [ctypes.c_int] + [ctypes.c_float]
+             + [ctypes.c_int] * 13 + [ctypes.c_void_p] * 6)
 
 
 def _library():
@@ -316,14 +430,18 @@ def _library():
 
 def fused_layer_cuda(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
                      delta, *, num_heads, head_dim, scale, decay, v_th,
-                     soft_reset, l_block, decoded=False, c_block=128):
+                     soft_reset, l_block, decoded=False, c_block=128,
+                     family="bn", causal=False, norm_eps=1e-6):
     """Launch the CUDA layer program on PyTorch's current stream, on the
-    operands :func:`prepare` returns; ``decoded`` selects the decoded
-    q/k/v projections (counted under ``fused_layer_decoded``)."""
+    operands :func:`prepare` returns; counted under ``fused_layer``,
+    ``fused_layer_decoded`` (``decoded``) or ``fused_layer_rope``."""
     dtypes = {torch.float32: 0, torch.bfloat16: 1}
     if x.dtype not in dtypes:
         raise ValueError(f"fused_layer kernel takes float32 or bfloat16, "
                          f"not {x.dtype}")
+    rope = family == "rope"
+    if rope:                    # unused by the kernel: any valid pointer
+        aux1 = aux2 = auxo
     act = (x, s, w3, wo, w1, w2)
     f32 = (*scales, auxp, auxo, aux1, aux2, delta)
     for a in act + f32:
@@ -334,34 +452,45 @@ def fused_layer_cuda(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
             raise ValueError("x, s and the weights must share one dtype")
     t, b, l, d = x.shape
     ff = w1.shape[1]
-    if l > MAX_L or t > MAX_T:
-        raise ValueError(f"fused_layer kernel takes L <= {MAX_L} and "
-                         f"T <= {MAX_T}, got L={l}, T={t}")
+    nlb = -(-l // l_block)
+    smem = smem_a(x.element_size(), t, l, d, head_dim, nlb)
+    if t > MAX_T or smem > SMEM_LIMIT:
+        raise ValueError(f"fused_layer kernel takes T <= {MAX_T} and a "
+                         f"sequence whose spike bits fit shared memory, got "
+                         f"T={t}, L={l} ({smem} bytes > {SMEM_LIMIT})")
     if head_dim > MAX_HEAD_DIM or head_dim % 8 or d % 16 or \
-            (ff // num_heads) % 8:
+            (ff // num_heads) % 8 or num_heads > 32 or \
+            (rope and d > MAX_D_ROPE):
         raise ValueError(f"fused_layer kernel takes head_dim a multiple of 8 "
-                         f"up to {MAX_HEAD_DIM}, D a multiple of 16 and "
-                         f"F / H a multiple of 8, got head_dim={head_dim}, "
-                         f"D={d}, F={ff}, H={num_heads}")
+                         f"up to {MAX_HEAD_DIM}, D a multiple of 16 (at "
+                         f"most {MAX_D_ROPE} for rope), F / H a multiple "
+                         f"of 8 and at most 32 heads, got head_dim="
+                         f"{head_dim}, D={d}, F={ff}, H={num_heads}")
     act = tuple(a.contiguous() for a in act)
     f32 = tuple(a.contiguous() for a in f32)
-    nlb = -(-l // l_block)
     ctx = torch.empty((t, b, l, num_heads * head_dim), dtype=x.dtype,
                       device=x.device)
+    s2g = torch.empty_like(act[0]) if rope else ctx
     out = torch.empty_like(act[0])
     counts = torch.zeros((num_heads, N_PHASES, nlb), dtype=torch.int32,
                          device=x.device)
+    # launch B's per-(b, L-block) flag words and arrival counts
+    flags = torch.zeros((b, nlb, 3 * t + 1), dtype=torch.int32,
+                        device=x.device)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     cp = -(-d // c_block) * c_block
     rc = lib.fused_layer_forward(
         dtypes[x.dtype], *(a.data_ptr() for a in act + f32),
         float(scale), float(decay), float(v_th), int(soft_reset),
-        t, b, l, d, num_heads, head_dim, ff, l_block, int(decoded), c_block,
-        cp, ctx.data_ptr(), out.data_ptr(), counts.data_ptr(), stream)
+        float(norm_eps), int(rope), int(causal), t, b, l, d, num_heads,
+        head_dim, ff, l_block, int(decoded), c_block, cp, ctx.data_ptr(),
+        s2g.data_ptr(), out.data_ptr(), counts.data_ptr(), flags.data_ptr(),
+        stream)
     if rc != 0:
         raise RuntimeError(f"fused_layer kernel launch failed: "
                            f"{lib.fused_layer_error(rc).decode()}")
-    LAUNCHES["fused_layer_decoded" if decoded else "fused_layer"] += \
-        LAUNCHES_PER_CALL
+    name = "fused_layer_rope" if rope else \
+        "fused_layer_decoded" if decoded else "fused_layer"
+    LAUNCHES[name] += LAUNCHES_PER_CALL
     return out, counts

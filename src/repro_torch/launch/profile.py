@@ -1,16 +1,22 @@
-"""Where the time of the port's inference and training steps goes, on the
-GPU.
+"""Where the time of the port's steps goes, on the GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.profile [--sparse decoded]
+    PYTHONPATH=src python -m repro_torch.launch.profile \
+        --arch spikingformer-lm [--quantize int8]
 
-Runs the published Spikingformer-4-256 config (seeded random weights;
-``--sparse`` sets its sparse datapath, 'auto' by default) on
+Spikingformer-4-256 (the default): the published config (seeded random
+weights; ``--sparse`` sets its sparse datapath, 'auto' by default) on
 batches of 64 images through ``build_prefill_step`` and through
-``build_train_step`` (AdamW, warmup-cosine): two warm-up calls of each,
-then three under ``torch.profiler``. For each step it prints the wall
-time per call, the device time per call summed by kernel name, and the
-device's busy share (kernel time over wall time), then one JSON line
-with the same numbers. Needs a CUDA device.
+``build_train_step`` (AdamW, warmup-cosine). spikingformer-lm: the
+published config (``--quantize int8``: its int8 tree, as ``launch/
+serve.py --quantize int8`` loads it) through ``build_prefill_step`` on
+8 x 512 tokens, and through the continuous-batching server: one call
+serves 8 requests of 100-500 prompt tokens and 8 new tokens each over 8
+slots. Each step gets two warm-up calls, then three under
+``torch.profiler``. For each it prints the wall time per call, the
+device time per call summed by kernel name, and the device's busy share
+(kernel time over wall time), then one JSON line with the same numbers.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import argparse
 import json
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -27,10 +34,11 @@ from repro_torch.launch.train import make_batch_fn
 from repro_torch.models import registry
 from repro_torch.optim import adamw, warmup_cosine
 
-ARCH = "spikingformer-4-256"
 BATCH = 64
 CALLS = 3
 TOP = 12
+LM_BATCH, LM_PROMPT = 8, 512
+SERVE_SLOTS, SERVE_REQUESTS, SERVE_NEW, SERVE_MAX_LEN = 8, 8, 8, 1024
 
 
 def _device_us(evt) -> float:
@@ -40,7 +48,8 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _profile(what: str, sparse: str, call) -> None:
+def _profile(arch: str, what: str, sparse: str, call,
+             unit: str = f"{BATCH} images") -> None:
     """Profile ``call(i)`` for i in 2..4 after two warm-up calls."""
     for i in range(2):
         call(i)
@@ -59,12 +68,12 @@ def _profile(what: str, sparse: str, call) -> None:
             by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + us
     per_call = {k: v / 1e3 / CALLS for k, v in by_kernel.items()}
     device_ms = sum(per_call.values())
-    print(f"{ARCH} {what}, sparse={sparse!r}, {CALLS} calls x {BATCH} "
-          f"images: wall {wall_ms:.3f} ms/call, device {device_ms:.3f} ms/call, "
+    print(f"{arch} {what}, sparse={sparse!r}, {CALLS} calls x {unit}: "
+          f"wall {wall_ms:.3f} ms/call, device {device_ms:.3f} ms/call, "
           f"busy share {device_ms / wall_ms:.3f}")
     for name, ms in sorted(per_call.items(), key=lambda kv: -kv[1])[:TOP]:
         print(f"  {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  {name[:90]}")
-    print(json.dumps({"arch": ARCH, "step": what, "batch": BATCH,
+    print(json.dumps({"arch": arch, "step": what, "unit": unit,
                       "sparse": sparse,
                       "wall_ms_per_call": wall_ms,
                       "device_ms_per_call": device_ms,
@@ -73,26 +82,63 @@ def _profile(what: str, sparse: str, call) -> None:
                       "device": torch.cuda.get_device_name(0)}))
 
 
+def _profile_lm(cfg, quantize: str) -> None:
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.quant import quantize_tree
+    params = registry.init(cfg, seed=0)
+    if quantize != "none":
+        params = quantize_tree(params, quantize)
+        cfg = cfg.replace(engine=cfg.engine.replace(weights=quantize))
+    arch = f"{cfg.name} ({quantize if quantize != 'none' else cfg.dtype})"
+    prefill = build_prefill_step(cfg)
+    gen = torch.Generator().manual_seed(1)
+    tokens = [torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=gen).cuda() for _ in range(CALLS + 2)]
+    _profile(arch, "prefill", cfg.engine.sparse,
+             lambda i: prefill(params, {"tokens": tokens[i]}),
+             unit=f"{LM_BATCH} x {LM_PROMPT} tokens")
+
+    def serve(i):
+        rng = np.random.default_rng(i)
+        server = BatchedServer(cfg, params, SERVE_SLOTS, SERVE_MAX_LEN)
+        for r in range(SERVE_REQUESTS):
+            n = int(rng.integers(100, 501))
+            server.submit(Request(rid=r, prompt=rng.integers(
+                0, cfg.vocab_size, n).astype(np.int32),
+                max_new_tokens=SERVE_NEW))
+        server.run()
+    _profile(arch, "serve", cfg.engine.sparse, serve,
+             unit=f"{SERVE_REQUESTS} requests x {SERVE_NEW} new tokens")
+
+
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="spikingformer-4-256",
+                    choices=["spikingformer-4-256", "spikingformer-lm"])
     ap.add_argument("--sparse", default=None,
                     choices=["tile", "decoded", "auto"],
                     help="the engine's sparse datapath (default: the "
                          "config's)")
+    ap.add_argument("--quantize", default="none",
+                    choices=["none", "int8", "int4"],
+                    help="spikingformer-lm: quantize the linears at load")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(ARCH)
+    cfg = get_config(args.arch)
     if args.sparse is not None:
         cfg = cfg.replace(engine=cfg.engine.replace(sparse=args.sparse))
+    if args.arch == "spikingformer-lm":
+        _profile_lm(cfg, args.quantize)
+        return
     params = registry.init(cfg, seed=0)
     prefill = build_prefill_step(cfg)
     gen = torch.Generator().manual_seed(1)
     v = cfg.vision
     images = [torch.rand((BATCH, v.img_size, v.img_size, v.in_channels),
                          generator=gen).cuda() for _ in range(CALLS + 2)]
-    _profile("prefill", cfg.engine.sparse,
+    _profile(args.arch, "prefill", cfg.engine.sparse,
              lambda i: prefill(params, {"images": images[i]}))
 
     opt = adamw(warmup_cosine(2e-3, 1, CALLS + 2))
@@ -105,7 +151,7 @@ def main():
         p, o, _, _, st = train_step(carry[0], carry[1], i, batches[i],
                                     carry[2])
         carry[:] = [p, o, st]
-    _profile("train", cfg.engine.sparse, train)
+    _profile(args.arch, "train", cfg.engine.sparse, train)
 
 
 if __name__ == "__main__":

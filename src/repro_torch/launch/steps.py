@@ -1,4 +1,5 @@
-"""Step builders: the training step and the inference step.
+"""Step builders: the training step, the inference step and the two
+decode steps of the serving path.
 
 As in ``repro.launch.steps``, every builder wraps its forward in
 ``engine_scope(cfg)``, so one config knob (``ModelConfig.engine``) drives
@@ -92,9 +93,11 @@ def build_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
 
 def build_prefill_step(cfg: ModelConfig, *,
                        device: DeviceLike = None) -> Callable:
-    """Inference forward: (params, batch) -> logits, on ``device`` (the
-    GPU by default). Like the JAX step it passes no BN state, so the
-    forward runs on ``init_state`` (mean 0, var 1)."""
+    """Inference forward over the full sequence: (params, batch) ->
+    logits, on ``device`` (the GPU by default); batch holds 'images'
+    (vision) or 'tokens' (B, S) (token family). Like the JAX step it
+    passes no BN state, so a vision forward runs on ``init_state`` (mean
+    0, var 1)."""
     dev = resolve_device(device)
 
     def prefill_step(params, batch):
@@ -103,3 +106,33 @@ def build_prefill_step(cfg: ModelConfig, *,
             logits, _ = registry.forward(params, cfg, batch, train=False)
         return logits
     return prefill_step
+
+
+def build_serve_step(cfg: ModelConfig, *,
+                     device: DeviceLike = None) -> Callable:
+    """One decode step: (params, cache, tokens (B, 1), pos) ->
+    (next-token logits, cache), on ``device`` (the GPU by default)."""
+    dev = resolve_device(device)
+
+    def serve_step(params, cache, tokens, pos):
+        with engine_scope(cfg), torch.inference_mode():
+            return registry.decode_step(params, cfg, cache,
+                                        torch.as_tensor(tokens).to(dev), pos)
+    return serve_step
+
+
+def build_batched_serve_step(cfg: ModelConfig, *,
+                             device: DeviceLike = None) -> Callable:
+    """The continuous-batching step (slotted-decode families): (params,
+    cache, tokens (B, C), pos (B,), n_tok (B,)) -> (logits (B, C, V),
+    cache). Every slot runs its own timeline; a row's tokens beyond
+    n_tok are padding."""
+    dev = resolve_device(device)
+
+    def serve_step(params, cache, tokens, pos, n_tok):
+        with engine_scope(cfg), torch.inference_mode():
+            return registry.decode_step(
+                params, cfg, cache, torch.as_tensor(tokens).to(dev),
+                torch.as_tensor(pos).to(dev), n_tok=torch.as_tensor(
+                    n_tok).to(dev))
+    return serve_step

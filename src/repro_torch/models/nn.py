@@ -1,4 +1,5 @@
-"""Functional NN layers (the subset the spiking vision models use).
+"""Functional NN layers (the subset the spiking vision models and the
+spiking LM use).
 
 Mirrors ``repro.models.nn``: params are nested dicts of tensors made by
 ``*_init`` functions from a ``torch.Generator``; activations keep the
@@ -16,6 +17,14 @@ Two numerics rules keep the port bitwise with the jitted reference:
   channel. It differs from XLA's rsqrt by one or two ulp on about a
   third of inputs, which tests avoid by drawing variances where the two
   agree.
+
+RoPE follows the jitted reference's contraction too: XLA computes
+``x1 * cos - x2 * sin`` as ``fma(x1, cos, -(x2 * sin))`` and ``x2 * cos
++ x1 * sin`` as ``fma(x2, cos, x1 * sin)``. Its cos / sin table is
+taken in float64 and rounded once, the same on every device; it differs
+from XLA's fp32 cos / sin by one ulp on about 1% of entries, and
+:func:`rmsnorm`'s rsqrt is the rsqrt gap above, so the token family is
+held against JAX within a stated tolerance.
 """
 from __future__ import annotations
 
@@ -44,8 +53,9 @@ def normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
 
 
 def linear_init(gen, d_in: int, d_out: int, *, bias: bool = False,
-                dtype=torch.bfloat16):
-    p = {"w": normal(gen, (d_in, d_out), 1.0 / math.sqrt(d_in), dtype)}
+                std=None, dtype=torch.bfloat16):
+    std = 1.0 / math.sqrt(d_in) if std is None else std
+    p = {"w": normal(gen, (d_in, d_out), std, dtype)}
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=dtype)
     return p
@@ -61,8 +71,12 @@ def linear(p, x: torch.Tensor, *, spikes: bool = False,
     (``core.engine.spike_linear``). Otherwise this is the plain dense
     path."""
     if "qw" in p:
-        raise NotImplementedError("quantized weights are not ported to "
-                                  "PyTorch yet (ROADMAP queue 1 item 6)")
+        # quantized dicts: spike inputs take the engine's dispatch, analog
+        # inputs the weight-only quantized reference
+        from repro_torch.core import engine as _engine  # lazy: no cycle
+        if spikes and _engine.get_engine() is not None:
+            return _engine.spike_linear(p, x, counts=counts)
+        return _engine.dense_quant_linear(p, x)
     if spikes:
         from repro_torch.core import engine as _engine  # lazy: no cycle
         if _engine.get_engine() is not None:
@@ -71,6 +85,71 @@ def linear(p, x: torch.Tensor, *, spikes: bool = False,
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def rmsnorm_init(d: int, dtype=torch.bfloat16):
+    return {"scale": torch.ones((d,), dtype=dtype)}
+
+
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+def embedding_init(gen, vocab: int, d: int, dtype=torch.bfloat16):
+    return {"table": normal(gen, (vocab, d), 1.0 / math.sqrt(d), dtype)}
+
+
+def embed(p, ids: torch.Tensor) -> torch.Tensor:
+    return p["table"][ids]
+
+
+def unembed(p, x: torch.Tensor) -> torch.Tensor:
+    return x.float() @ p["table"].to(x.dtype).float().t()
+
+
+def mlp_init(gen, d_model: int, d_ff: int, *, gated: bool,
+             dtype=torch.bfloat16):
+    p = {"up": linear_init(gen, d_model, d_ff, dtype=dtype),
+         "down": linear_init(gen, d_ff, d_model, dtype=dtype)}
+    if gated:
+        p["gate"] = linear_init(gen, d_model, d_ff, dtype=dtype)
+    return p
+
+
+def rope_table(positions: torch.Tensor, head_dim: int, theta: float):
+    """(cos, sin), each ``positions.shape + (head_dim // 2,)`` fp32: the
+    angles ``pos * theta^(-i / half)`` in fp32 as the reference forms
+    them, their cos and sin in float64 rounded once."""
+    half = head_dim // 2
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32),
+                      -torch.arange(half, dtype=torch.float32) / half)
+    ang = positions.float()[..., None] * freqs.to(positions.device)
+    ang = ang.double()
+    return torch.cos(ang).float(), torch.sin(ang).float()
+
+
+def rope_rotate(y: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+                ) -> torch.Tensor:
+    """The rotation on fp32 halves, with the reference's contraction:
+    ``[fma(x1, cos, -(x2 sin)), fma(x2, cos, x1 sin)]``."""
+    half = y.shape[-1] // 2
+    x1, x2 = y[..., :half].float(), y[..., half:].float()
+    return torch.cat([fma32(x1, cos, -(x2 * sin)),
+                      fma32(x2, cos, x1 * sin)], dim=-1)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """Apply RoPE. x: (B, L, H, D); positions: (B, L) or (L,)."""
+    positions = torch.as_tensor(positions, device=x.device)
+    if positions.ndim == 1:
+        positions = positions[None]
+    cos, sin = rope_table(positions, x.shape[-1], theta)
+    return rope_rotate(x, cos[:, :, None, :], sin[:, :, None, :]
+                       ).to(x.dtype)
 
 
 def batchnorm_init(d: int, dtype=torch.bfloat16):

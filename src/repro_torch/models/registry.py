@@ -1,9 +1,11 @@
 """Model registry (the families the port runs so far).
 
 Uniform API, as in ``repro.models.registry``:
-  init(cfg, seed, device=)            -> params tree
-  forward(params, cfg, batch, train=) -> (logits, aux)
-  init_state(cfg, device=)            -> BatchNorm running stats
+  init(cfg, seed, device=)                     -> params tree
+  forward(params, cfg, batch, train=)          -> (logits, aux)
+  init_state(cfg, device=)                     -> BatchNorm running stats
+  init_cache(cfg, batch, max_len, ...)         -> decode cache (LM family)
+  decode_step(params, cfg, cache, tokens, pos) -> (logits, cache)
 """
 from __future__ import annotations
 
@@ -12,9 +14,16 @@ from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
-from . import spikingformer
+from . import spikingformer, transformer
 
-FAMILIES: Dict[str, ModuleType] = {"spikingformer": spikingformer}
+FAMILIES: Dict[str, ModuleType] = {"spikingformer": spikingformer,
+                                   "dense": transformer}
+# families without an autoregressive decode step
+NO_DECODE = {"spikingformer", "cifarnet"}
+# families whose decode step carries per-slot state (vector positions,
+# validity tags, chunked bites, slot invalidation): what the
+# continuous-batching server needs
+SLOTTED_DECODE = {"dense"}
 
 
 def family_module(cfg: ModelConfig) -> ModuleType:
@@ -36,4 +45,38 @@ def forward(params, cfg: ModelConfig, batch, *, train: bool = False, **kw):
 
 
 def init_state(cfg: ModelConfig, *, device: DeviceLike = None):
-    return family_module(cfg).init_state(cfg, device=device)
+    if cfg.family in ("spikingformer", "cifarnet"):
+        return family_module(cfg).init_state(cfg, device=device)
+    return None
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, batch=None,
+               params=None, chunk_headroom: int = 0, *,
+               device: DeviceLike = None):
+    if chunk_headroom and not supports_slots(cfg):
+        raise ValueError(f"{cfg.family} decode takes no chunked-prefill "
+                         f"bites")
+    return family_module(cfg).init_cache(
+        cfg, batch_size, max_len, batch=batch, params=params,
+        chunk_headroom=chunk_headroom, device=device)
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens, pos, n_tok=None):
+    return family_module(cfg).decode_step(params, cfg, cache, tokens, pos,
+                                          n_tok=n_tok)
+
+
+def invalidate_slots(cfg: ModelConfig, cache, slot_mask):
+    """Reset the validity tags of masked slots (continuous-batching
+    admission). Slotted-decode families only."""
+    if not supports_slots(cfg):
+        raise ValueError(f"{cfg.family} has no per-slot decode state")
+    return family_module(cfg).invalidate_slots(cache, slot_mask)
+
+
+def has_decode(cfg: ModelConfig) -> bool:
+    return cfg.family not in NO_DECODE
+
+
+def supports_slots(cfg: ModelConfig) -> bool:
+    return cfg.family in SLOTTED_DECODE

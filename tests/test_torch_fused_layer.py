@@ -12,7 +12,8 @@ against the JAX package.
   all-zero input gives the closed forms of ``tests/test_fused_layer.py``;
 * the wrapper takes the plain version for CPU tensors and launches
   nothing; unported variants raise ``NotImplementedError`` (the decoded
-  variant is held against JAX in ``test_torch_spike_decode.py``).
+  variant is held against JAX in ``test_torch_spike_decode.py``, the
+  rope family in ``test_torch_lm.py``).
 
 The CUDA kernel itself is held against the plain version on the card by
 ``chip_smoke.py``.
@@ -136,10 +137,10 @@ def test_wrapper_runs_plain_version_on_cpu_and_launches_nothing():
     assert out.device.type == "cpu" and out.dtype == torch.float32
 
 
-@pytest.mark.parametrize("variant", [dict(family="rope"),
+@pytest.mark.parametrize("variant", [dict(family="rope", pipeline=True),
                                      dict(sparse="decoded", pipeline=True),
                                      dict(pipeline=True),
-                                     dict(causal=True),
+                                     dict(causal=True, binarize_scores=False),
                                      dict(binarize_scores=False)])
 def test_unported_variants_raise(variant):
     t, b, l, d, heads, hd, ff, l_block = SHAPES["odd"]
@@ -154,7 +155,8 @@ def test_kernel_launcher_rejects_operands_before_launching(bad):
     """The CUDA launcher checks shapes and dtypes before it builds or
     calls the kernel, so these raise here too, where there is no card."""
     t = 5 if bad == "long_t" else 2
-    l = 65 if bad == "long_l" else 13
+    # launch A keeps the whole sequence's spike bits in shared memory
+    l = 20000 if bad == "long_l" else 13
     heads, hd, d, ff = 2, 8, 16, 16
     args, kw = TFL.prepare(*to_torch(layer_ops(7, t, 1, l, d, heads, hd, ff)),
                            num_heads=heads, head_dim=hd,

@@ -426,4 +426,5 @@ def test_decoded_layer_wrapper_launches_nothing_on_cpu():
     targs = to_torch(layer_ops(5, t, b, l, d, heads, hd, ff))
     TFL.fused_layer(*targs, sparse="decoded", l_block=l_block,
                     c_block=c_block, **_kw(heads, hd))
-    assert TFL.LAUNCHES == {"fused_layer": 0, "fused_layer_decoded": 0}
+    assert TFL.LAUNCHES == {"fused_layer": 0, "fused_layer_decoded": 0,
+                            "fused_layer_rope": 0}

@@ -199,25 +199,30 @@ def test_dispatch_rules_on_cpu_and_cuda_tensors():
                                           _on(dev)) == path
     with pytest.raises(NotImplementedError):
         TE.resolve_overlap(TE.EngineConfig(overlap="pipeline"), _on("cuda"))
-    # spike_linear and the sequential ssa_step are ported; the fused SSA
-    # bundle (kernel #6) and quantized weights are not
+    # spike_linear (with quantized weights on the dense path) and the
+    # sequential ssa_step are ported; the fused SSA bundle (kernel #6) and
+    # the int8 sparse kernels (#3, #5) are not
+    from repro_torch.quant import quantize_weight
     tcfg = get_config("spikingformer-4-256", smoke=True)
     bp, st = _block_leaves(tcfg)
     s = torch.ones((2, 1, 16, tcfg.d_model))
     y = TE.spike_linear(bp["wq"], s, engine=TE.EngineConfig(mode="sparse"))
     assert y.shape == (2, 1, 16, tcfg.q_dim)
+    qwq = quantize_weight(bp["wq"]["w"])
+    assert TE.spike_linear(qwq, s).shape == (2, 1, 16, tcfg.q_dim)
     bundle_st = {n: st[n] for n in ("bn_q", "bn_k", "bn_v")}
     ctx, _ = TE.ssa_step(bp, bundle_st, tcfg, s,
                          engine=TE.EngineConfig(overlap="off"))
     assert ctx.shape == (2, 1, 16, tcfg.q_dim)
     for unported in (
-            lambda: TE.spike_linear({"qw": bp["wq"]["w"]}, s),
+            lambda: TE.spike_linear(qwq, s,
+                                    engine=TE.EngineConfig(mode="sparse")),
             lambda: TE.ssa_step(bp, bundle_st, tcfg, s,
                                 engine=TE.EngineConfig(overlap="fused"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             unported()
     for bad in (dict(overlap="x"), dict(sparse="x"), dict(mode="x"),
-                dict(binary="x")):
+                dict(binary="x"), dict(weights="x")):
         with pytest.raises(ValueError):
             TE.EngineConfig(**bad)
 
