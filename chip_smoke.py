@@ -33,6 +33,16 @@ device; exits non-zero without one). It
      H=8, hd=32, F=1024), at a ragged S=200, at S=64 and at SMOKE width,
      on int8 codes with random per-channel fp32 scales: counts equal and
      outputs bitwise equal, bf16 and fp32;
+   * ``quant_spike_matmul`` and ``quant_gather_spike_matmul`` (int8
+     codes, random per-channel scales) at the three products of a mixed
+     layer (wo on integer counts up to 512, w1, w2; M = 16384) on spikes
+     with dark tiles and on ragged fine-grained spikes, and at ragged
+     shapes with and without bias, bf16 and fp32: each bitwise equal to
+     its plain version, to the other and to ``dense_quant_linear``;
+   * ``fused_ssa`` (the SSA bundle, bn family) at full width and at a
+     ragged L=50, on dyadic fp weights and on int8 codes with
+     ``scale3``, and on an all-zero input, bf16 and fp32: context and
+     (H, 4) counts bitwise; random-normal weights as information;
 3. drives the main paths, each with every launch count and every
    ``sparse='auto'`` decision count set to 0 just before and read just
    after, each three times: with the published ``sparse='auto'`` (its
@@ -45,6 +55,17 @@ device; exits non-zero without one). It
      schedule, 6 steps of 64 synthetic images (per step 24 sparse
      products, ``spike_matmul`` or ``gather_spike_matmul``, and
      ``spike_attention`` 4 times; the fused kernel never);
+   * the mixed-precision int8 Spikingformer-4-256 (the published config
+     with the BN-bias raise of ``dyadic_params``, so layers fire; int8
+     wo, w1, w2 and head, bf16 wq, wk, wv; ``quantize_tree`` with a
+     selector): 4 requests of 64 images through ``build_prefill_step``
+     for each sparse setting, per layer call 1 ``fused_ssa`` launch and
+     3 ``quant_spike_matmul`` / ``quant_gather_spike_matmul`` launches
+     (split by the 'auto' decisions), no fused layer; the fire rate at
+     every layer's input (the path fails if one is all dark); and one
+     request of the complementary tree (int8 wq, wk, wv: ``fused_ssa``
+     on codes and scales, ``spike_matmul`` / ``gather_spike_matmul``
+     for the rest);
    * spikingformer-lm, once each: the int8 tree through
      ``build_prefill_step`` for 3 requests of 8 x 512 tokens (2
      ``fused_layer_rope`` launches a layer call; 'auto' decides 'tile'
@@ -55,7 +76,10 @@ device; exits non-zero without one). It
      launch no kernel) and one int8 Spikingformer-4-256 request;
 4. checks the outputs: finite logits of the right shape and, on 8 images
    with dyadic weights, the fused path ('auto' and 'decoded') equal
-   bitwise to the sequential oracle (``overlap='off'``); finite losses
+   bitwise to the sequential oracle (``overlap='off'``); the mixed int8
+   tree with dyadic scales, through the kernels (tile and decoded) ==
+   through their plain versions == the sequential oracle
+   (``overlap='off'``, ``mode='dense'``), bitwise; finite losses
    and grad norms, every param moved; and, for each sparse setting, one
    train step through the kernels equal bitwise (loss, every gradient,
    the new BN state) to the same step with the kernels swapped for their
@@ -91,6 +115,7 @@ from repro_torch.core.engine import use_engine  # noqa: E402
 from repro_torch.core.spiking import SpikingConfig, lif_scan  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import fused_layer as FL  # noqa: E402
+from repro_torch.kernels import fused_ssa as FS  # noqa: E402
 from repro_torch.kernels import spike_attention as SA  # noqa: E402
 from repro_torch.kernels import spike_decode as SD  # noqa: E402
 from repro_torch.kernels import spike_matmul as SM  # noqa: E402
@@ -107,6 +132,7 @@ from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 CUDA cores,
 # HBM3 bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_INT8 = 1979e12         # int8 tensor cores, dense operations/s
 PEAK_BYTES = 3.35e12
 # full width of Spikingformer-4-256 at a 64-image batch
 T, B, L, D, H, HD, FF = 4, 64, 64, 256, 8, 32, 1024
@@ -148,7 +174,16 @@ SERVE_PROMPTS = (100, 500)
 # prefill logits' top-2 margin exceeds this (the decode path sums its
 # products in another order than the fused kernel)
 SERVE_MARGIN = 0.1
-KERNEL_MODULES = (FL, SM, SA, SD)
+# the three quantized spike products of a mixed-precision layer (int8
+# wo on the attention's counts, w1 and w2 on spikes): (what, K, N,
+# counts on the left); M = T * B * L
+QUANT_PRODUCTS = [("wo", H * HD, D, True), ("w1", D, FF, False),
+                  ("w2", FF, D, False)]
+QUANT_COUNT_MAX = 512
+# the SSA bundle (fused_ssa) at full width, and at a ragged L
+SSA_FULL = (T, B, L, D, H, HD)
+SSA_RAGGED = ("ragged L=50", (T, 16, 50, D, H, HD))
+KERNEL_MODULES = (FL, SM, SA, SD, FS)
 
 
 def log(msg):
@@ -584,17 +619,21 @@ class plain_kernels:
     """Within the scope, the CUDA launchers of the kernels run their plain
     versions on the card's tensors instead (and count nothing)."""
 
+    LAUNCHERS = ((SM, "spike_matmul"), (SA, "spike_attention"),
+                 (SD, "gather_spike_matmul"), (FL, "fused_layer"),
+                 (SM, "quant_spike_matmul"),
+                 (SD, "quant_gather_spike_matmul"),
+                 (FS, "fused_ssa"))
+
     def __enter__(self):
-        self.saved = (SM.spike_matmul_cuda, SA.spike_attention_cuda,
-                      SD.gather_spike_matmul_cuda, FL.fused_layer_cuda)
-        SM.spike_matmul_cuda = SM.spike_matmul_plain
-        SA.spike_attention_cuda = SA.spike_attention_plain
-        SD.gather_spike_matmul_cuda = SD.gather_spike_matmul_plain
-        FL.fused_layer_cuda = FL.fused_layer_plain
+        self.saved = [getattr(mod, f"{name}_cuda")
+                      for mod, name in self.LAUNCHERS]
+        for mod, name in self.LAUNCHERS:
+            setattr(mod, f"{name}_cuda", getattr(mod, f"{name}_plain"))
 
     def __exit__(self, *exc):
-        (SM.spike_matmul_cuda, SA.spike_attention_cuda,
-         SD.gather_spike_matmul_cuda, FL.fused_layer_cuda) = self.saved
+        for (mod, name), fn in zip(self.LAUNCHERS, self.saved):
+            setattr(mod, f"{name}_cuda", fn)
 
 
 def dyadic_params(params):
@@ -917,6 +956,308 @@ def vision_int8_path():
                              f"{tuple(logits.shape)}")
 
 
+def quant_operands(seed, m, k, n, dtype, counts=False, bias=False,
+                   ragged=False):
+    """A quantized product's operands on the card: spikes with dark tiles
+    (or ragged fine-grained spikes), times integer counts up to
+    QUANT_COUNT_MAX with ``counts``, in the activation dtype; int8 codes;
+    random fp32 scales and biases."""
+    gen = torch.Generator().manual_seed(seed)
+    s = (ragged_spikes(gen, (m, k)) if ragged
+         else spikes(gen, (m, k), 0.2))
+    if counts:
+        s = s * torch.randint(1, QUANT_COUNT_MAX + 1, (m, k), generator=gen)
+    qw = torch.randint(-127, 128, (k, n), generator=gen).to(torch.int8)
+    scale = torch.rand((n,), generator=gen) * 0.02 + 1e-3
+    b = torch.randn((n,), generator=gen) if bias else None
+    ops = (s.to(dtype), qw, scale, b)
+    return tuple(None if a is None else a.cuda() for a in ops)
+
+
+def check_quant(dtype, what, m, k, n, counts=False, bias=False,
+                ragged=False):
+    """quant_spike_matmul and quant_gather_spike_matmul, kernels vs plain
+    versions on random scales: bitwise (integer sums, one epilogue
+    rounding); the two kernels bitwise equal, and equal to the dense
+    quantized reference (its fp32 sums of integers are exact)."""
+    s, qw, sc, b = quant_operands(9, m, k, n, dtype, counts, bias, ragged)
+    kw = dict(counts=counts, out_dtype=dtype)
+    tile = SM.quant_spike_matmul_cuda(s, qw, sc, b, **kw)
+    dec = SD.quant_gather_spike_matmul_cuda(s, qw, sc, b, **kw)
+    tile_p = SM.quant_spike_matmul_plain(s, qw, sc, b, **kw)
+    dec_p = SD.quant_gather_spike_matmul_plain(s, qw, sc, b, **kw)
+    dense = E.dense_quant_linear(
+        {"qw": qw, "scale": sc, **({} if b is None else {"b": b})}, s)
+    torch.cuda.synchronize()
+    err = max(float((x.float() - y.float()).abs().max())
+              for x, y in ((tile, tile_p), (dec, dec_p)))
+    name = (f"quant products {dtype} {what} M={m} K={k} N={n}"
+            f"{' counts' if counts else ''}{' bias' if bias else ''}"
+            f"{' ragged spikes' if ragged else ''}")
+    for label, x, y in (("quant_spike_matmul kernel != plain", tile, tile_p),
+                        ("quant_gather_spike_matmul kernel != plain", dec,
+                         dec_p),
+                        ("gather kernel != tile kernel", dec, tile),
+                        ("tile kernel != dense_quant_linear", tile, dense)):
+        if not torch.equal(x, y):
+            diff = float((x.float() - y.float()).abs().max())
+            raise AssertionError(f"{name}: {label} (max abs diff {diff})")
+    sched = gather_schedule(s)
+    log(f"{name}: both kernels bitwise equal to their plain versions, to "
+        f"each other and to dense_quant_linear; gather chunks "
+        f"{int(sched['executed'])}/{sched['total']}")
+    return err
+
+
+def quant_bound_ms(lanes, qw, out, gather):
+    """Bytes: the left operand on its lanes (int8 spikes, int32 counts),
+    the codes, the scale and the output once each (the gather also its
+    staged order and occupancies); operations: the multiply-adds of the
+    live skip tiles (gather: one per live entry and output column) at
+    the int8 tensor-core peak."""
+    m, k = lanes.shape
+    n = qw.shape[1]
+    if gather:
+        macs = float((lanes != 0).sum()) * n
+        extra = 12 * (-(-m // min(128, m)) * min(128, m))
+    else:
+        tm, tk = SM.SKIP_TILE
+        occ = SM.block_occupancy(F.pad(lanes, (0, -k % tk, 0, -m % tm)), tm,
+                                 tk)
+        macs, extra = float(occ.sum()) * tm * tk * n, 0
+    ops_s = 2 * macs / PEAK_INT8
+    n_bytes = (lanes.numel() * lanes.element_size() + qw.numel() + 4 * n
+               + out.numel() * out.element_size() + extra)
+    bytes_s = n_bytes / PEAK_BYTES
+    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def time_quant_products(name, kernel, plain, gather):
+    """The three quantized products of a mixed layer, bf16 activations as
+    the engine calls them (spikes of density 0.2 with dark tiles, wo on
+    counts up to QUANT_COUNT_MAX), each timed (cuda_ms): kernel, plain
+    version (fewer calls: the gather's loops over the compacted slots)
+    and ``torch._int_mm`` on the int8 lanes and codes (cuBLASLt's int8
+    product: the same integer sums, without the scale)."""
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    bound_by = set()
+    for what, k, n, counts in QUANT_PRODUCTS:
+        s, qw, sc, _ = quant_operands(10, M_TRAIN, k, n, torch.bfloat16,
+                                      counts)
+        if counts:              # a layer's counts are at most L
+            s = torch.clamp(s, max=L)
+        kw = dict(counts=counts, out_dtype=torch.bfloat16)
+        lanes8 = s.to(torch.int8)
+        row = dict(ms=cuda_ms(lambda: kernel(s, qw, sc, None, **kw)),
+                   plain_ms=cuda_ms(lambda: plain(s, qw, sc, None, **kw),
+                                    warmup=1, calls=3, repeats=3),
+                   library_ms=cuda_ms(lambda: torch._int_mm(lanes8, qw)))
+        row["bound_ms"], by = quant_bound_ms(
+            SM.quant_lanes(s, counts), qw, kernel(s, qw, sc, None, **kw),
+            gather)
+        bound_by.add(by)
+        for key in total:
+            total[key] += row[key]
+        log(f"{name} bf16 {what} M={M_TRAIN} K={k} N={n}"
+            f"{' counts' if counts else ''}: kernel {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, torch._int_mm "
+            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+            f"({by})")
+    total["bound_by"] = "/".join(sorted(bound_by))
+    log(f"{name}, the three products of a mixed layer: {total}")
+    return total
+
+
+def ssa_operands(seed, dtype, quant, weights="dyadic", shape=SSA_FULL,
+                 zero=False):
+    """Bundle operands as ssa_step builds them: LIF spikes of dyadic
+    currents with a dark (t=0, b=0) slab (or all zero); dyadic weights,
+    random-normal ones, or int8 codes with per-channel fp32 scales
+    (``quant``), in the activation dtype; BN rows; delta."""
+    T, B, L, D, H, HD = shape
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randint(-64, 224, (T, B, L, D), generator=gen).float() / 128
+    x[0, 0] = 0.0
+    s = lif_scan(x, SpikingConfig(time_steps=T))[0]
+    if zero:
+        s.zero_()
+    scale3 = None
+    if quant:
+        w3 = torch.randint(-127, 128, (3, D, H * HD), generator=gen).float()
+        scale3 = (1.0 + dyadic(gen, (3, H * HD), bits=4) * 0.5) * 2.0 ** -9
+    elif weights == "dyadic":
+        w3 = dyadic(gen, (3, D, H * HD)) * 0.25
+    else:
+        w3 = torch.randn((3, D, H * HD), generator=gen) / math.sqrt(D)
+
+    def rows(n):
+        return torch.stack([dyadic(gen, (n,)) * 0.5,
+                            torch.rand((n,), generator=gen) + 0.5,
+                            1.0 + dyadic(gen, (n,)) * 0.5,
+                            dyadic(gen, (n,)) * 0.5])
+    ops = (s.to(dtype), w3.to(dtype), scale3,
+           torch.stack([rows(H * HD) for _ in range(3)]), torch.tensor(0.3))
+    kw = dict(num_heads=H, head_dim=HD, scale=1.0 / math.sqrt(HD))
+    return tuple(None if a is None else a.cuda() for a in ops), kw
+
+
+def check_ssa_kernel(dtype, quant, what="full width", shape=SSA_FULL,
+                     zero=False):
+    """fused_ssa kernel vs plain version: context and (H, 4) counts
+    bitwise (dyadic weights or int8 codes: exact projection sums)."""
+    ops, kw = ssa_operands(12, dtype, quant, shape=shape, zero=zero)
+    out_k, cnt_k = FS.fused_ssa_cuda(*ops, **kw)
+    out_p, cnt_p = FS.fused_ssa_plain(*ops, **kw)
+    torch.cuda.synchronize()
+    err = float((out_k.float() - out_p.float()).abs().max())
+    name = (f"fused_ssa {dtype} {'int8 + scale3' if quant else 'fp'} {what}"
+            f"{' all-zero input' if zero else ''} {tuple(shape)}")
+    if not (torch.equal(out_k, out_p) and torch.equal(cnt_k, cnt_p)):
+        raise AssertionError(f"{name}: kernel != plain version (max abs diff "
+                             f"{err}, counts {cnt_k[0].tolist()} vs "
+                             f"{cnt_p[0].tolist()})")
+    if zero and int(cnt_k[:, :3].sum()) != 0:
+        raise AssertionError(f"{name}: projections counted on a dark input")
+    log(f"{name}: bitwise equal to the plain version; counts of head 0 "
+        f"{cnt_k[0].tolist()}, context mean {float(out_k.float().mean()):.4f}")
+    return err
+
+
+def ssa_bound_ms(ops, counts, shape=SSA_FULL):
+    """Operations: the executed projections (q, k, v: L x D x hd
+    multiply-adds per head and live slab) and every score and context
+    product (2 T B H L^2 hd) at the bf16 tensor peak; bytes: spikes, w3,
+    scale3, BN rows and delta in, context and counts out."""
+    T, B, L, D, H, HD = shape
+    x, w3, scale3, aux, _ = ops
+    macs = (3 * float(counts[:, 0].sum()) * L * D * HD
+            + 2 * T * B * H * L * L * HD)
+    ops_s = 2 * macs / PEAK_FLOPS[x.dtype]
+    es = x.element_size()
+    n_bytes = (x.numel() * es + w3.numel() * es + 3 * H * HD * 4
+               + aux.numel() * 4 + 4                          # in
+               + T * B * L * H * HD * es + counts.numel() * 4)  # out
+    bytes_s = n_bytes / PEAK_BYTES
+    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def time_ssa_kernel():
+    """#6 at full width, bf16, random-normal fp weights (cuda_ms): kernel,
+    plain version, bound; no single PyTorch call computes the bundle."""
+    ops, kw = ssa_operands(13, torch.bfloat16, False, weights="normal")
+    ms = cuda_ms(lambda: FS.fused_ssa_cuda(*ops, **kw))
+    plain_ms = cuda_ms(lambda: FS.fused_ssa_plain(*ops, **kw), warmup=1,
+                       calls=3, repeats=3)
+    _, counts = FS.fused_ssa_cuda(*ops, **kw)
+    bound_ms, bound_by = ssa_bound_ms(ops, counts)
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None)
+    log(f"fused_ssa bf16 {SSA_FULL}: {row}")
+    return row
+
+
+def select_mixed(path):
+    """The slice's mixed tree: int8 wo, w1, w2 and head; fp wq, wk, wv."""
+    return path.rsplit("/", 1)[-1] not in ("wq", "wk", "wv")
+
+
+def select_qkv(path):
+    """The complementary tree: int8 wq, wk, wv; the rest bf16."""
+    return path.rsplit("/", 1)[-1] in ("wq", "wk", "wv")
+
+
+def mixed_path(cfg, params, requests, tree):
+    """``build_prefill_step`` answering ``requests`` with a mixed tree,
+    the counts reset just before: per layer call 1 ``fused_ssa`` launch
+    and 3 spike products (the int8 kernels for the 'mixed' tree, the fp
+    ones for the complementary 'qkv' tree), split tile / decoded as the
+    engine's sparse datapath or its 'auto' decisions say; no fused layer.
+    Per-request times, finite logits."""
+    step = steps.build_prefill_step(cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    req_ms, outs = [], []
+    for batch in requests:
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        req_ms.append(1e3 * (time.perf_counter() - t0))
+        outs.append(logits)
+    counts = launches()
+    n = cfg.num_layers * len(requests)
+    tile, dec = sparse_split(cfg.engine, 3 * n)
+    what = f"mixed int8 path ({tree} tree), sparse={cfg.engine.sparse!r}"
+    log(f"{what}: {len(requests)} requests x {REQUEST_BATCH} images, "
+        f"per-request ms {[round(m, 3) for m in req_ms]}, sparse decisions "
+        f"{dict(E.SPARSE_DECISIONS)}, launches {counts}")
+    want = dict.fromkeys(counts, 0)
+    want["fused_ssa"] = n
+    prefix = "quant_" if tree == "mixed" else ""
+    want[f"{prefix}spike_matmul"] = tile
+    want[f"{prefix}gather_spike_matmul"] = dec
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+    for logits in outs:
+        if logits.shape != (REQUEST_BATCH, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"bad logits {tuple(logits.shape)}")
+    return counts, req_ms
+
+
+def mixed_fire_rates(cfg, params, images):
+    """The fire rate at every layer's input on one request; fails if any
+    layer's input is all dark (the kernels would skip everything)."""
+    with use_engine(cfg.engine):
+        sp = layer_sparsities(params, cfg, {"images": images.cuda()})
+    rates = [(name, 1.0 - s) for name, s in sp]
+    log(f"mixed int8 path: fire rate per layer input "
+        f"{[(n, round(r, 4)) for n, r in rates]}")
+    dark = [n for n, r in rates if r <= 0.0]
+    if dark:
+        raise AssertionError(f"mixed int8 path: all-dark inputs at {dark}")
+
+
+def check_mixed_outputs(cfg, params, images):
+    """8 images, dyadic weights and dyadic scales, the mixed tree: logits
+    through the kernels (each sparse datapath) == through their plain
+    versions == the sequential oracle (overlap='off', mode='dense'),
+    bitwise."""
+    q = quantize_tree(dyadic_params(params), "int8", dyadic=True,
+                      select=select_mixed)
+    batch = {"images": images}
+    with use_engine(cfg.engine.replace(overlap="off", mode="dense")), \
+            torch.inference_mode():
+        oracle, _ = registry.forward(q, cfg, batch)
+    for sparse in ("tile", "decoded"):
+        with use_engine(cfg.engine.replace(sparse=sparse)), \
+                torch.inference_mode():
+            reset_counts()
+            got, aux = registry.forward(q, cfg, batch)
+            counts = launches()
+            with plain_kernels():
+                plain, _ = registry.forward(q, cfg, batch)
+        torch.cuda.synchronize()
+        prefix = "quant_" + ("" if sparse == "tile" else "gather_")
+        want = dict.fromkeys(counts, 0)
+        want.update({"fused_ssa": cfg.num_layers,
+                     f"{prefix}spike_matmul": 3 * cfg.num_layers})
+        if counts != want:
+            raise AssertionError(f"mixed output check, sparse={sparse!r}: "
+                                 f"launches {counts}, expected {want}")
+        if not (torch.equal(got, plain) and torch.equal(got, oracle)):
+            raise AssertionError(
+                f"mixed logits, sparse={sparse!r}: kernels == plain "
+                f"{torch.equal(got, plain)}, == oracle "
+                f"{torch.equal(got, oracle)} (max abs diff to the oracle "
+                f"{float((got - oracle).abs().max())})")
+        log(f"check, mixed int8 tree, sparse={sparse!r}: logits through the "
+            f"kernels == plain versions == sequential oracle, bitwise, on 8 "
+            f"images (fire rate {float(aux['fire_rate']):.4f}, logit std "
+            f"{float(got.std()):.4f})")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1007,6 +1348,37 @@ def main():
     attn_timing = time_attention(*ATTENTION[0])
     time_attention(*ATTENTION[-1])
 
+    # --- the mixed slice's kernels against their plain versions ---------
+    quant_err = max(
+        [check_quant(dt, what, M_TRAIN, k, n, counts, ragged=rg)
+         for dt in dtypes for what, k, n, counts in QUANT_PRODUCTS
+         for rg in (False, True)]
+        + [check_quant(dt, "ragged", m, k, n, counts=c, bias=bias)
+           for dt in dtypes for m, k, n in MATMUL_RAGGED
+           for bias, c in ((False, False), (True, True))])
+    ssa_err = max(
+        [check_ssa_kernel(dt, quant) for dt in dtypes
+         for quant in (False, True)]
+        + [check_ssa_kernel(dt, quant, *SSA_RAGGED) for dt in dtypes
+           for quant in (False, True)]
+        + [check_ssa_kernel(dt, False, zero=True) for dt in dtypes])
+    for dt in dtypes:
+        ops, kw = ssa_operands(14, dt, False, weights="normal")
+        out_k, _ = FS.fused_ssa_cuda(*ops, **kw)
+        out_p, _ = FS.fused_ssa_plain(*ops, **kw)
+        agree = float((out_k == out_p).float().mean())
+        diff = float((out_k.float() - out_p.float()).abs().max())
+        log(f"fused_ssa {dt} random-normal weights (information only): "
+            f"context entries equal {agree:.6f}, max abs diff {diff}")
+    quant_timing = {
+        "tile": time_quant_products("quant_spike_matmul",
+                                    SM.quant_spike_matmul_cuda,
+                                    SM.quant_spike_matmul_plain, False),
+        "decoded": time_quant_products(
+            "quant_gather_spike_matmul", SD.quant_gather_spike_matmul_cuda,
+            SD.quant_gather_spike_matmul_plain, True)}
+    ssa_timing = time_ssa_kernel()
+
     # --- the inference main paths ----------------------------------------
     cfg = get_config("spikingformer-4-256")
     params = registry.init(cfg, seed=0)
@@ -1044,6 +1416,17 @@ def main():
         f"on 8 images (dyadic weights), fire rate "
         f"{float(res['fused', 'decoded'][1]['fire_rate']):.4f}, logit std "
         f"{float(res['fused', 'decoded'][0].std()):.4f}")
+
+    # --- the mixed-precision int8 path (fused_ssa + int8 products) -----
+    firing = dyadic_params(params)
+    mixed = quantize_tree(firing, "int8", select=select_mixed)
+    mixed_counts = {sp: mixed_path(c, mixed, requests, "mixed")[0]
+                    for sp, c in engines.items()}
+    mixed_fire_rates(cfg, mixed, requests[0]["images"])
+    mixed_path(engines["auto"], quantize_tree(firing, "int8",
+                                              select=select_qkv),
+               requests[:1], "qkv")
+    check_mixed_outputs(cfg, params, small["images"])
 
     # --- spikingformer-lm: int8 and bf16 prefill, the int8 server -------
     lm_q = lm_config(quantize=True)
@@ -1094,7 +1477,20 @@ def main():
             dict(name="fused_layer_rope", source=csrc + "fused_layer.cu",
                  replaces="src/repro/kernels/fused_layer.py:420",
                  launches=lm_counts["fused_layer_rope"], max_abs_err=rope_err,
-                 **rope_timing)]
+                 **rope_timing),
+            dict(name="quant_spike_matmul", source=csrc + "spike_matmul.cu",
+                 replaces="src/repro/kernels/spike_matmul.py:182",
+                 launches=mixed_counts["tile"]["quant_spike_matmul"],
+                 max_abs_err=quant_err, **quant_timing["tile"]),
+            dict(name="quant_gather_spike_matmul",
+                 source=csrc + "gather_spike_matmul.cu",
+                 replaces="src/repro/kernels/spike_decode.py:392",
+                 launches=mixed_counts["decoded"]["quant_gather_spike_matmul"],
+                 max_abs_err=quant_err, **quant_timing["decoded"]),
+            dict(name="fused_ssa", source=csrc + "fused_layer.cu",
+                 replaces="src/repro/kernels/fused_ssa.py:166",
+                 launches=mixed_counts["tile"]["fused_ssa"],
+                 max_abs_err=ssa_err, **ssa_timing)]
     log(json.dumps({"kernels": [dict(route="cuda", **r) for r in rows]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

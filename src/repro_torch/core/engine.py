@@ -24,11 +24,18 @@ tensor is always concrete: it reads the occupancy histogram
 (``kernels/spike_decode.choose_sparse_path``) and counts each decision in
 :data:`SPARSE_DECISIONS`.
 
+Quantized spike products on the sparse path run the int8 kernels
+(``quant_spike_matmul`` on the tile path, ``quant_gather_spike_matmul``
+on the decoded path) with the dequantized backward of JAX's
+``_quant_sparse_bwd``; an eligible eval SSA bundle under
+``overlap='fused'`` runs the bundle kernel ``fused_ssa`` (bn family),
+whose backward recomputes through the oracle, as JAX's ``_fused_bwd``
+does. A mixed-precision vision layer (some linears quantized) takes the
+sequential composition and so reaches all three.
+
 Not ported yet, and raising ``NotImplementedError`` instead of falling
-back silently: ``overlap='pipeline'``, the fused SSA bundle
-(``ssa_step`` / ``ssa_step_causal`` with ``overlap='fused'``) and the
-int8 sparse kernels that quantized spike products reach on the sparse
-path (ROADMAP queue 2).
+back silently: ``overlap='pipeline'`` and the fused bundle's rope family
+(``ssa_step_causal`` with ``overlap='fused'``; ROADMAP queue 2).
 """
 from __future__ import annotations
 
@@ -310,6 +317,40 @@ class _SparseMatmul(torch.autograd.Function):
         return ds, dw, db, None, None, None
 
 
+class _QuantSparseMatmul(torch.autograd.Function):
+    """The quantized sparse kernel forward — ``quant_spike_matmul`` on the
+    tile path, ``quant_gather_spike_matmul`` on the decoded path — its
+    fp32 epilogue rounded once to ``out_dtype`` in the kernel's store,
+    with the backward of ``repro.core.engine._quant_sparse_bwd``: ``ds``
+    through the dequantized weights, ``dscale = sum(g * acc)``, ``db =
+    sum(g)``, none for the integer codes."""
+
+    @staticmethod
+    def forward(ctx, s2d, qw, scale, b, path, block_m, block_k, counts,
+                out_dtype):
+        ctx.save_for_backward(s2d, qw, scale, b)
+        kw = dict(counts=counts, out_dtype=out_dtype)
+        if path == "decoded":
+            from repro_torch.kernels.spike_decode import \
+                quant_gather_spike_matmul
+            return quant_gather_spike_matmul(s2d, qw, scale, b,
+                                             block_m=block_m,
+                                             c_block=block_k, **kw)
+        from repro_torch.kernels.spike_matmul import quant_spike_matmul
+        return quant_spike_matmul(s2d, qw, scale, b, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        s2d, qw, scale, b = ctx.saved_tensors
+        g32 = g.float()
+        w_deq = qw.float() * scale[None, :]
+        ds = (g32 @ w_deq.t()).to(s2d.dtype)
+        acc = s2d.float() @ qw.float()
+        dscale = (g32 * acc).sum(dim=0).to(scale.dtype)
+        db = None if b is None else g32.sum(dim=0).to(b.dtype)
+        return ds, None, dscale, db, None, None, None, None, None
+
+
 def spike_linear(p: Dict[str, Any], x: torch.Tensor, *,
                  engine: Optional[EngineConfig] = None,
                  counts: bool = False) -> torch.Tensor:
@@ -336,15 +377,69 @@ def spike_linear(p: Dict[str, Any], x: torch.Tensor, *,
     if resolve_mode(engine, x) == "dense":
         return dense_quant_linear(p, x) if quantized \
             else dense_spike_linear(p, x)
-    if quantized:
-        raise _not_ported("the int8 sparse kernels (quant_spike_matmul, "
-                          "quant_gather_spike_matmul)", "queue 2 #3/#5")
-    k, n = x.shape[-1], p["w"].shape[-1]
+    k = x.shape[-1]
     x2d = x.reshape(-1, k)
-    out = _SparseMatmul.apply(x2d, p["w"], p.get("b"),
-                              resolve_sparse_path(engine, x2d),
-                              engine.block_m, engine.block_k)
-    return out.reshape(*x.shape[:-1], n)
+    path = resolve_sparse_path(engine, x2d)
+    if quantized:
+        # JAX's operands: fp32 activations (the kernel casts them to its
+        # int8 or, with counts, int32 lanes), int8 codes, fp32 scale; the
+        # fp32 epilogue is cast to x.dtype once, in the kernel's store
+        out = _QuantSparseMatmul.apply(
+            x2d.float(), _unpacked_qw(p, k), p["scale"].float(), p.get("b"),
+            path, engine.block_m, engine.block_k, counts, x.dtype)
+    else:
+        out = _SparseMatmul.apply(x2d, p["w"], p.get("b"), path,
+                                  engine.block_m, engine.block_k)
+    return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
+class BundleSpec(NamedTuple):
+    """The static closure of a fused SSA step (JAX's ``_BundleSpec``),
+    shared by the kernel forward and the oracle backward."""
+    num_heads: int
+    head_dim: int
+    scale: float
+    scfg: Any                   # SpikingConfig
+    eps: float
+
+
+class _FusedBundle(torch.autograd.Function):
+    """The bundle kernel forward (``kernels/fused_ssa.fused_ssa``, bn
+    family; the plain version on the CPU), with JAX's ``_fused_bwd``:
+    the backward recomputes ``reference_bundle`` and differentiates it, so
+    its gradients are the sequential path's (surrogate spikes included).
+    Quantized codes are cast to the activation dtype before this
+    boundary, so their gradient stops at that cast."""
+
+    @staticmethod
+    def forward(ctx, x, w3, scale3, aux, delta, spec):
+        from repro_torch.kernels.fused_ssa import fused_ssa
+        ctx.save_for_backward(x, w3, scale3, aux, delta)
+        ctx.spec = spec
+        scfg = spec.scfg
+        out, _ = fused_ssa(x, w3, scale3, aux, delta, family="bn",
+                           num_heads=spec.num_heads, head_dim=spec.head_dim,
+                           scale=spec.scale,
+                           binarize_scores=scfg.binarize_scores,
+                           decay=scfg.decay, v_th=scfg.v_threshold,
+                           soft_reset=scfg.soft_reset, eps=spec.eps)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.kernels.fused_ssa import reference_bundle
+        spec = ctx.spec
+        leaves = [None if t is None else t.detach().requires_grad_(
+            t.is_floating_point()) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = reference_bundle(*leaves, spec.scfg, family="bn",
+                                   num_heads=spec.num_heads,
+                                   head_dim=spec.head_dim, scale=spec.scale,
+                                   eps=spec.eps)
+            wrt = [t for t in leaves if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True))
+        return (*(next(grads) if t is not None and t.requires_grad else None
+                  for t in leaves), None)
 
 
 def ssa_step(p: Dict[str, Any], st: Dict[str, Any], cfg, s: torch.Tensor, *,
@@ -354,21 +449,33 @@ def ssa_step(p: Dict[str, Any], st: Dict[str, Any], cfg, s: torch.Tensor, *,
     bn_q/bn_k/bn_v running stats. Returns (ctx (T, B, L, q_dim), new BN
     state).
 
-    Eligible eval bundles under ``overlap='fused'`` would run the fused
-    bundle kernel, which is not ported yet and raises; everything else
-    runs the sequential composition below (train mode always)."""
+    Eligible eval bundles (bias-free q/k/v, all or none quantized) under
+    ``overlap='fused'`` run the bundle kernel ``fused_ssa`` (the plain
+    version on the CPU) on the stacked weights — int8 codes cast to the
+    activation dtype with their (3, q_dim) scales — and the (3, 4, q_dim)
+    BN rows, and return the state unchanged; everything else runs the
+    sequential composition below (train mode always)."""
     from repro_torch.core.attention import spiking_attention
     from repro_torch.models import nn
     engine = engine if engine is not None else get_engine()
-    t, b, l, _ = s.shape
+    t, b, l, d = s.shape
     heads, hd = cfg.num_heads, cfg.head_dim
     names = (("q", "wq"), ("k", "wk"), ("v", "wv"))
     quant = ["qw" in p[w] for _, w in names]
     eligible = (not train and (all(quant) or not any(quant))
                 and not any("b" in p[w] for _, w in names))
     if eligible and resolve_overlap(engine, s) == "fused":
-        raise _not_ported("the fused SSA bundle (ssa_step with "
-                          "overlap='fused')", "queue 2 #6")
+        if all(quant):
+            w3, scale3 = _layer_quant_w3(p, [w for _, w in names], d,
+                                         s.dtype)
+        else:
+            w3 = torch.stack([p[w]["w"] for _, w in names])
+            scale3 = None
+        aux = torch.stack([_bn_rows(p, st, f"bn_{n}") for n, _ in names])
+        spec = BundleSpec(heads, hd, 1.0 / math.sqrt(hd), cfg.spiking, 1e-5)
+        delta = torch.as_tensor(p["delta"], dtype=torch.float32,
+                                device=s.device)
+        return _FusedBundle.apply(s, w3, scale3, aux, delta, spec), dict(st)
     new_st = dict(st)
 
     def proj(name, w):
@@ -520,9 +627,10 @@ def ssa_step_causal(p: Dict[str, Any], cfg, h: torch.Tensor, positions, *,
     D) normed currents (post ln1); positions: (S,). Returns the pre-wo
     context (T, B, S, q_dim).
 
-    An eligible bundle under ``overlap='fused'`` would run the fused
-    bundle kernel, which is not ported yet and raises; everything else
-    runs the sequential composition (JAX's eligibility, term for term)."""
+    An eligible bundle under ``overlap='fused'`` would run the bundle
+    kernel's rope family, which is not ported yet and raises; everything
+    else runs the sequential composition (JAX's eligibility, term for
+    term)."""
     from repro_torch.core.attention import spiking_attention
     from repro_torch.models.transformer import _project_qkv
     engine = engine if engine is not None else get_engine()
@@ -538,8 +646,9 @@ def ssa_step_causal(p: Dict[str, Any], cfg, h: torch.Tensor, positions, *,
                 and cfg.head_dim % 2 == 0
                 and positions.ndim == 1)
     if eligible and resolve_overlap(engine, h) == "fused":
-        raise _not_ported("the fused SSA bundle (ssa_step_causal with "
-                          "overlap='fused')", "queue 2 #6")
+        raise _not_ported("the fused SSA bundle's rope family "
+                          "(ssa_step_causal with overlap='fused')",
+                          "queue 2 #6b")
     q, k, v = _project_qkv(p, cfg, h, positions, repeat_kv=True)
     q, k, v = (lif_scan(u, cfg.spiking)[0] for u in (q, k, v))
     # (T, B, S, H, hd) -> (T*B, H, S, hd)

@@ -52,6 +52,15 @@
 //      of the TPU kernel.
 // Counts are summed with int32 atomicAdd (order-free); no float atomics.
 //
+// The SSA bundle kernel (src/repro/kernels/fused_ssa.py::fused_ssa, body
+// `_kernel`, grid (B, H, 4), bn family) is launch A alone
+// (fused_ssa_forward): its q/k/v projections, scale, BN, LIF and
+// binarized attention are exactly the bundle's, and its context is the
+// bundle's output. It runs with one L-block a sequence (l_block = L), so
+// a timestep's block flag is the TPU kernel's whole-slab occupancy test,
+// and writes the bundle's (H, 4) map instead of the layer's: q, k and v
+// add the timesteps whose (L, D) slab is live, attend adds 2 T, per b.
+//
 // The decoded variant (sparse='decoded'; `_kernel` with decoded=True, the
 // q/k/v `project` phases at fused_layer.py:152-215, staged by
 // spike_decode.slab_decode) changes only the projection of launch A. The
@@ -238,8 +247,8 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
                 const float* __restrict__ sc3, const float* __restrict__ auxp,
                 const float* __restrict__ delta_p, float scale, Lif lif,
                 int causal, int nt, int nb, int l, int d, int heads, int hd,
-                int l_block, int c_block, int cp, T* __restrict__ ctx,
-                int* __restrict__ counts) {
+                int l_block, int c_block, int cp, int ssa,
+                T* __restrict__ ctx, int* __restrict__ counts) {
   using A = Act<T>;
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int qd = heads * hd, nlb = (l + l_block - 1) / l_block;
@@ -497,12 +506,23 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
       n_qkt += kl;
       n_qktv += kl && vany;
     }
-    int* cnt = counts + (size_t)h * N_PHASES * nlb + lb;
-    atomicAdd(cnt + 0 * nlb, n_proj);
-    atomicAdd(cnt + 1 * nlb, n_proj);
-    atomicAdd(cnt + 2 * nlb, n_proj);
-    atomicAdd(cnt + 3 * nlb, n_qkt);
-    atomicAdd(cnt + 4 * nlb, n_qktv);
+    if (ssa) {
+      // the SSA bundle's (H, 4) map (one L-block, l_block = l): q, k, v
+      // count the timesteps whose whole slab is live; attend counts its
+      // 2 T dots unconditionally
+      int* cnt = counts + (size_t)h * 4;
+      atomicAdd(cnt + 0, n_proj);
+      atomicAdd(cnt + 1, n_proj);
+      atomicAdd(cnt + 2, n_proj);
+      atomicAdd(cnt + 3, 2 * nt);
+    } else {
+      int* cnt = counts + (size_t)h * N_PHASES * nlb + lb;
+      atomicAdd(cnt + 0 * nlb, n_proj);
+      atomicAdd(cnt + 1 * nlb, n_proj);
+      atomicAdd(cnt + 2 * nlb, n_proj);
+      atomicAdd(cnt + 3 * nlb, n_qkt);
+      atomicAdd(cnt + 4 * nlb, n_qktv);
+    }
   }
   __syncthreads();
   // scores: a warp per (t, query row); lane j scores key 32 jw + j by the
@@ -1012,13 +1032,32 @@ cudaError_t launch(const void* x, const void* s, const void* w3,
   if (err != cudaSuccess) return err;
   attention<<<dim3(heads, nb), NT, dyn_a, stream>>>(
       (const T*)s, (const T*)w3, sc3, auxp, delta, scale, lif, causal, nt, nb,
-      l, d, heads, hd, l_block, c_block, cp, (T*)ctx, counts);
+      l, d, heads, hd, l_block, c_block, cp, 0, (T*)ctx, counts);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   mlp<<<dim3(nlb * tpb, nb), NT, dyn, stream>>>(
       (const T*)x, (const T*)ctx, (const T*)wo, (const T*)w1, (const T*)w2,
       sco, sc1, sc2, auxo, aux1, aux2, lif, norm_eps, nt, nb, l, d, heads, hd,
       ff, l_block, (T*)s2g, (T*)out, counts, flags);
+  return cudaGetLastError();
+}
+
+// The SSA bundle alone (kernels/fused_ssa.py::fused_ssa, bn family):
+// launch A with one L-block a sequence, its context written to the
+// output and its counts to the bundle's (H, 4) map.
+template <typename T>
+cudaError_t launch_ssa(const void* s, const void* w3, const float* sc3,
+                       const float* auxp, const float* delta, float scale,
+                       Lif lif, int nt, int nb, int l, int d, int heads,
+                       int hd, void* ctx, int* counts, cudaStream_t stream) {
+  const size_t dyn_a = SmemA(sizeof(T), nt, l, d, hd, 1).total;
+  auto attention = attention_phase<T, false, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      attention, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn_a);
+  if (err != cudaSuccess) return err;
+  attention<<<dim3(heads, nb), NT, dyn_a, stream>>>(
+      (const T*)s, (const T*)w3, sc3, auxp, delta, scale, lif, 0, nt, nb, l,
+      d, heads, hd, l, 1, d, 1, (T*)ctx, counts);
   return cudaGetLastError();
 }
 
@@ -1053,6 +1092,30 @@ extern "C" int fused_layer_forward(
         f(auxo), f(aux1), f(aux2), f(delta), scale, lif, norm_eps, rope,
         causal, nt, nb, l, d, heads, hd, ff, l_block, decoded, c_block, cp,
         ctx, s2g, out, (int*)counts, (int*)flags, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The SSA bundle (fused_ssa, bn family): s (T, B, L, D) spikes, w3
+// (3, D, H hd), sc3 (3, H hd) fp32 scales, auxp (3, 4, H hd) fp32 BN rows
+// [mean, inv_std, scale, bias], delta (1,) fp32; ctx (T, B, L, H hd) in
+// the dtype (0 = float32, 1 = bfloat16); counts (H, 4) int32, zeroed by
+// the caller. Returns a cudaError_t (0 = success).
+extern "C" int fused_ssa_forward(int dtype, const void* s, const void* w3,
+                                 const void* sc3, const void* auxp,
+                                 const void* delta, float scale, float decay,
+                                 float vth, int soft_reset, int nt, int nb,
+                                 int l, int d, int heads, int hd, void* ctx,
+                                 void* counts, void* stream) {
+  const Lif lif{decay, vth, soft_reset};
+  const auto f = [](const void* p) { return (const float*)p; };
+  if (dtype == 0)
+    return launch_ssa<float>(s, w3, f(sc3), f(auxp), f(delta), scale, lif,
+                             nt, nb, l, d, heads, hd, ctx, (int*)counts,
+                             (cudaStream_t)stream);
+  if (dtype == 1)
+    return launch_ssa<__nv_bfloat16>(s, w3, f(sc3), f(auxp), f(delta), scale,
+                                     lif, nt, nb, l, d, heads, hd, ctx,
+                                     (int*)counts, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -51,6 +51,18 @@
 // block, and so the warps' loops, about equally long: the load balancing
 // of the paper's decoder.
 
+// The quantized twin, quant_gather_kernel below, replaces
+// src/repro/kernels/spike_decode.py::quant_gather_spike_matmul (the Pallas
+// bodies `_qkernel` / `_qkernel_bias`): y = (s @ qw) * scale (+ b) over
+// each row's live entries, on the same schedule and in-kernel row decode,
+// for spikes on int8 lanes or binary-attention counts on int32 lanes
+// (spike_decode.py:429) against int8 weight codes. Sums are int32, exact
+// in any order, so it agrees bitwise with quant_spike_matmul and with the
+// dense quantized reference on any weights and scales; the epilogue
+// (acc * scale, or fma32(acc, scale, b) with a bias) and the one rounding
+// to the output dtype are quant_spike_matmul's. The staged weight slab
+// holds int8 codes, four columns of a lane in one 32-bit load.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -282,6 +294,169 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// quant_gather_spike_matmul: int8 spike lanes or int32 count lanes x int8
+// codes, int32 sums
+// ---------------------------------------------------------------------------
+
+// fp32 a * b + c rounded once: models/nn.fma32
+__device__ __forceinline__ float fma32(float a, float b, float c) {
+  return __double2float_rn(
+      __dadd_rn(__dmul_rn((double)a, (double)b), (double)c));
+}
+
+// VS / VW: 16-byte loads of the lanes / the codes
+template <typename S, typename TO, bool VS, bool VW>
+__global__ void __launch_bounds__(NT)
+quant_gather_kernel(const S* __restrict__ s, const int8_t* __restrict__ w,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ bias,
+                    const long long* __restrict__ order,
+                    const int* __restrict__ sorted_occ, TO* __restrict__ out,
+                    int M, int K, int N, int Mp, int block_m, int padded_cap) {
+  constexpr int KS = 128 / (int)sizeof(S);        // lanes of a 128-byte slab
+  constexpr int LDS = KS + 16 / (int)sizeof(S);
+  constexpr int V = 16 / (int)sizeof(S);
+  __shared__ __align__(16) S ss[ROWS * LDS];       // [row][k]: lane slab
+  __shared__ __align__(16) int8_t ws[KS * NW];     // [k][col]: code slab
+  __shared__ int row_of[ROWS];
+  __shared__ int row_cap[ROWS];
+
+  const int p0 = blockIdx.x * ROWS, n0 = blockIdx.y * NW, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  bool live = false;
+  if (tid < ROWS) {
+    const int p = p0 + tid;
+    int r = -1, cap = 0;
+    if (p < Mp) {
+      r = (int)order[p];
+      cap = min(pow2ceil(sorted_occ[(p / block_m + 1) * block_m - 1]),
+                padded_cap);
+    }
+    if (r >= M) r = -1;
+    row_of[tid] = r;
+    row_cap[tid] = cap;
+    live = r >= 0 && cap > 0;
+  }
+  const bool any_live = __syncthreads_or(live);
+
+  int acc[RPW][CPL] = {};
+  for (int k0 = 0; any_live && k0 < K; k0 += KS) {
+    __syncthreads();
+    if constexpr (VS) {
+      for (int i = tid; i < ROWS * (KS / V); i += NT) {
+        const int r = i / (KS / V), kk = i % (KS / V) * V;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (row_of[r] >= 0 && row_cap[r] > 0 && k0 + kk < K)
+          v = *reinterpret_cast<const uint4*>(s + (size_t)row_of[r] * K + k0 + kk);
+        *reinterpret_cast<uint4*>(ss + r * LDS + kk) = v;
+      }
+    } else {
+      for (int i = tid; i < ROWS * KS; i += NT) {
+        const int r = i / KS, kk = i % KS;
+        ss[r * LDS + kk] = row_of[r] >= 0 && row_cap[r] > 0 && k0 + kk < K
+                               ? s[(size_t)row_of[r] * K + k0 + kk]
+                               : S(0);
+      }
+    }
+    if constexpr (VW) {
+      for (int i = tid; i < KS * (NW / 16); i += NT) {
+        const int kk = i / (NW / 16), nn = i % (NW / 16) * 16;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (k0 + kk < K && n0 + nn < N)
+          v = *reinterpret_cast<const uint4*>(w + (size_t)(k0 + kk) * N + n0 + nn);
+        *reinterpret_cast<uint4*>(ws + kk * NW + nn) = v;
+      }
+    } else {
+      for (int i = tid; i < KS * NW; i += NT) {
+        const int kk = i / NW, nn = i % NW;
+        ws[kk * NW + nn] = k0 + kk < K && n0 + nn < N
+                               ? w[(size_t)(k0 + kk) * N + n0 + nn]
+                               : int8_t(0);
+      }
+    }
+    __syncthreads();
+
+    // decode and contract: the live lanes of each row, ascending k
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const int r = warp * RPW + i;
+      if (row_cap[r] == 0) continue;
+      const S* srow = ss + r * LDS;
+#pragma unroll
+      for (int word = 0; word < KS / 32; ++word) {
+        uint32_t bits = __ballot_sync(0xFFFFFFFFu, srow[word * 32 + lane] != 0);
+        while (bits) {
+          const int j = word * 32 + __ffs(bits) - 1;
+          bits &= bits - 1u;
+          const int a = (int)srow[j];
+          const uint32_t q4 = *reinterpret_cast<const uint32_t*>(ws + j * NW + CPL * lane);
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) {
+            const int wv = (int)(int8_t)(q4 >> (8 * c) & 0xFFu);
+            acc[i][c] += a * wv;
+          }
+        }
+      }
+    }
+  }
+
+  // epilogue at the row's own index: the int32 sum rounded to fp32, the
+  // scale (and bias), one rounding to the output dtype
+  const int col = n0 + CPL * lane;
+  if (col >= N) return;
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int r = row_of[warp * RPW + i];
+    if (r < 0) continue;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      if (col + c >= N) continue;
+      const float a = __int2float_rn(acc[i][c]);
+      const float v = bias != nullptr ? fma32(a, scale[col + c], bias[col + c])
+                                      : __fmul_rn(a, scale[col + c]);
+      store_one(out + (size_t)r * N + col + c, v);
+    }
+  }
+}
+
+struct QArgs {
+  const void *s, *w;
+  const float *scale, *bias;
+  const long long* order;
+  const int* sorted_occ;
+  void* out;
+  int m, k, n, mp, block_m, padded_cap;
+};
+
+template <typename S, typename TO, bool VS, bool VW>
+void launch_quant_one(const QArgs& a, cudaStream_t stream) {
+  const dim3 grid((a.mp + ROWS - 1) / ROWS, (a.n + NW - 1) / NW);
+  quant_gather_kernel<S, TO, VS, VW><<<grid, NT, 0, stream>>>(
+      (const S*)a.s, (const int8_t*)a.w, a.scale, a.bias, a.order,
+      a.sorted_occ, (TO*)a.out, a.m, a.k, a.n, a.mp, a.block_m, a.padded_cap);
+}
+
+template <typename S, typename TO>
+int launch_quant(const QArgs& a, cudaStream_t stream) {
+  constexpr int V = 16 / (int)sizeof(S);
+  const bool vs = a.k % V == 0 && (uintptr_t)a.s % 16 == 0;
+  const bool vw = a.n % 16 == 0 && (uintptr_t)a.w % 16 == 0;
+  if (vs && vw) launch_quant_one<S, TO, true, true>(a, stream);
+  else if (vs) launch_quant_one<S, TO, true, false>(a, stream);
+  else if (vw) launch_quant_one<S, TO, false, true>(a, stream);
+  else launch_quant_one<S, TO, false, false>(a, stream);
+  return (int)cudaGetLastError();
+}
+
+template <typename S>
+int launch_quant_lanes(int out_dtype, const QArgs& a, cudaStream_t stream) {
+  if (out_dtype == 0) return launch_quant<S, float>(a, stream);
+  if (out_dtype == 1) return launch_quant<S, __nv_bfloat16>(a, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (s, w and out); bias: fp32 (n,) or null;
@@ -307,4 +482,22 @@ extern "C" int gather_spike_matmul_forward(int dtype, const void* s,
 
 extern "C" const char* gather_spike_matmul_error(int code) {
   return cudaGetErrorString((cudaError_t)code);
+}
+
+// counts: 0 = s is (m, k) int8 spike lanes, 1 = int32 count lanes;
+// out_dtype: 0 float32, 1 bfloat16; w: (k, n) int8 codes; scale: fp32
+// (n,); bias: fp32 (n,) or null; order, sorted_occ, padded_cap: the
+// schedule of gather_spike_matmul_forward; out: (m, n). Returns a
+// cudaError_t code (0 on success).
+extern "C" int quant_gather_spike_matmul_forward(
+    int counts, int out_dtype, const void* s, const void* w,
+    const void* scale, const void* bias, const void* order,
+    const void* sorted_occ, void* out, int m, int k, int n, int mp,
+    int block_m, int padded_cap, void* stream) {
+  const QArgs a{s, w, (const float*)scale, (const float*)bias,
+                (const long long*)order, (const int*)sorted_occ, out, m, k, n,
+                mp, block_m, padded_cap};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (counts) return launch_quant_lanes<int32_t>(out_dtype, a, st);
+  return launch_quant_lanes<int8_t>(out_dtype, a, st);
 }

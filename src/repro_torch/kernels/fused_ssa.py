@@ -1,27 +1,56 @@
-"""The SSA bundle's sequential oracle (``repro.kernels.fused_ssa.
-reference_bundle``): Q/K/V projections with fp32 accumulation -> BN
-affine (``bn`` family) or RoPE on q and k (``rope`` family) -> LIF ->
-binary attention, causal or not. The fused bundle kernel itself is still
-to be ported (ROADMAP queue 2 #6)."""
+"""The SSA bundle: Q/K/V projections with fp32 accumulation -> BN affine
+(``bn`` family) or RoPE on q and k (``rope`` family) -> LIF -> binary
+attention, causal or not.
+
+Port of ``repro.kernels.fused_ssa``:
+
+* :func:`reference_bundle` — the sequential oracle (the JAX
+  ``reference_bundle``), differentiable through the surrogate spikes: the
+  fused bundle's backward recomputes through it (``core/engine``);
+* :func:`fused_ssa_plain` — the plain PyTorch version of the kernel:
+  the oracle's context (the kernel's rounding, step for step) and the
+  ``(H, 4)`` map of executed dots: q, k and v count, per batch row, the
+  timesteps whose whole ``(L, D)`` input slab is non-zero (a dark slab
+  skips its dot), attend counts ``2 T``;
+* :func:`fused_ssa` — the wrapper: CPU tensors take the plain version,
+  CUDA tensors launch ``csrc/fused_layer.cu``'s ``fused_ssa_forward``
+  (the layer program's launch A alone) through :func:`fused_ssa_cuda`
+  or raise.
+
+The kernel covers the ``bn`` family, with fp weights or int8 codes cast
+to the activation dtype plus ``scale3``; the ``rope`` family's kernel is
+still to be ported and raises (ROADMAP queue 2 #6b).
+"""
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.spiking import SpikingConfig, lif_scan
+from repro_torch.core.spiking import SpikingConfig, lif_scan, spike
 from repro_torch.models.nn import bn_affine, fma32, rope_rotate
+
+FAMILIES = ("bn", "rope")
+PHASES = ("q", "k", "v", "attend")
+# kernel launches on the card (one per call of fused_ssa_cuda)
+LAUNCHES = {"fused_ssa": 0}
+
+
+def reset_launches() -> None:
+    LAUNCHES["fused_ssa"] = 0
 
 
 def binary_scores(q: torch.Tensor, k: torch.Tensor, scale: float,
-                  delta) -> torch.Tensor:
+                  delta, alpha: float = 4.0) -> torch.Tensor:
     """``1[(q k^T) * scale - delta >= 0]`` in fp32. XLA contracts the
     scale and the threshold into one FMA, so the threshold is tested on
     the once-rounded ``fma32(score, scale, -delta)``; scores of {0,1}
-    spikes are exact integer counts."""
+    spikes are exact integer counts. Under autograd the step takes the
+    sigmoid surrogate of slope ``alpha`` (``core.spiking.spike``)."""
     scores = q.float() @ k.float().transpose(-1, -2)
     neg = -torch.as_tensor(delta, dtype=torch.float32, device=q.device)
-    return (fma32(scores, scale, neg) >= 0).float()
+    return spike(fma32(scores, scale, neg), alpha)
 
 
 def rope_heads(y: torch.Tensor, table: torch.Tensor, num_heads: int
@@ -44,7 +73,7 @@ def reference_bundle(x: torch.Tensor, w3: torch.Tensor,
     (3, D, H*hd); aux: (3, 4, H*hd) BN rows [mean, var, scale, bias] (bn)
     or the (2, L, hd/2) [cos; sin] table (rope). Returns the context
     (T, B, L, H*hd)."""
-    if family not in ("bn", "rope"):
+    if family not in FAMILIES:
         raise ValueError(f"unknown bundle family {family!r}")
     if not scfg.binarize_scores:
         raise NotImplementedError(
@@ -65,8 +94,165 @@ def reference_bundle(x: torch.Tensor, w3: torch.Tensor,
         projected.append(lif_scan(y, scfg)[0])
     q, k, v = (u.reshape(t * b, l, num_heads, head_dim).transpose(1, 2)
                for u in projected)
-    attn = binary_scores(q, k, scale, delta)
+    attn = binary_scores(q, k, scale, delta, scfg.surrogate_alpha)
     if causal:
         attn = attn.tril()
     ctx = (attn @ v.float()).to(q.dtype)
     return ctx.transpose(1, 2).reshape(t, b, l, q_dim)
+
+
+def _check_bundle(x, w3, scale3, aux, family, num_heads, head_dim,
+                  binarize_scores):
+    if family not in FAMILIES:
+        raise ValueError(f"unknown fused-SSA family {family!r} "
+                         f"(expected bn|rope)")
+    if family == "rope":
+        raise NotImplementedError(
+            "the fused SSA bundle's rope family is not ported to PyTorch yet "
+            "(ROADMAP queue 2 #6b)")
+    if not binarize_scores:
+        raise NotImplementedError(
+            "analog attention scores of the fused SSA bundle are not ported "
+            "to PyTorch yet (ROADMAP queue 2 #6)")
+    t, b, l, d = x.shape
+    q_dim = num_heads * head_dim
+    want = {"w3": (w3.shape, (3, d, q_dim)), "aux": (aux.shape, (3, 4, q_dim))}
+    if scale3 is not None:
+        want["scale3"] = (scale3.shape, (3, q_dim))
+    for name, (got, shape) in want.items():
+        if tuple(got) != shape:
+            raise ValueError(f"{name} has shape {tuple(got)}, expected "
+                             f"{shape}")
+
+
+def bundle_counts(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The kernel's ``(H, 4)`` int32 map of executed dots: q, k, v count
+    the (b, t) whose ``(L, D)`` slab holds a non-zero entry, the attend
+    phase ``2 T`` a batch row; every head counts the same."""
+    t, b = x.shape[:2]
+    live = int((x != 0).reshape(t, b, -1).any(dim=2).sum())
+    row = torch.tensor([live, live, live, 2 * t * b], dtype=torch.int32,
+                       device=x.device)
+    return row.expand(num_heads, 4).contiguous()
+
+
+def _lif_config(decay: float, v_th: float, soft_reset: bool
+                ) -> SpikingConfig:
+    scfg = SpikingConfig(tau=1.0 / (1.0 - decay), v_threshold=v_th,
+                         soft_reset=soft_reset)
+    if scfg.decay != decay:
+        raise ValueError(f"decay {decay!r} is not 1 - 1/tau of a float tau")
+    return scfg
+
+
+def fused_ssa_plain(x: torch.Tensor, w3: torch.Tensor,
+                    scale3: Optional[torch.Tensor], aux: torch.Tensor, delta,
+                    *, num_heads: int, head_dim: int, scale: float,
+                    decay: float = 0.5, v_th: float = 1.0,
+                    soft_reset: bool = False, eps: float = 1e-5
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel (bn family), with the launcher's
+    signature: (context (T, B, L, H*hd) in the activation dtype, counts
+    (H, 4) int32). Skipped dots add exact zeros, so the context is
+    :func:`reference_bundle`'s, which rounds as the kernel does: fp32
+    sums, ``* scale3`` and the cast, BN as ``fma32((y - mean) *
+    rsqrt(var + eps), scale, bias)``, LIF in the activation dtype, the
+    threshold ``fma32(count, scale, -delta)``."""
+    ctx = reference_bundle(x, w3, scale3, aux, delta,
+                           _lif_config(decay, v_th, soft_reset), family="bn",
+                           num_heads=num_heads, head_dim=head_dim,
+                           scale=scale, eps=eps)
+    return ctx, bundle_counts(x, num_heads)
+
+
+def fused_ssa(x: torch.Tensor, w3: torch.Tensor,
+              scale3: Optional[torch.Tensor], aux: torch.Tensor, delta, *,
+              family: str, num_heads: int, head_dim: int, scale: float,
+              causal: bool = False, binarize_scores: bool = True,
+              decay: float = 0.5, v_th: float = 1.0,
+              soft_reset: bool = False, eps: float = 1e-5
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused projection + attention SSA step (forward only), the signature
+    of the JAX ``fused_ssa``. x: (T, B, L, D) {0,1} spikes in the
+    activation dtype; w3: (3, D, H*hd) in that dtype (int8 codes cast to
+    it); scale3: (3, H*hd) fp32 or None; aux: (3, 4, H*hd) BN rows [mean,
+    var, scale, bias]. Returns (context (T, B, L, H*hd), counts (H, 4)
+    int32 — executed dots per head and phase, :data:`PHASES`)."""
+    _check_bundle(x, w3, scale3, aux, family, num_heads, head_dim,
+                  binarize_scores)
+    if causal:
+        raise NotImplementedError(
+            "the bn family of the fused SSA bundle is bidirectional; the "
+            "causal bundle is the rope family (ROADMAP queue 2 #6b)")
+    kw = dict(num_heads=num_heads, head_dim=head_dim, scale=scale,
+              decay=decay, v_th=v_th, soft_reset=soft_reset, eps=eps)
+    if x.device.type == "cpu":
+        return fused_ssa_plain(x, w3, scale3, aux, delta, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_ssa runs on CPU or CUDA tensors, not "
+                         f"{x.device.type}")
+    return fused_ssa_cuda(x, w3, scale3, aux, delta, **kw)
+
+
+def _library():
+    from repro_torch.kernels import fused_layer
+    lib = fused_layer._library()
+    if lib.fused_ssa_forward.argtypes is None:
+        lib.fused_ssa_forward.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_float] * 3
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3)
+        lib.fused_ssa_forward.restype = ctypes.c_int
+    return lib
+
+
+def fused_ssa_cuda(x: torch.Tensor, w3: torch.Tensor,
+                   scale3: Optional[torch.Tensor], aux: torch.Tensor, delta,
+                   *, num_heads: int, head_dim: int, scale: float,
+                   decay: float = 0.5, v_th: float = 1.0,
+                   soft_reset: bool = False, eps: float = 1e-5
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the bundle kernel (bn family) on PyTorch's current stream.
+    x and w3 share one dtype (float32 or bfloat16), which the context
+    takes; BN rows are passed with the inverse std, ``torch.rsqrt(var +
+    eps)`` computed once per channel (the oracle's)."""
+    from repro_torch.kernels import fused_layer as FL
+    dtypes = {torch.float32: 0, torch.bfloat16: 1}
+    if x.dtype not in dtypes or w3.dtype != x.dtype:
+        raise ValueError(f"fused_ssa kernel takes x and w3 of one dtype, "
+                         f"float32 or bfloat16, got {x.dtype} and {w3.dtype}")
+    t, b, l, d = x.shape
+    q_dim = num_heads * head_dim
+    dev = x.device
+    if scale3 is None:
+        scale3 = torch.ones((3, q_dim), dtype=torch.float32, device=dev)
+    f32 = (scale3.float().contiguous(), FL._inv_rows(aux, eps).contiguous(),
+           torch.as_tensor(delta, dtype=torch.float32, device=dev
+                           ).reshape(1).contiguous())
+    act = (x.contiguous(), w3.contiguous())
+    for a in act + f32:
+        if a.device != dev:
+            raise ValueError("all fused_ssa operands must be on one device")
+    smem = FL.smem_a(x.element_size(), t, l, d, head_dim, 1)
+    if smem > FL.SMEM_LIMIT:
+        raise ValueError(f"fused_ssa kernel takes a sequence whose spike "
+                         f"bits fit shared memory, got T={t}, L={l} ({smem} "
+                         f"bytes > {FL.SMEM_LIMIT})")
+    if head_dim > FL.MAX_HEAD_DIM or head_dim % 8 or d % 16:
+        raise ValueError(f"fused_ssa kernel takes head_dim a multiple of 8 "
+                         f"up to {FL.MAX_HEAD_DIM} and D a multiple of 16, "
+                         f"got head_dim={head_dim}, D={d}")
+    ctx = torch.empty((t, b, l, q_dim), dtype=x.dtype, device=dev)
+    counts = torch.zeros((num_heads, 4), dtype=torch.int32, device=dev)
+    if ctx.numel() == 0:
+        return ctx, counts
+    lib = _library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.fused_ssa_forward(
+        dtypes[x.dtype], *(a.data_ptr() for a in act + f32), float(scale),
+        float(decay), float(v_th), int(soft_reset), t, b, l, d, num_heads,
+        head_dim, ctx.data_ptr(), counts.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_ssa kernel launch failed: "
+                           f"{lib.fused_layer_error(rc).decode()}")
+    LAUNCHES["fused_ssa"] += 1
+    return ctx, counts

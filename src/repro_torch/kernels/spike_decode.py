@@ -26,6 +26,14 @@ them:
   version, CUDA tensors launch ``csrc/gather_spike_matmul.cu`` through
   :func:`gather_spike_matmul_cuda` or raise.
 
+and the quantized twins (``quant_gather_spike_matmul``: int8 spike or
+int32 count lanes against int8 codes, int32 sums, the per-channel scale
+in the epilogue) :func:`quant_gather_spike_matmul_plain`,
+:func:`quant_gather_spike_matmul` and
+:func:`quant_gather_spike_matmul_cuda`, on the same staging; their sums
+are exact, so they equal ``spike_matmul.quant_spike_matmul`` bitwise on
+any weights and scales.
+
 The values of ``s`` are carried, not a live mask, so the integer counts
 of a binary-attention context (the wo projection's input) are exact too.
 The JAX kernel returns fp32 and its engine casts to the activation dtype;
@@ -45,12 +53,14 @@ import torch.nn.functional as F
 # least this factor below the tile path's before 'auto' picks it.
 DECODED_OVERHEAD = 2.0
 
-# kernel launches on the card (one per call of gather_spike_matmul_cuda)
-LAUNCHES = {"gather_spike_matmul": 0}
+# kernel launches on the card (one per call of gather_spike_matmul_cuda or
+# quant_gather_spike_matmul_cuda)
+LAUNCHES = {"gather_spike_matmul": 0, "quant_gather_spike_matmul": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["gather_spike_matmul"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def pad_to_multiple(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
@@ -258,6 +268,10 @@ def _library():
             [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
             + [ctypes.c_void_p])
         lib.gather_spike_matmul_forward.restype = ctypes.c_int
+        lib.quant_gather_spike_matmul_forward.argtypes = (
+            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+            + [ctypes.c_void_p])
+        lib.quant_gather_spike_matmul_forward.restype = ctypes.c_int
         lib.gather_spike_matmul_error.argtypes = [ctypes.c_int]
         lib.gather_spike_matmul_error.restype = ctypes.c_char_p
     return lib
@@ -324,4 +338,95 @@ def launch_gather(s, w, bias, order, sorted_occ, *, block_m: int,
         raise RuntimeError(f"gather_spike_matmul kernel launch failed: "
                            f"{lib.gather_spike_matmul_error(rc).decode()}")
     LAUNCHES["gather_spike_matmul"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the quantized decoded product (``quant_gather_spike_matmul``)
+# ---------------------------------------------------------------------------
+
+
+def quant_gather_spike_matmul_plain(s: torch.Tensor, qw: torch.Tensor,
+                                    scale: torch.Tensor,
+                                    bias: Optional[torch.Tensor] = None, *,
+                                    counts: bool = False,
+                                    out_dtype: torch.dtype = torch.float32,
+                                    block_m: int = 128, c_block: int = 128
+                                    ) -> torch.Tensor:
+    """Plain version of the kernel, through the JAX staging: the lanes'
+    rows sorted into groups, each group's live slots summed in int32 up
+    to its capacity (value x code row), the sums un-permuted, then
+    ``spike_matmul.quant_epilogue``, rounded once to ``out_dtype``."""
+    from repro_torch.kernels.spike_matmul import quant_epilogue, quant_lanes
+    m, k = s.shape
+    block_m, c_block = min(block_m, m), min(c_block, k)
+    lanes = quant_lanes(s, counts)
+    idx, vals, caps2d, order, _ = _stage(lanes, block_m, c_block, None)
+    n_slots = int(caps2d.max()) if caps2d.numel() else 0
+    codes = qw.to(torch.int32)
+    acc = torch.zeros((idx.shape[0], qw.shape[1]), dtype=torch.int32,
+                      device=s.device)
+    for i in range(n_slots):
+        acc += vals[:, i, None].to(torch.int32) * codes[idx[:, i].long()]
+    y = torch.empty_like(acc)
+    y[order] = acc
+    return quant_epilogue(y[:m], scale, bias).to(out_dtype)
+
+
+def quant_gather_spike_matmul(s: torch.Tensor, qw: torch.Tensor,
+                              scale: torch.Tensor,
+                              bias: Optional[torch.Tensor] = None, *,
+                              counts: bool = False,
+                              out_dtype: torch.dtype = torch.float32,
+                              block_m: int = 128, c_block: int = 128
+                              ) -> torch.Tensor:
+    """y = (s @ qw) * scale (+ bias) -> (M, N) in ``out_dtype`` through the
+    decoded datapath. s: (M, K) {0,1} spikes, or with ``counts``
+    non-negative integer counts, in any dtype; qw: (K, N) int8 codes;
+    scale, bias: (N,)."""
+    from repro_torch.kernels.spike_matmul import _check_quant
+    _check_quant("quant_gather_spike_matmul", s, qw, scale, bias)
+    kw = dict(counts=counts, out_dtype=out_dtype, block_m=block_m,
+              c_block=c_block)
+    if s.device.type == "cpu":
+        return quant_gather_spike_matmul_plain(s, qw, scale, bias, **kw)
+    if s.device.type != "cuda":
+        raise ValueError(f"quant_gather_spike_matmul runs on CPU or CUDA "
+                         f"tensors, not {s.device.type}")
+    return quant_gather_spike_matmul_cuda(s, qw, scale, bias, **kw)
+
+
+def quant_gather_spike_matmul_cuda(s: torch.Tensor, qw: torch.Tensor,
+                                   scale: torch.Tensor,
+                                   bias: Optional[torch.Tensor] = None, *,
+                                   counts: bool = False,
+                                   out_dtype: torch.dtype = torch.float32,
+                                   block_m: int = 128, c_block: int = 128
+                                   ) -> torch.Tensor:
+    """Launch the CUDA kernel on PyTorch's current stream: the lanes (int8,
+    or int32 with ``counts``), the schedule :func:`stage_rows` stages on
+    them, int8 codes, fp32 scale and bias; the output in ``out_dtype``
+    (float32 or bfloat16)."""
+    from repro_torch.kernels.spike_matmul import quant_operands
+    lanes, qw, sc, b32, out_code = quant_operands(
+        "quant_gather_spike_matmul", s, qw, scale, bias, counts, out_dtype)
+    m, k = lanes.shape
+    n = qw.shape[1]
+    out = torch.empty((m, n), dtype=out_dtype, device=s.device)
+    if out.numel() == 0:
+        return out
+    block_m, c_block = min(block_m, m), min(c_block, k)
+    order, sorted_occ = stage_rows(lanes, block_m)
+    padded_cap = max(c_block, -(-k // c_block) * c_block)
+    lib = _library()
+    stream = torch.cuda.current_stream(s.device).cuda_stream
+    rc = lib.quant_gather_spike_matmul_forward(
+        int(counts), out_code, lanes.data_ptr(), qw.data_ptr(),
+        sc.data_ptr(), None if b32 is None else b32.data_ptr(),
+        order.data_ptr(), sorted_occ.data_ptr(), out.data_ptr(), m, k, n,
+        order.numel(), block_m, padded_cap, stream)
+    if rc != 0:
+        raise RuntimeError(f"quant_gather_spike_matmul kernel launch failed: "
+                           f"{lib.gather_spike_matmul_error(rc).decode()}")
+    LAUNCHES["quant_gather_spike_matmul"] += 1
     return out

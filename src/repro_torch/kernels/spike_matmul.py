@@ -3,7 +3,8 @@
 Port of ``repro.kernels.spike_matmul.spike_matmul``: ``y = s @ w (+ b)``
 for {0,1} spikes (or small integer counts) ``s: (M, K)`` against
 weights ``w: (K, N)``, accumulated in fp32, skipping all-zero spike
-tiles. Three functions:
+tiles; and of its int8 twin ``quant_spike_matmul`` (below). Three
+functions of the fp product:
 
 * :func:`spike_matmul_plain` — the plain PyTorch version: the dense
   fp32 product (a skipped tile adds exact zeros, so skipping does not
@@ -23,6 +24,18 @@ the JAX kernel's default ``out_dtype`` (``w.dtype``). The engine's
 operands carry the activation dtype, so the cast that JAX's engine
 applies to the kernel's fp32 output is fused into the kernel's store
 (``core/engine.spike_linear``).
+
+The quantized product ``y = (s @ qw) * scale (+ b)`` takes spikes on
+int8 lanes (or, with ``counts=True``, binary-attention counts on int32
+lanes) against int8 weight codes, sums in int32 (exact in any order)
+and applies the per-channel fp32 scale in the epilogue:
+:func:`quant_spike_matmul_plain`, :func:`quant_spike_matmul` (the
+wrapper) and :func:`quant_spike_matmul_cuda` (``csrc/spike_matmul.cu``).
+Both versions round the epilogue as the interpret-mode Pallas kernel
+does: ``acc * scale`` once, and with a bias ``fma32(acc, scale, b)``,
+since jitted XLA contracts ``acc * scale + b`` into one fused
+multiply-add. The result is the fp32 epilogue rounded once to
+``out_dtype`` (JAX's kernel output followed by the engine's cast).
 """
 from __future__ import annotations
 
@@ -31,15 +44,17 @@ from typing import Optional
 
 import torch
 
-# kernel launches on the card (one per call of spike_matmul_cuda)
-LAUNCHES = {"spike_matmul": 0}
+# kernel launches on the card (one per call of spike_matmul_cuda or
+# quant_spike_matmul_cuda)
+LAUNCHES = {"spike_matmul": 0, "quant_spike_matmul": 0}
 # the CUDA kernel's skip tile of s: (rows, columns) per output tile and
 # contraction chunk (csrc/spike_matmul.cu BM, BK)
 SKIP_TILE = (128, 32)
 
 
 def reset_launches() -> None:
-    LAUNCHES["spike_matmul"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def block_occupancy(s: torch.Tensor, block_m: int, block_k: int
@@ -91,6 +106,10 @@ def _library():
             [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
             + [ctypes.c_void_p])
         lib.spike_matmul_forward.restype = ctypes.c_int
+        lib.quant_spike_matmul_forward.argtypes = (
+            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+            + [ctypes.c_void_p])
+        lib.quant_spike_matmul_forward.restype = ctypes.c_int
         lib.spike_matmul_error.argtypes = [ctypes.c_int]
         lib.spike_matmul_error.restype = ctypes.c_char_p
     return lib
@@ -127,4 +146,122 @@ def spike_matmul_cuda(s: torch.Tensor, w: torch.Tensor,
         raise RuntimeError(f"spike_matmul kernel launch failed: "
                            f"{lib.spike_matmul_error(rc).decode()}")
     LAUNCHES["spike_matmul"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the quantized product (``quant_spike_matmul``)
+# ---------------------------------------------------------------------------
+
+
+def quant_lanes(s: torch.Tensor, counts: bool) -> torch.Tensor:
+    """The left operand on the kernel's integer lanes, as the JAX kernel
+    casts it: int8 for {0,1} spikes, int32 for binary-attention counts
+    (which wrap int8 at 128)."""
+    return s.to(torch.int32 if counts else torch.int8)
+
+
+def quant_epilogue(acc: torch.Tensor, scale: torch.Tensor,
+                   bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """fp32 epilogue of an exact integer sum ``acc`` (any integer or
+    integer-valued dtype): rounded once to fp32, then ``* scale``, or
+    with a bias one fused multiply-add (``fma32``), the contraction the
+    jitted kernel makes."""
+    from repro_torch.models.nn import fma32
+    acc = acc.float()
+    if bias is None:
+        return acc * scale.float()
+    return fma32(acc, scale.float(), bias.float())
+
+
+def _check_quant(name, s, qw, scale, bias):
+    if s.dim() != 2 or qw.dim() != 2 or s.shape[1] != qw.shape[0]:
+        raise ValueError(f"{name} takes s (M, K) and qw (K, N), got "
+                         f"{tuple(s.shape)} and {tuple(qw.shape)}")
+    if qw.dtype != torch.int8:
+        raise ValueError(f"{name} takes int8 weight codes, got {qw.dtype} "
+                         f"(unpack int4 nibbles first)")
+    n = qw.shape[1]
+    for what, a in (("scale", scale), ("bias", bias)):
+        if a is not None and tuple(a.shape) != (n,):
+            raise ValueError(f"{what} has shape {tuple(a.shape)}, expected "
+                             f"({n},)")
+
+
+def quant_spike_matmul_plain(s: torch.Tensor, qw: torch.Tensor,
+                             scale: torch.Tensor,
+                             bias: Optional[torch.Tensor] = None, *,
+                             counts: bool = False,
+                             out_dtype: torch.dtype = torch.float32
+                             ) -> torch.Tensor:
+    """Plain version of the kernel: the integer sums of ``s`` on its lanes
+    against the codes, taken in float64 (exact: every partial sum is an
+    integer far below 2^53), then :func:`quant_epilogue`, rounded once to
+    ``out_dtype``."""
+    acc = quant_lanes(s, counts).double() @ qw.double()
+    return quant_epilogue(acc, scale, bias).to(out_dtype)
+
+
+def quant_spike_matmul(s: torch.Tensor, qw: torch.Tensor,
+                       scale: torch.Tensor,
+                       bias: Optional[torch.Tensor] = None, *,
+                       counts: bool = False,
+                       out_dtype: torch.dtype = torch.float32
+                       ) -> torch.Tensor:
+    """y = (s @ qw) * scale (+ bias) -> (M, N) in ``out_dtype``. s: (M, K)
+    {0,1} spikes, or with ``counts`` non-negative integer counts, in any
+    dtype; qw: (K, N) int8 codes; scale, bias: (N,)."""
+    _check_quant("quant_spike_matmul", s, qw, scale, bias)
+    kw = dict(counts=counts, out_dtype=out_dtype)
+    if s.device.type == "cpu":
+        return quant_spike_matmul_plain(s, qw, scale, bias, **kw)
+    if s.device.type != "cuda":
+        raise ValueError(f"quant_spike_matmul runs on CPU or CUDA tensors, "
+                         f"not {s.device.type}")
+    return quant_spike_matmul_cuda(s, qw, scale, bias, **kw)
+
+
+def quant_operands(name, s, qw, scale, bias, counts, out_dtype):
+    """Checks and lays out a quantized product's operands for its CUDA
+    kernel: (the integer lanes, qw, fp32 scale, fp32 bias or None, the
+    output dtype's code), all contiguous on one device."""
+    if out_dtype not in _DTYPES:
+        raise ValueError(f"{name} kernel writes float32 or bfloat16, not "
+                         f"{out_dtype}")
+    lanes = quant_lanes(s, counts).contiguous()
+    ops = [lanes, qw.contiguous(), scale.float().contiguous(),
+           None if bias is None else bias.float().contiguous()]
+    for a in ops:
+        if a is not None and a.device != s.device:
+            raise ValueError(f"all {name} operands must be on one device")
+    return (*ops, _DTYPES[out_dtype])
+
+
+def quant_spike_matmul_cuda(s: torch.Tensor, qw: torch.Tensor,
+                            scale: torch.Tensor,
+                            bias: Optional[torch.Tensor] = None, *,
+                            counts: bool = False,
+                            out_dtype: torch.dtype = torch.float32
+                            ) -> torch.Tensor:
+    """Launch the CUDA kernel on PyTorch's current stream: the left
+    operand cast to its lanes (int8, or int32 with ``counts``), int8
+    codes, fp32 scale and bias; the output in ``out_dtype`` (float32 or
+    bfloat16)."""
+    lanes, qw, sc, b32, out_code = quant_operands(
+        "quant_spike_matmul", s, qw, scale, bias, counts, out_dtype)
+    m, k = lanes.shape
+    n = qw.shape[1]
+    out = torch.empty((m, n), dtype=out_dtype, device=s.device)
+    if out.numel() == 0:
+        return out
+    lib = _library()
+    stream = torch.cuda.current_stream(s.device).cuda_stream
+    rc = lib.quant_spike_matmul_forward(
+        int(counts), out_code, lanes.data_ptr(), qw.data_ptr(),
+        sc.data_ptr(), None if b32 is None else b32.data_ptr(),
+        out.data_ptr(), m, k, n, stream)
+    if rc != 0:
+        raise RuntimeError(f"quant_spike_matmul kernel launch failed: "
+                           f"{lib.spike_matmul_error(rc).decode()}")
+    LAUNCHES["quant_spike_matmul"] += 1
     return out

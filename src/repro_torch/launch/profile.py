@@ -2,12 +2,20 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile [--sparse decoded]
     PYTHONPATH=src python -m repro_torch.launch.profile \
+        --quantize int8 --keep-fp wq,wk,wv
+    PYTHONPATH=src python -m repro_torch.launch.profile \
         --arch spikingformer-lm [--quantize int8]
 
 Spikingformer-4-256 (the default): the published config (seeded random
 weights; ``--sparse`` sets its sparse datapath, 'auto' by default) on
 batches of 64 images through ``build_prefill_step`` and through
-``build_train_step`` (AdamW, warmup-cosine). spikingformer-lm: the
+``build_train_step`` (AdamW, warmup-cosine); with ``--quantize`` only
+the prefill, on the int8 (or int4) tree of weights that fire (BN biases
+raised by 1/4, as ``chip_smoke.py`` does: on the random weights every
+layer input is dark and the sparse kernels skip everything), with the
+linears named by ``--keep-fp`` left unquantized (``--keep-fp
+wq,wk,wv``: the mixed-precision tree, whose layers run ``fused_ssa``
+and the int8 sparse products). spikingformer-lm: the
 published config (``--quantize int8``: its int8 tree, as ``launch/
 serve.py --quantize int8`` loads it) through ``build_prefill_step`` on
 8 x 512 tokens, and through the continuous-batching server: one call
@@ -111,6 +119,24 @@ def _profile_lm(cfg, quantize: str) -> None:
              unit=f"{SERVE_REQUESTS} requests x {SERVE_NEW} new tokens")
 
 
+def _quantized_vision(cfg, quantize: str, keep_fp):
+    """(cfg, params): the vision tree of weights that fire, its linears
+    quantized except those named in ``keep_fp``; a fully quantized tree
+    declares its weights datapath, a mixed one stays 'fp32'."""
+    from repro_torch.quant import quantize_tree
+    params = registry.init(cfg, seed=0)
+    for k, v in params["blocks"].items():
+        if k.startswith("bn_"):
+            v["bias"] = v["bias"] + 0.25
+    for p in params["sps"]:
+        p["bn"]["bias"] = p["bn"]["bias"] + 0.25
+    params = quantize_tree(params, quantize, select=lambda path: path.rsplit(
+        "/", 1)[-1] not in keep_fp)
+    if not keep_fp:
+        cfg = cfg.replace(engine=cfg.engine.replace(weights=quantize))
+    return cfg, params
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="spikingformer-4-256",
@@ -121,8 +147,12 @@ def main():
                          "config's)")
     ap.add_argument("--quantize", default="none",
                     choices=["none", "int8", "int4"],
-                    help="spikingformer-lm: quantize the linears at load")
+                    help="quantize the linears at load")
+    ap.add_argument("--keep-fp", default="",
+                    help="comma-separated linear names left unquantized "
+                         "under --quantize (spikingformer-4-256)")
     args = ap.parse_args()
+    keep_fp = tuple(n for n in args.keep_fp.split(",") if n)
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -132,14 +162,21 @@ def main():
     if args.arch == "spikingformer-lm":
         _profile_lm(cfg, args.quantize)
         return
-    params = registry.init(cfg, seed=0)
+    if args.quantize != "none":
+        cfg, params = _quantized_vision(cfg, args.quantize, keep_fp)
+    else:
+        params = registry.init(cfg, seed=0)
     prefill = build_prefill_step(cfg)
     gen = torch.Generator().manual_seed(1)
     v = cfg.vision
     images = [torch.rand((BATCH, v.img_size, v.img_size, v.in_channels),
                          generator=gen).cuda() for _ in range(CALLS + 2)]
-    _profile(args.arch, "prefill", cfg.engine.sparse,
+    what = "prefill" if args.quantize == "none" else \
+        f"prefill ({args.quantize}, fp {','.join(keep_fp) or 'none'})"
+    _profile(args.arch, what, cfg.engine.sparse,
              lambda i: prefill(params, {"images": images[i]}))
+    if args.quantize != "none":
+        return      # an int8 tree takes no train step (QAT is not ported)
 
     opt = adamw(warmup_cosine(2e-3, 1, CALLS + 2))
     train_step = build_train_step(cfg, opt)

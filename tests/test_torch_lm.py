@@ -518,7 +518,7 @@ def test_unported_token_paths_raise():
     lp, x, pos = _layer_inputs(cfg)
     with pytest.raises(NotImplementedError, match="item 7"):
         E.layer_step_causal(lp, cfg, x, pos, train=True)
-    with pytest.raises(NotImplementedError, match="#6"):
+    with pytest.raises(NotImplementedError, match="rope family.*#6b"):
         E.ssa_step_causal(lp, cfg, x, pos,
                           engine=cfg.engine.replace(overlap="fused"))
     t, b, l, d, heads, hd, ff, l_block = SHAPES["odd"]

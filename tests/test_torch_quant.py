@@ -151,14 +151,18 @@ def test_engine_weights_declaration_and_quantized_dispatch():
         out = E.spike_linear(p, s, engine=int8.replace(weights="int4"))
         np.testing.assert_array_equal(out.numpy(),
                                       E.dense_quant_linear(p, s).numpy())
-    # dense mode takes the quantized reference; the sparse path would
-    # reach the int8 kernels, which are still to port
+    # dense mode takes the quantized reference; the sparse path runs the
+    # int8 kernels' plain versions on CPU tensors, with the same sums and
+    # epilogue (tile and decoded)
     with E.use_engine(int8):
         np.testing.assert_array_equal(
             nn.linear(qp, s, spikes=True).numpy(),
             E.dense_quant_linear(qp, s).numpy())
-    with pytest.raises(NotImplementedError, match="#3/#5"):
-        E.spike_linear(qp, s, engine=int8.replace(mode="sparse"))
+    for path in ("tile", "decoded"):
+        np.testing.assert_array_equal(
+            E.spike_linear(qp, s, engine=int8.replace(
+                mode="sparse", sparse=path)).numpy(),
+            E.dense_quant_linear(qp, s).numpy())
 
 
 @pytest.mark.parametrize("overlap", ["off", "fused"])

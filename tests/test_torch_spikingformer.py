@@ -199,9 +199,10 @@ def test_dispatch_rules_on_cpu_and_cuda_tensors():
                                           _on(dev)) == path
     with pytest.raises(NotImplementedError):
         TE.resolve_overlap(TE.EngineConfig(overlap="pipeline"), _on("cuda"))
-    # spike_linear (with quantized weights on the dense path) and the
-    # sequential ssa_step are ported; the fused SSA bundle (kernel #6) and
-    # the int8 sparse kernels (#3, #5) are not
+    # spike_linear (quantized weights on the dense and the sparse path),
+    # the sequential ssa_step and the fused SSA bundle (kernel #6) are
+    # ported: on CPU tensors the sparse path and the bundle take the
+    # kernels' plain versions, equal to the dense and sequential paths
     from repro_torch.quant import quantize_weight
     tcfg = get_config("spikingformer-4-256", smoke=True)
     bp, st = _block_leaves(tcfg)
@@ -214,13 +215,12 @@ def test_dispatch_rules_on_cpu_and_cuda_tensors():
     ctx, _ = TE.ssa_step(bp, bundle_st, tcfg, s,
                          engine=TE.EngineConfig(overlap="off"))
     assert ctx.shape == (2, 1, 16, tcfg.q_dim)
-    for unported in (
-            lambda: TE.spike_linear(qwq, s,
-                                    engine=TE.EngineConfig(mode="sparse")),
-            lambda: TE.ssa_step(bp, bundle_st, tcfg, s,
-                                engine=TE.EngineConfig(overlap="fused"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            unported()
+    assert torch.equal(
+        TE.spike_linear(qwq, s, engine=TE.EngineConfig(mode="sparse")),
+        TE.dense_quant_linear(qwq, s))
+    fused, fused_st = TE.ssa_step(bp, bundle_st, tcfg, s,
+                                  engine=TE.EngineConfig(overlap="fused"))
+    assert torch.equal(fused, ctx) and fused_st == bundle_st
     for bad in (dict(overlap="x"), dict(sparse="x"), dict(mode="x"),
                 dict(binary="x"), dict(weights="x")):
         with pytest.raises(ValueError):
@@ -238,9 +238,10 @@ def _block_leaves(tcfg):
 
 def test_unported_layer_paths_raise():
     """Training runs now (train-mode forward and the sequential layer
-    step); what is still unported raises naming its ROADMAP item: the
-    cifarnet family, overlap='pipeline' (with either sparse path) and the
-    fused SSA bundle of an ineligible eval layer."""
+    step), and so does the fused SSA bundle of an ineligible eval layer
+    (equal to the sequential composition); what is still unported raises
+    naming its ROADMAP item: the cifarnet family and overlap='pipeline'
+    (with either sparse path)."""
     tcfg = get_config("spikingformer-4-256", smoke=True)
     p = TR.init(tcfg, 0, device="cpu")
     batch = {"images": torch.rand((2, 16, 16, 3))}
@@ -260,12 +261,15 @@ def test_unported_layer_paths_raise():
             overlap="pipeline", sparse="decoded")),
         lambda: TE.layer_step(bp, st, tcfg, x, engine=TE.EngineConfig(
             overlap="pipeline")),
-        lambda: TE.layer_step(biased, st, tcfg, x, engine=TE.EngineConfig(
-            overlap="fused")),
     ]
     for case in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             case()
+    fused, _ = TE.layer_step(biased, st, tcfg, x,
+                             engine=TE.EngineConfig(overlap="fused"))
+    seq, _ = TE.layer_step(biased, st, tcfg, x,
+                           engine=TE.EngineConfig(overlap="off"))
+    assert torch.equal(fused, seq)
 
 
 def test_entry_points_default_to_the_gpu(monkeypatch):

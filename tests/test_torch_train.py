@@ -484,15 +484,28 @@ def test_unported_training_modes_raise_naming_roadmap():
         lambda: TAt.spiking_attention(
             s, s, s, tcfg.spiking,
             engine=TE.EngineConfig(binary="popcount")),
-        lambda: TE.spike_linear({"qw": p["w"]}, s,
-                                engine=TE.EngineConfig(mode="sparse")),
-        lambda: TE.spike_linear({"qw": p["w"]}, s, engine=TE.EngineConfig(
-            mode="sparse", sparse="decoded")),
         lambda: make_pipeline(DataConfig(kind="lm", global_batch=2)),
     ]
     for case in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             case()
+    # the quantized sparse spike_linear is ported (int8 kernels #3 / #5):
+    # on both datapaths it runs, and its forward and gradient equal the
+    # dense quantized reference's on spikes
+    from repro_torch.quant import quantize_weight
+    q = quantize_weight(torch.randn((8, 4), generator=torch.Generator(
+        ).manual_seed(0)), dyadic=True)
+    s = (torch.rand((2, 1, 4, 8), generator=torch.Generator().manual_seed(1))
+         < 0.5).float()
+    for path in ("tile", "decoded"):
+        x = s.clone().requires_grad_()
+        y = TE.spike_linear(q, x, engine=TE.EngineConfig(mode="sparse",
+                                                         sparse=path))
+        assert torch.equal(y, TE.dense_quant_linear(q, s))
+        y.sum().backward()
+        xd = s.clone().requires_grad_()
+        TE.dense_quant_linear(q, xd).sum().backward()
+        assert torch.equal(x.grad, xd.grad)
 
 
 def test_train_step_defaults_to_the_gpu(monkeypatch):
