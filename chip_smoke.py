@@ -12,8 +12,11 @@ device; exits non-zero without one). It
    hd=32, F=1024), bitwise in bf16 and fp32 on dyadic weights, and times
    both with CUDA events:
    * the fused layer program (eval), also on random-normal weights (as
-     information) and with several L-blocks per sequence (``l_block <
-     L``, one L-block of a sequence dark);
+     information), with several L-blocks per sequence (``l_block <
+     L``, one L-block of a sequence dark), and at Spikingformer-8-512's
+     widths (T=4, B=8, L=196, D=512, 8 heads of 64, F=2048, l_block 128;
+     and a ragged L=50), where launch A streams w3 in K-chunks and keeps
+     q/k bits in two words a row;
    * ``spike_matmul`` at the six products of a training layer (q, k, v,
      wo on integer counts, w1, w2; M = 16384) with dark tiles, and at
      ragged shapes with and without bias;
@@ -32,17 +35,21 @@ device; exits non-zero without one). It
      int8 spikingformer-lm prefill's shape (T=4, B=8, S=512, D=256,
      H=8, hd=32, F=1024), at a ragged S=200, at S=64 and at SMOKE width,
      on int8 codes with random per-channel fp32 scales: counts equal and
-     outputs bitwise equal, bf16 and fp32;
+     outputs bitwise equal, bf16 and fp32; and the bundle's rope family
+     (``fused_ssa`` with family 'rope', causal) on the ln1 output of the
+     same shape and of S=200, on int8 codes: context and (H, 4) counts
+     bitwise;
    * ``quant_spike_matmul`` and ``quant_gather_spike_matmul`` (int8
      codes, random per-channel scales) at the three products of a mixed
      layer (wo on integer counts up to 512, w1, w2; M = 16384) on spikes
      with dark tiles and on ragged fine-grained spikes, and at ragged
      shapes with and without bias, bf16 and fp32: each bitwise equal to
      its plain version, to the other and to ``dense_quant_linear``;
-   * ``fused_ssa`` (the SSA bundle, bn family) at full width and at a
-     ragged L=50, on dyadic fp weights and on int8 codes with
-     ``scale3``, and on an all-zero input, bf16 and fp32: context and
-     (H, 4) counts bitwise; random-normal weights as information;
+   * ``fused_ssa`` (the SSA bundle, bn family) at full width, at a
+     ragged L=50 and at 8-512's widths, on dyadic fp weights and on int8
+     codes with ``scale3``, and on an all-zero input, bf16 and fp32:
+     context and (H, 4) counts bitwise; random-normal weights as
+     information;
 3. drives the main paths, each with every launch count and every
    ``sparse='auto'`` decision count set to 0 just before and read just
    after, each three times: with the published ``sparse='auto'`` (its
@@ -66,25 +73,42 @@ device; exits non-zero without one). It
      request of the complementary tree (int8 wq, wk, wv: ``fused_ssa``
      on codes and scales, ``spike_matmul`` / ``gather_spike_matmul``
      for the rest);
+   * Spikingformer-8-512 (the paper's ImageNet workload, 224x224
+     images, 8 layers at full width; seeded weights with the BN-bias
+     raise of ``dyadic_params``, so layers fire): ``build_prefill_step``
+     answering 3 requests of 32 images for each sparse setting (2 fused
+     layer launches a layer call) and the fire rate at every layer's
+     input (the path fails if one is all dark);
    * spikingformer-lm, once each: the int8 tree through
      ``build_prefill_step`` for 3 requests of 8 x 512 tokens (2
      ``fused_layer_rope`` launches a layer call; 'auto' decides 'tile'
      on every analog ln1 output), the bf16 tree likewise (1 causal
-     ``spike_attention`` launch a layer call), the int8 server (8 slots,
+     ``spike_attention`` launch a layer call), the mixed int8 tree (int8
+     wq, wk, wv, the rest bf16: its layers are not eligible for the
+     layer program, its bundles run ``fused_ssa``'s rope family, 1
+     ``fused_ssa_rope`` launch a layer call), the int8 server (8 slots,
      16 requests of 100-500 prompt tokens, 32 new tokens each, tokens
      per second; its decode step and chunked prefill are plain PyTorch and
      launch no kernel) and one int8 Spikingformer-4-256 request;
 4. checks the outputs: finite logits of the right shape and, on 8 images
-   with dyadic weights, the fused path ('auto' and 'decoded') equal
-   bitwise to the sequential oracle (``overlap='off'``); the mixed int8
+   with dyadic weights, the fused path of Spikingformer-4-256 and of
+   Spikingformer-8-512 ('auto', 'tile' and 'decoded'), through the
+   kernels and through their plain versions, equal bitwise to the
+   sequential oracle (``overlap='off'``); the mixed int8
    tree with dyadic scales, through the kernels (tile and decoded) ==
    through their plain versions == the sequential oracle
    (``overlap='off'``, ``mode='dense'``), bitwise; finite losses
    and grad norms, every param moved; and, for each sparse setting, one
    train step through the kernels equal bitwise (loss, every gradient,
    the new BN state) to the same step with the kernels swapped for their
-   plain versions; the LM prefills (int8 and bf16, one 8 x 512 request)
-   through the kernels equal bitwise to them through the plain versions;
+   plain versions; the LM prefills (int8, bf16 and mixed int8, one 8 x
+   512 request) through the kernels equal bitwise to them through the
+   plain versions, the mixed tree's also to ``overlap='off'``; an
+   eval-mode forward under autograd of Spikingformer-4-256 (8 images,
+   dyadic weights) and of the fp32 spikingformer-lm (2 x 64 tokens,
+   weights on the 2^-8 grid) with ``overlap='fused'``, the layer program
+   through the kernels: logits and every layer parameter's gradient
+   equal bitwise to ``overlap='off'``;
    each server request's first token equal to the argmax of the prefill
    step's last-position logits wherever their top-2 margin exceeds
    SERVE_MARGIN. It prints ``layer_sparsities`` of one request.
@@ -127,7 +151,8 @@ from repro_torch.models.spikingformer import layer_sparsities  # noqa: E402
 from repro_torch.models.nn import rmsnorm, rope_table  # noqa: E402
 from repro_torch.optim import adamw, warmup_cosine  # noqa: E402
 from repro_torch.quant import quantize_tree, quantize_weight  # noqa: E402
-from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.tree import (tree_leaves, tree_map,  # noqa: E402
+                               tree_unflatten)
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 CUDA cores,
 # HBM3 bandwidth
@@ -183,6 +208,25 @@ QUANT_COUNT_MAX = 512
 # the SSA bundle (fused_ssa) at full width, and at a ragged L
 SSA_FULL = (T, B, L, D, H, HD)
 SSA_RAGGED = ("ragged L=50", (T, 16, 50, D, H, HD))
+# Spikingformer-8-512, the paper's ImageNet workload (T=4, L=196 from
+# 224x224 images through 4 SPS stages, D=512, 8 heads of 64, d_ff=2048):
+# the layer program checked at B=8 with the engine's l_block (128: a
+# ragged second L-block) and at a ragged L=50, timed at the batch of the
+# main path's requests; the bundle (bn) likewise
+EIGHT = (4, 8, 196, 512, 8, 64, 2048)
+EIGHT_CASES = [("8-512 width", EIGHT, 128),
+               ("8-512 width, ragged L=50", (4, 8, 50, 512, 8, 64, 2048), 32)]
+EIGHT_REQUESTS, EIGHT_BATCH = 3, 32
+EIGHT_TIME = (4, EIGHT_BATCH, 196, 512, 8, 64, 2048)
+SSA_EIGHT = [("8-512 width", (4, 8, 196, 512, 8, 64)),
+             ("8-512 width, ragged L=50", (4, 8, 50, 512, 8, 64))]
+SSA_EIGHT_TIME = (4, EIGHT_BATCH, 196, 512, 8, 64)
+# the bundle's rope family (#6b, causal) at the LM prefill's shape and a
+# ragged S: (what, (T, B, S, D, H, hd))
+ROPE_SSA_CASES = [("S=512", (4, LM_BATCH, LM_PROMPT, 256, 8, 32)),
+                  ("ragged S=200", (4, LM_BATCH, 200, 256, 8, 32))]
+# the eval-mode gradient check of the fp32 LM: a batch of prompts
+LM_GRAD_BATCH, LM_GRAD_PROMPT = 2, 64
 KERNEL_MODULES = (FL, SM, SA, SD, FS)
 
 
@@ -636,10 +680,17 @@ class plain_kernels:
             setattr(mod, f"{name}_cuda", fn)
 
 
+def dyadic_grid(params):
+    """Every float param rounded to the 2^-8 grid: a layer's spike and
+    count products (q/k/v of the vision family, wo, w1 / up, w2 / down)
+    are then exact fp32 sums in any order."""
+    return tree_map(lambda a: torch.round(a * 256) / 256
+                    if a.is_floating_point() else a, params)
+
+
 def dyadic_params(params):
     """Params on the 2^-8 grid, BN biases raised by 1/4 so layers fire."""
-    dy = tree_map(lambda a: torch.round(a * 256) / 256
-                  if a.is_floating_point() else a, params)
+    dy = dyadic_grid(params)
     for bn in [p["bn"] for p in dy["sps"]] + [
             v for k, v in dy["blocks"].items() if k.startswith("bn_")]:
         bn["bias"] = bn["bias"] + 0.25
@@ -662,18 +713,18 @@ def inference_path(cfg, params, requests):
         outs.append(logits)
     counts = launches()
     tile, dec = sparse_split(cfg.engine, cfg.num_layers * len(requests))
-    log(f"inference path, sparse={cfg.engine.sparse!r}: {len(requests)} "
-        f"requests x {REQUEST_BATCH} images, per-request ms "
+    n_img = len(requests[0]["images"])
+    what = f"inference path, {cfg.name}, sparse={cfg.engine.sparse!r}"
+    log(f"{what}: {len(requests)} requests x {n_img} images, per-request ms "
         f"{[round(m, 3) for m in req_ms]}, sparse decisions "
         f"{dict(E.SPARSE_DECISIONS)}, launches {counts}")
     want = dict.fromkeys(counts, 0)
     want["fused_layer"] = FL.LAUNCHES_PER_CALL * tile
     want["fused_layer_decoded"] = FL.LAUNCHES_PER_CALL * dec
     if counts != want:
-        raise AssertionError(f"inference path launches {counts}, expected "
-                             f"{want}")
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
     for logits in outs:
-        if logits.shape != (REQUEST_BATCH, cfg.vocab_size) or \
+        if logits.shape != (n_img, cfg.vocab_size) or \
                 not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"bad logits {tuple(logits.shape)}")
     return counts
@@ -795,15 +846,18 @@ def time_rope_kernel():
     return row
 
 
-def lm_config(quantize):
+def lm_config(quantize, select=None):
     """The published spikingformer-lm with seeded random weights; with
     ``quantize`` the int8 tree and the int8 weights declaration, as
-    ``launch/serve.py --quantize int8`` loads it."""
+    ``launch/serve.py --quantize int8`` loads it; with ``select`` too,
+    the mixed tree of the linears it selects (the rest bf16, the
+    declaration left fp32, as for the mixed vision tree)."""
     cfg = get_config("spikingformer-lm")
     params = registry.init(cfg, seed=0)
     if quantize:
-        params = quantize_tree(params, "int8")
-        cfg = cfg.replace(engine=cfg.engine.replace(weights="int8"))
+        params = quantize_tree(params, "int8", select=select)
+        if select is None:
+            cfg = cfg.replace(engine=cfg.engine.replace(weights="int8"))
     return cfg, params
 
 
@@ -813,7 +867,9 @@ def lm_prefill_path(cfg, params, requests, what):
     2 ``fused_layer_rope`` launches a layer call and 'auto' decides
     'tile' on every analog ln1 output; the bf16 model's layers are not
     eligible for the layer program and run 1 causal ``spike_attention``
-    a layer call. Per-request times, finite logits."""
+    a layer call; the mixed int8 tree's (int8 wq, wk, wv) are not either,
+    and run the bundle kernel's rope family, 1 ``fused_ssa_rope`` a layer
+    call, with no 'auto' decision. Per-request times, finite logits."""
     step = steps.build_prefill_step(cfg)
     torch.cuda.synchronize()
     reset_counts()
@@ -830,12 +886,14 @@ def lm_prefill_path(cfg, params, requests, what):
         f"{LM_PROMPT} tokens, per-request ms {[round(m, 3) for m in req_ms]}"
         f", sparse decisions {decisions}, launches {counts}")
     want = dict.fromkeys(counts, 0)
+    want_dec = {"tile": 0, "decoded": 0}
     if what == "int8":
         want["fused_layer_rope"] = FL.LAUNCHES_PER_CALL * n
-        want_dec = {"tile": n, "decoded": 0}
+        want_dec["tile"] = n
+    elif what == "mixed int8":
+        want["fused_ssa_rope"] = n
     else:
         want["spike_attention"] = n
-        want_dec = {"tile": 0, "decoded": 0}
     if counts != want or decisions != want_dec:
         raise AssertionError(f"lm prefill path {what}: launches {counts}, "
                              f"decisions {decisions}; expected {want}, "
@@ -847,21 +905,29 @@ def lm_prefill_path(cfg, params, requests, what):
     return counts, req_ms
 
 
-def check_lm_prefill(cfg, params, batch, what):
+def check_lm_prefill(cfg, params, batch, what, oracle=False):
     """The prefill of one main-path request (LM_BATCH x LM_PROMPT tokens)
-    through the kernels == through their plain versions, bitwise."""
+    through the kernels == through their plain versions, bitwise; with
+    ``oracle`` also == the same prefill under overlap='off'."""
     step = steps.build_prefill_step(cfg)
     got = step(params, batch)
     with plain_kernels():
         want = step(params, batch)
+    off = steps.build_prefill_step(cfg.replace(
+        engine=cfg.engine.replace(overlap="off")))(params, batch) \
+        if oracle else got
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(f"lm prefill {what}: through the kernels != "
-                             f"through the plain versions (max abs diff "
-                             f"{float((got - want).abs().max())})")
+    if not (torch.equal(got, want) and torch.equal(got, off)):
+        raise AssertionError(
+            f"lm prefill {what}: through the kernels == through the plain "
+            f"versions {torch.equal(got, want)} (max abs diff "
+            f"{float((got - want).abs().max())}), == overlap='off' "
+            f"{torch.equal(got, off)} (max abs diff "
+            f"{float((got - off).abs().max())})")
     log(f"check, lm prefill {what}: logits through the kernels == through "
-        f"the plain versions bitwise on {LM_BATCH} x {LM_PROMPT} tokens, "
-        f"logit std {float(got.std()):.4f}")
+        f"the plain versions{' == overlap=off' if oracle else ''} bitwise "
+        f"on {LM_BATCH} x {LM_PROMPT} tokens, logit std "
+        f"{float(got.std()):.4f}")
 
 
 def serve_path(cfg, params):
@@ -1124,15 +1190,17 @@ def check_ssa_kernel(dtype, quant, what="full width", shape=SSA_FULL,
     return err
 
 
-def ssa_bound_ms(ops, counts, shape=SSA_FULL):
+def ssa_bound_ms(ops, counts, shape=SSA_FULL, causal=False):
     """Operations: the executed projections (q, k, v: L x D x hd
     multiply-adds per head and live slab) and every score and context
-    product (2 T B H L^2 hd) at the bf16 tensor peak; bytes: spikes, w3,
-    scale3, BN rows and delta in, context and counts out."""
+    product (2 T B H L^2 hd; causal: the pairs on or below the diagonal)
+    at the dtype's peak; bytes: the input, w3, scale3, the BN rows (rope:
+    the table) and delta in, context and counts out."""
     T, B, L, D, H, HD = shape
     x, w3, scale3, aux, _ = ops
+    pairs = L * (L + 1) // 2 if causal else L * L
     macs = (3 * float(counts[:, 0].sum()) * L * D * HD
-            + 2 * T * B * H * L * L * HD)
+            + 2 * T * B * H * pairs * HD)
     ops_s = 2 * macs / PEAK_FLOPS[x.dtype]
     es = x.element_size()
     n_bytes = (x.numel() * es + w3.numel() * es + 3 * H * HD * 4
@@ -1143,18 +1211,88 @@ def ssa_bound_ms(ops, counts, shape=SSA_FULL):
                                        else "bytes")
 
 
-def time_ssa_kernel():
-    """#6 at full width, bf16, random-normal fp weights (cuda_ms): kernel,
+def time_ssa_kernel(shape=SSA_FULL):
+    """#6 at ``shape``, bf16, random-normal fp weights (cuda_ms): kernel,
     plain version, bound; no single PyTorch call computes the bundle."""
-    ops, kw = ssa_operands(13, torch.bfloat16, False, weights="normal")
+    ops, kw = ssa_operands(13, torch.bfloat16, False, weights="normal",
+                           shape=shape)
+    return time_bundle("fused_ssa", ops, kw, shape)
+
+
+def time_bundle(name, ops, kw, shape):
+    """A bundle kernel (cuda_ms): kernel, plain version (fewer calls) and
+    the bound of its executed work."""
     ms = cuda_ms(lambda: FS.fused_ssa_cuda(*ops, **kw))
     plain_ms = cuda_ms(lambda: FS.fused_ssa_plain(*ops, **kw), warmup=1,
                        calls=3, repeats=3)
     _, counts = FS.fused_ssa_cuda(*ops, **kw)
-    bound_ms, bound_by = ssa_bound_ms(ops, counts)
+    bound_ms, bound_by = ssa_bound_ms(ops, counts, shape,
+                                      kw.get("causal", False))
     row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by=bound_by, library_ms=None)
-    log(f"fused_ssa bf16 {SSA_FULL}: {row}")
+    log(f"{name} bf16 {tuple(shape)}: {row}")
+    return row
+
+
+def rope_ssa_operands(seed, dtype, shape):
+    """The rope bundle's operands as ``ssa_step_causal`` builds them for
+    the mixed LM tree: the ln1 output of a residual stream with one
+    all-zero token and a dark (t=0, b=0) slab (a random norm scale), the
+    int8 codes of random-normal q/k/v weights cast to the activation
+    dtype with their per-channel fp32 scales, the RoPE table, delta."""
+    T, B, S, D, H, HD = shape
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((T, B, S, D), generator=gen) * 0.5
+    x[:, :, min(3, S - 1)] = 0.0
+    x[0, 0] = 0.0
+    h = rmsnorm({"scale": 1.0 + 0.1 * torch.randn((D,), generator=gen)}, x)
+    qs = [quantize_weight(torch.randn((D, H * HD), generator=gen)
+                          / math.sqrt(D)) for _ in range(3)]
+    cos, sin = rope_table(torch.arange(S), HD, 10000.0)
+    ops = (h.to(dtype), torch.stack([q["qw"] for q in qs]).to(dtype),
+           torch.stack([q["scale"] for q in qs]), torch.stack([cos, sin]),
+           torch.tensor(0.3))
+    kw = dict(num_heads=H, head_dim=HD, scale=1.0 / math.sqrt(HD),
+              family="rope", causal=True)
+    return tuple(a.cuda() for a in ops), kw
+
+
+def check_rope_ssa_kernel(dtype, what, shape):
+    """#6b, kernel vs plain version on int8 codes: context and (H, 4)
+    counts bitwise (both sum the analog projections in ascending k)."""
+    ops, kw = rope_ssa_operands(15, dtype, shape)
+    out_k, cnt_k = FS.fused_ssa_cuda(*ops, **kw)
+    out_p, cnt_p = FS.fused_ssa_plain(*ops, **kw)
+    torch.cuda.synchronize()
+    err = float((out_k.float() - out_p.float()).abs().max())
+    name = f"fused_ssa_rope {dtype} int8 + scale3 {what} {tuple(shape)}"
+    if not (torch.equal(out_k, out_p) and torch.equal(cnt_k, cnt_p)):
+        raise AssertionError(f"{name}: kernel != plain version (max abs diff "
+                             f"{err}, counts {cnt_k[0].tolist()} vs "
+                             f"{cnt_p[0].tolist()})")
+    T, B = shape[:2]
+    if cnt_k[0].tolist() != [T * B - 1] * 3 + [2 * T * B]:
+        raise AssertionError(f"{name}: counts {cnt_k[0].tolist()} (one dark "
+                             f"slab of {T * B})")
+    log(f"{name}: bitwise equal to the plain version; counts of head 0 "
+        f"{cnt_k[0].tolist()}, context mean {float(out_k.float().mean()):.4f}")
+    return err
+
+
+def time_layer_kernel(sparse, dtype, shape=FULL, l_block=64):
+    """The layer program at ``shape`` on random-normal weights (cuda_ms):
+    kernel, plain version and the bound of its executed work."""
+    args, kw = layer_operands(3, dtype, False, shape, l_block, sparse)
+    ms = cuda_ms(lambda: FL.fused_layer_cuda(*args, **kw))
+    plain_ms = cuda_ms(lambda: FL.fused_layer_plain(*args, **kw), warmup=1,
+                       calls=3, repeats=3)
+    _, counts = FL.fused_layer_cuda(*args, **kw)
+    bound_ms, bound_by = layer_bound_ms(args, counts, dtype, kw["l_block"],
+                                        decoded=kw["decoded"], shape=shape)
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None)
+    log(f"fused_layer {sparse} {dtype} {tuple(shape)}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
     return row
 
 
@@ -1206,19 +1344,6 @@ def mixed_path(cfg, params, requests, tree):
     return counts, req_ms
 
 
-def mixed_fire_rates(cfg, params, images):
-    """The fire rate at every layer's input on one request; fails if any
-    layer's input is all dark (the kernels would skip everything)."""
-    with use_engine(cfg.engine):
-        sp = layer_sparsities(params, cfg, {"images": images.cuda()})
-    rates = [(name, 1.0 - s) for name, s in sp]
-    log(f"mixed int8 path: fire rate per layer input "
-        f"{[(n, round(r, 4)) for n, r in rates]}")
-    dark = [n for n, r in rates if r <= 0.0]
-    if dark:
-        raise AssertionError(f"mixed int8 path: all-dark inputs at {dark}")
-
-
 def check_mixed_outputs(cfg, params, images):
     """8 images, dyadic weights and dyadic scales, the mixed tree: logits
     through the kernels (each sparse datapath) == through their plain
@@ -1258,6 +1383,115 @@ def check_mixed_outputs(cfg, params, images):
             f"{float(got.std()):.4f})")
 
 
+def check_vision_outputs(cfg, params, images, what):
+    """Dyadic weights (exact sums in the layer program): the fused logits
+    with sparse 'auto', 'tile' and 'decoded', through the kernels (2
+    launches a layer call) and through their plain versions, equal to
+    the sequential oracle's (overlap='off'), bitwise."""
+    batch = {"images": images}
+    with use_engine(cfg.engine.replace(overlap="off")), \
+            torch.inference_mode():
+        oracle, _ = registry.forward(params, cfg, batch)
+    for sparse in ("auto", "tile", "decoded"):
+        eng = cfg.engine.replace(overlap="fused", sparse=sparse)
+        with use_engine(eng), torch.inference_mode():
+            reset_counts()
+            got, aux = registry.forward(params, cfg, batch)
+            counts = launches()
+            tile, dec = sparse_split(eng, cfg.num_layers)
+            with plain_kernels():
+                plain, _ = registry.forward(params, cfg, batch)
+        torch.cuda.synchronize()
+        want = dict.fromkeys(counts, 0)
+        want["fused_layer"] = FL.LAUNCHES_PER_CALL * tile
+        want["fused_layer_decoded"] = FL.LAUNCHES_PER_CALL * dec
+        if counts != want:
+            raise AssertionError(f"{what} output check, sparse={sparse!r}: "
+                                 f"launches {counts}, expected {want}")
+        if not (torch.equal(got, plain) and torch.equal(got, oracle)):
+            raise AssertionError(
+                f"{what} fused logits, sparse={sparse!r}: kernels == plain "
+                f"{torch.equal(got, plain)}, == oracle "
+                f"{torch.equal(got, oracle)} (max abs diff to the oracle "
+                f"{float((got - oracle).abs().max())})")
+        log(f"check, {what}, sparse={sparse!r}: logits through the kernels "
+            f"== plain versions == sequential oracle, bitwise, on "
+            f"{len(images)} images (fire rate {float(aux['fire_rate']):.4f}, "
+            f"logit std {float(got.std()):.4f})")
+
+
+def fire_rates(cfg, params, images, what):
+    """The fire rate at every layer's input on one request; fails if any
+    layer's input is all dark (the kernels would skip everything)."""
+    with use_engine(cfg.engine):
+        sp = layer_sparsities(params, cfg, {"images": images.cuda()})
+    rates = [(name, 1.0 - s) for name, s in sp]
+    log(f"{what}: fire rate per layer input "
+        f"{[(n, round(r, 4)) for n, r in rates]}")
+    dark = [n for n, r in rates if r <= 0.0]
+    if dark:
+        raise AssertionError(f"{what}: all-dark inputs at {dark}")
+
+
+def leaf_paths(tree, prefix=""):
+    """The '/'-joined key paths of a dict tree's leaves, in the order of
+    ``tree_leaves``."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in leaf_paths(v, f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def check_eval_gradients(cfg, params, batch, what, state=None):
+    """An eval-mode forward under autograd with overlap='fused' (the
+    layer program through the kernels, behind ``_FusedLayer``) against
+    the same forward with overlap='off': the logits and every layer
+    parameter's gradient of one seeded cotangent, bitwise; each layer
+    parameter gets a gradient."""
+    layers = "blocks" if "blocks" in params else "layers"
+    runs = {}
+    for ov in ("fused", "off"):
+        leaves = [a.detach().requires_grad_(a.is_floating_point())
+                  for a in tree_leaves(params[layers])]
+        tree = dict(params, **{layers: tree_unflatten(params[layers],
+                                                      leaves)})
+        kw = {} if state is None else {"state": state}
+        reset_counts()
+        with use_engine(cfg.engine.replace(overlap=ov)), torch.enable_grad():
+            logits, _ = registry.forward(tree, cfg, batch, **kw)
+            cot = torch.randn(logits.shape, generator=torch.Generator(
+            ).manual_seed(17)).to(logits.device)
+            grads = torch.autograd.grad((logits * cot).sum(), leaves,
+                                        allow_unused=True)
+        torch.cuda.synchronize()
+        runs[ov] = (logits.detach(), grads, launches())
+    counts = runs["fused"][2]
+    fused_launches = sum(n for k, n in counts.items()
+                         if k.startswith("fused_layer"))
+    if fused_launches != FL.LAUNCHES_PER_CALL * cfg.num_layers or \
+            any(runs["off"][2].values()):
+        raise AssertionError(f"{what} gradient check: launches fused "
+                             f"{counts}, off {runs['off'][2]}")
+    fused, off = runs["fused"], runs["off"]
+    if not torch.equal(fused[0], off[0]):
+        raise AssertionError(f"{what} gradient check: fused logits != off "
+                             f"logits (max abs diff "
+                             f"{float((fused[0] - off[0]).abs().max())})")
+    names = leaf_paths(params[layers])
+    missing = [n for n, g in zip(names, fused[1]) if g is None]
+    differ = [n for n, a, b in zip(names, fused[1], off[1])
+              if a is not None and not torch.equal(a, b)]
+    if missing or differ:
+        raise AssertionError(f"{what} gradient check: no gradient through the "
+                             f"kernels for {missing}; gradients that differ "
+                             f"from overlap='off': {differ}")
+    norms = {n: float(g.norm()) for n, g in zip(names, runs["fused"][1])}
+    log(f"check, {what}: eval forward under autograd, overlap='fused' "
+        f"(launches {counts}) == 'off' bitwise: logits and the gradients of "
+        f"all {len(names)} layer parameters; gradient norms "
+        f"{ {n: round(v, 6) for n, v in norms.items()} }")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1284,7 +1518,7 @@ def main():
         layer_err[sparse] = max(
             [check_layer_kernel(dt, sparse=sparse) for dt in dtypes]
             + [check_layer_kernel(dt, *case, sparse=sparse)
-               for case in MULTI_BLOCK for dt in dtypes])
+               for case in MULTI_BLOCK + EIGHT_CASES for dt in dtypes])
     for sparse in ("tile", "decoded"):
         for dt in dtypes:
             args, kw = layer_operands(2, dt, False, sparse=sparse)
@@ -1297,27 +1531,22 @@ def main():
             log(f"fused_layer {sparse} {dt} random-normal weights "
                 f"(information only): max abs diff {diff}, spike agreement "
                 f"of LIF(out) {float(agree):.6f}")
-    layer_timing = {}
-    for sparse in ("tile", "decoded"):
-        for dt in dtypes:
-            args, kw = layer_operands(3, dt, False, sparse=sparse)
-            ms = cuda_ms(lambda: FL.fused_layer_cuda(*args, **kw))
-            plain_ms = cuda_ms(lambda: FL.fused_layer_plain(*args, **kw))
-            _, counts = FL.fused_layer_cuda(*args, **kw)
-            bound_ms, bound_by = layer_bound_ms(args, counts, dt,
-                                                decoded=kw["decoded"])
-            layer_timing[sparse, dt] = dict(ms=ms, plain_ms=plain_ms,
-                                            bound_ms=bound_ms,
-                                            bound_by=bound_by,
-                                            library_ms=None)
-            log(f"fused_layer {sparse} {dt} full width: kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-                f"({bound_by})")
+    layer_timing = {(sparse, dt): time_layer_kernel(sparse, dt)
+                    for sparse in ("tile", "decoded") for dt in dtypes}
+    eight_timing = {sparse: time_layer_kernel(sparse, torch.bfloat16,
+                                              EIGHT_TIME, 128)
+                    for sparse in ("tile", "decoded")}
 
-    # --- the rope family (#1c) against its plain version ----------------
+    # --- the rope family (#1c, #6b) against its plain versions ---------
     rope_err = max(check_rope_kernel(dt, *case) for dt in dtypes
                    for case in ROPE_CASES)
     rope_timing = time_rope_kernel()
+    rope_ssa_err = max(check_rope_ssa_kernel(dt, *case) for dt in dtypes
+                       for case in ROPE_SSA_CASES)
+    rope_ssa_timing = time_bundle(
+        "fused_ssa_rope", *rope_ssa_operands(16, torch.bfloat16,
+                                             ROPE_SSA_CASES[0][1]),
+        ROPE_SSA_CASES[0][1])
 
     # --- spike kernels against their plain versions ---------------------
     matmul_err = max(
@@ -1359,8 +1588,8 @@ def main():
     ssa_err = max(
         [check_ssa_kernel(dt, quant) for dt in dtypes
          for quant in (False, True)]
-        + [check_ssa_kernel(dt, quant, *SSA_RAGGED) for dt in dtypes
-           for quant in (False, True)]
+        + [check_ssa_kernel(dt, quant, *case) for dt in dtypes
+           for quant in (False, True) for case in [SSA_RAGGED] + SSA_EIGHT]
         + [check_ssa_kernel(dt, False, zero=True) for dt in dtypes])
     for dt in dtypes:
         ops, kw = ssa_operands(14, dt, False, weights="normal")
@@ -1378,6 +1607,7 @@ def main():
             "quant_gather_spike_matmul", SD.quant_gather_spike_matmul_cuda,
             SD.quant_gather_spike_matmul_plain, True)}
     ssa_timing = time_ssa_kernel()
+    ssa_eight_timing = time_ssa_kernel(SSA_EIGHT_TIME)
 
     # --- the inference main paths ----------------------------------------
     cfg = get_config("spikingformer-4-256")
@@ -1399,34 +1629,37 @@ def main():
 
     # --- output check: fused == sequential oracle on a small batch ------
     dy = dyadic_params(params)
-    small = {"images": (torch.randint(0, 256, (8, v.img_size, v.img_size,
-                                                v.in_channels),
-                                       generator=gen) / 256.0).cuda()}
-    res = {}
-    for ov, sparse in (("off", "tile"), ("fused", "auto"),
-                       ("fused", "decoded")):
-        with use_engine(cfg.engine.replace(overlap=ov, sparse=sparse)), \
-                torch.inference_mode():
-            res[ov, sparse] = registry.forward(dy, cfg, small)
-    for key in (("fused", "auto"), ("fused", "decoded")):
-        if not torch.equal(res["off", "tile"][0], res[key][0]):
-            raise AssertionError(f"fused logits, sparse={key[1]!r}, differ "
-                                 f"from the sequential oracle")
-    log(f"check: fused logits (sparse 'auto' and 'decoded') == oracle logits "
-        f"on 8 images (dyadic weights), fire rate "
-        f"{float(res['fused', 'decoded'][1]['fire_rate']):.4f}, logit std "
-        f"{float(res['fused', 'decoded'][0].std()):.4f}")
+    small = (torch.randint(0, 256, (8, v.img_size, v.img_size, v.in_channels),
+                           generator=gen) / 256.0).cuda()
+    check_vision_outputs(cfg, dy, small, "spikingformer-4-256")
 
     # --- the mixed-precision int8 path (fused_ssa + int8 products) -----
     firing = dyadic_params(params)
     mixed = quantize_tree(firing, "int8", select=select_mixed)
     mixed_counts = {sp: mixed_path(c, mixed, requests, "mixed")[0]
                     for sp, c in engines.items()}
-    mixed_fire_rates(cfg, mixed, requests[0]["images"])
+    fire_rates(cfg, mixed, requests[0]["images"], "mixed int8 path")
     mixed_path(engines["auto"], quantize_tree(firing, "int8",
                                               select=select_qkv),
                requests[:1], "qkv")
-    check_mixed_outputs(cfg, params, small["images"])
+    check_mixed_outputs(cfg, params, small)
+
+    # --- Spikingformer-8-512 (the paper's ImageNet workload) -------------
+    cfg8 = get_config("spikingformer-8-512")
+    params8 = dyadic_params(registry.init(cfg8, seed=0))
+    v8 = cfg8.vision
+    gen8 = torch.Generator().manual_seed(8)
+    requests8 = [{"images": torch.rand((EIGHT_BATCH, v8.img_size,
+                                        v8.img_size, v8.in_channels),
+                                       generator=gen8)}
+                 for _ in range(EIGHT_REQUESTS)]
+    engines8 = {sp: cfg8.replace(engine=cfg8.engine.replace(sparse=sp))
+                for sp in ("auto", "tile", "decoded")}
+    eight_counts = {sp: inference_path(c, params8, requests8)
+                    for sp, c in engines8.items()}
+    fire_rates(cfg8, params8, requests8[0]["images"], "spikingformer-8-512")
+    check_vision_outputs(cfg8, params8, requests8[0]["images"][:8].cuda(),
+                         "spikingformer-8-512")
 
     # --- spikingformer-lm: int8 and bf16 prefill, the int8 server -------
     lm_q = lm_config(quantize=True)
@@ -1436,13 +1669,28 @@ def main():
                                             (LM_BATCH, LM_PROMPT),
                                             generator=gen)}
                    for _ in range(LM_REQUESTS)]
+    lm_mixed = lm_config(quantize=True, select=select_qkv)
     lm_counts, _ = lm_prefill_path(*lm_q, lm_requests, "int8")
     lm_prefill_path(*lm_bf16, lm_requests, "bf16")
+    lm_mixed_counts, _ = lm_prefill_path(*lm_mixed, lm_requests,
+                                         "mixed int8")
     lm_check = {"tokens": lm_requests[0]["tokens"].cuda()}
     check_lm_prefill(*lm_q, lm_check, "int8")
     check_lm_prefill(*lm_bf16, lm_check, "bf16")
+    check_lm_prefill(*lm_mixed, lm_check, "mixed int8", oracle=True)
     serve_path(*lm_q)
     vision_int8_path()
+
+    # --- eval-mode gradients through the layer program ----------------
+    torch.backends.cudnn.deterministic = True
+    check_eval_gradients(cfg, dy, {"images": small},
+                         "spikingformer-4-256 (bn)")
+    lm32 = get_config("spikingformer-lm").replace(dtype="float32")
+    check_eval_gradients(lm32, dyadic_grid(registry.init(lm32, seed=0)), {
+        "tokens": torch.randint(0, lm32.vocab_size,
+                                (LM_GRAD_BATCH, LM_GRAD_PROMPT),
+                                generator=gen).cuda()},
+        "spikingformer-lm fp32 (rope)")
 
     # --- the training main paths, then their gradient checks ------------
     train_counts = {sp: train_path(c) for sp, c in engines.items()}
@@ -1451,10 +1699,19 @@ def main():
 
     csrc = "src/repro_torch/kernels/csrc/"
     bf16 = torch.bfloat16
+
+    def at_8_512(timing, counts, name):
+        """A kernel's numbers at Spikingformer-8-512's shapes: its time,
+        plain time and bound at EIGHT_TIME (or SSA_EIGHT_TIME) and its
+        launches on the 8-512 path ('tile')."""
+        return dict(timing, launches=counts[name])
+
     rows = [dict(name="fused_layer", source=csrc + "fused_layer.cu",
                  replaces="src/repro/kernels/fused_layer.py:420",
                  launches=eval_counts["tile"]["fused_layer"],
                  max_abs_err=layer_err["tile"],
+                 at_8_512=at_8_512(eight_timing["tile"], eight_counts["tile"],
+                                   "fused_layer"),
                  **layer_timing["tile", bf16]),
             dict(name="spike_matmul", source=csrc + "spike_matmul.cu",
                  replaces="src/repro/kernels/spike_matmul.py:128",
@@ -1473,6 +1730,9 @@ def main():
                  replaces="src/repro/kernels/fused_layer.py:420",
                  launches=eval_counts["decoded"]["fused_layer_decoded"],
                  max_abs_err=layer_err["decoded"],
+                 at_8_512=at_8_512(eight_timing["decoded"],
+                                   eight_counts["decoded"],
+                                   "fused_layer_decoded"),
                  **layer_timing["decoded", bf16]),
             dict(name="fused_layer_rope", source=csrc + "fused_layer.cu",
                  replaces="src/repro/kernels/fused_layer.py:420",
@@ -1490,7 +1750,14 @@ def main():
             dict(name="fused_ssa", source=csrc + "fused_layer.cu",
                  replaces="src/repro/kernels/fused_ssa.py:166",
                  launches=mixed_counts["tile"]["fused_ssa"],
-                 max_abs_err=ssa_err, **ssa_timing)]
+                 max_abs_err=ssa_err,
+                 at_8_512=at_8_512(ssa_eight_timing, eight_counts["tile"],
+                                   "fused_ssa"),
+                 **ssa_timing),
+            dict(name="fused_ssa_rope", source=csrc + "fused_layer.cu",
+                 replaces="src/repro/kernels/fused_ssa.py:166",
+                 launches=lm_mixed_counts["fused_ssa_rope"],
+                 max_abs_err=rope_ssa_err, **rope_ssa_timing)]
     log(json.dumps({"kernels": [dict(route="cuda", **r) for r in rows]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -28,14 +28,16 @@ Quantized spike products on the sparse path run the int8 kernels
 (``quant_spike_matmul`` on the tile path, ``quant_gather_spike_matmul``
 on the decoded path) with the dequantized backward of JAX's
 ``_quant_sparse_bwd``; an eligible eval SSA bundle under
-``overlap='fused'`` runs the bundle kernel ``fused_ssa`` (bn family),
-whose backward recomputes through the oracle, as JAX's ``_fused_bwd``
-does. A mixed-precision vision layer (some linears quantized) takes the
-sequential composition and so reaches all three.
+``overlap='fused'`` runs the bundle kernel ``fused_ssa`` (bn family in
+``ssa_step``, rope family in ``ssa_step_causal``), whose backward
+recomputes through the oracle, as JAX's ``_fused_bwd`` does. A
+mixed-precision layer (some linears quantized) takes the sequential
+composition and so reaches them. The layer program under
+``overlap='fused'`` runs behind ``_FusedLayer``, whose backward
+recomputes ``reference_layer``, as JAX's ``_fused_layer`` VJP does.
 
 Not ported yet, and raising ``NotImplementedError`` instead of falling
-back silently: ``overlap='pipeline'`` and the fused bundle's rope family
-(``ssa_step_causal`` with ``overlap='fused'``; ROADMAP queue 2).
+back silently: ``overlap='pipeline'`` (ROADMAP queue 2 #1d).
 """
 from __future__ import annotations
 
@@ -396,15 +398,31 @@ def spike_linear(p: Dict[str, Any], x: torch.Tensor, *,
 class BundleSpec(NamedTuple):
     """The static closure of a fused SSA step (JAX's ``_BundleSpec``),
     shared by the kernel forward and the oracle backward."""
+    family: str
     num_heads: int
     head_dim: int
     scale: float
+    causal: bool
     scfg: Any                   # SpikingConfig
     eps: float
 
 
+def _recompute_grads(fn, saved, g):
+    """The oracle backward of a fused step: ``fn`` recomputed on fresh
+    leaves of the saved operands and differentiated against ``g``; None
+    for operands that take no gradient (integer codes, None)."""
+    leaves = [None if t is None else t.detach().requires_grad_(
+        t.is_floating_point()) for t in saved]
+    with torch.enable_grad():
+        out = fn(*leaves)
+        wrt = [t for t in leaves if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True))
+    return tuple(next(grads) if t is not None and t.requires_grad else None
+                 for t in leaves)
+
+
 class _FusedBundle(torch.autograd.Function):
-    """The bundle kernel forward (``kernels/fused_ssa.fused_ssa``, bn
+    """The bundle kernel forward (``kernels/fused_ssa.fused_ssa``, either
     family; the plain version on the CPU), with JAX's ``_fused_bwd``:
     the backward recomputes ``reference_bundle`` and differentiates it, so
     its gradients are the sequential path's (surrogate spikes included).
@@ -417,9 +435,9 @@ class _FusedBundle(torch.autograd.Function):
         ctx.save_for_backward(x, w3, scale3, aux, delta)
         ctx.spec = spec
         scfg = spec.scfg
-        out, _ = fused_ssa(x, w3, scale3, aux, delta, family="bn",
+        out, _ = fused_ssa(x, w3, scale3, aux, delta, family=spec.family,
                            num_heads=spec.num_heads, head_dim=spec.head_dim,
-                           scale=spec.scale,
+                           scale=spec.scale, causal=spec.causal,
                            binarize_scores=scfg.binarize_scores,
                            decay=scfg.decay, v_th=scfg.v_threshold,
                            soft_reset=scfg.soft_reset, eps=spec.eps)
@@ -429,17 +447,95 @@ class _FusedBundle(torch.autograd.Function):
     def backward(ctx, g):
         from repro_torch.kernels.fused_ssa import reference_bundle
         spec = ctx.spec
-        leaves = [None if t is None else t.detach().requires_grad_(
-            t.is_floating_point()) for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = reference_bundle(*leaves, spec.scfg, family="bn",
-                                   num_heads=spec.num_heads,
-                                   head_dim=spec.head_dim, scale=spec.scale,
-                                   eps=spec.eps)
-            wrt = [t for t in leaves if t is not None and t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True))
-        return (*(next(grads) if t is not None and t.requires_grad else None
-                  for t in leaves), None)
+
+        def oracle(x, w3, scale3, aux, delta):
+            return reference_bundle(x, w3, scale3, aux, delta, spec.scfg,
+                                    family=spec.family,
+                                    num_heads=spec.num_heads,
+                                    head_dim=spec.head_dim, scale=spec.scale,
+                                    causal=spec.causal, eps=spec.eps)
+        return (*_recompute_grads(oracle, ctx.saved_tensors, g), None)
+
+
+class LayerSpec(NamedTuple):
+    """The static closure of a fused layer step (JAX's ``_LayerSpec``
+    without the overlap mode), shared by the kernel forward and the
+    oracle backward."""
+    family: str
+    num_heads: int
+    head_dim: int
+    scale: float
+    causal: bool
+    scfg: Any                   # SpikingConfig
+    eps: float
+    norm_eps: float
+    sparse: str                 # tile | decoded
+    l_block: int
+    c_block: int
+
+
+class _FusedLayer(torch.autograd.Function):
+    """The layer program's forward (``kernels/fused_layer.fused_layer``:
+    the CUDA kernel on the card, the plain version on the CPU), with the
+    backward of JAX's ``_fused_layer`` custom VJP: it recomputes
+    ``reference_layer`` on the saved operands and differentiates it, so
+    the gradients are the sequential oracle's (surrogate spikes
+    included). The kernel writes fresh tensors and takes no part in
+    autograd; without this boundary its callers' parameters would get no
+    gradient. Operands: x, s, w3, wo, w1, w2, the four scales, auxp,
+    auxo, aux1, aux2 (None for rope), delta; quantized codes are cast to
+    the activation dtype before it, so their gradient stops at that
+    cast."""
+
+    @staticmethod
+    def forward(ctx, *ops):
+        from repro_torch.kernels.fused_layer import fused_layer
+        *ops, spec = ops
+        ctx.save_for_backward(*ops)
+        ctx.spec = spec
+        scfg = spec.scfg
+        out, _ = fused_layer(
+            *ops[:6], tuple(ops[6:10]), *ops[10:], family=spec.family,
+            num_heads=spec.num_heads, head_dim=spec.head_dim,
+            scale=spec.scale, causal=spec.causal, sparse=spec.sparse,
+            binarize_scores=scfg.binarize_scores, decay=scfg.decay,
+            v_th=scfg.v_threshold, soft_reset=scfg.soft_reset, eps=spec.eps,
+            norm_eps=spec.norm_eps, l_block=spec.l_block,
+            c_block=spec.c_block)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.kernels.fused_layer import reference_layer
+        spec = ctx.spec
+
+        def oracle(*ops):
+            return reference_layer(
+                *ops[:6], tuple(ops[6:10]), *ops[10:], spec.scfg,
+                family=spec.family, num_heads=spec.num_heads,
+                head_dim=spec.head_dim, scale=spec.scale, causal=spec.causal,
+                eps=spec.eps, norm_eps=spec.norm_eps)
+        return (*_recompute_grads(oracle, ctx.saved_tensors, g), None)
+
+
+def _layer_program(args, scfg, plan: LayerPlan, engine: EngineConfig, *,
+                   family: str, num_heads: int, head_dim: int, scale: float,
+                   causal: bool = False, eps: float = 1e-5,
+                   norm_eps: float = 1e-6) -> torch.Tensor:
+    """One eligible layer on the plan's overlap: ``reference_layer``
+    (``overlap='off'``) or the layer program through :class:`_FusedLayer`
+    (``overlap='fused'``). ``args`` are ``reference_layer``'s operands,
+    the scales as one tuple and delta a tensor (the layer's param)."""
+    from repro_torch.kernels.fused_layer import reference_layer
+    kw = dict(family=family, num_heads=num_heads, head_dim=head_dim,
+              scale=scale, causal=causal, eps=eps, norm_eps=norm_eps)
+    if plan.overlap == "off":
+        return reference_layer(*args, scfg, **kw)
+    *ops, scales, auxp, auxo, aux1, aux2, delta = args
+    spec = LayerSpec(scfg=scfg, sparse=plan.sparse, l_block=engine.block_m,
+                     c_block=engine.block_k, **kw)
+    return _FusedLayer.apply(*ops, *scales, auxp, auxo, aux1, aux2, delta,
+                             spec)
 
 
 def ssa_step(p: Dict[str, Any], st: Dict[str, Any], cfg, s: torch.Tensor, *,
@@ -472,7 +568,8 @@ def ssa_step(p: Dict[str, Any], st: Dict[str, Any], cfg, s: torch.Tensor, *,
             w3 = torch.stack([p[w]["w"] for _, w in names])
             scale3 = None
         aux = torch.stack([_bn_rows(p, st, f"bn_{n}") for n, _ in names])
-        spec = BundleSpec(heads, hd, 1.0 / math.sqrt(hd), cfg.spiking, 1e-5)
+        spec = BundleSpec("bn", heads, hd, 1.0 / math.sqrt(hd), False,
+                          cfg.spiking, 1e-5)
         delta = torch.as_tensor(p["delta"], dtype=torch.float32,
                                 device=s.device)
         return _FusedBundle.apply(s, w3, scale3, aux, delta, spec), dict(st)
@@ -551,7 +648,6 @@ def layer_step(p: Dict[str, Any], st: Dict[str, Any], cfg, x: torch.Tensor,
     (batch statistics) and ineligible layers run the sequential
     composition, which hands the SSA bundle to :func:`ssa_step` and the
     spike products to :func:`spike_linear`, threading the BN state."""
-    from repro_torch.kernels.fused_layer import fused_layer, reference_layer
     engine = engine if engine is not None else get_engine()
     heads, hd = cfg.num_heads, cfg.head_dim
     d = x.shape[-1]
@@ -583,16 +679,9 @@ def layer_step(p: Dict[str, Any], st: Dict[str, Any], cfg, x: torch.Tensor,
             torch.stack([_bn_rows(p, st, f"bn_{n}") for n in "qkv"]),
             _bn_rows(p, st, "bn_o"), aux1, _bn_rows(p, st, "bn_2"),
             p["delta"])
-    scfg = cfg.spiking
-    kw = dict(family="bn", num_heads=heads, head_dim=hd,
-              scale=1.0 / math.sqrt(hd), eps=1e-5)
-    if plan.overlap == "off":
-        y = reference_layer(*args, scfg, **kw)
-    else:
-        y, _ = fused_layer(
-            *args, sparse=plan.sparse, decay=scfg.decay,
-            v_th=scfg.v_threshold, soft_reset=scfg.soft_reset,
-            l_block=engine.block_m, c_block=engine.block_k, **kw)
+    y = _layer_program(args, cfg.spiking, plan, engine, family="bn",
+                       num_heads=heads, head_dim=hd,
+                       scale=1.0 / math.sqrt(hd), eps=1e-5)
     return y, dict(st)
 
 
@@ -627,14 +716,20 @@ def ssa_step_causal(p: Dict[str, Any], cfg, h: torch.Tensor, positions, *,
     D) normed currents (post ln1); positions: (S,). Returns the pre-wo
     context (T, B, S, q_dim).
 
-    An eligible bundle under ``overlap='fused'`` would run the bundle
-    kernel's rope family, which is not ported yet and raises; everything
-    else runs the sequential composition (JAX's eligibility, term for
-    term)."""
+    An eligible bundle (JAX's eligibility, term for term) under
+    ``overlap='fused'`` runs the bundle kernel's rope family (causal) on
+    the stacked weights — int8 codes cast to ``h.dtype`` with their
+    (3, q_dim) scales — and the [cos; sin] table of ``nn.rope_table``
+    (the sequential path's), through :class:`_FusedBundle`; everything
+    else runs the sequential composition. The mixed-precision LM tree
+    (int8 wq, wk, wv only) reaches the kernel here: its layers are not
+    eligible for the layer program."""
     from repro_torch.core.attention import spiking_attention
+    from repro_torch.models import nn
     from repro_torch.models.transformer import _project_qkv
     engine = engine if engine is not None else get_engine()
-    t, b, s_len, _ = h.shape
+    t, b, s_len, d = h.shape
+    heads, hd = cfg.num_heads, cfg.head_dim
     names = ("wq", "wk", "wv")
     quant = ["qw" in p[w] for w in names]
     positions = torch.as_tensor(positions)
@@ -646,9 +741,18 @@ def ssa_step_causal(p: Dict[str, Any], cfg, h: torch.Tensor, positions, *,
                 and cfg.head_dim % 2 == 0
                 and positions.ndim == 1)
     if eligible and resolve_overlap(engine, h) == "fused":
-        raise _not_ported("the fused SSA bundle's rope family "
-                          "(ssa_step_causal with overlap='fused')",
-                          "queue 2 #6b")
+        if all(quant):
+            w3, scale3 = _layer_quant_w3(p, names, d, h.dtype)
+        else:
+            w3 = torch.stack([p[w]["w"] for w in names])
+            scale3 = None
+        cos, sin = nn.rope_table(positions.to(h.device), hd, cfg.rope_theta)
+        spec = BundleSpec("rope", heads, hd, 1.0 / math.sqrt(hd), True,
+                          cfg.spiking, 1e-5)
+        delta = torch.as_tensor(p["delta"], dtype=torch.float32,
+                                device=h.device)
+        return _FusedBundle.apply(h, w3, scale3, torch.stack([cos, sin]),
+                                  delta, spec)
     q, k, v = _project_qkv(p, cfg, h, positions, repeat_kv=True)
     q, k, v = (lif_scan(u, cfg.spiking)[0] for u in (q, k, v))
     # (T, B, S, H, hd) -> (T*B, H, S, hd)
@@ -677,7 +781,6 @@ def layer_step_causal(p: Dict[str, Any], cfg, x: torch.Tensor, positions,
     as in JAX, since the projection input is analog). Others run the
     sequential composition through :func:`ssa_step_causal`. Eval only:
     the port has no LM training yet (ROADMAP queue 1 item 7)."""
-    from repro_torch.kernels.fused_layer import fused_layer, reference_layer
     from repro_torch.models import nn
     if train:
         raise _not_ported("training the token family", "queue 1 item 7")
@@ -724,13 +827,7 @@ def layer_step_causal(p: Dict[str, Any], cfg, x: torch.Tensor, positions,
     args = (x, h, w3, wo, w1, w2, (sc3, sco, sc1, sc2),
             torch.stack([cos, sin]),
             p["ln2"]["scale"].float().reshape(1, d), None, None, p["delta"])
-    scfg = cfg.spiking
-    kw = dict(family="rope", num_heads=heads, head_dim=hd,
-              scale=1.0 / math.sqrt(hd), causal=True,
-              norm_eps=cfg.norm_eps)
-    if plan.overlap == "off":
-        return reference_layer(*args, scfg, **kw)
-    y, _ = fused_layer(*args, sparse=plan.sparse, decay=scfg.decay,
-                       v_th=scfg.v_threshold, soft_reset=scfg.soft_reset,
-                       l_block=engine.block_m, c_block=engine.block_k, **kw)
-    return y
+    return _layer_program(args, cfg.spiking, plan, engine, family="rope",
+                          num_heads=heads, head_dim=hd,
+                          scale=1.0 / math.sqrt(hd), causal=True,
+                          norm_eps=cfg.norm_eps)

@@ -18,27 +18,33 @@
 // (or small integer counts) against weights, on ~25 MB of input and
 // output, so it is bound by operations (~27 us at the bf16 tensor-core
 // peak against ~8 us for the bytes); spikingformer-lm's prefill at B=8,
-// L=512 is of the same size. In bf16 both launches run their spike and
-// count products on the tensor cores with mma.sync (fp32 keeps CUDA-core
-// loops); launch B stages each weight chunk once for all timesteps and
-// reads the next chunk into registers while the current one's products
-// run. The rope family's two analog products (q/k/v of ln1, up of ln2)
-// are CUDA-core loops in ascending k in both dtypes: an analog sum is
-// exact in no order, and this one is the plain version's, so kernel and
-// plain version agree bitwise. wgmma / TMA pipelines are later work.
+// L=512 is of the same size, and Spikingformer-8-512 (T=4, L=196, D=512,
+// hd=64, F=2048) does ~8x the work a batch row. In bf16 both launches run
+// their spike and count products on the tensor cores with mma.sync (fp32
+// keeps CUDA-core loops); launch B stages each weight chunk once for all
+// timesteps and reads the next chunk into registers while the current
+// one's products run. The rope family's two analog products (q/k/v of
+// ln1, up of ln2) are CUDA-core loops in ascending k in both dtypes: an
+// analog sum is exact in no order, and this one is the plain version's,
+// so kernel and plain version agree bitwise. wgmma / TMA pipelines are
+// later work.
 //
 // Design. The TPU grid keeps every head's q/k/v spikes for all T in
 // VMEM (~786 KB at full width), which no SM can hold. The layer is split
 // into two launches instead:
 //   A. attention_phase, one block per (head, b): the sequence in tiles of
 //      64 rows, each (t, tile) slab staged in shared memory and projected
-//      (dark rows skipped); the epilogue (scale, BN or RoPE, LIF with the
-//      membrane in registers across t) emits spikes as bits kept for the
-//      whole sequence; then per timestep one warp a query row scores 32
-//      keys a ballot (AND-popcount of q and k bits, binarized, causal or
-//      not) and counts the context against the transposed value bits.
-//      Spikes never leave shared memory; the context (integer counts)
-//      goes to a (T, B, L, H*hd) scratch.
+//      (dark rows skipped) against the head's w3 slice, which streams
+//      through shared memory in 64-deep K-chunks (the whole 3 hd x D
+//      slice, 200 KB in bf16 at hd=64, D=512, would not fit beside the
+//      slab); the epilogue (scale, BN or RoPE, LIF with the membrane in
+//      registers across t) emits spikes as bits kept for the whole
+//      sequence (one or two 32-bit words a row for q and k, as head_dim
+//      is up to 32 or up to 64); then per timestep one warp a query row
+//      scores 32 keys a ballot (AND-popcount of q and k bits, binarized,
+//      causal or not) and counts the context against the transposed
+//      value bits. Spikes never leave shared memory; the context (integer
+//      counts) goes to a (T, B, L, H*hd) scratch.
 //   B. mlp_phase, one block per 64-row tile of an L-block and b: wo as
 //      one fixed-order fp32 sum over heads, then scale, then bn_o,
 //      residual (x1 is parked in the output) and the input LIF into bit
@@ -53,13 +59,14 @@
 // Counts are summed with int32 atomicAdd (order-free); no float atomics.
 //
 // The SSA bundle kernel (src/repro/kernels/fused_ssa.py::fused_ssa, body
-// `_kernel`, grid (B, H, 4), bn family) is launch A alone
-// (fused_ssa_forward): its q/k/v projections, scale, BN, LIF and
-// binarized attention are exactly the bundle's, and its context is the
-// bundle's output. It runs with one L-block a sequence (l_block = L), so
-// a timestep's block flag is the TPU kernel's whole-slab occupancy test,
-// and writes the bundle's (H, 4) map instead of the layer's: q, k and v
-// add the timesteps whose (L, D) slab is live, attend adds 2 T, per b.
+// `_kernel`, grid (B, H, 4), both families) is launch A alone
+// (fused_ssa_forward): its q/k/v projections, scale, BN (bn) or RoPE on q
+// and k (rope), LIF and binarized attention (causal for rope) are
+// exactly the bundle's, and its context is the bundle's output. It runs
+// with one L-block a sequence (l_block = L), so a timestep's block flag
+// is the TPU kernel's whole-slab occupancy test, and writes the bundle's
+// (H, 4) map instead of the layer's: q, k and v add the timesteps whose
+// (L, D) slab is live, attend adds 2 T, per b.
 //
 // The decoded variant (sparse='decoded'; `_kernel` with decoded=True, the
 // q/k/v `project` phases at fused_layer.py:152-215, staged by
@@ -70,12 +77,12 @@
 // word at a time, a warp ballot marks the live spikes and __ffs visits
 // them in ascending k (the order of the compacted slots), and for each
 // live spike the lanes add the value times the spike's row of the head's
-// q/k/v weights (staged untransposed, [D][3 hd]) with one fp32 product
-// and one fp32 sum, three columns a lane. Chunks of c_block slots at or
-// past an L-block's capacity hold no live spike, so they are skipped by
-// construction; the executed chunks, ceil(capacity / c_block) per
-// (t, b, L-block), go to the q/k/v counts. The epilogue and launch B are
-// the tile variant's. It is CUDA-core work in both dtypes: the sum order
+// q/k/v weights (the K-chunk staged untransposed, [KA][3 hd]) with one
+// fp32 product and one fp32 sum, three columns a lane per 32 of head_dim.
+// Chunks of c_block slots at or past an L-block's capacity hold no live
+// spike, so they are skipped by construction; the executed chunks,
+// ceil(capacity / c_block) per (t, b, L-block), go to the q/k/v counts.
+// The epilogue and launch B are the tile variant's. It is CUDA-core work in both dtypes: the sum order
 // is the plain version's, so the variant is bitwise equal to its plain
 // version for any weights, and to the tile variant on dyadic weights.
 //
@@ -101,7 +108,7 @@ constexpr int NT = 256;      // threads per block, both launches
 constexpr int KC = 64;       // launch B contraction chunk, staged in shared memory
 constexpr int L_TILE = 64;   // rows of a launch A slab
 constexpr int MAX_D = 1024;  // rope: launch B's rmsnorm holds a row in registers
-constexpr int MAX_HD = 32;   // q/k spikes of a row fit one 32-bit word
+constexpr int MAX_HD = 64;   // q/k spikes of a row fit two 32-bit words
 constexpr int TILE = 64;     // launch B output tile: 64 rows x 64 columns
 constexpr int N_PHASES = 8;
 
@@ -192,11 +199,16 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4],
 // launch A: projections + binary attention, one block per (head, b)
 // ---------------------------------------------------------------------------
 //
-// The head's slice of w3 is staged once, transposed to [3 hd][D]. The
-// sequence is walked in tiles of 64 rows (outer) and timesteps (inner),
-// so the LIF membranes of a tile's slots stay in registers across t;
-// each (t, tile) spike slab is staged in shared memory and projected, and
-// its q/k/v spikes are kept as bits for the whole sequence ([t][row] words
+// The sequence is walked in tiles of 64 rows (outer) and timesteps
+// (inner), so the LIF membranes of a tile's slots stay in registers
+// across t; each (t, tile) spike slab is staged in shared memory and
+// projected against the head's slice of w3 in ka-deep K-chunks in
+// ascending k (transposed to [3 hd][ka + pad]; decoded: [ka][3 hd]). The
+// host picks ka = D, the whole slice staged once a block, when it fits
+// beside the slab and the sequence's bits, and else streams KA-deep
+// chunks through shared memory for every (t, tile), so no block has to
+// hold the 3 hd x D slice (200 KB in bf16 at hd=64, D=512). The q/k/v
+// spikes are kept as bits for the whole sequence ([t][row][HW] words
 // of hd bits for q and k, [t][column][row word] for v). After the last
 // tile, per timestep: the block occupancies, then one warp per query row
 // scores a 32-key word with a ballot and adds the context counts of its
@@ -209,31 +221,47 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4],
 // family's analog input in both dtypes, a CUDA-core loop over the same
 // slots in ascending k (the rope family's sum is one fp32 product and one
 // fp32 sum a term, the plain version's order, since analog sums are not
-// exact in any order).
+// exact in any order). Chunking K keeps each slot's order of summation:
+// the chunks run in ascending k and each continues the slot's sum.
+//
+// HW, the 32-bit words of a row's q (or k) bits, is a template argument
+// (1 for head_dim <= 32, 2 up to MAX_HD): it sizes the register arrays,
+// so the head_dim <= 32 instantiation keeps its registers.
 
-constexpr int MAXJ = 3 * MAX_HD / 8 / 2;   // n8-tiles per warp in launch A
-// decoded projection: warp w owns rows DEC_ROWS w + [0, DEC_ROWS), lane
-// owns columns lane + 32 c of the 3 hd
-constexpr int DEC_ROWS = L_TILE / (NT / 32);
-constexpr int DEC_COLS = 3 * MAX_HD / 32;
+constexpr int KA = 64;       // launch A's streamed w3 K-chunk
+// launch A's dynamic shared memory limit: the block's 227 KB less its
+// static arrays
+constexpr size_t SMEM_A_LIMIT = 232448 - 512;
 
-// shared-memory row of the staged slab and w^T: D plus 16 bytes, so the
-// eight rows a warp's fragment loads touch fall in distinct banks
+template <int HW> struct AShape {
+  static constexpr int MAXJ = 3 * 32 * HW / 8 / 2;   // n8-tiles per warp
+  // decoded projection: warp w owns rows DEC_ROWS w + [0, DEC_ROWS), lane
+  // owns columns lane + 32 c of the 3 hd
+  static constexpr int DEC_ROWS = L_TILE / (NT / 32);
+  static constexpr int DEC_COLS = 3 * HW;
+};
+
+// shared-memory row of the staged slab and of a transposed w3 chunk: 16
+// bytes of padding, so the eight rows a warp's fragment loads touch fall
+// in distinct banks
 template <typename T>
 __host__ __device__ constexpr int row_pad() { return 16 / (int)sizeof(T); }
 
-// launch A's dynamic shared memory, carved in this order (host and device)
+// launch A's dynamic shared memory with w3 chunks ka deep, carved in this
+// order (host and device)
 struct SmemA {
-  size_t wt, slab, qbits, kbits, vbits, keym, ctxm, blkv, total;
-  __host__ __device__ SmemA(int tsize, int nt, int l, int d, int hd, int nlb) {
+  size_t slab, wt, qbits, kbits, vbits, keym, ctxm, blkv, total;
+  __host__ __device__ SmemA(int tsize, int nt, int l, int d, int hd, int nlb,
+                            int ka) {
     const int n3 = 3 * hd, ldk = d + 16 / tsize, lw = (l + 31) / 32;
+    const int hw = (hd + 31) / 32;
     const size_t slab_row = (size_t)ldk * tsize > (size_t)n3 * 4 ? (size_t)ldk * tsize
                                                                   : (size_t)n3 * 4;
-    wt = 0;
-    slab = wt + ((size_t)n3 * ldk * tsize + 15) / 16 * 16;
-    qbits = slab + L_TILE * slab_row;
-    kbits = qbits + (size_t)nt * l * 4;
-    vbits = kbits + (size_t)nt * l * 4;
+    slab = 0;
+    wt = slab + L_TILE * slab_row;
+    qbits = wt + (size_t)n3 * (ka * tsize + 16);
+    kbits = qbits + (size_t)nt * l * hw * 4;
+    vbits = kbits + (size_t)nt * l * hw * 4;
     keym = vbits + (size_t)nt * hd * lw * 4;
     ctxm = keym + (size_t)nt * lw * 4;
     blkv = ctxm + (size_t)nt * lw * 4;
@@ -241,28 +269,60 @@ struct SmemA {
   }
 };
 
-template <typename T, bool DEC, bool ROPE>
+// launch A's K-chunk depth: the whole slice (staged once a block) when
+// it fits, else KA
+inline int chunk_depth(int tsize, int nt, int l, int d, int hd, int nlb) {
+  return d <= KA || SmemA(tsize, nt, l, d, hd, nlb, d).total <= SMEM_A_LIMIT ? d
+                                                                          : KA;
+}
+
+// rows [k0, k0 + kc) of the head's w3 slice into wt, in 16-byte loads:
+// transposed to [3 hd][lda] (tile and rope), or [kc][3 hd] (decoded);
+// consecutive threads take consecutive k
+template <typename T, bool DEC>
+__device__ __forceinline__ void stage_w3(const T* __restrict__ w3, T* wt,
+                                         int h, int d, int qd, int hd,
+                                         int k0, int kc, int lda) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int nv = hd / VEC;               // vectors in a row of a head's slice
+  for (int i = threadIdx.x; i < 3 * nv * kc; i += NT) {
+    const int k = i % kc, r = i / kc, p = r / nv, c = r % nv * VEC;
+    const uint4 v = *reinterpret_cast<const uint4*>(
+        w3 + ((size_t)p * d + k0 + k) * qd + h * hd + c);
+    if constexpr (DEC) {
+      *reinterpret_cast<uint4*>(wt + (size_t)k * 3 * hd + p * hd + c) = v;
+    } else {
+      const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) wt[(p * hd + c + q) * lda + k] = e[q];
+    }
+  }
+}
+
+template <typename T, bool DEC, bool ROPE, int HW>
 __global__ void __launch_bounds__(NT)
 attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
                 const float* __restrict__ sc3, const float* __restrict__ auxp,
                 const float* __restrict__ delta_p, float scale, Lif lif,
                 int causal, int nt, int nb, int l, int d, int heads, int hd,
-                int l_block, int c_block, int cp, int ssa,
+                int l_block, int c_block, int cp, int ssa, int ka,
                 T* __restrict__ ctx, int* __restrict__ counts) {
   using A = Act<T>;
+  using S = AShape<HW>;
+  constexpr int MAXJ = S::MAXJ, DEC_ROWS = S::DEC_ROWS, DEC_COLS = S::DEC_COLS;
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int qd = heads * hd, nlb = (l + l_block - 1) / l_block;
   const int lw = (l + 31) / 32, n3 = 3 * hd, ntiles = n3 / 8, half = hd / 2;
-  const int ldk = d + row_pad<T>(), vec = 16 / (int)sizeof(T);
+  const int ldk = d + row_pad<T>(), lda = ka + row_pad<T>(), vec = 16 / (int)sizeof(T);
   const float delta = *delta_p;
 
   extern __shared__ __align__(16) unsigned char dyn_a[];
-  const SmemA lay(sizeof(T), nt, l, d, hd, nlb);
-  T* wt = (T*)(dyn_a + lay.wt);         // w3 head slice: [3 hd][ldk], transposed
-                                        // (decoded: [D][3 hd])
+  const SmemA lay(sizeof(T), nt, l, d, hd, nlb, ka);
   T* slab = (T*)(dyn_a + lay.slab);     // [L_TILE][ldk]: one (t, tile) slab
   float* yproj = (float*)slab;          // rope: [L_TILE][3 hd] scaled projections
-  uint32_t* qbits = (uint32_t*)(dyn_a + lay.qbits);   // [t][row] bits of hd
+  T* wt = (T*)(dyn_a + lay.wt);         // w3 K-chunk of the head: [3 hd][lda],
+                                        // transposed (decoded: [ka][3 hd])
+  uint32_t* qbits = (uint32_t*)(dyn_a + lay.qbits);   // [t][row][HW] bits of hd
   uint32_t* kbits = (uint32_t*)(dyn_a + lay.kbits);
   uint32_t* vbits_t = (uint32_t*)(dyn_a + lay.vbits); // [t][col][row word]
   uint32_t* key_mask = (uint32_t*)(dyn_a + lay.keym); // [t][row word]: live keys
@@ -271,11 +331,6 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
   __shared__ int row_live[L_TILE];
   __shared__ bool passes[MAX_HD + 1];  // binarized score of a count
 
-  for (int i = tid; i < n3 * d; i += NT) {
-    const int k = i / n3, n = i % n3;
-    wt[DEC ? k * n3 + n : n * ldk + k] =
-        w3[((size_t)(n / hd) * d + k) * qd + h * hd + n % hd];
-  }
   const size_t nwords = (lay.total - lay.qbits) / 4;
   for (size_t i = tid; i < nwords; i += NT) qbits[i] = 0u;
   // a score is an integer count c <= hd; binarize each once:
@@ -286,6 +341,10 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
   const int r_lo = (warp % 4) * 16 + g, jt0 = warp / 4;
   constexpr int AJ = DEC ? DEC_ROWS : MAXJ, AC = DEC ? DEC_COLS : 4;
   const uint32_t mag = sizeof(T) == 2 ? 0x7FFF7FFFu : 0x7FFFFFFFu;
+  // a chunk as deep as D is the whole slice: staged once, before the
+  // first projection (block-uniform)
+  const bool resident = ka >= d;
+  bool staged = false;
 
   for (int r0 = 0; r0 < l; r0 += L_TILE) {
     const int nr = min(L_TILE, l - r0);
@@ -314,9 +373,12 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
       auto emit = [&](float y, float& uu, int r, int n) {
         const int p = n / hd, col = n % hd, row = r0 + r;
         if (!lif_step<T>(uu, y, lif)) return;
-        if (p == 0) atomicOr(&qbits[t * l + row], 1u << col);
-        else if (p == 1) atomicOr(&kbits[t * l + row], 1u << col);
-        else atomicOr(&vbits_t[((size_t)t * hd + col) * lw + row / 32], 1u << (row % 32));
+        if (p == 0)
+          atomicOr(&qbits[((size_t)t * l + row) * HW + col / 32], 1u << (col % 32));
+        else if (p == 1)
+          atomicOr(&kbits[((size_t)t * l + row) * HW + col / 32], 1u << (col % 32));
+        else
+          atomicOr(&vbits_t[((size_t)t * hd + col) * lw + row / 32], 1u << (row % 32));
       };
       // the projection epilogue before the LIF: scale, cast, BN
       auto bn_proj = [&](float a, int n) {
@@ -324,58 +386,58 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
         const float y = A::round(__fmul_rn(a, sc3[p * qd + ch]));
         return A::round(bn_eval(y, auxp + (size_t)p * 4 * qd, qd, ch));
       };
+      // a warp whose rows are all dark skips its tile products (they
+      // would add exact zeros)
+      bool warp_live = false;
+      if (!DEC)
+        for (int r = (warp % 4) * 16; r < min(nr, (warp % 4) * 16 + 16); ++r)
+          warp_live |= row_live[r] != 0;
       float acc[AJ][AC] = {};
-      if constexpr (DEC) {
-        // decoded q/k/v projection: each row's live spikes in ascending k
+      int occ[DEC ? DEC_ROWS : 1] = {};   // decoded: live spikes of each row
+
+      // the head's w3 slice, ka rows of K at a time, in ascending k
+      for (int k0 = 0; k0 < d; k0 += ka) {
+        const int kc = min(ka, d - k0);
+        if (!resident || !staged) {
+          __syncthreads();      // the previous chunk is consumed
+          stage_w3<T, DEC>(w3, wt, h, d, qd, hd, k0, kc, lda);
+          __syncthreads();
+          staged = true;
+        }
+        if constexpr (DEC) {
+          // decoded q/k/v projection: each row's live spikes in ascending
+          // k, the chunk's share of them
 #pragma unroll
-        for (int i = 0; i < DEC_ROWS; ++i) {
-          const int r = warp * DEC_ROWS + i;
-          if (r >= nr) break;
-          const T* srow = slab + (size_t)r * ldk;
-          int occ = 0;
-          for (int k0 = 0; k0 < d; k0 += 32) {
-            uint32_t live = __ballot_sync(
-                0xFFFFFFFFu, k0 + lane < d && A::load(srow + k0 + lane) != 0.f);
-            occ += __popc(live);
-            while (live) {
-              const int k = k0 + __ffs(live) - 1;
-              live &= live - 1u;
-              const float a = A::load(srow + k);
-              const T* wrow = wt + (size_t)k * n3;
+          for (int i = 0; i < DEC_ROWS; ++i) {
+            const int r = warp * DEC_ROWS + i;
+            if (r >= nr) break;
+            const T* srow = slab + (size_t)r * ldk;
+            for (int kb = k0; kb < k0 + kc; kb += 32) {
+              uint32_t live = __ballot_sync(
+                  0xFFFFFFFFu, kb + lane < k0 + kc && A::load(srow + kb + lane) != 0.f);
+              occ[i] += __popc(live);
+              while (live) {
+                const int k = kb + __ffs(live) - 1;
+                live &= live - 1u;
+                const float a = A::load(srow + k);
+                const T* wrow = wt + (size_t)(k - k0) * n3;
 #pragma unroll
-              for (int c = 0; c < DEC_COLS; ++c) {
-                const int n = lane + 32 * c;
-                if (n < n3)
-                  acc[i][c] = __fadd_rn(acc[i][c], __fmul_rn(a, A::load(wrow + n)));
+                for (int c = 0; c < DEC_COLS; ++c) {
+                  const int n = lane + 32 * c;
+                  if (n < n3)
+                    acc[i][c] = __fadd_rn(acc[i][c], __fmul_rn(a, A::load(wrow + n)));
+                }
               }
             }
           }
-          if (lane == 0) atomicMax(&blkv[t * nlb + (r0 + r) / l_block], occ);
-        }
-#pragma unroll
-        for (int i = 0; i < DEC_ROWS; ++i) {
-          const int r = warp * DEC_ROWS + i;
-          if (r >= nr) break;
-#pragma unroll
-          for (int c = 0; c < DEC_COLS; ++c) {
-            const int n = lane + 32 * c;
-            if (n < n3) emit(bn_proj(acc[i][c], n), u[i][c], r, n);
-          }
-        }
-      } else {
-        // q/k/v projection; a warp whose rows are all dark skips its
-        // products (they would add exact zeros)
-        bool warp_live = false;
-        for (int r = (warp % 4) * 16; r < min(nr, (warp % 4) * 16 + 16); ++r)
-          warp_live |= row_live[r] != 0;
-        if (warp_live) {
+        } else if (warp_live) {
           if constexpr (ROPE && !std::is_same<T, float>::value) {
             // analog bf16 x bf16: every product is exact in fp32, so one
             // fmaf rounds as the plain version's product-then-sum; two k
             // a step from bf16 pairs
-            for (int k = 0; k < d; k += 2) {
-              const uint32_t p_lo = ld_pair(slab + r_lo * ldk + k);
-              const uint32_t p_hi = ld_pair(slab + (r_lo + 8) * ldk + k);
+            for (int kk = 0; kk < kc; kk += 2) {
+              const uint32_t p_lo = ld_pair(slab + r_lo * ldk + k0 + kk);
+              const uint32_t p_hi = ld_pair(slab + (r_lo + 8) * ldk + k0 + kk);
               const float a0_lo = pair_lo(p_lo), a1_lo = pair_hi(p_lo);
               const float a0_hi = pair_lo(p_hi), a1_hi = pair_hi(p_hi);
 #pragma unroll
@@ -384,7 +446,7 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
                 if (jt >= ntiles) break;
 #pragma unroll
                 for (int c = 0; c < 2; ++c) {
-                  const uint32_t pw = ld_pair(wt + (jt * 8 + tig * 2 + c) * ldk + k);
+                  const uint32_t pw = ld_pair(wt + (jt * 8 + tig * 2 + c) * lda + kk);
                   const float w0 = pair_lo(pw), w1 = pair_hi(pw);
                   acc[j][c] = fmaf(a1_lo, w1, fmaf(a0_lo, w0, acc[j][c]));
                   acc[j][2 + c] = fmaf(a1_hi, w1, fmaf(a0_hi, w0, acc[j][2 + c]));
@@ -392,16 +454,16 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
               }
             }
           } else if constexpr (ROPE || std::is_same<T, float>::value) {
-            for (int k = 0; k < d; ++k) {
-              const float a_lo = A::load(slab + r_lo * ldk + k);
-              const float a_hi = A::load(slab + (r_lo + 8) * ldk + k);
+            for (int kk = 0; kk < kc; ++kk) {
+              const float a_lo = A::load(slab + r_lo * ldk + k0 + kk);
+              const float a_hi = A::load(slab + (r_lo + 8) * ldk + k0 + kk);
 #pragma unroll
               for (int j = 0; j < MAXJ; ++j) {
                 const int jt = jt0 + 2 * j;
                 if (jt >= ntiles) break;
 #pragma unroll
                 for (int c = 0; c < 2; ++c) {
-                  const float wv = A::load(wt + (jt * 8 + tig * 2 + c) * ldk + k);
+                  const float wv = A::load(wt + (jt * 8 + tig * 2 + c) * lda + kk);
                   if constexpr (ROPE) {
                     acc[j][c] = __fadd_rn(acc[j][c], __fmul_rn(a_lo, wv));
                     acc[j][2 + c] = __fadd_rn(acc[j][2 + c], __fmul_rn(a_hi, wv));
@@ -413,20 +475,35 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
               }
             }
           } else {
-            for (int k0 = 0; k0 < d; k0 += 16) {
-              const T* pa = slab + r_lo * ldk + k0 + tig * 2;
+            for (int kk = 0; kk < kc; kk += 16) {
+              const T* pa = slab + r_lo * ldk + k0 + kk + tig * 2;
               const uint32_t a[4] = {ld_pair(pa), ld_pair(pa + 8 * ldk),
                                      ld_pair(pa + 8), ld_pair(pa + 8 * ldk + 8)};
 #pragma unroll
               for (int j = 0; j < MAXJ; ++j) {
                 const int jt = jt0 + 2 * j;
                 if (jt >= ntiles) break;
-                const T* pb = wt + (jt * 8 + g) * ldk + k0 + tig * 2;
+                const T* pb = wt + (jt * 8 + g) * lda + kk + tig * 2;
                 mma_bf16(acc[j], a, ld_pair(pb), ld_pair(pb + 8));
               }
             }
           }
         }
+      }
+
+      if constexpr (DEC) {
+#pragma unroll
+        for (int i = 0; i < DEC_ROWS; ++i) {
+          const int r = warp * DEC_ROWS + i;
+          if (r >= nr) break;
+          if (lane == 0) atomicMax(&blkv[t * nlb + (r0 + r) / l_block], occ[i]);
+#pragma unroll
+          for (int c = 0; c < DEC_COLS; ++c) {
+            const int n = lane + 32 * c;
+            if (n < n3) emit(bn_proj(acc[i][c], n), u[i][c], r, n);
+          }
+        }
+      } else {
         if constexpr (ROPE) {
           // scale and cast into yproj, then rotate q and k against their
           // partner column (col +- hd / 2 of the same head)
@@ -484,7 +561,8 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
     int n_proj = 0, n_qkt = 0, n_qktv = 0;
     for (int t = 0; t < nt; ++t) {
       bool kany = false, vany = false;
-      for (int r = r0; r < r1; ++r) kany |= kbits[t * l + r] != 0u;
+      for (int r = r0; r < r1; ++r)
+        for (int w = 0; w < HW; ++w) kany |= kbits[((size_t)t * l + r) * HW + w] != 0u;
       for (int w = r0 / 32; w <= (r1 - 1) / 32; ++w) {   // the block's rows in word w
         const int lo = max(r0, 32 * w), hi = min(r1, 32 * w + 32);
         const uint32_t m = (hi - lo == 32 ? ~0u : (1u << (hi - lo)) - 1u) << (lo - 32 * w);
@@ -526,28 +604,78 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
   }
   __syncthreads();
   // scores: a warp per (t, query row); lane j scores key 32 jw + j by the
-  // AND-popcount of its q and k bits, binarized, over live (and, when
-  // causal, past) keys; the ballot is the score word. Context: lane c
-  // (c < hd) counts the score bits against value column c over live
-  // context blocks (integer counts, exact in the activation dtype).
+  // AND-popcount of its q and k bits (HW words), binarized, over live
+  // (and, when causal, past) keys; the ballot is the score word.
+  // Context: lane c counts the score bits against value columns c + 32 m
+  // (< hd) over live context blocks (integer counts, exact in the
+  // activation dtype).
   for (int task = warp; task < nt * l; task += NT / 32) {
     const int t = task / l, i = task % l;
-    const uint32_t q = qbits[t * l + i];
+    uint32_t q[HW];
+#pragma unroll
+    for (int w = 0; w < HW; ++w) q[w] = qbits[((size_t)t * l + i) * HW + w];
     const int last = causal ? i / 32 : lw - 1;
-    int n = 0;
+    int n[HW] = {};
     for (int jw = 0; jw <= last; ++jw) {
       const int key = jw * 32 + lane;
+      const uint32_t* kb = kbits + ((size_t)t * l + min(key, l - 1)) * HW;
+      int score = 0;
+#pragma unroll
+      for (int w = 0; w < HW; ++w) score += __popc(q[w] & kb[w]);
       const bool pass = key < l && (!causal || key <= i) &&
-                        (key_mask[t * lw + jw] >> lane & 1u) &&
-                        passes[__popc(q & kbits[t * l + min(key, l - 1)])];
-      const uint32_t word = __ballot_sync(0xFFFFFFFFu, pass);
-      if (lane < hd)
-        n += __popc(word & vbits_t[((size_t)t * hd + lane) * lw + jw] &
-                    ctx_mask[t * lw + jw]);
+                        (key_mask[t * lw + jw] >> lane & 1u) && passes[score];
+      const uint32_t word = __ballot_sync(0xFFFFFFFFu, pass) & ctx_mask[t * lw + jw];
+#pragma unroll
+      for (int m = 0; m < HW; ++m) {
+        const int col = lane + 32 * m;
+        if (col < hd)
+          n[m] += __popc(word & vbits_t[((size_t)t * hd + col) * lw + jw]);
+      }
     }
-    if (lane < hd)
-      A::store(ctx + (((size_t)t * nb + b) * l + i) * qd + h * hd + lane, (float)n);
+#pragma unroll
+    for (int m = 0; m < HW; ++m) {
+      const int col = lane + 32 * m;
+      if (col < hd)
+        A::store(ctx + (((size_t)t * nb + b) * l + i) * qd + h * hd + col, (float)n[m]);
+    }
   }
+}
+
+// launch A's instantiation for a variant and head_dim (HW = 1 for
+// head_dim <= 32, else 2)
+template <typename T>
+using AttentionKernel = void (*)(const T*, const T*, const float*,
+                                 const float*, const float*, float, Lif, int,
+                                 int, int, int, int, int, int, int, int, int,
+                                 int, int, T*, int*);
+
+template <typename T, int HW>
+AttentionKernel<T> attention_variant(int rope, int decoded) {
+  return rope ? attention_phase<T, false, true, HW>
+              : decoded ? attention_phase<T, true, false, HW>
+                        : attention_phase<T, false, false, HW>;
+}
+
+template <typename T>
+cudaError_t launch_attention(int rope, int decoded, const void* s,
+                             const void* w3, const float* sc3,
+                             const float* auxp, const float* delta,
+                             float scale, Lif lif, int causal, int nt, int nb,
+                             int l, int d, int heads, int hd, int l_block,
+                             int c_block, int cp, int ssa, void* ctx,
+                             int* counts, cudaStream_t stream) {
+  const int nlb = (l + l_block - 1) / l_block;
+  const int ka = chunk_depth(sizeof(T), nt, l, d, hd, nlb);
+  const size_t dyn_a = SmemA(sizeof(T), nt, l, d, hd, nlb, ka).total;
+  const AttentionKernel<T> kernel = hd <= 32 ? attention_variant<T, 1>(rope, decoded)
+                                             : attention_variant<T, 2>(rope, decoded);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn_a);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(heads, nb), NT, dyn_a, stream>>>(
+      (const T*)s, (const T*)w3, sc3, auxp, delta, scale, lif, causal, nt, nb,
+      l, d, heads, hd, l_block, c_block, cp, ssa, ka, (T*)ctx, counts);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1017,23 +1145,15 @@ cudaError_t launch(const void* x, const void* s, const void* w3,
                    void* s2g, void* out, int* counts, int* flags,
                    cudaStream_t stream) {
   const int nlb = (l + l_block - 1) / l_block, tpb = (l_block + TILE - 1) / TILE;
-  const size_t dyn_a = SmemA(sizeof(T), nt, l, d, hd, nlb).total;
   const size_t dyn = 4 * ((size_t)nt * TILE * ((d + 31) / 32 + (ff + 31) / 32) +
                           (size_t)nt * (2 * heads + 1));
-  auto attention = rope ? attention_phase<T, false, true>
-                        : decoded ? attention_phase<T, true, false>
-                                  : attention_phase<T, false, false>;
   auto mlp = rope ? mlp_phase<T, true> : mlp_phase<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      attention, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn_a);
+      mlp, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(mlp, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)dyn);
-  if (err != cudaSuccess) return err;
-  attention<<<dim3(heads, nb), NT, dyn_a, stream>>>(
-      (const T*)s, (const T*)w3, sc3, auxp, delta, scale, lif, causal, nt, nb,
-      l, d, heads, hd, l_block, c_block, cp, 0, (T*)ctx, counts);
-  err = cudaGetLastError();
+  err = launch_attention<T>(rope, decoded, s, w3, sc3, auxp, delta, scale,
+                            lif, causal, nt, nb, l, d, heads, hd, l_block,
+                            c_block, cp, 0, ctx, counts, stream);
   if (err != cudaSuccess) return err;
   mlp<<<dim3(nlb * tpb, nb), NT, dyn, stream>>>(
       (const T*)x, (const T*)ctx, (const T*)wo, (const T*)w1, (const T*)w2,
@@ -1042,23 +1162,19 @@ cudaError_t launch(const void* x, const void* s, const void* w3,
   return cudaGetLastError();
 }
 
-// The SSA bundle alone (kernels/fused_ssa.py::fused_ssa, bn family):
-// launch A with one L-block a sequence, its context written to the
-// output and its counts to the bundle's (H, 4) map.
+// The SSA bundle alone (kernels/fused_ssa.py::fused_ssa): launch A with
+// one L-block a sequence, its context written to the output and its
+// counts to the bundle's (H, 4) map; rope: the token family's bundle
+// (analog input, RoPE on q and k, no BN), causal or not.
 template <typename T>
 cudaError_t launch_ssa(const void* s, const void* w3, const float* sc3,
                        const float* auxp, const float* delta, float scale,
-                       Lif lif, int nt, int nb, int l, int d, int heads,
-                       int hd, void* ctx, int* counts, cudaStream_t stream) {
-  const size_t dyn_a = SmemA(sizeof(T), nt, l, d, hd, 1).total;
-  auto attention = attention_phase<T, false, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      attention, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn_a);
-  if (err != cudaSuccess) return err;
-  attention<<<dim3(heads, nb), NT, dyn_a, stream>>>(
-      (const T*)s, (const T*)w3, sc3, auxp, delta, scale, lif, 0, nt, nb, l,
-      d, heads, hd, l, 1, d, 1, (T*)ctx, counts);
-  return cudaGetLastError();
+                       Lif lif, int rope, int causal, int nt, int nb, int l,
+                       int d, int heads, int hd, void* ctx, int* counts,
+                       cudaStream_t stream) {
+  return launch_attention<T>(rope, 0, s, w3, sc3, auxp, delta, scale, lif,
+                             causal, nt, nb, l, d, heads, hd, l, 1, d, 1, ctx,
+                             counts, stream);
 }
 
 }  // namespace
@@ -1095,27 +1211,31 @@ extern "C" int fused_layer_forward(
   return (int)cudaErrorInvalidValue;
 }
 
-// The SSA bundle (fused_ssa, bn family): s (T, B, L, D) spikes, w3
-// (3, D, H hd), sc3 (3, H hd) fp32 scales, auxp (3, 4, H hd) fp32 BN rows
-// [mean, inv_std, scale, bias], delta (1,) fp32; ctx (T, B, L, H hd) in
-// the dtype (0 = float32, 1 = bfloat16); counts (H, 4) int32, zeroed by
-// the caller. Returns a cudaError_t (0 = success).
+// The SSA bundle (fused_ssa): s (T, B, L, D) spikes (rope: normed
+// currents), w3 (3, D, H hd), sc3 (3, H hd) fp32 scales, auxp (3, 4, H hd)
+// fp32 BN rows [mean, inv_std, scale, bias] (rope: the (2, L, hd / 2)
+// [cos; sin] table), delta (1,) fp32; rope: the token family's epilogue;
+// causal: mask future keys; ctx (T, B, L, H hd) in the dtype (0 =
+// float32, 1 = bfloat16); counts (H, 4) int32, zeroed by the caller.
+// Returns a cudaError_t (0 = success).
 extern "C" int fused_ssa_forward(int dtype, const void* s, const void* w3,
                                  const void* sc3, const void* auxp,
                                  const void* delta, float scale, float decay,
-                                 float vth, int soft_reset, int nt, int nb,
-                                 int l, int d, int heads, int hd, void* ctx,
-                                 void* counts, void* stream) {
+                                 float vth, int soft_reset, int rope,
+                                 int causal, int nt, int nb, int l, int d,
+                                 int heads, int hd, void* ctx, void* counts,
+                                 void* stream) {
   const Lif lif{decay, vth, soft_reset};
   const auto f = [](const void* p) { return (const float*)p; };
   if (dtype == 0)
     return launch_ssa<float>(s, w3, f(sc3), f(auxp), f(delta), scale, lif,
-                             nt, nb, l, d, heads, hd, ctx, (int*)counts,
-                             (cudaStream_t)stream);
+                             rope, causal, nt, nb, l, d, heads, hd, ctx,
+                             (int*)counts, (cudaStream_t)stream);
   if (dtype == 1)
     return launch_ssa<__nv_bfloat16>(s, w3, f(sc3), f(auxp), f(delta), scale,
-                                     lif, nt, nb, l, d, heads, hd, ctx,
-                                     (int*)counts, (cudaStream_t)stream);
+                                     lif, rope, causal, nt, nb, l, d, heads,
+                                     hd, ctx, (int*)counts,
+                                     (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -61,6 +61,7 @@ import torch.nn.functional as F
 from repro_torch.core.spiking import SpikingConfig, lif_scan, lif_step
 from repro_torch.kernels.fused_ssa import (binary_scores, reference_bundle,
                                            rope_heads)
+from repro_torch.kernels.fused_ssa import seq_matmul as _seq_matmul
 from repro_torch.models.nn import bn_affine, rmsnorm
 
 FAMILIES = ("bn", "rope")
@@ -78,12 +79,18 @@ LAUNCHES_PER_CALL = 2
 
 # shape limits of the CUDA kernel (csrc/fused_layer.cu): launch A keeps
 # every q/k/v spike bit of the sequence in shared memory (so L is bounded
-# by :func:`smem_a`), launch B's rmsnorm holds a row in registers
+# by :func:`smem_a`) and a row's q or k bits in at most two 32-bit words
+# (head_dim <= 64); launch B holds T accumulators a slot and its rmsnorm
+# a row in registers, and the spike bit planes of a 64-row tile in shared
+# memory (:func:`smem_b`)
 L_TILE = 64
-MAX_HEAD_DIM = 32
+KA = 64                        # launch A's streamed w3 K-chunk
+MAX_HEAD_DIM = 64
+MAX_HEADS = 32
 MAX_T = 4
 MAX_D_ROPE = 1024
 SMEM_LIMIT = 232448 - 512      # per block, less launch A's static arrays
+SMEM_B_LIMIT = 232448 - 35840  # less launch B's static weight / operand tiles
 
 
 def reset_launches() -> None:
@@ -131,17 +138,6 @@ def _block_any(u: torch.Tensor, l_block: int, groups: int = 1
     m = F.pad((u != 0).to(torch.uint8), (0, 0, 0, nlb * l_block - l))
     m = m.reshape(t, b, nlb, l_block, groups, c // groups)
     return m.amax(dim=(3, 5)).transpose(2, 3).bool()
-
-
-def _seq_matmul(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """fp32 ``u @ w`` summed in ascending k, one fp32 product and one fp32
-    sum a term: the rope kernel's order for its analog products."""
-    u32, w32 = u.float(), w.float()
-    acc = torch.zeros((*u.shape[:-1], w.shape[-1]), dtype=torch.float32,
-                      device=u.device)
-    for k in range(u.shape[-1]):
-        acc.add_(u32[..., k, None] * w32[k])
-    return acc
 
 
 def _rms_plain(x1: torch.Tensor, scale: torch.Tensor, eps: float
@@ -403,13 +399,53 @@ def prepare(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2, delta, *,
 def smem_a(elem_size: int, t: int, l: int, d: int, head_dim: int,
            nlb: int) -> int:
     """Launch A's dynamic shared memory in bytes (``SmemA`` in the CUDA
-    source): the head's w3 slice, one 64-row slab, and the q/k/v spike
-    bits, masks and block flags of the whole sequence."""
+    source): one 64-row slab, the head's w3 slice (whole when it fits, as
+    the kernel's ``chunk_depth`` decides, else one KA-deep K-chunk), and
+    the q/k/v spike bits (q and k in ``ceil(head_dim / 32)`` words a row),
+    masks and block flags of the whole sequence."""
     n3, ldk, lw = 3 * head_dim, d + 16 // elem_size, -(-l // 32)
-    wt = -(-n3 * ldk * elem_size // 16) * 16
+    hw = -(-head_dim // 32)
     slab = L_TILE * max(ldk * elem_size, n3 * 4)
-    return wt + slab + 4 * (2 * t * l + t * head_dim * lw + 2 * t * lw
-                            + t * nlb)
+    bits = 4 * (2 * t * l * hw + t * head_dim * lw + 2 * t * lw + t * nlb)
+
+    def total(ka):
+        return slab + n3 * (ka * elem_size + 16) + bits
+    if d <= KA or total(d) <= SMEM_LIMIT:
+        return total(d)
+    return total(KA)
+
+
+def smem_b(t: int, d: int, ff: int, heads: int) -> int:
+    """Launch B's dynamic shared memory in bytes: a 64-row tile's input
+    and hidden spike bit planes for every timestep, and its flags."""
+    return 4 * (t * 64 * (-(-d // 32) + -(-ff // 32)) + t * (2 * heads + 1))
+
+
+def check_launch_shapes(elem_size: int, t: int, l: int, d: int, heads: int,
+                        head_dim: int, nlb: int, *, ff: Optional[int] = None,
+                        rope: bool = False, what: str = "fused_layer"
+                        ) -> None:
+    """Raises ValueError for a shape that launch A (and, given ``ff``,
+    launch B) does not take; ``what`` names the kernel in the message."""
+    smem = smem_a(elem_size, t, l, d, head_dim, nlb)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{what} kernel takes a sequence whose spike bits "
+                         f"fit shared memory, got T={t}, L={l} ({smem} "
+                         f"bytes > {SMEM_LIMIT})")
+    if head_dim > MAX_HEAD_DIM or head_dim % 8 or d % 16:
+        raise ValueError(f"{what} kernel takes head_dim a multiple of 8 up "
+                         f"to {MAX_HEAD_DIM} and D a multiple of 16, got "
+                         f"head_dim={head_dim}, D={d}")
+    if ff is None:
+        return
+    if t > MAX_T or heads > MAX_HEADS or (ff // heads) % 8 or \
+            (rope and d > MAX_D_ROPE) or \
+            smem_b(t, d, ff, heads) > SMEM_B_LIMIT:
+        raise ValueError(f"{what} kernel takes T <= {MAX_T}, at most "
+                         f"{MAX_HEADS} heads, F / H a multiple of 8, D at "
+                         f"most {MAX_D_ROPE} for rope and a tile's spike "
+                         f"bits within {SMEM_B_LIMIT} bytes of shared "
+                         f"memory, got T={t}, H={heads}, F={ff}, D={d}")
 
 
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 15
@@ -453,19 +489,8 @@ def fused_layer_cuda(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
     t, b, l, d = x.shape
     ff = w1.shape[1]
     nlb = -(-l // l_block)
-    smem = smem_a(x.element_size(), t, l, d, head_dim, nlb)
-    if t > MAX_T or smem > SMEM_LIMIT:
-        raise ValueError(f"fused_layer kernel takes T <= {MAX_T} and a "
-                         f"sequence whose spike bits fit shared memory, got "
-                         f"T={t}, L={l} ({smem} bytes > {SMEM_LIMIT})")
-    if head_dim > MAX_HEAD_DIM or head_dim % 8 or d % 16 or \
-            (ff // num_heads) % 8 or num_heads > 32 or \
-            (rope and d > MAX_D_ROPE):
-        raise ValueError(f"fused_layer kernel takes head_dim a multiple of 8 "
-                         f"up to {MAX_HEAD_DIM}, D a multiple of 16 (at "
-                         f"most {MAX_D_ROPE} for rope), F / H a multiple "
-                         f"of 8 and at most 32 heads, got head_dim="
-                         f"{head_dim}, D={d}, F={ff}, H={num_heads}")
+    check_launch_shapes(x.element_size(), t, l, d, num_heads, head_dim, nlb,
+                        ff=ff, rope=rope)
     act = tuple(a.contiguous() for a in act)
     f32 = tuple(a.contiguous() for a in f32)
     ctx = torch.empty((t, b, l, num_heads * head_dim), dtype=x.dtype,

@@ -11,20 +11,27 @@ Port of ``repro.kernels.fused_ssa``:
   the oracle's context (the kernel's rounding, step for step) and the
   ``(H, 4)`` map of executed dots: q, k and v count, per batch row, the
   timesteps whose whole ``(L, D)`` input slab is non-zero (a dark slab
-  skips its dot), attend counts ``2 T``;
+  skips its dot; an analog slab is dark only when it is all zero),
+  attend counts ``2 T``;
 * :func:`fused_ssa` — the wrapper: CPU tensors take the plain version,
   CUDA tensors launch ``csrc/fused_layer.cu``'s ``fused_ssa_forward``
   (the layer program's launch A alone) through :func:`fused_ssa_cuda`
   or raise.
 
-The kernel covers the ``bn`` family, with fp weights or int8 codes cast
-to the activation dtype plus ``scale3``; the ``rope`` family's kernel is
-still to be ported and raises (ROADMAP queue 2 #6b).
+Both families run on the kernel, with fp weights or int8 codes cast to
+the activation dtype plus ``scale3``: ``bn`` (the vision bundle on
+{0,1} spikes) and ``rope`` (the token family's causal bundle on the
+ln1-normed currents, RoPE on q and k from a ``(2, L, hd/2)`` [cos; sin]
+table). The rope family's three projections are analog sums, exact in
+no order: the kernel and the plain version sum them in ascending k, one
+fp32 product and one fp32 sum a term (:func:`seq_matmul`, the order
+of the layer program's rope family), so the two agree bitwise and
+equal the oracle wherever those sums are exact.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -33,12 +40,13 @@ from repro_torch.models.nn import bn_affine, fma32, rope_rotate
 
 FAMILIES = ("bn", "rope")
 PHASES = ("q", "k", "v", "attend")
-# kernel launches on the card (one per call of fused_ssa_cuda)
-LAUNCHES = {"fused_ssa": 0}
+# kernel launches on the card (one per call of fused_ssa_cuda), by family
+LAUNCHES = {"fused_ssa": 0, "fused_ssa_rope": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["fused_ssa"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def binary_scores(q: torch.Tensor, k: torch.Tensor, scale: float,
@@ -63,16 +71,33 @@ def rope_heads(y: torch.Tensor, table: torch.Tensor, num_heads: int
                        ).to(y.dtype).reshape(t, b, l, qd)
 
 
+def seq_matmul(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """fp32 ``u @ w`` summed in ascending k, one fp32 product and one fp32
+    sum a term: the CUDA kernels' order for the rope family's analog
+    products."""
+    u32, w32 = u.float(), w.float()
+    acc = torch.zeros((*u.shape[:-1], w.shape[-1]), dtype=torch.float32,
+                      device=u.device)
+    for k in range(u.shape[-1]):
+        acc.add_(u32[..., k, None] * w32[k])
+    return acc
+
+
+def _matmul(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return u.float() @ w.float()
+
+
 def reference_bundle(x: torch.Tensor, w3: torch.Tensor,
                      scale3: Optional[torch.Tensor], aux: torch.Tensor,
                      delta, scfg: SpikingConfig, *, family: str,
                      num_heads: int, head_dim: int, scale: float,
-                     causal: bool = False, eps: float = 1e-5
-                     ) -> torch.Tensor:
+                     causal: bool = False, eps: float = 1e-5,
+                     matmul: Callable = _matmul) -> torch.Tensor:
     """x: (T, B, L, D) spikes (bn) or normed currents (rope); w3:
     (3, D, H*hd); aux: (3, 4, H*hd) BN rows [mean, var, scale, bias] (bn)
     or the (2, L, hd/2) [cos; sin] table (rope). Returns the context
-    (T, B, L, H*hd)."""
+    (T, B, L, H*hd). ``matmul`` forms the fp32 projections (the plain
+    version passes :func:`seq_matmul`)."""
     if family not in FAMILIES:
         raise ValueError(f"unknown bundle family {family!r}")
     if not scfg.binarize_scores:
@@ -82,7 +107,7 @@ def reference_bundle(x: torch.Tensor, w3: torch.Tensor,
     q_dim = num_heads * head_dim
     projected = []
     for j in range(3):
-        acc = x.float() @ w3[j].float()
+        acc = matmul(x, w3[j])
         if scale3 is not None:
             acc = acc * scale3[j].float()
         y = acc.to(x.dtype)
@@ -106,17 +131,16 @@ def _check_bundle(x, w3, scale3, aux, family, num_heads, head_dim,
     if family not in FAMILIES:
         raise ValueError(f"unknown fused-SSA family {family!r} "
                          f"(expected bn|rope)")
-    if family == "rope":
-        raise NotImplementedError(
-            "the fused SSA bundle's rope family is not ported to PyTorch yet "
-            "(ROADMAP queue 2 #6b)")
     if not binarize_scores:
         raise NotImplementedError(
             "analog attention scores of the fused SSA bundle are not ported "
             "to PyTorch yet (ROADMAP queue 2 #6)")
     t, b, l, d = x.shape
     q_dim = num_heads * head_dim
-    want = {"w3": (w3.shape, (3, d, q_dim)), "aux": (aux.shape, (3, 4, q_dim))}
+    if family == "rope" and head_dim % 2:
+        raise ValueError("the rope family takes an even head_dim")
+    aux_shape = (3, 4, q_dim) if family == "bn" else (2, l, head_dim // 2)
+    want = {"w3": (w3.shape, (3, d, q_dim)), "aux": (aux.shape, aux_shape)}
     if scale3 is not None:
         want["scale3"] = (scale3.shape, (3, q_dim))
     for name, (got, shape) in want.items():
@@ -148,20 +172,26 @@ def _lif_config(decay: float, v_th: float, soft_reset: bool
 def fused_ssa_plain(x: torch.Tensor, w3: torch.Tensor,
                     scale3: Optional[torch.Tensor], aux: torch.Tensor, delta,
                     *, num_heads: int, head_dim: int, scale: float,
+                    family: str = "bn", causal: bool = False,
                     decay: float = 0.5, v_th: float = 1.0,
                     soft_reset: bool = False, eps: float = 1e-5
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the kernel (bn family), with the launcher's
-    signature: (context (T, B, L, H*hd) in the activation dtype, counts
-    (H, 4) int32). Skipped dots add exact zeros, so the context is
+    """Plain version of the kernel, with the launcher's signature:
+    (context (T, B, L, H*hd) in the activation dtype, counts (H, 4)
+    int32). Skipped dots add exact zeros, so the context is
     :func:`reference_bundle`'s, which rounds as the kernel does: fp32
     sums, ``* scale3`` and the cast, BN as ``fma32((y - mean) *
-    rsqrt(var + eps), scale, bias)``, LIF in the activation dtype, the
-    threshold ``fma32(count, scale, -delta)``."""
+    rsqrt(var + eps), scale, bias)`` (bn) or ``nn.rope_rotate`` on q and
+    k (rope), LIF in the activation dtype, the threshold ``fma32(count,
+    scale, -delta)``; the rope family's analog projections are summed in
+    the kernel's order (ascending k), which is the oracle's value wherever
+    those sums are exact."""
     ctx = reference_bundle(x, w3, scale3, aux, delta,
-                           _lif_config(decay, v_th, soft_reset), family="bn",
-                           num_heads=num_heads, head_dim=head_dim,
-                           scale=scale, eps=eps)
+                           _lif_config(decay, v_th, soft_reset),
+                           family=family, num_heads=num_heads,
+                           head_dim=head_dim, scale=scale, causal=causal,
+                           eps=eps,
+                           matmul=seq_matmul if family == "rope" else _matmul)
     return ctx, bundle_counts(x, num_heads)
 
 
@@ -172,20 +202,20 @@ def fused_ssa(x: torch.Tensor, w3: torch.Tensor,
               decay: float = 0.5, v_th: float = 1.0,
               soft_reset: bool = False, eps: float = 1e-5
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused projection + attention SSA step (forward only), the signature
-    of the JAX ``fused_ssa``. x: (T, B, L, D) {0,1} spikes in the
-    activation dtype; w3: (3, D, H*hd) in that dtype (int8 codes cast to
-    it); scale3: (3, H*hd) fp32 or None; aux: (3, 4, H*hd) BN rows [mean,
-    var, scale, bias]. Returns (context (T, B, L, H*hd), counts (H, 4)
-    int32 — executed dots per head and phase, :data:`PHASES`)."""
+    """Fused projection + attention SSA step (forward only; the engine's
+    ``_FusedBundle`` gives it the oracle's backward), the signature of the
+    JAX ``fused_ssa``. x: (T, B, L, D) {0,1} spikes (bn) or normed
+    currents (rope) in the activation dtype; w3: (3, D, H*hd) in that
+    dtype (int8 codes cast to it); scale3: (3, H*hd) fp32 or None; aux:
+    (3, 4, H*hd) BN rows [mean, var, scale, bias] (bn) or the (2, L,
+    hd/2) fp32 [cos; sin] table (rope); causal: mask future keys. Returns
+    (context (T, B, L, H*hd), counts (H, 4) int32 — executed dots per
+    head and phase, :data:`PHASES`)."""
     _check_bundle(x, w3, scale3, aux, family, num_heads, head_dim,
                   binarize_scores)
-    if causal:
-        raise NotImplementedError(
-            "the bn family of the fused SSA bundle is bidirectional; the "
-            "causal bundle is the rope family (ROADMAP queue 2 #6b)")
     kw = dict(num_heads=num_heads, head_dim=head_dim, scale=scale,
-              decay=decay, v_th=v_th, soft_reset=soft_reset, eps=eps)
+              family=family, causal=causal, decay=decay, v_th=v_th,
+              soft_reset=soft_reset, eps=eps)
     if x.device.type == "cpu":
         return fused_ssa_plain(x, w3, scale3, aux, delta, **kw)
     if x.device.type != "cuda":
@@ -200,7 +230,7 @@ def _library():
     if lib.fused_ssa_forward.argtypes is None:
         lib.fused_ssa_forward.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_float] * 3
-            + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3)
+            + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3)
         lib.fused_ssa_forward.restype = ctypes.c_int
     return lib
 
@@ -208,13 +238,15 @@ def _library():
 def fused_ssa_cuda(x: torch.Tensor, w3: torch.Tensor,
                    scale3: Optional[torch.Tensor], aux: torch.Tensor, delta,
                    *, num_heads: int, head_dim: int, scale: float,
+                   family: str = "bn", causal: bool = False,
                    decay: float = 0.5, v_th: float = 1.0,
                    soft_reset: bool = False, eps: float = 1e-5
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the bundle kernel (bn family) on PyTorch's current stream.
-    x and w3 share one dtype (float32 or bfloat16), which the context
-    takes; BN rows are passed with the inverse std, ``torch.rsqrt(var +
-    eps)`` computed once per channel (the oracle's)."""
+    """Launch the bundle kernel on PyTorch's current stream; counted under
+    ``fused_ssa`` (bn) or ``fused_ssa_rope``. x and w3 share one dtype
+    (float32 or bfloat16), which the context takes; BN rows are passed
+    with the inverse std, ``torch.rsqrt(var + eps)`` computed once per
+    channel (the oracle's); the rope table as fp32."""
     from repro_torch.kernels import fused_layer as FL
     dtypes = {torch.float32: 0, torch.bfloat16: 1}
     if x.dtype not in dtypes or w3.dtype != x.dtype:
@@ -223,24 +255,19 @@ def fused_ssa_cuda(x: torch.Tensor, w3: torch.Tensor,
     t, b, l, d = x.shape
     q_dim = num_heads * head_dim
     dev = x.device
+    rope = family == "rope"
     if scale3 is None:
         scale3 = torch.ones((3, q_dim), dtype=torch.float32, device=dev)
-    f32 = (scale3.float().contiguous(), FL._inv_rows(aux, eps).contiguous(),
+    aux = aux.float() if rope else FL._inv_rows(aux, eps)
+    f32 = (scale3.float().contiguous(), aux.contiguous(),
            torch.as_tensor(delta, dtype=torch.float32, device=dev
                            ).reshape(1).contiguous())
     act = (x.contiguous(), w3.contiguous())
     for a in act + f32:
         if a.device != dev:
             raise ValueError("all fused_ssa operands must be on one device")
-    smem = FL.smem_a(x.element_size(), t, l, d, head_dim, 1)
-    if smem > FL.SMEM_LIMIT:
-        raise ValueError(f"fused_ssa kernel takes a sequence whose spike "
-                         f"bits fit shared memory, got T={t}, L={l} ({smem} "
-                         f"bytes > {FL.SMEM_LIMIT})")
-    if head_dim > FL.MAX_HEAD_DIM or head_dim % 8 or d % 16:
-        raise ValueError(f"fused_ssa kernel takes head_dim a multiple of 8 "
-                         f"up to {FL.MAX_HEAD_DIM} and D a multiple of 16, "
-                         f"got head_dim={head_dim}, D={d}")
+    FL.check_launch_shapes(x.element_size(), t, l, d, num_heads, head_dim, 1,
+                           what="fused_ssa")
     ctx = torch.empty((t, b, l, q_dim), dtype=x.dtype, device=dev)
     counts = torch.zeros((num_heads, 4), dtype=torch.int32, device=dev)
     if ctx.numel() == 0:
@@ -249,10 +276,11 @@ def fused_ssa_cuda(x: torch.Tensor, w3: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.fused_ssa_forward(
         dtypes[x.dtype], *(a.data_ptr() for a in act + f32), float(scale),
-        float(decay), float(v_th), int(soft_reset), t, b, l, d, num_heads,
-        head_dim, ctx.data_ptr(), counts.data_ptr(), stream)
+        float(decay), float(v_th), int(soft_reset), int(rope), int(causal),
+        t, b, l, d, num_heads, head_dim, ctx.data_ptr(), counts.data_ptr(),
+        stream)
     if rc != 0:
         raise RuntimeError(f"fused_ssa kernel launch failed: "
                            f"{lib.fused_layer_error(rc).decode()}")
-    LAUNCHES["fused_ssa"] += 1
+    LAUNCHES["fused_ssa_rope" if rope else "fused_ssa"] += 1
     return ctx, counts

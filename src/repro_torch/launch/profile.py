@@ -4,7 +4,9 @@
     PYTHONPATH=src python -m repro_torch.launch.profile \
         --quantize int8 --keep-fp wq,wk,wv
     PYTHONPATH=src python -m repro_torch.launch.profile \
-        --arch spikingformer-lm [--quantize int8]
+        --arch spikingformer-8-512 [--sparse decoded] [--batch 64]
+    PYTHONPATH=src python -m repro_torch.launch.profile \
+        --arch spikingformer-lm [--quantize int8 [--keep-fp wo,up,down]]
 
 Spikingformer-4-256 (the default): the published config (seeded random
 weights; ``--sparse`` sets its sparse datapath, 'auto' by default) on
@@ -15,16 +17,21 @@ raised by 1/4, as ``chip_smoke.py`` does: on the random weights every
 layer input is dark and the sparse kernels skip everything), with the
 linears named by ``--keep-fp`` left unquantized (``--keep-fp
 wq,wk,wv``: the mixed-precision tree, whose layers run ``fused_ssa``
-and the int8 sparse products). spikingformer-lm: the
-published config (``--quantize int8``: its int8 tree, as ``launch/
-serve.py --quantize int8`` loads it) through ``build_prefill_step`` on
-8 x 512 tokens, and through the continuous-batching server: one call
-serves 8 requests of 100-500 prompt tokens and 8 new tokens each over 8
-slots. Each step gets two warm-up calls, then three under
-``torch.profiler``. For each it prints the wall time per call, the
-device time per call summed by kernel name, and the device's busy share
-(kernel time over wall time), then one JSON line with the same numbers.
-Needs a CUDA device.
+and the int8 sparse products). Spikingformer-8-512 (the paper's ImageNet
+workload, 224x224 images): the published config's prefill only, on
+weights that fire (BN biases raised by 1/4), in batches of ``--batch``
+images (64 by default); its training step is not profiled. The
+published spikingformer-lm (``--quantize int8``: its int8 tree, as
+``launch/serve.py --quantize int8`` loads it; with ``--keep-fp
+wo,up,down`` the mixed tree of int8 wq, wk, wv and the LM head, whose
+layers run the bundle kernel's rope family) through
+``build_prefill_step`` on 8 x 512 tokens, and through the
+continuous-batching server: one call serves 8 requests of 100-500 prompt
+tokens and 8 new tokens each over 8 slots. Each step gets two warm-up
+calls, then three under ``torch.profiler``. For each it prints the wall
+time per call, the device time per call summed by kernel name, and the
+device's busy share (kernel time over wall time), then one JSON line
+with the same numbers. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -90,14 +97,25 @@ def _profile(arch: str, what: str, sparse: str, call,
                       "device": torch.cuda.get_device_name(0)}))
 
 
-def _profile_lm(cfg, quantize: str) -> None:
-    from repro_torch.launch.serve import BatchedServer, Request
+def _quantized(params, quantize: str, keep_fp):
+    """``params`` with its linears quantized, except those named in
+    ``keep_fp``."""
     from repro_torch.quant import quantize_tree
+    return quantize_tree(params, quantize, select=lambda path: path.rsplit(
+        "/", 1)[-1] not in keep_fp)
+
+
+def _profile_lm(cfg, quantize: str, keep_fp) -> None:
+    from repro_torch.launch.serve import BatchedServer, Request
     params = registry.init(cfg, seed=0)
     if quantize != "none":
-        params = quantize_tree(params, quantize)
-        cfg = cfg.replace(engine=cfg.engine.replace(weights=quantize))
-    arch = f"{cfg.name} ({quantize if quantize != 'none' else cfg.dtype})"
+        params = _quantized(params, quantize, keep_fp)
+        if not keep_fp:
+            cfg = cfg.replace(engine=cfg.engine.replace(weights=quantize))
+    what = quantize if quantize != "none" else cfg.dtype
+    if keep_fp:
+        what += f", fp {','.join(keep_fp)}"
+    arch = f"{cfg.name} ({what})"
     prefill = build_prefill_step(cfg)
     gen = torch.Generator().manual_seed(1)
     tokens = [torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
@@ -119,19 +137,23 @@ def _profile_lm(cfg, quantize: str) -> None:
              unit=f"{SERVE_REQUESTS} requests x {SERVE_NEW} new tokens")
 
 
-def _quantized_vision(cfg, quantize: str, keep_fp):
-    """(cfg, params): the vision tree of weights that fire, its linears
-    quantized except those named in ``keep_fp``; a fully quantized tree
-    declares its weights datapath, a mixed one stays 'fp32'."""
-    from repro_torch.quant import quantize_tree
+def _firing_vision(cfg):
+    """The vision params of seed 0 with every BN bias raised by 1/4, so
+    layer inputs fire."""
     params = registry.init(cfg, seed=0)
     for k, v in params["blocks"].items():
         if k.startswith("bn_"):
             v["bias"] = v["bias"] + 0.25
     for p in params["sps"]:
         p["bn"]["bias"] = p["bn"]["bias"] + 0.25
-    params = quantize_tree(params, quantize, select=lambda path: path.rsplit(
-        "/", 1)[-1] not in keep_fp)
+    return params
+
+
+def _quantized_vision(cfg, quantize: str, keep_fp):
+    """(cfg, params): the vision tree of weights that fire, its linears
+    quantized except those named in ``keep_fp``; a fully quantized tree
+    declares its weights datapath, a mixed one stays 'fp32'."""
+    params = _quantized(_firing_vision(cfg), quantize, keep_fp)
     if not keep_fp:
         cfg = cfg.replace(engine=cfg.engine.replace(weights=quantize))
     return cfg, params
@@ -140,7 +162,8 @@ def _quantized_vision(cfg, quantize: str, keep_fp):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="spikingformer-4-256",
-                    choices=["spikingformer-4-256", "spikingformer-lm"])
+                    choices=["spikingformer-4-256", "spikingformer-8-512",
+                             "spikingformer-lm"])
     ap.add_argument("--sparse", default=None,
                     choices=["tile", "decoded", "auto"],
                     help="the engine's sparse datapath (default: the "
@@ -150,7 +173,9 @@ def main():
                     help="quantize the linears at load")
     ap.add_argument("--keep-fp", default="",
                     help="comma-separated linear names left unquantized "
-                         "under --quantize (spikingformer-4-256)")
+                         "under --quantize")
+    ap.add_argument("--batch", type=int, default=BATCH,
+                    help="images a vision request")
     args = ap.parse_args()
     keep_fp = tuple(n for n in args.keep_fp.split(",") if n)
     if not torch.cuda.is_available():
@@ -160,27 +185,36 @@ def main():
     if args.sparse is not None:
         cfg = cfg.replace(engine=cfg.engine.replace(sparse=args.sparse))
     if args.arch == "spikingformer-lm":
-        _profile_lm(cfg, args.quantize)
+        _profile_lm(cfg, args.quantize, keep_fp)
         return
+    eight = args.arch == "spikingformer-8-512"
     if args.quantize != "none":
         cfg, params = _quantized_vision(cfg, args.quantize, keep_fp)
+    elif eight:
+        params = _firing_vision(cfg)
     else:
         params = registry.init(cfg, seed=0)
     prefill = build_prefill_step(cfg)
     gen = torch.Generator().manual_seed(1)
     v = cfg.vision
-    images = [torch.rand((BATCH, v.img_size, v.img_size, v.in_channels),
-                         generator=gen).cuda() for _ in range(CALLS + 2)]
+    images = [torch.rand((args.batch, v.img_size, v.img_size,
+                          v.in_channels), generator=gen).cuda()
+              for _ in range(CALLS + 2)]
     what = "prefill" if args.quantize == "none" else \
         f"prefill ({args.quantize}, fp {','.join(keep_fp) or 'none'})"
+    if eight:
+        what += ", BN biases raised"
     _profile(args.arch, what, cfg.engine.sparse,
-             lambda i: prefill(params, {"images": images[i]}))
-    if args.quantize != "none":
-        return      # an int8 tree takes no train step (QAT is not ported)
+             lambda i: prefill(params, {"images": images[i]}),
+             unit=f"{args.batch} images")
+    if args.quantize != "none" or eight:
+        # an int8 tree takes no train step (QAT is not ported); the 8-512
+        # training step is not part of the port's checked paths yet
+        return
 
     opt = adamw(warmup_cosine(2e-3, 1, CALLS + 2))
     train_step = build_train_step(cfg, opt)
-    batch_fn = make_batch_fn(cfg, BATCH)
+    batch_fn = make_batch_fn(cfg, args.batch)
     batches = [batch_fn(i) for i in range(CALLS + 2)]
     carry = [params, opt.init(params), registry.init_state(cfg)]
 
@@ -188,7 +222,8 @@ def main():
         p, o, _, _, st = train_step(carry[0], carry[1], i, batches[i],
                                     carry[2])
         carry[:] = [p, o, st]
-    _profile(args.arch, "train", cfg.engine.sparse, train)
+    _profile(args.arch, "train", cfg.engine.sparse, train,
+             unit=f"{args.batch} images")
 
 
 if __name__ == "__main__":

@@ -168,3 +168,64 @@ def test_kernel_launcher_rejects_operands_before_launching(bad):
         args = args[:2] + (args[2].double(),) + args[3:]
     with pytest.raises(ValueError):
         TFL.fused_layer_cuda(*args, **kw)
+
+
+def test_layer_at_8_512_width_bitwise_against_jitted_jax_oracle():
+    """One layer of Spikingformer-8-512 at its published widths (T=4,
+    B=1, L=196, D=512, 8 heads of 64, d_ff=2048) on dyadic weights: the
+    plain version, tile and decoded with the engine's l_block (two
+    L-blocks, the second ragged), bitwise equal to the jitted JAX
+    ``reference_layer``; the same counts of executed L-blocks for the
+    binary and post-attention phases."""
+    t, b, l, d, heads, hd, ff = 4, 1, 196, 512, 8, 64, 2048
+    args = layer_ops(17, t, b, l, d, heads, hd, ff)
+    want = _jax_reference(args, t, heads, hd)
+    assert np.isfinite(want).all() and want.std() > 0
+    targs = to_torch(args)
+    cnts = {}
+    for sparse in ("tile", "decoded"):
+        out, cnts[sparse] = TFL.fused_layer(*targs, l_block=128, sparse=sparse,
+                                            **_kw(heads, hd))
+        np.testing.assert_array_equal(out.numpy(), want, err_msg=sparse)
+        assert cnts[sparse].shape == (heads, 8, 2)
+    assert torch.equal(cnts["tile"][:, 3:], cnts["decoded"][:, 3:])
+
+
+@pytest.mark.parametrize("elem_size", [2, 4])
+def test_launcher_takes_8_512_and_the_lm_past_its_old_bound(elem_size):
+    """Launch A streams w3 in K-chunks and keeps head_dim <= 64 in two
+    words a row: the 8-512 layer fits (head_dim 64, D=512, F=2048, both
+    launches' shared memory) in bf16 and fp32, and the LM's rope layer
+    (D=256, hd=32, T=4) takes sequences past the old bound of 2998 (bf16)
+    and 1328 (fp32) tokens: up to 3744 and 2827. head_dim 72 and longer
+    sequences are still refused."""
+    TFL.check_launch_shapes(elem_size, 4, 196, 512, 8, 64, 2, ff=2048)
+    assert TFL.smem_a(elem_size, 4, 196, 512, 64, 2) <= TFL.SMEM_LIMIT
+    assert TFL.smem_b(4, 512, 2048, 8) <= TFL.SMEM_B_LIMIT
+    longest = {2: 3744, 4: 2827}[elem_size]
+    for l, ok in ((longest, True), (longest + 1, False)):
+        call = lambda: TFL.check_launch_shapes(  # noqa: E731
+            elem_size, 4, l, 256, 8, 32, -(-l // 128), ff=1024, rope=True)
+        if ok:
+            call()
+        else:
+            with pytest.raises(ValueError, match="fit shared memory"):
+                call()
+    with pytest.raises(ValueError, match="head_dim"):
+        TFL.check_launch_shapes(elem_size, 4, 196, 512, 8, 72, 2, ff=2048)
+    with pytest.raises(ValueError, match="F / H"):
+        TFL.check_launch_shapes(elem_size, 4, 196, 512, 8, 64, 2, ff=8 * 36)
+    with pytest.raises(ValueError, match="F / H"):
+        TFL.check_launch_shapes(elem_size, 4, 64, 512, 8, 64, 1,
+                                ff=8 * 1024)
+
+
+def test_kernel_launcher_rejects_head_dim_72_before_launching():
+    t, l, heads, hd, d, ff = 2, 13, 2, 72, 16, 16
+    args, kw = TFL.prepare(*to_torch(layer_ops(7, t, 1, l, d, heads, hd, ff)),
+                           num_heads=heads, head_dim=hd,
+                           scale=1.0 / math.sqrt(hd), decay=0.5, v_th=1.0,
+                           soft_reset=False, eps=1e-5, l_block=8)
+    with pytest.raises(ValueError, match="head_dim a multiple of 8 up to 64"):
+        TFL.fused_layer_cuda(*args, **kw)
+    assert TFL.LAUNCHES["fused_layer"] == 0

@@ -6,7 +6,9 @@ against the JAX package.
   context and the ``(H, 4)`` count map bitwise, fp weights and int8
   codes with ``scale3``, fp32 and bf16, L a multiple of 8 and L = 13,
   an all-zero input (q / k / v counts 0); and equals the port's
-  ``reference_bundle``; the rope family raises naming its queue row;
+  ``reference_bundle``; the rope family (#6b, causal) likewise on a
+  shared RoPE table and dyadic currents (exact projection sums, so the
+  kernel's ascending-k order and XLA's dot agree bitwise);
 * ``ssa_step`` with ``overlap='fused'`` (the bundle through the plain
   version) equals JAX's ``ssa_step`` under explicit ``overlap='fused'``
   bitwise and returns the BN state unchanged; its gradients recompute
@@ -78,6 +80,13 @@ def _kw(shape):
                 scale=1.0 / math.sqrt(hd))
 
 
+def _rope_table(l, hd):
+    """The port's RoPE table (cos, sin) as numpy, shared by both packages."""
+    from repro_torch.models.nn import rope_table
+    cos, sin = rope_table(torch.arange(l), hd, 10000.0)
+    return cos.numpy(), sin.numpy()
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("shape", ["l16", "l13"])
@@ -119,8 +128,18 @@ def test_fused_ssa_all_zero_input_and_checks():
     assert cnt[:, :3].sum() == 0
     args = (torch.from_numpy(x), torch.from_numpy(w3), None,
             torch.from_numpy(aux), 0.3)
-    with pytest.raises(NotImplementedError, match="#6b"):
-        TF.fused_ssa(*args, **dict(_kw(shape), family="rope"))
+    # the rope family is ported: on the all-zero input it runs, equal to
+    # the Pallas kernel, with no projection counted
+    t, b, l, d, h, hd = shape
+    table = np.stack(_rope_table(l, hd))
+    rope_kw = dict(_kw(shape), family="rope", causal=True)
+    want, wcnt = JF.fused_ssa(jnp.asarray(x), jnp.asarray(w3), None,
+                              jnp.asarray(table), 0.3, **rope_kw)
+    got, cnt = TF.fused_ssa(args[0], args[1], None, torch.from_numpy(table),
+                            0.3, **rope_kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(wcnt))
+    assert cnt[:, :3].sum() == 0
     with pytest.raises(ValueError, match="w3 has shape"):
         TF.fused_ssa(args[0], args[1][:, :5], *args[2:], **_kw(shape))
     with pytest.raises(ValueError, match="CPU or CUDA"):
@@ -130,7 +149,7 @@ def test_fused_ssa_all_zero_input_and_checks():
 @pytest.mark.parametrize("case", ["dtype", "head_dim", "long_l", "d"])
 def test_fused_ssa_launcher_rejects_operands_before_launching(case):
     """The CUDA launcher checks what launch A takes (one dtype, head_dim a
-    multiple of 8 up to 32, D a multiple of 16, the sequence's spike bits
+    multiple of 8 up to 64, D a multiple of 16, the sequence's spike bits
     in shared memory) and raises before it builds or launches anything;
     these operands lie on the CPU, where no kernel exists."""
     shape = {"head_dim": (2, 2, 16, 32, 2, 12),
@@ -145,6 +164,77 @@ def test_fused_ssa_launcher_rejects_operands_before_launching(case):
         TF.fused_ssa_cuda(x, w3, None, aux, 0.3, num_heads=h, head_dim=hd,
                           scale=1.0 / math.sqrt(hd))
     assert TF.LAUNCHES["fused_ssa"] == 0
+
+
+def _rope_ops(seed, shape, quant):
+    """numpy rope-bundle operands: dyadic normed currents (a dark (t=0,
+    b=0) slab, an all-zero token) so every projection sum is exact in
+    any order; dyadic weights or int8 codes with random scales; the
+    port's table."""
+    t, b, l, d, h, hd = shape
+    rng = np.random.default_rng(seed)
+    x = dyadic(rng, (t, b, l, d), bits=5) * 2
+    x[:, :, min(2, l - 1)] = 0.0
+    x[0, 0] = 0.0
+    if quant:
+        w3 = rng.integers(-127, 128, (3, d, h * hd)).astype(np.float32)
+        scale3 = rng.uniform(2e-3, 2e-2, (3, h * hd)).astype(np.float32)
+    else:
+        w3, scale3 = dyadic(rng, (3, d, h * hd)) * 2, None
+    return x, w3, scale3, np.stack(_rope_table(l, hd))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("shape", ["l16", "l13"])
+def test_fused_ssa_rope_plain_matches_pallas(dtype, quant, shape):
+    """#6b: the rope family's plain version (causal) against the Pallas
+    kernel in interpret mode on a shared table: context and (H, 4)
+    counts bitwise (exact projection sums), and the port's oracle."""
+    shape = SHAPES[shape]
+    x, w3, scale3, table = _rope_ops(5, shape, quant)
+    jd, td = DTYPES[dtype]
+    kw = dict(_kw(shape), family="rope", causal=True)
+    want, wcnt = JF.fused_ssa(jnp.asarray(x, jd), jnp.asarray(w3, jd),
+                              None if scale3 is None else jnp.asarray(scale3),
+                              jnp.asarray(table), 0.3, **kw)
+    tx, tw = torch.from_numpy(x).to(td), torch.from_numpy(w3).to(td)
+    tsc = None if scale3 is None else torch.from_numpy(scale3)
+    before = dict(TF.LAUNCHES)
+    got, cnt = TF.fused_ssa(tx, tw, tsc, torch.from_numpy(table), 0.3, **kw)
+    assert TF.LAUNCHES == before and got.dtype == td
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(wcnt))
+    t, b = shape[:2]
+    assert cnt[0].tolist() == [t * b - 1] * 3 + [2 * t * b]
+    assert float(got.float().sum()) > 0
+    ref = TF.reference_bundle(tx, tw, tsc, torch.from_numpy(table), 0.3,
+                              SpikingConfig(time_steps=shape[0]), **kw)
+    assert torch.equal(got, ref)
+
+
+def test_fused_ssa_rope_checks_its_operands():
+    """The rope family takes the (2, L, hd/2) table as aux and an even
+    head_dim; its launcher checks the shapes launch A takes before it
+    builds or launches anything (these operands lie on the CPU)."""
+    shape = SHAPES["l13"]
+    t, b, l, d, h, hd = shape
+    x, w3, _, table = _rope_ops(6, shape, False)
+    kw = dict(_kw(shape), family="rope", causal=True)
+    args = (torch.from_numpy(x), torch.from_numpy(w3), None)
+    with pytest.raises(ValueError, match="aux has shape"):
+        TF.fused_ssa(*args, torch.from_numpy(table[:, :5]), 0.3, **kw)
+    with pytest.raises(ValueError, match="aux has shape"):
+        TF.fused_ssa(*args, torch.ones((3, 4, h * hd)), 0.3, **kw)
+    with pytest.raises(ValueError, match="even head_dim"):
+        TF.fused_ssa(args[0], torch.zeros((3, d, h * 7)), None,
+                     torch.zeros((2, l, 3)), 0.3,
+                     **dict(kw, head_dim=7))
+    with pytest.raises(ValueError, match="fused_ssa kernel takes"):
+        TF.fused_ssa_cuda(torch.zeros((4, 1, 20000, d)), args[1], None,
+                          torch.zeros((2, 20000, hd // 2)), 0.3, **kw)
+    assert TF.LAUNCHES["fused_ssa_rope"] == 0
 
 
 def _block(jcfg, seed, quant_qkv):

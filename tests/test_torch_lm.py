@@ -508,6 +508,58 @@ def test_layer_step_causal_dispatch(monkeypatch):
     assert calls == [True]
 
 
+def _select_qkv(path):
+    """The mixed LM tree: int8 wq, wk, wv; every other linear fp."""
+    return path.rsplit("/", 1)[-1] in ("wq", "wk", "wv")
+
+
+def test_mixed_tree_bundle_fused_matches_off_and_jax(monkeypatch):
+    """The mixed int8 LM tree (int8 wq, wk, wv) at SMOKE size: its layers
+    are not eligible for the layer program (mixed quantization) and its
+    bundles are eligible for the bundle kernel's rope family (#6b).
+    ``ssa_step_causal`` under overlap='fused' (the plain version on the
+    CPU, one bundle call, no launch) equals 'off' (the sequential
+    composition) bitwise: the projections sum in another order, and no
+    LIF decision flips at this size (asserted). The prefill step's
+    logits under 'fused' equal 'off' bitwise, and JAX's forward of the
+    same tree within 1e-5 absolute (the norms' rsqrt gap, ROADMAP queue
+    3, as the other LM forwards)."""
+    jcfg, cfg, jp = _params()
+    jq = jax.tree_util.tree_map(np.asarray, jquantize_tree(
+        jp, "int8", select=_select_qkv))
+    tq = interop.to_torch(jq, device="cpu")
+    assert "qw" in tq["layers"]["wq"] and "w" in tq["layers"]["wo"]
+    toks = _tokens(jcfg, 2, 11, seed=3)
+    lp = TT._layer(tq, 0)
+    x = nn.embed(tq["embed"], torch.from_numpy(toks))
+    x = x[None].expand(cfg.spiking.time_steps, *x.shape)
+    h = nn.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    pos = torch.arange(toks.shape[1])
+    calls = []
+    real = TFS.fused_ssa
+
+    def spy(*a, **kw):
+        calls.append((kw["family"], kw["causal"]))
+        return real(*a, **kw)
+    monkeypatch.setattr(TFS, "fused_ssa", spy)
+    before = dict(TFS.LAUNCHES)
+    fused = E.ssa_step_causal(lp, cfg, h, pos,
+                              engine=cfg.engine.replace(overlap="fused"))
+    off = E.ssa_step_causal(lp, cfg, h, pos,
+                            engine=cfg.engine.replace(overlap="off"))
+    assert calls == [("rope", True)] and TFS.LAUNCHES == before
+    assert torch.equal(fused, off) and float(fused.sum()) > 0
+    want = np.asarray(jax.jit(lambda p, t: jregistry.forward(
+        p, jcfg, {"tokens": t})[0])(jq, toks))
+    got = {ov: steps.build_prefill_step(
+        cfg.replace(engine=cfg.engine.replace(overlap=ov)), device="cpu")(
+            tq, {"tokens": torch.from_numpy(toks)}) for ov in ("fused", "off")}
+    assert len(calls) == 1 + cfg.num_layers
+    assert torch.equal(got["fused"], got["off"])
+    assert np.isfinite(want).all() and want.std() > 0
+    np.testing.assert_allclose(got["fused"].numpy(), want, rtol=0, atol=1e-5)
+
+
 def test_unported_token_paths_raise():
     cfg = get_config(ARCH, smoke=True)
     for bad in (cfg.replace(attn_type="swa"),
@@ -518,9 +570,14 @@ def test_unported_token_paths_raise():
     lp, x, pos = _layer_inputs(cfg)
     with pytest.raises(NotImplementedError, match="item 7"):
         E.layer_step_causal(lp, cfg, x, pos, train=True)
-    with pytest.raises(NotImplementedError, match="rope family.*#6b"):
-        E.ssa_step_causal(lp, cfg, x, pos,
-                          engine=cfg.engine.replace(overlap="fused"))
+    # the fused bundle's rope family, which raised here before it was
+    # ported, now runs: under overlap='fused' equal to 'off', bitwise
+    h = nn.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    fused = E.ssa_step_causal(lp, cfg, h, pos,
+                              engine=cfg.engine.replace(overlap="fused"))
+    off = E.ssa_step_causal(lp, cfg, h, pos,
+                            engine=cfg.engine.replace(overlap="off"))
+    assert torch.equal(fused, off) and float(fused.sum()) > 0
     t, b, l, d, heads, hd, ff, l_block = SHAPES["odd"]
     targs = to_torch(rope_layer_ops(3, t, b, l, d, heads, hd, ff))
     with pytest.raises(NotImplementedError, match="#1"):
