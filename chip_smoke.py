@@ -14,9 +14,9 @@ device; exits non-zero without one). It
    * the fused layer program (eval), also on random-normal weights (as
      information), with several L-blocks per sequence (``l_block <
      L``, one L-block of a sequence dark), and at Spikingformer-8-512's
-     widths (T=4, B=8, L=196, D=512, 8 heads of 64, F=2048, l_block 128;
-     and a ragged L=50), where launch A streams w3 in K-chunks and keeps
-     q/k bits in two words a row;
+     widths (T=4, B=32 as the main path's requests, L=196, D=512, 8
+     heads of 64, F=2048, l_block 128; and a ragged L=50), where launch
+     A streams w3 in K-chunks and keeps q/k bits in two words a row;
    * ``spike_matmul`` at the six products of a training layer (q, k, v,
      wo on integer counts, w1, w2; M = 16384) with dark tiles, and at
      ragged shapes with and without bias;
@@ -38,7 +38,8 @@ device; exits non-zero without one). It
      outputs bitwise equal, bf16 and fp32; and the bundle's rope family
      (``fused_ssa`` with family 'rope', causal) on the ln1 output of the
      same shape and of S=200, on int8 codes: context and (H, 4) counts
-     bitwise;
+     bitwise; both rope kernels also at an S where launch A streams w3
+     (3072 in bf16, 1408 in fp32);
    * ``quant_spike_matmul`` and ``quant_gather_spike_matmul`` (int8
      codes, random per-channel scales) at the three products of a mixed
      layer (wo on integer counts up to 512, w1, w2; M = 16384) on spikes
@@ -90,9 +91,10 @@ device; exits non-zero without one). It
      16 requests of 100-500 prompt tokens, 32 new tokens each, tokens
      per second; its decode step and chunked prefill are plain PyTorch and
      launch no kernel) and one int8 Spikingformer-4-256 request;
-4. checks the outputs: finite logits of the right shape and, on 8 images
-   with dyadic weights, the fused path of Spikingformer-4-256 and of
-   Spikingformer-8-512 ('auto', 'tile' and 'decoded'), through the
+4. checks the outputs: finite logits of the right shape and, with
+   dyadic weights, the fused path of Spikingformer-4-256 (8 images) and
+   of Spikingformer-8-512 (one request of 32 images; 'auto', 'tile' and
+   'decoded'), through the
    kernels and through their plain versions, equal bitwise to the
    sequential oracle (``overlap='off'``); the mixed int8
    tree with dyadic scales, through the kernels (tile and decoded) ==
@@ -210,21 +212,24 @@ SSA_FULL = (T, B, L, D, H, HD)
 SSA_RAGGED = ("ragged L=50", (T, 16, 50, D, H, HD))
 # Spikingformer-8-512, the paper's ImageNet workload (T=4, L=196 from
 # 224x224 images through 4 SPS stages, D=512, 8 heads of 64, d_ff=2048):
-# the layer program checked at B=8 with the engine's l_block (128: a
-# ragged second L-block) and at a ragged L=50, timed at the batch of the
-# main path's requests; the bundle (bn) likewise
-EIGHT = (4, 8, 196, 512, 8, 64, 2048)
+# the layer program checked and timed at the batch of the main path's
+# requests with the engine's l_block (128: a ragged second L-block), and
+# checked at a ragged L=50; the bundle (bn) likewise
+EIGHT_REQUESTS, EIGHT_BATCH = 3, 32
+EIGHT = (4, EIGHT_BATCH, 196, 512, 8, 64, 2048)
 EIGHT_CASES = [("8-512 width", EIGHT, 128),
                ("8-512 width, ragged L=50", (4, 8, 50, 512, 8, 64, 2048), 32)]
-EIGHT_REQUESTS, EIGHT_BATCH = 3, 32
-EIGHT_TIME = (4, EIGHT_BATCH, 196, 512, 8, 64, 2048)
-SSA_EIGHT = [("8-512 width", (4, 8, 196, 512, 8, 64)),
+SSA_EIGHT = [("8-512 width", EIGHT[:6]),
              ("8-512 width, ragged L=50", (4, 8, 50, 512, 8, 64))]
-SSA_EIGHT_TIME = (4, EIGHT_BATCH, 196, 512, 8, 64)
 # the bundle's rope family (#6b, causal) at the LM prefill's shape and a
 # ragged S: (what, (T, B, S, D, H, hd))
 ROPE_SSA_CASES = [("S=512", (4, LM_BATCH, LM_PROMPT, 256, 8, 32)),
                   ("ragged S=200", (4, LM_BATCH, 200, 256, 8, 32))]
+# the rope family (#1c, #6b) at an S where launch A no longer holds the
+# head's whole w3 slice and streams it in KA-deep K-chunks (from S=2999
+# in bf16 and 1329 in fp32 at D=256), within the launcher's bound
+ROPE_STREAMED = {torch.bfloat16: (4, 2, 3072, 256, 8, 32, 1024),
+                 torch.float32: (4, 2, 1408, 256, 8, 32, 1024)}
 # the eval-mode gradient check of the fp32 LM: a batch of prompts
 LM_GRAD_BATCH, LM_GRAD_PROMPT = 2, 64
 KERNEL_MODULES = (FL, SM, SA, SD, FS)
@@ -1450,6 +1455,8 @@ def check_eval_gradients(cfg, params, batch, what, state=None):
     parameter gets a gradient."""
     layers = "blocks" if "blocks" in params else "layers"
     runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
     for ov in ("fused", "off"):
         leaves = [a.detach().requires_grad_(a.is_floating_point())
                   for a in tree_leaves(params[layers])]
@@ -1465,6 +1472,7 @@ def check_eval_gradients(cfg, params, batch, what, state=None):
                                         allow_unused=True)
         torch.cuda.synchronize()
         runs[ov] = (logits.detach(), grads, launches())
+    torch.backends.cudnn.deterministic = deterministic
     counts = runs["fused"][2]
     fused_launches = sum(n for k, n in counts.items()
                          if k.startswith("fused_layer"))
@@ -1534,7 +1542,7 @@ def main():
     layer_timing = {(sparse, dt): time_layer_kernel(sparse, dt)
                     for sparse in ("tile", "decoded") for dt in dtypes}
     eight_timing = {sparse: time_layer_kernel(sparse, torch.bfloat16,
-                                              EIGHT_TIME, 128)
+                                              EIGHT, 128)
                     for sparse in ("tile", "decoded")}
 
     # --- the rope family (#1c, #6b) against its plain versions ---------
@@ -1543,6 +1551,16 @@ def main():
     rope_timing = time_rope_kernel()
     rope_ssa_err = max(check_rope_ssa_kernel(dt, *case) for dt in dtypes
                        for case in ROPE_SSA_CASES)
+    for dt, shape in ROPE_STREAMED.items():
+        t, _, seq, d, _, hd, _ = shape
+        for nlb in (-(-seq // 128), 1):
+            if FL.chunk_depth(dt.itemsize, t, seq, d, hd, nlb) != FL.KA:
+                raise AssertionError(f"rope at {shape}, {dt}: launch A holds "
+                                     f"the whole w3 slice, not streamed")
+        what = f"streamed w3, S={seq}"
+        rope_err = max(rope_err, check_rope_kernel(dt, what, shape, 128))
+        rope_ssa_err = max(rope_ssa_err,
+                           check_rope_ssa_kernel(dt, what, shape[:6]))
     rope_ssa_timing = time_bundle(
         "fused_ssa_rope", *rope_ssa_operands(16, torch.bfloat16,
                                              ROPE_SSA_CASES[0][1]),
@@ -1607,7 +1625,7 @@ def main():
             "quant_gather_spike_matmul", SD.quant_gather_spike_matmul_cuda,
             SD.quant_gather_spike_matmul_plain, True)}
     ssa_timing = time_ssa_kernel()
-    ssa_eight_timing = time_ssa_kernel(SSA_EIGHT_TIME)
+    ssa_eight_timing = time_ssa_kernel(SSA_EIGHT[0][1])
 
     # --- the inference main paths ----------------------------------------
     cfg = get_config("spikingformer-4-256")
@@ -1658,7 +1676,7 @@ def main():
     eight_counts = {sp: inference_path(c, params8, requests8)
                     for sp, c in engines8.items()}
     fire_rates(cfg8, params8, requests8[0]["images"], "spikingformer-8-512")
-    check_vision_outputs(cfg8, params8, requests8[0]["images"][:8].cuda(),
+    check_vision_outputs(cfg8, params8, requests8[0]["images"].cuda(),
                          "spikingformer-8-512")
 
     # --- spikingformer-lm: int8 and bf16 prefill, the int8 server -------
@@ -1682,7 +1700,6 @@ def main():
     vision_int8_path()
 
     # --- eval-mode gradients through the layer program ----------------
-    torch.backends.cudnn.deterministic = True
     check_eval_gradients(cfg, dy, {"images": small},
                          "spikingformer-4-256 (bn)")
     lm32 = get_config("spikingformer-lm").replace(dtype="float32")
@@ -1702,7 +1719,7 @@ def main():
 
     def at_8_512(timing, counts, name):
         """A kernel's numbers at Spikingformer-8-512's shapes: its time,
-        plain time and bound at EIGHT_TIME (or SSA_EIGHT_TIME) and its
+        plain time and bound at EIGHT (or SSA_EIGHT's first shape) and its
         launches on the 8-512 path ('tile')."""
         return dict(timing, launches=counts[name])
 

@@ -396,23 +396,35 @@ def prepare(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2, delta, *,
     return (x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2, delta), kw
 
 
-def smem_a(elem_size: int, t: int, l: int, d: int, head_dim: int,
-           nlb: int) -> int:
+def _smem_a_at(elem_size: int, t: int, l: int, d: int, head_dim: int,
+               nlb: int, ka: int) -> int:
     """Launch A's dynamic shared memory in bytes (``SmemA`` in the CUDA
-    source): one 64-row slab, the head's w3 slice (whole when it fits, as
-    the kernel's ``chunk_depth`` decides, else one KA-deep K-chunk), and
-    the q/k/v spike bits (q and k in ``ceil(head_dim / 32)`` words a row),
-    masks and block flags of the whole sequence."""
+    source) with ``ka``-deep w3 K-chunks: one 64-row slab, one K-chunk
+    of the head's w3 slice, and the q/k/v spike bits (q and k in
+    ``ceil(head_dim / 32)`` words a row), masks and block flags of the
+    whole sequence."""
     n3, ldk, lw = 3 * head_dim, d + 16 // elem_size, -(-l // 32)
     hw = -(-head_dim // 32)
     slab = L_TILE * max(ldk * elem_size, n3 * 4)
     bits = 4 * (2 * t * l * hw + t * head_dim * lw + 2 * t * lw + t * nlb)
+    return slab + n3 * (ka * elem_size + 16) + bits
 
-    def total(ka):
-        return slab + n3 * (ka * elem_size + 16) + bits
-    if d <= KA or total(d) <= SMEM_LIMIT:
-        return total(d)
-    return total(KA)
+
+def chunk_depth(elem_size: int, t: int, l: int, d: int, head_dim: int,
+                nlb: int) -> int:
+    """The depth of launch A's w3 K-chunks, as the kernel's
+    ``chunk_depth`` picks it: D (the whole slice, staged once a block)
+    when that fits shared memory, else KA (streamed for every tile)."""
+    whole = _smem_a_at(elem_size, t, l, d, head_dim, nlb, d)
+    return d if d <= KA or whole <= SMEM_LIMIT else KA
+
+
+def smem_a(elem_size: int, t: int, l: int, d: int, head_dim: int,
+           nlb: int) -> int:
+    """Launch A's dynamic shared memory in bytes at the K-chunk depth
+    :func:`chunk_depth` picks."""
+    return _smem_a_at(elem_size, t, l, d, head_dim, nlb,
+                      chunk_depth(elem_size, t, l, d, head_dim, nlb))
 
 
 def smem_b(t: int, d: int, ff: int, heads: int) -> int:

@@ -4,7 +4,7 @@
     PYTHONPATH=src python -m repro_torch.launch.profile \
         --quantize int8 --keep-fp wq,wk,wv
     PYTHONPATH=src python -m repro_torch.launch.profile \
-        --arch spikingformer-8-512 [--sparse decoded] [--batch 64]
+        --arch spikingformer-8-512 [--sparse decoded]
     PYTHONPATH=src python -m repro_torch.launch.profile \
         --arch spikingformer-lm [--quantize int8 [--keep-fp wo,up,down]]
 
@@ -19,8 +19,8 @@ linears named by ``--keep-fp`` left unquantized (``--keep-fp
 wq,wk,wv``: the mixed-precision tree, whose layers run ``fused_ssa``
 and the int8 sparse products). Spikingformer-8-512 (the paper's ImageNet
 workload, 224x224 images): the published config's prefill only, on
-weights that fire (BN biases raised by 1/4), in batches of ``--batch``
-images (64 by default); its training step is not profiled. The
+weights that fire (BN biases raised by 1/4), in batches of 64 images;
+its training step is not profiled. The
 published spikingformer-lm (``--quantize int8``: its int8 tree, as
 ``launch/serve.py --quantize int8`` loads it; with ``--keep-fp
 wo,up,down`` the mixed tree of int8 wq, wk, wv and the LM head, whose
@@ -174,8 +174,6 @@ def main():
     ap.add_argument("--keep-fp", default="",
                     help="comma-separated linear names left unquantized "
                          "under --quantize")
-    ap.add_argument("--batch", type=int, default=BATCH,
-                    help="images a vision request")
     args = ap.parse_args()
     keep_fp = tuple(n for n in args.keep_fp.split(",") if n)
     if not torch.cuda.is_available():
@@ -197,16 +195,14 @@ def main():
     prefill = build_prefill_step(cfg)
     gen = torch.Generator().manual_seed(1)
     v = cfg.vision
-    images = [torch.rand((args.batch, v.img_size, v.img_size,
-                          v.in_channels), generator=gen).cuda()
-              for _ in range(CALLS + 2)]
+    images = [torch.rand((BATCH, v.img_size, v.img_size, v.in_channels),
+                         generator=gen).cuda() for _ in range(CALLS + 2)]
     what = "prefill" if args.quantize == "none" else \
         f"prefill ({args.quantize}, fp {','.join(keep_fp) or 'none'})"
     if eight:
         what += ", BN biases raised"
     _profile(args.arch, what, cfg.engine.sparse,
-             lambda i: prefill(params, {"images": images[i]}),
-             unit=f"{args.batch} images")
+             lambda i: prefill(params, {"images": images[i]}))
     if args.quantize != "none" or eight:
         # an int8 tree takes no train step (QAT is not ported); the 8-512
         # training step is not part of the port's checked paths yet
@@ -214,7 +210,7 @@ def main():
 
     opt = adamw(warmup_cosine(2e-3, 1, CALLS + 2))
     train_step = build_train_step(cfg, opt)
-    batch_fn = make_batch_fn(cfg, args.batch)
+    batch_fn = make_batch_fn(cfg, BATCH)
     batches = [batch_fn(i) for i in range(CALLS + 2)]
     carry = [params, opt.init(params), registry.init_state(cfg)]
 
@@ -222,8 +218,7 @@ def main():
         p, o, _, _, st = train_step(carry[0], carry[1], i, batches[i],
                                     carry[2])
         carry[:] = [p, o, st]
-    _profile(args.arch, "train", cfg.engine.sparse, train,
-             unit=f"{args.batch} images")
+    _profile(args.arch, "train", cfg.engine.sparse, train)
 
 
 if __name__ == "__main__":

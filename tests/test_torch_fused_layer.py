@@ -220,6 +220,25 @@ def test_launcher_takes_8_512_and_the_lm_past_its_old_bound(elem_size):
                                 ff=8 * 1024)
 
 
+@pytest.mark.parametrize("elem_size,t,l,d,hd,nlb,depth", [
+    (2, 4, 196, 512, 64, 2, 64), (4, 4, 196, 512, 64, 2, 64),
+    (2, 4, 512, 256, 32, 4, 256), (4, 4, 512, 256, 32, 4, 256),
+    (2, 4, 2998, 256, 32, 24, 256), (2, 4, 2999, 256, 32, 24, 64),
+    (4, 4, 1328, 256, 32, 11, 256), (4, 4, 1329, 256, 32, 11, 64),
+    (2, 4, 64, 64, 16, 1, 64)])
+def test_chunk_depth_streams_w3_only_past_shared_memory(elem_size, t, l, d,
+                                                        hd, nlb, depth):
+    """Launch A stages the head's whole w3 slice (depth D) while it fits
+    beside the slab and the sequence's bits, and streams KA-deep chunks
+    past that: the 8-512 layer always, the LM's rope layer from 2999
+    tokens in bf16 and 1329 in fp32; smem_a counts the chosen depth."""
+    assert TFL.chunk_depth(elem_size, t, l, d, hd, nlb) == depth
+    whole = TFL._smem_a_at(elem_size, t, l, d, hd, nlb, d)
+    assert (whole <= TFL.SMEM_LIMIT) == (depth == d)
+    assert TFL.smem_a(elem_size, t, l, d, hd, nlb) == TFL._smem_a_at(
+        elem_size, t, l, d, hd, nlb, depth)
+
+
 def test_kernel_launcher_rejects_head_dim_72_before_launching():
     t, l, heads, hd, d, ff = 2, 13, 2, 72, 16, 16
     args, kw = TFL.prepare(*to_torch(layer_ops(7, t, 1, l, d, heads, hd, ff)),
