@@ -51,6 +51,19 @@ device; exits non-zero without one). It
      codes with ``scale3``, and on an all-zero input, bf16 and fp32:
      context and (H, 4) counts bitwise; random-normal weights as
      information;
+   * ``popcount_scores`` (#8, the binary engine's AND-PopCount mode) on
+     packed spikes at the three popcount paths' shapes (BH = 2048, L =
+     64, d = 32; BH = 1024, L = 196, d = 64; BH = 256, L = 512, d = 32),
+     at a ragged Lq=50 x Lk=70, at d = 80 (three words, the last
+     zero-padded) and on all-zero and all-one words: int32 counts
+     bitwise; its time beside ``torch.bmm`` of the unpacked bf16 spikes,
+     and the whole popcount forward of ``ops.binary_attention`` beside
+     #7's ``spike_attention`` at the same three shapes;
+   * ``lif_forward`` (#9, the fused LIF entry ``ops.lif``) at the layer
+     inputs of 4-256 (4, 4096, 256) and 8-512 (4, 6272, 512), at a
+     ragged (4, 300, 200), at a plane no multiple of the 16-byte vector
+     and on a misaligned view, bf16 and fp32, hard and soft reset, decay
+     0.5 and 2/3: spikes bitwise;
 3. drives the main paths, each with every launch count and every
    ``sparse='auto'`` decision count set to 0 just before and read just
    after, each three times: with the published ``sparse='auto'`` (its
@@ -80,6 +93,18 @@ device; exits non-zero without one). It
      answering 3 requests of 32 images for each sparse setting (2 fused
      layer launches a layer call) and the fire rate at every layer's
      input (the path fails if one is all dark);
+   * the popcount mode (``binary='popcount'``), once each: 6 train steps
+     of 4-256 (``sparse='tile'``: 24 ``spike_matmul`` and 4
+     ``popcount_scores`` a step, no ``spike_attention``); 3 requests of
+     32 images of 8-512's mixed int8 tree under ``overlap='off'`` (its
+     layers are not eligible for the layer program and take the
+     sequential composition: per layer call 1 ``popcount_scores``, 3 fp
+     and 3 int8 spike products split as 'auto' decides; no fused layer
+     or bundle); 3 requests of the bf16 spikingformer-lm prefill (1
+     ``popcount_scores`` a layer call);
+   * the LIF entry ``ops.lif`` on the layer-input currents (the stem's
+     output) of one 4-256 and one 8-512 request, bf16 and fp32 (1
+     ``lif_forward`` launch a call);
    * spikingformer-lm, once each: the int8 tree through
      ``build_prefill_step`` for 3 requests of 8 x 512 tokens (2
      ``fused_layer_rope`` launches a layer call; 'auto' decides 'tile'
@@ -113,7 +138,15 @@ device; exits non-zero without one). It
    equal bitwise to ``overlap='off'``;
    each server request's first token equal to the argmax of the prefill
    step's last-position logits wherever their top-2 margin exceeds
-   SERVE_MARGIN. It prints ``layer_sparsities`` of one request.
+   SERVE_MARGIN; the popcount mode: one 4-256 train step (tile) equal
+   bitwise to the same step through the plain versions and to the step
+   with ``binary='mxu_kernel'`` (loss, every gradient, the new BN
+   state); the 8-512 mixed tree's logits on one request through the
+   kernels == through the plain versions == ``binary='mxu_kernel'`` ==
+   ``overlap='fused'`` (the bundle kernel), bitwise; the bf16 LM
+   prefill's == plain == the #7 path's, bitwise; the LIF entry's spikes
+   == its plain version's, and in fp32 == ``lif_scan``'s, bitwise. It
+   prints ``layer_sparsities`` of one request.
 
 It prints the card's name and power limit, a JSON line of per-kernel
 numbers, and last a JSON line ``{"ok": true, "device": {...}}``.
@@ -139,9 +172,12 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import engine as E  # noqa: E402
 from repro_torch.core.engine import use_engine  # noqa: E402
 from repro_torch.core.spiking import SpikingConfig, lif_scan  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.core.bitpack import pack_bits  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import fused_layer as FL  # noqa: E402
 from repro_torch.kernels import fused_ssa as FS  # noqa: E402
+from repro_torch.kernels import lif as LF  # noqa: E402
+from repro_torch.kernels import popcount_attention as PA  # noqa: E402
 from repro_torch.kernels import spike_attention as SA  # noqa: E402
 from repro_torch.kernels import spike_decode as SD  # noqa: E402
 from repro_torch.kernels import spike_matmul as SM  # noqa: E402
@@ -149,6 +185,7 @@ from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.serve import BatchedServer, Request  # noqa: E402
 from repro_torch.launch.train import make_batch_fn  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
+from repro_torch.models import spikingformer as SF  # noqa: E402
 from repro_torch.models.spikingformer import layer_sparsities  # noqa: E402
 from repro_torch.models.nn import rmsnorm, rope_table  # noqa: E402
 from repro_torch.optim import adamw, warmup_cosine  # noqa: E402
@@ -232,7 +269,19 @@ ROPE_STREAMED = {torch.bfloat16: (4, 2, 3072, 256, 8, 32, 1024),
                  torch.float32: (4, 2, 1408, 256, 8, 32, 1024)}
 # the eval-mode gradient check of the fp32 LM: a batch of prompts
 LM_GRAD_BATCH, LM_GRAD_PROMPT = 2, 64
-KERNEL_MODULES = (FL, SM, SA, SD, FS)
+# the popcount mode (#8): popcount_scores at the three popcount paths'
+# shapes, (what, BH, L, d): the 4-256 train step's attention, an 8-512
+# request's (B = 32, hd 64: two words a row) and the bf16 LM prefill's
+POPCOUNT_PATHS = [("4-256 train", T * B * H, L, HD),
+                  ("8-512 eval", 4 * EIGHT_BATCH * 8, 196, 64),
+                  ("bf16 LM", T * LM_BATCH * H, LM_PROMPT, HD)]
+# LIF currents (T, M, D) (#9): the layer inputs of 4-256 (B = 64) and of
+# 8-512 (B = 32), a ragged shape, and one whose plane is no multiple of
+# the 16-byte vector (the kernel's element-wise path)
+LIF_CASES = [("4-256 layer input", (4, B * L, D)),
+             ("8-512 layer input", (4, EIGHT_BATCH * 196, 512)),
+             ("ragged", (4, 300, 200)), ("odd plane", (3, 37, 201))]
+KERNEL_MODULES = (FL, SM, SA, SD, FS, PA, LF)
 
 
 def log(msg):
@@ -672,7 +721,8 @@ class plain_kernels:
                  (SD, "gather_spike_matmul"), (FL, "fused_layer"),
                  (SM, "quant_spike_matmul"),
                  (SD, "quant_gather_spike_matmul"),
-                 (FS, "fused_ssa"))
+                 (FS, "fused_ssa"), (PA, "popcount_scores"),
+                 (LF, "lif_forward"))
 
     def __enter__(self):
         self.saved = [getattr(mod, f"{name}_cuda")
@@ -738,7 +788,9 @@ def inference_path(cfg, params, requests):
 def train_path(cfg):
     """A training main path: 6 AdamW steps of 64 images, with the launch
     counts of the whole run (24 sparse products a step, through the
-    kernel of the datapath each took)."""
+    kernel of the datapath each took; 4 binary attentions a step,
+    ``spike_attention`` or, with ``binary='popcount'``,
+    ``popcount_scores``)."""
     dev = torch.device("cuda")
     opt = adamw(warmup_cosine(TRAIN_LR, max(1, TRAIN_STEPS // 20),
                               TRAIN_STEPS))
@@ -760,7 +812,8 @@ def train_path(cfg):
         step_ms.append(1e3 * (time.perf_counter() - t0))
         metrics.append({k: float(v) for k, v in m.items()})
     counts = launches()
-    what = f"train path, sparse={cfg.engine.sparse!r}"
+    what = (f"train path, sparse={cfg.engine.sparse!r}, "
+            f"binary={cfg.engine.binary!r}")
     tile, dec = sparse_split(cfg.engine, 6 * cfg.num_layers * TRAIN_STEPS)
     log(f"{what}: {TRAIN_STEPS} steps x {TRAIN_BATCH} images on {dev}, "
         f"ms per step {[round(x, 3) for x in step_ms]}, sparse decisions "
@@ -769,8 +822,8 @@ def train_path(cfg):
         f"grad norms {[round(m['grad_norm'], 4) for m in metrics]}, "
         f"fire rates {[round(m['fire_rate'], 4) for m in metrics]}")
     want = dict.fromkeys(counts, 0)
-    want.update(spike_matmul=tile, gather_spike_matmul=dec,
-                spike_attention=cfg.num_layers * TRAIN_STEPS)
+    want.update(spike_matmul=tile, gather_spike_matmul=dec)
+    want[attention_kernel(cfg)] = cfg.num_layers * TRAIN_STEPS
     if counts != want:
         raise AssertionError(f"{what} launches {counts}, expected {want}")
     if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
@@ -783,18 +836,26 @@ def train_path(cfg):
         raise AssertionError(f"param leaves {still} did not move")
     log(f"{what}: every one of {len(tree_leaves(p))} param leaves moved, "
         f"max abs param {max(float(a.abs().max()) for a in tree_leaves(p))}")
-    return counts
+    return counts, step_ms
 
 
-def check_train_gradients(cfg):
+def attention_kernel(cfg):
+    """The kernel a binary attention of ``cfg``'s engine launches on the
+    card."""
+    return ("popcount_scores" if cfg.engine.binary == "popcount"
+            else "spike_attention")
+
+
+def check_train_gradients(cfg, binary="mxu_kernel"):
     """One train step's loss, gradients and new BN state through the
-    kernels (mode='sparse', binary='mxu_kernel', the config's sparse
+    kernels (mode='sparse', the given binary mode, the config's sparse
     datapath) against the same step with the kernels swapped for their
     plain versions, on 8 images with dyadic params: bitwise, since every
     kernel sums in its plain version's order or over exact terms, and
-    the backward is the same PyTorch code on the same forward values."""
+    the backward is the same PyTorch code on the same forward values.
+    Returns the kernels' run: [loss, gradients..., BN state...]."""
     cfg = cfg.replace(engine=cfg.engine.replace(mode="sparse",
-                                                binary="mxu_kernel"))
+                                                binary=binary))
     params = dyadic_params(registry.init(cfg, seed=2))
     gen = torch.Generator().manual_seed(3)
     v = cfg.vision
@@ -814,8 +875,8 @@ def check_train_gradients(cfg):
         tile, dec = sparse_split(cfg.engine, 6 * cfg.num_layers)
         want = dict.fromkeys(launches(), 0)
         if not plain:
-            want.update(spike_matmul=tile, gather_spike_matmul=dec,
-                        spike_attention=cfg.num_layers)
+            want.update(spike_matmul=tile, gather_spike_matmul=dec)
+            want[attention_kernel(cfg)] = cfg.num_layers
         if launches() != want:
             what = "plain versions" if plain else "kernels"
             raise AssertionError(f"gradient check through the {what} "
@@ -826,11 +887,12 @@ def check_train_gradients(cfg):
     if differ:
         raise AssertionError(f"train step through the kernels != through the "
                              f"plain versions at leaves {differ} (0 = loss)")
-    log(f"check, sparse={cfg.engine.sparse!r}: one train step through the "
-        f"kernels == through the plain versions, bitwise (loss "
-        f"{float(runs[0][0]):.6f}, {len(tree_leaves(grads))} gradients, "
-        f"{len(tree_leaves(aux['state']))} BN state leaves; sparse decisions "
-        f"{tile} tile, {dec} decoded)")
+    log(f"check, sparse={cfg.engine.sparse!r}, binary={binary!r}: one train "
+        f"step through the kernels == through the plain versions, bitwise "
+        f"(loss {float(runs[0][0]):.6f}, {len(tree_leaves(grads))} "
+        f"gradients, {len(tree_leaves(aux['state']))} BN state leaves; "
+        f"sparse decisions {tile} tile, {dec} decoded)")
+    return runs[0]
 
 
 def time_rope_kernel():
@@ -874,7 +936,9 @@ def lm_prefill_path(cfg, params, requests, what):
     eligible for the layer program and run 1 causal ``spike_attention``
     a layer call; the mixed int8 tree's (int8 wq, wk, wv) are not either,
     and run the bundle kernel's rope family, 1 ``fused_ssa_rope`` a layer
-    call, with no 'auto' decision. Per-request times, finite logits."""
+    call, with no 'auto' decision; with ``binary='popcount'`` the bf16
+    model's attention is 1 ``popcount_scores`` a layer call. Per-request
+    times, finite logits."""
     step = steps.build_prefill_step(cfg)
     torch.cuda.synchronize()
     reset_counts()
@@ -898,7 +962,7 @@ def lm_prefill_path(cfg, params, requests, what):
     elif what == "mixed int8":
         want["fused_ssa_rope"] = n
     else:
-        want["spike_attention"] = n
+        want[attention_kernel(cfg)] = n
     if counts != want or decisions != want_dec:
         raise AssertionError(f"lm prefill path {what}: launches {counts}, "
                              f"decisions {decisions}; expected {want}, "
@@ -1500,6 +1564,258 @@ def check_eval_gradients(cfg, params, batch, what, state=None):
         f"{ {n: round(v, 6) for n, v in norms.items()} }")
 
 
+# --- the popcount mode (#8) and the LIF entry (#9) -------------------------
+
+
+def check_popcount(what, bh, lq, lk, d, words=None):
+    """popcount_scores kernel vs plain version: int32 counts, bitwise, on
+    packed spikes with dark keys, or with ``words`` 'zeros' / 'ones'
+    (queries of all-zero or all-one words against all-one keys)."""
+    gen = torch.Generator().manual_seed(bh + lq + lk + d)
+    if words is None:
+        q = torch.rand((bh, lq, d), generator=gen) < 0.3
+        k = torch.rand((bh, lk, d), generator=gen) < 0.3
+        k[0, :16] = False
+        qp, kp = (pack_bits(a.cuda()) for a in (q, k))
+    else:
+        w = -(-d // 32)
+        qp = torch.full((bh, lq, w), 0 if words == "zeros" else -1,
+                        dtype=torch.int32, device="cuda")
+        kp = torch.full((bh, lk, w), -1, dtype=torch.int32, device="cuda")
+    got = PA.popcount_scores_cuda(qp, kp)
+    want = PA.popcount_scores_plain(qp, kp)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"popcount_scores {what} BH={bh} Lq={lq} Lk={lk}"
+                             f" d={d}: kernel != plain version (max abs "
+                             f"diff {err})")
+    log(f"popcount_scores {what} BH={bh} Lq={lq} Lk={lk} d={d} (W="
+        f"{qp.shape[-1]}): bitwise equal to the plain version, count mean "
+        f"{float(got.float().mean()):.4f}")
+    return err
+
+
+def time_popcount(what, bh, l, d):
+    """popcount_scores at a path's shape (cuda_ms; the plain version over
+    fewer calls), bf16 spikes at density 0.15. Library: ``torch.bmm`` of
+    the unpacked bf16 spikes, whose counts are exact (checked equal).
+    Bound: the words read once and the int32 counts written once, or an
+    AND, a popcount and an add a word pair at the CUDA-core rate."""
+    gen = torch.Generator().manual_seed(9)
+    q, k = ((torch.rand((bh, l, d), generator=gen) < 0.15)
+            .to(torch.bfloat16).cuda() for _ in range(2))
+    qp, kp = pack_bits(q), pack_bits(k)
+    kt = k.transpose(1, 2)
+    counts = PA.popcount_scores_cuda(qp, kp)
+    if not torch.equal(torch.bmm(q, kt).int(), counts):
+        raise AssertionError(f"torch.bmm of the spikes != popcount_scores "
+                             f"at {what}")
+    ms = cuda_ms(lambda: PA.popcount_scores_cuda(qp, kp))
+    plain_ms = cuda_ms(lambda: PA.popcount_scores_plain(qp, kp), warmup=1,
+                       calls=3, repeats=3)
+    library_ms = cuda_ms(lambda: torch.bmm(q, kt))
+    w = qp.shape[-1]
+    bytes_s = 4 * (qp.numel() + kp.numel() + counts.numel()) / PEAK_BYTES
+    ops_s = 3 * bh * l * l * w / PEAK_FLOPS[torch.float32]
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=1e3 * max(ops_s, bytes_s),
+               bound_by="operations" if ops_s > bytes_s else "bytes")
+    log(f"popcount_scores {what} BH={bh} L={l} d={d}: {row}")
+    return row
+
+
+def time_popcount_attention(what, bh, l, d, causal):
+    """The whole popcount forward of ``ops.binary_attention`` (pack q and
+    k, ``popcount_scores``, threshold, mask, fp32 context product) against
+    #7's fused ``spike_attention`` kernel at the same shape, bf16; both
+    bitwise equal first."""
+    q, k, v = attention_operands(7, bh, l, d, torch.bfloat16)
+    kw = dict(scale=1.0 / math.sqrt(d),
+              delta=torch.tensor(0.3, device=q.device), causal=causal)
+    pop = ops.binary_attention(q, k, v, use_popcount=True, **kw)
+    if not torch.equal(pop, SA.spike_attention_cuda(q, k, v, **kw)):
+        raise AssertionError(f"popcount binary_attention != spike_attention "
+                             f"at {what}")
+    pop_ms = cuda_ms(lambda: ops.binary_attention(q, k, v, use_popcount=True,
+                                                  **kw))
+    mxu_ms = cuda_ms(lambda: SA.spike_attention_cuda(q, k, v, **kw))
+    log(f"binary_attention forward {what} BH={bh} L={l} d={d} causal="
+        f"{causal}: popcount mode {pop_ms:.4f} ms, spike_attention (#7) "
+        f"{mxu_ms:.4f} ms, ratio {pop_ms / mxu_ms:.2f}")
+    return dict(popcount_ms=pop_ms, spike_attention_ms=mxu_ms)
+
+
+def lif_currents(seed, shape, dtype, misaligned=False):
+    """Normal currents around the threshold; with ``misaligned`` a view
+    one element past a 16-byte boundary (the kernel's element path)."""
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn(shape, generator=gen) * 0.8 + 0.3).to(dtype).cuda()
+    if misaligned:
+        buf = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+        x = buf[1:].view(shape).copy_(x)
+    return x
+
+
+def check_lif(what, shape, dtype, soft, decay, misaligned=False):
+    """lif_forward kernel vs plain version: spikes bitwise."""
+    x = lif_currents(len(what) + int(soft), shape, dtype, misaligned)
+    kw = dict(decay=decay, v_th=1.0, soft_reset=soft)
+    got = LF.lif_forward_cuda(x, **kw)
+    want = LF.lif_forward_plain(x, **kw)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"lif_forward {what} {shape} {dtype} soft={soft}"
+                             f" decay={decay:.4f}: kernel != plain version "
+                             f"(max abs diff {err})")
+    return err
+
+
+def time_lif(shape, dtype=torch.bfloat16):
+    """lif_forward at a layer input's shape (cuda_ms; the plain version
+    over fewer calls). No one PyTorch call computes it. Bound: the
+    currents read once and the spikes written once, or ~6 operations an
+    element a step (the update, the compare, the reset) at the CUDA-core
+    rate."""
+    x = lif_currents(5, shape, dtype)
+    ms = cuda_ms(lambda: LF.lif_forward_cuda(x, decay=0.5))
+    plain_ms = cuda_ms(lambda: LF.lif_forward_plain(x, decay=0.5), warmup=1,
+                       calls=5, repeats=3)
+    bytes_s = 2 * x.numel() * x.element_size() / PEAK_BYTES
+    ops_s = 6 * x.numel() / PEAK_FLOPS[torch.float32]
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=1e3 * max(ops_s, bytes_s),
+               bound_by="operations" if ops_s > bytes_s else "bytes")
+    log(f"lif_forward {dtype} {shape}: {row}")
+    return row
+
+
+def sequential_vision_path(cfg, params, requests):
+    """``build_prefill_step`` answering ``requests`` with the mixed int8
+    tree under overlap='off', the counts reset just before. The mixed
+    layers are not eligible for the layer program, so each takes the
+    sequential composition: per layer call 1 binary attention
+    (``popcount_scores``, or ``spike_attention`` with 'mxu_kernel'), 3 fp
+    spike products (q, k, v) and 3 int8 products (wo, w1, w2), split tile
+    / decoded as 'auto' decides; no fused layer or bundle. Per-request
+    times, finite logits."""
+    step = steps.build_prefill_step(cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    req_ms, outs = [], []
+    for batch in requests:
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        req_ms.append(1e3 * (time.perf_counter() - t0))
+        outs.append(logits)
+    counts = launches()
+    n = cfg.num_layers * len(requests)
+    tile, dec = sparse_split(cfg.engine, 6 * n)
+    what = (f"sequential path, {cfg.name} mixed int8 tree, overlap='off', "
+            f"binary={cfg.engine.binary!r}, sparse={cfg.engine.sparse!r}")
+    n_img = len(requests[0]["images"])
+    log(f"{what}: {len(requests)} requests x {n_img} images, per-request ms "
+        f"{[round(m, 3) for m in req_ms]}, sparse decisions "
+        f"{dict(E.SPARSE_DECISIONS)}, launches {counts}")
+    products = ("spike_matmul", "gather_spike_matmul", "quant_spike_matmul",
+                "quant_gather_spike_matmul")
+    attn = attention_kernel(cfg)
+    ok = (counts[attn] == n
+          and counts["spike_matmul"] + counts["gather_spike_matmul"] == 3 * n
+          and counts["quant_spike_matmul"]
+          + counts["quant_gather_spike_matmul"] == 3 * n
+          and counts["spike_matmul"] + counts["quant_spike_matmul"] == tile
+          and counts["gather_spike_matmul"]
+          + counts["quant_gather_spike_matmul"] == dec
+          and not any(v for k, v in counts.items()
+                      if k not in products + (attn,)))
+    if not ok:
+        raise AssertionError(f"{what}: launches {counts}, expected {n} "
+                             f"{attn}, 3 x {n} fp and 3 x {n} int8 "
+                             f"products ({tile} tile, {dec} decoded)")
+    for logits in outs:
+        if logits.shape != (n_img, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"bad logits {tuple(logits.shape)}")
+    return counts, req_ms
+
+
+def check_popcount_logits(cfg, params, batch, what, **alternatives):
+    """One request through ``build_prefill_step`` with the popcount
+    engine: logits through the kernels == through their plain versions
+    == under each alternative engine (fields replaced), bitwise."""
+    step = steps.build_prefill_step(cfg)
+    got = step(params, batch)
+    with plain_kernels():
+        runs = {"the plain versions": step(params, batch)}
+    for name, fields in alternatives.items():
+        runs[name] = steps.build_prefill_step(cfg.replace(
+            engine=cfg.engine.replace(**fields)))(params, batch)
+    torch.cuda.synchronize()
+    differ = {name: float((got.float() - r.float()).abs().max())
+              for name, r in runs.items() if not torch.equal(got, r)}
+    if differ:
+        raise AssertionError(f"{what}: popcount logits differ from "
+                             f"(max abs diff) {differ}")
+    log(f"check, {what}: logits with binary='popcount' through the kernels "
+        f"== {' == '.join(runs)}, bitwise, logit std "
+        f"{float(got.float().std()):.4f}")
+
+
+def lif_path(models):
+    """The kernel API's LIF entry ``ops.lif`` on the layer-input currents
+    of one request of each vision model (the SPS stem's output, (T, B, L,
+    D)), in bf16 (the published configs' dtype) and in fp32, the counts
+    reset just before: 1 ``lif_forward`` launch a call. Spikes == the
+    plain version bitwise; in fp32 == ``lif_scan`` (decay 0.5: the
+    product is exact) bitwise; the bf16 agreement with ``lif_scan``'s
+    bf16 membrane is printed."""
+    currents = []
+    for cfg, params, images in models:
+        with torch.inference_mode():
+            x, _ = SF._sps(params, registry.init_state(cfg), cfg,
+                           images.cuda().to(SF.dtype_of(cfg)), False)
+        currents += [(cfg, x.bfloat16()), (cfg, x.float())]
+    torch.cuda.synchronize()
+    reset_counts()
+    call_ms, outs = [], []
+    for cfg, x in currents:
+        sc = cfg.spiking
+        t0 = time.perf_counter()
+        outs.append(ops.lif(x, decay=sc.decay, v_th=sc.v_threshold,
+                            soft_reset=sc.soft_reset))
+        torch.cuda.synchronize()
+        call_ms.append(1e3 * (time.perf_counter() - t0))
+    counts = launches()
+    want = dict.fromkeys(counts, 0)
+    want["lif_forward"] = len(currents)
+    log(f"lif path: ops.lif on {[tuple(x.shape) for _, x in currents]}, "
+        f"ms per call {[round(m, 3) for m in call_ms]}, launches {counts}")
+    if counts != want:
+        raise AssertionError(f"lif path: launches {counts}, expected {want}")
+    for (cfg, x), got in zip(currents, outs):
+        sc = cfg.spiking
+        t, d = x.shape[0], x.shape[-1]
+        plain = LF.lif_forward_plain(x.reshape(t, -1, d), decay=sc.decay,
+                                     v_th=sc.v_threshold,
+                                     soft_reset=sc.soft_reset)
+        scan = lif_scan(x, sc)[0]
+        agree = float((scan == got).float().mean())
+        if not torch.equal(got, plain.reshape(x.shape)) or (
+                x.dtype == torch.float32 and agree != 1.0):
+            raise AssertionError(f"lif path {cfg.name} {x.dtype}: == plain "
+                                 f"{torch.equal(got, plain.reshape(x.shape))}"
+                                 f", agreement with lif_scan {agree}")
+        log(f"check, lif path {cfg.name} {x.dtype} {tuple(x.shape)}: spikes "
+            f"== the plain version bitwise, fire rate "
+            f"{float(got.float().mean()):.4f}, agreement with lif_scan "
+            f"{agree:.6f}")
+    return counts
+
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1627,6 +1943,31 @@ def main():
     ssa_timing = time_ssa_kernel()
     ssa_eight_timing = time_ssa_kernel(SSA_EIGHT[0][1])
 
+    # --- popcount_scores (#8) and lif_forward (#9) against their plain
+    # versions -----------------------------------------------------------
+    pop_err = max(
+        [check_popcount(what, bh, l, l, d) for what, bh, l, d in POPCOUNT_PATHS]
+        + [check_popcount("ragged", 16, 50, 70, HD),
+           check_popcount("padded word", 8, 100, 90, 80),
+           check_popcount("zero words", 4, 64, 64, 80, words="zeros"),
+           check_popcount("one words", 4, 64, 64, 80, words="ones")])
+    lif_err = max(check_lif(what, shape, dt, soft, decay)
+                  for what, shape in LIF_CASES for dt in dtypes
+                  for soft in (False, True) for decay in (0.5, 2.0 / 3.0))
+    lif_err = max([lif_err] + [check_lif("misaligned", LIF_CASES[2][1], dt,
+                                         False, 2.0 / 3.0, misaligned=True)
+                               for dt in dtypes])
+    log(f"lif_forward: bitwise equal to the plain version at "
+        f"{[s for _, s in LIF_CASES]} and a misaligned view, bf16 and fp32, "
+        f"hard and soft reset, decay 0.5 and 2/3")
+    pop_timing = {what: time_popcount(what, bh, l, d)
+                  for what, bh, l, d in POPCOUNT_PATHS}
+    lif_timing = {what: time_lif(shape) for what, shape in LIF_CASES[:2]}
+    attn_vs = {what: time_popcount_attention(what, bh, l, d,
+                                             what == "bf16 LM")
+               for what, bh, l, d in POPCOUNT_PATHS}
+    log(f"binary_attention forward, popcount mode vs #7: {attn_vs}")
+
     # --- the inference main paths ----------------------------------------
     cfg = get_config("spikingformer-4-256")
     params = registry.init(cfg, seed=0)
@@ -1679,6 +2020,20 @@ def main():
     check_vision_outputs(cfg8, params8, requests8[0]["images"].cuda(),
                          "spikingformer-8-512")
 
+    # --- the popcount paths (#8): 8-512 (b) ------------------------------
+    mixed8 = quantize_tree(params8, "int8", dyadic=True, select=select_mixed)
+    pop8 = cfg8.replace(engine=cfg8.engine.replace(
+        binary="popcount", overlap="off", sparse="auto"))
+    pop8_counts, pop8_ms = sequential_vision_path(pop8, mixed8, requests8)
+    sequential_vision_path(pop8.replace(engine=pop8.engine.replace(
+        binary="mxu_kernel")), mixed8, requests8)
+    fire_rates(pop8, mixed8, requests8[0]["images"],
+               "spikingformer-8-512 mixed int8, popcount")
+    check_popcount_logits(pop8, mixed8, {"images": requests8[0]["images"]},
+                          "spikingformer-8-512 mixed int8, overlap='off'",
+                          **{"binary='mxu_kernel'": dict(binary="mxu_kernel"),
+                             "overlap='fused'": dict(overlap="fused")})
+
     # --- spikingformer-lm: int8 and bf16 prefill, the int8 server -------
     lm_q = lm_config(quantize=True)
     lm_bf16 = lm_config(quantize=False)
@@ -1692,10 +2047,17 @@ def main():
     lm_prefill_path(*lm_bf16, lm_requests, "bf16")
     lm_mixed_counts, _ = lm_prefill_path(*lm_mixed, lm_requests,
                                          "mixed int8")
+    lm_pop = (lm_bf16[0].replace(engine=lm_bf16[0].engine.replace(
+        binary="popcount")), lm_bf16[1])
+    lm_pop_counts, lm_pop_ms = lm_prefill_path(*lm_pop, lm_requests,
+                                               "bf16 popcount")
     lm_check = {"tokens": lm_requests[0]["tokens"].cuda()}
     check_lm_prefill(*lm_q, lm_check, "int8")
     check_lm_prefill(*lm_bf16, lm_check, "bf16")
     check_lm_prefill(*lm_mixed, lm_check, "mixed int8", oracle=True)
+    check_popcount_logits(*lm_pop, lm_check, "spikingformer-lm bf16",
+                          **{"the #7 path (binary='mxu_kernel')":
+                             dict(binary="mxu_kernel")})
     serve_path(*lm_q)
     vision_int8_path()
 
@@ -1709,10 +2071,26 @@ def main():
                                 generator=gen).cuda()},
         "spikingformer-lm fp32 (rope)")
 
+    # --- the LIF entry (#9) on the layer inputs of one request each -----
+    lif_counts = lif_path([(cfg, dy, requests[0]["images"]),
+                           (cfg8, params8, requests8[0]["images"])])
+
     # --- the training main paths, then their gradient checks ------------
-    train_counts = {sp: train_path(c) for sp, c in engines.items()}
-    for c in engines.values():
-        check_train_gradients(c)
+    train_counts = {sp: train_path(c)[0] for sp, c in engines.items()}
+    mxu_runs = {sp: check_train_gradients(c) for sp, c in engines.items()}
+    # the popcount path (a): tile datapath, binary='popcount'
+    pop_cfg = engines["tile"].replace(engine=engines["tile"].engine.replace(
+        binary="popcount"))
+    pop_train_counts, pop_step_ms = train_path(pop_cfg)
+    pop_run = check_train_gradients(pop_cfg, binary="popcount")
+    differ = [i for i, (a, b) in enumerate(zip(pop_run, mxu_runs["tile"]))
+              if not torch.equal(a, b)]
+    if differ or len(pop_run) != len(mxu_runs["tile"]):
+        raise AssertionError(f"train step with binary='popcount' != with "
+                             f"'mxu_kernel' at leaves {differ} (0 = loss)")
+    log(f"check: one train step with binary='popcount' == with "
+        f"binary='mxu_kernel' (#7), bitwise: loss, every gradient and the "
+        f"new BN state ({len(pop_run)} tensors)")
 
     csrc = "src/repro_torch/kernels/csrc/"
     bf16 = torch.bfloat16
@@ -1774,7 +2152,26 @@ def main():
             dict(name="fused_ssa_rope", source=csrc + "fused_layer.cu",
                  replaces="src/repro/kernels/fused_ssa.py:166",
                  launches=lm_mixed_counts["fused_ssa_rope"],
-                 max_abs_err=rope_ssa_err, **rope_ssa_timing)]
+                 max_abs_err=rope_ssa_err, **rope_ssa_timing),
+            dict(name="popcount_scores",
+                 source=csrc + "popcount_attention.cu",
+                 replaces="src/repro/kernels/popcount_attention.py:35",
+                 launches=pop_train_counts["popcount_scores"],
+                 max_abs_err=pop_err,
+                 at_8_512=dict(pop_timing["8-512 eval"],
+                               launches=pop8_counts["popcount_scores"]),
+                 at_lm=dict(pop_timing["bf16 LM"],
+                            launches=lm_pop_counts["popcount_scores"]),
+                 **pop_timing["4-256 train"]),
+            dict(name="lif_forward", source=csrc + "lif.cu",
+                 replaces="src/repro/kernels/lif.py:38",
+                 launches=lif_counts["lif_forward"], max_abs_err=lif_err,
+                 at_8_512=lif_timing["8-512 layer input"],
+                 **lif_timing["4-256 layer input"])]
+    rounded = lambda ms: [round(m, 3) for m in ms]
+    log(f"popcount paths: train ms per step {rounded(pop_step_ms)}, 8-512 "
+        f"ms per request {rounded(pop8_ms)}, bf16 LM ms per request "
+        f"{rounded(lm_pop_ms)}")
     log(json.dumps({"kernels": [dict(route="cuda", **r) for r in rows]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

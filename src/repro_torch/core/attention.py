@@ -8,9 +8,10 @@ Mirrors ``repro.core.attention``: for spiking ``Q, K, V`` in {0,1}
 
 with no softmax. :func:`spiking_attention` consults the engine
 (:func:`~repro_torch.core.engine.resolve_binary_mode`) and routes to the
-plain oracle or to the ``spike_attention`` kernel, which agree bitwise on
-spike inputs: {0,1} dot products are exact integer counts in fp32, and
-both test the threshold with the same rounding rule.
+plain oracle, to the ``spike_attention`` kernel ('mxu_kernel') or to the
+bit-packed ``popcount_scores`` kernel ('popcount'), which agree bitwise
+on spike inputs: {0,1} dot products are exact integer counts in fp32, and
+all three test the threshold with the same rounding rule.
 """
 from __future__ import annotations
 

@@ -73,8 +73,9 @@ class EngineConfig:
       the dense product or the sparse engine's kernel (``spike_matmul``
       or ``gather_spike_matmul``, as ``sparse`` resolves);
     binary: 'jnp' | 'mxu_kernel' | 'popcount' | 'auto' — spiking
-      attention through the plain oracle or the ``spike_attention``
-      kernel ('popcount' is not ported);
+      attention through the plain oracle, the ``spike_attention``
+      kernel, or the bit-packed ``popcount_scores`` kernel (then the
+      threshold and the context product in plain PyTorch);
     sparse: 'tile' | 'decoded' | 'auto' — the sparse datapath: the tile
       skip, the decoded gather, or per call from the occupancy histogram
       (:func:`resolve_sparse_path`);
@@ -183,8 +184,8 @@ def resolve_mode(engine: Optional[EngineConfig], x=None) -> str:
 def resolve_binary_mode(engine: Optional[EngineConfig], x=None) -> str:
     """Binary-engine decision for a spiking attention on ``x``: 'auto'
     picks the ``spike_attention`` kernel ('mxu_kernel') for every CUDA
-    tensor and the plain oracle ('jnp') on the CPU; explicit values are
-    honoured everywhere ('popcount' raises where it is dispatched)."""
+    tensor and the plain oracle ('jnp') on the CPU, and never 'popcount',
+    as in JAX; explicit values are honoured everywhere."""
     if engine is None:
         return "jnp"
     if engine.binary in BINARY_MODES:

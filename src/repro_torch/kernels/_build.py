@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("fused_layer", "spike_matmul", "spike_attention",
-           "gather_spike_matmul")
+           "gather_spike_matmul", "popcount_attention", "lif")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # name -> (build seconds, compiler output) for sources built in this process

@@ -56,8 +56,15 @@ def binary_scores(q: torch.Tensor, k: torch.Tensor, scale: float,
     the once-rounded ``fma32(score, scale, -delta)``; scores of {0,1}
     spikes are exact integer counts. Under autograd the step takes the
     sigmoid surrogate of slope ``alpha`` (``core.spiking.spike``)."""
-    scores = q.float() @ k.float().transpose(-1, -2)
-    neg = -torch.as_tensor(delta, dtype=torch.float32, device=q.device)
+    return threshold_scores(q.float() @ k.float().transpose(-1, -2), scale,
+                            delta, alpha)
+
+
+def threshold_scores(scores: torch.Tensor, scale: float, delta,
+                     alpha: float = 4.0) -> torch.Tensor:
+    """The threshold of :func:`binary_scores` on fp32 integer counts:
+    ``1[fma32(scores, scale, -delta) >= 0]``, surrogate under autograd."""
+    neg = -torch.as_tensor(delta, dtype=torch.float32, device=scores.device)
     return spike(fma32(scores, scale, neg), alpha)
 
 

@@ -278,11 +278,11 @@ def _train_setup(seed=0, batch=8, **engine):
     """JAX and port SMOKE configs on the kernel modes (and the ``engine``
     fields given), numpy dyadic params (BN affines drawn on the grid),
     init BN state and a batch of synthetic images rounded to k/256."""
+    engine = {**KERNEL_MODES, **engine}
     cfg = jget_config(ARCH, smoke=True)
-    cfg = cfg.replace(engine=cfg.engine.replace(**KERNEL_MODES, **engine))
+    cfg = cfg.replace(engine=cfg.engine.replace(**engine))
     tcfg = get_config(ARCH, smoke=True)
-    tcfg = tcfg.replace(engine=tcfg.engine.replace(**KERNEL_MODES,
-                                                   **engine))
+    tcfg = tcfg.replace(engine=tcfg.engine.replace(**engine))
     rng = np.random.default_rng(seed)
     params = jax.tree_util.tree_map(
         lambda a: np.asarray(jnp.round(a * 256) / 256),
@@ -479,16 +479,24 @@ def test_unported_training_modes_raise_naming_roadmap():
     cases = [
         lambda: TS.build_train_step(tcfg, opt, compress=True, device="cpu"),
         lambda: TS.build_train_step(tcfg, opt, qat="int8", device="cpu"),
-        lambda: TO.binary_attention(s[0], s[0], s[0], scale=1.0, delta=0.0,
-                                    use_popcount=True),
-        lambda: TAt.spiking_attention(
-            s, s, s, tcfg.spiking,
-            engine=TE.EngineConfig(binary="popcount")),
         lambda: make_pipeline(DataConfig(kind="lm", global_batch=2)),
     ]
     for case in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             case()
+    # the popcount mode of the binary engine is ported (#8): the folded
+    # entry and the engine's dispatch run, equal to the MXU mode
+    a = (torch.rand((2, 1, 4, 8), generator=torch.Generator().manual_seed(2))
+         < 0.5).float()
+    assert torch.equal(
+        TO.binary_attention(a[0], a[0], a[0], scale=1.0, delta=2.0,
+                            use_popcount=True),
+        TO.binary_attention(a[0], a[0], a[0], scale=1.0, delta=2.0))
+    assert torch.equal(
+        TAt.spiking_attention(a, a, a, tcfg.spiking,
+                              engine=TE.EngineConfig(binary="popcount")),
+        TAt.spiking_attention(a, a, a, tcfg.spiking,
+                              engine=TE.EngineConfig(binary="mxu_kernel")))
     # the quantized sparse spike_linear is ported (int8 kernels #3 / #5):
     # on both datapaths it runs, and its forward and gradient equal the
     # dense quantized reference's on spikes
