@@ -64,6 +64,14 @@ device; exits non-zero without one). It
      ragged (4, 300, 200), at a plane no multiple of the 16-byte vector
      and on a misaligned view, bf16 and fp32, hard and soft reset, decay
      0.5 and 2/3: spikes bitwise;
+   * the pipelined layer program (#1d, ``overlap='pipeline'``: #1's two
+     launches once a timestep, 2 T a call) at every shape #1 is checked
+     at (full width tile and decoded, bf16 and fp32, several L-blocks,
+     8-512 with w3 streamed, the rope shapes and S=3072) and at T=6:
+     outputs and counts bitwise equal to its plain version and to #1
+     (at T=6, #1's plain version); timed beside #1 at 4-256 and 8-512
+     with the membrane bytes it adds and ``core.dual_engine``'s
+     ``fused_step_metrics`` of one call's counts, pipelined or not;
 3. drives the main paths, each with every launch count and every
    ``sparse='auto'`` decision count set to 0 just before and read just
    after, each three times: with the published ``sparse='auto'`` (its
@@ -116,6 +124,16 @@ device; exits non-zero without one). It
      16 requests of 100-500 prompt tokens, 32 new tokens each, tokens
      per second; its decode step and chunked prefill are plain PyTorch and
      launch no kernel) and one int8 Spikingformer-4-256 request;
+   * ``overlap='pipeline'`` through ``build_prefill_step``, each beside
+     the same requests under 'fused' in the same run: 4 requests of 64
+     images of 4-256 on dyadic weights that fire, 'tile' and 'decoded';
+     3 requests of 32 images of 8-512; 3 int8 LM prefills of 8 x 512
+     tokens (2 T #1d launches a layer call: 32 a 4-256 request and an
+     LM prefill, 64 an 8-512 request; no other launch); logits equal to
+     'fused' on every request and, on one, to the plain versions and
+     (dyadic weights) to ``overlap='off'``, bitwise; the mixed int8
+     4-256 and LM trees under 'pipeline' launch ``fused_ssa`` /
+     ``fused_ssa_rope`` as under 'fused', with equal logits;
 4. checks the outputs: finite logits of the right shape and, with
    dyadic weights, the fused path of Spikingformer-4-256 (8 images) and
    of Spikingformer-8-512 (one request of 32 images; 'auto', 'tile' and
@@ -133,9 +151,10 @@ device; exits non-zero without one). It
    plain versions, the mixed tree's also to ``overlap='off'``; an
    eval-mode forward under autograd of Spikingformer-4-256 (8 images,
    dyadic weights) and of the fp32 spikingformer-lm (2 x 64 tokens,
-   weights on the 2^-8 grid) with ``overlap='fused'``, the layer program
-   through the kernels: logits and every layer parameter's gradient
-   equal bitwise to ``overlap='off'``;
+   weights on the 2^-8 grid) with ``overlap='fused'``, and of 4-256
+   with ``overlap='pipeline'``, the layer program through the kernels:
+   logits and every layer parameter's gradient equal bitwise to
+   ``overlap='off'``;
    each server request's first token equal to the argmax of the prefill
    step's last-position logits wherever their top-2 margin exceeds
    SERVE_MARGIN; the popcount mode: one 4-256 train step (tile) equal
@@ -169,6 +188,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import dual_engine  # noqa: E402
 from repro_torch.core import engine as E  # noqa: E402
 from repro_torch.core.engine import use_engine  # noqa: E402
 from repro_torch.core.spiking import SpikingConfig, lif_scan  # noqa: E402
@@ -281,6 +301,11 @@ POPCOUNT_PATHS = [("4-256 train", T * B * H, L, HD),
 LIF_CASES = [("4-256 layer input", (4, B * L, D)),
              ("8-512 layer input", (4, EIGHT_BATCH * 196, 512)),
              ("ragged", (4, 300, 200)), ("odd plane", (3, 37, 201))]
+# the pipelined layer program (#1d) at a T past the fused kernel's MAX_T,
+# against its plain version: (what, (T, B, L, D, H, hd, F), l_block) for
+# the bn family and for the rope family
+PIPE_T6 = ("T=6", (6, 16, 64, 256, 8, 32, 1024), 64)
+PIPE_T6_ROPE = ("T=6", (6, 2, 200, 256, 8, 32, 1024), 128)
 KERNEL_MODULES = (FL, SM, SA, SD, FS, PA, LF)
 
 
@@ -719,6 +744,7 @@ class plain_kernels:
 
     LAUNCHERS = ((SM, "spike_matmul"), (SA, "spike_attention"),
                  (SD, "gather_spike_matmul"), (FL, "fused_layer"),
+                 (FL, "fused_layer_pipeline"),
                  (SM, "quant_spike_matmul"),
                  (SD, "quant_gather_spike_matmul"),
                  (FS, "fused_ssa"), (PA, "popcount_scores"),
@@ -752,6 +778,17 @@ def dyadic_params(params):
     return dy
 
 
+def timed_requests(step, params, requests):
+    """(logits, ms) of ``step`` on each request, synchronised."""
+    outs, req_ms = [], []
+    for batch in requests:
+        t0 = time.perf_counter()
+        outs.append(step(params, batch))
+        torch.cuda.synchronize()
+        req_ms.append(1e3 * (time.perf_counter() - t0))
+    return outs, req_ms
+
+
 def inference_path(cfg, params, requests):
     """``build_prefill_step`` answering ``requests``: per-request times,
     the launch counts of the whole run (2 fused-layer launches a layer,
@@ -759,13 +796,7 @@ def inference_path(cfg, params, requests):
     step = steps.build_prefill_step(cfg)
     torch.cuda.synchronize()
     reset_counts()
-    req_ms, outs = [], []
-    for batch in requests:
-        t0 = time.perf_counter()
-        logits = step(params, batch)
-        torch.cuda.synchronize()
-        req_ms.append(1e3 * (time.perf_counter() - t0))
-        outs.append(logits)
+    outs, req_ms = timed_requests(step, params, requests)
     counts = launches()
     tile, dec = sparse_split(cfg.engine, cfg.num_layers * len(requests))
     n_img = len(requests[0]["images"])
@@ -942,13 +973,7 @@ def lm_prefill_path(cfg, params, requests, what):
     step = steps.build_prefill_step(cfg)
     torch.cuda.synchronize()
     reset_counts()
-    req_ms, outs = [], []
-    for batch in requests:
-        t0 = time.perf_counter()
-        logits = step(params, batch)
-        torch.cuda.synchronize()
-        req_ms.append(1e3 * (time.perf_counter() - t0))
-        outs.append(logits)
+    outs, req_ms = timed_requests(step, params, requests)
     counts, decisions = launches(), dict(E.SPARSE_DECISIONS)
     n = cfg.num_layers * len(requests)
     log(f"lm prefill path, {what}: {len(requests)} requests x {LM_BATCH} x "
@@ -1385,13 +1410,7 @@ def mixed_path(cfg, params, requests, tree):
     step = steps.build_prefill_step(cfg)
     torch.cuda.synchronize()
     reset_counts()
-    req_ms, outs = [], []
-    for batch in requests:
-        t0 = time.perf_counter()
-        logits = step(params, batch)
-        torch.cuda.synchronize()
-        req_ms.append(1e3 * (time.perf_counter() - t0))
-        outs.append(logits)
+    outs, req_ms = timed_requests(step, params, requests)
     counts = launches()
     n = cfg.num_layers * len(requests)
     tile, dec = sparse_split(cfg.engine, 3 * n)
@@ -1511,9 +1530,11 @@ def leaf_paths(tree, prefix=""):
     return [prefix[:-1]]
 
 
-def check_eval_gradients(cfg, params, batch, what, state=None):
-    """An eval-mode forward under autograd with overlap='fused' (the
-    layer program through the kernels, behind ``_FusedLayer``) against
+def check_eval_gradients(cfg, params, batch, what, state=None,
+                         overlap="fused"):
+    """An eval-mode forward under autograd with ``overlap`` 'fused' or
+    'pipeline' (the layer program through the kernels, behind
+    ``_FusedLayer``: 2 launches a layer call, or 2 T pipelined) against
     the same forward with overlap='off': the logits and every layer
     parameter's gradient of one seeded cotangent, bitwise; each layer
     parameter gets a gradient."""
@@ -1521,7 +1542,7 @@ def check_eval_gradients(cfg, params, batch, what, state=None):
     runs = {}
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
-    for ov in ("fused", "off"):
+    for ov in (overlap, "off"):
         leaves = [a.detach().requires_grad_(a.is_floating_point())
                   for a in tree_leaves(params[layers])]
         tree = dict(params, **{layers: tree_unflatten(params[layers],
@@ -1537,17 +1558,21 @@ def check_eval_gradients(cfg, params, batch, what, state=None):
         torch.cuda.synchronize()
         runs[ov] = (logits.detach(), grads, launches())
     torch.backends.cudnn.deterministic = deterministic
-    counts = runs["fused"][2]
-    fused_launches = sum(n for k, n in counts.items()
-                         if k.startswith("fused_layer"))
-    if fused_launches != FL.LAUNCHES_PER_CALL * cfg.num_layers or \
+    counts = runs[overlap][2]
+    pipelined = overlap == "pipeline"
+    layer = {k: n for k, n in counts.items() if k.startswith("fused_layer")}
+    mine = sum(n for k, n in layer.items()
+               if k.startswith("fused_layer_pipeline") == pipelined)
+    per_call = FL.LAUNCHES_PER_CALL * (cfg.spiking.time_steps if pipelined
+                                       else 1)
+    if mine != per_call * cfg.num_layers or sum(layer.values()) != mine or \
             any(runs["off"][2].values()):
-        raise AssertionError(f"{what} gradient check: launches fused "
+        raise AssertionError(f"{what} gradient check: launches {overlap} "
                              f"{counts}, off {runs['off'][2]}")
-    fused, off = runs["fused"], runs["off"]
+    fused, off = runs[overlap], runs["off"]
     if not torch.equal(fused[0], off[0]):
-        raise AssertionError(f"{what} gradient check: fused logits != off "
-                             f"logits (max abs diff "
+        raise AssertionError(f"{what} gradient check: {overlap} logits != "
+                             f"off logits (max abs diff "
                              f"{float((fused[0] - off[0]).abs().max())})")
     names = leaf_paths(params[layers])
     missing = [n for n, g in zip(names, fused[1]) if g is None]
@@ -1557,11 +1582,176 @@ def check_eval_gradients(cfg, params, batch, what, state=None):
         raise AssertionError(f"{what} gradient check: no gradient through the "
                              f"kernels for {missing}; gradients that differ "
                              f"from overlap='off': {differ}")
-    norms = {n: float(g.norm()) for n, g in zip(names, runs["fused"][1])}
-    log(f"check, {what}: eval forward under autograd, overlap='fused' "
+    norms = {n: float(g.norm()) for n, g in zip(names, runs[overlap][1])}
+    log(f"check, {what}: eval forward under autograd, overlap={overlap!r} "
         f"(launches {counts}) == 'off' bitwise: logits and the gradients of "
         f"all {len(names)} layer parameters; gradient norms "
         f"{ {n: round(v, 6) for n, v in norms.items()} }")
+
+
+# --- the pipelined layer program (#1d) ------------------------------------
+
+
+def check_pipeline_kernel(dtype, what, shape, l_block, sparse="tile",
+                          family="bn"):
+    """#1d on dyadic weights (rope: int8 codes) against its plain version
+    and against #1 on the same operands (past #1's MAX_T, #1's plain
+    version): outputs and counts bitwise; the call launches 2 T
+    kernels."""
+    if family == "rope":
+        args, kw = rope_operands(11, dtype, shape, l_block)
+    else:
+        args, kw = layer_operands(1, dtype, True, shape, l_block, sparse)
+    t = shape[0]
+    reset_counts()
+    out_k, cnt_k = FL.fused_layer_pipeline_cuda(*args, **kw)
+    n_launch = sum(launches().values())
+    out_p, cnt_p = FL.fused_layer_pipeline_plain(*args, **kw)
+    fused = FL.fused_layer_cuda if t <= FL.MAX_T else FL.fused_layer_plain
+    out_f, cnt_f = fused(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((out_k.float() - out_p.float()).abs().max())
+    name = (f"fused_layer_pipeline {family} {sparse} {dtype} {what} "
+            f"{tuple(shape)}")
+    checks = {"== plain": torch.equal(out_k, out_p),
+              "counts == plain": torch.equal(cnt_k, cnt_p),
+              "== #1": torch.equal(out_k, out_f),
+              "counts == #1": torch.equal(cnt_k, cnt_f),
+              f"{2 * t} launches": n_launch == FL.LAUNCHES_PER_CALL * t}
+    if not all(checks.values()):
+        raise AssertionError(f"{name}: {checks} (max abs diff to the plain "
+                             f"version {err}, launches {launches()})")
+    depth = FL.chunk_depth(args[0].element_size(), 1, shape[2], shape[3],
+                           shape[5], cnt_k.shape[-1])
+    log(f"{name}, l_block {kw['l_block']}: bitwise equal to its plain "
+        f"version and to {fused.__name__} (outputs and counts), {n_launch} "
+        f"launches, w3 chunk depth {depth}; counts per phase "
+        f"{cnt_k.sum(dim=(0, 2)).tolist()}")
+    return err
+
+
+def time_pipeline_kernel(shape=FULL, l_block=64):
+    """#1d beside #1 on the same random-normal operands (bf16, cuda_ms, in
+    turns: #1d, #1, #1, #1d), its plain version (fewer calls), the bound
+    of the executed work (#1's: the same sub-blocks), the membrane bytes
+    it moves beyond #1, and ``dual_engine.fused_step_metrics`` of one
+    call's counts with and without ``pipeline``."""
+    T, B, L, D, H, HD, FF = shape
+    args, kw = layer_operands(3, torch.bfloat16, False, shape, l_block)
+    pipe = lambda: FL.fused_layer_pipeline_cuda(*args, **kw)  # noqa: E731
+    fused = lambda: FL.fused_layer_cuda(*args, **kw)  # noqa: E731
+    runs = [cuda_ms(pipe), cuda_ms(fused), cuda_ms(fused), cuda_ms(pipe)]
+    plain_ms = cuda_ms(lambda: FL.fused_layer_pipeline_plain(*args, **kw),
+                       warmup=1, calls=3, repeats=3)
+    _, counts = pipe()
+    bound_ms, bound_by = layer_bound_ms(args, counts, torch.bfloat16,
+                                        kw["l_block"], shape=shape)
+    extra = FL.membrane_bytes(2, T, B, L, D, H * HD, FF)
+    row = dict(ms=(runs[0] + runs[3]) / 2, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+               fused_ms=(runs[1] + runs[2]) / 2)
+    log(f"fused_layer_pipeline bf16 {tuple(shape)}: #1d {runs[0]:.4f} / "
+        f"{runs[3]:.4f} ms, #1 {runs[1]:.4f} / {runs[2]:.4f} ms (in turns), "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); "
+        f"membranes {extra} bytes beyond #1 "
+        f"({1e3 * extra / PEAK_BYTES:.5f} ms at {PEAK_BYTES:.3g} B/s)")
+    for pipelined in (False, True):
+        m = dual_engine.fused_step_metrics(
+            counts.cpu(), seq=L, k_dim=D, head_dim=HD, t_steps=T, batch=B,
+            d_model=D, d_ff=FF, l_block=kw["l_block"], pipeline=pipelined)
+        log(f"dual_engine.fused_step_metrics, pipeline={pipelined}, "
+            f"{tuple(shape)}: " + json.dumps(
+                {k: m[k] for k in ("pipeline_iters", "executed_steps",
+                                   "possible_steps", "hidden_fraction",
+                                   "qkt_hidden_fraction",
+                                   "qktv_hidden_fraction", "sparse_util",
+                                   "binary_util")}))
+    return row
+
+
+def pipeline_path(cfg, params, requests, what, oracle=False):
+    """``build_prefill_step`` with overlap='pipeline' answering
+    ``requests``, the counts reset just before: 2 T #1d launches a layer
+    call (the variant the sparse datapath or the rope family names) and
+    no other launch; the same requests under overlap='fused' timed in the
+    same run, with equal logits on every request, bitwise; on one
+    request the logits also == through the plain versions and, with
+    ``oracle`` (dyadic weights), == overlap='off'. Returns (counts,
+    pipelined ms per request, fused ms per request)."""
+    overlap = lambda ov: cfg.replace(  # noqa: E731
+        engine=cfg.engine.replace(overlap=ov))
+    pipe = steps.build_prefill_step(overlap("pipeline"))
+    fused = steps.build_prefill_step(overlap("fused"))
+    torch.cuda.synchronize()
+    reset_counts()
+    outs, req_ms = timed_requests(pipe, params, requests)
+    counts, decisions = launches(), dict(E.SPARSE_DECISIONS)
+    n = cfg.num_layers * len(requests)
+    tile, dec = sparse_split(cfg.engine, n)
+    per_call = FL.LAUNCHES_PER_CALL * cfg.spiking.time_steps
+    want = dict.fromkeys(counts, 0)
+    if "tokens" in requests[0]:
+        want["fused_layer_pipeline_rope"] = per_call * n
+    else:
+        want["fused_layer_pipeline"] = per_call * tile
+        want["fused_layer_pipeline_decoded"] = per_call * dec
+    name = f"pipeline path, {what}, sparse={cfg.engine.sparse!r}"
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts}, expected {want}")
+    fused_outs, fused_ms = timed_requests(fused, params, requests)
+    differ = [i for i, (a, b) in enumerate(zip(outs, fused_outs))
+              if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"{name}: logits != overlap='fused' on "
+                             f"requests {differ}")
+    with plain_kernels():
+        plain = pipe(params, requests[0])
+    off = steps.build_prefill_step(overlap("off"))(params, requests[0]) \
+        if oracle else outs[0]
+    torch.cuda.synchronize()
+    if not (torch.equal(outs[0], plain) and torch.equal(outs[0], off)):
+        raise AssertionError(
+            f"{name}: == plain versions {torch.equal(outs[0], plain)}, == "
+            f"overlap='off' {torch.equal(outs[0], off)} (max abs diff to "
+            f"off {float((outs[0] - off).abs().max())})")
+    for logits in outs:
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{name}: non-finite logits")
+    rounded = lambda ms: [round(m, 3) for m in ms]  # noqa: E731
+    log(f"{name}: {len(requests)} requests, launches {counts}, sparse "
+        f"decisions {decisions}; ms per request pipelined "
+        f"{rounded(req_ms)}, fused {rounded(fused_ms)}; logits == "
+        f"overlap='fused' on every request and, on one, == plain versions"
+        f"{' == overlap=off' if oracle else ''}, bitwise (logit std "
+        f"{float(outs[0].std()):.4f})")
+    return counts, req_ms, fused_ms
+
+
+def check_mixed_pipeline(cfg, params, batch, what, bundle):
+    """A mixed tree's prefill under overlap='pipeline' == under 'fused':
+    its layers are not eligible for the layer program, its bundles run
+    ``bundle`` (1 launch a layer call) under both, as in JAX; the same
+    launches and logits, bitwise."""
+    runs = {}
+    for ov in ("fused", "pipeline"):
+        step = steps.build_prefill_step(cfg.replace(
+            engine=cfg.engine.replace(overlap=ov)))
+        reset_counts()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        runs[ov] = (logits, launches())
+    (got, counts), (want, want_counts) = runs["pipeline"], runs["fused"]
+    if counts != want_counts or counts[bundle] != cfg.num_layers or \
+            any(counts[k] for k in counts if k.startswith("fused_layer")):
+        raise AssertionError(f"mixed {what} under 'pipeline': launches "
+                             f"{counts}, under 'fused' {want_counts}")
+    if not torch.equal(got, want):
+        raise AssertionError(f"mixed {what}: 'pipeline' logits != 'fused' "
+                             f"(max abs diff "
+                             f"{float((got - want).abs().max())})")
+    log(f"check, mixed {what} under overlap='pipeline': launches {counts} "
+        f"== under 'fused', logits bitwise equal (std "
+        f"{float(got.std()):.4f})")
 
 
 # --- the popcount mode (#8) and the LIF entry (#9) -------------------------
@@ -1703,13 +1893,7 @@ def sequential_vision_path(cfg, params, requests):
     step = steps.build_prefill_step(cfg)
     torch.cuda.synchronize()
     reset_counts()
-    req_ms, outs = [], []
-    for batch in requests:
-        t0 = time.perf_counter()
-        logits = step(params, batch)
-        torch.cuda.synchronize()
-        req_ms.append(1e3 * (time.perf_counter() - t0))
-        outs.append(logits)
+    outs, req_ms = timed_requests(step, params, requests)
     counts = launches()
     n = cfg.num_layers * len(requests)
     tile, dec = sparse_split(cfg.engine, 6 * n)
@@ -1881,6 +2065,26 @@ def main():
         "fused_ssa_rope", *rope_ssa_operands(16, torch.bfloat16,
                                              ROPE_SSA_CASES[0][1]),
         ROPE_SSA_CASES[0][1])
+
+    # --- the pipelined layer program (#1d) against its plain version and
+    # #1 -------------------------------------------------------------------
+    pipe_err = max(
+        [check_pipeline_kernel(dt, "full width", FULL, 64, sparse)
+         for sparse in ("tile", "decoded") for dt in dtypes]
+        + [check_pipeline_kernel(dt, what, shape, lb, sparse)
+           for what, shape, lb in MULTI_BLOCK + EIGHT_CASES
+           for sparse in ("tile", "decoded") for dt in dtypes]
+        + [check_pipeline_kernel(dt, what, shape, lb, family="rope")
+           for what, shape, lb in ROPE_CASES for dt in dtypes]
+        + [check_pipeline_kernel(torch.bfloat16, "S=3072",
+                                 ROPE_STREAMED[torch.bfloat16], 128,
+                                 family="rope")]
+        + [check_pipeline_kernel(torch.bfloat16, *PIPE_T6, sparse)
+           for sparse in ("tile", "decoded")]
+        + [check_pipeline_kernel(torch.bfloat16, *PIPE_T6_ROPE,
+                                 family="rope")])
+    pipe_timing = time_pipeline_kernel()
+    pipe_eight_timing = time_pipeline_kernel(EIGHT, 128)
 
     # --- spike kernels against their plain versions ---------------------
     matmul_err = max(
@@ -2061,6 +2265,19 @@ def main():
     serve_path(*lm_q)
     vision_int8_path()
 
+    # --- overlap='pipeline' (#1d) through build_prefill_step ------------
+    pipe_counts = {sp: pipeline_path(engines[sp], dy, requests,
+                                     "spikingformer-4-256", oracle=True)
+                   for sp in ("tile", "decoded")}
+    pipe8 = pipeline_path(cfg8, params8, requests8, "spikingformer-8-512",
+                          oracle=True)
+    pipe_lm = pipeline_path(lm_q[0], lm_q[1], lm_requests, "int8 LM")
+    check_mixed_pipeline(engines["auto"], mixed,
+                         {"images": requests[0]["images"]},
+                         "int8 spikingformer-4-256", "fused_ssa")
+    check_mixed_pipeline(lm_mixed[0], lm_mixed[1], lm_check, "int8 LM",
+                         "fused_ssa_rope")
+
     # --- eval-mode gradients through the layer program ----------------
     check_eval_gradients(cfg, dy, {"images": small},
                          "spikingformer-4-256 (bn)")
@@ -2070,6 +2287,9 @@ def main():
                                 (LM_GRAD_BATCH, LM_GRAD_PROMPT),
                                 generator=gen).cuda()},
         "spikingformer-lm fp32 (rope)")
+    check_eval_gradients(cfg, dy, {"images": small},
+                         "spikingformer-4-256 (bn), pipelined",
+                         overlap="pipeline")
 
     # --- the LIF entry (#9) on the layer inputs of one request each -----
     lif_counts = lif_path([(cfg, dy, requests[0]["images"]),
@@ -2167,11 +2387,27 @@ def main():
                  replaces="src/repro/kernels/lif.py:38",
                  launches=lif_counts["lif_forward"], max_abs_err=lif_err,
                  at_8_512=lif_timing["8-512 layer input"],
-                 **lif_timing["4-256 layer input"])]
+                 **lif_timing["4-256 layer input"]),
+            dict(name="fused_layer_pipeline", source=csrc + "fused_layer.cu",
+                 replaces="src/repro/kernels/fused_layer.py:420 "
+                          "(pipeline=True)",
+                 launches=pipe_counts["tile"][0]["fused_layer_pipeline"],
+                 max_abs_err=pipe_err,
+                 at_8_512=at_8_512(pipe_eight_timing, pipe8[0],
+                                   "fused_layer_pipeline"),
+                 at_lm=dict(launches=pipe_lm[0]["fused_layer_pipeline_rope"]),
+                 **pipe_timing)]
     rounded = lambda ms: [round(m, 3) for m in ms]
     log(f"popcount paths: train ms per step {rounded(pop_step_ms)}, 8-512 "
         f"ms per request {rounded(pop8_ms)}, bf16 LM ms per request "
         f"{rounded(lm_pop_ms)}")
+    log(f"pipeline paths, ms per request pipelined / fused: 4-256 tile "
+        f"{rounded(pipe_counts['tile'][1])} / "
+        f"{rounded(pipe_counts['tile'][2])}, decoded "
+        f"{rounded(pipe_counts['decoded'][1])} / "
+        f"{rounded(pipe_counts['decoded'][2])}; 8-512 "
+        f"{rounded(pipe8[1])} / {rounded(pipe8[2])}; int8 LM "
+        f"{rounded(pipe_lm[1])} / {rounded(pipe_lm[2])}")
     log(json.dumps({"kernels": [dict(route="cuda", **r) for r in rows]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

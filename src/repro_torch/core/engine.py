@@ -11,14 +11,17 @@ dense-transpose backward of the JAX custom VJP), ``dense_quant_linear``
 and ``ssa_step_causal``, and the two layer programs: ``layer_step``
 (vision, ``bn`` epilogues) and ``layer_step_causal`` (token family,
 RoPE / rmsnorm epilogues, causal). An eligible eval layer goes either to
-the sequential oracle (``overlap='off'``) or to the fused layer program
-(``overlap='fused'``, ``kernels/fused_layer``); train mode and
+the sequential oracle (``overlap='off'``) or to the layer program
+(``kernels/fused_layer``: ``overlap='fused'``, or ``'pipeline'`` for the
+TPU kernel's timestep wavefront, one timestep at a time with the
+membranes carried across T; the same outputs); train mode and
 ineligible layers take the sequential composition.
 
 The port's 'auto' rules for ``mode``, ``binary`` and ``overlap`` read
 the device, not JAX's flop floor: on a CUDA tensor 'auto' always picks
 the kernel, whose wrapper launches it or raises; on the CPU it picks the
-plain path, as JAX does for small shapes and under jit. ``sparse='auto'``
+plain path, as JAX does for small shapes and under jit. 'auto' never
+picks ``overlap='pipeline'``, as in JAX. ``sparse='auto'``
 follows JAX's rule for concrete inputs on every device, since a PyTorch
 tensor is always concrete: it reads the occupancy histogram
 (``kernels/spike_decode.choose_sparse_path``) and counts each decision in
@@ -28,16 +31,15 @@ Quantized spike products on the sparse path run the int8 kernels
 (``quant_spike_matmul`` on the tile path, ``quant_gather_spike_matmul``
 on the decoded path) with the dequantized backward of JAX's
 ``_quant_sparse_bwd``; an eligible eval SSA bundle under
-``overlap='fused'`` runs the bundle kernel ``fused_ssa`` (bn family in
+``overlap='fused'`` or ``'pipeline'`` runs the bundle kernel
+``fused_ssa`` (bn family in
 ``ssa_step``, rope family in ``ssa_step_causal``), whose backward
 recomputes through the oracle, as JAX's ``_fused_bwd`` does. A
 mixed-precision layer (some linears quantized) takes the sequential
 composition and so reaches them. The layer program under
-``overlap='fused'`` runs behind ``_FusedLayer``, whose backward
-recomputes ``reference_layer``, as JAX's ``_fused_layer`` VJP does.
-
-Not ported yet, and raising ``NotImplementedError`` instead of falling
-back silently: ``overlap='pipeline'`` (ROADMAP queue 2 #1d).
+``overlap='fused'`` or ``'pipeline'`` runs behind ``_FusedLayer``, whose
+backward recomputes ``reference_layer``, as JAX's ``_fused_layer`` VJP
+does, so the gradients under every overlap mode are the oracle's.
 """
 from __future__ import annotations
 
@@ -236,12 +238,12 @@ def resolve_overlap(engine: Optional[EngineConfig], x=None) -> str:
     its plain version and has no interpret mode. So 'auto' fuses whenever
     ``x`` lies on a CUDA device, whatever the layer's size, and the
     wrapper there launches the kernel or raises; on the CPU 'auto' stays
-    'off' and takes the oracle, as JAX does under jit."""
+    'off' and takes the oracle, as JAX does under jit. Explicit 'fused'
+    and 'pipeline' are honoured everywhere; 'auto' never picks 'pipeline',
+    as in JAX."""
     if engine is None:
         return "off"
-    if engine.overlap == "pipeline":
-        raise _not_ported("overlap='pipeline'", "queue 2 #1d")
-    if engine.overlap in ("off", "fused"):
+    if engine.overlap in OVERLAP_MODES:
         return engine.overlap
     return "fused" if _on_cuda(x) else "off"
 
@@ -459,9 +461,8 @@ class _FusedBundle(torch.autograd.Function):
 
 
 class LayerSpec(NamedTuple):
-    """The static closure of a fused layer step (JAX's ``_LayerSpec``
-    without the overlap mode), shared by the kernel forward and the
-    oracle backward."""
+    """The static closure of a layer-program step (JAX's ``_LayerSpec``),
+    shared by the kernel forward and the oracle backward."""
     family: str
     num_heads: int
     head_dim: int
@@ -473,6 +474,7 @@ class LayerSpec(NamedTuple):
     sparse: str                 # tile | decoded
     l_block: int
     c_block: int
+    overlap: str                # fused | pipeline
 
 
 class _FusedLayer(torch.autograd.Function):
@@ -499,6 +501,7 @@ class _FusedLayer(torch.autograd.Function):
             *ops[:6], tuple(ops[6:10]), *ops[10:], family=spec.family,
             num_heads=spec.num_heads, head_dim=spec.head_dim,
             scale=spec.scale, causal=spec.causal, sparse=spec.sparse,
+            pipeline=spec.overlap == "pipeline",
             binarize_scores=scfg.binarize_scores, decay=scfg.decay,
             v_th=scfg.v_threshold, soft_reset=scfg.soft_reset, eps=spec.eps,
             norm_eps=spec.norm_eps, l_block=spec.l_block,
@@ -525,8 +528,9 @@ def _layer_program(args, scfg, plan: LayerPlan, engine: EngineConfig, *,
                    norm_eps: float = 1e-6) -> torch.Tensor:
     """One eligible layer on the plan's overlap: ``reference_layer``
     (``overlap='off'``) or the layer program through :class:`_FusedLayer`
-    (``overlap='fused'``). ``args`` are ``reference_layer``'s operands,
-    the scales as one tuple and delta a tensor (the layer's param)."""
+    (``overlap='fused'`` or ``'pipeline'``). ``args`` are
+    ``reference_layer``'s operands, the scales as one tuple and delta a
+    tensor (the layer's param)."""
     from repro_torch.kernels.fused_layer import reference_layer
     kw = dict(family=family, num_heads=num_heads, head_dim=head_dim,
               scale=scale, causal=causal, eps=eps, norm_eps=norm_eps)
@@ -534,7 +538,7 @@ def _layer_program(args, scfg, plan: LayerPlan, engine: EngineConfig, *,
         return reference_layer(*args, scfg, **kw)
     *ops, scales, auxp, auxo, aux1, aux2, delta = args
     spec = LayerSpec(scfg=scfg, sparse=plan.sparse, l_block=engine.block_m,
-                     c_block=engine.block_k, **kw)
+                     c_block=engine.block_k, overlap=plan.overlap, **kw)
     return _FusedLayer.apply(*ops, *scales, auxp, auxo, aux1, aux2, delta,
                              spec)
 
@@ -547,7 +551,7 @@ def ssa_step(p: Dict[str, Any], st: Dict[str, Any], cfg, s: torch.Tensor, *,
     state).
 
     Eligible eval bundles (bias-free q/k/v, all or none quantized) under
-    ``overlap='fused'`` run the bundle kernel ``fused_ssa`` (the plain
+    ``overlap='fused'`` or ``'pipeline'`` (as in JAX) run the bundle kernel ``fused_ssa`` (the plain
     version on the CPU) on the stacked weights — int8 codes cast to the
     activation dtype with their (3, q_dim) scales — and the (3, 4, q_dim)
     BN rows, and return the state unchanged; everything else runs the
@@ -561,7 +565,7 @@ def ssa_step(p: Dict[str, Any], st: Dict[str, Any], cfg, s: torch.Tensor, *,
     quant = ["qw" in p[w] for _, w in names]
     eligible = (not train and (all(quant) or not any(quant))
                 and not any("b" in p[w] for _, w in names))
-    if eligible and resolve_overlap(engine, s) == "fused":
+    if eligible and resolve_overlap(engine, s) in ("fused", "pipeline"):
         if all(quant):
             w3, scale3 = _layer_quant_w3(p, [w for _, w in names], d,
                                          s.dtype)
@@ -642,7 +646,8 @@ def layer_step(p: Dict[str, Any], st: Dict[str, Any], cfg, x: torch.Tensor,
 
     An eligible eval layer runs the sequential oracle ``reference_layer``
     (``overlap='off'``) or the layer program ``fused_layer``
-    (``overlap='fused'``; the CUDA kernel for CUDA tensors), whose q/k/v
+    (``overlap='fused'``, or ``'pipeline'`` timestep by timestep; the CUDA
+    kernel for CUDA tensors), whose q/k/v
     projections take the plan's sparse datapath (the L-block tile skip,
     or the decoded gather with ``c_block = block_k`` and ``l_block =
     block_m``, as in JAX). Train mode
@@ -718,7 +723,8 @@ def ssa_step_causal(p: Dict[str, Any], cfg, h: torch.Tensor, positions, *,
     context (T, B, S, q_dim).
 
     An eligible bundle (JAX's eligibility, term for term) under
-    ``overlap='fused'`` runs the bundle kernel's rope family (causal) on
+    ``overlap='fused'`` or ``'pipeline'`` runs the bundle kernel's rope
+    family (causal) on
     the stacked weights — int8 codes cast to ``h.dtype`` with their
     (3, q_dim) scales — and the [cos; sin] table of ``nn.rope_table``
     (the sequential path's), through :class:`_FusedBundle`; everything
@@ -741,7 +747,7 @@ def ssa_step_causal(p: Dict[str, Any], cfg, h: torch.Tensor, positions, *,
                 and (all(quant) or h.dtype == torch.float32)
                 and cfg.head_dim % 2 == 0
                 and positions.ndim == 1)
-    if eligible and resolve_overlap(engine, h) == "fused":
+    if eligible and resolve_overlap(engine, h) in ("fused", "pipeline"):
         if all(quant):
             w3, scale3 = _layer_quant_w3(p, names, d, h.dtype)
         else:
@@ -777,8 +783,9 @@ def layer_step_causal(p: Dict[str, Any], cfg, x: torch.Tensor, positions,
     quantized, even head_dim, 1-D positions, binarized scores with an
     analog context. An eligible layer runs the sequential oracle
     ``reference_layer`` (``overlap='off'``) or the layer program
-    ``fused_layer`` with family 'rope' (``overlap='fused'``: the CUDA
-    kernel for CUDA tensors; a 'decoded' plan takes the tile projection,
+    ``fused_layer`` with family 'rope' (``overlap='fused'`` or
+    ``'pipeline'``: the CUDA kernel for CUDA tensors; a 'decoded' plan
+    takes the tile projection,
     as in JAX, since the projection input is analog). Others run the
     sequential composition through :func:`ssa_step_causal`. Eval only:
     the port has no LM training yet (ROADMAP queue 1 item 7)."""

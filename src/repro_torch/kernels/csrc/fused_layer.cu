@@ -86,6 +86,21 @@
 // is the plain version's, so the variant is bitwise equal to its plain
 // version for any weights, and to the tile variant on dyadic weights.
 //
+// The pipeline variant (overlap='pipeline'; `_kernel` with pipeline=True,
+// grid (B, T, 8, H), its LIF membranes riding VMEM scratch across the T
+// axis) is the same two launches run once per timestep, A_0, B_0, A_1,
+// B_1, ... on one stream (fused_layer_pipeline_forward): each launch sees
+// one timestep (nt = 1, its operands offset to timestep t), so launch A
+// keeps one timestep's bits and launch B one timestep's accumulators (no
+// MAX_T). The membranes move between launches through device scratch in
+// the activation dtype, where LIF keeps them exactly: q/k/v (B, L, 3 H hd),
+// the input neuron (B, L, D), the MLP hidden layer (B, L, F); a launch
+// reads them at t > 0 and starts from zero at t = 0, as the TPU kernel's
+// `_lif` does. The counts are added per timestep and launch B's flag
+// words are kept per timestep, so outputs and counts equal the fused
+// variant's bitwise. It moves the membranes through device memory twice
+// a timestep more than #1 and makes 2 T launches instead of 2.
+//
 // Rounding follows the plain version (kernels/fused_layer.py) step by
 // step: fp32 accumulation, cast to the activation dtype, BN as
 // (y - mean) * inv_std rounded and then fma32 (a float64 product and sum
@@ -306,7 +321,8 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
                 const float* __restrict__ delta_p, float scale, Lif lif,
                 int causal, int nt, int nb, int l, int d, int heads, int hd,
                 int l_block, int c_block, int cp, int ssa, int ka,
-                T* __restrict__ ctx, int* __restrict__ counts) {
+                T* __restrict__ ctx, int* __restrict__ counts,
+                T* __restrict__ memb, int carry) {
   using A = Act<T>;
   using S = AShape<HW>;
   constexpr int MAXJ = S::MAXJ, DEC_ROWS = S::DEC_ROWS, DEC_COLS = S::DEC_COLS;
@@ -345,10 +361,38 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
   // first projection (block-uniform)
   const bool resident = ka >= d;
   bool staged = false;
+  // the pipeline variant's membrane scratch (memb, (B, L, 3 qd)): slot
+  // (i, c) of the thread holds tile row r and column n of the 3 hd (the
+  // slots `emit` is handed below); read when carry, written back after
+  // the launch's timestep
+  auto membranes = [&](float (&u)[AJ][AC], int r0, int nr, bool load) {
+#pragma unroll
+    for (int i = 0; i < AJ; ++i)
+#pragma unroll
+      for (int c = 0; c < AC; ++c) {
+        int r, n;
+        if constexpr (DEC) {
+          r = warp * DEC_ROWS + i;
+          n = lane + 32 * c;
+          if (r >= nr || n >= n3) continue;
+        } else {
+          const int jt = jt0 + 2 * i;
+          r = r_lo + (c & 2) * 4;
+          n = jt * 8 + tig * 2 + (c & 1);
+          if (jt >= ntiles || r >= nr) continue;
+        }
+        T* p = memb + ((size_t)b * l + r0 + r) * 3 * qd + (n / hd) * qd + h * hd + n % hd;
+        if (load)
+          u[i][c] = A::load(p);
+        else
+          A::store(p, u[i][c]);
+      }
+  };
 
   for (int r0 = 0; r0 < l; r0 += L_TILE) {
     const int nr = min(L_TILE, l - r0);
     float u[AJ][AC] = {};       // LIF membranes of the thread's slots, across t
+    if (memb && carry) membranes(u, r0, nr, true);
     for (int t = 0; t < nt; ++t) {
       const T* src = s + (((size_t)t * nb + b) * l + r0) * d;
       __syncthreads();          // the previous slab (and yproj) is consumed
@@ -550,6 +594,7 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
         }
       }
     }
+    if (memb) membranes(u, r0, nr, false);
   }
   __syncthreads();
 
@@ -647,7 +692,7 @@ template <typename T>
 using AttentionKernel = void (*)(const T*, const T*, const float*,
                                  const float*, const float*, float, Lif, int,
                                  int, int, int, int, int, int, int, int, int,
-                                 int, int, T*, int*);
+                                 int, int, T*, int*, T*, int);
 
 template <typename T, int HW>
 AttentionKernel<T> attention_variant(int rope, int decoded) {
@@ -663,7 +708,8 @@ cudaError_t launch_attention(int rope, int decoded, const void* s,
                              float scale, Lif lif, int causal, int nt, int nb,
                              int l, int d, int heads, int hd, int l_block,
                              int c_block, int cp, int ssa, void* ctx,
-                             int* counts, cudaStream_t stream) {
+                             int* counts, void* memb, int carry,
+                             cudaStream_t stream) {
   const int nlb = (l + l_block - 1) / l_block;
   const int ka = chunk_depth(sizeof(T), nt, l, d, hd, nlb);
   const size_t dyn_a = SmemA(sizeof(T), nt, l, d, hd, nlb, ka).total;
@@ -674,7 +720,8 @@ cudaError_t launch_attention(int rope, int decoded, const void* s,
   if (err != cudaSuccess) return err;
   kernel<<<dim3(heads, nb), NT, dyn_a, stream>>>(
       (const T*)s, (const T*)w3, sc3, auxp, delta, scale, lif, causal, nt, nb,
-      l, d, heads, hd, l_block, c_block, cp, ssa, ka, (T*)ctx, counts);
+      l, d, heads, hd, l_block, c_block, cp, ssa, ka, (T*)ctx, counts,
+      (T*)memb, carry);
   return cudaGetLastError();
 }
 
@@ -691,7 +738,7 @@ cudaError_t launch_attention(int rope, int decoded, const void* s,
 // spikes, integer counts and bf16 weights are exact operands); in fp32
 // it is a CUDA-core loop over the same slots.
 
-constexpr int MAX_T = 4;       // timesteps whose accumulators launch B holds
+constexpr int MAX_T = 4;       // timesteps whose accumulators the fused launch B holds
 constexpr int LDS = KC + 8;    // padded row of the staged A and W^T tiles
 
 __device__ __forceinline__ int slot_row(int q) {
@@ -883,7 +930,10 @@ __device__ __forceinline__ void chunk_product(float (&acc)[16],
   }
 }
 
-template <typename T, bool ROPE>
+// TT: the timesteps whose accumulators a block holds (MAX_T fused, 1 for
+// the pipeline variant, whose mem_in / mem_hid carry the input neuron's
+// and the hidden layer's membranes across launches, read when carry)
+template <typename T, bool ROPE, int TT>
 __global__ void __launch_bounds__(NT)
 mlp_phase(const T* __restrict__ x, const T* __restrict__ ctx,
           const T* __restrict__ wo, const T* __restrict__ w1,
@@ -893,7 +943,8 @@ mlp_phase(const T* __restrict__ x, const T* __restrict__ ctx,
           const float* __restrict__ aux2, Lif lif, float norm_eps, int nt,
           int nb, int l, int d, int heads, int hd, int ff, int l_block,
           T* __restrict__ s2g, T* __restrict__ out, int* __restrict__ counts,
-          int* __restrict__ flags) {
+          int* __restrict__ flags, T* __restrict__ mem_in,
+          T* __restrict__ mem_hid, int carry) {
   using A = Act<T>;
   // block (x, b): tile x % tpb of L-block x / tpb, TILE rows (an L-block
   // of more than TILE rows spans several blocks)
@@ -934,7 +985,16 @@ mlp_phase(const T* __restrict__ x, const T* __restrict__ ctx,
     // scale; bn: bn_o, residual (x1 parked in `out`) and the input LIF;
     // rope: the residual (x1 parked in `out`)
     for (int c0 = 0; c0 < d; c0 += TILE) {
-      float acc[MAX_T][16] = {}, u[16] = {};
+      float acc[TT][16] = {}, u[16] = {};
+      // slot q of the input neuron's membrane in mem_in: tile row r, column c
+      auto in_slot = [&](int q) {
+        return mem_in + ((size_t)b * l + r0 + slot_row(q)) * d + c0 + slot_col(q);
+      };
+      const auto in_range = [&](int q) { return slot_row(q) < n && c0 + slot_col(q) < d; };
+      if (!ROPE && mem_in && carry)
+#pragma unroll
+        for (int q = 0; q < 16; ++q)
+          if (in_range(q)) u[q] = A::load(in_slot(q));
       chunk_loop<T>(
           qd, wo, d, c0, d,
           [&](int k0) {                      // bit t: some head of the chunk lit
@@ -946,7 +1006,7 @@ mlp_phase(const T* __restrict__ x, const T* __restrict__ ctx,
           },
           [&](int k0, int live) {
 #pragma unroll
-            for (int t = 0; t < MAX_T; ++t) {
+            for (int t = 0; t < TT; ++t) {
               if (!(live >> t & 1)) continue;
               __syncthreads();
               stage_a<T>(ctx + (((size_t)t * nb + b) * l + r0) * qd, qd, n, k0,
@@ -957,7 +1017,7 @@ mlp_phase(const T* __restrict__ x, const T* __restrict__ ctx,
           },
           wbuf);
 #pragma unroll
-      for (int t = 0; t < MAX_T; ++t) {
+      for (int t = 0; t < TT; ++t) {
         if (t >= nt) break;
 #pragma unroll
         for (int q = 0; q < 16; ++q) {
@@ -974,6 +1034,10 @@ mlp_phase(const T* __restrict__ x, const T* __restrict__ ctx,
           }
         }
       }
+      if (!ROPE && mem_in)
+#pragma unroll
+        for (int q = 0; q < 16; ++q)
+          if (in_range(q)) A::store(in_slot(q), u[q]);
     }
     __syncthreads();
 
@@ -1023,12 +1087,21 @@ mlp_phase(const T* __restrict__ x, const T* __restrict__ ctx,
     for (int t = 0; t < nt; ++t) s2_mask |= s2_live[t] << t;
     for (int hh = 0; hh < heads; ++hh)
       for (int c0 = 0; c0 < ffc; c0 += TILE) {
-        float acc[MAX_T][16] = {}, u[16] = {};
+        float acc[TT][16] = {}, u[16] = {};
+        // slot q of the hidden membrane in mem_hid: tile row r, channel f
+        auto hid_slot = [&](int q) {
+          return mem_hid + ((size_t)b * l + r0 + slot_row(q)) * ff + hh * ffc + c0 + slot_col(q);
+        };
+        const auto hid_range = [&](int q) { return slot_row(q) < n && c0 + slot_col(q) < ffc; };
+        if (mem_hid && carry)
+#pragma unroll
+          for (int q = 0; q < 16; ++q)
+            if (hid_range(q)) u[q] = A::load(hid_slot(q));
         chunk_loop<T>(
             d, w1 + hh * ffc, ff, c0, ffc, [&](int) { return s2_mask; },
             [&](int k0, int live) {
 #pragma unroll
-              for (int t = 0; t < MAX_T; ++t) {
+              for (int t = 0; t < TT; ++t) {
                 if (!(live >> t & 1)) continue;
                 if constexpr (ROPE) {
                   __syncthreads();
@@ -1044,7 +1117,7 @@ mlp_phase(const T* __restrict__ x, const T* __restrict__ ctx,
             },
             wbuf);
 #pragma unroll
-        for (int t = 0; t < MAX_T; ++t) {
+        for (int t = 0; t < TT; ++t) {
           if (t >= nt) break;
 #pragma unroll
           for (int q = 0; q < 16; ++q) {
@@ -1059,13 +1132,17 @@ mlp_phase(const T* __restrict__ x, const T* __restrict__ ctx,
             }
           }
         }
+        if (mem_hid)
+#pragma unroll
+          for (int q = 0; q < 16; ++q)
+            if (hid_range(q)) A::store(hid_slot(q), u[q]);
       }
     __syncthreads();
 
     // down: the sum over ff-chunks in order (dark chunk blocks skipped),
     // then scale (+ bn_2) and the residual
     for (int c0 = 0; c0 < d; c0 += TILE) {
-      float acc[MAX_T][16] = {};
+      float acc[TT][16] = {};
       chunk_loop<T>(
           ff, w2, d, c0, d,
           [&](int k0) {                      // bit t: some ff-chunk of it lit
@@ -1077,14 +1154,14 @@ mlp_phase(const T* __restrict__ x, const T* __restrict__ ctx,
           },
           [&](int k0, int live) {
 #pragma unroll
-            for (int t = 0; t < MAX_T; ++t)
+            for (int t = 0; t < TT; ++t)
               if (live >> t & 1)
                 chunk_product<T>(acc[t], wbuf, nullptr,
                                  hbits + (size_t)t * TILE * fw, fw, k0);
           },
           wbuf);
 #pragma unroll
-      for (int t = 0; t < MAX_T; ++t) {
+      for (int t = 0; t < TT; ++t) {
         if (t >= nt) break;
 #pragma unroll
         for (int q = 0; q < 16; ++q) {
@@ -1133,8 +1210,47 @@ mlp_phase(const T* __restrict__ x, const T* __restrict__ ctx,
   }
 }
 
+// One launch A and one launch B over nt timesteps (TT >= nt held by
+// launch B); memb / mem_in / mem_hid, when set, carry the membranes in
+// from the previous launch pair (carry) and out to the next one.
+template <typename T, int TT>
+cudaError_t launch_pair(const T* x, const T* s, const void* w3,
+                        const void* wo, const void* w1, const void* w2,
+                        const float* sc3, const float* sco, const float* sc1,
+                        const float* sc2, const float* auxp, const float* auxo,
+                        const float* aux1, const float* aux2,
+                        const float* delta, float scale, Lif lif,
+                        float norm_eps, int rope, int causal, int nt, int nb,
+                        int l, int d, int heads, int hd, int ff, int l_block,
+                        int decoded, int c_block, int cp, T* ctx, T* s2g,
+                        T* out, int* counts, int* flags, T* memb, T* mem_in,
+                        T* mem_hid, int carry, cudaStream_t stream) {
+  if (nt > TT) return cudaErrorInvalidValue;
+  const int nlb = (l + l_block - 1) / l_block, tpb = (l_block + TILE - 1) / TILE;
+  const size_t dyn = 4 * ((size_t)nt * TILE * ((d + 31) / 32 + (ff + 31) / 32) +
+                          (size_t)nt * (2 * heads + 1));
+  auto mlp = rope ? mlp_phase<T, true, TT> : mlp_phase<T, false, TT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  if (err != cudaSuccess) return err;
+  err = launch_attention<T>(rope, decoded, s, w3, sc3, auxp, delta, scale,
+                            lif, causal, nt, nb, l, d, heads, hd, l_block,
+                            c_block, cp, 0, ctx, counts, memb, carry, stream);
+  if (err != cudaSuccess) return err;
+  mlp<<<dim3(nlb * tpb, nb), NT, dyn, stream>>>(
+      x, ctx, (const T*)wo, (const T*)w1, (const T*)w2, sco, sc1, sc2, auxo,
+      aux1, aux2, lif, norm_eps, nt, nb, l, d, heads, hd, ff, l_block, s2g,
+      out, counts, flags, mem_in, mem_hid, carry);
+  return cudaGetLastError();
+}
+
+// The layer program: fused, one launch pair over all T; or pipelined, one
+// launch pair per timestep (A_0, B_0, A_1, B_1, ...), each pair's
+// operands offset to its timestep (x, s, ctx, out, and launch B's flag
+// words (T, B, nlb, 4)), with the rope family's ln2 scratch s2g holding
+// one timestep.
 template <typename T>
-cudaError_t launch(const void* x, const void* s, const void* w3,
+cudaError_t launch(int pipeline, const void* x, const void* s, const void* w3,
                    const void* wo, const void* w1, const void* w2,
                    const float* sc3, const float* sco, const float* sc1,
                    const float* sc2, const float* auxp, const float* auxo,
@@ -1142,24 +1258,47 @@ cudaError_t launch(const void* x, const void* s, const void* w3,
                    float scale, Lif lif, float norm_eps, int rope, int causal,
                    int nt, int nb, int l, int d, int heads, int hd, int ff,
                    int l_block, int decoded, int c_block, int cp, void* ctx,
-                   void* s2g, void* out, int* counts, int* flags,
-                   cudaStream_t stream) {
-  const int nlb = (l + l_block - 1) / l_block, tpb = (l_block + TILE - 1) / TILE;
-  const size_t dyn = 4 * ((size_t)nt * TILE * ((d + 31) / 32 + (ff + 31) / 32) +
-                          (size_t)nt * (2 * heads + 1));
-  auto mlp = rope ? mlp_phase<T, true> : mlp_phase<T, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-  if (err != cudaSuccess) return err;
-  err = launch_attention<T>(rope, decoded, s, w3, sc3, auxp, delta, scale,
-                            lif, causal, nt, nb, l, d, heads, hd, l_block,
-                            c_block, cp, 0, ctx, counts, stream);
-  if (err != cudaSuccess) return err;
-  mlp<<<dim3(nlb * tpb, nb), NT, dyn, stream>>>(
-      (const T*)x, (const T*)ctx, (const T*)wo, (const T*)w1, (const T*)w2,
-      sco, sc1, sc2, auxo, aux1, aux2, lif, norm_eps, nt, nb, l, d, heads, hd,
-      ff, l_block, (T*)s2g, (T*)out, counts, flags);
-  return cudaGetLastError();
+                   void* s2g, void* out, int* counts, int* flags, void* memb,
+                   void* mem_in, void* mem_hid, cudaStream_t stream) {
+  if (!pipeline)
+    return launch_pair<T, MAX_T>(
+        (const T*)x, (const T*)s, w3, wo, w1, w2, sc3, sco, sc1, sc2, auxp,
+        auxo, aux1, aux2, delta, scale, lif, norm_eps, rope, causal, nt, nb, l,
+        d, heads, hd, ff, l_block, decoded, c_block, cp, (T*)ctx, (T*)s2g,
+        (T*)out, counts, flags, nullptr, nullptr, nullptr, 0, stream);
+  const int nlb = (l + l_block - 1) / l_block;
+  const size_t xs = (size_t)nb * l * d, cs = (size_t)nb * l * heads * hd;
+  const size_t fs = (size_t)nb * nlb * 4;
+  for (int t = 0; t < nt; ++t) {
+    const cudaError_t err = launch_pair<T, 1>(
+        (const T*)x + t * xs, (const T*)s + t * xs, w3, wo, w1, w2, sc3, sco,
+        sc1, sc2, auxp, auxo, aux1, aux2, delta, scale, lif, norm_eps, rope,
+        causal, 1, nb, l, d, heads, hd, ff, l_block, decoded, c_block, cp,
+        (T*)ctx + t * cs, (T*)s2g, (T*)out + t * xs, counts, flags + t * fs,
+        (T*)memb, (T*)mem_in, (T*)mem_hid, t > 0, stream);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <typename T>
+int forward(int pipeline, const void* x, const void* s, const void* w3,
+            const void* wo, const void* w1, const void* w2, const void* sc3,
+            const void* sco, const void* sc1, const void* sc2,
+            const void* auxp, const void* auxo, const void* aux1,
+            const void* aux2, const void* delta, float scale, Lif lif,
+            float norm_eps, int rope, int causal, int nt, int nb, int l,
+            int d, int heads, int hd, int ff, int l_block, int decoded,
+            int c_block, int cp, void* ctx, void* s2g, void* out,
+            void* counts, void* flags, void* memb, void* mem_in,
+            void* mem_hid, void* stream) {
+  const auto f = [](const void* p) { return (const float*)p; };
+  return (int)launch<T>(pipeline, x, s, w3, wo, w1, w2, f(sc3), f(sco),
+                        f(sc1), f(sc2), f(auxp), f(auxo), f(aux1), f(aux2),
+                        f(delta), scale, lif, norm_eps, rope, causal, nt, nb,
+                        l, d, heads, hd, ff, l_block, decoded, c_block, cp,
+                        ctx, s2g, out, (int*)counts, (int*)flags, memb,
+                        mem_in, mem_hid, (cudaStream_t)stream);
 }
 
 // The SSA bundle alone (kernels/fused_ssa.py::fused_ssa): launch A with
@@ -1174,7 +1313,7 @@ cudaError_t launch_ssa(const void* s, const void* w3, const float* sc3,
                        cudaStream_t stream) {
   return launch_attention<T>(rope, 0, s, w3, sc3, auxp, delta, scale, lif,
                              causal, nt, nb, l, d, heads, hd, l, 1, d, 1, ctx,
-                             counts, stream);
+                             counts, nullptr, 0, stream);
 }
 
 }  // namespace
@@ -1194,21 +1333,37 @@ extern "C" int fused_layer_forward(
     int l_block, int decoded, int c_block, int cp, void* ctx, void* s2g,
     void* out, void* counts, void* flags, void* stream) {
   const Lif lif{decay, vth, soft_reset};
-  const auto f = [](const void* p) { return (const float*)p; };
-  if (dtype == 0)
-    return launch<float>(x, s, w3, wo, w1, w2, f(sc3), f(sco), f(sc1),
-                         f(sc2), f(auxp), f(auxo), f(aux1), f(aux2), f(delta),
-                         scale, lif, norm_eps, rope, causal, nt, nb, l, d,
-                         heads, hd, ff, l_block, decoded, c_block, cp, ctx,
-                         s2g, out, (int*)counts, (int*)flags,
-                         (cudaStream_t)stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(
-        x, s, w3, wo, w1, w2, f(sc3), f(sco), f(sc1), f(sc2), f(auxp),
-        f(auxo), f(aux1), f(aux2), f(delta), scale, lif, norm_eps, rope,
-        causal, nt, nb, l, d, heads, hd, ff, l_block, decoded, c_block, cp,
-        ctx, s2g, out, (int*)counts, (int*)flags, (cudaStream_t)stream);
-  return (int)cudaErrorInvalidValue;
+  auto fwd = dtype == 0 ? forward<float> : forward<__nv_bfloat16>;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  return fwd(0, x, s, w3, wo, w1, w2, sc3, sco, sc1, sc2, auxp, auxo, aux1,
+             aux2, delta, scale, lif, norm_eps, rope, causal, nt, nb, l, d,
+             heads, hd, ff, l_block, decoded, c_block, cp, ctx, s2g, out,
+             counts, flags, nullptr, nullptr, nullptr, stream);
+}
+
+// The pipeline variant (overlap='pipeline'): fused_layer_forward's
+// operands, with ctx (T, B, L, H hd), s2g (B, L, D) (rope; unused by bn),
+// flags (T, B, nlb, 4) int32 zeroed, and the membrane scratch memb
+// (B, L, 3 H hd), mem_in (B, L, D), mem_hid (B, L, F) in the activation
+// dtype (uninitialised: the first timestep does not read it). Launches 2 T
+// kernels on the stream.
+extern "C" int fused_layer_pipeline_forward(
+    int dtype, const void* x, const void* s, const void* w3, const void* wo,
+    const void* w1, const void* w2, const void* sc3, const void* sco,
+    const void* sc1, const void* sc2, const void* auxp, const void* auxo,
+    const void* aux1, const void* aux2, const void* delta, float scale,
+    float decay, float vth, int soft_reset, float norm_eps, int rope,
+    int causal, int nt, int nb, int l, int d, int heads, int hd, int ff,
+    int l_block, int decoded, int c_block, int cp, void* ctx, void* s2g,
+    void* out, void* counts, void* flags, void* memb, void* mem_in,
+    void* mem_hid, void* stream) {
+  const Lif lif{decay, vth, soft_reset};
+  auto fwd = dtype == 0 ? forward<float> : forward<__nv_bfloat16>;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  return fwd(1, x, s, w3, wo, w1, w2, sc3, sco, sc1, sc2, auxp, auxo, aux1,
+             aux2, delta, scale, lif, norm_eps, rope, causal, nt, nb, l, d,
+             heads, hd, ff, l_block, decoded, c_block, cp, ctx, s2g, out,
+             counts, flags, memb, mem_in, mem_hid, stream);
 }
 
 // The SSA bundle (fused_ssa): s (T, B, L, D) spikes (rope: normed

@@ -1,7 +1,9 @@
 """Fused whole-layer step — the layer program of the dual-engine overlay.
 
-Port of ``repro.kernels.fused_layer`` for the fused (not pipelined)
-schedule and both epilogue families:
+Port of ``repro.kernels.fused_layer`` for the fused and the pipelined
+schedule (``pipeline=True``: the TPU grid's timestep wavefront, one
+timestep at a time with the LIF membranes carried across T) and both
+epilogue families:
 
 * ``bn`` — the vision family's eval layer, with either projection
   datapath: the L-block tile skip (``sparse='tile'``) or the decoded
@@ -24,10 +26,15 @@ Three functions of one layer:
   the same arithmetic as the CUDA kernel, plus the ``(H, 8, n_l_blocks)``
   map of executed sub-blocks per (head, phase, L-block) with the TPU
   kernel's predicates (for decoded q/k/v: executed gather chunks);
+  :func:`fused_layer_pipeline_plain` the pipelined one: a loop over t
+  that runs one timestep of the layer at a time, carries each membrane
+  to the next timestep and adds each timestep's executed sub-blocks;
 * :func:`fused_layer` — the wrapper: CPU tensors take the plain version,
-  CUDA tensors launch ``csrc/fused_layer.cu`` through
-  :func:`fused_layer_cuda` (two launches: attention per (head, b), then
-  wo + MLP per (64-row tile of an L-block, b)) or raise.
+  CUDA tensors launch ``csrc/fused_layer.cu`` or raise: through
+  :func:`fused_layer_cuda` two launches (attention per (head, b), then
+  wo + MLP per (64-row tile of an L-block, b)); with ``pipeline=True``
+  through :func:`fused_layer_pipeline_cuda` the same two a timestep
+  (2 T), the membranes moving between them through device scratch.
 
 Rounding rules shared by the plain version and the kernel: projections
 accumulate in fp32 and are cast to the activation dtype before the
@@ -70,11 +77,14 @@ FAMILIES = ("bn", "rope")
 LAYER_PHASES = ("q", "k", "v", "qkt", "qktv", "wo", "up", "down")
 N_PHASES = len(LAYER_PHASES)
 
-# kernel launches on the card, by variant (bn tile, bn decoded, rope):
-# each call of the CUDA layer program launches two kernels
-# (attention_phase, then mlp_phase) and counts both
+# kernel launches on the card, by variant (bn tile, bn decoded, rope;
+# fused or pipelined): each call of the fused CUDA layer program launches
+# two kernels (attention_phase, then mlp_phase) and counts both; the
+# pipelined one launches the pair once a timestep, 2 T a call
 LAUNCHES = {"fused_layer": 0, "fused_layer_decoded": 0,
-            "fused_layer_rope": 0}
+            "fused_layer_rope": 0, "fused_layer_pipeline": 0,
+            "fused_layer_pipeline_decoded": 0,
+            "fused_layer_pipeline_rope": 0}
 LAUNCHES_PER_CALL = 2
 
 # shape limits of the CUDA kernel (csrc/fused_layer.cu): launch A keeps
@@ -82,7 +92,8 @@ LAUNCHES_PER_CALL = 2
 # by :func:`smem_a`) and a row's q or k bits in at most two 32-bit words
 # (head_dim <= 64); launch B holds T accumulators a slot and its rmsnorm
 # a row in registers, and the spike bit planes of a 64-row tile in shared
-# memory (:func:`smem_b`)
+# memory (:func:`smem_b`). The pipelined kernel's launches see one
+# timestep each: its layout is the fused one at T = 1, and T is unbounded
 L_TILE = 64
 KA = 64                        # launch A's streamed w3 K-chunk
 MAX_HEAD_DIM = 64
@@ -98,18 +109,16 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _check_variant(family, sparse, pipeline, binarize_scores):
+def _check_variant(family, sparse, binarize_scores):
     if family not in FAMILIES:
         raise ValueError(f"unknown fused-layer family {family!r} "
                          f"(expected bn|rope)")
     if sparse not in ("tile", "decoded"):
         raise ValueError(f"unknown fused-layer sparse path {sparse!r}")
-    for off, what in ((pipeline, "pipeline=True"),
-                      (not binarize_scores, "analog attention scores")):
-        if off:
-            raise NotImplementedError(
-                f"{what} of the fused layer is not ported to PyTorch yet "
-                f"(ROADMAP queue 2 #1)")
+    if not binarize_scores:
+        raise NotImplementedError(
+            "analog attention scores of the fused layer are not ported to "
+            "PyTorch yet (ROADMAP queue 2 #6 / #1, analog scores)")
 
 
 def _lif(u: torch.Tensor, decay: float, v_th: float, soft_reset: bool):
@@ -173,13 +182,53 @@ def _decoded_projections(s, w3, l_block, c_block):
 
 
 def fused_layer_plain(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
-                      delta, *, num_heads: int, head_dim: int, scale: float,
-                      decay: float, v_th: float, soft_reset: bool,
-                      l_block: int, decoded: bool = False,
-                      c_block: int = 128, family: str = "bn",
-                      causal: bool = False, norm_eps: float = 1e-6
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the kernel. The bn aux rows carry the inverse std
+                      delta, *, decay: float, v_th: float, soft_reset: bool,
+                      **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel (see :func:`_layer_plain`): each LIF
+    runs over all T at once."""
+    def lif(name, u):
+        return _lif(u, decay, v_th, soft_reset)
+    return _layer_plain(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
+                        delta, lif=lif, **kw)
+
+
+def fused_layer_pipeline_plain(x, s, w3, wo, w1, w2, scales, auxp, auxo,
+                               aux1, aux2, delta, *, decay: float,
+                               v_th: float, soft_reset: bool, **kw
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the pipelined kernel, as the TPU's (B, T, 8, H)
+    grid runs it: a loop over t, each step one timestep of the whole
+    layer (:func:`_layer_plain` on the timestep's x and s) whose LIF
+    neurons (q, k, v, the input neuron, the MLP hidden layer) take one
+    step from the membrane the previous timestep left, zero at t = 0;
+    each timestep's executed sub-blocks are added to the counts. Equal
+    to :func:`fused_layer_plain` bitwise, outputs and counts."""
+    mem = {}
+
+    def lif(name, u):                   # u: (1, ...) one timestep
+        m0 = mem.get(name, torch.zeros_like(u[0]))
+        mem[name], spikes = lif_step(m0, u[0], decay=decay, v_th=v_th,
+                                     soft_reset=soft_reset)
+        return spikes[None]
+    outs, counts = [], 0
+    for t in range(x.shape[0]):
+        out, cnt = _layer_plain(x[t:t + 1], s[t:t + 1], w3, wo, w1, w2,
+                                scales, auxp, auxo, aux1, aux2, delta,
+                                lif=lif, **kw)
+        outs.append(out)
+        counts = counts + cnt
+    return torch.cat(outs), counts
+
+
+def _layer_plain(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
+                 delta, *, lif, num_heads: int, head_dim: int, scale: float,
+                 l_block: int, decoded: bool = False, c_block: int = 128,
+                 family: str = "bn", causal: bool = False,
+                 norm_eps: float = 1e-6
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer's arithmetic over the timesteps of x and s, with
+    ``lif(name, u)`` the spikes of the LIF neuron ``name`` (q, k, v, s2,
+    hid) on currents u. The bn aux rows carry the inverse std
     (:func:`_inv_rows`); the rope family reads the (2, L, hd/2) cos / sin
     table from ``auxp`` and the ln2 scale from ``auxo`` and ignores
     ``aux1`` / ``aux2``. Skipped sub-blocks contribute exact zeros, so
@@ -201,9 +250,6 @@ def fused_layer_plain(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
     def bn(u, rows):
         return bn_affine(u.float(), rows[0], rows[1], rows[2], rows[3]
                          ).to(dt)
-
-    def lif(u):
-        return _lif(u, decay, v_th, soft_reset)
 
     def per_head(u):                                  # -> (T, B, H, L, c)
         return u.reshape(t, b, l, heads, -1).transpose(2, 3)
@@ -230,7 +276,7 @@ def fused_layer_plain(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
         proj_counts = count(_block_any(s, l_block))
     if decoded:
         proj = [bn(proj[j], auxp[j]) for j in range(3)]
-    q, k, v = (lif(u) for u in proj)
+    q, k, v = (lif(name, u) for name, u in zip("qkv", proj))
     delta_t = torch.as_tensor(delta, dtype=torch.float32, device=x.device)
     k_live = _block_any(k, l_block, heads) | (delta_t <= 0)
     c_live = k_live & _block_any(v, l_block, heads)
@@ -242,12 +288,12 @@ def fused_layer_plain(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
     if rope:
         x1 = x + lin(ctx, wo, sco)
         s2 = _rms_plain(x1, auxo[0], norm_eps)
-        hid = lif((_seq_matmul(s2, w1) * sc1.float()).to(dt))
+        hid = lif("hid", (_seq_matmul(s2, w1) * sc1.float()).to(dt))
         out = x1 + lin(hid, w2, sc2)
     else:
         x1 = x + bn(lin(ctx, wo, sco), auxo)
-        s2 = lif(x1)
-        hid = lif(bn(lin(s2, w1, sc1), aux1))
+        s2 = lif("s2", x1)
+        hid = lif("hid", bn(lin(s2, w1, sc1), aux1))
         out = x1 + bn(lin(hid, w2, sc2), aux2)
     counts = torch.stack([
         proj_counts, proj_counts, proj_counts, count(k_live), count(c_live),
@@ -323,10 +369,13 @@ def fused_layer(x: torch.Tensor, s: torch.Tensor, w3: torch.Tensor,
     ``l_block``: the L-block of the occupancy skips and decoded
     capacities; ``c_block``: the decoded chunk of compacted slots.
 
+    ``pipeline``: the TPU kernel's per-timestep wavefront grid; outputs
+    and counts are those of the fused schedule.
+
     Returns (layer output (T, B, L, D) in the activation dtype, counts
     (H, 8, ceil(L / l_block)) int32 — executed sub-blocks per head,
     phase (:data:`LAYER_PHASES`) and L-block)."""
-    _check_variant(family, sparse, pipeline, binarize_scores)
+    _check_variant(family, sparse, binarize_scores)
     args, kw = prepare(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
                        delta, num_heads=num_heads, head_dim=head_dim,
                        scale=scale, decay=decay, v_th=v_th,
@@ -334,11 +383,13 @@ def fused_layer(x: torch.Tensor, s: torch.Tensor, w3: torch.Tensor,
                        sparse=sparse, c_block=c_block, family=family,
                        causal=causal, norm_eps=norm_eps)
     if x.device.type == "cpu":
-        return fused_layer_plain(*args, **kw)
+        plain = fused_layer_pipeline_plain if pipeline else fused_layer_plain
+        return plain(*args, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"fused_layer runs on CPU or CUDA tensors, not "
                          f"{x.device.type}")
-    return fused_layer_cuda(*args, **kw)
+    launch = fused_layer_pipeline_cuda if pipeline else fused_layer_cuda
+    return launch(*args, **kw)
 
 
 def prepare(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2, delta, *,
@@ -429,20 +480,34 @@ def smem_a(elem_size: int, t: int, l: int, d: int, head_dim: int,
 
 def smem_b(t: int, d: int, ff: int, heads: int) -> int:
     """Launch B's dynamic shared memory in bytes: a 64-row tile's input
-    and hidden spike bit planes for every timestep, and its flags."""
+    and hidden spike bit planes for every timestep it holds, and its
+    flags."""
     return 4 * (t * 64 * (-(-d // 32) + -(-ff // 32)) + t * (2 * heads + 1))
+
+
+def membrane_bytes(elem_size: int, t: int, b: int, l: int, d: int,
+                   q_dim: int, ff: int, rope: bool = False) -> int:
+    """Device-memory bytes the pipelined kernel moves for its membranes,
+    beyond the fused kernel's traffic: each timestep writes the q/k/v,
+    input-neuron (bn) and hidden membranes, and each timestep after the
+    first reads them."""
+    per_step = b * l * (3 * q_dim + (0 if rope else d) + ff) * elem_size
+    return (2 * t - 1) * per_step
 
 
 def check_launch_shapes(elem_size: int, t: int, l: int, d: int, heads: int,
                         head_dim: int, nlb: int, *, ff: Optional[int] = None,
-                        rope: bool = False, what: str = "fused_layer"
-                        ) -> None:
+                        rope: bool = False, pipeline: bool = False,
+                        what: str = "fused_layer") -> None:
     """Raises ValueError for a shape that launch A (and, given ``ff``,
-    launch B) does not take; ``what`` names the kernel in the message."""
-    smem = smem_a(elem_size, t, l, d, head_dim, nlb)
+    launch B) does not take; ``what`` names the kernel in the message.
+    ``pipeline``: the pipelined kernel, whose launches hold one timestep
+    (the layout at T = 1, any T)."""
+    held = 1 if pipeline else t
+    smem = smem_a(elem_size, held, l, d, head_dim, nlb)
     if smem > SMEM_LIMIT:
         raise ValueError(f"{what} kernel takes a sequence whose spike bits "
-                         f"fit shared memory, got T={t}, L={l} ({smem} "
+                         f"fit shared memory, got T={held}, L={l} ({smem} "
                          f"bytes > {SMEM_LIMIT})")
     if head_dim > MAX_HEAD_DIM or head_dim % 8 or d % 16:
         raise ValueError(f"{what} kernel takes head_dim a multiple of 8 up "
@@ -450,10 +515,11 @@ def check_launch_shapes(elem_size: int, t: int, l: int, d: int, heads: int,
                          f"head_dim={head_dim}, D={d}")
     if ff is None:
         return
-    if t > MAX_T or heads > MAX_HEADS or (ff // heads) % 8 or \
+    if held > MAX_T or heads > MAX_HEADS or (ff // heads) % 8 or \
             (rope and d > MAX_D_ROPE) or \
-            smem_b(t, d, ff, heads) > SMEM_B_LIMIT:
-        raise ValueError(f"{what} kernel takes T <= {MAX_T}, at most "
+            smem_b(held, d, ff, heads) > SMEM_B_LIMIT:
+        t_bound = "" if pipeline else f"T <= {MAX_T}, "
+        raise ValueError(f"{what} kernel takes {t_bound}at most "
                          f"{MAX_HEADS} heads, F / H a multiple of 8, D at "
                          f"most {MAX_D_ROPE} for rope and a tile's spike "
                          f"bits within {SMEM_B_LIMIT} bytes of shared "
@@ -462,27 +528,49 @@ def check_launch_shapes(elem_size: int, t: int, l: int, d: int, heads: int,
 
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 15
              + [ctypes.c_float] * 3 + [ctypes.c_int] + [ctypes.c_float]
-             + [ctypes.c_int] * 13 + [ctypes.c_void_p] * 6)
+             + [ctypes.c_int] * 13 + [ctypes.c_void_p] * 5)
+# the pipelined entry adds the three membrane scratch pointers
+_PIPELINE_ARGTYPES = _ARGTYPES + [ctypes.c_void_p] * 3
 
 
 def _library():
     from repro_torch.kernels import _build
     lib = _build.load("fused_layer")
     if lib.fused_layer_forward.argtypes is None:
-        lib.fused_layer_forward.argtypes = _ARGTYPES
+        lib.fused_layer_forward.argtypes = _ARGTYPES + [ctypes.c_void_p]
         lib.fused_layer_forward.restype = ctypes.c_int
+        lib.fused_layer_pipeline_forward.argtypes = \
+            _PIPELINE_ARGTYPES + [ctypes.c_void_p]
+        lib.fused_layer_pipeline_forward.restype = ctypes.c_int
         lib.fused_layer_error.argtypes = [ctypes.c_int]
         lib.fused_layer_error.restype = ctypes.c_char_p
     return lib
 
 
 def fused_layer_cuda(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
-                     delta, *, num_heads, head_dim, scale, decay, v_th,
-                     soft_reset, l_block, decoded=False, c_block=128,
-                     family="bn", causal=False, norm_eps=1e-6):
+                     delta, **kw):
     """Launch the CUDA layer program on PyTorch's current stream, on the
     operands :func:`prepare` returns; counted under ``fused_layer``,
     ``fused_layer_decoded`` (``decoded``) or ``fused_layer_rope``."""
+    return _launch(False, x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1,
+                   aux2, delta, **kw)
+
+
+def fused_layer_pipeline_cuda(x, s, w3, wo, w1, w2, scales, auxp, auxo,
+                              aux1, aux2, delta, **kw):
+    """Launch the pipelined CUDA layer program (#1d): the two launches
+    once a timestep, A_0, B_0, A_1, B_1, ..., on PyTorch's current stream,
+    with the membranes in device scratch between them; counted, 2 T a
+    call, under ``fused_layer_pipeline``, ``fused_layer_pipeline_decoded``
+    or ``fused_layer_pipeline_rope``."""
+    return _launch(True, x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1,
+                   aux2, delta, **kw)
+
+
+def _launch(pipeline, x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
+            delta, *, num_heads, head_dim, scale, decay, v_th, soft_reset,
+            l_block, decoded=False, c_block=128, family="bn", causal=False,
+            norm_eps=1e-6):
     dtypes = {torch.float32: 0, torch.bfloat16: 1}
     if x.dtype not in dtypes:
         raise ValueError(f"fused_layer kernel takes float32 or bfloat16, "
@@ -502,32 +590,45 @@ def fused_layer_cuda(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
     ff = w1.shape[1]
     nlb = -(-l // l_block)
     check_launch_shapes(x.element_size(), t, l, d, num_heads, head_dim, nlb,
-                        ff=ff, rope=rope)
+                        ff=ff, rope=rope, pipeline=pipeline)
     act = tuple(a.contiguous() for a in act)
     f32 = tuple(a.contiguous() for a in f32)
-    ctx = torch.empty((t, b, l, num_heads * head_dim), dtype=x.dtype,
-                      device=x.device)
-    s2g = torch.empty_like(act[0]) if rope else ctx
+    q_dim = num_heads * head_dim
+    new = lambda *shape: torch.empty(shape, dtype=x.dtype,  # noqa: E731
+                                     device=x.device)
+    ctx = new(t, b, l, q_dim)
+    # the rope family's ln2 output: every timestep (fused) or the launch
+    # pair's one (pipelined)
+    s2g = (new(b, l, d) if pipeline else torch.empty_like(act[0])) \
+        if rope else ctx
     out = torch.empty_like(act[0])
     counts = torch.zeros((num_heads, N_PHASES, nlb), dtype=torch.int32,
                          device=x.device)
-    # launch B's per-(b, L-block) flag words and arrival counts
-    flags = torch.zeros((b, nlb, 3 * t + 1), dtype=torch.int32,
-                        device=x.device)
+    # launch B's per-(b, L-block) flag words and arrival counts: one group
+    # of 3 T + 1 (fused), or of 4 per timestep (pipelined)
+    flags = torch.zeros((t, b, nlb, 4) if pipeline else (b, nlb, 3 * t + 1),
+                        dtype=torch.int32, device=x.device)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     cp = -(-d // c_block) * c_block
-    rc = lib.fused_layer_forward(
-        dtypes[x.dtype], *(a.data_ptr() for a in act + f32),
-        float(scale), float(decay), float(v_th), int(soft_reset),
-        float(norm_eps), int(rope), int(causal), t, b, l, d, num_heads,
-        head_dim, ff, l_block, int(decoded), c_block, cp, ctx.data_ptr(),
-        s2g.data_ptr(), out.data_ptr(), counts.data_ptr(), flags.data_ptr(),
-        stream)
+    args = [dtypes[x.dtype], *(a.data_ptr() for a in act + f32),
+            float(scale), float(decay), float(v_th), int(soft_reset),
+            float(norm_eps), int(rope), int(causal), t, b, l, d, num_heads,
+            head_dim, ff, l_block, int(decoded), c_block, cp, ctx.data_ptr(),
+            s2g.data_ptr(), out.data_ptr(), counts.data_ptr(),
+            flags.data_ptr()]
+    if pipeline:
+        # the membranes between launches (q/k/v, input neuron, hidden);
+        # the first timestep does not read them
+        scratch = (new(b, l, 3 * q_dim), new(b, l, d), new(b, l, ff))
+        rc = lib.fused_layer_pipeline_forward(
+            *args, *(a.data_ptr() for a in scratch), stream)
+    else:
+        rc = lib.fused_layer_forward(*args, stream)
     if rc != 0:
         raise RuntimeError(f"fused_layer kernel launch failed: "
                            f"{lib.fused_layer_error(rc).decode()}")
-    name = "fused_layer_rope" if rope else \
-        "fused_layer_decoded" if decoded else "fused_layer"
-    LAUNCHES[name] += LAUNCHES_PER_CALL
+    name = "fused_layer_pipeline" if pipeline else "fused_layer"
+    name += "_rope" if rope else "_decoded" if decoded else ""
+    LAUNCHES[name] += LAUNCHES_PER_CALL * (t if pipeline else 1)
     return out, counts

@@ -7,6 +7,8 @@
         --arch spikingformer-8-512 [--sparse decoded]
     PYTHONPATH=src python -m repro_torch.launch.profile \
         --arch spikingformer-lm [--quantize int8 [--keep-fp wo,up,down]]
+    PYTHONPATH=src python -m repro_torch.launch.profile \
+        --arch spikingformer-8-512 --overlap pipeline
 
 Spikingformer-4-256 (the default): the published config (seeded random
 weights; ``--sparse`` sets its sparse datapath, 'auto' by default) on
@@ -27,11 +29,16 @@ wo,up,down`` the mixed tree of int8 wq, wk, wv and the LM head, whose
 layers run the bundle kernel's rope family) through
 ``build_prefill_step`` on 8 x 512 tokens, and through the
 continuous-batching server: one call serves 8 requests of 100-500 prompt
-tokens and 8 new tokens each over 8 slots. Each step gets two warm-up
+tokens and 8 new tokens each over 8 slots. ``--overlap fused|pipeline``
+sets the layer program's schedule (default the config's, 'auto', which
+fuses on the card); with it the prefill alone is profiled (a vision
+model's on weights that fire, BN biases raised), and the run prints the
+layer program's launches per call and, for 'pipeline', the membrane
+bytes it moves beyond the fused schedule. Each step gets two warm-up
 calls, then three under ``torch.profiler``. For each it prints the wall
-time per call, the device time per call summed by kernel name, and the
-device's busy share (kernel time over wall time), then one JSON line
-with the same numbers. Needs a CUDA device.
+time per call, the device time per call and the launches summed by
+kernel name, and the device's busy share (kernel time over wall time),
+then one JSON line with the same numbers. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
+from repro_torch.kernels import fused_layer as FL
 from repro_torch.launch.steps import build_prefill_step, build_train_step
 from repro_torch.launch.train import make_batch_fn
 from repro_torch.models import registry
@@ -76,25 +84,54 @@ def _profile(arch: str, what: str, sparse: str, call,
             call(i)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / CALLS
-    by_kernel = {}
+    by_kernel, calls = {}, {}
     for evt in prof.key_averages():
         us = _device_us(evt)
         if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + us
+            calls[evt.key] = calls.get(evt.key, 0) + evt.count
     per_call = {k: v / 1e3 / CALLS for k, v in by_kernel.items()}
+    launches = {k: n / CALLS for k, n in calls.items()}
     device_ms = sum(per_call.values())
     print(f"{arch} {what}, sparse={sparse!r}, {CALLS} calls x {unit}: "
           f"wall {wall_ms:.3f} ms/call, device {device_ms:.3f} ms/call, "
           f"busy share {device_ms / wall_ms:.3f}")
     for name, ms in sorted(per_call.items(), key=lambda kv: -kv[1])[:TOP]:
-        print(f"  {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  {name[:90]}")
+        print(f"  {ms:9.4f} ms  {100 * ms / device_ms:5.1f}%  "
+              f"{launches[name]:6.1f}x  {name[:90]}")
     print(json.dumps({"arch": arch, "step": what, "unit": unit,
                       "sparse": sparse,
                       "wall_ms_per_call": wall_ms,
                       "device_ms_per_call": device_ms,
                       "busy_share": device_ms / wall_ms,
                       "kernels_ms_per_call": per_call,
+                      "kernel_launches_per_call": launches,
                       "device": torch.cuda.get_device_name(0)}))
+
+
+def _layer_program_traffic(call) -> None:
+    """Prints the layer program's launches in one ``call()`` and the
+    membrane bytes its pipelined launches move beyond the fused schedule,
+    from the shapes they are handed."""
+    moved = [0]
+    real = FL.fused_layer_pipeline_cuda
+
+    def spy(x, s, w3, wo, w1, *args, **kw):
+        t, b, l, d = x.shape
+        moved[0] += FL.membrane_bytes(x.element_size(), t, b, l, d,
+                                      w3.shape[-1], w1.shape[1],
+                                      kw.get("family") == "rope")
+        return real(x, s, w3, wo, w1, *args, **kw)
+    FL.reset_launches()
+    FL.fused_layer_pipeline_cuda = spy
+    try:
+        call()
+        torch.cuda.synchronize()
+    finally:
+        FL.fused_layer_pipeline_cuda = real
+    print(f"layer program per call: launches "
+          f"{ {k: n for k, n in FL.LAUNCHES.items() if n} }, membrane bytes "
+          f"beyond the fused schedule {moved[0]}")
 
 
 def _quantized(params, quantize: str, keep_fp):
@@ -105,7 +142,7 @@ def _quantized(params, quantize: str, keep_fp):
         "/", 1)[-1] not in keep_fp)
 
 
-def _profile_lm(cfg, quantize: str, keep_fp) -> None:
+def _profile_lm(cfg, quantize: str, keep_fp, overlap=None) -> None:
     from repro_torch.launch.serve import BatchedServer, Request
     params = registry.init(cfg, seed=0)
     if quantize != "none":
@@ -123,6 +160,9 @@ def _profile_lm(cfg, quantize: str, keep_fp) -> None:
     _profile(arch, "prefill", cfg.engine.sparse,
              lambda i: prefill(params, {"tokens": tokens[i]}),
              unit=f"{LM_BATCH} x {LM_PROMPT} tokens")
+    if overlap is not None:
+        _layer_program_traffic(lambda: prefill(params, {"tokens": tokens[0]}))
+        return
 
     def serve(i):
         rng = np.random.default_rng(i)
@@ -174,6 +214,9 @@ def main():
     ap.add_argument("--keep-fp", default="",
                     help="comma-separated linear names left unquantized "
                          "under --quantize")
+    ap.add_argument("--overlap", default=None, choices=["fused", "pipeline"],
+                    help="the layer program's schedule (default: the "
+                         "config's); profiles the prefill alone")
     args = ap.parse_args()
     keep_fp = tuple(n for n in args.keep_fp.split(",") if n)
     if not torch.cuda.is_available():
@@ -182,13 +225,16 @@ def main():
     cfg = get_config(args.arch)
     if args.sparse is not None:
         cfg = cfg.replace(engine=cfg.engine.replace(sparse=args.sparse))
+    if args.overlap is not None:
+        cfg = cfg.replace(engine=cfg.engine.replace(overlap=args.overlap))
     if args.arch == "spikingformer-lm":
-        _profile_lm(cfg, args.quantize, keep_fp)
+        _profile_lm(cfg, args.quantize, keep_fp, args.overlap)
         return
     eight = args.arch == "spikingformer-8-512"
+    firing = eight or args.overlap is not None
     if args.quantize != "none":
         cfg, params = _quantized_vision(cfg, args.quantize, keep_fp)
-    elif eight:
+    elif firing:
         params = _firing_vision(cfg)
     else:
         params = registry.init(cfg, seed=0)
@@ -199,13 +245,18 @@ def main():
                          generator=gen).cuda() for _ in range(CALLS + 2)]
     what = "prefill" if args.quantize == "none" else \
         f"prefill ({args.quantize}, fp {','.join(keep_fp) or 'none'})"
-    if eight:
+    if firing:
         what += ", BN biases raised"
+    if args.overlap is not None:
+        what += f", overlap={args.overlap!r}"
     _profile(args.arch, what, cfg.engine.sparse,
              lambda i: prefill(params, {"images": images[i]}))
-    if args.quantize != "none" or eight:
+    if args.overlap is not None:
+        _layer_program_traffic(lambda: prefill(params, {"images": images[0]}))
+    if args.quantize != "none" or firing:
         # an int8 tree takes no train step (QAT is not ported); the 8-512
-        # training step is not part of the port's checked paths yet
+        # training step is not part of the port's checked paths yet, and
+        # the layer program's schedule changes only the prefill
         return
 
     opt = adamw(warmup_cosine(2e-3, 1, CALLS + 2))

@@ -11,9 +11,11 @@ against the JAX package.
   the projection phases count live spike blocks, and a dark slab or an
   all-zero input gives the closed forms of ``tests/test_fused_layer.py``;
 * the wrapper takes the plain version for CPU tensors and launches
-  nothing; unported variants raise ``NotImplementedError`` (the decoded
-  variant is held against JAX in ``test_torch_spike_decode.py``, the
-  rope family in ``test_torch_lm.py``).
+  nothing; the pipelined variants run their plain version, equal to the
+  fused one (more in ``test_torch_pipeline.py``); the analog-score
+  variants raise ``NotImplementedError`` (the decoded variant is held
+  against JAX in ``test_torch_spike_decode.py``, the rope family in
+  ``test_torch_lm.py``).
 
 The CUDA kernel itself is held against the plain version on the card by
 ``chip_smoke.py``.
@@ -137,16 +139,35 @@ def test_wrapper_runs_plain_version_on_cpu_and_launches_nothing():
     assert out.device.type == "cpu" and out.dtype == torch.float32
 
 
-@pytest.mark.parametrize("variant", [dict(family="rope", pipeline=True),
-                                     dict(sparse="decoded", pipeline=True),
-                                     dict(pipeline=True),
-                                     dict(causal=True, binarize_scores=False),
+@pytest.mark.parametrize("variant", [dict(family="rope", causal=True),
+                                     dict(sparse="decoded"), dict()],
+                         ids=["rope", "decoded", "tile"])
+def test_pipeline_variants_run_plain_equal_fused(variant):
+    """The pipelined variants, which raised before they were ported, run
+    their plain version on CPU tensors (no launch), equal to the fused
+    one in outputs and counts."""
+    t, b, l, d, heads, hd, ff, l_block = SHAPES["odd"]
+    if variant.get("family") == "rope":
+        from test_torch_lm import rope_layer_ops
+        targs = to_torch(rope_layer_ops(5, t, b, l, d, heads, hd, 22))
+    else:
+        targs = to_torch(layer_ops(5, t, b, l, d, heads, hd, ff))
+    kw = dict(_kw(heads, hd), **variant)
+    before = dict(TFL.LAUNCHES)
+    got = TFL.fused_layer(*targs, l_block=l_block, pipeline=True, **kw)
+    want = TFL.fused_layer(*targs, l_block=l_block, **kw)
+    assert TFL.LAUNCHES == before
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert float(want[0].std()) > 0
+
+
+@pytest.mark.parametrize("variant", [dict(causal=True, binarize_scores=False),
                                      dict(binarize_scores=False)])
 def test_unported_variants_raise(variant):
     t, b, l, d, heads, hd, ff, l_block = SHAPES["odd"]
     targs = to_torch(layer_ops(5, t, b, l, d, heads, hd, ff))
     kw = dict(_kw(heads, hd), **variant)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="#6 / #1, analog"):
         TFL.fused_layer(*targs, l_block=l_block, **kw)
 
 

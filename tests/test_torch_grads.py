@@ -96,6 +96,28 @@ def test_gradients_through_the_layer_program_equal_off(family,
         assert float(flat[f"{name}/w"].abs().sum()) > 0, name
 
 
+@pytest.mark.parametrize("family", ["bn", "rope"])
+def test_gradients_under_pipeline_equal_off(family, detached_launcher,
+                                           monkeypatch):
+    """overlap='pipeline' runs the same ``_FusedLayer`` with the pipelined
+    launcher (one layer call a layer, its pipelined plain version); its
+    backward is the oracle's, so logits and every layer parameter's
+    gradient equal overlap='off', bitwise."""
+    cfg, params, kw, batch = _model(family)
+    pipelined = []
+    real = TFL.fused_layer_pipeline_plain
+    monkeypatch.setattr(TFL, "fused_layer_pipeline_plain",
+                        lambda *a, **k: pipelined.append(1) or real(*a, **k))
+    pipe, g_pipe = _grads(cfg, params, kw, batch, "pipeline")
+    assert detached_launcher == [family] * cfg.num_layers
+    assert len(pipelined) == cfg.num_layers
+    off, g_off = _grads(cfg, params, kw, batch, "off")
+    assert torch.equal(pipe, off) and float(pipe.std()) > 0
+    for a, b in zip(g_pipe, g_off):
+        assert a is not None and b is not None
+        assert torch.equal(a, b)
+
+
 def test_the_launcher_alone_gives_no_gradient(detached_launcher):
     """The fault the autograd Function repairs: the launcher's output has
     no path back to the layer's weights; through ``_FusedLayer`` it has
@@ -108,7 +130,7 @@ def test_the_launcher_alone_gives_no_gradient(detached_launcher):
     assert out.grad_fn is None and not out.requires_grad
     spec = E.LayerSpec(causal=False, scfg=SpikingConfig(time_steps=2),
                        eps=1e-5, norm_eps=1e-6, sparse="tile", l_block=128,
-                       c_block=128, **kw)
+                       c_block=128, overlap="fused", **kw)
     scales = (torch.ones((3, heads * hd)), torch.ones(16), torch.ones(16),
               torch.ones(16))
     y = E._FusedLayer.apply(*args[:6], *scales, *args[7:11],

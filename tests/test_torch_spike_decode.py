@@ -427,4 +427,6 @@ def test_decoded_layer_wrapper_launches_nothing_on_cpu():
     TFL.fused_layer(*targs, sparse="decoded", l_block=l_block,
                     c_block=c_block, **_kw(heads, hd))
     assert TFL.LAUNCHES == {"fused_layer": 0, "fused_layer_decoded": 0,
-                            "fused_layer_rope": 0}
+                            "fused_layer_rope": 0, "fused_layer_pipeline": 0,
+                            "fused_layer_pipeline_decoded": 0,
+                            "fused_layer_pipeline_rope": 0}

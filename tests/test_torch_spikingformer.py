@@ -197,8 +197,12 @@ def test_dispatch_rules_on_cpu_and_cuda_tensors():
         for dev in ("cpu", "cuda"):
             assert TE.resolve_sparse_path(TE.EngineConfig(sparse=path),
                                           _on(dev)) == path
-    with pytest.raises(NotImplementedError):
-        TE.resolve_overlap(TE.EngineConfig(overlap="pipeline"), _on("cuda"))
+    # an explicit 'pipeline' is honoured on every device; 'auto' never
+    # picks it
+    for dev in ("cpu", "cuda"):
+        pipe = TE.EngineConfig(overlap="pipeline")
+        assert TE.resolve_overlap(pipe, _on(dev)) == "pipeline"
+        assert TE.resolve_layer_plan(pipe, _on(dev)) == ("pipeline", "tile")
     # spike_linear (quantized weights on the dense and the sparse path),
     # the sequential ssa_step and the fused SSA bundle (kernel #6) are
     # ported: on CPU tensors the sparse path and the bundle take the
@@ -240,8 +244,9 @@ def test_unported_layer_paths_raise():
     """Training runs now (train-mode forward and the sequential layer
     step), and so does the fused SSA bundle of an ineligible eval layer
     (equal to the sequential composition); what is still unported raises
-    naming its ROADMAP item: the cifarnet family and overlap='pipeline'
-    (with either sparse path)."""
+    naming its ROADMAP item: the cifarnet family. overlap='pipeline',
+    which raised here before it was ported, now runs with either sparse
+    path and equals overlap='fused' bitwise."""
     tcfg = get_config("spikingformer-4-256", smoke=True)
     p = TR.init(tcfg, 0, device="cpu")
     batch = {"images": torch.rand((2, 16, 16, 3))}
@@ -257,14 +262,14 @@ def test_unported_layer_paths_raise():
     cases = [
         lambda: TR.init(get_config("spikingformer-4-256").replace(
             family="cifarnet"), device="cpu"),
-        lambda: TE.layer_step(bp, st, tcfg, x, engine=TE.EngineConfig(
-            overlap="pipeline", sparse="decoded")),
-        lambda: TE.layer_step(bp, st, tcfg, x, engine=TE.EngineConfig(
-            overlap="pipeline")),
     ]
     for case in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             case()
+    for sparse in ("decoded", "tile"):
+        runs = [TE.layer_step(bp, st, tcfg, x, engine=TE.EngineConfig(
+            overlap=ov, sparse=sparse))[0] for ov in ("pipeline", "fused")]
+        assert torch.equal(*runs) and float(runs[0].std()) > 0
     fused, _ = TE.layer_step(biased, st, tcfg, x,
                              engine=TE.EngineConfig(overlap="fused"))
     seq, _ = TE.layer_step(biased, st, tcfg, x,
