@@ -23,7 +23,9 @@ device; exits non-zero without one). It
    * ``spike_attention`` at BH = 2048, L = 64, d = 32, at an L that is
      not a multiple of the query block with ``causal=True``, at the bf16
      LM prefill's causal BH = 256, L = 512, and with analog scores
-     (within a stated tolerance);
+     (bitwise: both sum them over the keys in ascending order) at a
+     ragged shape and at the analog paths' shapes (the 4-256 train
+     step's, an 8-512 request's at d = 64);
    * ``gather_spike_matmul`` (the decoded datapath) at the six products
      of a training layer, on ragged fine-grained spikes (rows from empty
      to dense, all-zero groups), random-normal and dyadic weights, and at
@@ -64,6 +66,17 @@ device; exits non-zero without one). It
      ragged (4, 300, 200), at a plane no multiple of the 16-byte vector
      and on a misaligned view, bf16 and fp32, hard and soft reset, decay
      0.5 and 2/3: spikes bitwise;
+   * the analog-score instantiations (``binarize_scores=False``,
+     Spikingformer's own SSA): the bundle (#6 bn at full width, ragged
+     L=50 and 8-512's widths; #6b rope at S=512 and 200) and the layer
+     program (#1 tile and #1b decoded at full width, several L-blocks and
+     8-512's widths; #1c rope at the four rope shapes; #1d at full width,
+     rope S=512 and T=6), bf16 and fp32, each against its plain version:
+     outputs and counts bitwise, every score block counted; each timed
+     beside its binarized twin (in turns) with its plain version and the
+     bound of its work (the analog context at the fp32 peak); and the
+     layer program's analog variants once each through the public
+     ``fused_layer`` (the kernel API, the only entry that reaches them);
    * the pipelined layer program (#1d, ``overlap='pipeline'``: #1's two
      launches once a timestep, 2 T a call) at every shape #1 is checked
      at (full width tile and decoded, bf16 and fp32, several L-blocks,
@@ -134,6 +147,15 @@ device; exits non-zero without one). It
      (dyadic weights) to ``overlap='off'``, bitwise; the mixed int8
      4-256 and LM trees under 'pipeline' launch ``fused_ssa`` /
      ``fused_ssa_rope`` as under 'fused', with equal logits;
+   * analog scores (the shipped configs with ``binarize_scores=False``,
+     whose layers the layer program does not take, as in JAX): 3
+     requests of 32 images of 8-512 ('auto') and 4 of 64 images of 4-256
+     ('tile', 'decoded') through ``build_prefill_step``, 1
+     ``fused_ssa_analog`` and 3 spike products a layer call, each beside
+     the same requests with binarized scores; 6 AdamW train steps of
+     4-256 (#7's analog mode, #2 / #4), the loss falling; 3 int8 LM
+     prefills of 8 x 512 tokens, 1 ``fused_ssa_rope_analog`` a layer
+     call;
 4. checks the outputs: finite logits of the right shape and, with
    dyadic weights, the fused path of Spikingformer-4-256 (8 images) and
    of Spikingformer-8-512 (one request of 32 images; 'auto', 'tile' and
@@ -143,7 +165,7 @@ device; exits non-zero without one). It
    tree with dyadic scales, through the kernels (tile and decoded) ==
    through their plain versions == the sequential oracle
    (``overlap='off'``, ``mode='dense'``), bitwise; finite losses
-   and grad norms, every param moved; and, for each sparse setting, one
+   and grad norms, the last loss below the first, every param moved; and, for each sparse setting, one
    train step through the kernels equal bitwise (loss, every gradient,
    the new BN state) to the same step with the kernels swapped for their
    plain versions; the LM prefills (int8, bf16 and mixed int8, one 8 x
@@ -155,6 +177,15 @@ device; exits non-zero without one). It
    with ``overlap='pipeline'``, the layer program through the kernels:
    logits and every layer parameter's gradient equal bitwise to
    ``overlap='off'``;
+   with analog scores, on one request of 8-512 and of 4-256 for each
+   sparse setting, the logits under 'fused' == 'off' (#7's analog mode)
+   bitwise, and through the kernels == through the plain versions
+   within a derived tolerance (0 wherever every #2 wo product on the
+   analog context is provably exact or equal bitwise to its plain
+   version on the same operands, which the script checks; each such
+   product within its bound of the plain version); 4-256's eval
+   gradients with analog scores under 'fused' (the bundle) == 'off'; the
+   analog int8 LM prefill through the kernels == the plain versions;
    each server request's first token equal to the argmax of the prefill
    step's last-position logits wherever their top-2 margin exceeds
    SERVE_MARGIN; the popcount mode: one 4-256 train step (tile) equal
@@ -171,6 +202,7 @@ It prints the card's name and power limit, a JSON line of per-kernel
 numbers, and last a JSON line ``{"ok": true, "device": {...}}``.
 """
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -306,6 +338,9 @@ LIF_CASES = [("4-256 layer input", (4, B * L, D)),
 # the bn family and for the rope family
 PIPE_T6 = ("T=6", (6, 16, 64, 256, 8, 32, 1024), 64)
 PIPE_T6_ROPE = ("T=6", (6, 2, 200, 256, 8, 32, 1024), 128)
+# spike_attention's analog mode (#7) at the shapes the analog paths give
+# it: the 4-256 train step's (BH, L, d) and an 8-512 request's
+ANALOG_ATTENTION = [(T * B * H, L, HD), (4 * EIGHT_BATCH * 8, 196, 64)]
 KERNEL_MODULES = (FL, SM, SA, SD, FS, PA, LF)
 
 
@@ -319,10 +354,12 @@ def dyadic(gen, shape, bits=8):
 
 
 def layer_operands(seed, dtype, dyadic_weights, shape=FULL, l_block=64,
-                   sparse="tile"):
+                   sparse="tile", raw=False):
     """Fused-layer operands (the layout layer_step builds): one dark
     (t=0, b=0) slab and, with several L-blocks, the first L-block of
-    batch row 1 dark at every t."""
+    batch row 1 dark at every t. Returns ``FL.prepare``'s (args, kwargs),
+    or with ``raw`` the operands and keywords of the public
+    ``FL.fused_layer``."""
     T, B, L, D, H, HD, FF = shape
     gen = torch.Generator().manual_seed(seed)
     x = torch.randint(-64, 224, (T, B, L, D), generator=gen).float() / 128
@@ -351,10 +388,10 @@ def layer_operands(seed, dtype, dyadic_weights, shape=FULL, l_block=64,
            rows(D), torch.tensor(0.3))
     ops = tree_map(lambda a: a.cuda(), ops)
     ops = ops[:2] + tuple(w.to(dtype) for w in ops[2:6]) + ops[6:]
-    return FL.prepare(*ops, num_heads=H, head_dim=HD,
-                      scale=1.0 / math.sqrt(HD), decay=0.5, v_th=1.0,
-                      soft_reset=False, eps=1e-5, l_block=l_block,
-                      sparse=sparse)
+    kw = dict(num_heads=H, head_dim=HD, scale=1.0 / math.sqrt(HD),
+              decay=0.5, v_th=1.0, soft_reset=False, eps=1e-5,
+              l_block=l_block, sparse=sparse)
+    return (ops, dict(kw, family="bn")) if raw else FL.prepare(*ops, **kw)
 
 
 def cuda_ms(fn, warmup=3, calls=20, repeats=5):
@@ -377,14 +414,16 @@ def cuda_ms(fn, warmup=3, calls=20, repeats=5):
 
 
 def layer_bound_ms(args, counts, dtype, l_block=64, decoded=False,
-                   shape=FULL, causal=False):
+                   shape=FULL, causal=False, analog=False):
     """Least time for the layer on the card: the executed multiply-adds
     at the dtype's peak, or each input read once and each output written
     once at the memory rate, whichever is larger. The executed work is
     that of the executed sub-blocks (a causal score or context block
     counts only its (query, key) pairs on or below the diagonal); a
     decoded projection's is one multiply-add per live spike and output
-    column."""
+    column. ``analog``: the context's multiply-adds take fp32 scores,
+    which no bf16 tensor-core product holds, so they count at the fp32
+    CUDA-core peak."""
     _, _, L, D, H, HD, FF = shape
     x, s = args[0], args[1]
     nlb = counts.shape[-1]
@@ -403,6 +442,9 @@ def layer_bound_ms(args, counts, dtype, l_block=64, decoded=False,
     if decoded:
         per_phase[:3] = float((s != 0).sum()) * H * HD
     ops_s = 2 * float(per_phase.sum()) / PEAK_FLOPS[dtype]
+    if analog:
+        ops_s += 2 * float(per_phase[4]) * (1 / PEAK_FLOPS[torch.float32]
+                                            - 1 / PEAK_FLOPS[dtype])
     es = x.element_size()
     n_bytes = (3 * x.numel() * es
                + sum(w.numel() for w in args[2:6]) * es
@@ -414,11 +456,13 @@ def layer_bound_ms(args, counts, dtype, l_block=64, decoded=False,
                                        else "bytes")
 
 
-def rope_operands(seed, dtype, shape=LM_FULL, l_block=128):
+def rope_operands(seed, dtype, shape=LM_FULL, l_block=128, raw=False):
     """Rope-family operands as ``layer_step_causal`` builds them for an
     int8 layer: a residual stream with one all-zero token, its ln1 output
     (a random norm scale), int8 codes of random-normal weights with their
-    per-channel fp32 scales, the RoPE table, a random ln2 scale."""
+    per-channel fp32 scales, the RoPE table, a random ln2 scale. Returns
+    ``FL.prepare``'s (args, kwargs), or with ``raw`` those of
+    ``FL.fused_layer``."""
     T, B, L, D, H, HD, FF = shape
     gen = torch.Generator().manual_seed(seed)
     x = torch.randn((T, B, L, D), generator=gen) * 0.5
@@ -437,10 +481,10 @@ def rope_operands(seed, dtype, shape=LM_FULL, l_block=128):
            (1.0 + 0.1 * torch.randn((1, D), generator=gen)), None, None,
            torch.tensor(0.3))
     ops = tree_map(lambda a: None if a is None else a.cuda(), ops)
-    return FL.prepare(*ops, num_heads=H, head_dim=HD,
-                      scale=1.0 / math.sqrt(HD), decay=0.5, v_th=1.0,
-                      soft_reset=False, eps=1e-5, l_block=l_block,
-                      family="rope", causal=True)
+    kw = dict(num_heads=H, head_dim=HD, scale=1.0 / math.sqrt(HD),
+              decay=0.5, v_th=1.0, soft_reset=False, eps=1e-5,
+              l_block=l_block, family="rope", causal=True)
+    return (ops, kw) if raw else FL.prepare(*ops, **kw)
 
 
 def check_rope_kernel(dtype, what, shape, l_block):
@@ -695,9 +739,9 @@ def attention_operands(seed, bh, l, d, dtype):
 
 
 def check_attention(dtype, bh, l, d, causal, binarize=True):
-    """spike_attention kernel vs plain version: bitwise on binarized
-    scores; with analog scores within L * d * scale * 2^-23, as the
-    context sums up to L analog scores in another order."""
+    """spike_attention kernel vs plain version: bitwise, on binarized
+    scores and on analog ones (both sum the analog scores over the keys
+    in ascending order)."""
     q, k, v = attention_operands(6, bh, l, d, dtype)
     kw = dict(scale=1.0 / math.sqrt(d), delta=0.3, causal=causal,
               binarize_scores=binarize)
@@ -705,15 +749,13 @@ def check_attention(dtype, bh, l, d, causal, binarize=True):
     want = SA.spike_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
-    tol = 0.0 if binarize else l * d * kw["scale"] * 2.0 ** -23
-    if binarize and not torch.equal(got, want) or err > tol:
+    if not torch.equal(got, want):
         raise AssertionError(f"spike_attention {dtype} BH={bh} L={l} d={d} "
                              f"causal={causal} binarize={binarize}: kernel "
                              f"!= plain version (max abs diff {err})")
-    agree = "bitwise equal to" if binarize else f"within {tol:.3g} of"
     log(f"spike_attention {dtype} BH={bh} L={l} d={d} causal={causal} "
-        f"binarize={binarize}: {agree} the plain version (max abs diff "
-        f"{err}), context mean {float(got.float().mean()):.4f}")
+        f"binarize={binarize}: bitwise equal to the plain version, context "
+        f"mean {float(got.float().mean()):.4f}")
     return err
 
 
@@ -821,7 +863,7 @@ def train_path(cfg):
     counts of the whole run (24 sparse products a step, through the
     kernel of the datapath each took; 4 binary attentions a step,
     ``spike_attention`` or, with ``binary='popcount'``,
-    ``popcount_scores``)."""
+    ``popcount_scores``); the last loss must be below the first."""
     dev = torch.device("cuda")
     opt = adamw(warmup_cosine(TRAIN_LR, max(1, TRAIN_STEPS // 20),
                               TRAIN_STEPS))
@@ -844,7 +886,8 @@ def train_path(cfg):
         metrics.append({k: float(v) for k, v in m.items()})
     counts = launches()
     what = (f"train path, sparse={cfg.engine.sparse!r}, "
-            f"binary={cfg.engine.binary!r}")
+            f"binary={cfg.engine.binary!r}"
+            f"{'' if cfg.spiking.binarize_scores else ', analog scores'}")
     tile, dec = sparse_split(cfg.engine, 6 * cfg.num_layers * TRAIN_STEPS)
     log(f"{what}: {TRAIN_STEPS} steps x {TRAIN_BATCH} images on {dev}, "
         f"ms per step {[round(x, 3) for x in step_ms]}, sparse decisions "
@@ -860,6 +903,9 @@ def train_path(cfg):
     if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                for m in metrics):
         raise AssertionError(f"non-finite train metrics {metrics}")
+    if not metrics[-1]["loss"] < metrics[0]["loss"]:
+        raise AssertionError(f"{what}: the loss did not fall "
+                             f"{[m['loss'] for m in metrics]}")
     still = [i for i, (a, b) in enumerate(zip(tree_leaves(params),
                                               tree_leaves(p)))
              if torch.equal(a, b)]
@@ -968,8 +1014,11 @@ def lm_prefill_path(cfg, params, requests, what):
     a layer call; the mixed int8 tree's (int8 wq, wk, wv) are not either,
     and run the bundle kernel's rope family, 1 ``fused_ssa_rope`` a layer
     call, with no 'auto' decision; with ``binary='popcount'`` the bf16
-    model's attention is 1 ``popcount_scores`` a layer call. Per-request
-    times, finite logits."""
+    model's attention is 1 ``popcount_scores`` a layer call; with analog
+    scores ('analog int8') the int8 model's layers are not eligible for
+    the layer program and run the rope bundle's analog instantiation, 1
+    ``fused_ssa_rope_analog`` a layer call, with no 'auto' decision.
+    Per-request times, finite logits."""
     step = steps.build_prefill_step(cfg)
     torch.cuda.synchronize()
     reset_counts()
@@ -986,6 +1035,8 @@ def lm_prefill_path(cfg, params, requests, what):
         want_dec["tile"] = n
     elif what == "mixed int8":
         want["fused_ssa_rope"] = n
+    elif what == "analog int8":
+        want["fused_ssa_rope_analog"] = n
     else:
         want[attention_kernel(cfg)] = n
     if counts != want or decisions != want_dec:
@@ -1284,18 +1335,20 @@ def check_ssa_kernel(dtype, quant, what="full width", shape=SSA_FULL,
     return err
 
 
-def ssa_bound_ms(ops, counts, shape=SSA_FULL, causal=False):
+def ssa_bound_ms(ops, counts, shape=SSA_FULL, causal=False, analog=False):
     """Operations: the executed projections (q, k, v: L x D x hd
     multiply-adds per head and live slab) and every score and context
     product (2 T B H L^2 hd; causal: the pairs on or below the diagonal)
-    at the dtype's peak; bytes: the input, w3, scale3, the BN rows (rope:
-    the table) and delta in, context and counts out."""
+    at the dtype's peak (``analog``: the context's at the fp32 CUDA-core
+    peak, its scores being fp32); bytes: the input, w3, scale3, the BN
+    rows (rope: the table) and delta in, context and counts out."""
     T, B, L, D, H, HD = shape
     x, w3, scale3, aux, _ = ops
     pairs = L * (L + 1) // 2 if causal else L * L
-    macs = (3 * float(counts[:, 0].sum()) * L * D * HD
-            + 2 * T * B * H * pairs * HD)
-    ops_s = 2 * macs / PEAK_FLOPS[x.dtype]
+    context = T * B * H * pairs * HD
+    macs = 3 * float(counts[:, 0].sum()) * L * D * HD + context
+    ops_s = 2 * macs / PEAK_FLOPS[x.dtype] + 2 * context / PEAK_FLOPS[
+        torch.float32 if analog else x.dtype]
     es = x.element_size()
     n_bytes = (x.numel() * es + w3.numel() * es + 3 * H * HD * 4
                + aux.numel() * 4 + 4                          # in
@@ -1531,13 +1584,15 @@ def leaf_paths(tree, prefix=""):
 
 
 def check_eval_gradients(cfg, params, batch, what, state=None,
-                         overlap="fused"):
+                         overlap="fused", bundle=None):
     """An eval-mode forward under autograd with ``overlap`` 'fused' or
     'pipeline' (the layer program through the kernels, behind
-    ``_FusedLayer``: 2 launches a layer call, or 2 T pipelined) against
-    the same forward with overlap='off': the logits and every layer
-    parameter's gradient of one seeded cotangent, bitwise; each layer
-    parameter gets a gradient."""
+    ``_FusedLayer``: 2 launches a layer call, or 2 T pipelined; or, for a
+    model whose layers the layer program does not take, the ``bundle``
+    kernel behind ``_FusedBundle``, 1 launch a layer call, and the spike
+    products) against the same forward with overlap='off': the logits and
+    every layer parameter's gradient of one seeded cotangent, bitwise;
+    each layer parameter gets a gradient."""
     layers = "blocks" if "blocks" in params else "layers"
     runs = {}
     deterministic = torch.backends.cudnn.deterministic
@@ -1565,8 +1620,13 @@ def check_eval_gradients(cfg, params, batch, what, state=None,
                if k.startswith("fused_layer_pipeline") == pipelined)
     per_call = FL.LAUNCHES_PER_CALL * (cfg.spiking.time_steps if pipelined
                                        else 1)
-    if mine != per_call * cfg.num_layers or sum(layer.values()) != mine or \
-            any(runs["off"][2].values()):
+    if bundle:              # the bundle, and off runs the spike kernels
+        bad = counts[bundle] != cfg.num_layers or any(layer.values()) or \
+            any(n for k, n in runs["off"][2].items() if k.startswith("fused"))
+    else:
+        bad = mine != per_call * cfg.num_layers or \
+            sum(layer.values()) != mine or any(runs["off"][2].values())
+    if bad:
         raise AssertionError(f"{what} gradient check: launches {overlap} "
                              f"{counts}, off {runs['off'][2]}")
     fused, off = runs[overlap], runs["off"]
@@ -1575,18 +1635,24 @@ def check_eval_gradients(cfg, params, batch, what, state=None,
                              f"off logits (max abs diff "
                              f"{float((fused[0] - off[0]).abs().max())})")
     names = leaf_paths(params[layers])
-    missing = [n for n, g in zip(names, fused[1]) if g is None]
+    # analog scores read no threshold: delta gets no gradient either way
+    unused = set() if cfg.spiking.binarize_scores else {"delta"}
+    missing = [n for n, g in zip(names, fused[1])
+               if g is None and n not in unused]
     differ = [n for n, a, b in zip(names, fused[1], off[1])
-              if a is not None and not torch.equal(a, b)]
+              if (a is None) != (b is None)
+              or a is not None and not torch.equal(a, b)]
     if missing or differ:
         raise AssertionError(f"{what} gradient check: no gradient through the "
                              f"kernels for {missing}; gradients that differ "
                              f"from overlap='off': {differ}")
-    norms = {n: float(g.norm()) for n, g in zip(names, runs[overlap][1])}
+    norms = {n: float(g.norm()) for n, g in zip(names, runs[overlap][1])
+             if g is not None}
     log(f"check, {what}: eval forward under autograd, overlap={overlap!r} "
-        f"(launches {counts}) == 'off' bitwise: logits and the gradients of "
-        f"all {len(names)} layer parameters; gradient norms "
-        f"{ {n: round(v, 6) for n, v in norms.items()} }")
+        f"(launches { {k: v for k, v in counts.items() if v} }) == 'off' "
+        f"bitwise: logits and the gradients of all {len(norms)} layer "
+        f"parameters that take one{f' (not {sorted(unused)})' if unused else ''}"
+        f"; gradient norms {dict((n, round(v, 6)) for n, v in norms.items())}")
 
 
 # --- the pipelined layer program (#1d) ------------------------------------
@@ -2000,6 +2066,356 @@ def lif_path(models):
 
 
 
+# --- analog scores (binarize_scores=False): #6 / #6b / #1 analog ---------
+
+
+def analog_cfg(cfg):
+    """``cfg`` with Spikingformer's own analog SSA: its spiking config
+    with ``binarize_scores=False`` (for the shipped configs,
+    ``SpikingConfig(time_steps=4, binarize_scores=False)``, the
+    replacement JAX takes)."""
+    return cfg.replace(spiking=dataclasses.replace(cfg.spiking,
+                                                   binarize_scores=False))
+
+
+def check_ssa_analog(dtype, what, shape, family="bn"):
+    """#6 (bn, dyadic weights) or #6b (rope, causal, int8 codes) with
+    analog scores, kernel vs plain version: context and (H, 4) counts
+    bitwise (both sum the scores over the keys in ascending order), the
+    counts those of the binarized kernel, the context not; 1 launch,
+    counted under the ``_analog`` name."""
+    rope = family == "rope"
+    if rope:
+        ops, kw = rope_ssa_operands(15, dtype, shape)
+    else:
+        ops, kw = ssa_operands(12, dtype, False, shape=shape)
+    name = "fused_ssa_rope_analog" if rope else "fused_ssa_analog"
+    reset_counts()
+    out_k, cnt_k = FS.fused_ssa_cuda(*ops, **kw, binarize_scores=False)
+    n = launches()
+    out_p, cnt_p = FS.fused_ssa_plain(*ops, **kw, binarize_scores=False)
+    out_b, cnt_b = FS.fused_ssa_cuda(*ops, **kw)
+    torch.cuda.synchronize()
+    err = float((out_k.float() - out_p.float()).abs().max())
+    label = f"{name} {dtype} {what} {tuple(shape)}"
+    checks = {"== plain": torch.equal(out_k, out_p),
+              "counts == plain": torch.equal(cnt_k, cnt_p),
+              "counts == binarized": torch.equal(cnt_k, cnt_b),
+              "!= binarized": not torch.equal(out_k, out_b),
+              "1 launch": n[name] == 1 and sum(n.values()) == 1}
+    if not all(checks.values()):
+        raise AssertionError(f"{label}: {checks} (max abs diff {err})")
+    log(f"{label}: bitwise equal to the plain version (context and "
+        f"counts); counts of head 0 {cnt_k[0].tolist()}, context mean "
+        f"{float(out_k.float().mean()):.4f} (binarized "
+        f"{float(out_b.float().mean()):.4f})")
+    return err
+
+
+def analog_variant(kw, pipeline=False):
+    """The launch-count name of an analog layer-program call's variant
+    (``kw``: the keywords of ``FL.prepare`` or of ``FL.fused_layer``)."""
+    return ("fused_layer" + ("_pipeline" if pipeline else "")
+            + ("_rope" if kw["family"] == "rope" else
+               "_decoded" if kw.get("decoded", kw.get("sparse") == "decoded")
+               else "") + "_analog")
+
+
+def check_layer_analog(dtype, what, shape, l_block, sparse="tile",
+                       family="bn", pipeline=False):
+    """#1 / #1b (bn, dyadic weights), #1c (rope, int8 codes) and, with
+    ``pipeline``, #1d with analog scores, kernel vs plain version:
+    outputs and counts bitwise (both sum the context over the keys in
+    ascending order and wo in ascending k); every score block counted (T
+    B a head and L-block); 2 launches a call (#1d: 2 T) under the
+    variant's ``_analog`` name; #1d also == #1 (past #1's MAX_T, #1's
+    plain version)."""
+    if family == "rope":
+        args, kw = rope_operands(11, dtype, shape, l_block)
+    else:
+        args, kw = layer_operands(1, dtype, True, shape, l_block, sparse)
+    kw = dict(kw, binarize_scores=False)
+    T, B = shape[:2]
+    launch = FL.fused_layer_pipeline_cuda if pipeline else FL.fused_layer_cuda
+    plain = FL.fused_layer_pipeline_plain if pipeline else FL.fused_layer_plain
+    name = analog_variant(kw, pipeline)
+    per_call = FL.LAUNCHES_PER_CALL * (T if pipeline else 1)
+    reset_counts()
+    out_k, cnt_k = launch(*args, **kw)
+    n = launches()
+    out_p, cnt_p = plain(*args, **kw)
+    checks = {"== plain": torch.equal(out_k, out_p),
+              "counts == plain": torch.equal(cnt_k, cnt_p),
+              f"{per_call} launches": n[name] == per_call
+              and sum(n.values()) == per_call,
+              "every score block": bool((cnt_k[:, 3] == T * B).all())}
+    if pipeline:
+        fused = FL.fused_layer_cuda if T <= FL.MAX_T else FL.fused_layer_plain
+        out_f, cnt_f = fused(*args, **kw)
+        checks.update({"== #1": torch.equal(out_k, out_f),
+                       "counts == #1": torch.equal(cnt_k, cnt_f)})
+    torch.cuda.synchronize()
+    err = float((out_k.float() - out_p.float()).abs().max())
+    label = f"{name} {dtype} {what} {tuple(shape)}, l_block {kw['l_block']}"
+    if not all(checks.values()):
+        raise AssertionError(f"{label}: {checks} (max abs diff {err})")
+    log(f"{label}: bitwise equal to the plain version{' and #1' if pipeline else ''} "
+        f"(outputs and counts), {per_call} launches; counts per phase "
+        f"{cnt_k.sum(dim=(0, 2)).tolist()}, output std "
+        f"{float(out_k.float().std()):.4f}")
+    return err
+
+
+def time_analog_twin(name, analog, binary, plain, bound):
+    """An analog variant beside its binarized twin on the same operands
+    (cuda_ms, in turns: analog, binarized, binarized, analog), its plain
+    version (fewer calls) and ``bound()`` -> (ms, bound_by)."""
+    runs = [cuda_ms(analog), cuda_ms(binary), cuda_ms(binary),
+            cuda_ms(analog)]
+    plain_ms = cuda_ms(plain, warmup=1, calls=2, repeats=3)
+    bound_ms, bound_by = bound()
+    row = dict(ms=(runs[0] + runs[3]) / 2, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+               binarized_ms=(runs[1] + runs[2]) / 2)
+    log(f"{name}: analog {runs[0]:.4f} / {runs[3]:.4f} ms, binarized "
+        f"{runs[1]:.4f} / {runs[2]:.4f} ms (in turns), plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    return row
+
+
+def time_layer_analog(sparse="tile", shape=FULL, l_block=64, family="bn",
+                      pipeline=False):
+    """#1 / #1b / #1c / #1d with analog scores at ``shape``, bf16
+    (random-normal weights; rope: int8 codes), beside the binarized
+    variant; the bound of its executed work (the context at the fp32
+    peak)."""
+    if family == "rope":
+        args, kw = rope_operands(3, torch.bfloat16, shape, l_block)
+    else:
+        args, kw = layer_operands(3, torch.bfloat16, False, shape, l_block,
+                                  sparse)
+    akw = dict(kw, binarize_scores=False)
+    launch = FL.fused_layer_pipeline_cuda if pipeline else FL.fused_layer_cuda
+    plain = FL.fused_layer_pipeline_plain if pipeline else FL.fused_layer_plain
+
+    def bound():
+        _, counts = launch(*args, **akw)
+        return layer_bound_ms(args, counts, torch.bfloat16, kw["l_block"],
+                              decoded=kw["decoded"], shape=shape,
+                              causal=family == "rope", analog=True)
+    return time_analog_twin(
+        f"{analog_variant(akw, pipeline)} bf16 {tuple(shape)}",
+        lambda: launch(*args, **akw), lambda: launch(*args, **kw),
+        lambda: plain(*args, **akw), bound)
+
+
+def time_ssa_analog(shape, family="bn"):
+    """#6 / #6b with analog scores at ``shape``, bf16 (random-normal
+    weights; rope: int8 codes), beside the binarized kernel."""
+    if family == "rope":
+        ops, kw = rope_ssa_operands(16, torch.bfloat16, shape)
+    else:
+        ops, kw = ssa_operands(13, torch.bfloat16, False, weights="normal",
+                               shape=shape)
+    akw = dict(kw, binarize_scores=False)
+
+    def bound():
+        _, counts = FS.fused_ssa_cuda(*ops, **akw)
+        return ssa_bound_ms(ops, counts, shape, kw.get("causal", False),
+                            analog=True)
+    name = "fused_ssa_rope_analog" if family == "rope" else "fused_ssa_analog"
+    return time_analog_twin(
+        f"{name} bf16 {tuple(shape)}", lambda: FS.fused_ssa_cuda(*ops, **akw),
+        lambda: FS.fused_ssa_cuda(*ops, **kw),
+        lambda: FS.fused_ssa_plain(*ops, **akw), bound)
+
+
+def kernel_api_analog_path():
+    """The layer program's analog variants through the kernel API, the
+    only entry that reaches them (the layer program's eligibility
+    requires binarized scores, in JAX and in the port): the public
+    ``FL.fused_layer(..., binarize_scores=False)`` once each for bn tile
+    and bn decoded at 4-256's layer shape and rope at the LM prefill's,
+    fused and pipelined, the counts reset just before: 2 launches a
+    fused call and 2 T a pipelined one, under the variant's ``_analog``
+    name, and no other; finite outputs. Returns the counts."""
+    torch.cuda.synchronize()
+    reset_counts()
+    want, outs = {}, []
+    for family, sparse in (("bn", "tile"), ("bn", "decoded"),
+                           ("rope", "tile")):
+        if family == "rope":
+            ops, kw = rope_operands(5, torch.bfloat16, raw=True)
+        else:
+            ops, kw = layer_operands(5, torch.bfloat16, True, sparse=sparse,
+                                     raw=True)
+        for pipeline in (False, True):
+            out, _ = FL.fused_layer(*ops, **kw, pipeline=pipeline,
+                                    binarize_scores=False)
+            outs.append(out)
+            want[analog_variant(kw, pipeline)] = FL.LAUNCHES_PER_CALL * (
+                ops[0].shape[0] if pipeline else 1)
+    torch.cuda.synchronize()
+    counts = launches()
+    full = dict(dict.fromkeys(counts, 0), **want)
+    if counts != full or not all(bool(torch.isfinite(o).all())
+                                 for o in outs):
+        raise AssertionError(f"kernel API analog path: launches {counts}, "
+                             f"expected {full}")
+    log(f"kernel API path, the layer program with analog scores (bn tile "
+        f"and decoded {FULL}, rope {LM_FULL}; fused and pipelined): "
+        f"launches { {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
+def analog_vision_path(cfg, params, requests, what):
+    """Spikingformer with analog scores (``analog_cfg``) through
+    ``build_prefill_step`` answering ``requests``, the counts reset just
+    before: its layers are not eligible for the layer program (as in
+    JAX) and take the sequential composition, whose SSA bundle runs #6's
+    analog instantiation (1 ``fused_ssa_analog`` a layer call) and whose
+    wo, w1 and w2 run the spike products (3 a layer call,
+    ``spike_matmul`` or ``gather_spike_matmul`` as the sparse datapath
+    or its 'auto' decisions say), and no other kernel; finite logits.
+    Then the same requests with binarized scores (the shipped config: the
+    layer program), timed in the same run. Returns (counts, analog ms
+    per request, binarized ms per request)."""
+    step = steps.build_prefill_step(analog_cfg(cfg))
+    binary = steps.build_prefill_step(cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    outs, req_ms = timed_requests(step, params, requests)
+    counts, decisions = launches(), dict(E.SPARSE_DECISIONS)
+    n = cfg.num_layers * len(requests)
+    tile, dec = sparse_split(cfg.engine, 3 * n)
+    name = f"analog path, {what}, sparse={cfg.engine.sparse!r}"
+    want = dict.fromkeys(counts, 0)
+    want.update(fused_ssa_analog=n, spike_matmul=tile,
+                gather_spike_matmul=dec)
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts}, expected {want}")
+    n_img = len(requests[0]["images"])
+    for logits in outs:
+        if logits.shape != (n_img, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{name}: bad logits "
+                                 f"{tuple(logits.shape)}")
+    bin_outs, bin_ms = timed_requests(binary, params, requests)
+    rounded = lambda ms: [round(m, 3) for m in ms]  # noqa: E731
+    agree = float((outs[0].argmax(-1) == bin_outs[0].argmax(-1)
+                   ).float().mean())
+    log(f"{name}: {len(requests)} requests x {n_img} images, launches "
+        f"{ {k: v for k, v in counts.items() if v} }, sparse decisions "
+        f"{decisions}; ms per request analog {rounded(req_ms)}, binarized "
+        f"(the layer program) {rounded(bin_ms)}; logit std "
+        f"{float(outs[0].std()):.4f}, argmax agreement with the binarized "
+        f"model on the first request {agree:.4f}")
+    return counts, req_ms, bin_ms
+
+
+def least_bit(a):
+    """The exponent of the least set bit among the non-zero values of a
+    (every one of them a multiple of 2 to that power)."""
+    m, e = torch.frexp(a[a != 0].float())
+    mi = (m.abs() * 2.0 ** 24).to(torch.int64)       # 24-bit significands
+    low = (mi & -mi).double().log2()
+    return int((e.double() - 24 + low).min())
+
+
+def check_analog_outputs(cfg, params, batch, what):
+    """One request with analog scores on dyadic weights, for each sparse
+    setting ('auto', 'tile', 'decoded'):
+
+    * the logits under overlap='fused' (the bundle #6-analog, then wo,
+      w1, w2 on the spike products) == under 'off' (q / k / v on the
+      spike products, #7's analog mode, the same wo, w1, w2), bitwise:
+      the projections of spikes on dyadic weights are exact, and both
+      attention kernels sum the same rounded scores in the same order;
+    * the logits through the kernels against through their plain
+      versions, with a derived tolerance. On dyadic weights every
+      product is exact in any order except wo on the analog context, and
+      so is that one wherever its sums stay in range: its terms ctx * w
+      are multiples of 2^(e_ctx + e_w) (the least set bits of the
+      operands), so every partial sum, in any order, is exact in fp32
+      while sum_k |ctx_k w_kn| < 2^(24 + e_ctx + e_w). The script checks
+      that bound on every #2 wo product of the kernels' run (#4 sums in
+      ascending k, as its plain version) and compares each such product
+      with its plain version on the same operands: where every one is
+      exact by the bound or equal bitwise, the kernels' run and the
+      plain versions' compute the same values layer by layer, so the
+      derived tolerance on the logits is 0 and they must be bitwise
+      equal. Each #2 wo product is also held against its plain version
+      within 2 (K - 1) 2^-24 sum_k |ctx_k w_kn| (two fp32 orders of a
+      K-term sum) plus, in bf16, one bf16 ulp of the output, 2^-7 |y|
+      (the two sums may round to neighbouring bf16 values)."""
+    acfg = analog_cfg(cfg)
+    for sparse in ("auto", "tile", "decoded"):
+        eng = acfg.engine.replace(sparse=sparse)
+        with use_engine(eng.replace(overlap="off")), torch.inference_mode():
+            off, _ = registry.forward(params, acfg, batch)
+        calls = []
+        real = SM.spike_matmul_cuda
+
+        def spy(s, w, bias=None):
+            out = real(s, w, bias)
+            if not bool((s == s.round()).all()):     # the analog context
+                calls.append((s, w, bias, out))
+            return out
+        with use_engine(eng.replace(overlap="fused")), \
+                torch.inference_mode():
+            reset_counts()
+            SM.spike_matmul_cuda = spy
+            try:
+                got, aux = registry.forward(params, acfg, batch)
+            finally:
+                SM.spike_matmul_cuda = real
+            counts = launches()
+            with plain_kernels():
+                plain, _ = registry.forward(params, acfg, batch)
+        torch.cuda.synchronize()
+        name = f"{what} analog, sparse={sparse!r}"
+        if counts["fused_ssa_analog"] != cfg.num_layers or \
+                any(n for k, n in counts.items() if k.startswith("fused_layer")):
+            raise AssertionError(f"{name}: launches {counts}")
+        if not torch.equal(got, off):
+            raise AssertionError(f"{name}: 'fused' logits != 'off' (max abs "
+                                 f"diff {float((got - off).abs().max())})")
+        exact, worst, same = True, 0.0, 0
+        for s, w, bias, out in calls:
+            want = SM.spike_matmul_plain(s, w, bias)
+            mag = s.double().abs() @ w.double().abs()
+            tol = 2 * (s.shape[1] - 1) * 2.0 ** -24 * mag
+            if out.dtype == torch.bfloat16:
+                tol = tol + 2.0 ** -7 * want.double().abs()
+            diff = (out.double() - want.double()).abs()
+            if bool((diff > tol).any()):
+                raise AssertionError(f"{name}: a wo product on the analog "
+                                     f"context outside its bound (max abs "
+                                     f"diff {float(diff.max())})")
+            room = 2.0 ** (24 + least_bit(s) + least_bit(w))
+            worst = max(worst, float(mag.max()) / room)
+            bitwise = torch.equal(out, want)
+            same += bitwise
+            exact &= float(mag.max()) < room or bitwise
+        diff = float((got - plain).abs().max())
+        if exact and not torch.equal(got, plain):
+            raise AssertionError(f"{name}: logits through the kernels != "
+                                 f"through the plain versions though every "
+                                 f"wo product equals its plain version "
+                                 f"(max abs diff {diff})")
+        tol = "0 (every wo product exact or equal)" if exact else \
+            "not derived (a wo product differs: compared as information)"
+        log(f"check, {name}: logits under 'fused' (launches "
+            f"{ {k: v for k, v in counts.items() if v} }) == 'off', bitwise; "
+            f"{len(calls)} #2 wo products on the analog context, each within "
+            f"its bound of the plain version, {same} of them equal to it "
+            f"bitwise, the largest sum_k |ctx w| at {worst:.4g} of 2^(24 + "
+            f"e_ctx + e_w); derived tolerance on the logits through the "
+            f"kernels vs the plain versions: {tol}; max abs diff {diff} "
+            f"(fire rate {float(aux['fire_rate']):.4f}, logit std "
+            f"{float(got.std()):.4f})")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2097,7 +2513,9 @@ def main():
                     for case in ATTENTION]
                    + [check_attention(torch.float32, 16, 40, HD, causal,
                                       binarize=False)
-                      for causal in (False, True)])
+                      for causal in (False, True)]
+                   + [check_attention(dt, *case, False, binarize=False)
+                      for dt in dtypes for case in ANALOG_ATTENTION])
     gather_err = max(
         [check_gather(dt, what, M_TRAIN, k, n, counts, weights=wk)
          for dt in dtypes for what, k, n, counts in MATMULS
@@ -2146,6 +2564,42 @@ def main():
             SD.quant_gather_spike_matmul_plain, True)}
     ssa_timing = time_ssa_kernel()
     ssa_eight_timing = time_ssa_kernel(SSA_EIGHT[0][1])
+
+    # --- analog scores (#6 / #6b / #1 / #1b / #1c / #1d analog) against
+    # their plain versions, timed beside their binarized twins ---------
+    analog_err = {
+        "ssa": max(check_ssa_analog(dt, what, shape) for dt in dtypes
+                   for what, shape in [("full width", SSA_FULL), SSA_RAGGED]
+                   + SSA_EIGHT),
+        "ssa_rope": max(check_ssa_analog(dt, what, shape, family="rope")
+                        for dt in dtypes for what, shape in ROPE_SSA_CASES)}
+    for sparse in ("tile", "decoded"):
+        analog_err[sparse] = max(
+            check_layer_analog(dt, what, shape, lb, sparse) for dt in dtypes
+            for what, shape, lb in [("full width", FULL, 64)] + MULTI_BLOCK
+            + EIGHT_CASES)
+    analog_err["rope"] = max(check_layer_analog(dt, *case, family="rope")
+                             for dt in dtypes for case in ROPE_CASES)
+    analog_err["pipeline"] = max(
+        [check_layer_analog(dt, "full width", FULL, 64, sparse, pipeline=True)
+         for sparse in ("tile", "decoded") for dt in dtypes]
+        + [check_layer_analog(dt, *ROPE_CASES[0], family="rope",
+                              pipeline=True) for dt in dtypes]
+        + [check_layer_analog(torch.bfloat16, *PIPE_T6, sparse,
+                              pipeline=True) for sparse in ("tile", "decoded")]
+        + [check_layer_analog(torch.bfloat16, *PIPE_T6_ROPE, family="rope",
+                              pipeline=True)])
+    analog_timing = {
+        "ssa": time_ssa_analog(SSA_FULL),
+        "ssa_8_512": time_ssa_analog(SSA_EIGHT[0][1]),
+        "ssa_rope": time_ssa_analog(ROPE_SSA_CASES[0][1], family="rope"),
+        "tile": time_layer_analog(),
+        "tile_8_512": time_layer_analog(shape=EIGHT, l_block=128),
+        "decoded": time_layer_analog("decoded"),
+        "decoded_8_512": time_layer_analog("decoded", EIGHT, 128),
+        "rope": time_layer_analog(shape=LM_FULL, l_block=128, family="rope"),
+        "pipeline": time_layer_analog(pipeline=True)}
+    api_counts = kernel_api_analog_path()
 
     # --- popcount_scores (#8) and lif_forward (#9) against their plain
     # versions -----------------------------------------------------------
@@ -2247,7 +2701,7 @@ def main():
                                             generator=gen)}
                    for _ in range(LM_REQUESTS)]
     lm_mixed = lm_config(quantize=True, select=select_qkv)
-    lm_counts, _ = lm_prefill_path(*lm_q, lm_requests, "int8")
+    lm_counts, lm_ms = lm_prefill_path(*lm_q, lm_requests, "int8")
     lm_prefill_path(*lm_bf16, lm_requests, "bf16")
     lm_mixed_counts, _ = lm_prefill_path(*lm_mixed, lm_requests,
                                          "mixed int8")
@@ -2290,6 +2744,28 @@ def main():
     check_eval_gradients(cfg, dy, {"images": small},
                          "spikingformer-4-256 (bn), pipelined",
                          overlap="pipeline")
+
+    # --- analog scores (binarize_scores=False) through the entry points:
+    # 8-512 and 4-256 requests (#6-analog), the 4-256 train step (#7's
+    # analog mode), the int8 LM prefill (#6b-analog) ---------------------
+    analog8 = analog_vision_path(engines8["auto"], params8, requests8,
+                                 "spikingformer-8-512")
+    check_analog_outputs(cfg8, params8,
+                         {"images": requests8[0]["images"].cuda()},
+                         "spikingformer-8-512")
+    analog4 = {sp: analog_vision_path(engines[sp], dy, requests,
+                                      "spikingformer-4-256")
+               for sp in ("tile", "decoded")}
+    check_analog_outputs(cfg, dy, {"images": requests[0]["images"].cuda()},
+                         "spikingformer-4-256")
+    analog_train_counts, analog_step_ms = train_path(
+        analog_cfg(engines["auto"]))
+    check_eval_gradients(analog_cfg(cfg), dy, {"images": small},
+                         "spikingformer-4-256 analog (the bundle)",
+                         bundle="fused_ssa_analog")
+    analog_lm_counts, analog_lm_ms = lm_prefill_path(
+        analog_cfg(lm_q[0]), lm_q[1], lm_requests, "analog int8")
+    check_lm_prefill(analog_cfg(lm_q[0]), lm_q[1], lm_check, "analog int8")
 
     # --- the LIF entry (#9) on the layer inputs of one request each -----
     lif_counts = lif_path([(cfg, dy, requests[0]["images"]),
@@ -2397,6 +2873,44 @@ def main():
                                    "fused_layer_pipeline"),
                  at_lm=dict(launches=pipe_lm[0]["fused_layer_pipeline_rope"]),
                  **pipe_timing)]
+    ssa_src = "src/repro/kernels/fused_ssa.py:166 (binarize_scores=False)"
+    layer_src = "src/repro/kernels/fused_layer.py:420 (binarize_scores=False)"
+    rows += [
+        dict(name="fused_ssa_analog", source=csrc + "fused_layer.cu",
+             replaces=ssa_src,
+             launches=analog4["tile"][0]["fused_ssa_analog"],
+             max_abs_err=analog_err["ssa"],
+             at_8_512=dict(analog_timing["ssa_8_512"],
+                           launches=analog8[0]["fused_ssa_analog"]),
+             **analog_timing["ssa"]),
+        dict(name="fused_ssa_rope_analog", source=csrc + "fused_layer.cu",
+             replaces=ssa_src,
+             launches=analog_lm_counts["fused_ssa_rope_analog"],
+             max_abs_err=analog_err["ssa_rope"], **analog_timing["ssa_rope"]),
+        dict(name="fused_layer_analog", source=csrc + "fused_layer.cu",
+             replaces=layer_src, launches=api_counts["fused_layer_analog"],
+             max_abs_err=analog_err["tile"],
+             at_8_512=analog_timing["tile_8_512"], **analog_timing["tile"]),
+        dict(name="fused_layer_decoded_analog",
+             source=csrc + "fused_layer.cu", replaces=layer_src,
+             launches=api_counts["fused_layer_decoded_analog"],
+             max_abs_err=analog_err["decoded"],
+             at_8_512=analog_timing["decoded_8_512"],
+             **analog_timing["decoded"]),
+        dict(name="fused_layer_rope_analog", source=csrc + "fused_layer.cu",
+             replaces=layer_src,
+             launches=api_counts["fused_layer_rope_analog"],
+             max_abs_err=analog_err["rope"], **analog_timing["rope"]),
+        dict(name="fused_layer_pipeline_analog",
+             source=csrc + "fused_layer.cu",
+             replaces=layer_src + " (pipeline=True)",
+             launches=api_counts["fused_layer_pipeline_analog"],
+             max_abs_err=analog_err["pipeline"],
+             at_decoded=dict(launches=api_counts[
+                 "fused_layer_pipeline_decoded_analog"]),
+             at_lm=dict(launches=api_counts[
+                 "fused_layer_pipeline_rope_analog"]),
+             **analog_timing["pipeline"])]
     rounded = lambda ms: [round(m, 3) for m in ms]
     log(f"popcount paths: train ms per step {rounded(pop_step_ms)}, 8-512 "
         f"ms per request {rounded(pop8_ms)}, bf16 LM ms per request "
@@ -2408,6 +2922,14 @@ def main():
         f"{rounded(pipe_counts['decoded'][2])}; 8-512 "
         f"{rounded(pipe8[1])} / {rounded(pipe8[2])}; int8 LM "
         f"{rounded(pipe_lm[1])} / {rounded(pipe_lm[2])}")
+    log(f"analog paths, ms per request analog / binarized: 8-512 "
+        f"{rounded(analog8[1])} / {rounded(analog8[2])}; 4-256 tile "
+        f"{rounded(analog4['tile'][1])} / {rounded(analog4['tile'][2])}, "
+        f"decoded {rounded(analog4['decoded'][1])} / "
+        f"{rounded(analog4['decoded'][2])}; int8 LM prefill "
+        f"{rounded(analog_lm_ms)} / {rounded(lm_ms)}; 4-256 train ms per "
+        f"step (analog, sparse='auto') {rounded(analog_step_ms)}, launches "
+        f"{ {k: v for k, v in analog_train_counts.items() if v} }")
     log(json.dumps({"kernels": [dict(route="cuda", **r) for r in rows]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -10,8 +10,10 @@ with no softmax. :func:`spiking_attention` consults the engine
 (:func:`~repro_torch.core.engine.resolve_binary_mode`) and routes to the
 plain oracle, to the ``spike_attention`` kernel ('mxu_kernel') or to the
 bit-packed ``popcount_scores`` kernel ('popcount'), which agree bitwise
-on spike inputs: {0,1} dot products are exact integer counts in fp32, and
-all three test the threshold with the same rounding rule.
+on spike inputs: {0,1} dot products are exact integer counts in fp32,
+all three test the threshold with the same rounding rule, and with
+analog scores (``binarize_scores=False``) all three sum the context over
+the keys in ascending order.
 """
 from __future__ import annotations
 

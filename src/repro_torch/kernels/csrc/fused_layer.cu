@@ -101,6 +101,24 @@
 // variant's bitwise. It moves the membranes through device memory twice
 // a timestep more than #1 and makes 2 T launches instead of 2.
 //
+// Analog scores (binarize_scores=False, Spikformer's raw SSA: the Pallas
+// kernels' `a = sc` branch, fused_layer.py:232-235 with the always-live
+// score predicate of `_qkt_live`, fused_ssa.py:152-155) are launch A's
+// AN instantiation, a template flag, so the binarized kernels keep their
+// code. A score is still the AND-popcount count c of a query's and a
+// key's bits, now rounded once as fl(c * scale); the context of query i
+// and column col is the fp32 sum of the scores of the keys whose value
+// bit is set, in ascending key order, one __fadd_rn a term (the plain
+// version's order, fused_ssa.analog_context, and spike_attention.cu's),
+// on CUDA cores: a warp ballots the live keys of a 32-key word, then
+// visits them in ascending order, each key's score broadcast from its
+// lane with a shuffle, so no shared memory is added. Every key block is
+// live for the score phase (n_qkt counts all of them); a context block
+// when its value rows are not all dark. Launch B's wo then takes an
+// analog left operand, exact in no order: it is summed in ascending k on
+// CUDA cores (chunk_product's ANALOG path, the rope family's `up`),
+// chosen per chunk by a block-uniform flag outside the k loop.
+//
 // Rounding follows the plain version (kernels/fused_layer.py) step by
 // step: fp32 accumulation, cast to the activation dtype, BN as
 // (y - mean) * inv_std rounded and then fma32 (a float64 product and sum
@@ -314,7 +332,7 @@ __device__ __forceinline__ void stage_w3(const T* __restrict__ w3, T* wt,
   }
 }
 
-template <typename T, bool DEC, bool ROPE, int HW>
+template <typename T, bool DEC, bool ROPE, int HW, bool AN>
 __global__ void __launch_bounds__(NT)
 attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
                 const float* __restrict__ sc3, const float* __restrict__ auxp,
@@ -599,8 +617,9 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
   __syncthreads();
 
   // per timestep: key / value block occupancy (an all-dark key block
-  // scores zeros, which binarize to zero unless delta <= 0), live-key and
-  // live-context masks, then scores and context
+  // scores zeros, which binarize to zero unless delta <= 0; analog
+  // scores keep every key block live), live-key and live-context masks,
+  // then scores and context
   for (int lb = tid; lb < nlb; lb += NT) {
     const int r0 = lb * l_block, r1 = min(l, r0 + l_block);
     int n_proj = 0, n_qkt = 0, n_qktv = 0;
@@ -614,7 +633,7 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
         for (int cc = 0; cc < hd; ++cc)
           vany |= (vbits_t[((size_t)t * hd + cc) * lw + w] & m) != 0u;
       }
-      const bool kl = kany || delta <= 0.f;
+      const bool kl = AN || kany || delta <= 0.f;
       if (kl) {
         for (int r = r0; r < r1; ++r) {
           atomicOr(&key_mask[t * lw + r / 32], 1u << (r % 32));
@@ -653,7 +672,9 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
   // (and, when causal, past) keys; the ballot is the score word.
   // Context: lane c counts the score bits against value columns c + 32 m
   // (< hd) over live context blocks (integer counts, exact in the
-  // activation dtype).
+  // activation dtype). AN: lane j's score is fl(count * scale); lane c
+  // adds the scores of the live keys whose value bit its column has, in
+  // ascending key order, each shuffled from the key's lane.
   for (int task = warp; task < nt * l; task += NT / 32) {
     const int t = task / l, i = task % l;
     uint32_t q[HW];
@@ -661,48 +682,80 @@ attention_phase(const T* __restrict__ s, const T* __restrict__ w3,
     for (int w = 0; w < HW; ++w) q[w] = qbits[((size_t)t * l + i) * HW + w];
     const int last = causal ? i / 32 : lw - 1;
     int n[HW] = {};
+    float acc[HW] = {};
     for (int jw = 0; jw <= last; ++jw) {
       const int key = jw * 32 + lane;
       const uint32_t* kb = kbits + ((size_t)t * l + min(key, l - 1)) * HW;
       int score = 0;
 #pragma unroll
       for (int w = 0; w < HW; ++w) score += __popc(q[w] & kb[w]);
-      const bool pass = key < l && (!causal || key <= i) &&
-                        (key_mask[t * lw + jw] >> lane & 1u) && passes[score];
-      const uint32_t word = __ballot_sync(0xFFFFFFFFu, pass) & ctx_mask[t * lw + jw];
+      const bool live = key < l && (!causal || key <= i) &&
+                        (key_mask[t * lw + jw] >> lane & 1u);
+      uint32_t vw[HW];          // the word's value bits of the lane's columns
 #pragma unroll
       for (int m = 0; m < HW; ++m) {
         const int col = lane + 32 * m;
-        if (col < hd)
-          n[m] += __popc(word & vbits_t[((size_t)t * hd + col) * lw + jw]);
+        vw[m] = col < hd ? vbits_t[((size_t)t * hd + col) * lw + jw] : 0u;
+      }
+      if constexpr (AN) {
+        const float sc = __fmul_rn((float)score, scale);
+        uint32_t vor = 0u;
+#pragma unroll
+        for (int m = 0; m < HW; ++m) vor |= vw[m];
+        // live keys that some column's value bit selects, ascending
+        uint32_t todo = __ballot_sync(0xFFFFFFFFu, live) & ctx_mask[t * lw + jw] &
+                        __reduce_or_sync(0xFFFFFFFFu, vor);
+        while (todo) {
+          const int kk = __ffs(todo) - 1;
+          todo &= todo - 1u;
+          const float sk = __shfl_sync(0xFFFFFFFFu, sc, kk);
+#pragma unroll
+          for (int m = 0; m < HW; ++m)
+            if (vw[m] >> kk & 1u) acc[m] = __fadd_rn(acc[m], sk);
+        }
+      } else {
+        const uint32_t word =
+            __ballot_sync(0xFFFFFFFFu, live && passes[score]) & ctx_mask[t * lw + jw];
+#pragma unroll
+        for (int m = 0; m < HW; ++m) n[m] += __popc(word & vw[m]);
       }
     }
 #pragma unroll
     for (int m = 0; m < HW; ++m) {
       const int col = lane + 32 * m;
       if (col < hd)
-        A::store(ctx + (((size_t)t * nb + b) * l + i) * qd + h * hd + col, (float)n[m]);
+        A::store(ctx + (((size_t)t * nb + b) * l + i) * qd + h * hd + col,
+                 AN ? acc[m] : (float)n[m]);
     }
   }
 }
 
-// launch A's instantiation for a variant and head_dim (HW = 1 for
-// head_dim <= 32, else 2)
+// launch A's instantiation for a variant, head_dim (HW = 1 for head_dim
+// <= 32, else 2) and scores (AN: analog)
 template <typename T>
 using AttentionKernel = void (*)(const T*, const T*, const float*,
                                  const float*, const float*, float, Lif, int,
                                  int, int, int, int, int, int, int, int, int,
                                  int, int, T*, int*, T*, int);
 
-template <typename T, int HW>
+template <typename T, int HW, bool AN>
 AttentionKernel<T> attention_variant(int rope, int decoded) {
-  return rope ? attention_phase<T, false, true, HW>
-              : decoded ? attention_phase<T, true, false, HW>
-                        : attention_phase<T, false, false, HW>;
+  return rope ? attention_phase<T, false, true, HW, AN>
+              : decoded ? attention_phase<T, true, false, HW, AN>
+                        : attention_phase<T, false, false, HW, AN>;
 }
 
 template <typename T>
-cudaError_t launch_attention(int rope, int decoded, const void* s,
+AttentionKernel<T> attention_kernel(int rope, int decoded, int analog, int hd) {
+  if (hd <= 32)
+    return analog ? attention_variant<T, 1, true>(rope, decoded)
+                  : attention_variant<T, 1, false>(rope, decoded);
+  return analog ? attention_variant<T, 2, true>(rope, decoded)
+                : attention_variant<T, 2, false>(rope, decoded);
+}
+
+template <typename T>
+cudaError_t launch_attention(int rope, int decoded, int analog, const void* s,
                              const void* w3, const float* sc3,
                              const float* auxp, const float* delta,
                              float scale, Lif lif, int causal, int nt, int nb,
@@ -713,8 +766,7 @@ cudaError_t launch_attention(int rope, int decoded, const void* s,
   const int nlb = (l + l_block - 1) / l_block;
   const int ka = chunk_depth(sizeof(T), nt, l, d, hd, nlb);
   const size_t dyn_a = SmemA(sizeof(T), nt, l, d, hd, nlb, ka).total;
-  const AttentionKernel<T> kernel = hd <= 32 ? attention_variant<T, 1>(rope, decoded)
-                                             : attention_variant<T, 2>(rope, decoded);
+  const AttentionKernel<T> kernel = attention_kernel<T>(rope, decoded, analog, hd);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn_a);
   if (err != cudaSuccess) return err;
@@ -736,7 +788,9 @@ cudaError_t launch_attention(int rope, int decoded, const void* s,
 // [0, 32); slot q = 4 j + c is accumulator c of the warp's m16n8 tile j.
 // In bf16 a chunk is KC / 16 tensor-core mma.sync steps (bf16 x bf16 -> fp32;
 // spikes, integer counts and bf16 weights are exact operands); in fp32
-// it is a CUDA-core loop over the same slots.
+// it is a CUDA-core loop over the same slots. An analog operand (the rope
+// family's ln2 output for up; for wo, the context of analog scores) is a
+// CUDA-core loop in ascending k in both dtypes (chunk_product's ANALOG).
 
 constexpr int MAX_T = 4;       // timesteps whose accumulators the fused launch B holds
 constexpr int LDS = KC + 8;    // padded row of the staged A and W^T tiles
@@ -940,8 +994,8 @@ mlp_phase(const T* __restrict__ x, const T* __restrict__ ctx,
           const T* __restrict__ w2, const float* __restrict__ sco,
           const float* __restrict__ sc1, const float* __restrict__ sc2,
           const float* __restrict__ auxo, const float* __restrict__ aux1,
-          const float* __restrict__ aux2, Lif lif, float norm_eps, int nt,
-          int nb, int l, int d, int heads, int hd, int ff, int l_block,
+          const float* __restrict__ aux2, Lif lif, float norm_eps, int analog,
+          int nt, int nb, int l, int d, int heads, int hd, int ff, int l_block,
           T* __restrict__ s2g, T* __restrict__ out, int* __restrict__ counts,
           int* __restrict__ flags, T* __restrict__ mem_in,
           T* __restrict__ mem_hid, int carry) {
@@ -983,7 +1037,8 @@ mlp_phase(const T* __restrict__ x, const T* __restrict__ ctx,
 
     // wo: the sum over heads in order (dark head blocks skipped), then
     // scale; bn: bn_o, residual (x1 parked in `out`) and the input LIF;
-    // rope: the residual (x1 parked in `out`)
+    // rope: the residual (x1 parked in `out`). An analog context (analog
+    // scores) is summed in ascending k on CUDA cores
     for (int c0 = 0; c0 < d; c0 += TILE) {
       float acc[TT][16] = {}, u[16] = {};
       // slot q of the input neuron's membrane in mem_in: tile row r, column c
@@ -1012,7 +1067,10 @@ mlp_phase(const T* __restrict__ x, const T* __restrict__ ctx,
               stage_a<T>(ctx + (((size_t)t * nb + b) * l + r0) * qd, qd, n, k0,
                          abuf);
               __syncthreads();
-              chunk_product<T>(acc[t], wbuf, abuf, nullptr, 0, k0);
+              if (analog)
+                chunk_product<T, true>(acc[t], wbuf, abuf, nullptr, 0, k0);
+              else
+                chunk_product<T>(acc[t], wbuf, abuf, nullptr, 0, k0);
             }
           },
           wbuf);
@@ -1220,8 +1278,8 @@ cudaError_t launch_pair(const T* x, const T* s, const void* w3,
                         const float* sc2, const float* auxp, const float* auxo,
                         const float* aux1, const float* aux2,
                         const float* delta, float scale, Lif lif,
-                        float norm_eps, int rope, int causal, int nt, int nb,
-                        int l, int d, int heads, int hd, int ff, int l_block,
+                        float norm_eps, int rope, int causal, int analog, int nt,
+                        int nb, int l, int d, int heads, int hd, int ff, int l_block,
                         int decoded, int c_block, int cp, T* ctx, T* s2g,
                         T* out, int* counts, int* flags, T* memb, T* mem_in,
                         T* mem_hid, int carry, cudaStream_t stream) {
@@ -1233,13 +1291,14 @@ cudaError_t launch_pair(const T* x, const T* s, const void* w3,
   cudaError_t err = cudaFuncSetAttribute(
       mlp, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   if (err != cudaSuccess) return err;
-  err = launch_attention<T>(rope, decoded, s, w3, sc3, auxp, delta, scale,
-                            lif, causal, nt, nb, l, d, heads, hd, l_block,
-                            c_block, cp, 0, ctx, counts, memb, carry, stream);
+  err = launch_attention<T>(rope, decoded, analog, s, w3, sc3, auxp, delta,
+                            scale, lif, causal, nt, nb, l, d, heads, hd,
+                            l_block, c_block, cp, 0, ctx, counts, memb, carry,
+                            stream);
   if (err != cudaSuccess) return err;
   mlp<<<dim3(nlb * tpb, nb), NT, dyn, stream>>>(
       x, ctx, (const T*)wo, (const T*)w1, (const T*)w2, sco, sc1, sc2, auxo,
-      aux1, aux2, lif, norm_eps, nt, nb, l, d, heads, hd, ff, l_block, s2g,
+      aux1, aux2, lif, norm_eps, analog, nt, nb, l, d, heads, hd, ff, l_block, s2g,
       out, counts, flags, mem_in, mem_hid, carry);
   return cudaGetLastError();
 }
@@ -1256,14 +1315,14 @@ cudaError_t launch(int pipeline, const void* x, const void* s, const void* w3,
                    const float* sc2, const float* auxp, const float* auxo,
                    const float* aux1, const float* aux2, const float* delta,
                    float scale, Lif lif, float norm_eps, int rope, int causal,
-                   int nt, int nb, int l, int d, int heads, int hd, int ff,
-                   int l_block, int decoded, int c_block, int cp, void* ctx,
-                   void* s2g, void* out, int* counts, int* flags, void* memb,
-                   void* mem_in, void* mem_hid, cudaStream_t stream) {
+                   int analog, int nt, int nb, int l, int d, int heads, int hd,
+                   int ff, int l_block, int decoded, int c_block, int cp,
+                   void* ctx, void* s2g, void* out, int* counts, int* flags,
+                   void* memb, void* mem_in, void* mem_hid, cudaStream_t stream) {
   if (!pipeline)
     return launch_pair<T, MAX_T>(
         (const T*)x, (const T*)s, w3, wo, w1, w2, sc3, sco, sc1, sc2, auxp,
-        auxo, aux1, aux2, delta, scale, lif, norm_eps, rope, causal, nt, nb, l,
+        auxo, aux1, aux2, delta, scale, lif, norm_eps, rope, causal, analog, nt, nb, l,
         d, heads, hd, ff, l_block, decoded, c_block, cp, (T*)ctx, (T*)s2g,
         (T*)out, counts, flags, nullptr, nullptr, nullptr, 0, stream);
   const int nlb = (l + l_block - 1) / l_block;
@@ -1273,7 +1332,7 @@ cudaError_t launch(int pipeline, const void* x, const void* s, const void* w3,
     const cudaError_t err = launch_pair<T, 1>(
         (const T*)x + t * xs, (const T*)s + t * xs, w3, wo, w1, w2, sc3, sco,
         sc1, sc2, auxp, auxo, aux1, aux2, delta, scale, lif, norm_eps, rope,
-        causal, 1, nb, l, d, heads, hd, ff, l_block, decoded, c_block, cp,
+        causal, analog, 1, nb, l, d, heads, hd, ff, l_block, decoded, c_block, cp,
         (T*)ctx + t * cs, (T*)s2g, (T*)out + t * xs, counts, flags + t * fs,
         (T*)memb, (T*)mem_in, (T*)mem_hid, t > 0, stream);
     if (err != cudaSuccess) return err;
@@ -1287,16 +1346,16 @@ int forward(int pipeline, const void* x, const void* s, const void* w3,
             const void* sco, const void* sc1, const void* sc2,
             const void* auxp, const void* auxo, const void* aux1,
             const void* aux2, const void* delta, float scale, Lif lif,
-            float norm_eps, int rope, int causal, int nt, int nb, int l,
-            int d, int heads, int hd, int ff, int l_block, int decoded,
+            float norm_eps, int rope, int causal, int analog, int nt, int nb,
+            int l, int d, int heads, int hd, int ff, int l_block, int decoded,
             int c_block, int cp, void* ctx, void* s2g, void* out,
             void* counts, void* flags, void* memb, void* mem_in,
             void* mem_hid, void* stream) {
   const auto f = [](const void* p) { return (const float*)p; };
   return (int)launch<T>(pipeline, x, s, w3, wo, w1, w2, f(sc3), f(sco),
                         f(sc1), f(sc2), f(auxp), f(auxo), f(aux1), f(aux2),
-                        f(delta), scale, lif, norm_eps, rope, causal, nt, nb,
-                        l, d, heads, hd, ff, l_block, decoded, c_block, cp,
+                        f(delta), scale, lif, norm_eps, rope, causal, analog, nt,
+                        nb, l, d, heads, hd, ff, l_block, decoded, c_block, cp,
                         ctx, s2g, out, (int*)counts, (int*)flags, memb,
                         mem_in, mem_hid, (cudaStream_t)stream);
 }
@@ -1308,18 +1367,19 @@ int forward(int pipeline, const void* x, const void* s, const void* w3,
 template <typename T>
 cudaError_t launch_ssa(const void* s, const void* w3, const float* sc3,
                        const float* auxp, const float* delta, float scale,
-                       Lif lif, int rope, int causal, int nt, int nb, int l,
-                       int d, int heads, int hd, void* ctx, int* counts,
-                       cudaStream_t stream) {
-  return launch_attention<T>(rope, 0, s, w3, sc3, auxp, delta, scale, lif,
-                             causal, nt, nb, l, d, heads, hd, l, 1, d, 1, ctx,
-                             counts, nullptr, 0, stream);
+                       Lif lif, int rope, int causal, int analog, int nt,
+                       int nb, int l, int d, int heads, int hd, void* ctx,
+                       int* counts, cudaStream_t stream) {
+  return launch_attention<T>(rope, 0, analog, s, w3, sc3, auxp, delta, scale,
+                             lif, causal, nt, nb, l, d, heads, hd, l, 1, d, 1,
+                             ctx, counts, nullptr, 0, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; rope: the token family (analog
 // projection input, RoPE, ln2 rmsnorm, no BN); causal: mask future keys;
+// analog: analog scores fl(count * scale) (binarize_scores=False);
 // decoded: the decoded q/k/v projections with chunks of c_block
 // compacted slots and padded width cp. Returns a cudaError_t (0 =
 // success).
@@ -1329,14 +1389,14 @@ extern "C" int fused_layer_forward(
     const void* sc1, const void* sc2, const void* auxp, const void* auxo,
     const void* aux1, const void* aux2, const void* delta, float scale,
     float decay, float vth, int soft_reset, float norm_eps, int rope,
-    int causal, int nt, int nb, int l, int d, int heads, int hd, int ff,
+    int causal, int analog, int nt, int nb, int l, int d, int heads, int hd, int ff,
     int l_block, int decoded, int c_block, int cp, void* ctx, void* s2g,
     void* out, void* counts, void* flags, void* stream) {
   const Lif lif{decay, vth, soft_reset};
   auto fwd = dtype == 0 ? forward<float> : forward<__nv_bfloat16>;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   return fwd(0, x, s, w3, wo, w1, w2, sc3, sco, sc1, sc2, auxp, auxo, aux1,
-             aux2, delta, scale, lif, norm_eps, rope, causal, nt, nb, l, d,
+             aux2, delta, scale, lif, norm_eps, rope, causal, analog, nt, nb, l, d,
              heads, hd, ff, l_block, decoded, c_block, cp, ctx, s2g, out,
              counts, flags, nullptr, nullptr, nullptr, stream);
 }
@@ -1353,7 +1413,7 @@ extern "C" int fused_layer_pipeline_forward(
     const void* sc1, const void* sc2, const void* auxp, const void* auxo,
     const void* aux1, const void* aux2, const void* delta, float scale,
     float decay, float vth, int soft_reset, float norm_eps, int rope,
-    int causal, int nt, int nb, int l, int d, int heads, int hd, int ff,
+    int causal, int analog, int nt, int nb, int l, int d, int heads, int hd, int ff,
     int l_block, int decoded, int c_block, int cp, void* ctx, void* s2g,
     void* out, void* counts, void* flags, void* memb, void* mem_in,
     void* mem_hid, void* stream) {
@@ -1361,7 +1421,7 @@ extern "C" int fused_layer_pipeline_forward(
   auto fwd = dtype == 0 ? forward<float> : forward<__nv_bfloat16>;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   return fwd(1, x, s, w3, wo, w1, w2, sc3, sco, sc1, sc2, auxp, auxo, aux1,
-             aux2, delta, scale, lif, norm_eps, rope, causal, nt, nb, l, d,
+             aux2, delta, scale, lif, norm_eps, rope, causal, analog, nt, nb, l, d,
              heads, hd, ff, l_block, decoded, c_block, cp, ctx, s2g, out,
              counts, flags, memb, mem_in, mem_hid, stream);
 }
@@ -1370,26 +1430,27 @@ extern "C" int fused_layer_pipeline_forward(
 // currents), w3 (3, D, H hd), sc3 (3, H hd) fp32 scales, auxp (3, 4, H hd)
 // fp32 BN rows [mean, inv_std, scale, bias] (rope: the (2, L, hd / 2)
 // [cos; sin] table), delta (1,) fp32; rope: the token family's epilogue;
-// causal: mask future keys; ctx (T, B, L, H hd) in the dtype (0 =
+// causal: mask future keys; analog: analog scores; ctx (T, B, L, H hd) in
+// the dtype (0 =
 // float32, 1 = bfloat16); counts (H, 4) int32, zeroed by the caller.
 // Returns a cudaError_t (0 = success).
 extern "C" int fused_ssa_forward(int dtype, const void* s, const void* w3,
                                  const void* sc3, const void* auxp,
                                  const void* delta, float scale, float decay,
                                  float vth, int soft_reset, int rope,
-                                 int causal, int nt, int nb, int l, int d,
-                                 int heads, int hd, void* ctx, void* counts,
-                                 void* stream) {
+                                 int causal, int analog, int nt, int nb, int l,
+                                 int d, int heads, int hd, void* ctx,
+                                 void* counts, void* stream) {
   const Lif lif{decay, vth, soft_reset};
   const auto f = [](const void* p) { return (const float*)p; };
   if (dtype == 0)
     return launch_ssa<float>(s, w3, f(sc3), f(auxp), f(delta), scale, lif,
-                             rope, causal, nt, nb, l, d, heads, hd, ctx,
-                             (int*)counts, (cudaStream_t)stream);
+                             rope, causal, analog, nt, nb, l, d, heads, hd,
+                             ctx, (int*)counts, (cudaStream_t)stream);
   if (dtype == 1)
     return launch_ssa<__nv_bfloat16>(s, w3, f(sc3), f(auxp), f(delta), scale,
-                                     lif, rope, causal, nt, nb, l, d, heads,
-                                     hd, ctx, (int*)counts,
+                                     lif, rope, causal, analog, nt, nb, l, d,
+                                     heads, hd, ctx, (int*)counts,
                                      (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -32,8 +32,10 @@
 // output dtype. Keys wholly above the diagonal are skipped under causal,
 // a 32-key word at a time. With binarize == 0 the scores stay analog:
 // each context entry sums fl(count * scale) over the keys whose value
-// bit is set, in ascending key order on CUDA cores (the reference sums
-// in its own order, so that mode agrees within a tolerance).
+// bit is set, in ascending key order on CUDA cores, one fp32 add a term:
+// the plain version's order (kernels/fused_ssa.analog_context) and the
+// fused SSA bundle's, so all three agree bitwise (JAX sums in XLA's
+// order, so the reference agrees within a tolerance).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

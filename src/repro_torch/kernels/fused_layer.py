@@ -36,6 +36,18 @@ Three functions of one layer:
   through :func:`fused_layer_pipeline_cuda` the same two a timestep
   (2 T), the membranes moving between them through device scratch.
 
+Analog scores (``binarize_scores=False``, Spikformer's raw SSA, which
+JAX's kernel takes at the kernel API; no model path reaches the layer
+program with them, as its eligibility requires binarized scores): the
+scores are ``fl(count * scale)``, every key block is live for the score
+phase, the context is summed over the keys in ascending order, one fp32
+add a term (``fused_ssa.analog_context``), and wo, whose left operand is
+then that analog context, is summed in ascending k on CUDA cores
+(:func:`_seq_matmul`), so the kernel and the plain version agree
+bitwise; against JAX's ``reference_layer``, which sums both in XLA's
+order, they agree exactly wherever those sums are exact (power-of-two
+scales and dyadic weights) and within a tolerance elsewhere.
+
 Rounding rules shared by the plain version and the kernel: projections
 accumulate in fp32 and are cast to the activation dtype before the
 epilogue; BN runs in fp32 as ``fma32((y - mean) * inv_std, scale,
@@ -66,7 +78,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.spiking import SpikingConfig, lif_scan, lif_step
-from repro_torch.kernels.fused_ssa import (binary_scores, reference_bundle,
+from repro_torch.kernels.fused_ssa import (analog_context, analog_scores,
+                                           binary_scores, reference_bundle,
                                            rope_heads)
 from repro_torch.kernels.fused_ssa import seq_matmul as _seq_matmul
 from repro_torch.models.nn import bn_affine, rmsnorm
@@ -78,13 +91,14 @@ LAYER_PHASES = ("q", "k", "v", "qkt", "qktv", "wo", "up", "down")
 N_PHASES = len(LAYER_PHASES)
 
 # kernel launches on the card, by variant (bn tile, bn decoded, rope;
-# fused or pipelined): each call of the fused CUDA layer program launches
-# two kernels (attention_phase, then mlp_phase) and counts both; the
-# pipelined one launches the pair once a timestep, 2 T a call
-LAUNCHES = {"fused_layer": 0, "fused_layer_decoded": 0,
-            "fused_layer_rope": 0, "fused_layer_pipeline": 0,
-            "fused_layer_pipeline_decoded": 0,
-            "fused_layer_pipeline_rope": 0}
+# fused or pipelined; binarized or analog scores, ``_analog``): each call
+# of the fused CUDA layer program launches two kernels (attention_phase,
+# then mlp_phase) and counts both; the pipelined one launches the pair
+# once a timestep, 2 T a call
+LAUNCHES = {f"fused_layer{sched}{variant}{scores}": 0
+            for sched in ("", "_pipeline")
+            for variant in ("", "_decoded", "_rope")
+            for scores in ("", "_analog")}
 LAUNCHES_PER_CALL = 2
 
 # shape limits of the CUDA kernel (csrc/fused_layer.cu): launch A keeps
@@ -109,16 +123,12 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _check_variant(family, sparse, binarize_scores):
+def _check_variant(family, sparse):
     if family not in FAMILIES:
         raise ValueError(f"unknown fused-layer family {family!r} "
                          f"(expected bn|rope)")
     if sparse not in ("tile", "decoded"):
         raise ValueError(f"unknown fused-layer sparse path {sparse!r}")
-    if not binarize_scores:
-        raise NotImplementedError(
-            "analog attention scores of the fused layer are not ported to "
-            "PyTorch yet (ROADMAP queue 2 #6 / #1, analog scores)")
 
 
 def _lif(u: torch.Tensor, decay: float, v_th: float, soft_reset: bool):
@@ -224,7 +234,7 @@ def _layer_plain(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
                  delta, *, lif, num_heads: int, head_dim: int, scale: float,
                  l_block: int, decoded: bool = False, c_block: int = 128,
                  family: str = "bn", causal: bool = False,
-                 norm_eps: float = 1e-6
+                 binarize_scores: bool = True, norm_eps: float = 1e-6
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layer's arithmetic over the timesteps of x and s, with
     ``lif(name, u)`` the spikes of the LIF neuron ``name`` (q, k, v, s2,
@@ -236,9 +246,12 @@ def _layer_plain(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
     projections are summed in the decoded kernel's order instead); the
     counts follow the kernel's predicates: a projection / wo / up / down
     sub-block runs when its input rows of the L-block are not all zero, a
-    score block when its key rows are not all dark (or delta <= 0), a
-    context block when additionally its value rows are not all dark; a
-    decoded projection counts its executed gather chunks."""
+    score block when its key rows are not all dark (or delta <= 0, or
+    the scores are analog: every block), a context block when
+    additionally its value rows are not all dark; a decoded projection
+    counts its executed gather chunks. Analog scores: the context and wo
+    are summed in the kernel's order (:func:`analog_context`,
+    :func:`_seq_matmul`)."""
     t, b, l, d = x.shape
     heads, hd = num_heads, head_dim
     dt = x.dtype
@@ -278,20 +291,29 @@ def _layer_plain(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
         proj = [bn(proj[j], auxp[j]) for j in range(3)]
     q, k, v = (lif(name, u) for name, u in zip("qkv", proj))
     delta_t = torch.as_tensor(delta, dtype=torch.float32, device=x.device)
-    k_live = _block_any(k, l_block, heads) | (delta_t <= 0)
+    k_live = _block_any(k, l_block, heads) | (delta_t <= 0) | \
+        (not binarize_scores)
     c_live = k_live & _block_any(v, l_block, heads)
-    a = binary_scores(per_head(q), per_head(k), scale, delta)
+    if binarize_scores:
+        a = binary_scores(per_head(q), per_head(k), scale, delta)
+    else:
+        a = analog_scores(per_head(q), per_head(k), scale)
     if causal:
         a = a.tril()
-    ctx = ((a * cols(c_live)) @ per_head(v).float()).to(dt)
-    ctx = ctx.transpose(2, 3).reshape(t, b, l, heads * hd)
+    a = a * cols(c_live)
+    ctx = a @ per_head(v).float() if binarize_scores \
+        else analog_context(a, per_head(v))
+    ctx = ctx.to(dt).transpose(2, 3).reshape(t, b, l, heads * hd)
+    # wo on an analog context is an analog sum: ascending k, as the kernel
+    att = lin(ctx, wo, sco) if binarize_scores \
+        else (_seq_matmul(ctx, wo) * sco.float()).to(dt)
     if rope:
-        x1 = x + lin(ctx, wo, sco)
+        x1 = x + att
         s2 = _rms_plain(x1, auxo[0], norm_eps)
         hid = lif("hid", (_seq_matmul(s2, w1) * sc1.float()).to(dt))
         out = x1 + lin(hid, w2, sc2)
     else:
-        x1 = x + bn(lin(ctx, wo, sco), auxo)
+        x1 = x + bn(att, auxo)
         s2 = lif("s2", x1)
         hid = lif("hid", bn(lin(s2, w1, sc1), aux1))
         out = x1 + bn(lin(hid, w2, sc2), aux2)
@@ -370,18 +392,20 @@ def fused_layer(x: torch.Tensor, s: torch.Tensor, w3: torch.Tensor,
     capacities; ``c_block``: the decoded chunk of compacted slots.
 
     ``pipeline``: the TPU kernel's per-timestep wavefront grid; outputs
-    and counts are those of the fused schedule.
+    and counts are those of the fused schedule. ``binarize_scores=False``:
+    analog attention scores (the module's notes give their sum orders).
 
     Returns (layer output (T, B, L, D) in the activation dtype, counts
     (H, 8, ceil(L / l_block)) int32 — executed sub-blocks per head,
     phase (:data:`LAYER_PHASES`) and L-block)."""
-    _check_variant(family, sparse, binarize_scores)
+    _check_variant(family, sparse)
     args, kw = prepare(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
                        delta, num_heads=num_heads, head_dim=head_dim,
                        scale=scale, decay=decay, v_th=v_th,
                        soft_reset=soft_reset, eps=eps, l_block=l_block,
                        sparse=sparse, c_block=c_block, family=family,
-                       causal=causal, norm_eps=norm_eps)
+                       causal=causal, binarize_scores=binarize_scores,
+                       norm_eps=norm_eps)
     if x.device.type == "cpu":
         plain = fused_layer_pipeline_plain if pipeline else fused_layer_plain
         return plain(*args, **kw)
@@ -395,7 +419,7 @@ def fused_layer(x: torch.Tensor, s: torch.Tensor, w3: torch.Tensor,
 def prepare(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2, delta, *,
             num_heads, head_dim, scale, decay, v_th, soft_reset, eps,
             l_block, sparse="tile", c_block=128, family="bn", causal=False,
-            norm_eps=1e-6):
+            binarize_scores=True, norm_eps=1e-6):
     """Checks the operands of :func:`fused_layer` and returns the
     ``(args, kwargs)`` that :func:`fused_layer_plain` and
     :func:`fused_layer_cuda` both take: fp32 scales (ones for None), BN
@@ -443,7 +467,7 @@ def prepare(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2, delta, *,
               l_block=max(1, min(l_block, l)),
               decoded=sparse == "decoded" and family == "bn",
               c_block=max(1, min(c_block, d)), family=family, causal=causal,
-              norm_eps=norm_eps)
+              binarize_scores=binarize_scores, norm_eps=norm_eps)
     return (x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2, delta), kw
 
 
@@ -528,7 +552,7 @@ def check_launch_shapes(elem_size: int, t: int, l: int, d: int, heads: int,
 
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 15
              + [ctypes.c_float] * 3 + [ctypes.c_int] + [ctypes.c_float]
-             + [ctypes.c_int] * 13 + [ctypes.c_void_p] * 5)
+             + [ctypes.c_int] * 14 + [ctypes.c_void_p] * 5)
 # the pipelined entry adds the three membrane scratch pointers
 _PIPELINE_ARGTYPES = _ARGTYPES + [ctypes.c_void_p] * 3
 
@@ -551,7 +575,8 @@ def fused_layer_cuda(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
                      delta, **kw):
     """Launch the CUDA layer program on PyTorch's current stream, on the
     operands :func:`prepare` returns; counted under ``fused_layer``,
-    ``fused_layer_decoded`` (``decoded``) or ``fused_layer_rope``."""
+    ``fused_layer_decoded`` (``decoded``) or ``fused_layer_rope``, with
+    ``_analog`` appended for analog scores."""
     return _launch(False, x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1,
                    aux2, delta, **kw)
 
@@ -570,7 +595,7 @@ def fused_layer_pipeline_cuda(x, s, w3, wo, w1, w2, scales, auxp, auxo,
 def _launch(pipeline, x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
             delta, *, num_heads, head_dim, scale, decay, v_th, soft_reset,
             l_block, decoded=False, c_block=128, family="bn", causal=False,
-            norm_eps=1e-6):
+            binarize_scores=True, norm_eps=1e-6):
     dtypes = {torch.float32: 0, torch.bfloat16: 1}
     if x.dtype not in dtypes:
         raise ValueError(f"fused_layer kernel takes float32 or bfloat16, "
@@ -613,7 +638,8 @@ def _launch(pipeline, x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
     cp = -(-d // c_block) * c_block
     args = [dtypes[x.dtype], *(a.data_ptr() for a in act + f32),
             float(scale), float(decay), float(v_th), int(soft_reset),
-            float(norm_eps), int(rope), int(causal), t, b, l, d, num_heads,
+            float(norm_eps), int(rope), int(causal), int(not binarize_scores),
+            t, b, l, d, num_heads,
             head_dim, ff, l_block, int(decoded), c_block, cp, ctx.data_ptr(),
             s2g.data_ptr(), out.data_ptr(), counts.data_ptr(),
             flags.data_ptr()]
@@ -630,5 +656,6 @@ def _launch(pipeline, x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
                            f"{lib.fused_layer_error(rc).decode()}")
     name = "fused_layer_pipeline" if pipeline else "fused_layer"
     name += "_rope" if rope else "_decoded" if decoded else ""
+    name += "" if binarize_scores else "_analog"
     LAUNCHES[name] += LAUNCHES_PER_CALL * (t if pipeline else 1)
     return out, counts

@@ -7,6 +7,8 @@ Port of ``repro.kernels.fused_ssa``:
 * :func:`reference_bundle` — the sequential oracle (the JAX
   ``reference_bundle``), differentiable through the surrogate spikes: the
   fused bundle's backward recomputes through it (``core/engine``);
+  binarized scores (binary attention) or, with ``binarize_scores=False``,
+  the analog scores ``count * scale`` of Spikformer's SSA (Eq. 2);
 * :func:`fused_ssa_plain` — the plain PyTorch version of the kernel:
   the oracle's context (the kernel's rounding, step for step) and the
   ``(H, 4)`` map of executed dots: q, k and v count, per batch row, the
@@ -26,7 +28,10 @@ table). The rope family's three projections are analog sums, exact in
 no order: the kernel and the plain version sum them in ascending k, one
 fp32 product and one fp32 sum a term (:func:`seq_matmul`, the order
 of the layer program's rope family), so the two agree bitwise and
-equal the oracle wherever those sums are exact.
+equal the oracle wherever those sums are exact. Analog scores make the
+context an analog sum too: every version sums it over the keys in
+ascending order, one fp32 add a term (:func:`analog_context`), so the
+kernels, their plain versions and ``spike_attention`` agree bitwise.
 """
 from __future__ import annotations
 
@@ -41,7 +46,9 @@ from repro_torch.models.nn import bn_affine, fma32, rope_rotate
 FAMILIES = ("bn", "rope")
 PHASES = ("q", "k", "v", "attend")
 # kernel launches on the card (one per call of fused_ssa_cuda), by family
-LAUNCHES = {"fused_ssa": 0, "fused_ssa_rope": 0}
+# and by scores (binarized, or analog: ``_analog``)
+LAUNCHES = {"fused_ssa": 0, "fused_ssa_rope": 0, "fused_ssa_analog": 0,
+            "fused_ssa_rope_analog": 0}
 
 
 def reset_launches() -> None:
@@ -66,6 +73,44 @@ def threshold_scores(scores: torch.Tensor, scale: float, delta,
     ``1[fma32(scores, scale, -delta) >= 0]``, surrogate under autograd."""
     neg = -torch.as_tensor(delta, dtype=torch.float32, device=scores.device)
     return spike(fma32(scores, scale, neg), alpha)
+
+
+def analog_scores(q: torch.Tensor, k: torch.Tensor, scale: float
+                  ) -> torch.Tensor:
+    """The raw scores of Spikformer's SSA (``binarize_scores=False``):
+    the fp32 counts ``q k^T`` (exact integers on {0,1} spikes) times
+    ``scale``, rounded once."""
+    return (q.float() @ k.float().transpose(-1, -2)) * scale
+
+
+class _AnalogContext(torch.autograd.Function):
+    """:func:`analog_context`'s sum in the forward; the backward of
+    ``a @ v`` (the products with the transposes), which the order of the
+    forward's sum does not change."""
+
+    @staticmethod
+    def forward(ctx, a, v):
+        ctx.save_for_backward(a, v)
+        acc = torch.zeros((*a.shape[:-1], v.shape[-1]), dtype=torch.float32,
+                          device=a.device)
+        for j in range(a.shape[-1]):
+            acc.add_(a[..., j, None] * v[..., j, None, :])
+        return acc
+
+    @staticmethod
+    def backward(ctx, g):
+        a, v = ctx.saved_tensors
+        return g @ v.transpose(-1, -2), a.transpose(-1, -2) @ g
+
+
+def analog_context(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """fp32 ``a @ v`` for analog scores a (..., Lq, Lk) and {0,1} values
+    v (..., Lk, d), summed over the keys in ascending order, one fp32 add
+    a term: the CUDA kernels' order (``fused_layer.cu``'s launch A,
+    ``spike_attention.cu``). Each term ``a * v`` is exact (v is 0 or 1),
+    so this is the sum of the scores of the keys whose value bit is
+    set."""
+    return _AnalogContext.apply(a.float(), v.float())
 
 
 def rope_heads(y: torch.Tensor, table: torch.Tensor, num_heads: int
@@ -107,9 +152,6 @@ def reference_bundle(x: torch.Tensor, w3: torch.Tensor,
     version passes :func:`seq_matmul`)."""
     if family not in FAMILIES:
         raise ValueError(f"unknown bundle family {family!r}")
-    if not scfg.binarize_scores:
-        raise NotImplementedError(
-            "analog attention scores are not ported to PyTorch yet")
     t, b, l, _ = x.shape
     q_dim = num_heads * head_dim
     projected = []
@@ -126,22 +168,21 @@ def reference_bundle(x: torch.Tensor, w3: torch.Tensor,
         projected.append(lif_scan(y, scfg)[0])
     q, k, v = (u.reshape(t * b, l, num_heads, head_dim).transpose(1, 2)
                for u in projected)
-    attn = binary_scores(q, k, scale, delta, scfg.surrogate_alpha)
+    if scfg.binarize_scores:
+        attn = binary_scores(q, k, scale, delta, scfg.surrogate_alpha)
+    else:
+        attn = analog_scores(q, k, scale)
     if causal:
         attn = attn.tril()
-    ctx = (attn @ v.float()).to(q.dtype)
-    return ctx.transpose(1, 2).reshape(t, b, l, q_dim)
+    ctx = attn @ v.float() if scfg.binarize_scores \
+        else analog_context(attn, v)
+    return ctx.to(q.dtype).transpose(1, 2).reshape(t, b, l, q_dim)
 
 
-def _check_bundle(x, w3, scale3, aux, family, num_heads, head_dim,
-                  binarize_scores):
+def _check_bundle(x, w3, scale3, aux, family, num_heads, head_dim):
     if family not in FAMILIES:
         raise ValueError(f"unknown fused-SSA family {family!r} "
                          f"(expected bn|rope)")
-    if not binarize_scores:
-        raise NotImplementedError(
-            "analog attention scores of the fused SSA bundle are not ported "
-            "to PyTorch yet (ROADMAP queue 2 #6)")
     t, b, l, d = x.shape
     q_dim = num_heads * head_dim
     if family == "rope" and head_dim % 2:
@@ -167,10 +208,11 @@ def bundle_counts(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     return row.expand(num_heads, 4).contiguous()
 
 
-def _lif_config(decay: float, v_th: float, soft_reset: bool
-                ) -> SpikingConfig:
+def _spiking_config(decay: float, v_th: float, soft_reset: bool,
+                binarize_scores: bool = True) -> SpikingConfig:
     scfg = SpikingConfig(tau=1.0 / (1.0 - decay), v_threshold=v_th,
-                         soft_reset=soft_reset)
+                         soft_reset=soft_reset,
+                         binarize_scores=binarize_scores)
     if scfg.decay != decay:
         raise ValueError(f"decay {decay!r} is not 1 - 1/tau of a float tau")
     return scfg
@@ -180,8 +222,9 @@ def fused_ssa_plain(x: torch.Tensor, w3: torch.Tensor,
                     scale3: Optional[torch.Tensor], aux: torch.Tensor, delta,
                     *, num_heads: int, head_dim: int, scale: float,
                     family: str = "bn", causal: bool = False,
-                    decay: float = 0.5, v_th: float = 1.0,
-                    soft_reset: bool = False, eps: float = 1e-5
+                    binarize_scores: bool = True, decay: float = 0.5,
+                    v_th: float = 1.0, soft_reset: bool = False,
+                    eps: float = 1e-5
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the kernel, with the launcher's signature:
     (context (T, B, L, H*hd) in the activation dtype, counts (H, 4)
@@ -190,11 +233,14 @@ def fused_ssa_plain(x: torch.Tensor, w3: torch.Tensor,
     sums, ``* scale3`` and the cast, BN as ``fma32((y - mean) *
     rsqrt(var + eps), scale, bias)`` (bn) or ``nn.rope_rotate`` on q and
     k (rope), LIF in the activation dtype, the threshold ``fma32(count,
-    scale, -delta)``; the rope family's analog projections are summed in
-    the kernel's order (ascending k), which is the oracle's value wherever
-    those sums are exact."""
+    scale, -delta)`` (or the analog scores ``fl(count * scale)`` summed
+    over the keys in ascending order, :func:`analog_context`); the rope
+    family's analog projections are summed in the kernel's order
+    (ascending k), which is the oracle's value wherever those sums are
+    exact."""
     ctx = reference_bundle(x, w3, scale3, aux, delta,
-                           _lif_config(decay, v_th, soft_reset),
+                           _spiking_config(decay, v_th, soft_reset,
+                                       binarize_scores),
                            family=family, num_heads=num_heads,
                            head_dim=head_dim, scale=scale, causal=causal,
                            eps=eps,
@@ -217,12 +263,12 @@ def fused_ssa(x: torch.Tensor, w3: torch.Tensor,
     (3, 4, H*hd) BN rows [mean, var, scale, bias] (bn) or the (2, L,
     hd/2) fp32 [cos; sin] table (rope); causal: mask future keys. Returns
     (context (T, B, L, H*hd), counts (H, 4) int32 — executed dots per
-    head and phase, :data:`PHASES`)."""
-    _check_bundle(x, w3, scale3, aux, family, num_heads, head_dim,
-                  binarize_scores)
+    head and phase, :data:`PHASES`). ``binarize_scores=False``: the
+    analog scores of Spikformer's SSA; the counts are the same."""
+    _check_bundle(x, w3, scale3, aux, family, num_heads, head_dim)
     kw = dict(num_heads=num_heads, head_dim=head_dim, scale=scale,
-              family=family, causal=causal, decay=decay, v_th=v_th,
-              soft_reset=soft_reset, eps=eps)
+              family=family, causal=causal, binarize_scores=binarize_scores,
+              decay=decay, v_th=v_th, soft_reset=soft_reset, eps=eps)
     if x.device.type == "cpu":
         return fused_ssa_plain(x, w3, scale3, aux, delta, **kw)
     if x.device.type != "cuda":
@@ -237,7 +283,7 @@ def _library():
     if lib.fused_ssa_forward.argtypes is None:
         lib.fused_ssa_forward.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_float] * 3
-            + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3)
+            + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 3)
         lib.fused_ssa_forward.restype = ctypes.c_int
     return lib
 
@@ -246,11 +292,13 @@ def fused_ssa_cuda(x: torch.Tensor, w3: torch.Tensor,
                    scale3: Optional[torch.Tensor], aux: torch.Tensor, delta,
                    *, num_heads: int, head_dim: int, scale: float,
                    family: str = "bn", causal: bool = False,
-                   decay: float = 0.5, v_th: float = 1.0,
-                   soft_reset: bool = False, eps: float = 1e-5
+                   binarize_scores: bool = True, decay: float = 0.5,
+                   v_th: float = 1.0, soft_reset: bool = False,
+                   eps: float = 1e-5
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the bundle kernel on PyTorch's current stream; counted under
-    ``fused_ssa`` (bn) or ``fused_ssa_rope``. x and w3 share one dtype
+    ``fused_ssa`` (bn) or ``fused_ssa_rope``, with ``_analog`` appended
+    for analog scores (the kernel's analog instantiation). x and w3 share one dtype
     (float32 or bfloat16), which the context takes; BN rows are passed
     with the inverse std, ``torch.rsqrt(var + eps)`` computed once per
     channel (the oracle's); the rope table as fp32."""
@@ -284,10 +332,11 @@ def fused_ssa_cuda(x: torch.Tensor, w3: torch.Tensor,
     rc = lib.fused_ssa_forward(
         dtypes[x.dtype], *(a.data_ptr() for a in act + f32), float(scale),
         float(decay), float(v_th), int(soft_reset), int(rope), int(causal),
-        t, b, l, d, num_heads, head_dim, ctx.data_ptr(), counts.data_ptr(),
-        stream)
+        int(not binarize_scores), t, b, l, d, num_heads, head_dim,
+        ctx.data_ptr(), counts.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"fused_ssa kernel launch failed: "
                            f"{lib.fused_layer_error(rc).decode()}")
-    LAUNCHES["fused_ssa_rope" if rope else "fused_ssa"] += 1
+    name = "fused_ssa_rope" if rope else "fused_ssa"
+    LAUNCHES[name + ("" if binarize_scores else "_analog")] += 1
     return ctx, counts

@@ -19,7 +19,8 @@ import torch
 from repro_torch.core.attention import binary_attention_scores
 from repro_torch.core.bitpack import pack_bits
 from repro_torch.core.spiking import spike
-from repro_torch.kernels.fused_ssa import threshold_scores
+from repro_torch.kernels.fused_ssa import (analog_context, analog_scores,
+                                           threshold_scores)
 from repro_torch.kernels.lif import lif_forward
 from repro_torch.kernels.popcount_attention import popcount_scores
 from repro_torch.kernels.spike_attention import spike_attention
@@ -33,13 +34,15 @@ def binary_attention_oracle(q, k, v, delta, *, alpha: float, scale: float,
     PyTorch, differentiable through the sigmoid surrogate: scores in
     fp32, thresholded as ``fma32(scores, scale, -delta)`` (the FMA that
     jitted XLA contracts; its gradient is that of ``scores * scale -
-    delta``), context in fp32, cast back to ``q.dtype``."""
+    delta``), context in fp32, cast back to ``q.dtype``; analog scores
+    ``count * scale`` are summed over the keys in ascending order
+    (``fused_ssa.analog_context``, the kernels' order)."""
+    if not binarize_scores:
+        a = analog_scores(q, k, scale)
+        return analog_context(a.tril() if causal else a, v).to(q.dtype)
     scores = binary_attention_scores(q, k)
-    if binarize_scores:
-        delta = torch.as_tensor(delta, dtype=torch.float32, device=q.device)
-        a = spike(fma32(scores, scale, -delta), alpha)
-    else:
-        a = scores * scale
+    delta = torch.as_tensor(delta, dtype=torch.float32, device=q.device)
+    a = spike(fma32(scores, scale, -delta), alpha)
     if causal:
         a = a.tril()
     return (a @ v.float()).to(q.dtype)
@@ -55,7 +58,9 @@ def _popcount_attention(q, k, v, delta, *, scale: float, causal: bool,
     context as one fp32 product with v, cast to ``q.dtype``. A count is
     an integer in [0, d], so the threshold (or the analog score) of each
     of the d + 1 counts is computed once, by the same rule, and looked
-    up: the same values, without float64 passes over the L x L scores."""
+    up: the same values, without float64 passes over the L x L scores.
+    Analog scores are summed over the keys in ascending order
+    (``fused_ssa.analog_context``), as the other two modes sum them."""
     counts = popcount_scores(pack_bits(q), pack_bits(k))
     levels = torch.arange(q.shape[-1] + 1, dtype=torch.float32,
                           device=q.device)
@@ -64,7 +69,8 @@ def _popcount_attention(q, k, v, delta, *, scale: float, causal: bool,
     a = table.index_select(0, counts.reshape(-1)).reshape(counts.shape)
     if causal:
         a = a.tril_()
-    return (a @ v.float()).to(q.dtype)
+    ctx = a @ v.float() if binarize_scores else analog_context(a, v)
+    return ctx.to(q.dtype)
 
 
 class _BinaryAttention(torch.autograd.Function):

@@ -18,6 +18,11 @@ The threshold is the reference's rounding rule: jitted XLA (and the
 Pallas kernel, whose interpret mode runs jitted) contracts ``scores *
 scale - delta`` into one fused multiply-add, so both versions test
 ``fma32(count, scale, -delta) >= 0`` (``kernels/fused_ssa.binary_scores``).
+Analog scores ``fl(count * scale)`` are summed over the keys in ascending
+order, one fp32 add a term, by the kernel and the plain version alike
+(``kernels/fused_ssa.analog_context``), so the two agree bitwise, and
+with the SSA bundle's analog context; XLA sums in its own order, so the
+reference agrees within ``L * d * scale * 2^-23``.
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.fused_ssa import binary_scores
+from repro_torch.kernels.fused_ssa import (analog_context, analog_scores,
+                                           binary_scores)
 
 # kernel launches on the card (one per call of spike_attention_cuda)
 LAUNCHES = {"spike_attention": 0}
@@ -42,11 +48,11 @@ def spike_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, scale: float, delta, causal: bool = False,
                           binarize_scores: bool = True) -> torch.Tensor:
     """Plain version: (BH, L, d) context in ``q.dtype``, accumulated in
-    fp32."""
-    if binarize_scores:
-        a = binary_scores(q, k, scale, delta)
-    else:
-        a = (q.float() @ k.float().transpose(-1, -2)) * scale
+    fp32 (analog scores in ascending key order, as the kernel)."""
+    if not binarize_scores:
+        a = analog_scores(q, k, scale)
+        return analog_context(a.tril() if causal else a, v).to(q.dtype)
+    a = binary_scores(q, k, scale, delta)
     if causal:
         a = a.tril()
     return (a @ v.float()).to(q.dtype)

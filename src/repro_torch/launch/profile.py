@@ -9,6 +9,8 @@
         --arch spikingformer-lm [--quantize int8 [--keep-fp wo,up,down]]
     PYTHONPATH=src python -m repro_torch.launch.profile \
         --arch spikingformer-8-512 --overlap pipeline
+    PYTHONPATH=src python -m repro_torch.launch.profile \
+        --arch spikingformer-8-512 --analog
 
 Spikingformer-4-256 (the default): the published config (seeded random
 weights; ``--sparse`` sets its sparse datapath, 'auto' by default) on
@@ -34,7 +36,13 @@ sets the layer program's schedule (default the config's, 'auto', which
 fuses on the card); with it the prefill alone is profiled (a vision
 model's on weights that fire, BN biases raised), and the run prints the
 layer program's launches per call and, for 'pipeline', the membrane
-bytes it moves beyond the fused schedule. Each step gets two warm-up
+bytes it moves beyond the fused schedule. ``--analog`` takes the config
+with analog attention scores (its spiking config with
+``binarize_scores=False``, Spikformer's own SSA), whose layers run the
+sequential composition with the SSA bundle's analog kernel; the prefill
+alone is profiled (a vision model's on weights that fire; the LM's
+server is left out, since its decode binarizes the scores whatever the
+config says, as JAX's does). Each step gets two warm-up
 calls, then three under ``torch.profiler``. For each it prints the wall
 time per call, the device time per call and the launches summed by
 kernel name, and the device's busy share (kernel time over wall time),
@@ -43,6 +51,7 @@ then one JSON line with the same numbers. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -142,7 +151,8 @@ def _quantized(params, quantize: str, keep_fp):
         "/", 1)[-1] not in keep_fp)
 
 
-def _profile_lm(cfg, quantize: str, keep_fp, overlap=None) -> None:
+def _profile_lm(cfg, quantize: str, keep_fp, overlap=None,
+                prefill_only=False) -> None:
     from repro_torch.launch.serve import BatchedServer, Request
     params = registry.init(cfg, seed=0)
     if quantize != "none":
@@ -152,6 +162,8 @@ def _profile_lm(cfg, quantize: str, keep_fp, overlap=None) -> None:
     what = quantize if quantize != "none" else cfg.dtype
     if keep_fp:
         what += f", fp {','.join(keep_fp)}"
+    if not cfg.spiking.binarize_scores:
+        what += ", analog scores"
     arch = f"{cfg.name} ({what})"
     prefill = build_prefill_step(cfg)
     gen = torch.Generator().manual_seed(1)
@@ -162,6 +174,7 @@ def _profile_lm(cfg, quantize: str, keep_fp, overlap=None) -> None:
              unit=f"{LM_BATCH} x {LM_PROMPT} tokens")
     if overlap is not None:
         _layer_program_traffic(lambda: prefill(params, {"tokens": tokens[0]}))
+    if overlap is not None or prefill_only:
         return
 
     def serve(i):
@@ -217,6 +230,9 @@ def main():
     ap.add_argument("--overlap", default=None, choices=["fused", "pipeline"],
                     help="the layer program's schedule (default: the "
                          "config's); profiles the prefill alone")
+    ap.add_argument("--analog", action="store_true",
+                    help="analog attention scores (binarize_scores=False); "
+                         "profiles the prefill alone")
     args = ap.parse_args()
     keep_fp = tuple(n for n in args.keep_fp.split(",") if n)
     if not torch.cuda.is_available():
@@ -227,11 +243,14 @@ def main():
         cfg = cfg.replace(engine=cfg.engine.replace(sparse=args.sparse))
     if args.overlap is not None:
         cfg = cfg.replace(engine=cfg.engine.replace(overlap=args.overlap))
+    if args.analog:
+        cfg = cfg.replace(spiking=dataclasses.replace(
+            cfg.spiking, binarize_scores=False))
     if args.arch == "spikingformer-lm":
-        _profile_lm(cfg, args.quantize, keep_fp, args.overlap)
+        _profile_lm(cfg, args.quantize, keep_fp, args.overlap, args.analog)
         return
     eight = args.arch == "spikingformer-8-512"
-    firing = eight or args.overlap is not None
+    firing = eight or args.overlap is not None or args.analog
     if args.quantize != "none":
         cfg, params = _quantized_vision(cfg, args.quantize, keep_fp)
     elif firing:
@@ -249,6 +268,8 @@ def main():
         what += ", BN biases raised"
     if args.overlap is not None:
         what += f", overlap={args.overlap!r}"
+    if args.analog:
+        what += ", analog scores"
     _profile(args.arch, what, cfg.engine.sparse,
              lambda i: prefill(params, {"images": images[i]}))
     if args.overlap is not None:
@@ -256,7 +277,8 @@ def main():
     if args.quantize != "none" or firing:
         # an int8 tree takes no train step (QAT is not ported); the 8-512
         # training step is not part of the port's checked paths yet, and
-        # the layer program's schedule changes only the prefill
+        # the layer program's schedule and the analog scores are profiled
+        # on the prefill
         return
 
     opt = adamw(warmup_cosine(2e-3, 1, CALLS + 2))

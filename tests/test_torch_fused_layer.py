@@ -13,8 +13,8 @@ against the JAX package.
 * the wrapper takes the plain version for CPU tensors and launches
   nothing; the pipelined variants run their plain version, equal to the
   fused one (more in ``test_torch_pipeline.py``); the analog-score
-  variants raise ``NotImplementedError`` (the decoded variant is held
-  against JAX in ``test_torch_spike_decode.py``, the rope family in
+  variants run (held against JAX in ``test_torch_analog.py``; the decoded
+  variant in ``test_torch_spike_decode.py``, the rope family in
   ``test_torch_lm.py``).
 
 The CUDA kernel itself is held against the plain version on the card by
@@ -164,11 +164,22 @@ def test_pipeline_variants_run_plain_equal_fused(variant):
 @pytest.mark.parametrize("variant", [dict(causal=True, binarize_scores=False),
                                      dict(binarize_scores=False)])
 def test_unported_variants_raise(variant):
+    """The analog-score variants, which raised ``NotImplementedError``
+    until they were ported, run their plain version on CPU tensors (no
+    launch): finite, and another function than the binarized layer
+    (``test_torch_analog.py`` holds them against JAX)."""
     t, b, l, d, heads, hd, ff, l_block = SHAPES["odd"]
     targs = to_torch(layer_ops(5, t, b, l, d, heads, hd, ff))
     kw = dict(_kw(heads, hd), **variant)
-    with pytest.raises(NotImplementedError, match="#6 / #1, analog"):
-        TFL.fused_layer(*targs, l_block=l_block, **kw)
+    before = dict(TFL.LAUNCHES)
+    out, cnt = TFL.fused_layer(*targs, l_block=l_block, **kw)
+    assert TFL.LAUNCHES == before
+    assert torch.isfinite(out).all() and float(out.std()) > 0
+    binarized = dict(kw, binarize_scores=True)
+    assert not torch.equal(out, TFL.fused_layer(*targs, l_block=l_block,
+                                                **binarized)[0])
+    # every score block is live with analog scores
+    assert (cnt[:, 3] == t * b).all()
 
 
 @pytest.mark.parametrize("bad", ["long_l", "long_t", "half", "mixed"])

@@ -429,4 +429,10 @@ def test_decoded_layer_wrapper_launches_nothing_on_cpu():
     assert TFL.LAUNCHES == {"fused_layer": 0, "fused_layer_decoded": 0,
                             "fused_layer_rope": 0, "fused_layer_pipeline": 0,
                             "fused_layer_pipeline_decoded": 0,
-                            "fused_layer_pipeline_rope": 0}
+                            "fused_layer_pipeline_rope": 0,
+                            "fused_layer_analog": 0,
+                            "fused_layer_decoded_analog": 0,
+                            "fused_layer_rope_analog": 0,
+                            "fused_layer_pipeline_analog": 0,
+                            "fused_layer_pipeline_decoded_analog": 0,
+                            "fused_layer_pipeline_rope_analog": 0}

@@ -14,6 +14,7 @@
   each layer counted;
 * the training loop, the dispatch rules and the paths still unported.
 """
+import dataclasses
 import math
 import types
 
@@ -274,15 +275,19 @@ def test_synthetic_images_equal_the_jax_packages_bitwise():
 # --- the whole train step --------------------------------------------------
 
 
-def _train_setup(seed=0, batch=8, **engine):
+def _train_setup(seed=0, batch=8, spiking=None, **engine):
     """JAX and port SMOKE configs on the kernel modes (and the ``engine``
-    fields given), numpy dyadic params (BN affines drawn on the grid),
-    init BN state and a batch of synthetic images rounded to k/256."""
+    fields given; ``spiking``: SpikingConfig fields to replace), numpy
+    dyadic params (BN affines drawn on the grid), init BN state and a
+    batch of synthetic images rounded to k/256."""
     engine = {**KERNEL_MODES, **engine}
+    spiking = spiking or {}
     cfg = jget_config(ARCH, smoke=True)
-    cfg = cfg.replace(engine=cfg.engine.replace(**engine))
+    cfg = cfg.replace(engine=cfg.engine.replace(**engine),
+                      spiking=dataclasses.replace(cfg.spiking, **spiking))
     tcfg = get_config(ARCH, smoke=True)
-    tcfg = tcfg.replace(engine=tcfg.engine.replace(**engine))
+    tcfg = tcfg.replace(engine=tcfg.engine.replace(**engine),
+                        spiking=dataclasses.replace(tcfg.spiking, **spiking))
     rng = np.random.default_rng(seed)
     params = jax.tree_util.tree_map(
         lambda a: np.asarray(jnp.round(a * 256) / 256),
@@ -356,8 +361,8 @@ def test_decoded_train_step_against_the_jitted_jax_train_step():
     _check_train_step(sparse="decoded")
 
 
-def _check_train_step(**engine):
-    cfg, tcfg, params, state, batch = _train_setup(**engine)
+def _check_train_step(spiking=None, **engine):
+    cfg, tcfg, params, state, batch = _train_setup(spiking=spiking, **engine)
     flips = _flipped_spikes(cfg, tcfg, params, state, batch)
     print("flipped spikes per layer (stem, blocks):", flips)
     assert sum(f for f, _ in flips) == 0, flips
