@@ -44,10 +44,22 @@ device; exits non-zero without one). It
      (3072 in bf16, 1408 in fp32);
    * ``quant_spike_matmul`` and ``quant_gather_spike_matmul`` (int8
      codes, random per-channel scales) at the three products of a mixed
-     layer (wo on integer counts up to 512, w1, w2; M = 16384) on spikes
-     with dark tiles and on ragged fine-grained spikes, and at ragged
-     shapes with and without bias, bf16 and fp32: each bitwise equal to
-     its plain version, to the other and to ``dense_quant_linear``;
+     layer (wo on integer counts up to 512, w1, w2; M = 16384) and of an
+     8-512 mixed layer (M = 25088; wo 512→512 on counts up to 196, w1
+     512→2048, w2 2048→512) on spikes with dark tiles and on ragged
+     fine-grained spikes, and at ragged shapes with and without bias,
+     bf16 and fp32: each bitwise equal to its plain version, to the
+     other and to ``dense_quant_linear``; #5's device staging (order and
+     sorted occupancies) bitwise equal to ``stage_rows`` on the lanes,
+     with each block's union of live lanes (its k-steps) logged beside
+     JAX's executed chunks; and #5 at count values the main paths do not
+     give it (128-255, above 65535, past 2^23, negative, an analog
+     context, all dark; a ragged M, K and N; with and without bias),
+     bitwise with its plain version and #3 (and ``dense_quant_linear``
+     where that reference is exact); both timed on fp32 activations, as
+     ``spike_linear`` passes them, and on bf16 ones; #5's time split
+     into its device staging, its kernel alone and the whole, beside the
+     earlier design's host staging (``quant_lanes`` and ``stage_rows``);
    * ``fused_ssa`` (the SSA bundle, bn family) at full width, at a
      ragged L=50 and at 8-512's widths, on dyadic fp weights and on int8
      codes with ``scale3``, and on an all-zero input, bf16 and fp32:
@@ -103,7 +115,9 @@ device; exits non-zero without one). It
      selector): 4 requests of 64 images through ``build_prefill_step``
      for each sparse setting, per layer call 1 ``fused_ssa`` launch and
      3 ``quant_spike_matmul`` / ``quant_gather_spike_matmul`` launches
-     (split by the 'auto' decisions), no fused layer; the fire rate at
+     (split by the 'auto' decisions, with one ``quant_gather_stage`` a
+     decoded product), no fused layer; the requests' logits with 'auto'
+     and 'decoded' == with 'tile', bitwise; the fire rate at
      every layer's input (the path fails if one is all dark); and one
      request of the complementary tree (int8 wq, wk, wv: ``fused_ssa``
      on codes and scales, ``spike_matmul`` / ``gather_spike_matmul``
@@ -206,6 +220,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -310,6 +325,16 @@ EIGHT_CASES = [("8-512 width", EIGHT, 128),
                ("8-512 width, ragged L=50", (4, 8, 50, 512, 8, 64, 2048), 32)]
 SSA_EIGHT = [("8-512 width", EIGHT[:6]),
              ("8-512 width, ragged L=50", (4, 8, 50, 512, 8, 64))]
+# #5 (and #3) also at Spikingformer-8-512's three int8 products of a mixed
+# layer (M = T * B * L at the main path's batch, wo on counts up to
+# L = 196), and #5 at count values the main paths do not give it, at a
+# ragged (M, K, N): (what, K, N, counts) and the values' names
+M_EIGHT, EIGHT_L = 4 * EIGHT_BATCH * 196, 196
+QUANT_EIGHT = [("wo", 512, 512, True), ("w1", 512, 2048, False),
+               ("w2", 2048, 512, False)]
+QUANT_VALUES = ("counts 128-255", "counts above 65535", "counts past 2^23",
+                "negative counts", "analog context", "all dark")
+QUANT_VALUES_SHAPE = (2000, 260, 200)
 # the bundle's rope family (#6b, causal) at the LM prefill's shape and a
 # ragged S: (what, (T, B, S, D, H, hd))
 ROPE_SSA_CASES = [("S=512", (4, LM_BATCH, LM_PROMPT, 256, 8, 32)),
@@ -1168,16 +1193,16 @@ def vision_int8_path():
 
 
 def quant_operands(seed, m, k, n, dtype, counts=False, bias=False,
-                   ragged=False):
+                   ragged=False, count_max=QUANT_COUNT_MAX):
     """A quantized product's operands on the card: spikes with dark tiles
     (or ragged fine-grained spikes), times integer counts up to
-    QUANT_COUNT_MAX with ``counts``, in the activation dtype; int8 codes;
+    ``count_max`` with ``counts``, in the activation dtype; int8 codes;
     random fp32 scales and biases."""
     gen = torch.Generator().manual_seed(seed)
     s = (ragged_spikes(gen, (m, k)) if ragged
          else spikes(gen, (m, k), 0.2))
     if counts:
-        s = s * torch.randint(1, QUANT_COUNT_MAX + 1, (m, k), generator=gen)
+        s = s * torch.randint(1, count_max + 1, (m, k), generator=gen)
     qw = torch.randint(-127, 128, (k, n), generator=gen).to(torch.int8)
     scale = torch.rand((n,), generator=gen) * 0.02 + 1e-3
     b = torch.randn((n,), generator=gen) if bias else None
@@ -1185,39 +1210,189 @@ def quant_operands(seed, m, k, n, dtype, counts=False, bias=False,
     return tuple(None if a is None else a.cuda() for a in ops)
 
 
-def check_quant(dtype, what, m, k, n, counts=False, bias=False,
-                ragged=False):
-    """quant_spike_matmul and quant_gather_spike_matmul, kernels vs plain
-    versions on random scales: bitwise (integer sums, one epilogue
-    rounding); the two kernels bitwise equal, and equal to the dense
-    quantized reference (its fp32 sums of integers are exact)."""
-    s, qw, sc, b = quant_operands(9, m, k, n, dtype, counts, bias, ragged)
-    kw = dict(counts=counts, out_dtype=dtype)
-    tile = SM.quant_spike_matmul_cuda(s, qw, sc, b, **kw)
+def union_steps(lanes, order):
+    """#5's work on a staged order: each block's union width (the lanes
+    any of its QUANT_BLOCK_ROWS sorted rows holds; padding rows dark),
+    computed in PyTorch. Returns (k-steps it runs, k-steps of the dense
+    product, the mean union width over K)."""
+    m, k = lanes.shape
+    rows = SD.QUANT_BLOCK_ROWS
+    live = torch.zeros((-(-order.numel() // rows) * rows, k),
+                       dtype=torch.bool, device=lanes.device)
+    real = order < m
+    live[:order.numel()][real] = lanes[order[real]] != 0
+    widths = live.reshape(-1, rows, k).any(dim=1).sum(dim=1)
+    k = max(k, 1)
+    steps = int((-(-widths // SD.QUANT_KSTEP)).sum())
+    dense = widths.numel() * -(-k // SD.QUANT_KSTEP)
+    return steps, dense, float(widths.float().mean()) / k
+
+
+def hold_quant(name, s, qw, sc, b, counts, out_dtype,
+               require_dense=False):
+    """#5 on one set of operands: its device staging's order and sorted
+    occupancies == ``stage_rows`` on the lanes, bitwise; its output ==
+    its plain version == #3's kernel == #3's plain version, bitwise, and
+    == ``dense_quant_linear`` wherever that reference is exact (integer
+    values whose fp32 sums stay below 2^24, the output in s's dtype);
+    with ``require_dense`` the operands must be such a case. Logs the
+    byte planes, the union's k-steps beside the dense ones and JAX's
+    executed chunks (``gather_schedule``). Returns the largest
+    difference from the plain version (0)."""
+    kw = dict(counts=counts, out_dtype=out_dtype)
+    bm = min(128, s.shape[0])
+    lanes = SM.quant_lanes(s, counts)
+    order, sorted_occ, _ = SD.quant_stage(s, bm, counts)
+    want_order, want_occ = SD.stage_rows(lanes, bm)
     dec = SD.quant_gather_spike_matmul_cuda(s, qw, sc, b, **kw)
-    tile_p = SM.quant_spike_matmul_plain(s, qw, sc, b, **kw)
     dec_p = SD.quant_gather_spike_matmul_plain(s, qw, sc, b, **kw)
-    dense = E.dense_quant_linear(
-        {"qw": qw, "scale": sc, **({} if b is None else {"b": b})}, s)
+    tile = SM.quant_spike_matmul_cuda(s, qw, sc, b, **kw)
+    tile_p = SM.quant_spike_matmul_plain(s, qw, sc, b, **kw)
     torch.cuda.synchronize()
-    err = max(float((x.float() - y.float()).abs().max())
-              for x, y in ((tile, tile_p), (dec, dec_p)))
+    checks = [("staged order != stage_rows", order, want_order),
+              ("staged occupancies != stage_rows", sorted_occ, want_occ),
+              ("quant_gather_spike_matmul kernel != plain", dec, dec_p),
+              ("quant_spike_matmul kernel != plain", tile, tile_p),
+              ("gather kernel != tile kernel", dec, tile)]
+    exact = (out_dtype == s.dtype and bool((s == torch.trunc(s)).all())
+             and float((lanes.double().abs() @ qw.double().abs()).max())
+             < 2.0 ** 24)
+    if require_dense and not exact:
+        raise AssertionError(f"{name}: dense_quant_linear is not exact on "
+                             f"these operands, so it cannot be compared")
+    if exact:
+        checks.append(("gather kernel != dense_quant_linear", dec,
+                       E.dense_quant_linear(
+                           {"qw": qw, "scale": sc,
+                            **({} if b is None else {"b": b})}, s)))
+    for label, x, y in checks:
+        if not torch.equal(x, y):
+            diff = float((x.double() - y.double()).abs().max())
+            raise AssertionError(f"{name}: {label} (max abs diff {diff})")
+    steps, dense, width = union_steps(lanes, order)
+    sched = gather_schedule(s)
+    log(f"{name}: staged order and occupancies == stage_rows; #5 == its "
+        f"plain version == #3 (kernel, plain)"
+        f"{' == dense_quant_linear' if exact else ''}, bitwise; byte "
+        f"planes {SD.lane_planes(lanes.min(), lanes.max())}; union k-steps "
+        f"{steps}/{dense} dense (mean union {width:.4f} of K); JAX "
+        f"executed chunks {int(sched['executed'])}/{sched['total']}")
+    return float((dec.float() - dec_p.float()).abs().max())
+
+
+def check_quant(dtype, what, m, k, n, counts=False, bias=False,
+                ragged=False, count_max=QUANT_COUNT_MAX):
+    """quant_spike_matmul and quant_gather_spike_matmul on random scales:
+    ``hold_quant`` (kernels == plain versions == each other == the dense
+    quantized reference, bitwise; the staged order == stage_rows)."""
+    s, qw, sc, b = quant_operands(9, m, k, n, dtype, counts, bias, ragged,
+                                  count_max)
     name = (f"quant products {dtype} {what} M={m} K={k} N={n}"
             f"{' counts' if counts else ''}{' bias' if bias else ''}"
             f"{' ragged spikes' if ragged else ''}")
-    for label, x, y in (("quant_spike_matmul kernel != plain", tile, tile_p),
-                        ("quant_gather_spike_matmul kernel != plain", dec,
-                         dec_p),
-                        ("gather kernel != tile kernel", dec, tile),
-                        ("tile kernel != dense_quant_linear", tile, dense)):
-        if not torch.equal(x, y):
-            diff = float((x.float() - y.float()).abs().max())
-            raise AssertionError(f"{name}: {label} (max abs diff {diff})")
-    sched = gather_schedule(s)
-    log(f"{name}: both kernels bitwise equal to their plain versions, to "
-        f"each other and to dense_quant_linear; gather chunks "
-        f"{int(sched['executed'])}/{sched['total']}")
-    return err
+    return hold_quant(name, s, qw, sc, b, counts, dtype, require_dense=True)
+
+
+def quant_value_operands(seed, m, k, n, dtype, what, bias):
+    """#5's operands at the values of QUANT_VALUES on ragged fine-grained
+    spikes (rows from dark to dense, the first 256 dark): counts of
+    128-255 (one unsigned byte plane), above 65535 (three planes), a lane
+    past 2^23 in some rows (four planes), of either sign (two planes), an
+    analog non-integer context (truncated on the lanes), or all dark."""
+    gen = torch.Generator().manual_seed(seed)
+    live = ragged_spikes(gen, (m, k))
+    if what == "counts 128-255":
+        s = live * torch.randint(128, 256, (m, k), generator=gen)
+    elif what == "counts above 65535":
+        s = live * torch.randint(65536, 100001, (m, k), generator=gen)
+    elif what == "counts past 2^23":
+        s = live * torch.randint(1, 301, (m, k), generator=gen)
+        rows = torch.arange(300, m, 7)
+        s[rows, rows % k] = (2.0 ** 23 + 5) * (1 - 2 * (rows % 2)).float()
+    elif what == "negative counts":
+        s = live * torch.randint(-300, 301, (m, k), generator=gen)
+    elif what == "analog context":
+        s = live * torch.rand((m, k), generator=gen) * 300
+    else:
+        s = torch.zeros((m, k))
+    qw = torch.randint(-127, 128, (k, n), generator=gen).to(torch.int8)
+    sc = torch.rand((n,), generator=gen) * 0.02 + 1e-3
+    b = torch.randn((n,), generator=gen) if bias else None
+    ops = (s.to(dtype), qw, sc, b)
+    return tuple(None if a is None else a.cuda() for a in ops)
+
+
+def check_quant_values(dtype, what, m, k, n, bias):
+    """``hold_quant`` at one of QUANT_VALUES (count lanes)."""
+    s, qw, sc, b = quant_value_operands(12, m, k, n, dtype, what, bias)
+    return hold_quant(f"#5 {dtype} {what} M={m} K={k} N={n}"
+                      f"{' bias' if bias else ''}", s, qw, sc, b, True,
+                      dtype)
+
+
+def quant_parts(k, n, counts, dtype):
+    """One product of a mixed layer as time_quant_products times it (spikes
+    of density 0.2 with dark tiles, counts up to L, in ``dtype``; bf16
+    output) and #5 on it in parts: ``staging`` (``quant_stage``, the lane
+    cast inside it), ``kernel`` (``launch_quant_gather`` alone on a staged
+    schedule), ``whole`` (the wrapper); and the earlier design's host-side
+    staging of the same operands: ``cast`` (``quant_lanes``) and
+    ``sort`` (``stage_rows`` on the lanes). Returns (operands, parts)."""
+    s, qw, sc, _ = quant_operands(10, M_TRAIN, k, n, dtype, counts)
+    if counts:                  # a layer's counts are at most L
+        s = torch.clamp(s, max=L)
+    bm = min(128, M_TRAIN)
+    lanes = SM.quant_lanes(s, counts)
+    staged = SD.quant_stage(s, bm, counts)
+    out = torch.empty((M_TRAIN, n), dtype=torch.bfloat16, device="cuda")
+    sc32 = sc.float().contiguous()
+    ops = dict(s=s, qw=qw, sc=sc, lanes=lanes, staged=staged, out=out)
+    return ops, dict(
+        staging=lambda: SD.quant_stage(s, bm, counts),
+        kernel=lambda: SD.launch_quant_gather(s, qw, sc32, None, staged,
+                                              counts=counts, out=out),
+        whole=lambda: SD.quant_gather_spike_matmul_cuda(
+            s, qw, sc, None, counts=counts, out_dtype=torch.bfloat16),
+        cast=lambda: SM.quant_lanes(s, counts),
+        sort=lambda: SD.stage_rows(lanes, bm))
+
+
+def time_quant_gather_parts(dtype):
+    """Where #5's time goes on the three products of a mixed layer with
+    ``dtype`` activations, each part of ``quant_parts`` by cuda_ms (the
+    earlier design's cast and sort, which the wrapper no longer runs,
+    beside this one's), and the device time of each of the wrapper's
+    kernels (torch.profiler, 10 calls). Logs each block's union k-steps.
+    Returns the totals over the three products, and the device us of a
+    call of each kernel summed over them under ``device_us``."""
+    parts, device_total = {}, {}
+    for what, k, n, counts in QUANT_PRODUCTS:
+        ops, fns = quant_parts(k, n, counts, dtype)
+        row = {name: cuda_ms(fn) for name, fn in fns.items()}
+        for name, ms in row.items():
+            parts[name] = parts.get(name, 0.0) + ms
+        steps, dense, width = union_steps(ops["lanes"], ops["staged"][0])
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fns["whole"]()
+            torch.cuda.synchronize()
+        device_us = {}
+        for e in prof.key_averages():
+            name = re.search(r"quant_\w+|Memset", e.key)
+            if name and e.device_time_total > 0:
+                device_us[name.group(0)] = round(
+                    e.device_time_total / e.count, 2)
+        for name, us in device_us.items():
+            device_total[name] = device_total.get(name, 0.0) + us
+        log(f"quant_gather_spike_matmul {dtype} {what} K={k} N={n}: "
+            + ", ".join(f"{name} {ms:.4f} ms" for name, ms in row.items())
+            + f"; device us a call {device_us}; union k-steps "
+            f"{steps}/{dense} dense (mean union {width:.4f} of K)")
+    parts["device_us"] = device_total
+    log(f"quant_gather_spike_matmul {dtype}, the three products of a mixed "
+        f"layer: {parts}")
+    return parts
 
 
 def quant_bound_ms(lanes, qw, out, gather):
@@ -1244,18 +1419,18 @@ def quant_bound_ms(lanes, qw, out, gather):
                                        else "bytes")
 
 
-def time_quant_products(name, kernel, plain, gather):
-    """The three quantized products of a mixed layer, bf16 activations as
-    the engine calls them (spikes of density 0.2 with dark tiles, wo on
-    counts up to QUANT_COUNT_MAX), each timed (cuda_ms): kernel, plain
-    version (fewer calls: the gather's loops over the compacted slots)
-    and ``torch._int_mm`` on the int8 lanes and codes (cuBLASLt's int8
-    product: the same integer sums, without the scale)."""
+def time_quant_products(name, kernel, plain, gather, dtype):
+    """The three quantized products of a mixed layer on ``dtype``
+    activations (``spike_linear`` passes fp32 ones; spikes of density 0.2
+    with dark tiles, wo on counts up to L) and a bf16 output, each timed
+    (cuda_ms): kernel, plain version (fewer calls: the gather's loops
+    over the compacted slots) and ``torch._int_mm`` on the int8 lanes and
+    codes (cuBLASLt's int8 product: the same integer sums, without the
+    scale)."""
     total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     bound_by = set()
     for what, k, n, counts in QUANT_PRODUCTS:
-        s, qw, sc, _ = quant_operands(10, M_TRAIN, k, n, torch.bfloat16,
-                                      counts)
+        s, qw, sc, _ = quant_operands(10, M_TRAIN, k, n, dtype, counts)
         if counts:              # a layer's counts are at most L
             s = torch.clamp(s, max=L)
         kw = dict(counts=counts, out_dtype=torch.bfloat16)
@@ -1270,13 +1445,13 @@ def time_quant_products(name, kernel, plain, gather):
         bound_by.add(by)
         for key in total:
             total[key] += row[key]
-        log(f"{name} bf16 {what} M={M_TRAIN} K={k} N={n}"
+        log(f"{name} {dtype} {what} M={M_TRAIN} K={k} N={n}"
             f"{' counts' if counts else ''}: kernel {row['ms']:.4f} ms, "
             f"plain {row['plain_ms']:.4f} ms, torch._int_mm "
             f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
             f"({by})")
     total["bound_by"] = "/".join(sorted(bound_by))
-    log(f"{name}, the three products of a mixed layer: {total}")
+    log(f"{name} {dtype}, the three products of a mixed layer: {total}")
     return total
 
 
@@ -1459,7 +1634,7 @@ def mixed_path(cfg, params, requests, tree):
     and 3 spike products (the int8 kernels for the 'mixed' tree, the fp
     ones for the complementary 'qkv' tree), split tile / decoded as the
     engine's sparse datapath or its 'auto' decisions say; no fused layer.
-    Per-request times, finite logits."""
+    Finite logits. Returns the counts, per-request times and logits."""
     step = steps.build_prefill_step(cfg)
     torch.cuda.synchronize()
     reset_counts()
@@ -1476,13 +1651,15 @@ def mixed_path(cfg, params, requests, tree):
     prefix = "quant_" if tree == "mixed" else ""
     want[f"{prefix}spike_matmul"] = tile
     want[f"{prefix}gather_spike_matmul"] = dec
+    if tree == "mixed":     # one staging a decoded int8 product
+        want["quant_gather_stage"] = dec
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
     for logits in outs:
         if logits.shape != (REQUEST_BATCH, cfg.vocab_size) or \
                 not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"bad logits {tuple(logits.shape)}")
-    return counts, req_ms
+    return counts, req_ms, outs
 
 
 def check_mixed_outputs(cfg, params, images):
@@ -1509,6 +1686,8 @@ def check_mixed_outputs(cfg, params, images):
         want = dict.fromkeys(counts, 0)
         want.update({"fused_ssa": cfg.num_layers,
                      f"{prefix}spike_matmul": 3 * cfg.num_layers})
+        if sparse == "decoded":
+            want["quant_gather_stage"] = 3 * cfg.num_layers
         if counts != want:
             raise AssertionError(f"mixed output check, sparse={sparse!r}: "
                                  f"launches {counts}, expected {want}")
@@ -1970,7 +2149,7 @@ def sequential_vision_path(cfg, params, requests):
         f"{[round(m, 3) for m in req_ms]}, sparse decisions "
         f"{dict(E.SPARSE_DECISIONS)}, launches {counts}")
     products = ("spike_matmul", "gather_spike_matmul", "quant_spike_matmul",
-                "quant_gather_spike_matmul")
+                "quant_gather_spike_matmul", "quant_gather_stage")
     attn = attention_kernel(cfg)
     ok = (counts[attn] == n
           and counts["spike_matmul"] + counts["gather_spike_matmul"] == 3 * n
@@ -1979,6 +2158,8 @@ def sequential_vision_path(cfg, params, requests):
           and counts["spike_matmul"] + counts["quant_spike_matmul"] == tile
           and counts["gather_spike_matmul"]
           + counts["quant_gather_spike_matmul"] == dec
+          and counts["quant_gather_stage"]
+          == counts["quant_gather_spike_matmul"]
           and not any(v for k, v in counts.items()
                       if k not in products + (attn,)))
     if not ok:
@@ -2540,7 +2721,14 @@ def main():
          for rg in (False, True)]
         + [check_quant(dt, "ragged", m, k, n, counts=c, bias=bias)
            for dt in dtypes for m, k, n in MATMUL_RAGGED
-           for bias, c in ((False, False), (True, True))])
+           for bias, c in ((False, False), (True, True))]
+        + [check_quant(dt, f"8-512 {what}", M_EIGHT, k, n, counts,
+                       ragged=rg, count_max=EIGHT_L)
+           for dt in dtypes for what, k, n, counts in QUANT_EIGHT
+           for rg in (False, True)]
+        + [check_quant_values(dt, what, *QUANT_VALUES_SHAPE, bias)
+           for dt in dtypes for what in QUANT_VALUES
+           for bias in (False, True)])
     ssa_err = max(
         [check_ssa_kernel(dt, quant) for dt in dtypes
          for quant in (False, True)]
@@ -2555,13 +2743,20 @@ def main():
         diff = float((out_k.float() - out_p.float()).abs().max())
         log(f"fused_ssa {dt} random-normal weights (information only): "
             f"context entries equal {agree:.6f}, max abs diff {diff}")
+    # fp32 activations, as spike_linear passes them (the kernels line),
+    # and bf16 ones (the rows of PRs 15-19)
     quant_timing = {
-        "tile": time_quant_products("quant_spike_matmul",
-                                    SM.quant_spike_matmul_cuda,
-                                    SM.quant_spike_matmul_plain, False),
-        "decoded": time_quant_products(
-            "quant_gather_spike_matmul", SD.quant_gather_spike_matmul_cuda,
-            SD.quant_gather_spike_matmul_plain, True)}
+        (path, dt): time_quant_products(name, *fns, dt)
+        for path, name, fns in (
+            ("tile", "quant_spike_matmul",
+             (SM.quant_spike_matmul_cuda, SM.quant_spike_matmul_plain,
+              False)),
+            ("decoded", "quant_gather_spike_matmul",
+             (SD.quant_gather_spike_matmul_cuda,
+              SD.quant_gather_spike_matmul_plain, True)))
+        for dt in (torch.float32, torch.bfloat16)}
+    quant_part_ms = {dt: time_quant_gather_parts(dt)
+                     for dt in (torch.float32, torch.bfloat16)}
     ssa_timing = time_ssa_kernel()
     ssa_eight_timing = time_ssa_kernel(SSA_EIGHT[0][1])
 
@@ -2653,8 +2848,16 @@ def main():
     # --- the mixed-precision int8 path (fused_ssa + int8 products) -----
     firing = dyadic_params(params)
     mixed = quantize_tree(firing, "int8", select=select_mixed)
-    mixed_counts = {sp: mixed_path(c, mixed, requests, "mixed")[0]
-                    for sp, c in engines.items()}
+    mixed_runs = {sp: mixed_path(c, mixed, requests, "mixed")
+                  for sp, c in engines.items()}
+    mixed_counts = {sp: run[0] for sp, run in mixed_runs.items()}
+    for sp in ("auto", "decoded"):   # #5 == #3 bitwise on any weights
+        if not all(torch.equal(a, b) for a, b in zip(mixed_runs[sp][2],
+                                                     mixed_runs["tile"][2])):
+            raise AssertionError(f"mixed int8 requests: sparse={sp!r} "
+                                 f"logits != 'tile' logits")
+    log("mixed int8 path: the requests' logits with sparse 'auto' and "
+        "'decoded' == with 'tile', bitwise")
     fire_rates(cfg, mixed, requests[0]["images"], "mixed int8 path")
     mixed_path(engines["auto"], quantize_tree(firing, "int8",
                                               select=select_qkv),
@@ -2832,12 +3035,20 @@ def main():
             dict(name="quant_spike_matmul", source=csrc + "spike_matmul.cu",
                  replaces="src/repro/kernels/spike_matmul.py:182",
                  launches=mixed_counts["tile"]["quant_spike_matmul"],
-                 max_abs_err=quant_err, **quant_timing["tile"]),
+                 max_abs_err=quant_err,
+                 bf16=quant_timing["tile", torch.bfloat16],
+                 **quant_timing["tile", torch.float32]),
             dict(name="quant_gather_spike_matmul",
                  source=csrc + "gather_spike_matmul.cu",
                  replaces="src/repro/kernels/spike_decode.py:392",
                  launches=mixed_counts["decoded"]["quant_gather_spike_matmul"],
-                 max_abs_err=quant_err, **quant_timing["decoded"]),
+                 max_abs_err=quant_err,
+                 split=quant_part_ms[torch.float32],
+                 staging_launches=mixed_counts["decoded"][
+                     "quant_gather_stage"],
+                 bf16=dict(quant_timing["decoded", torch.bfloat16],
+                           split=quant_part_ms[torch.bfloat16]),
+                 **quant_timing["decoded", torch.float32]),
             dict(name="fused_ssa", source=csrc + "fused_layer.cu",
                  replaces="src/repro/kernels/fused_ssa.py:166",
                  launches=mixed_counts["tile"]["fused_ssa"],

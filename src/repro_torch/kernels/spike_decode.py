@@ -30,9 +30,16 @@ and the quantized twins (``quant_gather_spike_matmul``: int8 spike or
 int32 count lanes against int8 codes, int32 sums, the per-channel scale
 in the epilogue) :func:`quant_gather_spike_matmul_plain`,
 :func:`quant_gather_spike_matmul` and
-:func:`quant_gather_spike_matmul_cuda`, on the same staging; their sums
-are exact, so they equal ``spike_matmul.quant_spike_matmul`` bitwise on
-any weights and scales.
+:func:`quant_gather_spike_matmul_cuda`; their sums are exact, so they
+equal ``spike_matmul.quant_spike_matmul`` bitwise on any weights and
+scales. The CUDA path stages on the device (:func:`quant_stage`: the
+lane cast, each row's occupancy and live bits, and a stable counting
+sort by occupancy whose order equals :func:`stage_rows`', the staging's
+plain version) and runs the product on the int8 tensor cores over each
+block's union of live lanes (:func:`launch_quant_gather`). Its
+arithmetic has plain twins here: :func:`lane_values` (the cast), and
+:func:`lane_planes`, :func:`split_planes` and :func:`join_planes`
+(counts in byte planes).
 
 The values of ``s`` are carried, not a live mask, so the integer counts
 of a binary-attention context (the wo projection's input) are exact too.
@@ -53,9 +60,11 @@ import torch.nn.functional as F
 # least this factor below the tile path's before 'auto' picks it.
 DECODED_OVERHEAD = 2.0
 
-# kernel launches on the card (one per call of gather_spike_matmul_cuda or
-# quant_gather_spike_matmul_cuda)
-LAUNCHES = {"gather_spike_matmul": 0, "quant_gather_spike_matmul": 0}
+# kernel launches on the card: one per call of gather_spike_matmul_cuda or
+# of the quantized product's kernel, and one per staging of the quantized
+# product (its two kernels, :func:`quant_stage`)
+LAUNCHES = {"gather_spike_matmul": 0, "quant_gather_spike_matmul": 0,
+            "quant_gather_stage": 0}
 
 
 def reset_launches() -> None:
@@ -269,7 +278,7 @@ def _library():
             + [ctypes.c_void_p])
         lib.gather_spike_matmul_forward.restype = ctypes.c_int
         lib.quant_gather_spike_matmul_forward.argtypes = (
-            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+            [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
             + [ctypes.c_void_p])
         lib.quant_gather_spike_matmul_forward.restype = ctypes.c_int
         lib.gather_spike_matmul_error.argtypes = [ctypes.c_int]
@@ -396,6 +405,115 @@ def quant_gather_spike_matmul(s: torch.Tensor, qw: torch.Tensor,
     return quant_gather_spike_matmul_cuda(s, qw, scale, bias, **kw)
 
 
+# The CUDA product's grain (``csrc/gather_spike_matmul.cu``): sorted rows a
+# block (QBM), lanes an mma k-step (KSTEP), and rows a chunk of its
+# staging's counting sort (CHUNK).
+QUANT_BLOCK_ROWS = 128
+QUANT_KSTEP = 32
+STAGE_CHUNK = 1024
+
+
+def lane_values(s: torch.Tensor, counts: bool) -> torch.Tensor:
+    """The staging kernel's cast of ``s`` to its lanes, in plain PyTorch:
+    truncation toward zero to int32; a spike lane keeps the low byte
+    (int8). Equals ``spike_matmul.quant_lanes`` on every value in the
+    lane type's range."""
+    x = torch.trunc(s.float()) if s.is_floating_point() else s
+    x = x.to(torch.int32)
+    return x if counts else x.to(torch.int8)
+
+
+def lane_planes(lo: int, hi: int):
+    """(planes, unsigned) the CUDA product splits lanes in [lo, hi] into:
+    one unsigned byte plane if every lane lies in [0, 255]; else the
+    fewest planes P with [lo, hi] inside [-2^(8P-1), 2^(8P-1)), the top
+    one signed and the lower ones unsigned."""
+    lo, hi = min(int(lo), 0), max(int(hi), 0)
+    if hi <= 0xFF and lo == 0:
+        return 1, True
+    mag = max(hi, -lo - 1)
+    for planes in (1, 2, 3):
+        if mag < 1 << (8 * planes - 1):
+            return planes, False
+    return 4, False
+
+
+def split_planes(lanes: torch.Tensor, planes: int, unsigned: bool):
+    """Integer lanes -> ``planes`` int32 tensors, the byte planes the
+    kernel stages: plane p holds byte p of the lane, unsigned below the
+    top plane; the top one is signed (unsigned with ``unsigned``)."""
+    x = lanes.to(torch.int32)
+    out = [(x >> (8 * p)) & 0xFF for p in range(planes)]
+    if not unsigned:
+        out[-1] = (out[-1] ^ 0x80) - 0x80
+    return out
+
+
+def join_planes(products):
+    """The planes' int32 products (plane 0 first) combined as the kernel
+    does, by Horner's rule from the top plane: sum_p 256^p products[p]
+    modulo 2^32, as int32."""
+    acc = products[-1].long()
+    for prod in reversed(products[:-1]):
+        acc = acc * 256 + prod.long()
+    return acc.to(torch.int32)
+
+
+_S_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _staged_operand(s: torch.Tensor, counts: bool):
+    """(s as the kernels read it, its type code): fp32 and bf16 values
+    stay as they are (the staging casts each to its lane on the device);
+    any other dtype goes to its lanes first (``quant_lanes``)."""
+    from repro_torch.kernels.spike_matmul import quant_lanes
+    if s.dtype not in _S_CODES:
+        s = quant_lanes(s, counts)
+    code = _S_CODES.get(s.dtype, 3 if counts else 2)
+    return s.contiguous(), code
+
+
+def _workspace(s: torch.Tensor, block_m: int):
+    """(the staging's workspace, Mp) for ``s`` padded to ``block_m`` rows:
+    the order (Mp int64), then int32 the sorted occupancies and the
+    occupancies (Mp each), the live bits (M x ceil(K / 32)), the value
+    range codes (M) and the sort's histograms (ceil(Mp / STAGE_CHUNK) x
+    (K + 1)), as ``csrc`` lays it out (``QLayout``)."""
+    m, k = s.shape
+    mp = -(-m // block_m) * block_m
+    nbytes = (16 * mp + 4 * m * (-(-k // 32) + 1)
+              + 4 * -(-mp // STAGE_CHUNK) * (k + 1))
+    return torch.empty(nbytes, dtype=torch.uint8, device=s.device), mp
+
+
+def _forward(lib, what: int, s, code, counts, qw=None, sc=None, b32=None,
+             ws=None, out=None, n: int = 0, mp: int = 0):
+    m, k = s.shape
+    stream = torch.cuda.current_stream(s.device).cuda_stream
+    out_code = 0 if out is None else _DTYPES[out.dtype]
+    ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
+    rc = lib.quant_gather_spike_matmul_forward(
+        what, code, int(counts), out_code, s.data_ptr(), ptr(qw), ptr(sc),
+        ptr(b32), ws.data_ptr(), ptr(out), m, k, n, mp, stream)
+    if rc != 0:
+        raise RuntimeError(f"quant_gather_spike_matmul kernel launch failed: "
+                           f"{lib.gather_spike_matmul_error(rc).decode()}")
+
+
+def quant_stage(s: torch.Tensor, block_m: int, counts: bool):
+    """The CUDA staging of the quantized product alone, on PyTorch's
+    current stream and read back never. Returns (order (Mp,) int64,
+    sorted occupancies (Mp,) int32, the workspace holding them and each
+    row's live bits and value range), the order and occupancies equal to
+    :func:`stage_rows` on the lanes bitwise."""
+    s, code = _staged_operand(s, counts)
+    ws, mp = _workspace(s, block_m)
+    _forward(_library(), 0, s, code, counts, ws=ws, mp=mp)
+    LAUNCHES["quant_gather_stage"] += 1
+    return (ws[:8 * mp].view(torch.int64),
+            ws[8 * mp:12 * mp].view(torch.int32), ws)
+
+
 def quant_gather_spike_matmul_cuda(s: torch.Tensor, qw: torch.Tensor,
                                    scale: torch.Tensor,
                                    bias: Optional[torch.Tensor] = None, *,
@@ -403,30 +521,42 @@ def quant_gather_spike_matmul_cuda(s: torch.Tensor, qw: torch.Tensor,
                                    out_dtype: torch.dtype = torch.float32,
                                    block_m: int = 128, c_block: int = 128
                                    ) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream: the lanes (int8,
-    or int32 with ``counts``), the schedule :func:`stage_rows` stages on
-    them, int8 codes, fp32 scale and bias; the output in ``out_dtype``
-    (float32 or bfloat16)."""
-    from repro_torch.kernels.spike_matmul import quant_operands
-    lanes, qw, sc, b32, out_code = quant_operands(
-        "quant_gather_spike_matmul", s, qw, scale, bias, counts, out_dtype)
-    m, k = lanes.shape
+    """Launch the CUDA staging and product on PyTorch's current stream, in
+    one call: ``s`` in fp32 or bf16 as it comes (any other dtype cast to
+    its lanes, int8, or int32 with ``counts``), int8 codes, fp32 scale and
+    bias; the output in ``out_dtype`` (float32 or bfloat16). ``c_block``
+    is the plain version's chunk; the kernel's sums do not depend on it."""
+    if out_dtype not in _DTYPES:
+        raise ValueError(f"quant_gather_spike_matmul kernel writes float32 "
+                         f"or bfloat16, not {out_dtype}")
+    s, code = _staged_operand(s, counts)
+    qw = qw.contiguous()
+    sc = scale.float().contiguous()
+    b32 = None if bias is None else bias.float().contiguous()
+    for a in (qw, sc, b32):
+        if a is not None and a.device != s.device:
+            raise ValueError("all quant_gather_spike_matmul operands must "
+                             "be on one device")
+    m, k = s.shape
     n = qw.shape[1]
     out = torch.empty((m, n), dtype=out_dtype, device=s.device)
     if out.numel() == 0:
         return out
-    block_m, c_block = min(block_m, m), min(c_block, k)
-    order, sorted_occ = stage_rows(lanes, block_m)
-    padded_cap = max(c_block, -(-k // c_block) * c_block)
-    lib = _library()
-    stream = torch.cuda.current_stream(s.device).cuda_stream
-    rc = lib.quant_gather_spike_matmul_forward(
-        int(counts), out_code, lanes.data_ptr(), qw.data_ptr(),
-        sc.data_ptr(), None if b32 is None else b32.data_ptr(),
-        order.data_ptr(), sorted_occ.data_ptr(), out.data_ptr(), m, k, n,
-        order.numel(), block_m, padded_cap, stream)
-    if rc != 0:
-        raise RuntimeError(f"quant_gather_spike_matmul kernel launch failed: "
-                           f"{lib.gather_spike_matmul_error(rc).decode()}")
+    ws, mp = _workspace(s, min(block_m, m))
+    _forward(_library(), 2, s, code, counts, qw, sc, b32, ws, out, n, mp)
+    LAUNCHES["quant_gather_stage"] += 1
+    LAUNCHES["quant_gather_spike_matmul"] += 1
+    return out
+
+
+def launch_quant_gather(s, qw, sc, b32, staged, *, counts: bool,
+                        out: torch.Tensor) -> torch.Tensor:
+    """The product kernel alone, into ``out``, on operands
+    :func:`quant_gather_spike_matmul_cuda` lays out and the workspace
+    :func:`quant_stage` staged."""
+    s, code = _staged_operand(s, counts)
+    order, _, ws = staged
+    _forward(_library(), 1, s, code, counts, qw, sc, b32, ws, out,
+             qw.shape[1], order.numel())
     LAUNCHES["quant_gather_spike_matmul"] += 1
     return out
