@@ -26,11 +26,20 @@ device; exits non-zero without one). It
      (bitwise: both sum them over the keys in ascending order) at a
      ragged shape and at the analog paths' shapes (the 4-256 train
      step's, an 8-512 request's at d = 64);
-   * ``gather_spike_matmul`` (the decoded datapath) at the six products
-     of a training layer, on ragged fine-grained spikes (rows from empty
-     to dense, all-zero groups), random-normal and dyadic weights, and at
-     ragged shapes with and without bias; on dyadic weights also bitwise
-     against ``spike_matmul``;
+   * ``gather_spike_matmul`` (#4, the decoded datapath) at the six
+     products of a training layer, on ragged fine-grained spikes (rows
+     from empty to dense, all-zero groups), random-normal and dyadic
+     weights, at ragged shapes with and without bias, on analog values
+     (non-integer, negative and -0.0) at the wo shape, on an all-dark
+     input, and at Spikingformer-8-512's three product shapes (M = 25088;
+     512→512 on counts up to 196, 512→2048, 2048→512); on dyadic weights
+     also bitwise against ``spike_matmul``; its device staging
+     (``gather_stage``) each time: the order and sorted occupancies ==
+     ``stage_rows``, the all-ones flags == PyTorch's; timed split into
+     staging, kernel alone and whole, with the profiler's device time of
+     each kernel, at bf16 and at every dtype the train paths pass it,
+     beside the contract's floor (its live adds at the fp32 pipe's rate
+     and their bf16 weights at the feed's);
    * the fused layer's decoded variant, as the tile one, and on dyadic
      weights bitwise against the tile variant;
    * the fused layer's rope family (the token family's layer) at the
@@ -107,8 +116,9 @@ device; exits non-zero without one). It
      layer launches a layer, the tile or the decoded variant);
    * training: ``build_train_step`` with AdamW under a warmup-cosine
      schedule, 6 steps of 64 synthetic images (per step 24 sparse
-     products, ``spike_matmul`` or ``gather_spike_matmul``, and
-     ``spike_attention`` 4 times; the fused kernel never);
+     products, ``spike_matmul`` or ``gather_spike_matmul``, one
+     ``gather_stage`` with each decoded one, and ``spike_attention`` 4
+     times; the fused kernel never);
    * the mixed-precision int8 Spikingformer-4-256 (the published config
      with the BN-bias raise of ``dyadic_params``, so layers fire; int8
      wo, w1, w2 and head, bf16 wq, wk, wv; ``quantize_tree`` with a
@@ -590,36 +600,63 @@ def sparse_split(engine, n):
     return tile, dec
 
 
-def spikes(gen, shape, density, counts=False):
-    """{0,1} spikes (or integer counts up to L) with dark tiles: the
-    first 256 rows, and columns [0, 64) of rows [256, 1024)."""
+def spikes(gen, shape, density, counts=False, count_max=L):
+    """{0,1} spikes (or integer counts up to ``count_max``) with dark
+    tiles: the first 256 rows, and columns [0, 64) of rows [256, 1024)."""
     s = (torch.rand(shape, generator=gen) < density).float()
     if counts:
-        s = s * torch.randint(1, L + 1, shape, generator=gen).float()
+        s = s * torch.randint(1, count_max + 1, shape, generator=gen).float()
     s[:256] = 0.0
     s[256:1024, :64] = 0.0
     return s
 
 
-def ragged_spikes(gen, shape, counts=False):
-    """Ragged, fine-grained spikes (or integer counts up to L): each
-    row's density uniform in [0, 0.6), the first 256 rows dark (whole
-    dark groups) and rows [256, 272) dense, so the groups get different
-    pow2 capacities and chunks are skipped."""
+def ragged_spikes(gen, shape, counts=False, count_max=L):
+    """Ragged, fine-grained spikes (or integer counts up to
+    ``count_max``): each row's density uniform in [0, 0.6), the first
+    256 rows dark (whole dark groups) and rows [256, 272) dense, so the
+    groups get different pow2 capacities and chunks are skipped."""
     s = (torch.rand(shape, generator=gen)
          < torch.rand((shape[0], 1), generator=gen) * 0.6).float()
     s[:256] = 0.0
     s[256:272] = 1.0
     if counts:
-        s = s * torch.randint(1, L + 1, shape, generator=gen).float()
+        s = s * torch.randint(1, count_max + 1, shape, generator=gen).float()
+    return s
+
+
+def analog_values(gen, shape, normal=False):
+    """An analog context as the wo product of an analog-score layer gets
+    it: ragged rows (``ragged_spikes``' liveness) of non-integer and
+    negative values, multiples of 1/16 in (-4, 4) (or, with ``normal``,
+    standard normal), with -0.0 at every dark entry of rows [1024, 2048)
+    and at columns [0, 8), where a live test on the raw value sees no
+    entry."""
+    live = ragged_spikes(gen, shape) != 0
+    v = (torch.randn(shape, generator=gen) if normal else
+         torch.randint(-63, 64, shape, generator=gen).float() / 16)
+    s = torch.where(live, v, torch.zeros(()))
+    s[1024:2048] = torch.where(live[1024:2048], s[1024:2048],
+                               torch.full((), -0.0))
+    s[:, :8] = -0.0
     return s
 
 
 def matmul_operands(seed, m, k, n, dtype, counts=False, bias=False,
-                    ragged=False, weights="dyadic"):
+                    ragged=False, weights="dyadic", values="spikes",
+                    count_max=L):
+    """(s, w, bias) on the card. ``values``: 'spikes' ({0,1}, or counts
+    up to ``count_max``; ragged or with dark tiles), 'analog' /
+    'analog normal' (``analog_values``) or 'dark' (zeros and -0.0)."""
     gen = torch.Generator().manual_seed(seed)
-    s = (ragged_spikes(gen, (m, k), counts) if ragged
-         else spikes(gen, (m, k), 0.2, counts))
+    if values == "spikes":
+        s = (ragged_spikes(gen, (m, k), counts, count_max) if ragged
+             else spikes(gen, (m, k), 0.2, counts, count_max))
+    elif values == "dark":
+        s = torch.where(torch.rand((m, k), generator=gen) < 0.5,
+                        torch.zeros(()), torch.full((), -0.0))
+    else:
+        s = analog_values(gen, (m, k), normal=values == "analog normal")
     w = (dyadic(gen, (k, n)) * 0.25 if weights == "dyadic"
          else torch.randn((k, n), generator=gen) / math.sqrt(k))
     b = dyadic(gen, (n,)) if bias else None
@@ -654,32 +691,56 @@ def gather_schedule(s, block_m=128, c_block=128):
     return SD.build_schedule(occ, bm, min(c_block, k), cap=k)
 
 
+def check_gather_stage(name, s):
+    """#4's device staging (``gather_stage``) against PyTorch on the same
+    s: the order and sorted occupancies == ``stage_rows`` (a value live
+    where it is not zero), and each row's flag == every non-zero of the
+    row is 1; bitwise."""
+    bm = min(128, s.shape[0])
+    order, sorted_occ, ones, _ = SD.gather_stage(s, bm)
+    want_order, want_occ = SD.stage_rows(s, bm)
+    want_ones = ((s == 0) | (s == 1)).all(dim=1).int()
+    torch.cuda.synchronize()
+    for what, got, want in (("order", order, want_order),
+                            ("sorted occupancies", sorted_occ, want_occ),
+                            ("all-ones flags", ones, want_ones)):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: staged {what} != PyTorch's")
+    return int(want_ones.sum())
+
+
 def check_gather(dtype, what, m, k, n, counts=False, bias=False,
-                 weights="dyadic"):
-    """gather_spike_matmul kernel vs plain version on ragged spikes:
-    bitwise for any weights (both sum each row's live products in
-    ascending k, one rounded product and sum at a time); on dyadic
-    weights also bitwise against spike_matmul."""
+                 weights="dyadic", values="spikes", count_max=L):
+    """gather_spike_matmul kernel vs plain version (on ragged spikes, or
+    the ``values`` of ``matmul_operands``): bitwise for any weights (both
+    sum each row's live products in ascending k, one rounded product and
+    sum at a time); on dyadic weights also bitwise against spike_matmul.
+    Its staging == PyTorch's (``check_gather_stage``)."""
     s, w, b = matmul_operands(8, m, k, n, dtype, counts, bias, ragged=True,
-                              weights=weights)
+                              weights=weights, values=values,
+                              count_max=count_max)
     got = SD.gather_spike_matmul_cuda(s, w, b)
     want = SD.gather_spike_matmul_plain(s, w, b)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     name = (f"gather_spike_matmul {dtype} {what} M={m} K={k} N={n} "
-            f"{weights}{' counts' if counts else ''}{' bias' if bias else ''}")
+            f"{weights}{' ' + values if values != 'spikes' else ''}"
+            f"{' counts' if counts else ''}{' bias' if bias else ''}")
     if not torch.equal(got, want):
         raise AssertionError(f"{name}: kernel != plain version (max abs "
                              f"diff {err})")
+    spike_rows = check_gather_stage(name, s)
     extra = ""
     if weights == "dyadic":
         if not torch.equal(got, SM.spike_matmul_cuda(s, w, b)):
             raise AssertionError(f"{name}: != spike_matmul on dyadic weights")
         extra = " and to spike_matmul"
     sched = gather_schedule(s)
-    log(f"{name}: bitwise equal to the plain version{extra}; executed "
-        f"chunks {int(sched['executed'])}/{sched['total']}, group "
-        f"capacities {sorted(set(sched['caps'].tolist()))}")
+    log(f"{name}: bitwise equal to the plain version{extra}; staged order, "
+        f"occupancies and flags == PyTorch's ({spike_rows} of {m} rows "
+        f"all-ones); executed chunks {int(sched['executed'])}/"
+        f"{sched['total']}, group capacities "
+        f"{sorted(set(sched['caps'].tolist()))}")
     return err
 
 
@@ -711,6 +772,44 @@ def gather_bound_ms(s, w, out):
                                        else "bytes")
 
 
+@contextlib.contextmanager
+def gather_dtypes():
+    """Within the scope, the (s, w) dtypes of every call of #4's CUDA
+    wrapper, collected into the set it yields."""
+    seen, real = set(), SD.gather_spike_matmul_cuda
+
+    def spy(s, w, bias=None, **kw):
+        seen.add((s.dtype, w.dtype))
+        return real(s, w, bias, **kw)
+    SD.gather_spike_matmul_cuda = spy
+    try:
+        yield seen
+    finally:
+        SD.gather_spike_matmul_cuda = real
+
+
+def gather_floor_ms():
+    """The least time #4's contract (one rounded fp32 add a live entry and
+    output column, on the CUDA cores) allows for the six products of
+    time_products' operands: the live adds at the fp32 pipe's 128 a clock
+    an SM, and the bf16 weights they read at 64 widened (or read from
+    shared memory) a clock an SM, at the card's SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = 1e3 * int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True
+    ).stdout.split()[0]) * 1e3
+    adds = 0.0
+    for _, k, n, counts in MATMULS:
+        s, w, _ = matmul_operands(5, M_TRAIN, k, n, torch.bfloat16, counts)
+        adds += float((s != 0).sum()) * n
+    floor = dict(live_adds=adds, sm_clock_mhz=clock_hz / 1e6,
+                 fp32_adds_ms=1e3 * adds / (128 * sms * clock_hz),
+                 bf16_feed_ms=1e3 * adds / (64 * sms * clock_hz))
+    log(f"gather_spike_matmul, the six products' contract floor: {floor}")
+    return floor
+
+
 def time_products(name, kernel, plain, bound):
     """The six products of one training layer, bf16 as the engine calls
     them, on the spikes of the spike_matmul timing, each timed (cuda_ms):
@@ -735,24 +834,52 @@ def time_products(name, kernel, plain, bound):
     return total
 
 
-def time_gather_parts():
-    """Where a gather product's time goes (cuda_ms, bf16, the operands of
-    time_products): the schedule's staging alone (stage_rows) and the
-    kernel alone on a staged schedule (launch_gather)."""
-    parts = dict(staging_ms=0.0, kernel_ms=0.0)
+def device_us(fn, calls=10):
+    """The device us a call of each kernel (or memset) ``fn`` launches, by
+    kernel name: torch.profiler over ``calls`` calls."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = {}
+    for e in prof.key_averages():
+        name = re.search(r"gather_walk|quant_gather_mma|stage_row_pass|"
+                         r"stage_counting_sort|Memset", e.key)
+        if name and e.device_time_total > 0:
+            us[name.group(0)] = round(
+                us.get(name.group(0), 0.0) + e.device_time_total / calls, 2)
+    return us
+
+
+def time_gather_parts(dtype):
+    """Where #4's time goes on the six products of a training layer (the
+    operands of time_products, in ``dtype``): by cuda_ms its staging alone
+    (``gather_stage``), its kernel alone on a staged workspace
+    (``launch_gather``) and the whole wrapper, and the device us a call
+    of each of the wrapper's kernels (``device_us``). Returns the totals
+    over the six products, the device us under ``device_us``."""
+    parts, device_total = {}, {}
     for what, k, n, counts in MATMULS:
-        s, w, _ = matmul_operands(5, M_TRAIN, k, n, torch.bfloat16, counts)
-        bm = min(128, s.shape[0])
-        order, sorted_occ = SD.stage_rows(s, bm)
-        row = dict(staging_ms=cuda_ms(lambda: SD.stage_rows(s, bm)),
-                   kernel_ms=cuda_ms(lambda: SD.launch_gather(
-                       s, w, None, order, sorted_occ, block_m=bm,
-                       c_block=min(128, k))))
-        for key in parts:
-            parts[key] += row[key]
-        log(f"gather_spike_matmul bf16 {what}: staging {row['staging_ms']:.4f}"
-            f" ms, kernel alone {row['kernel_ms']:.4f} ms")
-    log(f"gather_spike_matmul, the six products of a layer: {parts}")
+        s, w, _ = matmul_operands(5, M_TRAIN, k, n, dtype, counts)
+        staged = SD.gather_stage(s, min(128, M_TRAIN))
+        out = torch.empty((M_TRAIN, n), dtype=dtype, device=s.device)
+        fns = dict(staging=lambda: SD.gather_stage(s, min(128, M_TRAIN)),
+                   kernel=lambda: SD.launch_gather(s, w, None, staged,
+                                                   out=out),
+                   whole=lambda: SD.gather_spike_matmul_cuda(s, w))
+        row = {name: cuda_ms(fn) for name, fn in fns.items()}
+        for name, ms in row.items():
+            parts[name] = parts.get(name, 0.0) + ms
+        dev = device_us(fns["whole"])
+        for name, us in dev.items():
+            device_total[name] = round(device_total.get(name, 0.0) + us, 2)
+        log(f"gather_spike_matmul {dtype} {what} K={k} N={n}: "
+            + ", ".join(f"{name} {ms:.4f} ms" for name, ms in row.items())
+            + f"; device us a call {dev}")
+    parts["device_us"] = device_total
+    log(f"gather_spike_matmul {dtype}, the six products of a layer: {parts}")
+    return parts
 
 
 def attention_operands(seed, bh, l, d, dtype):
@@ -921,7 +1048,7 @@ def train_path(cfg):
         f"grad norms {[round(m['grad_norm'], 4) for m in metrics]}, "
         f"fire rates {[round(m['fire_rate'], 4) for m in metrics]}")
     want = dict.fromkeys(counts, 0)
-    want.update(spike_matmul=tile, gather_spike_matmul=dec)
+    want.update(spike_matmul=tile, gather_spike_matmul=dec, gather_stage=dec)
     want[attention_kernel(cfg)] = cfg.num_layers * TRAIN_STEPS
     if counts != want:
         raise AssertionError(f"{what} launches {counts}, expected {want}")
@@ -977,7 +1104,8 @@ def check_train_gradients(cfg, binary="mxu_kernel"):
         tile, dec = sparse_split(cfg.engine, 6 * cfg.num_layers)
         want = dict.fromkeys(launches(), 0)
         if not plain:
-            want.update(spike_matmul=tile, gather_spike_matmul=dec)
+            want.update(spike_matmul=tile, gather_spike_matmul=dec,
+                        gather_stage=dec)
             want[attention_kernel(cfg)] = cfg.num_layers
         if launches() != want:
             what = "plain versions" if plain else "kernels"
@@ -1372,22 +1500,12 @@ def time_quant_gather_parts(dtype):
         for name, ms in row.items():
             parts[name] = parts.get(name, 0.0) + ms
         steps, dense, width = union_steps(ops["lanes"], ops["staged"][0])
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                fns["whole"]()
-            torch.cuda.synchronize()
-        device_us = {}
-        for e in prof.key_averages():
-            name = re.search(r"quant_\w+|Memset", e.key)
-            if name and e.device_time_total > 0:
-                device_us[name.group(0)] = round(
-                    e.device_time_total / e.count, 2)
-        for name, us in device_us.items():
+        dev = device_us(fns["whole"])
+        for name, us in dev.items():
             device_total[name] = device_total.get(name, 0.0) + us
         log(f"quant_gather_spike_matmul {dtype} {what} K={k} N={n}: "
             + ", ".join(f"{name} {ms:.4f} ms" for name, ms in row.items())
-            + f"; device us a call {device_us}; union k-steps "
+            + f"; device us a call {dev}; union k-steps "
             f"{steps}/{dense} dense (mean union {width:.4f} of K)")
     parts["device_us"] = device_total
     log(f"quant_gather_spike_matmul {dtype}, the three products of a mixed "
@@ -1651,8 +1769,7 @@ def mixed_path(cfg, params, requests, tree):
     prefix = "quant_" if tree == "mixed" else ""
     want[f"{prefix}spike_matmul"] = tile
     want[f"{prefix}gather_spike_matmul"] = dec
-    if tree == "mixed":     # one staging a decoded int8 product
-        want["quant_gather_stage"] = dec
+    want[f"{prefix}gather_stage"] = dec     # one staging a decoded product
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
     for logits in outs:
@@ -2148,8 +2265,9 @@ def sequential_vision_path(cfg, params, requests):
     log(f"{what}: {len(requests)} requests x {n_img} images, per-request ms "
         f"{[round(m, 3) for m in req_ms]}, sparse decisions "
         f"{dict(E.SPARSE_DECISIONS)}, launches {counts}")
-    products = ("spike_matmul", "gather_spike_matmul", "quant_spike_matmul",
-                "quant_gather_spike_matmul", "quant_gather_stage")
+    products = ("spike_matmul", "gather_spike_matmul", "gather_stage",
+                "quant_spike_matmul", "quant_gather_spike_matmul",
+                "quant_gather_stage")
     attn = attention_kernel(cfg)
     ok = (counts[attn] == n
           and counts["spike_matmul"] + counts["gather_spike_matmul"] == 3 * n
@@ -2158,6 +2276,7 @@ def sequential_vision_path(cfg, params, requests):
           and counts["spike_matmul"] + counts["quant_spike_matmul"] == tile
           and counts["gather_spike_matmul"]
           + counts["quant_gather_spike_matmul"] == dec
+          and counts["gather_stage"] == counts["gather_spike_matmul"]
           and counts["quant_gather_stage"]
           == counts["quant_gather_spike_matmul"]
           and not any(v for k, v in counts.items()
@@ -2472,7 +2591,7 @@ def analog_vision_path(cfg, params, requests, what):
     name = f"analog path, {what}, sparse={cfg.engine.sparse!r}"
     want = dict.fromkeys(counts, 0)
     want.update(fused_ssa_analog=n, spike_matmul=tile,
-                gather_spike_matmul=dec)
+                gather_spike_matmul=dec, gather_stage=dec)
     if counts != want:
         raise AssertionError(f"{name}: launches {counts}, expected {want}")
     n_img = len(requests[0]["images"])
@@ -2703,14 +2822,23 @@ def main():
          for wk in ("normal", "dyadic")]
         + [check_gather(dt, "ragged", m, k, n, bias=bias)
            for dt in dtypes for m, k, n in MATMUL_RAGGED
-           for bias in (False, True)])
+           for bias in (False, True)]
+        + [check_gather(dt, "wo", M_TRAIN, H * HD, D, weights=wk, values=v)
+           for dt in dtypes for wk, v in (("dyadic", "analog"),
+                                          ("normal", "analog"),
+                                          ("normal", "analog normal"))]
+        + [check_gather(dt, "all dark", M_TRAIN, H * HD, D, bias=True,
+                        values="dark") for dt in dtypes]
+        + [check_gather(dt, f"8-512 {what}", M_EIGHT, k, n, counts,
+                        weights=wk, count_max=EIGHT_L)
+           for dt in dtypes for what, k, n, counts in QUANT_EIGHT
+           for wk in ("normal", "dyadic")])
     matmul_timing = time_products("spike_matmul", SM.spike_matmul_cuda,
                                   SM.spike_matmul_plain, matmul_bound_ms)
     gather_timing = time_products("gather_spike_matmul",
                                   SD.gather_spike_matmul_cuda,
                                   SD.gather_spike_matmul_plain,
                                   gather_bound_ms)
-    time_gather_parts()
     attn_timing = time_attention(*ATTENTION[0])
     time_attention(*ATTENTION[-1])
 
@@ -2975,7 +3103,16 @@ def main():
                            (cfg8, params8, requests8[0]["images"])])
 
     # --- the training main paths, then their gradient checks ------------
-    train_counts = {sp: train_path(c)[0] for sp, c in engines.items()}
+    with gather_dtypes() as train_dtypes:
+        train_runs = {sp: train_path(c) for sp, c in engines.items()}
+    train_counts = {sp: run[0] for sp, run in train_runs.items()}
+    log(f"gather_spike_matmul operands of the train paths (s, w): "
+        f"{sorted(train_dtypes)}")
+    # #4 split at bf16 (the configs' dtype) and at every other dtype the
+    # train paths passed it
+    gather_parts = {dt: time_gather_parts(dt) for dt in
+                    [torch.bfloat16] + sorted({d for d, _ in train_dtypes}
+                                              - {torch.bfloat16}, key=str)}
     mxu_runs = {sp: check_train_gradients(c) for sp, c in engines.items()}
     # the popcount path (a): tile datapath, binary='popcount'
     pop_cfg = engines["tile"].replace(engine=engines["tile"].engine.replace(
@@ -3019,7 +3156,13 @@ def main():
                  source=csrc + "gather_spike_matmul.cu",
                  replaces="src/repro/kernels/spike_decode.py:294",
                  launches=train_counts["decoded"]["gather_spike_matmul"],
-                 max_abs_err=gather_err, **gather_timing),
+                 max_abs_err=gather_err,
+                 staging_launches=train_counts["decoded"]["gather_stage"],
+                 split={str(dt): parts for dt, parts in gather_parts.items()},
+                 floor_ms=gather_floor_ms(),
+                 train_step_ms=train_runs["decoded"][1],
+                 analog_request_ms=analog4["decoded"][1],
+                 **gather_timing),
             dict(name="fused_layer_decoded", source=csrc + "fused_layer.cu",
                  replaces="src/repro/kernels/fused_layer.py:420",
                  launches=eval_counts["decoded"]["fused_layer_decoded"],

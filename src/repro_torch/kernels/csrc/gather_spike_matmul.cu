@@ -1,105 +1,85 @@
-// Gather-compacted spike matmul of the sparse engine's decoded datapath,
-// for Hopper (sm_90a).
+// The sparse engine's decoded datapath for Hopper (sm_90a): the
+// gather-compacted spike matmul (#4) and its int8 twin (#5), which share
+// one staging on the device.
 //
-// Replaces: src/repro/kernels/spike_decode.py::gather_spike_matmul (the
+// Replaces src/repro/kernels/spike_decode.py::gather_spike_matmul (#4: the
 // Pallas bodies `_kernel` / `_kernel_bias`, grid (groups, N tiles,
-// compacted chunks)). It computes y = s @ w (+ b) for s: (M, K) {0,1}
-// spikes or integer counts and w: (K, N): each row's result is the fp32
-// sum, in ascending k, of value x w[k, :] over the row's live entries,
-// then the bias, rounded once to the operands' dtype and written to the
-// row's own index (the TPU kernel returns fp32 in sorted order and its
-// caller un-permutes and casts).
+// compacted chunks)) and ::quant_gather_spike_matmul (#5: `_qkernel` /
+// `_qkernel_bias` and the staging `_stage`).
 //
-// What bounds it: the bytes it must move are s, w and y once each plus
-// the staged schedule (row order M int64, sorted occupancies M int32);
-// the work is the live multiply-adds, sum over rows of occupancy
-// x N. At the training step's shapes (M = 16384; K, N of 256 or 1024;
-// bf16) the bytes take 5-13 us at 3.35 TB/s and the live work (~20% of
-// the dense products on random weights) well under that at the bf16
-// tensor-core peak, so bytes bound it. This kernel runs its products on
-// CUDA cores, one fp32 sum (and product, for a non-spike value) per live
-// entry and column, in a fixed order (the plain version's), and sits
-// ~15x above that bound: 0.08 ms for a 256 x 256 product on an H100 SXM
-// at 700 W. Halving its instructions per live entry moved it 3%, so
-// that is not where its time goes; where it goes is not measured yet.
-// It is the simple correct kernel, made faster later.
+// The staging: two kernels and a memset, nothing read back. The row pass
+// (stage_row_pass) reads s once in its own dtype, one warp a row, and
+// writes the row's occupancy, its live bits (bit k % 32 of word k / 32)
+// and one word of facts about the row, and counts the row into its
+// 1024-row chunk's histogram; the sort (stage_counting_sort) gives each
+// row its place in a stable counting sort by occupancy (keys 0..K), which
+// is torch.sort(stable=True)'s permutation, so the order and the sorted
+// occupancies equal stage_rows' (the JAX schedule's sort, the paper's load
+// balancing) bitwise. The two products test for a live entry differently,
+// and this is the only thing their staging does not share: #4 tests the
+// raw value (s != 0: -0.0 is dark, 0.3 or -0.7 live), as decode_indices
+// does; #5 tests the value cast to its integer lane (truncated toward
+// zero, so a value in (-1, 1) is dark). The fact word is, for #4, whether
+// every live value of the row is exactly 1 (a spike row); for #5's count
+// lanes, the row's value range.
 //
-// Design. The staging keeps JAX's schedule and nothing more: the wrapper
-// counts each row's non-zeros and sorts the rows by that occupancy (a
-// stable sort; two PyTorch ops on the device, since every further small
-// op costs the host a launch) into block_m groups; a block rounds its
-// groups' largest occupancy, the last of each group in sorted order, up
-// to a power of two, clipped to the padded width (the group's capacity),
-// as build_schedule does. The TPU staging also
-// materialises every row's compacted indices and values, (M, K) int32 +
-// fp32, sixteen times the spikes at K = 1024; here each block decodes its
-// rows itself instead. A block takes 64 consecutive rows of the sorted
-// order and a 128-column tile of w, and walks K in slabs of 128 bytes a
-// row: it stages the slab of its rows' spikes and the matching rows of
-// the w tile in shared memory, then each warp decodes its 8 rows one
-// 32-entry word at a time — a warp ballot marks the live entries, and
-// __ffs walks them in ascending k, which is the order of the compacted
-// slots (a slot's index is the popcount of the live bits before it). For
-// each live entry the 32 lanes gather the entry's weight row (four
-// consecutive columns a lane, one vector load) from shared memory; a
-// spike (value 1) adds the weights as they are, exactly what 1 x w
-// gives. Compacted chunks of c_block slots
-// at or past a group's capacity hold no live entry, so walking only live
-// entries executes exactly the chunks below the capacity; a group whose
-// capacity is 0 (all rows dark) skips its spikes, weights and products,
-// and a block of such rows skips the K walk. The sort makes the rows of a
-// block, and so the warps' loops, about equally long: the load balancing
-// of the paper's decoder.
-
-// The quantized twin, quant_gather_mma below with its staging
-// quant_stage_rows + quant_stage_sort, replaces
-// src/repro/kernels/spike_decode.py::quant_gather_spike_matmul (the Pallas
-// bodies `_qkernel` / `_qkernel_bias` and the staging `_stage`):
-// y = (lanes(s) @ qw) * scale (+ b) for spikes on int8 lanes or
-// binary-attention counts on int32 lanes (spike_decode.py:429) against
-// int8 weight codes. Its sums are int32, exact in any order, so any
-// contraction order, the tensor cores' included, agrees bitwise with the
-// plain version, with quant_spike_matmul and with the dense quantized
-// reference on any weights and scales; the epilogue (acc * scale, or
-// fma32(acc, scale, b) with a bias) and the one rounding to the output
-// dtype are quant_spike_matmul's.
+// #4: y = s @ w (+ b) for s: (M, K) spikes, integer counts or analog values
+// and w: (K, N), both fp32 or both bf16. Its contract is its plain
+// version's (spike_decode.gather_spike_matmul_plain): each row's result is
+// the fp32 sum, in ascending k, of value x w[k, :] over the row's live
+// entries, one rounded product and one rounded add an entry, then the
+// bias, rounded once to the dtype and written at the row's own index;
+// bitwise on any finite weights. The tensor cores sum fp32 in an order of
+// their own, so the product runs on the CUDA cores: one __fadd_rn (and a
+// __fmul_rn, for a value other than 1) a live entry and output column.
 //
-// What bounds it: bytes. The lanes, codes, scale and output once each are
-// ~88 MB for the three products of a mixed 4-256 layer (M = 16384), 26 us
-// at 3.35 TB/s; their dense multiply-adds take ~10 us at the int8 tensor
-// core peak, and the live ones a fifth of that.
+// What bounds #4: bytes, against the card's peaks. s, w and y once each
+// are 5-13 us a training product at 3.35 TB/s; the live multiply-adds
+// (density ~0.2) are far less at the bf16 tensor-core peak. Its contract
+// sets a higher floor: ~2.5 G live adds for the six products of a 4-256
+// training layer (M = 16384) need ~85 us at the fp32 pipe's 128 adds a
+// clock an SM, and feeding them bf16 weights (one integer op each to
+// widen, 64 a clock an SM; shared memory gives 64 bf16 values a clock)
+// ~170 us.
 //
-// Design. Staging, two kernels on the device, nothing read back: the first
-// reads s once in its own dtype (fp32 or bf16; no (M, K) lanes tensor is
-// written), casts each value to its lane as quant_lanes does, and writes
-// each row's occupancy, its live bits (1/16 of bf16 s) and, for counts,
-// its value range, and counts the rows into a histogram a 1024-row chunk;
-// the second sorts the rows stably by occupancy with a counting sort
-// (keys 0..K), which gives torch.sort(stable=True)'s permutation, so the
-// order and sorted occupancies equal stage_rows' (the JAX schedule's sort,
-// the paper's load balancing) bitwise. The product: a block of 512
-// threads takes 128 consecutive sorted rows, decodes the union of their
-// live lanes once (the OR of their bit words: the multi-lane decoder of
-// the paper's Eq. 5 at the block's grain) and walks its non-zero words in
-// ascending k, one 32-lane chunk an mma k-step: the rows' values there
-// (cast to their lanes and split into byte planes) and only the code rows
-// of the union's live lanes are staged in shared memory, and mma.sync
-// m16n8k32 (s8 x s8 for spike lanes, u8 x s8 for count lanes below 256;
-// larger or negative counts in byte planes, a signed top plane and
-// unsigned lower ones, as many as the block's largest magnitude needs)
-// sums them in int32 registers, 256 output columns a pass. The sort
-// groups sparse rows with sparse rows, so a block's union is narrow where
-// its rows are; where it is near dense the block runs the dense chunk on
-// the tensor cores. The block loops over the output columns itself (split
-// over blocks only as far as one block a multiprocessor needs), so w1's
-// 1024 columns do not re-decode the rows per column tile.
+// Design of #4's product (gather_walk). A block of 8 warps takes 64
+// consecutive rows of the sorted order, the densest blocks first, and a
+// tile of 256 output columns; a lane owns 8 consecutive columns and a warp
+// walks 8 rows. The block ORs its live rows' bit words once (the union)
+// and streams only the union's non-zero words, ascending, one 32-deep K
+// chunk each, through a cp.async ring in shared memory: the chunk's live
+// rows of the w tile in the operands' dtype (widened in registers), the
+// rows' bit words from the staging and, unless every live row of the
+// block is a spike row, the rows' 32 values. A warp lists each of its
+// rows' live k of the chunk in order (lane k writes k at its rank among
+// the row's live bits) and walks the lists, two entries of a row loaded
+// ahead of their adds; each live entry is one 16-byte shared load of the
+// lane's 8 weights (bf16; two in fp32) and 8 adds into the row's fp32
+// accumulators, in ascending k. A block of spike rows adds w as it is
+// (exactly the plain version's 1 x w); any other block multiplies every
+// entry by its value, which for a value of 1 is the same. No spike slab is
+// staged and no row is decoded twice: the bits come from the staging, and
+// each column tile reads them again from L2. Walking only the live entries
+// executes exactly the JAX schedule's compacted chunks below each group's
+// pow2 capacity (a chunk at or past it holds no live entry), and the sort
+// keeps a block's rows, and so its warps' walks, about equally long: the
+// load balancing of the paper's decoder. A block whose rows are all dark
+// streams nothing and writes the bias (or zeros).
 //
-// Where it stands (chip_smoke.py, H100 SXM at 700 W, bf16, the three
-// products of a mixed 4-256 layer): ~40 us of staging and ~115 us of
-// product kernels on the device, ~6x the bytes bound. The k-steps are
-// bound by the instructions a step issues (the casts, the byte
-// transposes, two barriers) and by memory latency; their dense mma alone
-// would take ~10 us at the int8 peak.
+// Where #4 stands (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W, bf16, the
+// six products of a 4-256 training layer, density ~0.2): 78 us of staging
+// on the device (row passes 40, sorts 32, memsets 6) and 463 us of product
+// kernels, 0.64 ms whole by CUDA events, against 1.58 for the earlier
+// design (stage_rows' PyTorch passes and a kernel that re-decoded a spike
+// slab in every column tile); 3.1x the contract's bf16-feed floor and
+// 5.5x torch.matmul, which sums in an order of its own. The walk is bound
+// by its instruction stream, ~22 instructions a live entry and warp (one
+// shared load, 8 widenings, 8 adds, the list), at about half the issue
+// rate; shared memory runs at ~30% of its bandwidth and the weights' L2
+// traffic overlaps. Measured variants that dropped the widenings, the
+// list reads, the shared loads or 6 of the 8 adds each saved 7-20%; more
+// warps, more rows a block, a deeper ring, grouped loads and TMA bulk
+// copies of the weights saved nothing (PERF.md §6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -109,240 +89,22 @@
 
 namespace {
 
-constexpr int NT = 256;      // 8 warps
-constexpr int ROWS = 64;     // sorted rows a block
-constexpr int RPW = ROWS / (NT / 32);  // rows a warp: 8
-constexpr int CPL = 4;       // output columns a lane, consecutive
-constexpr int NW = 32 * CPL; // output columns a block: 128
-
-template <typename T> struct Traits;
-template <> struct Traits<float> {
-  static constexpr int VEC = 4;                 // elements in 16 bytes
-  static constexpr uint32_t MAG = 0x7FFFFFFFu;  // value bits without sign
-  static __device__ __forceinline__ uint32_t bits(float v) {
-    return __float_as_uint(v);
-  }
-  static __device__ __forceinline__ float to_float(float v) { return v; }
-  static __device__ __forceinline__ void quad(const float* p, float (&o)[4]) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
-  }
-  static __device__ __forceinline__ void store_quad(float* p, const float (&v)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-template <> struct Traits<__nv_bfloat16> {
-  static constexpr int VEC = 8;
-  static constexpr uint32_t MAG = 0x7FFFu;
-  static __device__ __forceinline__ uint32_t bits(__nv_bfloat16 v) {
-    return (uint32_t)__bfloat16_as_ushort(v);
-  }
-  static __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-  }
-  static __device__ __forceinline__ void quad(const __nv_bfloat16* p,
-                                              float (&o)[4]) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-    o[0] = lo.x, o[1] = lo.y, o[2] = hi.x, o[3] = hi.y;
-  }
-  static __device__ __forceinline__ void store_quad(__nv_bfloat16* p,
-                                                    const float (&v)[4]) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-    *reinterpret_cast<uint2*>(p) = make_uint2(
-        *reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
-  }
-};
-
-// K-slab: 128 bytes of a row; the staged spike row is padded by 16 bytes
-template <typename T> __host__ __device__ constexpr int slab() {
-  return 128 / (int)sizeof(T);
-}
-template <typename T> __host__ __device__ constexpr int lds() {
-  return slab<T>() + 16 / (int)sizeof(T);
-}
-
-// smallest power of two >= x (0 -> 0, 1 -> 1): spike_decode.pow2ceil
-__device__ __forceinline__ int pow2ceil(int x) {
-  return x <= 1 ? max(x, 0) : 1 << (32 - __clz(x - 1));
-}
-
-__device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// VS / VW: 16-byte loads of s / w (K / N a multiple of the vector and the
-// base 16-byte aligned)
-template <typename T, bool VS, bool VW>
-__global__ void __launch_bounds__(NT)
-gather_spike_matmul_kernel(const T* __restrict__ s, const T* __restrict__ w,
-                           const float* __restrict__ bias,
-                           const long long* __restrict__ order,
-                           const int* __restrict__ sorted_occ,
-                           T* __restrict__ out, int M, int K, int N, int Mp,
-                           int block_m, int padded_cap) {
-  using Tr = Traits<T>;
-  constexpr int KS = slab<T>(), LDS = lds<T>(), V = Tr::VEC;
-  __shared__ __align__(16) T ss[ROWS * LDS];  // [row][k]: spike slab
-  __shared__ __align__(16) T ws[KS * NW];     // [k][col]: weight slab
-  __shared__ int row_of[ROWS];                // original row, or -1
-  __shared__ int row_cap[ROWS];               // the row's group capacity
-
-  const int p0 = blockIdx.x * ROWS, n0 = blockIdx.y * NW, tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  bool live = false;
-  if (tid < ROWS) {
-    const int p = p0 + tid;
-    int r = -1, cap = 0;
-    if (p < Mp) {
-      r = (int)order[p];
-      cap = min(pow2ceil(sorted_occ[(p / block_m + 1) * block_m - 1]),
-                padded_cap);
-    }
-    if (r >= M) r = -1;                // padding rows sort among the dark
-    row_of[tid] = r;
-    row_cap[tid] = cap;
-    live = r >= 0 && cap > 0;
-  }
-  const bool any_live = __syncthreads_or(live);
-
-  float acc[RPW][CPL] = {};
-  for (int k0 = 0; any_live && k0 < K; k0 += KS) {
-    __syncthreads();                   // the previous slab is consumed
-    // spikes of the block's rows in this slab (dark groups read nothing)
-    if constexpr (VS) {
-      for (int i = tid; i < ROWS * (KS / V); i += NT) {
-        const int r = i / (KS / V), kk = i % (KS / V) * V;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (row_of[r] >= 0 && row_cap[r] > 0 && k0 + kk < K)
-          v = *reinterpret_cast<const uint4*>(s + (size_t)row_of[r] * K + k0 + kk);
-        *reinterpret_cast<uint4*>(ss + r * LDS + kk) = v;
-      }
-    } else {
-      for (int i = tid; i < ROWS * KS; i += NT) {
-        const int r = i / KS, kk = i % KS;
-        ss[r * LDS + kk] = row_of[r] >= 0 && row_cap[r] > 0 && k0 + kk < K
-                               ? s[(size_t)row_of[r] * K + k0 + kk]
-                               : T(0.f);
-      }
-    }
-    // the slab's rows of the w tile
-    if constexpr (VW) {
-      for (int i = tid; i < KS * (NW / V); i += NT) {
-        const int kk = i / (NW / V), nn = i % (NW / V) * V;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (k0 + kk < K && n0 + nn < N)
-          v = *reinterpret_cast<const uint4*>(w + (size_t)(k0 + kk) * N + n0 + nn);
-        *reinterpret_cast<uint4*>(ws + kk * NW + nn) = v;
-      }
-    } else {
-      for (int i = tid; i < KS * NW; i += NT) {
-        const int kk = i / NW, nn = i % NW;
-        ws[kk * NW + nn] = k0 + kk < K && n0 + nn < N
-                               ? w[(size_t)(k0 + kk) * N + n0 + nn]
-                               : T(0.f);
-      }
-    }
-    __syncthreads();
-
-    // decode and contract: warp-uniform control flow throughout
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const int r = warp * RPW + i;
-      if (row_cap[r] == 0) continue;   // a dark group's chunks all skip
-      const T* srow = ss + r * LDS;
-#pragma unroll
-      for (int word = 0; word < KS / 32; ++word) {
-        uint32_t bits = __ballot_sync(
-            0xFFFFFFFFu, (Tr::bits(srow[word * 32 + lane]) & Tr::MAG) != 0u);
-        while (bits) {                 // live entries, ascending k
-          const int j = word * 32 + __ffs(bits) - 1;
-          bits &= bits - 1u;
-          const float a = Tr::to_float(srow[j]);
-          float wv[CPL];
-          Tr::quad(ws + j * NW + CPL * lane, wv);
-          if (a == 1.f) {              // a spike: a * w is w, exactly
-#pragma unroll
-            for (int c = 0; c < CPL; ++c) acc[i][c] = __fadd_rn(acc[i][c], wv[c]);
-          } else {
-#pragma unroll
-            for (int c = 0; c < CPL; ++c)
-              acc[i][c] = __fadd_rn(acc[i][c], __fmul_rn(a, wv[c]));
-          }
-        }
-      }
-    }
-  }
-
-  // bias after the last entry, one rounding, the row's own index
-  const int col = n0 + CPL * lane;
-  if (col >= N) return;
-  float b[CPL];
-#pragma unroll
-  for (int c = 0; c < CPL; ++c)
-    b[c] = bias != nullptr && col + c < N ? bias[col + c] : 0.f;
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int r = row_of[warp * RPW + i];
-    if (r < 0) continue;
-    float v[CPL];
-#pragma unroll
-    for (int c = 0; c < CPL; ++c)
-      v[c] = bias != nullptr ? __fadd_rn(acc[i][c], b[c]) : acc[i][c];
-    T* o = out + (size_t)r * N + col;
-    if (N % CPL == 0) {
-      Tr::store_quad(o, v);
-    } else {
-#pragma unroll
-      for (int c = 0; c < CPL; ++c)
-        if (col + c < N) store_one(o + c, v[c]);
-    }
-  }
-}
-
-struct Args {
-  const void *s, *w;
-  const float* bias;
-  const long long* order;
-  const int* sorted_occ;
-  void* out;
-  int m, k, n, mp, block_m, padded_cap;
-};
-
-template <typename T, bool VS, bool VW>
-void launch_one(const Args& a, cudaStream_t stream) {
-  const dim3 grid((a.mp + ROWS - 1) / ROWS, (a.n + NW - 1) / NW);
-  gather_spike_matmul_kernel<T, VS, VW><<<grid, NT, 0, stream>>>(
-      (const T*)a.s, (const T*)a.w, a.bias, a.order, a.sorted_occ, (T*)a.out,
-      a.m, a.k, a.n, a.mp, a.block_m, a.padded_cap);
-}
-
-template <typename T>
-int launch(const Args& a, cudaStream_t stream) {
-  constexpr int V = Traits<T>::VEC;
-  const bool vs = a.k % V == 0 && (uintptr_t)a.s % 16 == 0;
-  const bool vw = a.n % V == 0 && (uintptr_t)a.w % 16 == 0;
-  if (vs && vw) launch_one<T, true, true>(a, stream);
-  else if (vs) launch_one<T, true, false>(a, stream);
-  else if (vw) launch_one<T, false, true>(a, stream);
-  else launch_one<T, false, false>(a, stream);
-  return (int)cudaGetLastError();
-}
-
-
-// ---------------------------------------------------------------------------
-// quant_gather_spike_matmul: the lanes' staging (occupancy, live bits,
-// value range, a stable counting sort by occupancy) and the decoded int8
-// product on the tensor cores
-// ---------------------------------------------------------------------------
+constexpr uint32_t FULL = 0xFFFFFFFFu;
 
 // fp32 a * b + c rounded once: models/nn.fma32
 __device__ __forceinline__ float fma32(float a, float b, float c) {
   return __double2float_rn(
       __dadd_rn(__dmul_rn((double)a, (double)b), (double)c));
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
 // a value of s on its integer lane, as spike_matmul.quant_lanes casts it:
@@ -360,28 +122,62 @@ __device__ __forceinline__ int lane_of(S v) {
   return COUNTS ? x : (int)(int8_t)(x & 0xFF);
 }
 
-constexpr uint32_t FULL = 0xFFFFFFFFu;
+// 16 (or 4) bytes from global to shared memory, asynchronously; the bytes
+// past src_bytes (0 or all) are zero
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// the staging of both products: occupancy, live bits, the row's facts, and
+// a stable counting sort by occupancy
+// ---------------------------------------------------------------------------
+
+// what the row pass tests a value of s for: #5's spike or count lane, or
+// #4's raw value
+enum class Live { SPIKE_LANE, COUNT_LANE, VALUE };
+
+constexpr int SNT = 256;     // threads a staging block
 constexpr int SROWS = 16;    // rows a staging block, 2 a warp
 constexpr int CHUNK = 1024;  // rows a sort block, one a thread
 
-// One warp a row: the row's lanes once, read in s's own dtype. Writes the
-// row's occupancy (0 for the padding rows m..mp-1), its live bits (bit
-// k % 32 of word k / 32) and, for count lanes, the code of its value
-// range (max(hi, -lo - 1), the sign bit set if a lane is negative); counts
-// the row into its sort chunk's histogram. VEC: 16-byte loads.
-template <typename S, bool COUNTS, bool VEC>
-__global__ void __launch_bounds__(NT)
-quant_stage_rows(const S* __restrict__ s, int M, int K, int Mp, int W,
-                 int* __restrict__ occ, uint32_t* __restrict__ bits,
-                 int* __restrict__ rng, int* __restrict__ hist) {
-  constexpr int V = VEC ? 16 / (int)sizeof(S) : 1;  // lanes a load
+// One warp a row: the row once, read in s's own dtype. Writes the row's
+// occupancy (0 for the padding rows m..mp-1), its live bits and its fact
+// word: for VALUE, 1 if every live value is exactly 1, else 0; for
+// COUNT_LANE, the code of its value range (max(hi, -lo - 1), the sign bit
+// set if a lane is negative). Counts the row into its sort chunk's
+// histogram. VEC: 16-byte loads.
+template <typename S, Live LIVE, bool VEC>
+__global__ void __launch_bounds__(SNT)
+stage_row_pass(const S* __restrict__ s, int M, int K, int Mp, int W,
+               int* __restrict__ occ, uint32_t* __restrict__ bits,
+               int* __restrict__ facts, int* __restrict__ hist) {
+  constexpr int V = VEC ? 16 / (int)sizeof(S) : 1;  // values a load
   constexpr int G = 32 / V;                         // loads a bit word
-  constexpr int RW = SROWS / (NT / 32);             // rows a warp
+  constexpr int RW = SROWS / (SNT / 32);            // rows a warp
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
   for (int i = 0; i < RW; ++i) {
     const int p = blockIdx.x * SROWS + warp * RW + i;
     if (p >= Mp) return;
     int n = 0, lo = 0, hi = 0;
+    bool ones = true;
     if (p < M) {
       const S* row = s + (size_t)p * K;
 #pragma unroll 4
@@ -397,10 +193,16 @@ quant_stage_rows(const S* __restrict__ s, int M, int K, int Mp, int W,
             v[0] = row[k];
 #pragma unroll
           for (int e = 0; e < V; ++e) {
-            const int x = lane_of<COUNTS>(v[e]);
-            live |= (uint32_t)(x != 0) << e;
-            lo = min(lo, x);
-            hi = max(hi, x);
+            if constexpr (LIVE == Live::VALUE) {
+              const float x = to_float(v[e]);
+              live |= (uint32_t)(x != 0.f) << e;
+              ones &= x == 0.f || x == 1.f;
+            } else {
+              const int x = lane_of<LIVE == Live::COUNT_LANE>(v[e]);
+              live |= (uint32_t)(x != 0) << e;
+              lo = min(lo, x);
+              hi = max(hi, x);
+            }
           }
         }
         n += __popc(live);
@@ -413,13 +215,18 @@ quant_stage_rows(const S* __restrict__ s, int M, int K, int Mp, int W,
         if (lane % G == 0 && wi < W) bits[(size_t)p * W + wi] = word;
       }
       n = __reduce_add_sync(FULL, n);
-      lo = __reduce_min_sync(FULL, lo);
-      hi = __reduce_max_sync(FULL, hi);
+      if constexpr (LIVE == Live::VALUE) {
+        ones = __all_sync(FULL, ones);
+      } else {
+        lo = __reduce_min_sync(FULL, lo);
+        hi = __reduce_max_sync(FULL, hi);
+      }
     }
     if (lane == 0) {
       occ[p] = n;
-      if (COUNTS && p < M)
-        rng[p] = max(hi, ~lo) | (lo < 0 ? (int)0x80000000u : 0);
+      if (LIVE == Live::VALUE && p < M) facts[p] = ones ? 1 : 0;
+      if (LIVE == Live::COUNT_LANE && p < M)
+        facts[p] = max(hi, ~lo) | (lo < 0 ? (int)0x80000000u : 0);
       atomicAdd(&hist[(size_t)(p / CHUNK) * (K + 1) + n], 1);
     }
   }
@@ -433,9 +240,9 @@ quant_stage_rows(const S* __restrict__ s, int M, int K, int Mp, int W,
 // (one warp walks the warps in order, a group of equal occupancies a
 // lane). Writes order[place] = row and sorted_occ[place] = its occupancy.
 __global__ void __launch_bounds__(CHUNK)
-quant_stage_sort(const int* __restrict__ occ, const int* __restrict__ hist,
-                 int K, int Mp, long long* __restrict__ order,
-                 int* __restrict__ sorted_occ) {
+stage_counting_sort(const int* __restrict__ occ, const int* __restrict__ hist,
+                    int K, int Mp, long long* __restrict__ order,
+                    int* __restrict__ sorted_occ) {
   extern __shared__ int next_place[];  // [K + 1]
   __shared__ int wsum[CHUNK / 32];
   __shared__ int lead_key[CHUNK], group[CHUNK];
@@ -446,6 +253,7 @@ quant_stage_sort(const int* __restrict__ occ, const int* __restrict__ hist,
     const int k = k0 + tid;
     int tot = 0, before = 0;
     if (k <= K)
+#pragma unroll 8
       for (int cc = 0; cc < nch; ++cc) {
         const int h = hist[(size_t)cc * (K + 1) + k];
         tot += h;
@@ -502,6 +310,315 @@ quant_stage_sort(const int* __restrict__ occ, const int* __restrict__ hist,
     sorted_occ[place] = key;
   }
 }
+
+// ---------------------------------------------------------------------------
+// gather_spike_matmul (#4): the walk of the staged live bits
+// ---------------------------------------------------------------------------
+
+constexpr int GNT = 256;            // threads a product block: 8 warps
+constexpr int GR = 8;               // sorted rows a warp walks
+constexpr int GRB = GR * GNT / 32;  // sorted rows a block: 64
+constexpr int GCPL = 8;             // output columns a lane, consecutive
+constexpr int GNB = 32 * GCPL;      // output columns a block: 256
+constexpr int GKC = 32;             // k a chunk: one live-bit word
+
+// a ring stage: the chunk's rows of the w tile [GKC][GNB], the block's
+// rows' values [GRB][GKC] (in the operands' dtype), their bit words [GRB]
+template <typename T> struct Ring {
+  static constexpr int V = 16 / (int)sizeof(T);  // elements in 16 bytes
+  static constexpr int DEPTH = sizeof(T) == 2 ? 3 : 2;  // stages
+  static constexpr int WB = GKC * GNB * (int)sizeof(T);
+  static constexpr int VB = GRB * GKC * (int)sizeof(T);
+  static constexpr int STAGE = WB + VB + GRB * 4;
+  // after the ring: each warp's list of its rows' live k [GR][GKC]
+  static constexpr int LIST = GRB * GKC * 4;
+};
+
+// the lane's 8 weights of a staged w row, as loaded (one 16-byte load of
+// bf16, two of fp32), widened to fp32: exactly, a bf16 value being the top
+// half of its fp32 value
+struct Float8 {
+  float4 lo, hi;
+};
+__device__ __forceinline__ void widen(const Float8& v, float (&o)[GCPL]) {
+  o[0] = v.lo.x, o[1] = v.lo.y, o[2] = v.lo.z, o[3] = v.lo.w;
+  o[4] = v.hi.x, o[5] = v.hi.y, o[6] = v.hi.z, o[7] = v.hi.w;
+}
+__device__ __forceinline__ void widen(const uint4& v, float (&o)[GCPL]) {
+  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[2 * i] = __uint_as_float(u[i] * 65536u);
+    o[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
+  }
+}
+
+__device__ __forceinline__ void store8(float* p, const float (&v)[GCPL]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p,
+                                       const float (&v)[GCPL]) {
+  uint32_t u[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    u[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+}
+
+// One chunk of a warp's rows: each row's live entries in ascending k, one
+// weight row from shared memory and GCPL rounded adds (ONES: w as it is;
+// else value x w, rounded, then the add) an entry. The warp first lists
+// each row's live k in order in shared memory (lane k writes k at its
+// rank among the live bits), so the walk is a counted loop whose list
+// reads do not wait on one another; two entries of a row are loaded
+// before the first is added, and the adds keep the order.
+template <bool ONES, typename T>
+__device__ __forceinline__ void walk_chunk(float (&acc)[GR][GCPL],
+                                           const T* sw, const T* sv,
+                                           const uint32_t* sb, int* list,
+                                           int lane) {
+  using Raw = typename std::conditional<sizeof(T) == 2, uint4, Float8>::type;
+  const uint32_t below = (1u << lane) - 1u;
+  int count[GR];
+#pragma unroll
+  for (int r = 0; r < GR; ++r) {
+    const uint32_t b = sb[r];
+    if (b >> lane & 1u) list[r * GKC + __popc(b & below)] = lane;
+    count[r] = __popc(b);
+  }
+  __syncwarp();
+  auto add = [&](int r, int j, const Raw& raw) {
+    float wv[GCPL];
+    widen(raw, wv);
+    if constexpr (ONES) {
+#pragma unroll
+      for (int c = 0; c < GCPL; ++c) acc[r][c] = __fadd_rn(acc[r][c], wv[c]);
+    } else {
+      const float a = to_float(sv[r * GKC + j]);
+#pragma unroll
+      for (int c = 0; c < GCPL; ++c)
+        acc[r][c] = __fadd_rn(acc[r][c], __fmul_rn(a, wv[c]));
+    }
+  };
+#pragma unroll
+  for (int r = 0; r < GR; ++r) {
+    const int* lr = list + r * GKC;
+    int e = 0;
+    for (; e + 1 < count[r]; e += 2) {
+      const int j0 = lr[e], j1 = lr[e + 1];
+      const Raw raw0 = *reinterpret_cast<const Raw*>(sw + j0 * GNB);
+      const Raw raw1 = *reinterpret_cast<const Raw*>(sw + j1 * GNB);
+      add(r, j0, raw0);
+      add(r, j1, raw1);
+    }
+    if (e < count[r]) {
+      const int j0 = lr[e];
+      add(r, j0, *reinterpret_cast<const Raw*>(sw + j0 * GNB));
+    }
+  }
+  __syncwarp();  // the list is read before the next chunk rewrites it
+}
+
+// The product: see the header. vw / vs / vo: 16-byte copies of w / s and
+// stores of y (N / K a multiple of 16 bytes' elements, the base aligned).
+template <typename T>
+__global__ void __launch_bounds__(GNT, 2)
+gather_walk(const T* __restrict__ s, const T* __restrict__ w,
+            const float* __restrict__ bias, const long long* __restrict__ order,
+            const int* __restrict__ sorted_occ,
+            const uint32_t* __restrict__ bits, const int* __restrict__ ones,
+            T* __restrict__ out, int M, int K, int N, int Mp, int W, bool vw,
+            bool vs, bool vo) {
+  using R = Ring<T>;
+  constexpr int DEPTH = R::DEPTH, V = R::V;
+  extern __shared__ __align__(16) uint8_t dyn[];
+  uint32_t* uni =
+      reinterpret_cast<uint32_t*>(dyn + DEPTH * R::STAGE + R::LIST);  // [W]
+  int* live_words = reinterpret_cast<int*>(uni + W);                  // [W]
+  __shared__ int row_of[GRB];
+  __shared__ bool row_live[GRB];
+  __shared__ int nsteps_sh;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  int* list = reinterpret_cast<int*>(dyn + DEPTH * R::STAGE) + GR * GKC * warp;
+  const int p0 = (gridDim.x - 1 - blockIdx.x) * GRB;  // densest rows first
+  const int n0 = blockIdx.y * GNB;
+  bool spike_row = true;
+  if (tid < GRB) {
+    const int p = p0 + tid;
+    int r = -1;
+    bool live = false;
+    if (p < Mp) {
+      r = (int)order[p];
+      live = sorted_occ[p] > 0;
+    }
+    if (r >= M) r = -1, live = false;  // padding rows
+    row_of[tid] = r;
+    row_live[tid] = live;
+    spike_row = !live || ones[r] != 0;
+  }
+  for (int i = tid; i < W; i += GNT) uni[i] = 0u;
+  const bool all_ones = __syncthreads_and(spike_row);
+
+  // decode: the union of the live rows' bit words, and its non-zero words
+  const bool same_word = W > 0 && GNT % W == 0;  // a thread's word is fixed
+  uint32_t u = 0;
+  for (int i = tid; i < GRB * W; i += GNT) {
+    const int r = i / W, wi = i % W;
+    const uint32_t b = row_live[r] ? bits[(size_t)row_of[r] * W + wi] : 0u;
+    if (same_word) {
+      u |= b;
+    } else if (b) {
+      atomicOr(&uni[wi], b);
+    }
+  }
+  if (same_word && u) atomicOr(&uni[tid % W], u);
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int base = 0; base < W; base += 32) {
+      const bool l = base + lane < W && uni[base + lane] != 0u;
+      const uint32_t m = __ballot_sync(FULL, l);
+      if (l) live_words[n + __popc(m & ((1u << lane) - 1u))] = base + lane;
+      n += __popc(m);
+    }
+    if (lane == 0) nsteps_sh = n;
+  }
+  __syncthreads();
+  const int nsteps = nsteps_sh;
+
+  // the chunk of live word `step` into ring stage `step % DEPTH`
+  auto issue = [&](int step) {
+    if (step < nsteps) {
+      const int wi = live_words[step], k0 = 32 * wi;
+      const uint32_t word = uni[wi];
+      uint8_t* st = dyn + step % DEPTH * R::STAGE;
+      T* sw = reinterpret_cast<T*>(st);
+      for (int i = tid; i < GKC * (GNB / V); i += GNT) {
+        const int kk = i / (GNB / V), c = i % (GNB / V) * V;
+        if (!(word >> kk & 1u)) continue;  // no row of the block reads it
+        const T* src = w + (size_t)(k0 + kk) * N + n0 + c;
+        if (vw) {
+          cp_async16(sw + kk * GNB + c, n0 + c < N ? src : w,
+                     n0 + c < N ? 16 : 0);
+        } else {
+          for (int q = 0; q < V; ++q)
+            sw[kk * GNB + c + q] = n0 + c + q < N ? src[q] : T(0.f);
+        }
+      }
+      if (!all_ones) {  // the rows' values in the chunk
+        T* sv = reinterpret_cast<T*>(st + R::WB);
+        for (int i = tid; i < GRB * (GKC / V); i += GNT) {
+          const int r = i / (GKC / V), c = i % (GKC / V) * V;
+          const bool in = row_live[r] && k0 + c < K;
+          const T* src = s + (size_t)(in ? row_of[r] : 0) * K + k0 + c;
+          if (vs) {
+            cp_async16(sv + r * GKC + c, in ? src : s, in ? 16 : 0);
+          } else {
+            for (int q = 0; q < V; ++q)
+              sv[r * GKC + c + q] = in && k0 + c + q < K ? src[q] : T(0.f);
+          }
+        }
+      }
+      if (tid < GRB) {  // the rows' bit words
+        const bool live = row_live[tid];
+        cp_async4(reinterpret_cast<uint32_t*>(st + R::WB + R::VB) + tid,
+                  live ? bits + (size_t)row_of[tid] * W + wi : bits,
+                  live ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[GR][GCPL] = {};
+#pragma unroll
+  for (int step = 0; step < DEPTH - 1; ++step) issue(step);
+  for (int step = 0; step < nsteps; ++step) {
+    cp_async_wait<DEPTH - 2>();  // this thread's part of chunk `step` is in
+    __syncthreads();  // everyone's is, and chunk step - 1 is walked
+    issue(step + DEPTH - 1);
+    const uint8_t* st = dyn + step % DEPTH * R::STAGE;
+    const T* sw = reinterpret_cast<const T*>(st) + GCPL * lane;
+    const T* sv = reinterpret_cast<const T*>(st + R::WB) + GR * GKC * warp;
+    const uint32_t* sb =
+        reinterpret_cast<const uint32_t*>(st + R::WB + R::VB) + GR * warp;
+    if (all_ones)
+      walk_chunk<true>(acc, sw, sv, sb, list, lane);
+    else
+      walk_chunk<false>(acc, sw, sv, sb, list, lane);
+  }
+
+  // the bias after the last entry, one rounding, the row's own index
+  const int col = n0 + GCPL * lane;
+  if (col >= N) return;
+  float b[GCPL];
+#pragma unroll
+  for (int c = 0; c < GCPL; ++c)
+    b[c] = bias != nullptr && col + c < N ? bias[col + c] : 0.f;
+#pragma unroll
+  for (int r = 0; r < GR; ++r) {
+    const int row = row_of[GR * warp + r];
+    if (row < 0) continue;
+    float v[GCPL];
+#pragma unroll
+    for (int c = 0; c < GCPL; ++c)
+      v[c] = bias != nullptr ? __fadd_rn(acc[r][c], b[c]) : acc[r][c];
+    T* o = out + (size_t)row * N + col;
+    if (vo && col + GCPL <= N) {
+      store8(o, v);
+    } else {
+#pragma unroll
+      for (int c = 0; c < GCPL; ++c)
+        if (col + c < N) store_one(o + c, v[c]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// quant_gather_spike_matmul (#5): the decoded int8 product on the tensor
+// cores
+// ---------------------------------------------------------------------------
+
+// #5: y = (lanes(s) @ qw) * scale (+ b) for spikes on int8 lanes or
+// binary-attention counts on int32 lanes (spike_decode.py:429) against
+// int8 weight codes. Its sums are int32, exact in any order, so any
+// contraction order, the tensor cores' included, agrees bitwise with the
+// plain version, with quant_spike_matmul and with the dense quantized
+// reference on any weights and scales; the epilogue (acc * scale, or
+// fma32(acc, scale, b) with a bias) and the one rounding to the output
+// dtype are quant_spike_matmul's.
+//
+// What bounds it: bytes. The lanes, codes, scale and output once each are
+// ~88 MB for the three products of a mixed 4-256 layer (M = 16384), 26 us
+// at 3.35 TB/s; their dense multiply-adds take ~10 us at the int8 tensor
+// core peak, and the live ones a fifth of that.
+//
+// Design. A block of 512 threads takes 128 consecutive sorted rows,
+// decodes the union of their live lanes once (the OR of their bit words
+// from the staging: the multi-lane decoder of the paper's Eq. 5 at the
+// block's grain) and walks its non-zero words in ascending k, one 32-lane
+// chunk an mma k-step: the rows' values there (cast to their lanes and
+// split into byte planes) and only the code rows of the union's live lanes
+// are staged in shared memory, and mma.sync m16n8k32 (s8 x s8 for spike
+// lanes, u8 x s8 for count lanes below 256; larger or negative counts in
+// byte planes, a signed top plane and unsigned lower ones, as many as the
+// block's largest magnitude needs) sums them in int32 registers, 256
+// output columns a pass. The sort groups sparse rows with sparse rows, so
+// a block's union is narrow where its rows are; where it is near dense the
+// block runs the dense chunk on the tensor cores. The block loops over the
+// output columns itself (split over blocks only as far as one block a
+// multiprocessor needs), so w1's 1024 columns do not re-decode the rows
+// per column tile.
+//
+// Where it stands (chip_smoke.py, H100 SXM at 700 W, the three products of
+// a mixed 4-256 layer): ~40 us (bf16 s) to ~64 us (fp32 s) of staging and
+// ~111-132 us of product kernels on the device, 4-6x the bytes bound. The
+// k-steps are bound by the instructions a step issues (the casts, the byte
+// transposes, two barriers) and by memory latency; their dense mma alone
+// would take ~10 us at the int8 peak.
 
 constexpr int QNT = 512;          // threads a product block: 16 warps
 constexpr int QBM = 128;          // sorted rows a block: warps 2 x 8
@@ -585,22 +702,6 @@ __device__ __forceinline__ void warp_step(int (&acc)[4][4][4],
       }
     }
   }
-}
-
-// 16 bytes from global to shared memory, asynchronously; the bytes past
-// src_bytes (0 or 16) are zero
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 constexpr int RING = 3;         // chunks in flight a block
@@ -909,17 +1010,17 @@ quant_gather_mma(const S* __restrict__ s, const int8_t* __restrict__ w,
 }
 
 // the staging's workspace (spike_decode._workspace): order (mp int64) |
-// sorted_occ (mp int32) | occ (mp) | bits (m x ceil(k / 32)) | rng (m) |
+// sorted_occ (mp int32) | occ (mp) | bits (m x ceil(k / 32)) | facts (m) |
 // hist (ceil(mp / CHUNK) x (k + 1)), int32 after the order
-struct QLayout {
-  size_t sorted_occ, occ, bits, rng, hist, total;
-  QLayout(int m, int k, int mp) {
+struct Layout {
+  size_t sorted_occ, occ, bits, facts, hist, total;
+  Layout(int m, int k, int mp) {
     const size_t w = (k + 31) / 32, nch = (mp + CHUNK - 1) / CHUNK;
     sorted_occ = (size_t)mp * 8;
     occ = sorted_occ + (size_t)mp * 4;
     bits = occ + (size_t)mp * 4;
-    rng = bits + (size_t)m * w * 4;
-    hist = rng + (size_t)m * 4;
+    facts = bits + (size_t)m * w * 4;
+    hist = facts + (size_t)m * 4;
     total = hist + nch * (k + 1) * 4;
   }
 };
@@ -932,9 +1033,9 @@ struct QArgs {
   int m, k, n, mp;
 };
 
-template <typename S, bool COUNTS>
-int stage_quant(const QArgs& a, cudaStream_t st) {
-  const QLayout l(a.m, a.k, a.mp);
+template <typename S, Live LIVE>
+int stage(const QArgs& a, cudaStream_t st) {
+  const Layout l(a.m, a.k, a.mp);
   int* hist = reinterpret_cast<int*>(a.ws + l.hist);
   const int nch = (a.mp + CHUNK - 1) / CHUNK, w = (a.k + 31) / 32;
   cudaError_t e = cudaMemsetAsync(hist, 0, l.total - l.hist, st);
@@ -943,26 +1044,64 @@ int stage_quant(const QArgs& a, cudaStream_t st) {
   const dim3 grid((a.mp + SROWS - 1) / SROWS);
   int* occ = reinterpret_cast<int*>(a.ws + l.occ);
   uint32_t* bits = reinterpret_cast<uint32_t*>(a.ws + l.bits);
-  int* rng = reinterpret_cast<int*>(a.ws + l.rng);
+  int* facts = reinterpret_cast<int*>(a.ws + l.facts);
   if (a.k % V == 0 && (uintptr_t)a.s % 16 == 0)
-    quant_stage_rows<S, COUNTS, true><<<grid, NT, 0, st>>>(
-        (const S*)a.s, a.m, a.k, a.mp, w, occ, bits, rng, hist);
+    stage_row_pass<S, LIVE, true><<<grid, SNT, 0, st>>>(
+        (const S*)a.s, a.m, a.k, a.mp, w, occ, bits, facts, hist);
   else
-    quant_stage_rows<S, COUNTS, false><<<grid, NT, 0, st>>>(
-        (const S*)a.s, a.m, a.k, a.mp, w, occ, bits, rng, hist);
+    stage_row_pass<S, LIVE, false><<<grid, SNT, 0, st>>>(
+        (const S*)a.s, a.m, a.k, a.mp, w, occ, bits, facts, hist);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const size_t smem = (size_t)(a.k + 1) * sizeof(int);
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(quant_stage_sort,
+    e = cudaFuncSetAttribute(stage_counting_sort,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  quant_stage_sort<<<nch, CHUNK, smem, st>>>(
+  stage_counting_sort<<<nch, CHUNK, smem, st>>>(
       occ, hist, a.k, a.mp, reinterpret_cast<long long*>(a.ws),
       reinterpret_cast<int*>(a.ws + l.sorted_occ));
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_gather(const QArgs& a, cudaStream_t st) {
+  using R = Ring<T>;
+  const Layout l(a.m, a.k, a.mp);
+  const int W = (a.k + 31) / 32;
+  const dim3 grid((a.mp + GRB - 1) / GRB, (a.n + GNB - 1) / GNB);
+  const int smem = R::DEPTH * R::STAGE + R::LIST + 8 * W;
+  static int smem_set = 48 * 1024;
+  if (smem > smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gather_walk<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = smem;
+  }
+  const bool vw = a.n % R::V == 0 && (uintptr_t)a.w % 16 == 0;
+  const bool vs = a.k % R::V == 0 && (uintptr_t)a.s % 16 == 0;
+  const bool vo = a.n % R::V == 0 && (uintptr_t)a.out % 16 == 0;
+  gather_walk<T><<<grid, GNT, smem, st>>>(
+      (const T*)a.s, (const T*)a.w, a.bias,
+      reinterpret_cast<const long long*>(a.ws),
+      reinterpret_cast<const int*>(a.ws + l.sorted_occ),
+      reinterpret_cast<const uint32_t*>(a.ws + l.bits),
+      reinterpret_cast<const int*>(a.ws + l.facts), (T*)a.out, a.m, a.k,
+      a.n, a.mp, W, vw, vs, vo);
+  return (int)cudaGetLastError();
+}
+
+// what: 0 the staging alone, 1 the product alone on a staged workspace,
+// 2 both
+template <typename T>
+int run_gather(int what, const QArgs& a, cudaStream_t st) {
+  if (what != 1) {
+    const int rc = stage<T, Live::VALUE>(a, st);
+    if (rc != 0 || what == 0) return rc;
+  }
+  return launch_gather<T>(a, st);
 }
 
 int multiprocessors() {
@@ -977,7 +1116,7 @@ int multiprocessors() {
 
 template <typename S, bool COUNTS, typename TO>
 int launch_quant(const QArgs& a, cudaStream_t st) {
-  const QLayout l(a.m, a.k, a.mp);
+  const Layout l(a.m, a.k, a.mp);
   const int gx = (a.mp + QBM - 1) / QBM, ntile = (a.n + QBN - 1) / QBN;
   // column tiles split over blocks only as far as a block a
   // multiprocessor needs: each block decodes its rows once
@@ -991,7 +1130,7 @@ int launch_quant(const QArgs& a, cudaStream_t st) {
   const long long* order = reinterpret_cast<const long long*>(a.ws);
   const int* sorted_occ = reinterpret_cast<const int*>(a.ws + l.sorted_occ);
   const uint32_t* bits = reinterpret_cast<const uint32_t*>(a.ws + l.bits);
-  const int* rng = reinterpret_cast<const int*>(a.ws + l.rng);
+  const int* rng = reinterpret_cast<const int*>(a.ws + l.facts);
   const dim3 grid(gx, gy);
   constexpr int smem = product_smem<S, COUNTS, TO>();
   const auto kernel = vs ? quant_gather_mma<S, COUNTS, TO, true>
@@ -1015,7 +1154,8 @@ int launch_quant(const QArgs& a, cudaStream_t st) {
 template <typename S, bool COUNTS>
 int run_quant(int what, int out_dtype, const QArgs& a, cudaStream_t st) {
   if (what != 1) {
-    const int rc = stage_quant<S, COUNTS>(a, st);
+    const int rc =
+        stage<S, COUNTS ? Live::COUNT_LANE : Live::SPIKE_LANE>(a, st);
     if (rc != 0 || what == 0) return rc;
   }
   if (out_dtype == 0) return launch_quant<S, COUNTS, float>(a, st);
@@ -1025,24 +1165,22 @@ int run_quant(int what, int out_dtype, const QArgs& a, cudaStream_t st) {
 
 }  // namespace
 
+// what: 0 stage s into ws, 1 run the product on a staged ws, 2 both.
 // dtype: 0 float32, 1 bfloat16 (s, w and out); bias: fp32 (n,) or null;
-// order: (mp,) int64 rows sorted by occupancy, stably (indices >= m are
-// padding rows); sorted_occ: (mp,) int32 their occupancies; padded_cap:
-// the compacted width rounded up to the chunk; out: (m, n). Returns a
+// ws: the workspace Layout lays out, which the staging fills, beginning
+// with the order (mp,) int64 and the sorted occupancies (mp,) int32 of the
+// stable sort of the rows (and the padding rows m..mp-1, all dark) by
+// occupancy, a value live where it is not zero; out: (m, n). Returns a
 // cudaError_t code (0 on success).
-extern "C" int gather_spike_matmul_forward(int dtype, const void* s,
+extern "C" int gather_spike_matmul_forward(int what, int dtype, const void* s,
                                            const void* w, const void* bias,
-                                           const void* order,
-                                           const void* sorted_occ, void* out,
-                                           int m, int k, int n, int mp,
-                                           int block_m, int padded_cap,
-                                           void* stream) {
-  const Args a{s, w, (const float*)bias, (const long long*)order,
-               (const int*)sorted_occ, out, m, k, n, mp, block_m,
-               padded_cap};
+                                           void* ws, void* out, int m, int k,
+                                           int n, int mp, void* stream) {
+  const QArgs a{s, w, nullptr, (const float*)bias, (uint8_t*)ws, out,
+                m, k, n, mp};
   const cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(a, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(a, st);
+  if (dtype == 0) return run_gather<float>(what, a, st);
+  if (dtype == 1) return run_gather<__nv_bfloat16>(what, a, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1055,7 +1193,7 @@ extern "C" const char* gather_spike_matmul_error(int code) {
 // their lanes in the kernels), 2 int8 spike lanes, 3 int32 count lanes;
 // counts: 1 = s holds counts (int32 lanes), 0 = spikes (int8 lanes);
 // out_dtype: 0 float32, 1 bfloat16; w: (k, n) int8 codes; scale: fp32
-// (n,); bias: fp32 (n,) or null; ws: the workspace QLayout lays out, which
+// (n,); bias: fp32 (n,) or null; ws: the workspace Layout lays out, which
 // the staging fills, beginning with the order (mp,) int64
 // and the sorted occupancies (mp,) int32 of the stable sort of the rows
 // (and the padding rows m..mp-1, all dark) by occupancy; out: (m, n).

@@ -24,7 +24,13 @@ them:
   slot, rounded once to ``s.dtype``;
 * :func:`gather_spike_matmul` — the wrapper: CPU tensors take the plain
   version, CUDA tensors launch ``csrc/gather_spike_matmul.cu`` through
-  :func:`gather_spike_matmul_cuda` or raise.
+  :func:`gather_spike_matmul_cuda` or raise. The CUDA path stages on the
+  device (:func:`gather_stage`: each row's occupancy, live bits and
+  whether every live value is 1, and a stable counting sort by occupancy
+  whose order equals :func:`stage_rows`', the staging's plain version)
+  and walks each row's staged live bits in ascending k on the CUDA cores
+  (:func:`launch_gather`), one rounded add an entry, as the plain
+  version sums.
 
 and the quantized twins (``quant_gather_spike_matmul``: int8 spike or
 int32 count lanes against int8 codes, int32 sums, the per-channel scale
@@ -33,13 +39,14 @@ in the epilogue) :func:`quant_gather_spike_matmul_plain`,
 :func:`quant_gather_spike_matmul_cuda`; their sums are exact, so they
 equal ``spike_matmul.quant_spike_matmul`` bitwise on any weights and
 scales. The CUDA path stages on the device (:func:`quant_stage`: the
-lane cast, each row's occupancy and live bits, and a stable counting
-sort by occupancy whose order equals :func:`stage_rows`', the staging's
-plain version) and runs the product on the int8 tensor cores over each
-block's union of live lanes (:func:`launch_quant_gather`). Its
-arithmetic has plain twins here: :func:`lane_values` (the cast), and
+lane cast, each row's occupancy and live bits, and the same counting
+sort) and runs the product on the int8 tensor cores over each block's
+union of live lanes (:func:`launch_quant_gather`). Its arithmetic has
+plain twins here: :func:`lane_values` (the cast), and
 :func:`lane_planes`, :func:`split_planes` and :func:`join_planes`
-(counts in byte planes).
+(counts in byte planes). The two stagings differ in what is live: #4's
+tests the value (``s != 0``), #5's the value's integer lane, so a value
+in (-1, 1) is live for #4 and dark for #5.
 
 The values of ``s`` are carried, not a live mask, so the integer counts
 of a binary-attention context (the wo projection's input) are exact too.
@@ -60,11 +67,11 @@ import torch.nn.functional as F
 # least this factor below the tile path's before 'auto' picks it.
 DECODED_OVERHEAD = 2.0
 
-# kernel launches on the card: one per call of gather_spike_matmul_cuda or
-# of the quantized product's kernel, and one per staging of the quantized
-# product (its two kernels, :func:`quant_stage`)
-LAUNCHES = {"gather_spike_matmul": 0, "quant_gather_spike_matmul": 0,
-            "quant_gather_stage": 0}
+# kernel launches on the card: one per launch of a product's kernel, and
+# one per staging of a product (its two kernels, :func:`gather_stage` or
+# :func:`quant_stage`)
+LAUNCHES = {"gather_spike_matmul": 0, "gather_stage": 0,
+            "quant_gather_spike_matmul": 0, "quant_gather_stage": 0}
 
 
 def reset_launches() -> None:
@@ -274,7 +281,7 @@ def _library():
     lib = _build.load("gather_spike_matmul")
     if lib.gather_spike_matmul_forward.argtypes is None:
         lib.gather_spike_matmul_forward.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
             + [ctypes.c_void_p])
         lib.gather_spike_matmul_forward.restype = ctypes.c_int
         lib.quant_gather_spike_matmul_forward.argtypes = (
@@ -287,26 +294,19 @@ def _library():
 
 
 def stage_rows(s: torch.Tensor, block_m: int):
-    """The schedule the kernel takes, staged on the device in a few
-    PyTorch ops and read back never: (order (Mp,) int64, sorted
-    occupancies (Mp,) int32) — each row's occupancy, padded with empty
-    rows to a multiple of ``block_m`` and sorted stably. The kernel takes
-    each group's capacity, min(pow2ceil(largest occupancy), padded
-    width), from the last sorted occupancy of the group, as
-    :func:`build_schedule` does."""
+    """The plain version of the CUDA stagings' schedule (:func:`gather_stage`,
+    :func:`quant_stage`), which the card's order and occupancies are held
+    to bitwise: (order (Mp,) int64, sorted occupancies (Mp,) int32) — each
+    row's occupancy (its non-zeros), padded with empty rows to a multiple
+    of ``block_m`` and sorted stably. A group's capacity, min(pow2ceil(its
+    largest occupancy), padded width), is its last sorted occupancy's, as
+    :func:`build_schedule` has it."""
     occ = pad_to_multiple(torch.count_nonzero(s, dim=1).int(), 0, block_m)
     sorted_occ, order = torch.sort(occ, stable=True)
     return order, sorted_occ
 
 
-def gather_spike_matmul_cuda(s: torch.Tensor, w: torch.Tensor,
-                             bias: Optional[torch.Tensor] = None, *,
-                             block_m: int = 128, c_block: int = 128
-                             ) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream: the schedule
-    from :func:`stage_rows`, then :func:`launch_gather`. s and w share one
-    dtype (float32 or bfloat16), which the output takes, and are
-    contiguous."""
+def _check_gather_operands(s, w, bias):
     if s.dtype not in _DTYPES or w.dtype != s.dtype:
         raise ValueError(f"gather_spike_matmul kernel takes s and w of one "
                          f"dtype, float32 or bfloat16, got {s.dtype} and "
@@ -319,33 +319,69 @@ def gather_spike_matmul_cuda(s: torch.Tensor, w: torch.Tensor,
         if not a.is_contiguous():
             raise ValueError("gather_spike_matmul kernel takes contiguous "
                              "operands")
-    m, k = s.shape
-    if m == 0 or w.shape[1] == 0:
-        return torch.empty((m, w.shape[1]), dtype=s.dtype, device=s.device)
-    block_m = min(block_m, m)
-    return launch_gather(s, w, bias, *stage_rows(s, block_m),
-                         block_m=block_m, c_block=min(c_block, k))
 
 
-def launch_gather(s, w, bias, order, sorted_occ, *, block_m: int,
-                  c_block: int) -> torch.Tensor:
-    """The kernel alone, on operands :func:`gather_spike_matmul_cuda` has
-    checked and the schedule :func:`stage_rows` staged."""
+def _gather_forward(what: int, s, w=None, b32=None, ws=None, out=None,
+                    mp: int = 0):
     m, k = s.shape
-    n = w.shape[1]
-    out = torch.empty((m, n), dtype=s.dtype, device=s.device)
-    padded_cap = max(c_block, -(-k // c_block) * c_block)
-    b32 = None if bias is None else bias.float().contiguous()
     lib = _library()
-    stream = torch.cuda.current_stream(s.device).cuda_stream
+    ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
     rc = lib.gather_spike_matmul_forward(
-        _DTYPES[s.dtype], s.data_ptr(), w.data_ptr(),
-        None if b32 is None else b32.data_ptr(), order.data_ptr(),
-        sorted_occ.data_ptr(), out.data_ptr(), m, k, n, order.numel(),
-        block_m, padded_cap, stream)
+        what, _DTYPES[s.dtype], s.data_ptr(), ptr(w), ptr(b32), ws.data_ptr(),
+        ptr(out), m, k, 0 if w is None else w.shape[1], mp,
+        torch.cuda.current_stream(s.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gather_spike_matmul kernel launch failed: "
                            f"{lib.gather_spike_matmul_error(rc).decode()}")
+
+
+def gather_spike_matmul_cuda(s: torch.Tensor, w: torch.Tensor,
+                             bias: Optional[torch.Tensor] = None, *,
+                             block_m: int = 128, c_block: int = 128
+                             ) -> torch.Tensor:
+    """Launch the CUDA staging and product on PyTorch's current stream, in
+    one call, reading nothing back. s and w share one dtype (float32 or
+    bfloat16), which the output takes, and are contiguous. ``block_m``
+    pads the staged rows to whole groups; ``c_block`` is the plain
+    version's chunk, on which the kernel's sums do not depend."""
+    _check_gather_operands(s, w, bias)
+    m, n = s.shape[0], w.shape[1]
+    out = torch.empty((m, n), dtype=s.dtype, device=s.device)
+    if out.numel() == 0:
+        return out
+    ws, mp = _workspace(s, min(block_m, m))
+    b32 = None if bias is None else bias.float().contiguous()
+    _gather_forward(2, s, w, b32, ws, out, mp)
+    LAUNCHES["gather_stage"] += 1
+    LAUNCHES["gather_spike_matmul"] += 1
+    return out
+
+
+def gather_stage(s: torch.Tensor, block_m: int):
+    """The CUDA staging of the gather product alone, on PyTorch's current
+    stream and read back never. Returns (order (Mp,) int64, sorted
+    occupancies (Mp,) int32, ones (M,) int32 — 1 where every non-zero of
+    the row is 1 — and the workspace holding them and each row's live
+    bits), the order and occupancies equal to :func:`stage_rows` on ``s``
+    bitwise."""
+    _check_gather_operands(s, s, None)
+    m, k = s.shape
+    ws, mp = _workspace(s, min(block_m, m))
+    _gather_forward(0, s, ws=ws, mp=mp)
+    LAUNCHES["gather_stage"] += 1
+    at = 16 * mp + 4 * m * -(-k // 32)
+    return (ws[:8 * mp].view(torch.int64),
+            ws[8 * mp:12 * mp].view(torch.int32),
+            ws[at:at + 4 * m].view(torch.int32), ws)
+
+
+def launch_gather(s, w, bias, staged, *, out: torch.Tensor) -> torch.Tensor:
+    """The product kernel alone, into ``out``, on operands
+    :func:`gather_spike_matmul_cuda` takes and the workspace
+    :func:`gather_stage` staged."""
+    order, _, _, ws = staged
+    b32 = None if bias is None else bias.float().contiguous()
+    _gather_forward(1, s, w, b32, ws, out, order.numel())
     LAUNCHES["gather_spike_matmul"] += 1
     return out
 
@@ -476,9 +512,10 @@ def _staged_operand(s: torch.Tensor, counts: bool):
 def _workspace(s: torch.Tensor, block_m: int):
     """(the staging's workspace, Mp) for ``s`` padded to ``block_m`` rows:
     the order (Mp int64), then int32 the sorted occupancies and the
-    occupancies (Mp each), the live bits (M x ceil(K / 32)), the value
-    range codes (M) and the sort's histograms (ceil(Mp / STAGE_CHUNK) x
-    (K + 1)), as ``csrc`` lays it out (``QLayout``)."""
+    occupancies (Mp each), the live bits (M x ceil(K / 32)), a fact word a
+    row (#4: every live value is 1; #5's counts: the value range) and the
+    sort's histograms (ceil(Mp / STAGE_CHUNK) x (K + 1)), as ``csrc``
+    lays it out (``Layout``)."""
     m, k = s.shape
     mp = -(-m // block_m) * block_m
     nbytes = (16 * mp + 4 * m * (-(-k // 32) + 1)
@@ -505,7 +542,8 @@ def quant_stage(s: torch.Tensor, block_m: int, counts: bool):
     current stream and read back never. Returns (order (Mp,) int64,
     sorted occupancies (Mp,) int32, the workspace holding them and each
     row's live bits and value range), the order and occupancies equal to
-    :func:`stage_rows` on the lanes bitwise."""
+    :func:`stage_rows` on the lanes bitwise, not on ``s`` (a value in
+    (-1, 1) casts to a dark lane)."""
     s, code = _staged_operand(s, counts)
     ws, mp = _workspace(s, block_m)
     _forward(_library(), 0, s, code, counts, ws=ws, mp=mp)
