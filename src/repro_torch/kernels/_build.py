@@ -3,9 +3,9 @@
 Each source becomes a shared library with a plain C interface, compiled
 by ``nvcc`` for ``sm_90a`` into ``build/repro_torch/`` at the root of the
 checkout and loaded with ``ctypes``. The library name carries a hash of
-the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. :func:`build` starts one ``nvcc`` per missing
-source, all at once.
+the source, the headers beside it (``csrc/*.cuh``) and the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
+:func:`build` starts one ``nvcc`` per missing source, all at once.
 """
 from __future__ import annotations
 
@@ -40,10 +40,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where ``csrc/<name>.cu``'s library lives: its name carries a hash of
+    the source, of every header in ``csrc/`` (a source may include any
+    of them) and of the flags."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> None:

@@ -87,15 +87,11 @@
 
 #include <type_traits>
 
+#include "int8_lanes.cuh"
+
 namespace {
 
 constexpr uint32_t FULL = 0xFFFFFFFFu;
-
-// fp32 a * b + c rounded once: models/nn.fma32
-__device__ __forceinline__ float fma32(float a, float b, float c) {
-  return __double2float_rn(
-      __dadd_rn(__dmul_rn((double)a, (double)b), (double)c));
-}
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -105,21 +101,6 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
 __device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
-}
-
-// a value of s on its integer lane, as spike_matmul.quant_lanes casts it:
-// truncated toward zero to int32; a spike lane keeps the low byte (int8)
-__device__ __forceinline__ int to_int(float v) { return __float2int_rz(v); }
-__device__ __forceinline__ int to_int(__nv_bfloat16 v) {
-  return __float2int_rz(__bfloat162float(v));
-}
-__device__ __forceinline__ int to_int(int8_t v) { return v; }
-__device__ __forceinline__ int to_int(int32_t v) { return v; }
-
-template <bool COUNTS, typename S>
-__device__ __forceinline__ int lane_of(S v) {
-  const int x = to_int(v);
-  return COUNTS ? x : (int)(int8_t)(x & 0xFF);
 }
 
 // 16 (or 4) bytes from global to shared memory, asynchronously; the bytes
@@ -629,34 +610,13 @@ constexpr int ASTR = KSTEP + 16;  // bytes a staged lane row (the rows of a
                                   // fragment load in distinct banks)
 constexpr int BSTR = QBN + 8;     // words a staged code row, [k / 4][n]
 
-template <bool U>
-__device__ __forceinline__ void mma8(int (&d)[4], const uint32_t (&a)[4],
-                                     uint32_t b0, uint32_t b1) {
-  if constexpr (U)
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  else
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t ld32(const uint8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t shl8(int x) { return (uint32_t)x << 8; }
-
-// One k-step of a warp's 64 x 32 tile (4 x 4 m16n8k32 products): the
-// lanes in P byte planes, the lower ones unsigned and the top one signed
-// (or, with U1, one unsigned plane), combined by Horner's rule,
-// acc += sum_p 256^p (plane_p x codes), in int32 (exact modulo 2^32, as
-// the plain version's int32 sums). live_mt: the m-tiles holding a live row.
+// One k-step of a warp's 64 x 32 tile (4 x 4 m16n8k32 products, each a
+// plane_mma of the lanes' P byte planes). live_mt: the m-tiles holding a
+// live row.
 template <int P, bool U1>
 __device__ __forceinline__ void warp_step(int (&acc)[4][4][4],
                                           const uint8_t* sA,
@@ -683,24 +643,8 @@ __device__ __forceinline__ void warp_step(int (&acc)[4][4][4],
       a[pl][3] = ld32(A + (r + 8) * ASTR + 16 + 4 * t);
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if constexpr (P == 1) {
-        mma8<U1>(acc[i][j], a[0], b[j][0], b[j][1]);
-      } else {
-        int h[4] = {0, 0, 0, 0};
-        mma8<false>(h, a[P - 1], b[j][0], b[j][1]);
-#pragma unroll
-        for (int pl = P - 2; pl >= 1; --pl) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) h[e] = (int)shl8(h[e]);
-          mma8<true>(h, a[pl], b[j][0], b[j][1]);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[i][j][e] = (int)((uint32_t)acc[i][j][e] + shl8(h[e]));
-        mma8<true>(acc[i][j], a[0], b[j][0], b[j][1]);
-      }
-    }
+    for (int j = 0; j < 4; ++j)
+      plane_mma<P, U1>(acc[i][j], a, b[j][0], b[j][1]);
   }
 }
 
@@ -806,11 +750,7 @@ quant_gather_mma(const S* __restrict__ s, const int8_t* __restrict__ w,
   // the byte planes the block's largest lane magnitude needs
   int P = 1;
   bool U1 = false;
-  if constexpr (COUNTS) {
-    const int mag = mag_sh;
-    if (!neg_sh && mag <= 0xFF) U1 = true;
-    else P = mag <= 0x7F ? 1 : mag <= 0x7FFF ? 2 : mag <= 0x7FFFFF ? 3 : 4;
-  }
+  if constexpr (COUNTS) planes_of(mag_sh, neg_sh != 0, P, U1);
   unsigned live_mt = 0;
 #pragma unroll
   for (int i = 0; i < 4; ++i) live_mt |= (mt_live[4 * wm + i] ? 1u : 0u) << i;
@@ -921,14 +861,8 @@ quant_gather_mma(const S* __restrict__ s, const int8_t* __restrict__ w,
 #pragma unroll
           for (int u = 0; u < 16 / V; ++u)
             raw[u] = reinterpret_cast<const uint4*>(mine + step % RING * RSTAGE)[u];
-          uint32_t pw[PMAX][4] = {};
-#pragma unroll
-          for (int q = 0; q < 16; ++q) {
-            const int x = lane_of<COUNTS>(reinterpret_cast<const S*>(raw)[q]);
-#pragma unroll
-            for (int pl = 0; pl < PMAX; ++pl)
-              pw[pl][q / 4] |= (uint32_t)(uint8_t)(x >> (8 * pl)) << (8 * (q % 4));
-          }
+          uint32_t pw[PMAX][4];
+          lanes16<COUNTS>(reinterpret_cast<const S*>(raw), pw);
 #pragma unroll
           for (int pl = 0; pl < PMAX; ++pl)
             if (pl < P)
@@ -943,15 +877,7 @@ quant_gather_mma(const S* __restrict__ s, const int8_t* __restrict__ w,
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             bw[e] = *reinterpret_cast<const uint32_t*>(braw + (4 * q + e) * BROW);
-          const uint32_t x0 = __byte_perm(bw[0], bw[1], 0x5140);
-          const uint32_t x1 = __byte_perm(bw[2], bw[3], 0x5140);
-          const uint32_t x2 = __byte_perm(bw[0], bw[1], 0x7362);
-          const uint32_t x3 = __byte_perm(bw[2], bw[3], 0x7362);
-          *reinterpret_cast<uint4*>(sB + q * BSTR + c4) =
-              make_uint4(__byte_perm(x0, x1, 0x5410),
-                         __byte_perm(x0, x1, 0x7632),
-                         __byte_perm(x2, x3, 0x5410),
-                         __byte_perm(x2, x3, 0x7632));
+          *reinterpret_cast<uint4*>(sB + q * BSTR + c4) = k_major4(bw);
         }
         __syncthreads();
         if constexpr (COUNTS) {
@@ -984,12 +910,10 @@ quant_gather_mma(const S* __restrict__ s, const int8_t* __restrict__ w,
 #pragma unroll
             for (int i = 0; i < 4; ++i)
 #pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                const float a = __int2float_rn(acc[i][j][2 * h + e]);
+              for (int h = 0; h < 2; ++h)
                 store_one(so + (16 * i + g + 8 * h) * OSTR + c,
-                          bias != nullptr ? fma32(a, sc, bi)
-                                          : __fmul_rn(a, sc));
-              }
+                          dequant(acc[i][j][2 * h + e], sc, bi,
+                                  bias != nullptr));
           }
       }
       __syncthreads();

@@ -62,6 +62,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.spike_matmul import lane_operand, quant_operands
+
 # Crossover factor of sparse='auto': a decoded multiply-add costs more
 # than a tile one, so the decoded path must cut the modeled work by at
 # least this factor below the tile path's before 'auto' picks it.
@@ -495,20 +497,6 @@ def join_planes(products):
     return acc.to(torch.int32)
 
 
-_S_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _staged_operand(s: torch.Tensor, counts: bool):
-    """(s as the kernels read it, its type code): fp32 and bf16 values
-    stay as they are (the staging casts each to its lane on the device);
-    any other dtype goes to its lanes first (``quant_lanes``)."""
-    from repro_torch.kernels.spike_matmul import quant_lanes
-    if s.dtype not in _S_CODES:
-        s = quant_lanes(s, counts)
-    code = _S_CODES.get(s.dtype, 3 if counts else 2)
-    return s.contiguous(), code
-
-
 def _workspace(s: torch.Tensor, block_m: int):
     """(the staging's workspace, Mp) for ``s`` padded to ``block_m`` rows:
     the order (Mp int64), then int32 the sorted occupancies and the
@@ -544,7 +532,7 @@ def quant_stage(s: torch.Tensor, block_m: int, counts: bool):
     row's live bits and value range), the order and occupancies equal to
     :func:`stage_rows` on the lanes bitwise, not on ``s`` (a value in
     (-1, 1) casts to a dark lane)."""
-    s, code = _staged_operand(s, counts)
+    s, code = lane_operand(s, counts)
     ws, mp = _workspace(s, block_m)
     _forward(_library(), 0, s, code, counts, ws=ws, mp=mp)
     LAUNCHES["quant_gather_stage"] += 1
@@ -564,17 +552,8 @@ def quant_gather_spike_matmul_cuda(s: torch.Tensor, qw: torch.Tensor,
     its lanes, int8, or int32 with ``counts``), int8 codes, fp32 scale and
     bias; the output in ``out_dtype`` (float32 or bfloat16). ``c_block``
     is the plain version's chunk; the kernel's sums do not depend on it."""
-    if out_dtype not in _DTYPES:
-        raise ValueError(f"quant_gather_spike_matmul kernel writes float32 "
-                         f"or bfloat16, not {out_dtype}")
-    s, code = _staged_operand(s, counts)
-    qw = qw.contiguous()
-    sc = scale.float().contiguous()
-    b32 = None if bias is None else bias.float().contiguous()
-    for a in (qw, sc, b32):
-        if a is not None and a.device != s.device:
-            raise ValueError("all quant_gather_spike_matmul operands must "
-                             "be on one device")
+    s, code, qw, sc, b32, _ = quant_operands(
+        "quant_gather_spike_matmul", s, qw, scale, bias, counts, out_dtype)
     m, k = s.shape
     n = qw.shape[1]
     out = torch.empty((m, n), dtype=out_dtype, device=s.device)
@@ -592,7 +571,7 @@ def launch_quant_gather(s, qw, sc, b32, staged, *, counts: bool,
     """The product kernel alone, into ``out``, on operands
     :func:`quant_gather_spike_matmul_cuda` lays out and the workspace
     :func:`quant_stage` staged."""
-    s, code = _staged_operand(s, counts)
+    s, code = lane_operand(s, counts)
     order, _, ws = staged
     _forward(_library(), 1, s, code, counts, qw, sc, b32, ws, out,
              qw.shape[1], order.numel())

@@ -16,14 +16,17 @@ functions of the fp product:
 * :func:`block_occupancy` — the TPU kernel's ``(nM, nK)`` map of live
   spike tiles (any non-zero entry per tile).
 
-The CUDA kernel skips at its own tile, :data:`SKIP_TILE` rows by
-columns of ``s``, finer than the TPU kernel's default 128 x 128; it
-skips every chunk the TPU kernel would, and more, with the same result.
-Both return the fp32 accumulator rounded once to the operands' dtype —
-the JAX kernel's default ``out_dtype`` (``w.dtype``). The engine's
-operands carry the activation dtype, so the cast that JAX's engine
-applies to the kernel's fp32 output is fused into the kernel's store
-(``core/engine.spike_linear``).
+Both products run on one CUDA tile skeleton: a block owns 128 rows by
+256 columns of the output and walks K in 32-deep chunks, which arrive
+through a ring in shared memory; a chunk of ``s`` whose every entry is
+dark costs no weight copy and no product. :data:`SKIP_TILE` is that
+chunk of ``s``, (rows, columns): finer than the TPU kernel's default
+128 x 128, it skips every tile the TPU kernel would, and more, with the
+same result. Both return the fp32 accumulator rounded once to the
+operands' dtype — the JAX kernel's default ``out_dtype``
+(``w.dtype``). The engine's operands carry the activation dtype, so the
+cast that JAX's engine applies to the kernel's fp32 output is fused
+into the kernel's store (``core/engine.spike_linear``).
 
 The quantized product ``y = (s @ qw) * scale (+ b)`` takes spikes on
 int8 lanes (or, with ``counts=True``, binary-attention counts on int32
@@ -31,11 +34,15 @@ lanes) against int8 weight codes, sums in int32 (exact in any order)
 and applies the per-channel fp32 scale in the epilogue:
 :func:`quant_spike_matmul_plain`, :func:`quant_spike_matmul` (the
 wrapper) and :func:`quant_spike_matmul_cuda` (``csrc/spike_matmul.cu``).
-Both versions round the epilogue as the interpret-mode Pallas kernel
-does: ``acc * scale`` once, and with a bias ``fma32(acc, scale, b)``,
-since jitted XLA contracts ``acc * scale + b`` into one fused
-multiply-add. The result is the fp32 epilogue rounded once to
-``out_dtype`` (JAX's kernel output followed by the engine's cast).
+The CUDA wrapper hands the kernel ``s`` as it comes in fp32 or bf16
+(:func:`lane_operand`), and the kernel casts each value to its lane as
+it stages it (:func:`quant_lanes`' cast: truncation toward zero; a spike
+lane keeps the low byte). Both versions round the epilogue as the
+interpret-mode Pallas kernel does: ``acc * scale`` once, and with a bias
+``fma32(acc, scale, b)``, since jitted XLA contracts ``acc * scale + b``
+into one fused multiply-add. The result is the fp32 epilogue rounded
+once to ``out_dtype`` (JAX's kernel output followed by the engine's
+cast).
 """
 from __future__ import annotations
 
@@ -47,8 +54,8 @@ import torch
 # kernel launches on the card (one per call of spike_matmul_cuda or
 # quant_spike_matmul_cuda)
 LAUNCHES = {"spike_matmul": 0, "quant_spike_matmul": 0}
-# the CUDA kernel's skip tile of s: (rows, columns) per output tile and
-# contraction chunk (csrc/spike_matmul.cu BM, BK)
+# the CUDA kernels' skip tile of s: the rows of an output tile and the
+# depth of a contraction chunk (csrc/spike_matmul.cu BM, BK)
 SKIP_TILE = (128, 32)
 
 
@@ -107,7 +114,7 @@ def _library():
             + [ctypes.c_void_p])
         lib.spike_matmul_forward.restype = ctypes.c_int
         lib.quant_spike_matmul_forward.argtypes = (
-            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
             + [ctypes.c_void_p])
         lib.quant_spike_matmul_forward.restype = ctypes.c_int
         lib.spike_matmul_error.argtypes = [ctypes.c_int]
@@ -221,20 +228,36 @@ def quant_spike_matmul(s: torch.Tensor, qw: torch.Tensor,
     return quant_spike_matmul_cuda(s, qw, scale, bias, **kw)
 
 
+_LANE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def lane_operand(s: torch.Tensor, counts: bool):
+    """(s as the int8 products' kernels read it, its type code): fp32 and
+    bf16 values stay as they are (the kernels cast each to its lane on
+    the device); any other dtype goes to its lanes first
+    (:func:`quant_lanes`: code 2 for int8 spike lanes, 3 for int32 count
+    lanes)."""
+    if s.dtype not in _LANE_CODES:
+        s = quant_lanes(s, counts)
+    code = _LANE_CODES.get(s.dtype, 3 if counts else 2)
+    return s.contiguous(), code
+
+
 def quant_operands(name, s, qw, scale, bias, counts, out_dtype):
     """Checks and lays out a quantized product's operands for its CUDA
-    kernel: (the integer lanes, qw, fp32 scale, fp32 bias or None, the
-    output dtype's code), all contiguous on one device."""
+    kernel: (s as it reads it and its type code, :func:`lane_operand`;
+    qw, fp32 scale, fp32 bias or None; the output dtype's code), all
+    contiguous on one device."""
     if out_dtype not in _DTYPES:
         raise ValueError(f"{name} kernel writes float32 or bfloat16, not "
                          f"{out_dtype}")
-    lanes = quant_lanes(s, counts).contiguous()
-    ops = [lanes, qw.contiguous(), scale.float().contiguous(),
+    s, code = lane_operand(s, counts)
+    ops = [qw.contiguous(), scale.float().contiguous(),
            None if bias is None else bias.float().contiguous()]
     for a in ops:
         if a is not None and a.device != s.device:
             raise ValueError(f"all {name} operands must be on one device")
-    return (*ops, _DTYPES[out_dtype])
+    return (s, code, *ops, _DTYPES[out_dtype])
 
 
 def quant_spike_matmul_cuda(s: torch.Tensor, qw: torch.Tensor,
@@ -243,13 +266,13 @@ def quant_spike_matmul_cuda(s: torch.Tensor, qw: torch.Tensor,
                             counts: bool = False,
                             out_dtype: torch.dtype = torch.float32
                             ) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream: the left
-    operand cast to its lanes (int8, or int32 with ``counts``), int8
-    codes, fp32 scale and bias; the output in ``out_dtype`` (float32 or
-    bfloat16)."""
-    lanes, qw, sc, b32, out_code = quant_operands(
+    """Launch the CUDA kernel on PyTorch's current stream: ``s`` in fp32
+    or bf16 as it comes (any other dtype cast to its lanes first, int8,
+    or int32 with ``counts``), int8 codes, fp32 scale and bias; the
+    output in ``out_dtype`` (float32 or bfloat16)."""
+    s, code, qw, sc, b32, out_code = quant_operands(
         "quant_spike_matmul", s, qw, scale, bias, counts, out_dtype)
-    m, k = lanes.shape
+    m, k = s.shape
     n = qw.shape[1]
     out = torch.empty((m, n), dtype=out_dtype, device=s.device)
     if out.numel() == 0:
@@ -257,7 +280,7 @@ def quant_spike_matmul_cuda(s: torch.Tensor, qw: torch.Tensor,
     lib = _library()
     stream = torch.cuda.current_stream(s.device).cuda_stream
     rc = lib.quant_spike_matmul_forward(
-        int(counts), out_code, lanes.data_ptr(), qw.data_ptr(),
+        code, int(counts), out_code, s.data_ptr(), qw.data_ptr(),
         sc.data_ptr(), None if b32 is None else b32.data_ptr(),
         out.data_ptr(), m, k, n, stream)
     if rc != 0:
