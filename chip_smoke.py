@@ -34,7 +34,11 @@ device; exits non-zero without one). It
      LM prefill's causal BH = 256, L = 512, and with analog scores
      (bitwise: both sum them over the keys in ascending order) at a
      ragged shape and at the analog paths' shapes (the 4-256 train
-     step's, an 8-512 request's at d = 64);
+     step's, an 8-512 request's at d = 64); past its 2048-key chunk
+     (``LONG_ATTENTION``): L = 2049 causal and not, L = 4608 causal in
+     bf16 and fp32, L = 4100 at d = 64 and 128, analog scores at L =
+     3000; timed (with the profiler's device us) at the first and the
+     LM's shape and at L = 4608 causal;
    * ``gather_spike_matmul`` (#4, the decoded datapath) at the six
      products of a training layer, on ragged fine-grained spikes (rows
      from empty to dense, all-zero groups), random-normal and dyadic
@@ -90,10 +94,14 @@ device; exits non-zero without one). It
      packed spikes at the three popcount paths' shapes (BH = 2048, L =
      64, d = 32; BH = 1024, L = 196, d = 64; BH = 256, L = 512, d = 32),
      at a ragged Lq=50 x Lk=70, at d = 80 (three words, the last
-     zero-padded) and on all-zero and all-one words: int32 counts
-     bitwise; its time beside ``torch.bmm`` of the unpacked bf16 spikes,
-     and the whole popcount forward of ``ops.binary_attention`` beside
-     #7's ``spike_attention`` at the same three shapes;
+     zero-padded), on all-zero and all-one words, and where its groups
+     of 4 counts wrap rows and heads or a head starts off a 16-byte
+     boundary (``POPCOUNT_SHAPES``): int32 counts bitwise; its time, with
+     the profiler's device us, beside
+     ``torch.bmm`` of the unpacked bf16 spikes and of the unpacked fp32
+     ones (TF32 off, the same bytes written), and the whole popcount
+     forward of ``ops.binary_attention`` beside #7's
+     ``spike_attention`` at the same three shapes;
    * ``lif_forward`` (#9, the fused LIF entry ``ops.lif``) at the layer
      inputs of 4-256 (4, 4096, 256) and 8-512 (4, 6272, 512), at a
      ragged (4, 300, 200), at a plane no multiple of the 16-byte vector
@@ -172,7 +180,10 @@ device; exits non-zero without one). It
      ``fused_ssa_rope`` launch a layer call), the int8 server (8 slots,
      16 requests of 100-500 prompt tokens, 32 new tokens each, tokens
      per second; its decode step and chunked prefill are plain PyTorch and
-     launch no kernel) and one int8 Spikingformer-4-256 request;
+     launch no kernel) and one int8 Spikingformer-4-256 request; one
+     bf16 prompt of 4096 tokens through ``build_prefill_step`` (past
+     #7's 2048-key chunk: 1 causal ``spike_attention`` a layer), its
+     logits == through the plain versions, bitwise;
    * ``overlap='pipeline'`` through ``build_prefill_step``, each beside
      the same requests under 'fused' in the same run: 4 requests of 64
      images of 4-256 on dyadic weights that fire, 'tile' and 'decoded';
@@ -323,6 +334,19 @@ LM_REQUESTS, LM_BATCH, LM_PROMPT = 3, 8, 512
 # a multiple of the 64-query block, and the bf16 LM prefill's causal shape
 ATTENTION = [(T * B * H, L, HD, False), (64, 77, HD, True),
              (T * LM_BATCH * H, LM_PROMPT, HD, True)]
+# spike_attention past its 2048-key chunk (dtype, BH, L, d, causal,
+# binarize): one key past a chunk, several chunks under causal, d 64 and
+# 128 (the shared memory's widest chunk), analog scores
+LONG_ATTENTION = [(torch.bfloat16, 8, 2049, HD, False, True),
+                  (torch.bfloat16, 8, 2049, HD, True, True),
+                  (torch.bfloat16, 8, 4608, HD, True, True),
+                  (torch.float32, 8, 4608, HD, True, True),
+                  (torch.bfloat16, 4, 4100, 64, False, True),
+                  (torch.bfloat16, 2, 4100, 128, True, True),
+                  (torch.float32, 4, 3000, HD, False, False),
+                  (torch.bfloat16, 4, 3000, HD, True, False)]
+# one bf16 spikingformer-lm prompt past the chunk, through the prefill step
+LONG_PROMPT = 4096
 # the server: slots, requests, prompt lengths, new tokens, cache length
 SERVE_SLOTS, SERVE_REQUESTS, SERVE_NEW, SERVE_MAX_LEN = 8, 16, 32, 1024
 SERVE_PROMPTS = (100, 500)
@@ -377,6 +401,15 @@ LM_GRAD_BATCH, LM_GRAD_PROMPT = 2, 64
 POPCOUNT_PATHS = [("4-256 train", T * B * H, L, HD),
                   ("8-512 eval", 4 * EIGHT_BATCH * 8, 196, 64),
                   ("bf16 LM", T * LM_BATCH * H, LM_PROMPT, HD)]
+# #8 where its groups of 4 counts wrap rows and heads (Lk % 4 != 0), where
+# a head's counts start off a 16-byte boundary (Lq Lk odd), Lq != Lk, and
+# Lk past a block's round of 1024 counts: (what, BH, Lq, Lk, d)
+POPCOUNT_SHAPES = [("5 x 7", 3, 5, 7, HD), ("50 x 70, W=3", 4, 50, 70, 80),
+                   ("Lq != Lk, W=1", 8, 100, 36, HD),
+                   ("Lq != Lk, W=2", 8, 37, 98, 64),
+                   ("heads off 16 bytes", 7, 9, 13, HD),
+                   ("Lk past a round", 2, 5, 2051, 64),
+                   ("Lk past a round, Lk % 4 == 0", 2, 3, 2500, HD)]
 # LIF currents (T, M, D) (#9): the layer inputs of 4-256 (B = 64) and of
 # 8-512 (B = 32), a ragged shape, and one whose plane is no multiple of
 # the 16-byte vector (the kernel's element-wise path)
@@ -914,7 +947,9 @@ def device_us(fn, calls=10):
     us = {}
     for e in prof.key_averages():
         name = re.search(r"gather_walk|quant_gather_mma|stage_row_pass|"
-                         r"stage_counting_sort|tile_product|Memset", e.key)
+                         r"stage_counting_sort|tile_product|"
+                         r"popcount_scores_kernel|spike_attention_kernel|"
+                         r"Memset", e.key)
         if name and e.device_time_total > 0:
             us[name.group(0)] = round(
                 us.get(name.group(0), 0.0) + e.device_time_total / calls, 2)
@@ -990,13 +1025,16 @@ def time_attention(bh, l, d, causal):
     kw = dict(scale=1.0 / math.sqrt(d),
               delta=torch.tensor(0.3, device=q.device), causal=causal)
     ms = cuda_ms(lambda: SA.spike_attention_cuda(q, k, v, **kw))
-    plain_ms = cuda_ms(lambda: SA.spike_attention_plain(q, k, v, **kw))
+    plain_ms = cuda_ms(lambda: SA.spike_attention_plain(q, k, v, **kw),
+                       calls=5 if l > 1024 else 20)
     pairs = l * (l + 1) // 2 if causal else l * l
     ops_s = 2 * 2 * bh * pairs * d / PEAK_FLOPS[torch.bfloat16]
     bytes_s = 4 * q.numel() * q.element_size() / PEAK_BYTES
     bound = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                  bound_ms=1e3 * max(ops_s, bytes_s),
-                 bound_by="operations" if ops_s >= bytes_s else "bytes")
+                 bound_by="operations" if ops_s >= bytes_s else "bytes",
+                 device_us=device_us(
+                     lambda: SA.spike_attention_cuda(q, k, v, **kw)))
     log(f"spike_attention bf16 BH={bh} L={l} d={d} causal={causal}: {bound}")
     return bound
 
@@ -1295,6 +1333,43 @@ def check_lm_prefill(cfg, params, batch, what, oracle=False):
         f"the plain versions{' == overlap=off' if oracle else ''} bitwise "
         f"on {LM_BATCH} x {LM_PROMPT} tokens, logit std "
         f"{float(got.std()):.4f}")
+
+
+def long_prompt_path(cfg, params):
+    """One bf16 spikingformer-lm prompt of LONG_PROMPT tokens (past #7's
+    2048-key chunk) through ``build_prefill_step``, the counts reset just
+    before: 1 causal ``spike_attention`` a layer and no other launch;
+    finite logits of the right shape, == the same prompt through the
+    plain versions, bitwise. Returns (ms of the kernels' run, counts)."""
+    gen = torch.Generator().manual_seed(11)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT),
+                                     generator=gen).cuda()}
+    step = steps.build_prefill_step(cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    (got,), (ms,) = timed_requests(step, params, [batch])
+    counts = launches()
+    want = dict.fromkeys(counts, 0)
+    want["spike_attention"] = cfg.num_layers
+    if counts != want:
+        raise AssertionError(f"long prompt: launches {counts}, expected "
+                             f"{want}")
+    with plain_kernels():
+        plain = step(params, batch)
+    torch.cuda.synchronize()
+    if got.shape != (1, LONG_PROMPT, cfg.vocab_size) or \
+            not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"bad long-prompt logits {tuple(got.shape)}")
+    if not torch.equal(got, plain):
+        raise AssertionError(f"long prompt: logits through the kernels != "
+                             f"through the plain versions (max abs diff "
+                             f"{float((got - plain).abs().max())})")
+    log(f"long prompt, bf16 spikingformer-lm, 1 x {LONG_PROMPT} tokens: "
+        f"{ms:.3f} ms (first call), launches "
+        f"{ {k: v for k, v in counts.items() if v} }; logits through "
+        f"the kernels == through the plain versions bitwise, logit std "
+        f"{float(got.float().std()):.4f}")
+    return ms, counts
 
 
 def serve_path(cfg, params):
@@ -2229,29 +2304,37 @@ def check_popcount(what, bh, lq, lk, d, words=None):
 
 def time_popcount(what, bh, l, d):
     """popcount_scores at a path's shape (cuda_ms; the plain version over
-    fewer calls), bf16 spikes at density 0.15. Library: ``torch.bmm`` of
-    the unpacked bf16 spikes, whose counts are exact (checked equal).
-    Bound: the words read once and the int32 counts written once, or an
-    AND, a popcount and an add a word pair at the CUDA-core rate."""
+    fewer calls), bf16 spikes at density 0.15, with the profiler's device
+    us. Library: ``torch.bmm`` of the unpacked bf16
+    spikes, whose counts are exact (checked equal), and, writing the same
+    bytes as #8, of the unpacked fp32 spikes with TF32 off
+    (``library_fp32_ms``; exact counts too). Bound: the words read once
+    and the int32 counts written once, or an AND, a popcount and an add a
+    word pair at the CUDA-core rate."""
     gen = torch.Generator().manual_seed(9)
     q, k = ((torch.rand((bh, l, d), generator=gen) < 0.15)
             .to(torch.bfloat16).cuda() for _ in range(2))
     qp, kp = pack_bits(q), pack_bits(k)
     kt = k.transpose(1, 2)
     counts = PA.popcount_scores_cuda(qp, kp)
-    if not torch.equal(torch.bmm(q, kt).int(), counts):
+    q32, kt32 = q.float(), kt.float()
+    if not (torch.equal(torch.bmm(q, kt).int(), counts) and
+            torch.equal(torch.bmm(q32, kt32).int(), counts)):
         raise AssertionError(f"torch.bmm of the spikes != popcount_scores "
                              f"at {what}")
     ms = cuda_ms(lambda: PA.popcount_scores_cuda(qp, kp))
     plain_ms = cuda_ms(lambda: PA.popcount_scores_plain(qp, kp), warmup=1,
                        calls=3, repeats=3)
     library_ms = cuda_ms(lambda: torch.bmm(q, kt))
+    library_fp32_ms = cuda_ms(lambda: torch.bmm(q32, kt32))
     w = qp.shape[-1]
     bytes_s = 4 * (qp.numel() + kp.numel() + counts.numel()) / PEAK_BYTES
     ops_s = 3 * bh * l * l * w / PEAK_FLOPS[torch.float32]
     row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               library_fp32_ms=library_fp32_ms,
                bound_ms=1e3 * max(ops_s, bytes_s),
-               bound_by="operations" if ops_s > bytes_s else "bytes")
+               bound_by="operations" if ops_s > bytes_s else "bytes",
+               device_us=device_us(lambda: PA.popcount_scores_cuda(qp, kp)))
     log(f"popcount_scores {what} BH={bh} L={l} d={d}: {row}")
     return row
 
@@ -2903,7 +2986,8 @@ def main():
                                       binarize=False)
                       for causal in (False, True)]
                    + [check_attention(dt, *case, False, binarize=False)
-                      for dt in dtypes for case in ANALOG_ATTENTION])
+                      for dt in dtypes for case in ANALOG_ATTENTION]
+                   + [check_attention(*case) for case in LONG_ATTENTION])
     gather_err = max(
         [check_gather(dt, what, M_TRAIN, k, n, counts, weights=wk)
          for dt in dtypes for what, k, n, counts in MATMULS
@@ -2928,7 +3012,8 @@ def main():
                                   SD.gather_spike_matmul_plain,
                                   gather_bound_ms)
     attn_timing = time_attention(*ATTENTION[0])
-    time_attention(*ATTENTION[-1])
+    attn_lm_timing = time_attention(*ATTENTION[-1])
+    attn_long_timing = time_attention(*LONG_ATTENTION[2][1:5])
 
     # --- the mixed slice's kernels against their plain versions ---------
     quant_err = max(
@@ -3019,7 +3104,8 @@ def main():
         + [check_popcount("ragged", 16, 50, 70, HD),
            check_popcount("padded word", 8, 100, 90, 80),
            check_popcount("zero words", 4, 64, 64, 80, words="zeros"),
-           check_popcount("one words", 4, 64, 64, 80, words="ones")])
+           check_popcount("one words", 4, 64, 64, 80, words="ones")]
+        + [check_popcount(*case) for case in POPCOUNT_SHAPES])
     lif_err = max(check_lif(what, shape, dt, soft, decay)
                   for what, shape in LIF_CASES for dt in dtypes
                   for soft in (False, True) for decay in (0.5, 2.0 / 3.0))
@@ -3135,6 +3221,7 @@ def main():
     check_popcount_logits(*lm_pop, lm_check, "spikingformer-lm bf16",
                           **{"the #7 path (binary='mxu_kernel')":
                              dict(binary="mxu_kernel")})
+    long_ms, long_counts = long_prompt_path(*lm_bf16)
     serve_path(*lm_q)
     vision_int8_path()
 
@@ -3241,7 +3328,12 @@ def main():
             dict(name="spike_attention", source=csrc + "spike_attention.cu",
                  replaces="src/repro/kernels/spike_attention.py:78",
                  launches=train_counts["tile"]["spike_attention"],
-                 max_abs_err=attn_err, **attn_timing),
+                 max_abs_err=attn_err,
+                 at_lm=attn_lm_timing,
+                 at_long=dict(attn_long_timing, shape=LONG_ATTENTION[2][1:5],
+                              prompt_ms=long_ms,
+                              launches=long_counts["spike_attention"]),
+                 **attn_timing),
             dict(name="gather_spike_matmul",
                  source=csrc + "gather_spike_matmul.cu",
                  replaces="src/repro/kernels/spike_decode.py:294",

@@ -18,7 +18,8 @@ computes with LUT6 compressor trees. Three functions:
   :func:`popcount_scores_cuda` or raise.
 
 Lq and Lk are any lengths: the JAX wrapper zero-pads them to its blocks
-and slices the result back; the CUDA kernel masks its ragged tiles.
+and slices the result back; the CUDA kernel writes the counts of all
+heads as one flat stream of 16-byte stores, so no shape is ragged to it.
 """
 from __future__ import annotations
 

@@ -222,9 +222,10 @@ def test_wrappers_check_operands_and_devices():
         TM.spike_matmul_cuda(s.half(), torch.zeros((8, 3)).half())
     with pytest.raises(ValueError, match="contiguous"):
         TM.spike_matmul_cuda(torch.zeros((8, 4)).t(), torch.zeros((8, 3)))
-    with pytest.raises(ValueError, match="L <= "):
-        TA.spike_attention_cuda(*(torch.zeros((1, TA.MAX_L + 1, 8)),) * 3,
-                                scale=1.0, delta=0.0)
+    with pytest.raises(ValueError, match="d <= "):
+        TA.spike_attention_cuda(
+            *(torch.zeros((1, 8, TA.MAX_HEAD_DIM + 1)),) * 3,
+            scale=1.0, delta=0.0)
     assert {"spike_matmul", "spike_attention"} <= set(_build.SOURCES)
     assert TM.LAUNCHES["spike_matmul"] == 0
     assert TA.LAUNCHES["spike_attention"] == 0
