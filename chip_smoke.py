@@ -15,8 +15,10 @@ device; exits non-zero without one). It
      information), with several L-blocks per sequence (``l_block <
      L``, one L-block of a sequence dark), and at Spikingformer-8-512's
      widths (T=4, B=32 as the main path's requests, L=196, D=512, 8
-     heads of 64, F=2048, l_block 128; and a ragged L=50), where launch
-     A streams w3 in K-chunks and keeps q/k bits in two words a row;
+     heads of 64, F=2048, l_block 128; and a ragged L=50); past the
+     earlier shared-memory launch A (which took L up to 1408 in bf16 and
+     480 in fp32 there): L=1600 in bf16 and 500 in fp32 at B=2; at head_dim 128 (T=4, B=4, L=100, D=256, 2 heads, F=512: four
+     words a row of q or k bits), tile, decoded and analog;
    * ``spike_matmul`` (#2) at the six products of a training layer (q,
      k, v, wo on integer counts, w1, w2; M = 16384) with dark tiles, at
      Spikingformer-8-512's three product shapes (M = 25088; 512→512 on
@@ -62,8 +64,10 @@ device; exits non-zero without one). It
      outputs bitwise equal, bf16 and fp32; and the bundle's rope family
      (``fused_ssa`` with family 'rope', causal) on the ln1 output of the
      same shape and of S=200, on int8 codes: context and (H, 4) counts
-     bitwise; both rope kernels also at an S where launch A streams w3
-     (3072 in bf16, 1408 in fp32);
+     bitwise; both rope kernels also at long prompts (``ROPE_LONG``):
+     S=3072 in bf16 and 1408 in fp32 at B=2, and past the old launch A's
+     bound of 3744 / 2827 tokens, S=4096 in bf16 and 3000 in fp32 at
+     B=1;
    * ``quant_spike_matmul`` and ``quant_gather_spike_matmul`` (int8
      codes, random per-channel scales) at the three products of a mixed
      layer (wo on integer counts up to 512, w1, w2; M = 16384) and of an
@@ -118,10 +122,11 @@ device; exits non-zero without one). It
      bound of its work (the analog context at the fp32 peak); and the
      layer program's analog variants once each through the public
      ``fused_layer`` (the kernel API, the only entry that reaches them);
-   * the pipelined layer program (#1d, ``overlap='pipeline'``: #1's two
-     launches once a timestep, 2 T a call) at every shape #1 is checked
-     at (full width tile and decoded, bf16 and fp32, several L-blocks,
-     8-512 with w3 streamed, the rope shapes and S=3072) and at T=6:
+   * the pipelined layer program (#1d, ``overlap='pipeline'``: #1's
+     three launches once a timestep, 3 T a call) at every shape #1 is
+     checked at (full width tile and decoded, bf16 and fp32, several
+     L-blocks, 8-512, the rope shapes and S=3072), at T=6 and past the
+     old launch A's one-timestep bound (8-512's widths, L=2000, fp32):
      outputs and counts bitwise equal to its plain version and to #1
      (at T=6, #1's plain version); timed beside #1 at 4-256 and 8-512
      with the membrane bytes it adds and ``core.dual_engine``'s
@@ -132,7 +137,7 @@ device; exits non-zero without one). It
    launches checked against the decisions it recorded), with
    ``sparse='tile'`` and with ``sparse='decoded'``:
    * inference: the published config, seeded random weights,
-     ``build_prefill_step`` answering 4 requests of 64 images (2 fused
+     ``build_prefill_step`` answering 4 requests of 64 images (3 fused
      layer launches a layer, the tile or the decoded variant);
    * training: ``build_train_step`` with AdamW under a warmup-cosine
      schedule, 6 steps of 64 synthetic images (per step 24 sparse
@@ -143,7 +148,7 @@ device; exits non-zero without one). It
      with the BN-bias raise of ``dyadic_params``, so layers fire; int8
      wo, w1, w2 and head, bf16 wq, wk, wv; ``quantize_tree`` with a
      selector): 4 requests of 64 images through ``build_prefill_step``
-     for each sparse setting, per layer call 1 ``fused_ssa`` launch and
+     for each sparse setting, per layer call 2 ``fused_ssa`` launches and
      3 ``quant_spike_matmul`` / ``quant_gather_spike_matmul`` launches
      (split by the 'auto' decisions, with one ``quant_gather_stage`` a
      decoded product), no fused layer; the requests' logits with 'auto'
@@ -155,7 +160,7 @@ device; exits non-zero without one). It
    * Spikingformer-8-512 (the paper's ImageNet workload, 224x224
      images, 8 layers at full width; seeded weights with the BN-bias
      raise of ``dyadic_params``, so layers fire): ``build_prefill_step``
-     answering 3 requests of 32 images for each sparse setting (2 fused
+     answering 3 requests of 32 images for each sparse setting (3 fused
      layer launches a layer call) and the fire rate at every layer's
      input (the path fails if one is all dark);
    * the popcount mode (``binary='popcount'``), once each: 6 train steps
@@ -176,20 +181,22 @@ device; exits non-zero without one). It
      on every analog ln1 output), the bf16 tree likewise (1 causal
      ``spike_attention`` launch a layer call), the mixed int8 tree (int8
      wq, wk, wv, the rest bf16: its layers are not eligible for the
-     layer program, its bundles run ``fused_ssa``'s rope family, 1
-     ``fused_ssa_rope`` launch a layer call), the int8 server (8 slots,
+     layer program, its bundles run ``fused_ssa``'s rope family, 2
+     ``fused_ssa_rope`` launches a layer call), the int8 server (8 slots,
      16 requests of 100-500 prompt tokens, 32 new tokens each, tokens
      per second; its decode step and chunked prefill are plain PyTorch and
      launch no kernel) and one int8 Spikingformer-4-256 request; one
-     bf16 prompt of 4096 tokens through ``build_prefill_step`` (past
-     #7's 2048-key chunk: 1 causal ``spike_attention`` a layer), its
+     prompt of 4096 tokens each of the bf16, int8 and mixed int8 trees
+     through ``build_prefill_step`` (past #7's 2048-key chunk: 1 causal
+     ``spike_attention`` a layer; past the old launch A's bound: 3
+     ``fused_layer_rope`` a layer, 2 ``fused_ssa_rope`` a layer), their
      logits == through the plain versions, bitwise;
    * ``overlap='pipeline'`` through ``build_prefill_step``, each beside
      the same requests under 'fused' in the same run: 4 requests of 64
      images of 4-256 on dyadic weights that fire, 'tile' and 'decoded';
      3 requests of 32 images of 8-512; 3 int8 LM prefills of 8 x 512
-     tokens (2 T #1d launches a layer call: 32 a 4-256 request and an
-     LM prefill, 64 an 8-512 request; no other launch); logits equal to
+     tokens (3 T #1d launches a layer call: 48 a 4-256 request and an
+     LM prefill, 96 an 8-512 request; no other launch); logits equal to
      'fused' on every request and, on one, to the plain versions and
      (dyadic weights) to ``overlap='off'``, bitwise; the mixed int8
      4-256 and LM trees under 'pipeline' launch ``fused_ssa`` /
@@ -201,8 +208,8 @@ device; exits non-zero without one). It
      ``fused_ssa_analog`` and 3 spike products a layer call, each beside
      the same requests with binarized scores; 6 AdamW train steps of
      4-256 (#7's analog mode, #2 / #4), the loss falling; 3 int8 LM
-     prefills of 8 x 512 tokens, 1 ``fused_ssa_rope_analog`` a layer
-     call;
+     prefills of 8 x 512 tokens, 2 ``fused_ssa_rope_analog`` launches
+     a layer call;
 4. checks the outputs: finite logits of the right shape and, with
    dyadic weights, the fused path of Spikingformer-4-256 (8 images) and
    of Spikingformer-8-512 (one request of 32 images; 'auto', 'tile' and
@@ -388,11 +395,23 @@ QUANT_VALUES_SHAPE = (2000, 260, 200)
 # ragged S: (what, (T, B, S, D, H, hd))
 ROPE_SSA_CASES = [("S=512", (4, LM_BATCH, LM_PROMPT, 256, 8, 32)),
                   ("ragged S=200", (4, LM_BATCH, 200, 256, 8, 32))]
-# the rope family (#1c, #6b) at an S where launch A no longer holds the
-# head's whole w3 slice and streams it in KA-deep K-chunks (from S=2999
-# in bf16 and 1329 in fp32 at D=256), within the launcher's bound
-ROPE_STREAMED = {torch.bfloat16: (4, 2, 3072, 256, 8, 32, 1024),
-                 torch.float32: (4, 2, 1408, 256, 8, 32, 1024)}
+# the rope family (#1c, #6b) at long prompts: S=3072 (bf16) and 1408
+# (fp32), where the earlier shared-memory launch A streamed w3, and past
+# its bound of 3744 / 2827 tokens: B=1, S=4096 (bf16) and 3000 (fp32)
+ROPE_LONG = {torch.bfloat16: [(4, 2, 3072, 256, 8, 32, 1024),
+                              (4, 1, 4096, 256, 8, 32, 1024)],
+             torch.float32: [(4, 2, 1408, 256, 8, 32, 1024),
+                             (4, 1, 3000, 256, 8, 32, 1024)]}
+# the bn layer (#1 tile, #1b decoded) past the old launch A's bound at
+# 8-512's widths (L 1408 in bf16, 480 in fp32), and at head_dim 128 (four
+# words a row of q or k bits): (what, shape, l_block)
+EIGHT_LONG = {torch.bfloat16: ("8-512 width, L=1600",
+                               (4, 2, 1600, 512, 8, 64, 2048), 128),
+              torch.float32: ("8-512 width, L=500",
+                              (4, 2, 500, 512, 8, 64, 2048), 128)}
+HD128 = ("head_dim 128", (4, 4, 100, 256, 2, 128, 512), 64)
+# #1d past the old one-timestep bound (L 1952 in fp32 at 8-512's widths)
+PIPE_LONG = ("8-512 width, L=2000", (4, 2, 2000, 512, 8, 64, 2048), 128)
 # the eval-mode gradient check of the fp32 LM: a batch of prompts
 LM_GRAD_BATCH, LM_GRAD_PROMPT = 2, 64
 # the popcount mode (#8): popcount_scores at the three popcount paths'
@@ -1092,7 +1111,7 @@ def timed_requests(step, params, requests):
 
 def inference_path(cfg, params, requests):
     """``build_prefill_step`` answering ``requests``: per-request times,
-    the launch counts of the whole run (2 fused-layer launches a layer,
+    the launch counts of the whole run (3 fused-layer launches a layer,
     of the variant the sparse datapath names), finite logits."""
     step = steps.build_prefill_step(cfg)
     torch.cuda.synchronize()
@@ -1268,12 +1287,12 @@ def lm_config(quantize, select=None):
 def lm_prefill_path(cfg, params, requests, what):
     """``build_prefill_step`` answering ``requests`` of LM_BATCH x
     LM_PROMPT tokens, the counts reset just before: the int8 model runs
-    2 ``fused_layer_rope`` launches a layer call and 'auto' decides
+    3 ``fused_layer_rope`` launches a layer call and 'auto' decides
     'tile' on every analog ln1 output; the bf16 model's layers are not
     eligible for the layer program and run 1 causal ``spike_attention``
     a layer call; the mixed int8 tree's (int8 wq, wk, wv) are not either,
-    and run the bundle kernel's rope family, 1 ``fused_ssa_rope`` a layer
-    call, with no 'auto' decision; with ``binary='popcount'`` the bf16
+    and run the bundle kernel's rope family, 2 ``fused_ssa_rope`` launches
+    a layer call, with no 'auto' decision; with ``binary='popcount'`` the bf16
     model's attention is 1 ``popcount_scores`` a layer call; with analog
     scores ('analog int8') the int8 model's layers are not eligible for
     the layer program and run the rope bundle's analog instantiation, 1
@@ -1294,9 +1313,9 @@ def lm_prefill_path(cfg, params, requests, what):
         want["fused_layer_rope"] = FL.LAUNCHES_PER_CALL * n
         want_dec["tile"] = n
     elif what == "mixed int8":
-        want["fused_ssa_rope"] = n
+        want["fused_ssa_rope"] = FS.LAUNCHES_PER_CALL * n
     elif what == "analog int8":
-        want["fused_ssa_rope_analog"] = n
+        want["fused_ssa_rope_analog"] = FS.LAUNCHES_PER_CALL * n
     else:
         want[attention_kernel(cfg)] = n
     if counts != want or decisions != want_dec:
@@ -1335,12 +1354,15 @@ def check_lm_prefill(cfg, params, batch, what, oracle=False):
         f"{float(got.std()):.4f}")
 
 
-def long_prompt_path(cfg, params):
-    """One bf16 spikingformer-lm prompt of LONG_PROMPT tokens (past #7's
-    2048-key chunk) through ``build_prefill_step``, the counts reset just
-    before: 1 causal ``spike_attention`` a layer and no other launch;
-    finite logits of the right shape, == the same prompt through the
-    plain versions, bitwise. Returns (ms of the kernels' run, counts)."""
+def long_prompt_path(cfg, params, what="bf16"):
+    """One spikingformer-lm prompt of LONG_PROMPT tokens through
+    ``build_prefill_step``, the counts reset just before: bf16 (past #7's
+    2048-key chunk), 1 causal ``spike_attention`` a layer; int8 (past
+    launch A's former shared-memory bound of 3744 tokens), 3
+    ``fused_layer_rope`` launches a layer; mixed int8, 2 ``fused_ssa_rope``
+    launches a layer; no other launch; finite logits of the right shape,
+    == the same prompt through the plain versions, bitwise. Returns (ms
+    of the kernels' run, counts)."""
     gen = torch.Generator().manual_seed(11)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT),
                                      generator=gen).cuda()}
@@ -1350,7 +1372,12 @@ def long_prompt_path(cfg, params):
     (got,), (ms,) = timed_requests(step, params, [batch])
     counts = launches()
     want = dict.fromkeys(counts, 0)
-    want["spike_attention"] = cfg.num_layers
+    if what == "int8":
+        want["fused_layer_rope"] = FL.LAUNCHES_PER_CALL * cfg.num_layers
+    elif what == "mixed int8":
+        want["fused_ssa_rope"] = FS.LAUNCHES_PER_CALL * cfg.num_layers
+    else:
+        want["spike_attention"] = cfg.num_layers
     if counts != want:
         raise AssertionError(f"long prompt: launches {counts}, expected "
                              f"{want}")
@@ -1364,7 +1391,7 @@ def long_prompt_path(cfg, params):
         raise AssertionError(f"long prompt: logits through the kernels != "
                              f"through the plain versions (max abs diff "
                              f"{float((got - plain).abs().max())})")
-    log(f"long prompt, bf16 spikingformer-lm, 1 x {LONG_PROMPT} tokens: "
+    log(f"long prompt, {what} spikingformer-lm, 1 x {LONG_PROMPT} tokens: "
         f"{ms:.3f} ms (first call), launches "
         f"{ {k: v for k, v in counts.items() if v} }; logits through "
         f"the kernels == through the plain versions bitwise, logit std "
@@ -1435,7 +1462,7 @@ def serve_path(cfg, params):
 
 def vision_int8_path():
     """One int8 Spikingformer-4-256 request of 64 images: every layer is
-    all-quantized, so eligible for the layer program: 2 fused-layer
+    all-quantized, so eligible for the layer program: 3 fused-layer
     launches a layer, the variant the 'auto' decisions name."""
     cfg = get_config("spikingformer-4-256")
     params = quantize_tree(registry.init(cfg, seed=0), "int8")
@@ -1902,7 +1929,7 @@ def select_qkv(path):
 
 def mixed_path(cfg, params, requests, tree):
     """``build_prefill_step`` answering ``requests`` with a mixed tree,
-    the counts reset just before: per layer call 1 ``fused_ssa`` launch
+    the counts reset just before: per layer call 2 ``fused_ssa`` launches
     and 3 spike products (the int8 kernels for the 'mixed' tree, the fp
     ones for the complementary 'qkv' tree), split tile / decoded as the
     engine's sparse datapath or its 'auto' decisions say; no fused layer.
@@ -1919,7 +1946,7 @@ def mixed_path(cfg, params, requests, tree):
         f"per-request ms {[round(m, 3) for m in req_ms]}, sparse decisions "
         f"{dict(E.SPARSE_DECISIONS)}, launches {counts}")
     want = dict.fromkeys(counts, 0)
-    want["fused_ssa"] = n
+    want["fused_ssa"] = FS.LAUNCHES_PER_CALL * n
     prefix = "quant_" if tree == "mixed" else ""
     want[f"{prefix}spike_matmul"] = tile
     want[f"{prefix}gather_spike_matmul"] = dec
@@ -1955,7 +1982,7 @@ def check_mixed_outputs(cfg, params, images):
         torch.cuda.synchronize()
         prefix = "quant_" + ("" if sparse == "tile" else "gather_")
         want = dict.fromkeys(counts, 0)
-        want.update({"fused_ssa": cfg.num_layers,
+        want.update({"fused_ssa": FS.LAUNCHES_PER_CALL * cfg.num_layers,
                      f"{prefix}spike_matmul": 3 * cfg.num_layers})
         if sparse == "decoded":
             want["quant_gather_stage"] = 3 * cfg.num_layers
@@ -2037,9 +2064,9 @@ def check_eval_gradients(cfg, params, batch, what, state=None,
                          overlap="fused", bundle=None):
     """An eval-mode forward under autograd with ``overlap`` 'fused' or
     'pipeline' (the layer program through the kernels, behind
-    ``_FusedLayer``: 2 launches a layer call, or 2 T pipelined; or, for a
+    ``_FusedLayer``: 3 launches a layer call, or 3 T pipelined; or, for a
     model whose layers the layer program does not take, the ``bundle``
-    kernel behind ``_FusedBundle``, 1 launch a layer call, and the spike
+    kernel behind ``_FusedBundle``, 2 launches a layer call, and the spike
     products) against the same forward with overlap='off': the logits and
     every layer parameter's gradient of one seeded cotangent, bitwise;
     each layer parameter gets a gradient."""
@@ -2071,7 +2098,8 @@ def check_eval_gradients(cfg, params, batch, what, state=None,
     per_call = FL.LAUNCHES_PER_CALL * (cfg.spiking.time_steps if pipelined
                                        else 1)
     if bundle:              # the bundle, and off runs the spike kernels
-        bad = counts[bundle] != cfg.num_layers or any(layer.values()) or \
+        bad = counts[bundle] != FS.LAUNCHES_PER_CALL * cfg.num_layers or \
+            any(layer.values()) or \
             any(n for k, n in runs["off"][2].items() if k.startswith("fused"))
     else:
         bad = mine != per_call * cfg.num_layers or \
@@ -2112,7 +2140,7 @@ def check_pipeline_kernel(dtype, what, shape, l_block, sparse="tile",
                           family="bn"):
     """#1d on dyadic weights (rope: int8 codes) against its plain version
     and against #1 on the same operands (past #1's MAX_T, #1's plain
-    version): outputs and counts bitwise; the call launches 2 T
+    version): outputs and counts bitwise; the call launches 3 T
     kernels."""
     if family == "rope":
         args, kw = rope_operands(11, dtype, shape, l_block)
@@ -2133,15 +2161,14 @@ def check_pipeline_kernel(dtype, what, shape, l_block, sparse="tile",
               "counts == plain": torch.equal(cnt_k, cnt_p),
               "== #1": torch.equal(out_k, out_f),
               "counts == #1": torch.equal(cnt_k, cnt_f),
-              f"{2 * t} launches": n_launch == FL.LAUNCHES_PER_CALL * t}
+              f"{FL.LAUNCHES_PER_CALL * t} launches":
+                  n_launch == FL.LAUNCHES_PER_CALL * t}
     if not all(checks.values()):
         raise AssertionError(f"{name}: {checks} (max abs diff to the plain "
                              f"version {err}, launches {launches()})")
-    depth = FL.chunk_depth(args[0].element_size(), 1, shape[2], shape[3],
-                           shape[5], cnt_k.shape[-1])
     log(f"{name}, l_block {kw['l_block']}: bitwise equal to its plain "
         f"version and to {fused.__name__} (outputs and counts), {n_launch} "
-        f"launches, w3 chunk depth {depth}; counts per phase "
+        f"launches; counts per phase "
         f"{cnt_k.sum(dim=(0, 2)).tolist()}")
     return err
 
@@ -2187,7 +2214,7 @@ def time_pipeline_kernel(shape=FULL, l_block=64):
 
 def pipeline_path(cfg, params, requests, what, oracle=False):
     """``build_prefill_step`` with overlap='pipeline' answering
-    ``requests``, the counts reset just before: 2 T #1d launches a layer
+    ``requests``, the counts reset just before: 3 T #1d launches a layer
     call (the variant the sparse datapath or the rope family names) and
     no other launch; the same requests under overlap='fused' timed in the
     same run, with equal logits on every request, bitwise; on one
@@ -2246,7 +2273,7 @@ def pipeline_path(cfg, params, requests, what, oracle=False):
 def check_mixed_pipeline(cfg, params, batch, what, bundle):
     """A mixed tree's prefill under overlap='pipeline' == under 'fused':
     its layers are not eligible for the layer program, its bundles run
-    ``bundle`` (1 launch a layer call) under both, as in JAX; the same
+    ``bundle`` (2 launches a layer call) under both, as in JAX; the same
     launches and logits, bitwise."""
     runs = {}
     for ov in ("fused", "pipeline"):
@@ -2257,7 +2284,8 @@ def check_mixed_pipeline(cfg, params, batch, what, bundle):
         torch.cuda.synchronize()
         runs[ov] = (logits, launches())
     (got, counts), (want, want_counts) = runs["pipeline"], runs["fused"]
-    if counts != want_counts or counts[bundle] != cfg.num_layers or \
+    if counts != want_counts or \
+            counts[bundle] != FS.LAUNCHES_PER_CALL * cfg.num_layers or \
             any(counts[k] for k in counts if k.startswith("fused_layer")):
         raise AssertionError(f"mixed {what} under 'pipeline': launches "
                              f"{counts}, under 'fused' {want_counts}")
@@ -2544,7 +2572,7 @@ def check_ssa_analog(dtype, what, shape, family="bn"):
     """#6 (bn, dyadic weights) or #6b (rope, causal, int8 codes) with
     analog scores, kernel vs plain version: context and (H, 4) counts
     bitwise (both sum the scores over the keys in ascending order), the
-    counts those of the binarized kernel, the context not; 1 launch,
+    counts those of the binarized kernel, the context not; 2 launches,
     counted under the ``_analog`` name."""
     rope = family == "rope"
     if rope:
@@ -2564,7 +2592,9 @@ def check_ssa_analog(dtype, what, shape, family="bn"):
               "counts == plain": torch.equal(cnt_k, cnt_p),
               "counts == binarized": torch.equal(cnt_k, cnt_b),
               "!= binarized": not torch.equal(out_k, out_b),
-              "1 launch": n[name] == 1 and sum(n.values()) == 1}
+              f"{FS.LAUNCHES_PER_CALL} launches":
+                  n[name] == FS.LAUNCHES_PER_CALL
+                  and sum(n.values()) == FS.LAUNCHES_PER_CALL}
     if not all(checks.values()):
         raise AssertionError(f"{label}: {checks} (max abs diff {err})")
     log(f"{label}: bitwise equal to the plain version (context and "
@@ -2589,7 +2619,7 @@ def check_layer_analog(dtype, what, shape, l_block, sparse="tile",
     ``pipeline``, #1d with analog scores, kernel vs plain version:
     outputs and counts bitwise (both sum the context over the keys in
     ascending order and wo in ascending k); every score block counted (T
-    B a head and L-block); 2 launches a call (#1d: 2 T) under the
+    B a head and L-block); 3 launches a call (#1d: 3 T) under the
     variant's ``_analog`` name; #1d also == #1 (past #1's MAX_T, #1's
     plain version)."""
     if family == "rope":
@@ -2698,8 +2728,8 @@ def kernel_api_analog_path():
     requires binarized scores, in JAX and in the port): the public
     ``FL.fused_layer(..., binarize_scores=False)`` once each for bn tile
     and bn decoded at 4-256's layer shape and rope at the LM prefill's,
-    fused and pipelined, the counts reset just before: 2 launches a
-    fused call and 2 T a pipelined one, under the variant's ``_analog``
+    fused and pipelined, the counts reset just before: 3 launches a
+    fused call and 3 T a pipelined one, under the variant's ``_analog``
     name, and no other; finite outputs. Returns the counts."""
     torch.cuda.synchronize()
     reset_counts()
@@ -2735,7 +2765,7 @@ def analog_vision_path(cfg, params, requests, what):
     ``build_prefill_step`` answering ``requests``, the counts reset just
     before: its layers are not eligible for the layer program (as in
     JAX) and take the sequential composition, whose SSA bundle runs #6's
-    analog instantiation (1 ``fused_ssa_analog`` a layer call) and whose
+    analog instantiation (2 ``fused_ssa_analog`` launches a layer call) and whose
     wo, w1 and w2 run the spike products (3 a layer call,
     ``spike_matmul`` or ``gather_spike_matmul`` as the sparse datapath
     or its 'auto' decisions say), and no other kernel; finite logits.
@@ -2752,7 +2782,7 @@ def analog_vision_path(cfg, params, requests, what):
     tile, dec = sparse_split(cfg.engine, 3 * n)
     name = f"analog path, {what}, sparse={cfg.engine.sparse!r}"
     want = dict.fromkeys(counts, 0)
-    want.update(fused_ssa_analog=n, spike_matmul=tile,
+    want.update(fused_ssa_analog=FS.LAUNCHES_PER_CALL * n, spike_matmul=tile,
                 gather_spike_matmul=dec, gather_stage=dec)
     if counts != want:
         raise AssertionError(f"{name}: launches {counts}, expected {want}")
@@ -2836,7 +2866,8 @@ def check_analog_outputs(cfg, params, batch, what):
                 plain, _ = registry.forward(params, acfg, batch)
         torch.cuda.synchronize()
         name = f"{what} analog, sparse={sparse!r}"
-        if counts["fused_ssa_analog"] != cfg.num_layers or \
+        if counts["fused_ssa_analog"] != FS.LAUNCHES_PER_CALL * \
+                cfg.num_layers or \
                 any(n for k, n in counts.items() if k.startswith("fused_layer")):
             raise AssertionError(f"{name}: launches {counts}")
         if not torch.equal(got, off):
@@ -2901,7 +2932,10 @@ def main():
         layer_err[sparse] = max(
             [check_layer_kernel(dt, sparse=sparse) for dt in dtypes]
             + [check_layer_kernel(dt, *case, sparse=sparse)
-               for case in MULTI_BLOCK + EIGHT_CASES for dt in dtypes])
+               for case in MULTI_BLOCK + EIGHT_CASES + [HD128]
+               for dt in dtypes]
+            + [check_layer_kernel(dt, *EIGHT_LONG[dt], sparse=sparse)
+               for dt in dtypes])
     for sparse in ("tile", "decoded"):
         for dt in dtypes:
             args, kw = layer_operands(2, dt, False, sparse=sparse)
@@ -2926,16 +2960,12 @@ def main():
     rope_timing = time_rope_kernel()
     rope_ssa_err = max(check_rope_ssa_kernel(dt, *case) for dt in dtypes
                        for case in ROPE_SSA_CASES)
-    for dt, shape in ROPE_STREAMED.items():
-        t, _, seq, d, _, hd, _ = shape
-        for nlb in (-(-seq // 128), 1):
-            if FL.chunk_depth(dt.itemsize, t, seq, d, hd, nlb) != FL.KA:
-                raise AssertionError(f"rope at {shape}, {dt}: launch A holds "
-                                     f"the whole w3 slice, not streamed")
-        what = f"streamed w3, S={seq}"
-        rope_err = max(rope_err, check_rope_kernel(dt, what, shape, 128))
-        rope_ssa_err = max(rope_ssa_err,
-                           check_rope_ssa_kernel(dt, what, shape[:6]))
+    for dt, shapes in ROPE_LONG.items():
+        for shape in shapes:
+            what = f"long prompt, S={shape[2]}"
+            rope_err = max(rope_err, check_rope_kernel(dt, what, shape, 128))
+            rope_ssa_err = max(rope_ssa_err,
+                               check_rope_ssa_kernel(dt, what, shape[:6]))
     rope_ssa_timing = time_bundle(
         "fused_ssa_rope", *rope_ssa_operands(16, torch.bfloat16,
                                              ROPE_SSA_CASES[0][1]),
@@ -2952,8 +2982,10 @@ def main():
         + [check_pipeline_kernel(dt, what, shape, lb, family="rope")
            for what, shape, lb in ROPE_CASES for dt in dtypes]
         + [check_pipeline_kernel(torch.bfloat16, "S=3072",
-                                 ROPE_STREAMED[torch.bfloat16], 128,
+                                 ROPE_LONG[torch.bfloat16][0], 128,
                                  family="rope")]
+        + [check_pipeline_kernel(torch.float32, *PIPE_LONG, sparse)
+           for sparse in ("tile", "decoded")]
         + [check_pipeline_kernel(torch.bfloat16, *PIPE_T6, sparse)
            for sparse in ("tile", "decoded")]
         + [check_pipeline_kernel(torch.bfloat16, *PIPE_T6_ROPE,
@@ -3073,7 +3105,7 @@ def main():
         analog_err[sparse] = max(
             check_layer_analog(dt, what, shape, lb, sparse) for dt in dtypes
             for what, shape, lb in [("full width", FULL, 64)] + MULTI_BLOCK
-            + EIGHT_CASES)
+            + EIGHT_CASES + [HD128])
     analog_err["rope"] = max(check_layer_analog(dt, *case, family="rope")
                              for dt in dtypes for case in ROPE_CASES)
     analog_err["pipeline"] = max(
@@ -3222,6 +3254,8 @@ def main():
                           **{"the #7 path (binary='mxu_kernel')":
                              dict(binary="mxu_kernel")})
     long_ms, long_counts = long_prompt_path(*lm_bf16)
+    long_int8 = long_prompt_path(*lm_q, what="int8")
+    long_mixed = long_prompt_path(*lm_mixed, what="mixed int8")
     serve_path(*lm_q)
     vision_int8_path()
 
@@ -3356,6 +3390,8 @@ def main():
             dict(name="fused_layer_rope", source=csrc + "fused_layer.cu",
                  replaces="src/repro/kernels/fused_layer.py:420",
                  launches=lm_counts["fused_layer_rope"], max_abs_err=rope_err,
+                 at_long=dict(prompt_ms=long_int8[0], tokens=LONG_PROMPT,
+                              launches=long_int8[1]["fused_layer_rope"]),
                  **rope_timing),
             dict(name="quant_spike_matmul", source=csrc + "spike_matmul.cu",
                  replaces="src/repro/kernels/spike_matmul.py:182",
@@ -3385,7 +3421,10 @@ def main():
             dict(name="fused_ssa_rope", source=csrc + "fused_layer.cu",
                  replaces="src/repro/kernels/fused_ssa.py:166",
                  launches=lm_mixed_counts["fused_ssa_rope"],
-                 max_abs_err=rope_ssa_err, **rope_ssa_timing),
+                 max_abs_err=rope_ssa_err,
+                 at_long=dict(prompt_ms=long_mixed[0], tokens=LONG_PROMPT,
+                              launches=long_mixed[1]["fused_ssa_rope"]),
+                 **rope_ssa_timing),
             dict(name="popcount_scores",
                  source=csrc + "popcount_attention.cu",
                  replaces="src/repro/kernels/popcount_attention.py:35",

@@ -31,10 +31,13 @@ Three functions of one layer:
   to the next timestep and adds each timestep's executed sub-blocks;
 * :func:`fused_layer` — the wrapper: CPU tensors take the plain version,
   CUDA tensors launch ``csrc/fused_layer.cu`` or raise: through
-  :func:`fused_layer_cuda` two launches (attention per (head, b), then
-  wo + MLP per (64-row tile of an L-block, b)); with ``pipeline=True``
-  through :func:`fused_layer_pipeline_cuda` the same two a timestep
-  (2 T), the membranes moving between them through device scratch.
+  :func:`fused_layer_cuda` three launches (launch A: the q/k/v
+  projections per (w3 column slice, row group), then the attention per
+  (query block, head, (t, b)), the spike bits between them in a device
+  scratch; launch B: wo + MLP per (64-row tile of an L-block, b)); with
+  ``pipeline=True`` through :func:`fused_layer_pipeline_cuda` the same
+  three a timestep (3 T), the membranes moving between them through
+  device scratch.
 
 Analog scores (``binarize_scores=False``, Spikformer's raw SSA, which
 JAX's kernel takes at the kernel API; no model path reaches the layer
@@ -72,6 +75,7 @@ exact in no order:
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -92,29 +96,34 @@ N_PHASES = len(LAYER_PHASES)
 
 # kernel launches on the card, by variant (bn tile, bn decoded, rope;
 # fused or pipelined; binarized or analog scores, ``_analog``): each call
-# of the fused CUDA layer program launches two kernels (attention_phase,
-# then mlp_phase) and counts both; the pipelined one launches the pair
-# once a timestep, 2 T a call
+# of the fused CUDA layer program launches three kernels (launch A's
+# project_phase and attend_phase, then launch B's mlp_phase) and counts
+# all three; the pipelined one launches the three once a timestep, 3 T a
+# call
 LAUNCHES = {f"fused_layer{sched}{variant}{scores}": 0
             for sched in ("", "_pipeline")
             for variant in ("", "_decoded", "_rope")
             for scores in ("", "_analog")}
-LAUNCHES_PER_CALL = 2
+LAUNCHES_PER_CALL = 3
 
-# shape limits of the CUDA kernel (csrc/fused_layer.cu): launch A keeps
-# every q/k/v spike bit of the sequence in shared memory (so L is bounded
-# by :func:`smem_a`) and a row's q or k bits in at most two 32-bit words
-# (head_dim <= 64); launch B holds T accumulators a slot and its rmsnorm
-# a row in registers, and the spike bit planes of a 64-row tile in shared
-# memory (:func:`smem_b`). The pipelined kernel's launches see one
-# timestep each: its layout is the fused one at T = 1, and T is unbounded
-L_TILE = 64
-KA = 64                        # launch A's streamed w3 K-chunk
-MAX_HEAD_DIM = 64
+# shape limits of the CUDA kernel (csrc/fused_layer.cu). Launch A keeps
+# the spike bits in device memory (:func:`bits_words`), so it takes any L;
+# a row's q or k bits are at most four 32-bit words (head_dim <= 128), and
+# a block holds its w3 column slice for all of D in shared memory
+# (:func:`smem_a`, :func:`column_width`). Launch B holds T accumulators a
+# slot and its rmsnorm a row in registers, and the spike bit planes of a
+# 64-row tile in shared memory (:func:`smem_b`). The pipelined kernel's
+# launches see one timestep each: its layout is the fused one at T = 1,
+# and T is unbounded
+MA = 64                        # launch A: flattened (b, l) rows of a tile
+KCA_BYTES = 256                # launch A: a staged slab chunk's row
+SA = 3                         # launch A: slab chunks in flight
+CW_MAX = 128                   # launch A: columns of a block's w3 slice
+MAX_HEAD_DIM = 128
 MAX_HEADS = 32
 MAX_T = 4
 MAX_D_ROPE = 1024
-SMEM_LIMIT = 232448 - 512      # per block, less launch A's static arrays
+SMEM_LIMIT = 232448 - 1024     # per block, less launch A's static arrays
 SMEM_B_LIMIT = 232448 - 35840  # less launch B's static weight / operand tiles
 
 
@@ -471,35 +480,70 @@ def prepare(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2, delta, *,
     return (x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2, delta), kw
 
 
-def _smem_a_at(elem_size: int, t: int, l: int, d: int, head_dim: int,
-               nlb: int, ka: int) -> int:
-    """Launch A's dynamic shared memory in bytes (``SmemA`` in the CUDA
-    source) with ``ka``-deep w3 K-chunks: one 64-row slab, one K-chunk
-    of the head's w3 slice, and the q/k/v spike bits (q and k in
-    ``ceil(head_dim / 32)`` words a row), masks and block flags of the
-    whole sequence."""
-    n3, ldk, lw = 3 * head_dim, d + 16 // elem_size, -(-l // 32)
-    hw = -(-head_dim // 32)
-    slab = L_TILE * max(ldk * elem_size, n3 * 4)
-    bits = 4 * (2 * t * l * hw + t * head_dim * lw + 2 * t * lw + t * nlb)
-    return slab + n3 * (ka * elem_size + 16) + bits
+def _padded(n: int, elem_size: int) -> int:
+    """A staged row of n elements padded to an odd number of 16-byte
+    units (``padded`` in the CUDA source)."""
+    return n + (16 // elem_size if (n * elem_size // 16) % 2 == 0
+                else 32 // elem_size)
 
 
-def chunk_depth(elem_size: int, t: int, l: int, d: int, head_dim: int,
-                nlb: int) -> int:
-    """The depth of launch A's w3 K-chunks, as the kernel's
-    ``chunk_depth`` picks it: D (the whole slice, staged once a block)
-    when that fits shared memory, else KA (streamed for every tile)."""
-    whole = _smem_a_at(elem_size, t, l, d, head_dim, nlb, d)
-    return d if d <= KA or whole <= SMEM_LIMIT else KA
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
 
 
-def smem_a(elem_size: int, t: int, l: int, d: int, head_dim: int,
-           nlb: int) -> int:
-    """Launch A's dynamic shared memory in bytes at the K-chunk depth
-    :func:`chunk_depth` picks."""
-    return _smem_a_at(elem_size, t, l, d, head_dim, nlb,
-                      chunk_depth(elem_size, t, l, d, head_dim, nlb))
+def smem_a(elem_size: int, d: int, head_dim: int, cw: int,
+           rope: bool = False) -> int:
+    """Launch A's projection block's dynamic shared memory in bytes
+    (``SmemP`` in the CUDA source, carved in this order) with a column
+    slice ``cw`` wide: the slice of w3 for all D rows (the rope family's
+    transposed in fp32), the ring of slab chunks, the rope family's
+    scaled projections, the tile's q / k words and v masks, and two
+    16-byte parameter vectors a column. Each name below is the offset
+    where its region starts."""
+    ngw = (cw // head_dim if cw >= head_dim else 1) * -(-head_dim // 32)
+    ring = _align16(cw * (d + 4) * 4 if rope
+                    else d * _padded(cw, elem_size) * elem_size)
+    kca = KCA_BYTES // elem_size
+    yproj = ring + SA * MA * _padded(kca, elem_size) * elem_size
+    qkw = yproj + (MA * cw * 4 if rope else 0)
+    return qkw + _align16(MA * ngw * 4) + cw * 2 * 4 + cw * 2 * 16
+
+
+def column_widths(heads: int, head_dim: int) -> list:
+    """The column slices launch A takes, widest first: whole (q/k/v, head)
+    groups that tile the 3 H groups, or a pair slice of one group (a
+    width dividing head_dim: half its columns from each half of the
+    group), a multiple of 8 up to CW_MAX."""
+    whole = [m * head_dim for m in range(1, 3 * heads + 1)
+             if (3 * heads) % m == 0 and m * head_dim <= CW_MAX]
+    pair = [cw for cw in range(8, head_dim, 8) if head_dim % cw == 0]
+    return sorted(set(whole + pair), reverse=True)
+
+
+@functools.lru_cache(maxsize=None)
+def column_width(elem_size: int, d: int, heads: int, head_dim: int,
+                 rope: bool = False, what: str = "fused_layer") -> int:
+    """The widest column slice whose w3 rows fit one block's shared
+    memory beside the slab ring (:func:`smem_a`); raises ValueError when
+    none does (a D too wide for an 8-column slice). Cached: the wrapper
+    asks on every launch."""
+    for cw in column_widths(heads, head_dim):
+        if smem_a(elem_size, d, head_dim, cw, rope) <= SMEM_LIMIT:
+            return cw
+    raise ValueError(f"{what} kernel holds a w3 column slice of all D rows "
+                     f"in shared memory, got D={d}, head_dim={head_dim}")
+
+
+def bits_words(t: int, b: int, l: int, heads: int, head_dim: int,
+               nlb: int) -> int:
+    """int32 words of launch A's bit scratch (``BitsLayout`` in the CUDA
+    source), per timestep: q and k bits (B, H, L, ceil(hd / 32)) each, v
+    bits transposed (B, H, hd, ceil(L / 32)), the key and value L-block
+    flags (B, H, n_l_blocks) each, the projection flags (B,
+    n_l_blocks)."""
+    hw, lw = -(-head_dim // 32), -(-l // 32)
+    return t * (2 * b * heads * l * hw + b * heads * head_dim * lw
+                + 2 * b * heads * nlb + b * nlb)
 
 
 def smem_b(t: int, d: int, ff: int, heads: int) -> int:
@@ -525,18 +569,14 @@ def check_launch_shapes(elem_size: int, t: int, l: int, d: int, heads: int,
                         what: str = "fused_layer") -> None:
     """Raises ValueError for a shape that launch A (and, given ``ff``,
     launch B) does not take; ``what`` names the kernel in the message.
-    ``pipeline``: the pipelined kernel, whose launches hold one timestep
-    (the layout at T = 1, any T)."""
+    Launch A takes any T and L. ``pipeline``: the pipelined kernel, whose
+    launches hold one timestep (launch B's layout at T = 1, any T)."""
     held = 1 if pipeline else t
-    smem = smem_a(elem_size, held, l, d, head_dim, nlb)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{what} kernel takes a sequence whose spike bits "
-                         f"fit shared memory, got T={held}, L={l} ({smem} "
-                         f"bytes > {SMEM_LIMIT})")
     if head_dim > MAX_HEAD_DIM or head_dim % 8 or d % 16:
         raise ValueError(f"{what} kernel takes head_dim a multiple of 8 up "
                          f"to {MAX_HEAD_DIM} and D a multiple of 16, got "
                          f"head_dim={head_dim}, D={d}")
+    column_width(elem_size, d, heads, head_dim, rope, what)
     if ff is None:
         return
     if held > MAX_T or heads > MAX_HEADS or (ff // heads) % 8 or \
@@ -552,7 +592,7 @@ def check_launch_shapes(elem_size: int, t: int, l: int, d: int, heads: int,
 
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 15
              + [ctypes.c_float] * 3 + [ctypes.c_int] + [ctypes.c_float]
-             + [ctypes.c_int] * 14 + [ctypes.c_void_p] * 5)
+             + [ctypes.c_int] * 15 + [ctypes.c_void_p] * 6)
 # the pipelined entry adds the three membrane scratch pointers
 _PIPELINE_ARGTYPES = _ARGTYPES + [ctypes.c_void_p] * 3
 
@@ -583,11 +623,11 @@ def fused_layer_cuda(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
 
 def fused_layer_pipeline_cuda(x, s, w3, wo, w1, w2, scales, auxp, auxo,
                               aux1, aux2, delta, **kw):
-    """Launch the pipelined CUDA layer program (#1d): the two launches
-    once a timestep, A_0, B_0, A_1, B_1, ..., on PyTorch's current stream,
-    with the membranes in device scratch between them; counted, 2 T a
-    call, under ``fused_layer_pipeline``, ``fused_layer_pipeline_decoded``
-    or ``fused_layer_pipeline_rope``."""
+    """Launch the pipelined CUDA layer program (#1d): launch A (two
+    kernels) and launch B once a timestep, A_0, B_0, A_1, B_1, ..., on
+    PyTorch's current stream, with the membranes in device scratch
+    between them; counted, 3 T a call, under ``fused_layer_pipeline``,
+    ``fused_layer_pipeline_decoded`` or ``fused_layer_pipeline_rope``."""
     return _launch(True, x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1,
                    aux2, delta, **kw)
 
@@ -633,6 +673,11 @@ def _launch(pipeline, x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
     # of 3 T + 1 (fused), or of 4 per timestep (pipelined)
     flags = torch.zeros((t, b, nlb, 4) if pipeline else (b, nlb, 3 * t + 1),
                         dtype=torch.int32, device=x.device)
+    # launch A's spike bits and count flags, every timestep's (the
+    # pipelined launches take their timestep's sections)
+    bits = torch.zeros(bits_words(t, b, l, num_heads, head_dim, nlb),
+                       dtype=torch.int32, device=x.device)
+    cw = column_width(x.element_size(), d, num_heads, head_dim, rope)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     cp = -(-d // c_block) * c_block
@@ -640,9 +685,9 @@ def _launch(pipeline, x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
             float(scale), float(decay), float(v_th), int(soft_reset),
             float(norm_eps), int(rope), int(causal), int(not binarize_scores),
             t, b, l, d, num_heads,
-            head_dim, ff, l_block, int(decoded), c_block, cp, ctx.data_ptr(),
-            s2g.data_ptr(), out.data_ptr(), counts.data_ptr(),
-            flags.data_ptr()]
+            head_dim, ff, l_block, int(decoded), c_block, cp, cw,
+            bits.data_ptr(), ctx.data_ptr(), s2g.data_ptr(), out.data_ptr(),
+            counts.data_ptr(), flags.data_ptr()]
     if pipeline:
         # the membranes between launches (q/k/v, input neuron, hidden);
         # the first timestep does not read them

@@ -17,8 +17,9 @@ Port of ``repro.kernels.fused_ssa``:
   attend counts ``2 T``;
 * :func:`fused_ssa` — the wrapper: CPU tensors take the plain version,
   CUDA tensors launch ``csrc/fused_layer.cu``'s ``fused_ssa_forward``
-  (the layer program's launch A alone) through :func:`fused_ssa_cuda`
-  or raise.
+  (the layer program's launch A alone: the projections, then the
+  attention, the spike bits between them in a device scratch) through
+  :func:`fused_ssa_cuda` or raise.
 
 Both families run on the kernel, with fp weights or int8 codes cast to
 the activation dtype plus ``scale3``: ``bn`` (the vision bundle on
@@ -45,10 +46,13 @@ from repro_torch.models.nn import bn_affine, fma32, rope_rotate
 
 FAMILIES = ("bn", "rope")
 PHASES = ("q", "k", "v", "attend")
-# kernel launches on the card (one per call of fused_ssa_cuda), by family
-# and by scores (binarized, or analog: ``_analog``)
+# kernel launches on the card, by family and by scores (binarized, or
+# analog: ``_analog``): each call of fused_ssa_cuda launches the layer
+# program's launch A, two kernels (project_phase, attend_phase), and
+# counts both
 LAUNCHES = {"fused_ssa": 0, "fused_ssa_rope": 0, "fused_ssa_analog": 0,
             "fused_ssa_rope_analog": 0}
+LAUNCHES_PER_CALL = 2
 
 
 def reset_launches() -> None:
@@ -283,7 +287,7 @@ def _library():
     if lib.fused_ssa_forward.argtypes is None:
         lib.fused_ssa_forward.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_float] * 3
-            + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 3)
+            + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 4)
         lib.fused_ssa_forward.restype = ctypes.c_int
     return lib
 
@@ -296,10 +300,11 @@ def fused_ssa_cuda(x: torch.Tensor, w3: torch.Tensor,
                    v_th: float = 1.0, soft_reset: bool = False,
                    eps: float = 1e-5
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the bundle kernel on PyTorch's current stream; counted under
-    ``fused_ssa`` (bn) or ``fused_ssa_rope``, with ``_analog`` appended
-    for analog scores (the kernel's analog instantiation). x and w3 share one dtype
-    (float32 or bfloat16), which the context takes; BN rows are passed
+    """Launch the bundle's two kernels on PyTorch's current stream,
+    counted (2 a call) under ``fused_ssa`` (bn) or ``fused_ssa_rope``,
+    with ``_analog`` appended for analog scores (the kernel's analog
+    instantiation). x and w3 share one dtype (float32 or bfloat16),
+    which the context takes; BN rows are passed
     with the inverse std, ``torch.rsqrt(var + eps)`` computed once per
     channel (the oracle's); the rope table as fp32."""
     from repro_torch.kernels import fused_layer as FL
@@ -322,21 +327,27 @@ def fused_ssa_cuda(x: torch.Tensor, w3: torch.Tensor,
         if a.device != dev:
             raise ValueError("all fused_ssa operands must be on one device")
     FL.check_launch_shapes(x.element_size(), t, l, d, num_heads, head_dim, 1,
-                           what="fused_ssa")
+                           rope=rope, what="fused_ssa")
     ctx = torch.empty((t, b, l, q_dim), dtype=x.dtype, device=dev)
     counts = torch.zeros((num_heads, 4), dtype=torch.int32, device=dev)
     if ctx.numel() == 0:
         return ctx, counts
+    # launch A's spike bits and count flags (one L-block a sequence)
+    bits = torch.zeros(FL.bits_words(t, b, l, num_heads, head_dim, 1),
+                       dtype=torch.int32, device=dev)
+    cw = FL.column_width(x.element_size(), d, num_heads, head_dim, rope,
+                         "fused_ssa")
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.fused_ssa_forward(
         dtypes[x.dtype], *(a.data_ptr() for a in act + f32), float(scale),
         float(decay), float(v_th), int(soft_reset), int(rope), int(causal),
-        int(not binarize_scores), t, b, l, d, num_heads, head_dim,
-        ctx.data_ptr(), counts.data_ptr(), stream)
+        int(not binarize_scores), t, b, l, d, num_heads, head_dim, cw,
+        bits.data_ptr(), ctx.data_ptr(), counts.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"fused_ssa kernel launch failed: "
                            f"{lib.fused_layer_error(rc).decode()}")
     name = "fused_ssa_rope" if rope else "fused_ssa"
-    LAUNCHES[name + ("" if binarize_scores else "_analog")] += 1
+    LAUNCHES[name + ("" if binarize_scores else "_analog")] += \
+        LAUNCHES_PER_CALL
     return ctx, counts

@@ -182,14 +182,15 @@ def test_unported_variants_raise(variant):
     assert (cnt[:, 3] == t * b).all()
 
 
-@pytest.mark.parametrize("bad", ["long_l", "long_t", "half", "mixed"])
+@pytest.mark.parametrize("bad", ["wide_head", "long_t", "half", "mixed"])
 def test_kernel_launcher_rejects_operands_before_launching(bad):
     """The CUDA launcher checks shapes and dtypes before it builds or
-    calls the kernel, so these raise here too, where there is no card."""
+    calls the kernel, so these raise here too, where there is no card
+    (launch A takes head_dim up to 128: a row's q or k bits in four
+    words)."""
     t = 5 if bad == "long_t" else 2
-    # launch A keeps the whole sequence's spike bits in shared memory
-    l = 20000 if bad == "long_l" else 13
-    heads, hd, d, ff = 2, 8, 16, 16
+    l = 13
+    heads, hd, d, ff = 2, 136 if bad == "wide_head" else 8, 16, 16
     args, kw = TFL.prepare(*to_torch(layer_ops(7, t, 1, l, d, heads, hd, ff)),
                            num_heads=heads, head_dim=hd,
                            scale=1.0 / math.sqrt(hd), decay=0.5, v_th=1.0,
@@ -221,62 +222,3 @@ def test_layer_at_8_512_width_bitwise_against_jitted_jax_oracle():
         np.testing.assert_array_equal(out.numpy(), want, err_msg=sparse)
         assert cnts[sparse].shape == (heads, 8, 2)
     assert torch.equal(cnts["tile"][:, 3:], cnts["decoded"][:, 3:])
-
-
-@pytest.mark.parametrize("elem_size", [2, 4])
-def test_launcher_takes_8_512_and_the_lm_past_its_old_bound(elem_size):
-    """Launch A streams w3 in K-chunks and keeps head_dim <= 64 in two
-    words a row: the 8-512 layer fits (head_dim 64, D=512, F=2048, both
-    launches' shared memory) in bf16 and fp32, and the LM's rope layer
-    (D=256, hd=32, T=4) takes sequences past the old bound of 2998 (bf16)
-    and 1328 (fp32) tokens: up to 3744 and 2827. head_dim 72 and longer
-    sequences are still refused."""
-    TFL.check_launch_shapes(elem_size, 4, 196, 512, 8, 64, 2, ff=2048)
-    assert TFL.smem_a(elem_size, 4, 196, 512, 64, 2) <= TFL.SMEM_LIMIT
-    assert TFL.smem_b(4, 512, 2048, 8) <= TFL.SMEM_B_LIMIT
-    longest = {2: 3744, 4: 2827}[elem_size]
-    for l, ok in ((longest, True), (longest + 1, False)):
-        call = lambda: TFL.check_launch_shapes(  # noqa: E731
-            elem_size, 4, l, 256, 8, 32, -(-l // 128), ff=1024, rope=True)
-        if ok:
-            call()
-        else:
-            with pytest.raises(ValueError, match="fit shared memory"):
-                call()
-    with pytest.raises(ValueError, match="head_dim"):
-        TFL.check_launch_shapes(elem_size, 4, 196, 512, 8, 72, 2, ff=2048)
-    with pytest.raises(ValueError, match="F / H"):
-        TFL.check_launch_shapes(elem_size, 4, 196, 512, 8, 64, 2, ff=8 * 36)
-    with pytest.raises(ValueError, match="F / H"):
-        TFL.check_launch_shapes(elem_size, 4, 64, 512, 8, 64, 1,
-                                ff=8 * 1024)
-
-
-@pytest.mark.parametrize("elem_size,t,l,d,hd,nlb,depth", [
-    (2, 4, 196, 512, 64, 2, 64), (4, 4, 196, 512, 64, 2, 64),
-    (2, 4, 512, 256, 32, 4, 256), (4, 4, 512, 256, 32, 4, 256),
-    (2, 4, 2998, 256, 32, 24, 256), (2, 4, 2999, 256, 32, 24, 64),
-    (4, 4, 1328, 256, 32, 11, 256), (4, 4, 1329, 256, 32, 11, 64),
-    (2, 4, 64, 64, 16, 1, 64)])
-def test_chunk_depth_streams_w3_only_past_shared_memory(elem_size, t, l, d,
-                                                        hd, nlb, depth):
-    """Launch A stages the head's whole w3 slice (depth D) while it fits
-    beside the slab and the sequence's bits, and streams KA-deep chunks
-    past that: the 8-512 layer always, the LM's rope layer from 2999
-    tokens in bf16 and 1329 in fp32; smem_a counts the chosen depth."""
-    assert TFL.chunk_depth(elem_size, t, l, d, hd, nlb) == depth
-    whole = TFL._smem_a_at(elem_size, t, l, d, hd, nlb, d)
-    assert (whole <= TFL.SMEM_LIMIT) == (depth == d)
-    assert TFL.smem_a(elem_size, t, l, d, hd, nlb) == TFL._smem_a_at(
-        elem_size, t, l, d, hd, nlb, depth)
-
-
-def test_kernel_launcher_rejects_head_dim_72_before_launching():
-    t, l, heads, hd, d, ff = 2, 13, 2, 72, 16, 16
-    args, kw = TFL.prepare(*to_torch(layer_ops(7, t, 1, l, d, heads, hd, ff)),
-                           num_heads=heads, head_dim=hd,
-                           scale=1.0 / math.sqrt(hd), decay=0.5, v_th=1.0,
-                           soft_reset=False, eps=1e-5, l_block=8)
-    with pytest.raises(ValueError, match="head_dim a multiple of 8 up to 64"):
-        TFL.fused_layer_cuda(*args, **kw)
-    assert TFL.LAUNCHES["fused_layer"] == 0

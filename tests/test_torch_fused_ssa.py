@@ -146,14 +146,14 @@ def test_fused_ssa_all_zero_input_and_checks():
         TF.fused_ssa(args[0].to("meta"), *args[1:], **_kw(shape))
 
 
-@pytest.mark.parametrize("case", ["dtype", "head_dim", "long_l", "d"])
+@pytest.mark.parametrize("case", ["dtype", "head_dim", "wide_head", "d"])
 def test_fused_ssa_launcher_rejects_operands_before_launching(case):
     """The CUDA launcher checks what launch A takes (one dtype, head_dim a
-    multiple of 8 up to 64, D a multiple of 16, the sequence's spike bits
-    in shared memory) and raises before it builds or launches anything;
-    these operands lie on the CPU, where no kernel exists."""
+    multiple of 8 up to 128, D a multiple of 16; any L) and raises before
+    it builds or launches anything; these operands lie on the CPU, where
+    no kernel exists."""
     shape = {"head_dim": (2, 2, 16, 32, 2, 12),
-             "long_l": (4, 1, 20000, 32, 1, 8),
+             "wide_head": (2, 1, 16, 32, 1, 136),
              "d": (2, 2, 16, 40, 2, 8)}.get(case, SHAPES["l16"])
     t, b, l, d, h, hd = shape
     x = torch.zeros((t, b, l, d))
@@ -216,8 +216,9 @@ def test_fused_ssa_rope_plain_matches_pallas(dtype, quant, shape):
 
 def test_fused_ssa_rope_checks_its_operands():
     """The rope family takes the (2, L, hd/2) table as aux and an even
-    head_dim; its launcher checks the shapes launch A takes before it
-    builds or launches anything (these operands lie on the CPU)."""
+    head_dim; its launcher checks the shapes launch A takes (head_dim up
+    to 128, any L) before it builds or launches anything (these operands
+    lie on the CPU)."""
     shape = SHAPES["l13"]
     t, b, l, d, h, hd = shape
     x, w3, _, table = _rope_ops(6, shape, False)
@@ -231,9 +232,11 @@ def test_fused_ssa_rope_checks_its_operands():
         TF.fused_ssa(args[0], torch.zeros((3, d, h * 7)), None,
                      torch.zeros((2, l, 3)), 0.3,
                      **dict(kw, head_dim=7))
+    # launch A takes any L, and head_dim up to 128
     with pytest.raises(ValueError, match="fused_ssa kernel takes"):
-        TF.fused_ssa_cuda(torch.zeros((4, 1, 20000, d)), args[1], None,
-                          torch.zeros((2, 20000, hd // 2)), 0.3, **kw)
+        TF.fused_ssa_cuda(args[0], torch.zeros((3, d, h * 136)), None,
+                          torch.zeros((2, l, 68)), 0.3,
+                          **dict(kw, head_dim=136))
     assert TF.LAUNCHES["fused_ssa_rope"] == 0
 
 

@@ -319,11 +319,13 @@ def test_rope_decoded_takes_the_tile_projection():
 
 
 def test_rope_launcher_rejects_operands_before_launching():
-    """Launch A keeps the sequence's spike bits in shared memory and
-    launch B's rmsnorm a row in registers: a longer sequence or a wider
-    model raises before the kernel is built, here too."""
-    heads, hd, d, ff = 2, 8, 16, 16
-    for l, wide in ((20000, False), (13, True)):
+    """Launch A holds a row's q or k bits in at most four words and
+    launch B's rmsnorm a row in registers: head_dim 136 or a wider model
+    raises before the kernel is built, here too (launch A takes any
+    sequence length)."""
+    d, ff = 16, 16
+    for heads, hd, wide in ((1, 136, False), (2, 8, True)):
+        l = 13
         args = rope_layer_ops(1, 2, 1, l, d, heads, hd, ff)
         if wide:
             dd = TFL.MAX_D_ROPE + 16

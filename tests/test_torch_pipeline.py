@@ -260,47 +260,42 @@ def test_mixed_trees_under_pipeline_run_the_bundle_as_fused(arch,
     assert float(got["fused"].std()) > 0
 
 
-@pytest.mark.parametrize("elem_size,longest", [(2, 15008), (4, 11328)])
-def test_pipeline_launch_bounds(elem_size, longest):
+@pytest.mark.parametrize("elem_size", [2, 4])
+def test_pipeline_launch_bounds(elem_size):
     """The pipelined kernel's launches hold one timestep: launch B needs
     no bound on T (T = 6 and 64 pass where the fused kernel refuses
-    T = 6), and launch A's bound on L is one timestep's bits: the LM's
-    rope layer (D = 256, 8 heads of 32) up to ``longest`` tokens (the
-    fused kernel at T = 4: 3744 in bf16, 2827 in fp32). 8-512's layer
-    fits and still streams w3; head_dim 72 and F / H off the grid are
-    refused as for the fused kernel."""
+    T = 6), and launch A, whose spike bits live in device memory, takes
+    any L: the LM's rope layer (D = 256, 8 heads of 32) past the old
+    one-timestep bound (15008 tokens in bf16, 11328 in fp32) and 8-512's
+    layer at L 40000. head_dim 136 and F / H off the grid are refused as
+    for the fused kernel."""
     shape = (196, 512, 8, 64, 2)
     for t in (4, 6, 64):
         TFL.check_launch_shapes(elem_size, t, *shape, ff=2048,
                                 pipeline=True)
     with pytest.raises(ValueError, match="T <= 4"):
         TFL.check_launch_shapes(elem_size, 6, *shape, ff=2048)
-    assert TFL.chunk_depth(elem_size, 1, 196, 512, 64, 2) == TFL.KA
-    for l, ok in ((longest, True), (longest + 1, False)):
-        call = lambda: TFL.check_launch_shapes(  # noqa: E731
-            elem_size, 4, l, 256, 8, 32, -(-l // 128), ff=1024, rope=True,
-            pipeline=True)
-        if ok:
-            call()
-        else:
-            with pytest.raises(ValueError, match="fit shared memory"):
-                call()
+    for l in (15009, 11329, 40000):
+        TFL.check_launch_shapes(elem_size, 4, l, 256, 8, 32, -(-l // 128),
+                                ff=1024, rope=True, pipeline=True)
+    TFL.check_launch_shapes(elem_size, 6, 40000, 512, 8, 64, 313, ff=2048,
+                            pipeline=True)
     with pytest.raises(ValueError, match="head_dim"):
-        TFL.check_launch_shapes(elem_size, 6, 196, 512, 8, 72, 2, ff=2048,
-                                pipeline=True)
+        TFL.check_launch_shapes(elem_size, 6, 196, 512, 8, 136, 2,
+                                ff=2048, pipeline=True)
     with pytest.raises(ValueError, match="F / H"):
         TFL.check_launch_shapes(elem_size, 6, 196, 512, 8, 64, 2,
                                 ff=8 * 36, pipeline=True)
 
 
-@pytest.mark.parametrize("bad", ["long_l", "half", "mixed", "head_dim"])
+@pytest.mark.parametrize("bad", ["odd_head_dim", "half", "mixed", "head_dim"])
 def test_pipeline_launcher_rejects_operands_before_launching(bad):
     """The pipelined CUDA launcher checks shapes and dtypes before it
-    builds or calls the kernel, so these raise here too, at T = 6."""
-    t = 6
-    # one timestep's bits take L up to ~25000 at this width
-    l = 40000 if bad == "long_l" else 13
-    heads, hd, d, ff = 2, 72 if bad == "head_dim" else 8, 16, 16
+    builds or calls the kernel, so these raise here too, at T = 6:
+    head_dim 12 (not a multiple of 8) and 136 (past four words a row)."""
+    t, l = 6, 13
+    heads, d, ff = 2, 16, 16
+    hd = {"odd_head_dim": 12, "head_dim": 136}.get(bad, 8)
     args, kw = TFL.prepare(*to_torch(layer_ops(7, t, 1, l, d, heads, hd, ff)),
                            num_heads=heads, head_dim=hd,
                            scale=1.0 / math.sqrt(hd), decay=0.5, v_th=1.0,
