@@ -18,7 +18,12 @@ device; exits non-zero without one). It
      heads of 64, F=2048, l_block 128; and a ragged L=50); past the
      earlier shared-memory launch A (which took L up to 1408 in bf16 and
      480 in fp32 there): L=1600 in bf16 and 500 in fp32 at B=2; at head_dim 128 (T=4, B=4, L=100, D=256, 2 heads, F=512: four
-     words a row of q or k bits), tile, decoded and analog;
+     words a row of q or k bits), tile, decoded and analog; past the
+     earlier launch B's bounds: T=6 at 4-256's widths (B=16; launch B's
+     timesteps in two groups, the membranes carried across) and 40
+     heads of 8 (T=4, B=4, L=100, D=256, F=640), tile, decoded and
+     analog, and an F no multiple of 8 (3 heads, F=21: w1's rows copied
+     element by element);
    * ``spike_matmul`` (#2) at the six products of a training layer (q,
      k, v, wo on integer counts, w1, w2; M = 16384) with dark tiles, at
      Spikingformer-8-512's three product shapes (M = 25088; 512→512 on
@@ -67,7 +72,9 @@ device; exits non-zero without one). It
      bitwise; both rope kernels also at long prompts (``ROPE_LONG``):
      S=3072 in bf16 and 1408 in fp32 at B=2, and past the old launch A's
      bound of 3744 / 2827 tokens, S=4096 in bf16 and 3000 in fp32 at
-     B=1;
+     B=1; the layer's rope family also at T=6 (B=2, S=200) and at D=1536
+     (B=2, S=300, 8 heads of 32, F=1024: past the earlier ln2's 1024
+     columns in registers);
    * ``quant_spike_matmul`` and ``quant_gather_spike_matmul`` (int8
      codes, random per-channel scales) at the three products of a mixed
      layer (wo on integer counts up to 512, w1, w2; M = 16384) and of an
@@ -123,12 +130,13 @@ device; exits non-zero without one). It
      layer program's analog variants once each through the public
      ``fused_layer`` (the kernel API, the only entry that reaches them);
    * the pipelined layer program (#1d, ``overlap='pipeline'``: #1's
-     three launches once a timestep, 3 T a call) at every shape #1 is
-     checked at (full width tile and decoded, bf16 and fp32, several
-     L-blocks, 8-512, the rope shapes and S=3072), at T=6 and past the
-     old launch A's one-timestep bound (8-512's widths, L=2000, fp32):
-     outputs and counts bitwise equal to its plain version and to #1
-     (at T=6, #1's plain version); timed beside #1 at 4-256 and 8-512
+     launches once a timestep, T times ``FL.LAUNCHES_PER_CALL`` a call)
+     at every shape #1 is checked at (full width tile and decoded, bf16
+     and fp32, several L-blocks, 8-512, the rope shapes and S=3072), at
+     T=6, at 40 heads of 8 and past the old launch A's one-timestep
+     bound (8-512's widths, L=2000, fp32): outputs and counts bitwise
+     equal to its plain version and to #1's kernel (at T=6 too, where
+     the earlier #1 could not run); timed beside #1 at 4-256 and 8-512
      with the membrane bytes it adds and ``core.dual_engine``'s
      ``fused_step_metrics`` of one call's counts, pipelined or not;
 3. drives the main paths, each with every launch count and every
@@ -137,8 +145,9 @@ device; exits non-zero without one). It
    launches checked against the decisions it recorded), with
    ``sparse='tile'`` and with ``sparse='decoded'``:
    * inference: the published config, seeded random weights,
-     ``build_prefill_step`` answering 4 requests of 64 images (3 fused
-     layer launches a layer, the tile or the decoded variant);
+     ``build_prefill_step`` answering 4 requests of 64 images (5 fused
+     layer launches a layer: launch A's two and launch B's wo, up and
+     down, the tile or the decoded variant);
    * training: ``build_train_step`` with AdamW under a warmup-cosine
      schedule, 6 steps of 64 synthetic images (per step 24 sparse
      products, ``spike_matmul`` or ``gather_spike_matmul``, one
@@ -160,7 +169,7 @@ device; exits non-zero without one). It
    * Spikingformer-8-512 (the paper's ImageNet workload, 224x224
      images, 8 layers at full width; seeded weights with the BN-bias
      raise of ``dyadic_params``, so layers fire): ``build_prefill_step``
-     answering 3 requests of 32 images for each sparse setting (3 fused
+     answering 3 requests of 32 images for each sparse setting (5 fused
      layer launches a layer call) and the fire rate at every layer's
      input (the path fails if one is all dark);
    * the popcount mode (``binary='popcount'``), once each: 6 train steps
@@ -176,8 +185,9 @@ device; exits non-zero without one). It
      output) of one 4-256 and one 8-512 request, bf16 and fp32 (1
      ``lif_forward`` launch a call);
    * spikingformer-lm, once each: the int8 tree through
-     ``build_prefill_step`` for 3 requests of 8 x 512 tokens (2
-     ``fused_layer_rope`` launches a layer call; 'auto' decides 'tile'
+     ``build_prefill_step`` for 3 requests of 8 x 512 tokens (6
+     ``fused_layer_rope`` launches a layer call, ln2 a kernel of its own;
+     'auto' decides 'tile'
      on every analog ln1 output), the bf16 tree likewise (1 causal
      ``spike_attention`` launch a layer call), the mixed int8 tree (int8
      wq, wk, wv, the rest bf16: its layers are not eligible for the
@@ -188,15 +198,16 @@ device; exits non-zero without one). It
      launch no kernel) and one int8 Spikingformer-4-256 request; one
      prompt of 4096 tokens each of the bf16, int8 and mixed int8 trees
      through ``build_prefill_step`` (past #7's 2048-key chunk: 1 causal
-     ``spike_attention`` a layer; past the old launch A's bound: 3
+     ``spike_attention`` a layer; past the old launch A's bound: 6
      ``fused_layer_rope`` a layer, 2 ``fused_ssa_rope`` a layer), their
      logits == through the plain versions, bitwise;
    * ``overlap='pipeline'`` through ``build_prefill_step``, each beside
      the same requests under 'fused' in the same run: 4 requests of 64
      images of 4-256 on dyadic weights that fire, 'tile' and 'decoded';
      3 requests of 32 images of 8-512; 3 int8 LM prefills of 8 x 512
-     tokens (3 T #1d launches a layer call: 48 a 4-256 request and an
-     LM prefill, 96 an 8-512 request; no other launch); logits equal to
+     tokens (5 T #1d launches a layer call, rope 6 T: 80 a 4-256
+     request, 96 an LM prefill, 160 an 8-512 request; no other launch);
+     logits equal to
      'fused' on every request and, on one, to the plain versions and
      (dyadic weights) to ``overlap='off'``, bitwise; the mixed int8
      4-256 and LM trees under 'pipeline' launch ``fused_ssa`` /
@@ -435,11 +446,20 @@ POPCOUNT_SHAPES = [("5 x 7", 3, 5, 7, HD), ("50 x 70, W=3", 4, 50, 70, 80),
 LIF_CASES = [("4-256 layer input", (4, B * L, D)),
              ("8-512 layer input", (4, EIGHT_BATCH * 196, 512)),
              ("ragged", (4, 300, 200)), ("odd plane", (3, 37, 201))]
-# the pipelined layer program (#1d) at a T past the fused kernel's MAX_T,
-# against its plain version: (what, (T, B, L, D, H, hd, F), l_block) for
-# the bn family and for the rope family
+# the layer program at T = 6 (launch B's timesteps in two groups, the
+# membranes carried across), fused (#1 tile, #1b decoded, #1c) and
+# pipelined (#1d, also held against #1's kernel): (what, (T, B, L, D, H,
+# hd, F), l_block) for the bn family and for the rope family
 PIPE_T6 = ("T=6", (6, 16, 64, 256, 8, 32, 1024), 64)
 PIPE_T6_ROPE = ("T=6", (6, 2, 200, 256, 8, 32, 1024), 128)
+# launch B past its earlier bounds: 40 heads of 8 (its flags are a word a
+# head; F / H = 16) and a rope layer at D = 1536 (ln2's tree streams a
+# row of any length)
+HEADS40 = ("40 heads of 8", (4, 4, 100, 256, 40, 8, 640), 64)
+# an F that is no multiple of 8 (3 heads, F / H = 7): w1's rows are not
+# whole 16-byte vectors, so launch B copies them element by element
+ODD_F = ("F=21, 3 heads", (2, 4, 20, 64, 3, 16, 21), 8)
+ROPE_D1536 = ("D=1536", (4, 2, 300, 1536, 8, 32, 1024), 128)
 # spike_attention's analog mode (#7) at the shapes the analog paths give
 # it: the 4-256 train step's (BH, L, d) and an 8-512 request's
 ANALOG_ATTENTION = [(T * B * H, L, HD), (4 * EIGHT_BATCH * 8, 196, 64)]
@@ -1125,8 +1145,8 @@ def inference_path(cfg, params, requests):
         f"{[round(m, 3) for m in req_ms]}, sparse decisions "
         f"{dict(E.SPARSE_DECISIONS)}, launches {counts}")
     want = dict.fromkeys(counts, 0)
-    want["fused_layer"] = FL.LAUNCHES_PER_CALL * tile
-    want["fused_layer_decoded"] = FL.LAUNCHES_PER_CALL * dec
+    want["fused_layer"] = FL.LAUNCHES_PER_CALL["bn"] * tile
+    want["fused_layer_decoded"] = FL.LAUNCHES_PER_CALL["bn"] * dec
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
     for logits in outs:
@@ -1287,7 +1307,7 @@ def lm_config(quantize, select=None):
 def lm_prefill_path(cfg, params, requests, what):
     """``build_prefill_step`` answering ``requests`` of LM_BATCH x
     LM_PROMPT tokens, the counts reset just before: the int8 model runs
-    3 ``fused_layer_rope`` launches a layer call and 'auto' decides
+    6 ``fused_layer_rope`` launches a layer call and 'auto' decides
     'tile' on every analog ln1 output; the bf16 model's layers are not
     eligible for the layer program and run 1 causal ``spike_attention``
     a layer call; the mixed int8 tree's (int8 wq, wk, wv) are not either,
@@ -1310,7 +1330,7 @@ def lm_prefill_path(cfg, params, requests, what):
     want = dict.fromkeys(counts, 0)
     want_dec = {"tile": 0, "decoded": 0}
     if what == "int8":
-        want["fused_layer_rope"] = FL.LAUNCHES_PER_CALL * n
+        want["fused_layer_rope"] = FL.LAUNCHES_PER_CALL["rope"] * n
         want_dec["tile"] = n
     elif what == "mixed int8":
         want["fused_ssa_rope"] = FS.LAUNCHES_PER_CALL * n
@@ -1373,7 +1393,8 @@ def long_prompt_path(cfg, params, what="bf16"):
     counts = launches()
     want = dict.fromkeys(counts, 0)
     if what == "int8":
-        want["fused_layer_rope"] = FL.LAUNCHES_PER_CALL * cfg.num_layers
+        want["fused_layer_rope"] = FL.LAUNCHES_PER_CALL["rope"] * \
+            cfg.num_layers
     elif what == "mixed int8":
         want["fused_ssa_rope"] = FS.LAUNCHES_PER_CALL * cfg.num_layers
     else:
@@ -1481,8 +1502,8 @@ def vision_int8_path():
     counts = launches()
     tile, dec = sparse_split(cfg.engine, cfg.num_layers)
     want = dict.fromkeys(counts, 0)
-    want["fused_layer"] = FL.LAUNCHES_PER_CALL * tile
-    want["fused_layer_decoded"] = FL.LAUNCHES_PER_CALL * dec
+    want["fused_layer"] = FL.LAUNCHES_PER_CALL["bn"] * tile
+    want["fused_layer_decoded"] = FL.LAUNCHES_PER_CALL["bn"] * dec
     log(f"vision int8 request: {ms:.3f} ms (first call), launches {counts}")
     if counts != want or logits.shape != (REQUEST_BATCH, cfg.vocab_size) \
             or not bool(torch.isfinite(logits).all()):
@@ -2003,8 +2024,9 @@ def check_mixed_outputs(cfg, params, images):
 
 def check_vision_outputs(cfg, params, images, what):
     """Dyadic weights (exact sums in the layer program): the fused logits
-    with sparse 'auto', 'tile' and 'decoded', through the kernels (2
-    launches a layer call) and through their plain versions, equal to
+    with sparse 'auto', 'tile' and 'decoded', through the kernels
+    (``FL.LAUNCHES_PER_CALL`` a layer call) and through their plain
+    versions, equal to
     the sequential oracle's (overlap='off'), bitwise."""
     batch = {"images": images}
     with use_engine(cfg.engine.replace(overlap="off")), \
@@ -2021,8 +2043,8 @@ def check_vision_outputs(cfg, params, images, what):
                 plain, _ = registry.forward(params, cfg, batch)
         torch.cuda.synchronize()
         want = dict.fromkeys(counts, 0)
-        want["fused_layer"] = FL.LAUNCHES_PER_CALL * tile
-        want["fused_layer_decoded"] = FL.LAUNCHES_PER_CALL * dec
+        want["fused_layer"] = FL.LAUNCHES_PER_CALL["bn"] * tile
+        want["fused_layer_decoded"] = FL.LAUNCHES_PER_CALL["bn"] * dec
         if counts != want:
             raise AssertionError(f"{what} output check, sparse={sparse!r}: "
                                  f"launches {counts}, expected {want}")
@@ -2064,7 +2086,8 @@ def check_eval_gradients(cfg, params, batch, what, state=None,
                          overlap="fused", bundle=None):
     """An eval-mode forward under autograd with ``overlap`` 'fused' or
     'pipeline' (the layer program through the kernels, behind
-    ``_FusedLayer``: 3 launches a layer call, or 3 T pipelined; or, for a
+    ``_FusedLayer``: ``FL.LAUNCHES_PER_CALL`` a layer call, T times as
+    many pipelined; or, for a
     model whose layers the layer program does not take, the ``bundle``
     kernel behind ``_FusedBundle``, 2 launches a layer call, and the spike
     products) against the same forward with overlap='off': the logits and
@@ -2095,8 +2118,9 @@ def check_eval_gradients(cfg, params, batch, what, state=None,
     layer = {k: n for k, n in counts.items() if k.startswith("fused_layer")}
     mine = sum(n for k, n in layer.items()
                if k.startswith("fused_layer_pipeline") == pipelined)
-    per_call = FL.LAUNCHES_PER_CALL * (cfg.spiking.time_steps if pipelined
-                                       else 1)
+    family = "rope" if "tokens" in batch else "bn"
+    per_call = FL.LAUNCHES_PER_CALL[family] * (cfg.spiking.time_steps
+                                               if pipelined else 1)
     if bundle:              # the bundle, and off runs the spike kernels
         bad = counts[bundle] != FS.LAUNCHES_PER_CALL * cfg.num_layers or \
             any(layer.values()) or \
@@ -2139,8 +2163,8 @@ def check_eval_gradients(cfg, params, batch, what, state=None,
 def check_pipeline_kernel(dtype, what, shape, l_block, sparse="tile",
                           family="bn"):
     """#1d on dyadic weights (rope: int8 codes) against its plain version
-    and against #1 on the same operands (past #1's MAX_T, #1's plain
-    version): outputs and counts bitwise; the call launches 3 T
+    and against #1's kernel on the same operands, at any T: outputs and
+    counts bitwise; the call launches T times ``FL.LAUNCHES_PER_CALL``
     kernels."""
     if family == "rope":
         args, kw = rope_operands(11, dtype, shape, l_block)
@@ -2151,23 +2175,22 @@ def check_pipeline_kernel(dtype, what, shape, l_block, sparse="tile",
     out_k, cnt_k = FL.fused_layer_pipeline_cuda(*args, **kw)
     n_launch = sum(launches().values())
     out_p, cnt_p = FL.fused_layer_pipeline_plain(*args, **kw)
-    fused = FL.fused_layer_cuda if t <= FL.MAX_T else FL.fused_layer_plain
-    out_f, cnt_f = fused(*args, **kw)
+    out_f, cnt_f = FL.fused_layer_cuda(*args, **kw)
     torch.cuda.synchronize()
     err = float((out_k.float() - out_p.float()).abs().max())
     name = (f"fused_layer_pipeline {family} {sparse} {dtype} {what} "
             f"{tuple(shape)}")
+    per_call = FL.LAUNCHES_PER_CALL[family] * t
     checks = {"== plain": torch.equal(out_k, out_p),
               "counts == plain": torch.equal(cnt_k, cnt_p),
               "== #1": torch.equal(out_k, out_f),
               "counts == #1": torch.equal(cnt_k, cnt_f),
-              f"{FL.LAUNCHES_PER_CALL * t} launches":
-                  n_launch == FL.LAUNCHES_PER_CALL * t}
+              f"{per_call} launches": n_launch == per_call}
     if not all(checks.values()):
         raise AssertionError(f"{name}: {checks} (max abs diff to the plain "
                              f"version {err}, launches {launches()})")
     log(f"{name}, l_block {kw['l_block']}: bitwise equal to its plain "
-        f"version and to {fused.__name__} (outputs and counts), {n_launch} "
+        f"version and to #1's kernel (outputs and counts), {n_launch} "
         f"launches; counts per phase "
         f"{cnt_k.sum(dim=(0, 2)).tolist()}")
     return err
@@ -2214,8 +2237,9 @@ def time_pipeline_kernel(shape=FULL, l_block=64):
 
 def pipeline_path(cfg, params, requests, what, oracle=False):
     """``build_prefill_step`` with overlap='pipeline' answering
-    ``requests``, the counts reset just before: 3 T #1d launches a layer
-    call (the variant the sparse datapath or the rope family names) and
+    ``requests``, the counts reset just before: T times
+    ``FL.LAUNCHES_PER_CALL`` #1d launches a layer call (the variant the
+    sparse datapath or the rope family names) and
     no other launch; the same requests under overlap='fused' timed in the
     same run, with equal logits on every request, bitwise; on one
     request the logits also == through the plain versions and, with
@@ -2231,9 +2255,10 @@ def pipeline_path(cfg, params, requests, what, oracle=False):
     counts, decisions = launches(), dict(E.SPARSE_DECISIONS)
     n = cfg.num_layers * len(requests)
     tile, dec = sparse_split(cfg.engine, n)
-    per_call = FL.LAUNCHES_PER_CALL * cfg.spiking.time_steps
+    family = "rope" if "tokens" in requests[0] else "bn"
+    per_call = FL.LAUNCHES_PER_CALL[family] * cfg.spiking.time_steps
     want = dict.fromkeys(counts, 0)
-    if "tokens" in requests[0]:
+    if family == "rope":
         want["fused_layer_pipeline_rope"] = per_call * n
     else:
         want["fused_layer_pipeline"] = per_call * tile
@@ -2619,9 +2644,9 @@ def check_layer_analog(dtype, what, shape, l_block, sparse="tile",
     ``pipeline``, #1d with analog scores, kernel vs plain version:
     outputs and counts bitwise (both sum the context over the keys in
     ascending order and wo in ascending k); every score block counted (T
-    B a head and L-block); 3 launches a call (#1d: 3 T) under the
-    variant's ``_analog`` name; #1d also == #1 (past #1's MAX_T, #1's
-    plain version)."""
+    B a head and L-block); ``FL.LAUNCHES_PER_CALL`` a call (#1d: T times
+    as many) under the variant's ``_analog`` name; #1d also == #1's
+    kernel at any T."""
     if family == "rope":
         args, kw = rope_operands(11, dtype, shape, l_block)
     else:
@@ -2631,7 +2656,7 @@ def check_layer_analog(dtype, what, shape, l_block, sparse="tile",
     launch = FL.fused_layer_pipeline_cuda if pipeline else FL.fused_layer_cuda
     plain = FL.fused_layer_pipeline_plain if pipeline else FL.fused_layer_plain
     name = analog_variant(kw, pipeline)
-    per_call = FL.LAUNCHES_PER_CALL * (T if pipeline else 1)
+    per_call = FL.LAUNCHES_PER_CALL[family] * (T if pipeline else 1)
     reset_counts()
     out_k, cnt_k = launch(*args, **kw)
     n = launches()
@@ -2642,8 +2667,7 @@ def check_layer_analog(dtype, what, shape, l_block, sparse="tile",
               and sum(n.values()) == per_call,
               "every score block": bool((cnt_k[:, 3] == T * B).all())}
     if pipeline:
-        fused = FL.fused_layer_cuda if T <= FL.MAX_T else FL.fused_layer_plain
-        out_f, cnt_f = fused(*args, **kw)
+        out_f, cnt_f = FL.fused_layer_cuda(*args, **kw)
         checks.update({"== #1": torch.equal(out_k, out_f),
                        "counts == #1": torch.equal(cnt_k, cnt_f)})
     torch.cuda.synchronize()
@@ -2728,8 +2752,9 @@ def kernel_api_analog_path():
     requires binarized scores, in JAX and in the port): the public
     ``FL.fused_layer(..., binarize_scores=False)`` once each for bn tile
     and bn decoded at 4-256's layer shape and rope at the LM prefill's,
-    fused and pipelined, the counts reset just before: 3 launches a
-    fused call and 3 T a pipelined one, under the variant's ``_analog``
+    fused and pipelined, the counts reset just before:
+    ``FL.LAUNCHES_PER_CALL`` a fused call and T times as many a pipelined
+    one, under the variant's ``_analog``
     name, and no other; finite outputs. Returns the counts."""
     torch.cuda.synchronize()
     reset_counts()
@@ -2745,8 +2770,9 @@ def kernel_api_analog_path():
             out, _ = FL.fused_layer(*ops, **kw, pipeline=pipeline,
                                     binarize_scores=False)
             outs.append(out)
-            want[analog_variant(kw, pipeline)] = FL.LAUNCHES_PER_CALL * (
-                ops[0].shape[0] if pipeline else 1)
+            want[analog_variant(kw, pipeline)] = \
+                FL.LAUNCHES_PER_CALL[kw["family"]] * (
+                    ops[0].shape[0] if pipeline else 1)
     torch.cuda.synchronize()
     counts = launches()
     full = dict(dict.fromkeys(counts, 0), **want)
@@ -2932,8 +2958,8 @@ def main():
         layer_err[sparse] = max(
             [check_layer_kernel(dt, sparse=sparse) for dt in dtypes]
             + [check_layer_kernel(dt, *case, sparse=sparse)
-               for case in MULTI_BLOCK + EIGHT_CASES + [HD128]
-               for dt in dtypes]
+               for case in MULTI_BLOCK + EIGHT_CASES
+               + [HD128, PIPE_T6, HEADS40, ODD_F] for dt in dtypes]
             + [check_layer_kernel(dt, *EIGHT_LONG[dt], sparse=sparse)
                for dt in dtypes])
     for sparse in ("tile", "decoded"):
@@ -2956,7 +2982,7 @@ def main():
 
     # --- the rope family (#1c, #6b) against its plain versions ---------
     rope_err = max(check_rope_kernel(dt, *case) for dt in dtypes
-                   for case in ROPE_CASES)
+                   for case in ROPE_CASES + [PIPE_T6_ROPE, ROPE_D1536])
     rope_timing = time_rope_kernel()
     rope_ssa_err = max(check_rope_ssa_kernel(dt, *case) for dt in dtypes
                        for case in ROPE_SSA_CASES)
@@ -2986,8 +3012,11 @@ def main():
                                  family="rope")]
         + [check_pipeline_kernel(torch.float32, *PIPE_LONG, sparse)
            for sparse in ("tile", "decoded")]
-        + [check_pipeline_kernel(torch.bfloat16, *PIPE_T6, sparse)
-           for sparse in ("tile", "decoded")]
+        + [check_pipeline_kernel(torch.bfloat16, *case, sparse)
+           for sparse in ("tile", "decoded")
+           for case in (PIPE_T6, HEADS40, ODD_F)]
+        + [check_pipeline_kernel(torch.bfloat16, *ROPE_D1536,
+                                 family="rope")]
         + [check_pipeline_kernel(torch.bfloat16, *PIPE_T6_ROPE,
                                  family="rope")])
     pipe_timing = time_pipeline_kernel()
@@ -3105,9 +3134,10 @@ def main():
         analog_err[sparse] = max(
             check_layer_analog(dt, what, shape, lb, sparse) for dt in dtypes
             for what, shape, lb in [("full width", FULL, 64)] + MULTI_BLOCK
-            + EIGHT_CASES + [HD128])
+            + EIGHT_CASES + [HD128, PIPE_T6, HEADS40])
     analog_err["rope"] = max(check_layer_analog(dt, *case, family="rope")
-                             for dt in dtypes for case in ROPE_CASES)
+                             for dt in dtypes
+                             for case in ROPE_CASES + [PIPE_T6_ROPE])
     analog_err["pipeline"] = max(
         [check_layer_analog(dt, "full width", FULL, 64, sparse, pipeline=True)
          for sparse in ("tile", "decoded") for dt in dtypes]

@@ -44,17 +44,19 @@
 //      scratch. Nothing of the sequence is held in shared memory, so
 //      launch A takes any L; head_dim up to 128 (four words a row of q or
 //      k bits).
-//   B. mlp_phase, one block per 64-row tile of an L-block and b: wo as
-//      one fixed-order fp32 sum over heads, then scale, then bn_o,
-//      residual (x1 is parked in the output) and the input LIF into bit
-//      planes (bn), or residual and ln2 into a (T, B, L, D) scratch
-//      (rope); up per ff-chunk + bn_1 + LIF into hidden bit planes; down
-//      as one fixed-order sum over chunks + bn_2 + residual. Spike
-//      operands are expanded from the bit planes straight into mma
-//      fragments. Every predicate of the counts is evaluated on the whole
-//      L-block (the tiles of one L-block merge their flags with atomicOr,
-//      and the last of them to arrive counts), so the counts are those
-//      of the TPU kernel.
+//   B. four kernels over the whole card, each a product tiled over
+//      (64 flattened (b, l) rows, 64 output columns) for a group of up to
+//      four timesteps at once, any T in groups, the LIF membranes in
+//      registers across the groups (mlp_gemm below): wo, scale, bn_o,
+//      residual (x1 parked in the output) and the input LIF into spike
+//      bits in device memory (bn), or the residual (rope); (rope) ln2 into
+//      a (T, B, L, D) scratch (norm_phase, a warp a row, any D); up +
+//      bn_1 + LIF into hidden spike bits; down + bn_2 + residual. Spike
+//      operands are expanded from the bits straight into mma fragments.
+//      Every predicate of the counts is a flag of a whole L-block, set by
+//      whichever block sees a live value (launch A's attend_phase for wo),
+//      and down's blocks add the flags to the counts, so the counts are
+//      those of the TPU kernel.
 // Counts are summed with int32 atomicAdd (order-free); no float atomics.
 //
 // The SSA bundle kernel (src/repro/kernels/fused_ssa.py::fused_ssa, body
@@ -90,7 +92,7 @@
 // axis) is the same launches run once per timestep, A_0, B_0, A_1, B_1,
 // ... on one stream (fused_layer_pipeline_forward): each launch sees one
 // timestep (nt = 1, its operands and its bit scratch offset to timestep
-// t), so launch B keeps one timestep's accumulators (no MAX_T). The
+// t), launch B's kernels holding one timestep a block. The
 // membranes move between launches through device scratch in the
 // activation dtype, where LIF keeps them exactly: q/k/v (B, L, 3 H hd),
 // the input neuron (B, L, D), the MLP hidden layer (B, L, F); a launch
@@ -98,7 +100,8 @@
 // `_lif` does. The counts are added per timestep and launch B's flag
 // words are kept per timestep, so outputs and counts equal the fused
 // variant's bitwise. It moves the membranes through device memory twice
-// a timestep more than #1 and makes 3 T launches instead of 3.
+// a timestep more than #1 and makes 5 T launches (rope 6 T) instead of
+// 5 (6).
 //
 // Analog scores (binarize_scores=False, Spikformer's raw SSA: the Pallas
 // kernels' `a = sc` branch, fused_layer.py:232-235 with the always-live
@@ -114,9 +117,9 @@
 // lane with a shuffle. Every key block is live for the score phase
 // (n_qkt counts all of them); a context block when its value rows are not
 // all dark. Launch B's wo then takes an analog left operand, exact in no
-// order: it is summed in ascending k on CUDA cores (chunk_product's
-// ANALOG path, the rope family's `up`), chosen per chunk by a
-// block-uniform flag outside the k loop.
+// order: it is summed in ascending k on CUDA cores (mlp_gemm's chain
+// path, as the rope family's `up`), chosen by a block-uniform flag
+// outside the k loop.
 //
 // Rounding follows the plain version (kernels/fused_layer.py) step by
 // step: fp32 accumulation, cast to the activation dtype, BN as
@@ -136,17 +139,15 @@
 
 namespace {
 
-constexpr int NT = 256;      // threads per block, both launches
-constexpr int KC = 64;       // launch B contraction chunk, staged in shared memory
-constexpr int MAX_D = 1024;  // rope: launch B's rmsnorm holds a row in registers
+constexpr int NT = 256;      // threads of an attention block
 constexpr int MAX_HD = 128;  // q/k spikes of a row fit four 32-bit words
-constexpr int TILE = 64;     // launch B output tile: 64 rows x 64 columns
 constexpr int N_PHASES = 8;
 
 template <typename T> struct Act;
 template <> struct Act<float> {
   static __device__ __forceinline__ float load(const float* p) { return *p; }
   static __device__ __forceinline__ float round(float v) { return v; }
+  static __device__ __forceinline__ void round2(float&, float&) {}
   static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 };
 template <> struct Act<__nv_bfloat16> {
@@ -155,6 +156,12 @@ template <> struct Act<__nv_bfloat16> {
   }
   static __device__ __forceinline__ float round(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
+  }
+  // two values rounded by one packed conversion (as round, each)
+  static __device__ __forceinline__ void round2(float& a, float& b) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    a = __low2float(h);
+    b = __high2float(h);
   }
   static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
     *p = __float2bfloat16_rn(v);
@@ -165,13 +172,6 @@ template <> struct Act<__nv_bfloat16> {
 __device__ __forceinline__ float fma32(float a, float b, float c) {
   return __double2float_rn(
       __dadd_rn(__dmul_rn((double)a, (double)b), (double)c));
-}
-
-// eval BN of channel c; rows is a (4, n) block [mean, inv_std, scale, bias]
-__device__ __forceinline__ float bn_eval(float y, const float* rows, int n,
-                                         int c) {
-  return fma32(__fmul_rn(__fsub_rn(y, rows[c]), rows[n + c]),
-               rows[2 * n + c], rows[3 * n + c]);
 }
 
 struct Lif {
@@ -185,7 +185,8 @@ __device__ __forceinline__ int pow2ceil(int x) {
 }
 
 // one LIF step in the activation dtype (core/spiking.lif_step); returns
-// the spike
+// the spike. The hard reset's 1 - s and u (1 - s) are exact in any dtype
+// (s is 0 or 1, u already rounded), so their roundings are the identity
 template <typename T>
 __device__ __forceinline__ bool lif_step(float& u, float y, const Lif& p) {
   using A = Act<T>;
@@ -194,17 +195,50 @@ __device__ __forceinline__ bool lif_step(float& u, float y, const Lif& p) {
   if (p.soft)
     u = A::round(__fsub_rn(u, A::round(__fmul_rn(s, p.vth))));
   else
-    u = A::round(__fmul_rn(u, A::round(__fsub_rn(1.f, s))));
+    u = __fmul_rn(u, __fsub_rn(1.f, s));
   return s != 0.f;
+}
+
+// lif_step on two neurons, each rounding of the pair one packed
+// conversion; bit i of the result: neuron i spiked
+template <typename T>
+__device__ __forceinline__ uint32_t lif_step2(float (&u)[2], const float (&y)[2], const Lif& p) {
+  using A = Act<T>;
+  float a[2], c[2], s[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) a[i] = __fmul_rn(p.decay, u[i]);
+  A::round2(a[0], a[1]);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) u[i] = __fadd_rn(a[i], y[i]);
+  A::round2(u[0], u[1]);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) c[i] = __fsub_rn(u[i], p.vth);
+  A::round2(c[0], c[1]);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) s[i] = c[i] >= 0.f ? 1.f : 0.f;
+  if (p.soft) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) a[i] = __fmul_rn(s[i], p.vth);
+    A::round2(a[0], a[1]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) u[i] = __fsub_rn(u[i], a[i]);
+    A::round2(u[0], u[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) u[i] = __fmul_rn(u[i], __fsub_rn(1.f, s[i]));
+  }
+  return (s[0] != 0.f) | (s[1] != 0.f) << 1;
 }
 
 // ---------------------------------------------------------------------------
 // tensor-core helpers: bf16 mma.sync m16n8k16 with fp32 accumulation
 // ---------------------------------------------------------------------------
 
-// two consecutive spike bits of `word` as a packed pair of bf16 {0, 1}
+// two consecutive spike bits of `word` as a packed pair of bf16 {0, 1}:
+// the bits moved to positions 0 and 16, times bf16 1.0 (no carries)
 __device__ __forceinline__ uint32_t bit_pair(uint32_t word, int bit) {
-  return ((word >> bit) & 1u) * 0x3F80u | ((word >> (bit + 1)) & 1u) * 0x3F800000u;
+  const uint32_t x = word >> bit;
+  return ((x & 1u) | (x << 15 & 0x10000u)) * 0x3F80u;
 }
 
 __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
@@ -960,7 +994,7 @@ __global__ void __launch_bounds__(NT)
 attend_phase(Bits bits, const float* __restrict__ delta_p, float scale, int causal,
              int nt, int nb, int l, int heads, int hd, int l_block, int c_block,
              int cp, int ssa, int decoded, T* __restrict__ ctx,
-             int* __restrict__ counts) {
+             int* __restrict__ counts, int* __restrict__ ctxf) {
   using A = Act<T>;
   constexpr int RPW = QB / (NT / 32);   // query rows a warp
   const int h = blockIdx.y, t = blockIdx.z / nb, b = blockIdx.z % nb;
@@ -1116,24 +1150,31 @@ attend_phase(Bits bits, const float* __restrict__ delta_p, float scale, int caus
     }
   }
   // the context (integer counts, exact in the activation dtype; analog:
-  // the ascending sums)
+  // the ascending sums); ctxf, when set (the layer program), gets launch
+  // B's wo flag of the row's (t, b, L-block, head): a value that is not
+  // zero in the activation dtype
 #pragma unroll
   for (int ii = 0; ii < RPW; ++ii) {
     const int i = q0 + warp * RPW + ii;
     if (i >= l) continue;
+    bool lit = false;
 #pragma unroll
     for (int m = 0; m < MW; ++m) {
       const int col = lane + 32 * m;
-      if (col < hd)
-        A::store(ctx + (((size_t)t * nb + b) * l + i) * qd + h * hd + col,
-                 AN ? acc[ii][m] : (float)n[ii][m]);
+      if (col < hd) {
+        const float v = AN ? acc[ii][m] : (float)n[ii][m];
+        A::store(ctx + (((size_t)t * nb + b) * l + i) * qd + h * hd + col, v);
+        lit |= A::round(v) != 0.f;
+      }
     }
+    if (ctxf && __any_sync(0xFFFFFFFFu, lit) && lane == 0)
+      ctxf[(((size_t)t * nb + b) * nlb + i / l_block) * heads + h] = 1;
   }
 }
 
 template <typename T>
 using AttendKernel = void (*)(Bits, const float*, float, int, int, int, int, int, int,
-                              int, int, int, int, int, T*, int*);
+                              int, int, int, int, int, T*, int*, int*);
 
 // attend_phase's instantiation for hw q / k words a row (1, 2, else up to
 // 4) and analog scores
@@ -1185,7 +1226,7 @@ cudaError_t launch_attention(int rope, int decoded, int analog, const void* s,
                              float scale, Lif lif, int causal, int nt, int nb,
                              int l, int d, int heads, int hd, int l_block,
                              int c_block, int cp, int ssa, int cw, Bits bits,
-                             void* ctx, int* counts, void* memb, int carry,
+                             void* ctx, int* counts, int* ctxf, void* memb, int carry,
                              cudaStream_t stream) {
   if (hd > MAX_HD || hd % 8 || d % 16 || !valid_width(cw, heads, hd))
     return cudaErrorInvalidValue;
@@ -1210,542 +1251,764 @@ cudaError_t launch_attention(int rope, int decoded, int analog, const void* s,
   if (err != cudaSuccess) return err;
   att<<<dim3((l + QB - 1) / QB, heads, nt * nb), NT, smem_t, stream>>>(
       bits, delta, scale, causal, nt, nb, l, heads, hd, l_block, c_block, cp, ssa,
-      decoded, (T*)ctx, counts);
+      decoded, (T*)ctx, counts, ctxf);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// launch B: wo + MLP, one block per (64-row tile of an L-block, b)
+// launch B: wo, (rope) ln2, up and down, each a kernel over the whole card
 // ---------------------------------------------------------------------------
 //
-// Each product is a 64-row x 64-column output tile accumulated over
-// KC-deep K-chunks in ascending k, for all timesteps at once, so a weight
-// chunk is staged once and serves every t. A thread owns 16 slots of the
-// tile: warp w holds rows 16 (w % 4) + [0, 16) and columns 32 (w / 4) +
-// [0, 32); slot q = 4 j + c is accumulator c of the warp's m16n8 tile j.
-// In bf16 a chunk is KC / 16 tensor-core mma.sync steps (bf16 x bf16 -> fp32;
-// spikes, integer counts and bf16 weights are exact operands); in fp32
-// it is a CUDA-core loop over the same slots. An analog operand (the rope
-// family's ln2 output for up; for wo, the context of analog scores) is a
-// CUDA-core loop in ascending k in both dtypes (chunk_product's ANALOG).
+// Each product is mlp_gemm<T, PH, PIPE>: block (row tile, column tile)
+// holds BN output columns of NSETS row sets of BM flattened (b, l) rows:
+// the fused kernel's sets are one row tile at NSETS timesteps, its block
+// looping over groups of NSETS timesteps (any T) with the LIF membranes of
+// its slots in shared memory across the groups; the pipelined kernel's
+// are up to NSETS row tiles of its one timestep, its membranes in device
+// memory. The K dimension streams through a cp.async ring of KC-deep
+// chunks: each chunk's weights (KC x BN, padded rows: the ldmatrix.trans
+// reads fall in distinct banks) and the left operand of every live set,
+// so a weight chunk is copied once for the block's sets and its B
+// fragments serve all of them. A thread owns 16 slots a set (warp w: rows
+// 16 (w % 4) + [0, 16), columns 32 (w / 4) + [0, 32); slot q = 4 j + c is
+// accumulator c of the warp's n8 tile j).
+//   PH_WO   ctx (T, B L, H hd) x wo; scale; bn: bn_o, residual (x1 parked
+//           in `out`), the input neuron's LIF into spike bits; rope:
+//           residual (x1 in `out`);
+//   PH_UP   the input neuron's spike bits x w1; scale, bn_1, LIF into the
+//           hidden spike bits;
+//   PH_UPR  the rope family's ln2 output (norm_phase, in s2g) x w1; scale,
+//           LIF into the hidden spike bits;
+//   PH_DOWN the hidden spike bits x w2; scale (+ bn_2), residual on x1.
+// The spike bits live in device memory, (T, B L, ceil(D / 32)) and (T, B
+// L, ceil(F / 32)) words (the wrapper's scratch): a warp assembles a row's
+// 32-column word with two shuffles and one lane stores it, so no shared
+// memory or atomic bounds D or F.
+//
+// Products: bf16 with exact operands (integer counts of binarized scores,
+// spikes expanded from the bits) on the tensor cores, mma.sync m16n8k16
+// with fp32 accumulation, the weights' B fragments loaded by
+// ldmatrix.trans once a k16 step and reused for every set; a warp skips a
+// set of a chunk whose spike words are dark for its 16 rows. Analog
+// operands (the ln2 output; the context of analog scores) and fp32 run on
+// CUDA cores, each output's sum in ascending k in one thread (bf16 fmaf,
+// whose bf16 x bf16 product is exact; fp32 __fmul_rn then __fadd_rn: the
+// plain version's seq_matmul), on the same slots. A chunk whose left
+// operand is dark in every set adds exact zeros and is neither copied nor
+// multiplied.
+//
+// Liveness and counts: launch A's attend_phase flags each (t, b, L-block,
+// head) whose context is not all zero, the wo epilogue (bn) or norm_phase
+// (rope) each (t, b, L-block) with an input-neuron spike or a non-zero ln2
+// output, the up epilogue each (t, b, L-block, head) with a hidden spike:
+// int32 words, stored (never read back by their writers). A block ORs the
+// flags of the (b, L-block)s its rows meet into its chunks' set masks,
+// and the down kernel's blocks turn the three flag sets into the (H, 8, nlb)
+// map's wo, up and down columns with order-free int32 atomics, so the
+// counts are the TPU kernel's at any number of heads.
 
-constexpr int MAX_T = 4;       // timesteps whose accumulators the fused launch B holds
-constexpr int LDS = KC + 8;    // padded row of the staged A and W^T tiles
+constexpr int NTB = 256;          // threads of a launch B block
+constexpr int BM = 64;            // flattened (b, l) rows of a tile
+constexpr int BN = 64;            // output columns of a tile
+constexpr int KCB_BYTES = 128;    // a K-chunk's row of a staged operand: 64 bf16, 32 fp32
+constexpr int NSETS = 4;          // row sets of a block: timesteps (fused) or row tiles (pipelined)
+constexpr int HEAD_CAP = 4096;    // heads whose masks a block keeps; past it: always live
+constexpr int PH_WO = 0, PH_UP = 1, PH_UPR = 2, PH_DOWN = 3;
 
-__device__ __forceinline__ int slot_row(int q) {
-  return (threadIdx.x / 32 % 4) * 16 + threadIdx.x % 32 / 4 + (q & 2) * 4;
-}
-
-__device__ __forceinline__ int slot_col(int q) {
-  return threadIdx.x / 128 * 32 + q / 4 * 8 + threadIdx.x % 4 * 2 + (q & 1);
-}
-
-// One KC x TILE chunk of a row-major weight W[k][c], in flight through
-// registers: each thread holds NV 16-byte vectors of it. `load` reads
-// W[k0:k0+KC, c0:c0+TILE] (zero outside k_dim x ncols; ldw, c0 and ncols
-// are multiples of a vector); `store` writes it to shared memory, bf16 as
-// the transposed tile W^T[TILE][LDS], fp32 as W[KC][TILE].
-template <typename T>
-struct WeightChunk {
-  static constexpr int VEC = 16 / sizeof(T);
-  static constexpr int NV = KC * TILE / VEC / NT;
-  uint4 v[NV];
-
-  __device__ __forceinline__ void load(const T* __restrict__ w, int ldw,
-                                       int k0, int k_dim, int c0, int ncols) {
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int idx = threadIdx.x + i * NT;
-      const int kk = idx / (TILE / VEC), cc = idx % (TILE / VEC) * VEC;
-      v[i] = k0 + kk < k_dim && c0 + cc < ncols
-          ? *reinterpret_cast<const uint4*>(w + (size_t)(k0 + kk) * ldw + c0 + cc)
-          : make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-
-  __device__ __forceinline__ void store(void* buf) const {
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int idx = threadIdx.x + i * NT;
-      const int kk = idx / (TILE / VEC), cc = idx % (TILE / VEC) * VEC;
-      if constexpr (std::is_same<T, float>::value) {
-        *reinterpret_cast<uint4*>((float*)buf + kk * TILE + cc) = v[i];
-      } else {
-        const T* e = reinterpret_cast<const T*>(&v[i]);
-#pragma unroll
-        for (int q = 0; q < VEC; ++q) ((T*)buf)[(cc + q) * LDS + kk] = e[q];
-      }
-    }
+// launch B's flag words (kernels/fused_layer.py::flag_words), carved from
+// one zeroed int32 buffer of nt timesteps: ctx and hid (T, B, nlb, H),
+// s2 (T, B, nlb)
+struct Flags {
+  int *ctx, *hid, *s2;
+  // timestep t's sections of a buffer of nt timesteps
+  static Flags at(void* base, int nt, int t, int nb, int nlb, int heads) {
+    int* f = (int*)base;
+    const size_t hw = (size_t)nb * nlb * heads, sw = (size_t)nb * nlb;
+    return Flags{f + t * hw, f + nt * hw + t * hw, f + 2 * nt * hw + t * sw};
   }
 };
 
-// Runs body(k0, mask) over the K-chunks k0 = 0, KC, ... whose timestep
-// mask live(k0) is non-zero, in ascending order, with W[k0] staged in
-// `wbuf`; the next live chunk's weights are read into registers while
-// body runs, so their latency hides behind the products. live() and body
-// are uniform over the block.
-template <typename T, class Live, class Body>
-__device__ __forceinline__ void chunk_loop(int k_dim, const T* __restrict__ w,
-                                           int ldw, int c0, int ncols,
-                                           Live live, Body body, void* wbuf) {
-  auto next = [&](int k0) {
-    while (k0 < k_dim && !live(k0)) k0 += KC;
-    return k0;
-  };
-  WeightChunk<T> chunk;
-  int k0 = next(0);
-  if (k0 < k_dim) chunk.load(w, ldw, k0, k_dim, c0, ncols);
-  while (k0 < k_dim) {
-    const int k1 = next(k0 + KC);
-    __syncthreads();                    // the previous chunk is consumed
-    chunk.store(wbuf);
-    if (k1 < k_dim) chunk.load(w, ldw, k1, k_dim, c0, ncols);
-    __syncthreads();
-    body(k0, live(k0));
-    k0 = k1;
-  }
-}
-
-// stage A[0:TILE, k0:k0+KC] of a row-major (n, k_dim) matrix as [TILE][LDS]
 template <typename T>
-__device__ __forceinline__ void stage_a(const T* __restrict__ a, int k_dim,
-                                        int n, int k0, void* buf) {
-  for (int i = threadIdx.x; i < TILE * KC; i += NT) {
-    const int r = i / KC, kk = i % KC;
-    const bool in = r < n && k0 + kk < k_dim;
-    if constexpr (std::is_same<T, float>::value)
-      ((float*)buf)[r * LDS + kk] = in ? a[(size_t)r * k_dim + k0 + kk] : 0.f;
-    else
-      ((T*)buf)[r * LDS + kk] = in ? a[(size_t)r * k_dim + k0 + kk]
-                                   : __float2bfloat16_rn(0.f);
+struct MlpArgs {
+  const T *x, *ctx, *wo, *w1, *w2;
+  const float *sco, *sc1, *sc2, *auxo, *aux1, *aux2;
+  // mem_*: the membranes between launches (pipelined) or between groups
+  // of timesteps (fused, T > NSETS)
+  T *s2g, *out, *mem_in, *mem_hid;
+  uint32_t *s2b, *hb;                 // spike bits, chunk-major (spike_words)
+  Flags fl;
+  int* counts;
+  Lif lif;
+  float norm_eps;
+  int rope, analog, carry, nt, nb, l, d, heads, hd, ff, l_block;
+};
+
+__host__ __device__ constexpr bool vals_operand(int ph) { return ph == PH_WO || ph == PH_UPR; }
+
+// mlp_gemm's dynamic shared memory, carved in this order: the weight ring,
+// the left-operand ring (every set's rows), the expanded spikes (these
+// three hold the accumulators in the epilogue), a column's parameters, the
+// expansion table of a byte of spikes, each row's flag index, the heads'
+// set masks, each K-chunk's set mask
+struct SmemB {
+  int kc, stages, ldw, lda;
+  size_t a, a_stage, aexp, cols, lut, rtbl, live, cmask, total;
+  __host__ __device__ SmemB(int es, int ph, int ngroups, int k_dim)
+      : kc(KCB_BYTES / es), stages(vals_operand(ph) ? 2 : 3), ldw(padded(BN, es)),
+        lda(padded(KCB_BYTES / es, es)) {
+    a = align16((size_t)stages * kc * ldw * es);
+    a_stage = vals_operand(ph) ? (size_t)NSETS * BM * lda * es : (size_t)NSETS * BM * 8;
+    aexp = a + align16((size_t)stages * a_stage);
+    cols = aexp + (vals_operand(ph) || es == 4 ? 0 : (size_t)2 * NSETS * BM * kc * 2);
+    // the accumulators are parked over the rings for the epilogue
+    const size_t parked = (size_t)NSETS * 16 * NTB * 4;
+    cols = cols < parked ? parked : cols;
+    lut = cols + (size_t)BN * 32;
+    rtbl = lut + (vals_operand(ph) || es == 4 ? 0 : (size_t)256 * 16);
+    live = rtbl + (size_t)NSETS * BM * 4;
+    cmask = live + align16((size_t)(ngroups < HEAD_CAP ? ngroups : HEAD_CAP) * 4);
+    total = cmask + align16((size_t)((k_dim + kc - 1) / kc) * 4);
   }
+};
+
+// wgmma (sm_90a) on operands in shared memory laid out as 8 x 8 core
+// matrices of 16-bit elements (128 contiguous bytes, no swizzle): a
+// K-chunk of KC = 64 k is 8 k-groups CORE_KG bytes apart, and within a
+// k-group the 8-row (A, K-major: a row's 8 k in 16 bytes) or 8-column
+// (B, N-major: a k's 8 columns in 16 bytes) groups are 128 bytes apart
+constexpr int CORE_KG = 1024;   // BM / 8 (= BN / 8) groups of 128 bytes
+
+// the byte offsets of (column c, k) in B's chunk and of (row r, k) in A's
+__host__ __device__ constexpr int core_b(int c, int k) {
+  return k / 8 * CORE_KG + c / 8 * 128 + k % 8 * 16 + c % 8 * 2;
+}
+__host__ __device__ constexpr int core_a(int r, int k) {
+  return k / 8 * CORE_KG + r / 8 * 128 + r % 8 * 16 + k % 8 * 2;
 }
 
-// acc += A[:, k0:k0+KC] W[k0:k0+KC, tile] for one timestep; A is the staged
-// tile `a_tile`, or, when `a_bits` is set, spike bits (`wpr` words a row).
-// ANALOG: an analog staged tile, summed on CUDA cores in ascending k, each
-// term rounded as the plain version's product-then-sum (the plain
-// version's order).
-template <typename T, bool ANALOG = false>
-__device__ __forceinline__ void chunk_product(float (&acc)[16],
-                                              const void* wbuf,
-                                              const void* a_tile,
-                                              const uint32_t* a_bits, int wpr,
-                                              int k0) {
-  const int g = threadIdx.x % 32 / 4, tig = threadIdx.x % 4;
-  const int r_lo = slot_row(0), cw = threadIdx.x / 128 * 32;
-  if constexpr (ANALOG && !std::is_same<T, float>::value) {
-    // bf16 x bf16 products are exact in fp32: one fmaf a term rounds as
-    // the plain version's product-then-sum; two kk a step from bf16 pairs
-    const T* as = (const T*)a_tile;
-    const T* wt = (const T*)wbuf;
-    for (int kk = 0; kk < KC; kk += 2) {
-      const uint32_t p_lo = ld_pair(as + r_lo * LDS + kk);
-      const uint32_t p_hi = ld_pair(as + (r_lo + 8) * LDS + kk);
-      const float a0_lo = pair_lo(p_lo), a1_lo = pair_hi(p_lo);
-      const float a0_hi = pair_lo(p_hi), a1_hi = pair_hi(p_hi);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const uint32_t pw = ld_pair(wt + (cw + j * 8 + tig * 2 + c) * LDS + kk);
-          const float w0 = pair_lo(pw), w1 = pair_hi(pw);
-          acc[4 * j + c] = fmaf(a1_lo, w1, fmaf(a0_lo, w0, acc[4 * j + c]));
-          acc[4 * j + 2 + c] = fmaf(a1_hi, w1, fmaf(a0_hi, w0, acc[4 * j + 2 + c]));
-        }
-    }
-  } else if constexpr (ANALOG) {       // fp32: a rounded product, then the sum
-    const float* as = (const float*)a_tile;
-    for (int kk = 0; kk < KC; ++kk) {
-      const float a_lo = as[r_lo * LDS + kk];
-      const float a_hi = as[(r_lo + 8) * LDS + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float wv = ((const float*)wbuf)[kk * TILE + cw + j * 8 + tig * 2 + c];
-          acc[4 * j + c] = __fadd_rn(acc[4 * j + c], __fmul_rn(a_lo, wv));
-          acc[4 * j + 2 + c] = __fadd_rn(acc[4 * j + 2 + c], __fmul_rn(a_hi, wv));
-        }
-    }
-  } else if constexpr (std::is_same<T, float>::value) {
-    const float* ws = (const float*)wbuf;
-    const float* as = (const float*)a_tile;
-    for (int kk = 0; kk < KC; ++kk) {
-      float a_lo, a_hi;
-      if (a_bits) {
-        const int k = k0 + kk;
-        a_lo = (float)((a_bits[r_lo * wpr + k / 32] >> (k % 32)) & 1u);
-        a_hi = (float)((a_bits[(r_lo + 8) * wpr + k / 32] >> (k % 32)) & 1u);
-      } else {
-        a_lo = as[r_lo * LDS + kk];
-        a_hi = as[(r_lo + 8) * LDS + kk];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float wv = ws[kk * TILE + cw + j * 8 + tig * 2 + c];
-          acc[4 * j + c] = fmaf(a_lo, wv, acc[4 * j + c]);
-          acc[4 * j + 2 + c] = fmaf(a_hi, wv, acc[4 * j + 2 + c]);
-        }
+// a shared-memory matrix descriptor: start address, leading byte offset
+// (between the two k-groups of a k16 step), stride byte offset (between
+// 8-row or 8-column groups), no swizzle
+__device__ __forceinline__ uint64_t gmma_desc(const void* p) {
+  return (uint64_t)(smem_u32(p) >> 4 & 0x3FFFu) | (uint64_t)(CORE_KG >> 4) << 16 |
+         (uint64_t)(128 >> 4) << 32;
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+// generic-proxy writes to shared memory (st.shared, cp.async) made visible
+// to the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keeps the compiler from touching an accumulator across an async wgmma
+__device__ __forceinline__ void fence_acc(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// D[64 x 32] += A[64 x 16] B[16 x 32], bf16 in, fp32 accumulators (the
+// warpgroup's 64 rows; a thread's 16 slots in mma.sync's C layout): A
+// K-major, B N-major (transposed)
+__device__ __forceinline__ void wgmma_m64n32(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// rows [k0, k0 + KC) x columns [n0, n0 + BN) of a row-major (k_dim, n)
+// weight into dst, zero outside: row-major [KC][ldd], or (core) wgmma's
+// N-major core matrices; 16-byte cp.async when rows are whole vectors
+// (vec), else element by element
+template <typename T, int KC>
+__device__ __forceinline__ void stage_weights(const T* __restrict__ w, int n, int k_dim,
+                                              int k0, int n0, T* dst, int ldd, bool vec,
+                                              bool core) {
+  constexpr int V = 16 / sizeof(T);
+  auto at = [&](int kk, int cc) {
+    return core ? (T*)((unsigned char*)dst + core_b(cc, kk)) : dst + kk * ldd + cc;
+  };
+  if (vec) {
+    for (int i = threadIdx.x; i < KC * (BN / V); i += NTB) {
+      const int kk = i / (BN / V), cc = i % (BN / V) * V;
+      const bool in = k0 + kk < k_dim && n0 + cc < n;
+      cp_async16(at(kk, cc), in ? w + (size_t)(k0 + kk) * n + n0 + cc : w, in ? 16 : 0);
     }
   } else {
-    const T* wt = (const T*)wbuf;
-    const T* as = (const T*)a_tile;
-#pragma unroll
-    for (int ks = 0; ks < KC / 16; ++ks) {
-      uint32_t a[4];
-      if (a_bits) {
-        const int word = k0 / 32 + ks / 2;
-        const uint32_t lo = a_bits[r_lo * wpr + word];
-        const uint32_t hi = a_bits[(r_lo + 8) * wpr + word];
-        const int bit = ks % 2 * 16 + tig * 2;
-        a[0] = bit_pair(lo, bit);
-        a[1] = bit_pair(hi, bit);
-        a[2] = bit_pair(lo, bit + 8);
-        a[3] = bit_pair(hi, bit + 8);
-      } else {
-        const T* p = as + r_lo * LDS + ks * 16 + tig * 2;
-        a[0] = ld_pair(p);
-        a[1] = ld_pair(p + 8 * LDS);
-        a[2] = ld_pair(p + 8);
-        a[3] = ld_pair(p + 8 * LDS + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const T* p = wt + (cw + j * 8 + g) * LDS + ks * 16 + tig * 2;
-        mma_bf16(acc + 4 * j, a, ld_pair(p), ld_pair(p + 8));
-      }
+    for (int i = threadIdx.x; i < KC * BN; i += NTB) {
+      const int kk = i / BN, cc = i % BN;
+      if (k0 + kk < k_dim && n0 + cc < n)
+        *at(kk, cc) = w[(size_t)(k0 + kk) * n + n0 + cc];
+      else
+        Act<T>::store(at(kk, cc), 0.f);
     }
   }
 }
 
-// TT: the timesteps whose accumulators a block holds (MAX_T fused, 1 for
-// the pipeline variant, whose mem_in / mem_hid carry the input neuron's
-// and the hidden layer's membranes across launches, read when carry)
-template <typename T, bool ROPE, int TT>
-__global__ void __launch_bounds__(NT)
-mlp_phase(const T* __restrict__ x, const T* __restrict__ ctx,
-          const T* __restrict__ wo, const T* __restrict__ w1,
-          const T* __restrict__ w2, const float* __restrict__ sco,
-          const float* __restrict__ sc1, const float* __restrict__ sc2,
-          const float* __restrict__ auxo, const float* __restrict__ aux1,
-          const float* __restrict__ aux2, Lif lif, float norm_eps, int analog,
-          int nt, int nb, int l, int d, int heads, int hd, int ff, int l_block,
-          T* __restrict__ s2g, T* __restrict__ out, int* __restrict__ counts,
-          int* __restrict__ flags, T* __restrict__ mem_in,
-          T* __restrict__ mem_hid, int carry) {
+// the (H, 8, nlb) map's wo, up and down columns from launch B's flags:
+// every block takes a grid-stride share of the (t, b, L-block, head)s
+template <typename T>
+__device__ void add_counts(const MlpArgs<T>& p, int nlb) {
+  const size_t n = (size_t)p.nt * p.nb * nlb * p.heads;
+  const size_t stride = (size_t)gridDim.x * gridDim.y * NTB;
+  for (size_t i = ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * NTB + threadIdx.x; i < n;
+       i += stride) {
+    const size_t tbl = i / p.heads;
+    const int h = (int)(i % p.heads), lb = (int)(tbl % nlb);
+    int* cnt = p.counts + (size_t)h * N_PHASES * nlb + lb;
+    if (p.fl.ctx[i]) atomicAdd(cnt + 5 * nlb, 1);
+    if (p.fl.s2[tbl]) atomicAdd(cnt + 6 * nlb, 1);
+    if (p.fl.hid[i]) atomicAdd(cnt + 7 * nlb, 1);
+  }
+}
+
+template <typename T, int PH, bool PIPE>
+__global__ void __launch_bounds__(NTB, 2) mlp_gemm(const __grid_constant__ MlpArgs<T> p) {
   using A = Act<T>;
-  // block (x, b): tile x % tpb of L-block x / tpb, TILE rows (an L-block
-  // of more than TILE rows spans several blocks)
-  const int tpb = (l_block + TILE - 1) / TILE;
-  const int lb = blockIdx.x / tpb, b = blockIdx.y, tid = threadIdx.x;
-  const int blk1 = min(l, (lb + 1) * l_block);
-  const int r0 = lb * l_block + blockIdx.x % tpb * TILE;
-  const int n = max(0, min(TILE, blk1 - r0));
-  const int qd = heads * hd, ffc = ff / heads, nlb = gridDim.x / tpb;
-  const int dw = (d + 31) / 32, fw = (ff + 31) / 32;
-  const int warp = tid / 32, lane = tid % 32;
+  constexpr bool BF = !std::is_same<T, float>::value, VALS = vals_operand(PH);
+  constexpr int KC = KCB_BYTES / sizeof(T), S = VALS ? 2 : 3;
+  constexpr int LDW = padded(BN, sizeof(T)), LDA = padded(KC, sizeof(T));
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, tig = lane % 4;
+  const int wr = warp % 4, wc = warp / 4;
+  const int M = p.nb * p.l, n0 = blockIdx.y * BN, nlb = (p.l + p.l_block - 1) / p.l_block;
+  // the block's rows: fused, BM rows whose sets are the group's timesteps;
+  // pipelined, NSETS row tiles of the launch's timestep, a set each
+  const int mb = blockIdx.x * (PIPE ? NSETS : 1) * BM;
+  const int ffc = p.ff / p.heads;
+  const int K = PH == PH_WO ? p.heads * p.hd : PH == PH_DOWN ? p.ff : p.d;
+  const int N = PH == PH_WO || PH == PH_DOWN ? p.d : p.ff;
+  const T* W = PH == PH_WO ? p.wo : PH == PH_DOWN ? p.w2 : p.w1;
+  // a flag group: the k columns of one head (wo: hd, down: F / H), or all
+  // of K (up: one flag a (t, b, L-block))
+  const int ngroups = PH == PH_WO || PH == PH_DOWN ? p.heads : 1;
+  const int ncap = min(ngroups, HEAD_CAP);
+  const int gw = PH == PH_WO ? p.hd : PH == PH_DOWN ? ffc : K;
+  // spike bits, chunk-major: (T, pairs of 64 columns, B L rounded up to
+  // even, 2 words); kp: the left operand's pairs, np_: the output's
+  const int kp = (K + 63) / 64, np_ = (N + 63) / 64, nw = (N + 31) / 32, mp = M + (M & 1);
+  const bool vec = (N * (int)sizeof(T)) % 16 == 0 && (size_t)W % 16 == 0;
+  // CUDA cores in ascending k: fp32, and the analog left operands; else
+  // (bf16, exact operands) the tensor cores' wgmma
+  const bool chain = !BF || PH == PH_UPR || (PH == PH_WO && p.analog), gmma = !chain;
+  const int wg = warp / 4;   // the warpgroup: columns 32 wg + [0, 32) of the tile
+  // the LIF of the epilogue: bn wo (the input neuron), up (the hidden layer)
+  const bool fires = PH == PH_UP || PH == PH_UPR || (PH == PH_WO && !p.rope);
+  // the membranes in device memory (B L, N): the pipelined variant's
+  // between launches, the fused one's between groups of timesteps (T >
+  // NSETS; else none)
+  T* mem = !fires ? nullptr : PH == PH_WO ? p.mem_in : p.mem_hid;
+  const T* src_v = PH == PH_WO ? p.ctx : p.s2g;
+  const uint32_t* src_b = PH == PH_UP ? p.s2b : p.hb;
 
-  extern __shared__ uint32_t dyn[];
-  uint32_t* s2bits = dyn;                            // [t][TILE][dw]
-  uint32_t* hbits = s2bits + (size_t)nt * TILE * dw;  // [t][TILE][fw]
-  int* head_live = (int*)(hbits + (size_t)nt * TILE * fw);  // [t][heads]
-  int* hid_live = head_live + nt * heads;            // [t][heads]
-  int* s2_live = hid_live + nt * heads;              // [t]
-  __shared__ __align__(16) float wbuf[KC * TILE];    // weight chunk
-  __shared__ __align__(16) float abuf[TILE * LDS];   // context / s2 chunk
-  __shared__ int last_of_group;
+  extern __shared__ __align__(16) unsigned char dyn_b[];
+  const SmemB lay(sizeof(T), PH, ngroups, K);
+  T* wring = (T*)dyn_b;
+  unsigned char* aring = dyn_b + lay.a;
+  const uint4* lut = (const uint4*)(dyn_b + lay.lut);  // [256]: a byte's 8 spikes in bf16
+  float4* colp = (float4*)(dyn_b + lay.cols);   // [BN]: scale, BN's mean and inv_std
+  double2* colq = (double2*)(colp + BN);        // [BN]: BN's scale and bias
+  T* aexp = (T*)(dyn_b + lay.aexp);             // spikes: every set's chunk as wgmma's A
+  int* rtbl = (int*)(dyn_b + lay.rtbl);         // [NSETS][BM]: a row's (t, b, L-block)
+  int* live = (int*)(dyn_b + lay.live);         // [min(groups, HEAD_CAP)]: set masks
+  int* cmask = (int*)(dyn_b + lay.cmask);       // [K-chunks]: set masks
 
-  const size_t ntile = (size_t)nt * TILE * (dw + fw) + (size_t)nt * (2 * heads + 1);
-  for (size_t i = tid; i < ntile; i += NT) dyn[i] = 0u;
-  __syncthreads();
+  if constexpr (PH == PH_DOWN) add_counts(p, nlb);
 
-  // every skip below is exact (a dark input adds exact zeros); the
-  // counts read the whole L-block's flags, merged across its tiles
-  if (n > 0) {
-    for (int t = 0; t < nt; ++t) {
-      const T* ctx_t = ctx + (((size_t)t * nb + b) * l + r0) * qd;
-      for (int i = tid; i < n * qd; i += NT)
-        if (A::load(ctx_t + i) != 0.f) head_live[t * heads + (i % qd) / hd] = 1;
+  if (BF && !VALS)
+    ((uint4*)lut)[tid] = make_uint4(bit_pair(tid, 0), bit_pair(tid, 2), bit_pair(tid, 4),
+                                    bit_pair(tid, 6));
+  const float* scl = PH == PH_WO ? p.sco : PH == PH_DOWN ? p.sc2 : p.sc1;
+  const float* aux = PH == PH_WO ? p.auxo : PH == PH_DOWN ? p.aux2 : p.aux1;
+  for (int j = tid; j < BN; j += NTB) {
+    const int c = min(n0 + j, N - 1);
+    colp[j] = make_float4(scl[c], p.rope ? 0.f : aux[c], p.rope ? 0.f : aux[N + c], 0.f);
+    colq[j] = p.rope ? make_double2(0.0, 0.0) : make_double2(aux[2 * N + c], aux[3 * N + c]);
+  }
+
+  // the thread's spike word in a row, and (up) the first head it holds
+  const int wi = n0 / 32 + wc, hw0 = PH == PH_UP || PH == PH_UPR ? 32 * wi / ffc : 0;
+  // slot q: tile row and column
+  auto srow = [&](int q) { return 16 * wr + g + 8 * (q >> 1 & 1); };
+  auto scol = [&](int q) { return 32 * wc + 8 * (q >> 2) + 2 * tig + (q & 1); };
+
+  for (int t0 = 0; t0 < (PIPE ? 1 : p.nt); t0 += NSETS) {
+    // set s: timestep ts(s), rows ms(s) + [0, nr(s))
+    const int ns = PIPE ? min(NSETS, (M - mb + BM - 1) / BM) : min(NSETS, p.nt - t0);
+    auto ts = [&](int s) { return PIPE ? 0 : t0 + s; };
+    auto ms = [&](int s) { return PIPE ? mb + s * BM : mb; };
+    auto nr = [&](int s) { return min(BM, M - ms(s)); };
+    const int all = (1 << ns) - 1;
+    __syncthreads();   // the previous group's masks and stages are consumed
+    // each row's (t, b, L-block), -1 past its set
+    for (int i = tid; i < NSETS * BM; i += NTB) {
+      const int st = i / BM, r = i % BM, m = ms(st) + r;
+      rtbl[i] = st < ns && r < nr(st)
+                    ? (ts(st) * p.nb + m / p.l) * nlb + m % p.l / p.l_block : -1;
+    }
+    for (int gi = tid; gi < ncap; gi += NTB) live[gi] = 0;
+    __syncthreads();
+    // bit s of live[gi]: some (b, L-block) that set s's rows meet has group
+    // gi's flag at timestep ts(s); a row reads its flag where its (t, b,
+    // L-block) starts
+    for (int i = tid; i < ncap * NSETS * BM; i += NTB) {
+      const int gi = i / (NSETS * BM), sr = i % (NSETS * BM), tbl = rtbl[sr];
+      if (tbl < 0 || (sr % BM && rtbl[sr - 1] == tbl)) continue;
+      const int f = PH == PH_WO    ? p.fl.ctx[(size_t)tbl * p.heads + gi]
+                    : PH == PH_DOWN ? p.fl.hid[(size_t)tbl * p.heads + gi]
+                                    : p.fl.s2[tbl];
+      if (f) atomicOr(live + gi, 1 << sr / BM);
     }
     __syncthreads();
-
-    // wo: the sum over heads in order (dark head blocks skipped), then
-    // scale; bn: bn_o, residual (x1 parked in `out`) and the input LIF;
-    // rope: the residual (x1 parked in `out`). An analog context (analog
-    // scores) is summed in ascending k on CUDA cores
-    for (int c0 = 0; c0 < d; c0 += TILE) {
-      float acc[TT][16] = {}, u[16] = {};
-      // slot q of the input neuron's membrane in mem_in: tile row r, column c
-      auto in_slot = [&](int q) {
-        return mem_in + ((size_t)b * l + r0 + slot_row(q)) * d + c0 + slot_col(q);
-      };
-      const auto in_range = [&](int q) { return slot_row(q) < n && c0 + slot_col(q) < d; };
-      if (!ROPE && mem_in && carry)
-#pragma unroll
-        for (int q = 0; q < 16; ++q)
-          if (in_range(q)) u[q] = A::load(in_slot(q));
-      chunk_loop<T>(
-          qd, wo, d, c0, d,
-          [&](int k0) {                      // bit t: some head of the chunk lit
-            int live = 0;
-            for (int t = 0; t < nt; ++t)
-              for (int hh = k0 / hd; hh <= (min(k0 + KC, qd) - 1) / hd; ++hh)
-                if (head_live[t * heads + hh]) live |= 1 << t;
-            return live;
-          },
-          [&](int k0, int live) {
-#pragma unroll
-            for (int t = 0; t < TT; ++t) {
-              if (!(live >> t & 1)) continue;
-              __syncthreads();
-              stage_a<T>(ctx + (((size_t)t * nb + b) * l + r0) * qd, qd, n, k0,
-                         abuf);
-              __syncthreads();
-              if (analog)
-                chunk_product<T, true>(acc[t], wbuf, abuf, nullptr, 0, k0);
-              else
-                chunk_product<T>(acc[t], wbuf, abuf, nullptr, 0, k0);
-            }
-          },
-          wbuf);
-#pragma unroll
-      for (int t = 0; t < TT; ++t) {
-        if (t >= nt) break;
-#pragma unroll
-        for (int q = 0; q < 16; ++q) {
-          const int r = slot_row(q), c = c0 + slot_col(q);
-          if (r >= n || c >= d) continue;
-          float y = A::round(__fmul_rn(acc[t][q], sco[c]));
-          if (!ROPE) y = A::round(bn_eval(y, auxo, d, c));
-          const size_t off = (((size_t)t * nb + b) * l + r0 + r) * d + c;
-          const float x1 = A::round(__fadd_rn(A::load(x + off), y));
-          A::store(out + off, x1);
-          if (!ROPE && lif_step<T>(u[q], x1, lif)) {
-            atomicOr(&s2bits[((size_t)t * TILE + r) * dw + c / 32], 1u << (c % 32));
-            s2_live[t] = 1;
+    // the sets whose left operand may be live in each K-chunk
+    for (int ci = tid; ci * KC < K; ci += NTB) {
+      int mask = 0;
+      const int h1 = (min(ci * KC + KC, K) - 1) / gw;
+      for (int h = ci * KC / gw; h <= h1; ++h) mask |= h < ncap ? live[h] : all;
+      cmask[ci] = mask;
+    }
+    __syncthreads();
+    auto chunk_live = [&](int k0) { return cmask[k0 / KC]; };
+    auto next_live = [&](int k0) {
+      while (k0 < K && !chunk_live(k0)) k0 += KC;
+      return k0;
+    };
+    auto issue = [&](int k0, int st) {
+      stage_weights<T, KC>(W, N, K, k0, n0, wring + (size_t)st * KC * LDW, LDW, vec, gmma);
+      const int mask = chunk_live(k0);
+      unsigned char* as = aring + st * lay.a_stage;
+      for (int s = 0; s < NSETS; ++s) {
+        // a dead set: skipped on CUDA cores, zeros for wgmma's A (its
+        // products run unconditionally: a branch would serialize them)
+        const bool lit = s < ns && mask >> s & 1;
+        if (!lit && (!gmma || !VALS)) continue;
+        const size_t row0 = (size_t)ts(s) * M + ms(s);
+        const int rows = lit ? nr(s) : 0;
+        if constexpr (VALS) {
+          // wgmma: K-major core matrices, a set's BM x KC in BM KC 2 bytes;
+          // CUDA cores: rows of LDA
+          constexpr int V = 16 / sizeof(T);
+          T* dst = (T*)as + (size_t)s * BM * LDA;
+          for (int i = tid; i < BM * (KC / V); i += NTB) {
+            const int r = i / (KC / V), kk = i % (KC / V) * V;
+            const bool in = r < rows && k0 + kk < K;
+            T* d = gmma ? (T*)((unsigned char*)as + s * BM * KC * 2 + core_a(r, kk))
+                        : dst + r * LDA + kk;
+            cp_async16(d, in ? src_v + (row0 + r) * K + k0 + kk : src_v, in ? 16 : 0);
+          }
+        } else {
+          // the set's rows of the chunk's pair of words: 8 bytes a row,
+          // contiguous, 16 bytes (two rows) a copy
+          uint32_t* dst = (uint32_t*)as + (size_t)s * BM * 2;
+          const uint32_t* src = src_b + (((size_t)ts(s) * kp + k0 / 64) * mp + ms(s)) * 2;
+          for (int i = tid; i < BM / 2; i += NTB) {
+            const int n_in = max(0, min(2, rows - 2 * i));
+            cp_async16(dst + 4 * i, n_in ? src + 4 * i : src_b, 8 * n_in);
           }
         }
       }
-      if (!ROPE && mem_in)
-#pragma unroll
-        for (int q = 0; q < 16; ++q)
-          if (in_range(q)) A::store(in_slot(q), u[q]);
-    }
-    __syncthreads();
+    };
 
-    if constexpr (ROPE) {
-      // ln2 (rmsnorm), a warp per (t, row): the sum of squares as a
-      // pairwise tree over D zero-padded to a power of two (element i
-      // meets i + P/2, then i + P/4, ...: the plain version's order), the
-      // mean, one rsqrt as a float64 1 / sqrt rounded once, then
-      // (x * rsqrt) * scale in the activation dtype, parked in s2g
-      int p2 = 32;
-      while (p2 < d) p2 *= 2;
-      const int per = p2 / 32;
-      for (int task = warp; task < nt * n; task += NT / 32) {
-        const int t = task / n, r = task % n;
-        const size_t row = (((size_t)t * nb + b) * l + r0 + r) * d;
-        float v[MAX_D / 32];
+    float acc[NSETS][16];
 #pragma unroll
-        for (int j = 0; j < MAX_D / 32; ++j) {
-          const int c = lane + 32 * j;
-          const float xv = j < per && c < d ? A::load(out + row + c) : 0.f;
-          v[j] = __fmul_rn(xv, xv);
-        }
+    for (int s = 0; s < NSETS; ++s)
 #pragma unroll
-        for (int w = MAX_D / 64; w >= 1; w /= 2)
-          if (w < per)
+      for (int q = 0; q < 16; ++q) acc[s][q] = 0.f;
+    // the ring: chunk kc (being multiplied) and ki (next to copy), S - 1
+    // live chunks apart
+    int kc = next_live(0), ki = kc;
 #pragma unroll
-            for (int j = 0; j < w; ++j) v[j] = __fadd_rn(v[j], v[j + w]);
-        float ss = v[0];
-#pragma unroll
-        for (int o = 16; o >= 1; o /= 2) ss = __fadd_rn(ss, __shfl_down_sync(0xFFFFFFFFu, ss, o));
-        ss = __shfl_sync(0xFFFFFFFFu, ss, 0);
-        const float var = __fadd_rn(__fdiv_rn(ss, (float)d), norm_eps);
-        const float rs = __double2float_rn(__ddiv_rn(1.0, __dsqrt_rn((double)var)));
-        bool any = false;
-        for (int c = lane; c < d; c += 32) {
-          const float y = A::round(__fmul_rn(__fmul_rn(A::load(out + row + c), rs), auxo[c]));
-          A::store(s2g + row + c, y);
-          any |= y != 0.f;
-        }
-        if (__any_sync(0xFFFFFFFFu, any) && lane == 0) s2_live[t] = 1;
+    for (int st = 0; st < S - 1; ++st) {
+      if (ki < K) {
+        issue(ki, st);
+        ki = next_live(ki + KC);
       }
-      __syncthreads();
+      cp_async_commit();
     }
-
-    // up, per ff-chunk: s2 x w1 chunk, then scale (+ bn_1), LIF
-    int s2_mask = 0;
-    for (int t = 0; t < nt; ++t) s2_mask |= s2_live[t] << t;
-    for (int hh = 0; hh < heads; ++hh)
-      for (int c0 = 0; c0 < ffc; c0 += TILE) {
-        float acc[TT][16] = {}, u[16] = {};
-        // slot q of the hidden membrane in mem_hid: tile row r, channel f
-        auto hid_slot = [&](int q) {
-          return mem_hid + ((size_t)b * l + r0 + slot_row(q)) * ff + hh * ffc + c0 + slot_col(q);
+    if (gmma) {
+      if constexpr (BF) {
+        // the tensor cores: chunk it's products run asynchronously while
+        // chunk it + 1 lands and (spikes) is expanded into the other A
+        // buffer, and chunk it + S - 1 is copied into chunk it - 1's stage
+        constexpr int ASET = BM * KC * 2;   // bytes of a set's A
+        // spikes: every set's bits of chunk k0 (stage st) into A buffer
+        // buf, a row's word a byte (8 k) a 16-byte table entry (a dead
+        // set's: zeros)
+        auto expand = [&](int k0, int st, int buf) {
+          const int mask = chunk_live(k0);
+          const uint32_t* bs = (const uint32_t*)(aring + st * lay.a_stage);
+          unsigned char* dst0 = (unsigned char*)aexp + buf * NSETS * ASET;
+          for (int i = tid; i < NSETS * BM * 2; i += NTB) {
+            const int r = i % BM, wd = i / BM % 2, se = i / (BM * 2);
+            const uint32_t word = mask >> se & 1 ? bs[(se * BM + r) * 2 + wd] : 0u;
+#pragma unroll
+            for (int by = 0; by < 4; ++by)
+              *reinterpret_cast<uint4*>(dst0 + se * ASET + core_a(r, (wd * 4 + by) * 8)) =
+                  lut[word >> 8 * by & 255u];
+          }
         };
-        const auto hid_range = [&](int q) { return slot_row(q) < n && c0 + slot_col(q) < ffc; };
-        if (mem_hid && carry)
+        cp_async_wait<S - 2>();   // chunk 0
+        fence_async_smem();
+        __syncthreads();
+        if constexpr (!VALS) {
+          if (kc < K) expand(kc, 0, 0);
+          fence_async_smem();
+          __syncthreads();
+        }
+        for (int it = 0; kc < K; ++it) {
+          const int kn = next_live(kc + KC);
+          const unsigned char* ws = (const unsigned char*)(wring + (size_t)(it % S) * KC * LDW);
+          const unsigned char* abase =
+              VALS ? aring + (it % S) * lay.a_stage : (const unsigned char*)aexp + it % 2 * NSETS * ASET;
+          // the warpgroup's 32 columns of every live set, a k16 step at a time
+          wgmma_fence();
 #pragma unroll
-          for (int q = 0; q < 16; ++q)
-            if (hid_range(q)) u[q] = A::load(hid_slot(q));
-        chunk_loop<T>(
-            d, w1 + hh * ffc, ff, c0, ffc, [&](int) { return s2_mask; },
-            [&](int k0, int live) {
+          for (int ks = 0; ks < KC / 16; ++ks) {
+            const uint64_t db = gmma_desc(ws + ks * 2 * CORE_KG + wg * 512);
 #pragma unroll
-              for (int t = 0; t < TT; ++t) {
-                if (!(live >> t & 1)) continue;
-                if constexpr (ROPE) {
-                  __syncthreads();
-                  stage_a<T>(s2g + (((size_t)t * nb + b) * l + r0) * d, d, n, k0,
-                             abuf);
-                  __syncthreads();
-                  chunk_product<T, true>(acc[t], wbuf, abuf, nullptr, 0, k0);
-                } else {
-                  chunk_product<T>(acc[t], wbuf, nullptr,
-                                   s2bits + (size_t)t * TILE * dw, dw, k0);
-                }
+            for (int st = 0; st < NSETS; ++st)
+              wgmma_m64n32(acc[st], gmma_desc(abase + st * ASET + ks * 2 * CORE_KG), db);
+          }
+          wgmma_commit();
+          wgmma_wait1();   // chunk it - 1's products are done
+          if (kn < K) {
+            if constexpr (VALS) {
+              __syncthreads();   // ... in both warpgroups: its stage is free
+              if (ki < K) {
+                issue(ki, (it + S - 1) % S);
+                ki = next_live(ki + KC);
               }
-            },
-            wbuf);
-#pragma unroll
-        for (int t = 0; t < TT; ++t) {
-          if (t >= nt) break;
-#pragma unroll
-          for (int q = 0; q < 16; ++q) {
-            const int r = slot_row(q), cc = c0 + slot_col(q);
-            if (r >= n || cc >= ffc) continue;
-            const int f = hh * ffc + cc;
-            float y = A::round(__fmul_rn(acc[t][q], sc1[f]));
-            if (!ROPE) y = A::round(bn_eval(y, aux1, ff, f));
-            if (lif_step<T>(u[q], y, lif)) {
-              atomicOr(&hbits[((size_t)t * TILE + r) * fw + f / 32], 1u << (f % 32));
-              hid_live[t * heads + hh] = 1;
+              cp_async_commit();
+              cp_async_wait<S - 2>();   // chunk it + 1
+              fence_async_smem();
+              __syncthreads();
+            } else {
+              cp_async_wait<S - 3>();   // chunk it + 1
+              fence_async_smem();
+              __syncthreads();   // ... and chunk it - 1's stage and A are free
+              if (ki < K) {
+                issue(ki, (it + S - 1) % S);
+                ki = next_live(ki + KC);
+              }
+              cp_async_commit();
+              expand(kn, (it + 1) % S, (it + 1) % 2);
+              fence_async_smem();
+              __syncthreads();
             }
           }
+          kc = kn;
         }
-        if (mem_hid)
+        wgmma_wait0();
 #pragma unroll
-          for (int q = 0; q < 16; ++q)
-            if (hid_range(q)) A::store(hid_slot(q), u[q]);
+        for (int st = 0; st < NSETS; ++st)
+#pragma unroll
+          for (int q = 0; q < 16; ++q) fence_acc(acc[st][q]);
       }
-    __syncthreads();
+    } else {
+    // CUDA cores
+    for (int it = 0; kc < K; ++it) {
+      cp_async_wait<S - 2>();   // chunk kc has landed
+      __syncthreads();          // ... for every thread; the previous stage is consumed
+      if (ki < K) {
+        issue(ki, (it + S - 1) % S);
+        ki = next_live(ki + KC);
+      }
+      cp_async_commit();
+      const int mask = chunk_live(kc);
+      const T* ws = wring + (size_t)(it % S) * KC * LDW;
+      const unsigned char* ast = aring + (it % S) * lay.a_stage;
+      {
+        // two k a step: the weights of the thread's 8 columns, then each
+        // live set's rows g and g + 8, each slot's sum in ascending k
+        for (int kk = 0; kk < KC; kk += 2) {
+          float w[2][8];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const T* wp = ws + (kk + e) * LDW + 32 * wc + 8 * j + 2 * tig;
+              if constexpr (BF) {
+                const uint32_t v = ld_pair(wp);
+                w[e][2 * j] = pair_lo(v);
+                w[e][2 * j + 1] = pair_hi(v);
+              } else {
+                const float2 v = *reinterpret_cast<const float2*>(wp);
+                w[e][2 * j] = v.x;
+                w[e][2 * j + 1] = v.y;
+              }
+            }
+#pragma unroll
+          for (int s = 0; s < NSETS; ++s) {
+            if (!(mask >> s & 1)) continue;
+            float a[2][2];   // [row g / g + 8][k kk / kk + 1]
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = 16 * wr + g + 8 * h;
+              if constexpr (VALS) {
+                const T* ap = (const T*)ast + ((size_t)s * BM + r) * LDA + kk;
+                if constexpr (BF) {
+                  const uint32_t v = ld_pair(ap);
+                  a[h][0] = pair_lo(v);
+                  a[h][1] = pair_hi(v);
+                } else {
+                  const float2 v = *reinterpret_cast<const float2*>(ap);
+                  a[h][0] = v.x;
+                  a[h][1] = v.y;
+                }
+              } else {
+                const uint32_t word =
+                    ((const uint32_t*)ast)[((size_t)s * BM + r) * 2 + kc % 64 / 32 + kk / 32];
+                a[h][0] = (float)(word >> (kk % 32) & 1u);
+                a[h][1] = (float)(word >> (kk % 32 + 1) & 1u);
+              }
+            }
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+#pragma unroll
+              for (int q = 0; q < 16; ++q) {
+                const float av = a[q >> 1 & 1][e], wv = w[e][2 * (q >> 2) + (q & 1)];
+                if constexpr (BF)
+                  acc[s][q] = fmaf(av, wv, acc[s][q]);
+                else
+                  acc[s][q] = __fadd_rn(acc[s][q], __fmul_rn(av, wv));
+              }
+          }
+        }
+      }
+      kc = next_live(kc + KC);
+    }
+    }
+    cp_async_wait<0>();
+    // the accumulators parked over the rings, so the epilogue holds one
+    // set's in registers
+    __syncthreads();   // every warp is done with the rings
+    float* accs = (float*)dyn_b;   // [NSETS][16][NTB]
+#pragma unroll
+    for (int st = 0; st < NSETS; ++st)
+#pragma unroll
+      for (int q = 0; q < 16; ++q) accs[(st * 16 + q) * NTB + tid] = acc[st][q];
 
-    // down: the sum over ff-chunks in order (dark chunk blocks skipped),
-    // then scale (+ bn_2) and the residual
-    for (int c0 = 0; c0 < d; c0 += TILE) {
-      float acc[TT][16] = {};
-      chunk_loop<T>(
-          ff, w2, d, c0, d,
-          [&](int k0) {                      // bit t: some ff-chunk of it lit
-            int live = 0;
-            for (int t = 0; t < nt; ++t)
-              for (int hh = k0 / ffc; hh <= (min(k0 + KC, ff) - 1) / ffc; ++hh)
-                if (hid_live[t * heads + hh]) live |= 1 << t;
-            return live;
-          },
-          [&](int k0, int live) {
+    // the epilogue, set by set in order (fused: the timesteps of the LIF)
+    // fused: the membranes of the slots, from the previous group
+    float u[16];
+    if (!PIPE && fires)
 #pragma unroll
-            for (int t = 0; t < TT; ++t)
-              if (live >> t & 1)
-                chunk_product<T>(acc[t], wbuf, nullptr,
-                                 hbits + (size_t)t * TILE * fw, fw, k0);
-          },
-          wbuf);
+      for (int q = 0; q < 16; ++q)
+        u[q] = t0 && srow(q) < nr(0) && n0 + scol(q) < N
+                   ? A::load(mem + (size_t)(mb + srow(q)) * N + n0 + scol(q)) : 0.f;
 #pragma unroll
-      for (int t = 0; t < TT; ++t) {
-        if (t >= nt) break;
+    for (int s = 0; s < NSETS; ++s) {
+      if (s >= ns) break;
+      const int tt = ts(s), m1 = ms(s), rows = nr(s);
+      // the set's residual (wo: x; down: x1 in `out`) or (pipelined) its
+      // membranes, loaded before any store, all 16 in flight
+      float ld[16];
 #pragma unroll
-        for (int q = 0; q < 16; ++q) {
-          const int r = slot_row(q), c = c0 + slot_col(q);
-          if (r >= n || c >= d) continue;
-          float y = A::round(__fmul_rn(acc[t][q], sc2[c]));
-          if (!ROPE) y = A::round(bn_eval(y, aux2, d, c));
-          const size_t off = (((size_t)t * nb + b) * l + r0 + r) * d + c;
-          A::store(out + off, A::round(__fadd_rn(A::load(out + off), y)));
+      for (int q = 0; q < 16; ++q) {
+        const int r = srow(q), c = n0 + scol(q);
+        const bool in = r < rows && c < N;
+        if constexpr (PH == PH_WO || PH == PH_DOWN)
+          ld[q] = in ? A::load((PH == PH_WO ? p.x : p.out) + ((size_t)tt * M + m1 + r) * N + c)
+                     : 0.f;
+        if (PIPE && fires) u[q] = p.carry && in ? A::load(mem + (size_t)(m1 + r) * N + c) : 0.f;
+      }
+      // slots q and q + 1 (q even: neighbouring columns of a row) at
+      // once, each rounding to the activation dtype a packed conversion of
+      // the pair
+      uint32_t sp = 0u;   // bit q: slot q spiked
+#pragma unroll
+      for (int q = 0; q < 16; q += 2) {
+        const int r = srow(q), j = scol(q), c = n0 + j;
+        const bool in[2] = {r < rows && c < N, r < rows && c + 1 < N};
+        float y[2], v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) y[e] = __fmul_rn(accs[(s * 16 + q + e) * NTB + tid], colp[j + e].x);
+        A::round2(y[0], y[1]);
+        // bn: (y - mean) * inv_std, then fma32 with BN's scale and bias (the
+        // double product is exact, so one fma rounds as fma32)
+        if (!p.rope) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float4 cp = colp[j + e];
+            const double2 cq = colq[j + e];
+            y[e] = __double2float_rn(__fma_rn((double)__fmul_rn(__fsub_rn(y[e], cp.y), cp.z), cq.x, cq.y));
+          }
+          A::round2(y[0], y[1]);
+        }
+        const size_t off = ((size_t)tt * M + m1 + r) * N + c, moff = (size_t)(m1 + r) * N + c;
+        if constexpr (PH == PH_WO || PH == PH_DOWN) {
+          // the residual; wo then steps the input neuron on x1
+#pragma unroll
+          for (int e = 0; e < 2; ++e) v[e] = __fadd_rn(ld[q + e], y[e]);
+          A::round2(v[0], v[1]);
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (in[e]) A::store(p.out + off + e, v[e]);
+        } else {
+          v[0] = y[0], v[1] = y[1];
+        }
+        if (fires) {
+          float uu[2] = {u[q], u[q + 1]};
+          const uint32_t fired = lif_step2<T>(uu, v, p.lif);
+          u[q] = uu[0], u[q + 1] = uu[1];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (in[e] && (fired >> e & 1u)) sp |= 1u << (q + e);
+            if (PIPE && in[e]) A::store(mem + moff + e, u[q + e]);
+          }
+        }
+      }
+      if (!fires) continue;
+      // the spike words: a row's 32 columns of the warp from its 4 lanes
+      // (tig), stored whole by lane tig == h for row half h; their flags
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t word = 0u;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            word |= (sp >> (4 * j + 2 * h + c) & 1u) << (8 * j + 2 * tig + c);
+        word |= __shfl_xor_sync(0xFFFFFFFFu, word, 1);
+        word |= __shfl_xor_sync(0xFFFFFFFFu, word, 2);
+        const int r = 16 * wr + g + 8 * h;
+        if (tig != h || r >= rows || wi >= nw) continue;
+        const int m = m1 + r;
+        const size_t tbl = rtbl[s * BM + r];
+        // the word's place, and a pair's second word past the last column
+        // written as zero
+        uint32_t* dst = (PH == PH_WO ? p.s2b : p.hb) + (((size_t)tt * np_ + wi / 2) * mp + m) * 2;
+        dst[wi % 2] = word;
+        if (wi + 1 == nw && nw % 2) dst[1] = 0u;
+        if constexpr (PH == PH_WO) {
+          if (word) p.fl.s2[tbl] = 1;
+        } else {
+          // the heads whose columns the word holds
+          for (int hh = hw0; word && hh * ffc < min(32 * wi + 32, N); ++hh) {
+            const int lo = max(32 * wi, hh * ffc) - 32 * wi;
+            const int hi = min(32 * wi + 32, (hh + 1) * ffc) - 32 * wi;
+            const uint32_t bm = (hi - lo == 32 ? ~0u : (1u << (hi - lo)) - 1u) << lo;
+            if (word & bm) p.fl.hid[tbl * p.heads + hh] = 1;
+          }
         }
       }
     }
-  }
-  __syncthreads();
-
-  // merge the tile's flags into its L-block's: per (b, L-block, t) a
-  // mask of live heads for wo and for down and a flag for up, then an
-  // arrival count; the group's last block turns the masks into counts
-  int* grp = flags + ((size_t)b * nlb + lb) * (3 * nt + 1);
-  for (int t = tid; t < nt; t += NT) {
-    int m_wo = 0, m_down = 0;
-    for (int hh = 0; hh < heads; ++hh) {
-      m_wo |= head_live[t * heads + hh] << hh;
-      m_down |= hid_live[t * heads + hh] << hh;
-    }
-    atomicOr(grp + 3 * t, m_wo);
-    atomicOr(grp + 3 * t + 1, s2_live[t]);
-    atomicOr(grp + 3 * t + 2, m_down);
-  }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) last_of_group = atomicAdd(grp + 3 * nt, 1) == tpb - 1;
-  __syncthreads();
-  if (last_of_group && tid < heads) {
-    __threadfence();
-    int n_wo = 0, n_up = 0, n_down = 0;
-    for (int t = 0; t < nt; ++t) {
-      n_wo += atomicOr(grp + 3 * t, 0) >> tid & 1;
-      n_up += atomicOr(grp + 3 * t + 1, 0) != 0;
-      n_down += atomicOr(grp + 3 * t + 2, 0) >> tid & 1;
-    }
-    int* cnt = counts + (size_t)tid * N_PHASES * nlb + lb;
-    atomicAdd(cnt + 5 * nlb, n_wo);
-    atomicAdd(cnt + 6 * nlb, n_up);
-    atomicAdd(cnt + 7 * nlb, n_down);
+    if (!PIPE && fires && t0 + NSETS < p.nt)
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+        if (srow(q) < nr(0) && n0 + scol(q) < N)
+          A::store(mem + (size_t)(mb + srow(q)) * N + n0 + scol(q), u[q]);
   }
 }
 
-// One launch A (two kernels) and one launch B over nt timesteps (TT >= nt
-// held by launch B); bits is launch A's zeroed scratch of these nt
-// timesteps; memb / mem_in / mem_hid, when set, carry the membranes in
-// from the previous launch pair (carry) and out to the next one.
-template <typename T, int TT>
-cudaError_t launch_pair(const T* x, const T* s, const void* w3,
-                        const void* wo, const void* w1, const void* w2,
-                        const float* sc3, const float* sco, const float* sc1,
-                        const float* sc2, const float* auxp, const float* auxo,
-                        const float* aux1, const float* aux2,
-                        const float* delta, float scale, Lif lif,
-                        float norm_eps, int rope, int causal, int analog, int nt,
-                        int nb, int l, int d, int heads, int hd, int ff, int l_block,
-                        int decoded, int c_block, int cp, int cw, Bits bits, T* ctx,
-                        T* s2g, T* out, int* counts, int* flags, T* memb, T* mem_in,
-                        T* mem_hid, int carry, cudaStream_t stream) {
-  if (nt > TT) return cudaErrorInvalidValue;
-  const int nlb = (l + l_block - 1) / l_block, tpb = (l_block + TILE - 1) / TILE;
-  const size_t dyn = 4 * ((size_t)nt * TILE * ((d + 31) / 32 + (ff + 31) / 32) +
-                          (size_t)nt * (2 * heads + 1));
-  auto mlp = rope ? mlp_phase<T, true, TT> : mlp_phase<T, false, TT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+// The rope family's ln2 (rmsnorm), a warp per (t, row) of x1 (parked in
+// `out`): the sum of squares as the plain version's pairwise tree over D
+// zero-padded to a power of two P = 32 n (element i meets i + P / 2, then
+// i + P / 4, ...). Lane i's share is the tree over its n elements i + 32 j,
+// whose levels meet j and j + n / 2, then j + n / 4, ...: walked in
+// bit-reversed order of j those are neighbours, so a stack of one partial
+// sum a level reduces them as they stream in, for any D; the last five
+// levels are the warp's shuffles. Then the mean, one rsqrt as a float64
+// 1 / sqrt rounded once, (x * rsqrt) * scale in the activation dtype into
+// s2g, and the up phase's flag of each (t, b, L-block) with a non-zero
+// output.
+constexpr int NORM_LEVELS = 16;   // n up to 2^16: D up to 2^21
+
+template <typename T>
+__global__ void __launch_bounds__(NTB) norm_phase(const __grid_constant__ MlpArgs<T> p) {
+  using A = Act<T>;
+  const int lane = threadIdx.x % 32, M = p.nb * p.l, nlb = (p.l + p.l_block - 1) / p.l_block;
+  int lg = 0;
+  while ((32 << lg) < p.d) ++lg;
+  const int nw = gridDim.x * NTB / 32;
+  for (int task = (blockIdx.x * NTB + threadIdx.x) / 32; task < p.nt * M; task += nw) {
+    const T* row = p.out + (size_t)task * p.d;
+    float st[NORM_LEVELS + 1];
+    for (int pos = 0; pos < 1 << lg; ++pos) {
+      const int j = lg ? (int)(__brev((unsigned)pos) >> (32 - lg)) : 0, c = lane + 32 * j;
+      const float xv = c < p.d ? A::load(row + c) : 0.f;
+      float cur = __fmul_rn(xv, xv);
+      bool placed = false;
+#pragma unroll
+      for (int lv = 0; lv <= NORM_LEVELS; ++lv)
+        if (!placed) {
+          if (pos >> lv & 1) {
+            cur = __fadd_rn(st[lv], cur);
+          } else {
+            st[lv] = cur;
+            placed = true;
+          }
+        }
+    }
+    float ss = 0.f;
+#pragma unroll
+    for (int lv = 0; lv <= NORM_LEVELS; ++lv)
+      if (lv == lg) ss = st[lv];
+#pragma unroll
+    for (int o = 16; o >= 1; o /= 2) ss = __fadd_rn(ss, __shfl_down_sync(0xFFFFFFFFu, ss, o));
+    ss = __shfl_sync(0xFFFFFFFFu, ss, 0);
+    const float var = __fadd_rn(__fdiv_rn(ss, (float)p.d), p.norm_eps);
+    const float rs = __double2float_rn(__ddiv_rn(1.0, __dsqrt_rn((double)var)));
+    bool any = false;
+    for (int c = lane; c < p.d; c += 32) {
+      const float y = A::round(__fmul_rn(__fmul_rn(A::load(row + c), rs), p.auxo[c]));
+      A::store(p.s2g + (size_t)task * p.d + c, y);
+      any |= y != 0.f;
+    }
+    if (__any_sync(0xFFFFFFFFu, any) && lane == 0) {
+      const int t = task / M, m = task % M;
+      p.fl.s2[((size_t)t * p.nb + m / p.l) * nlb + m % p.l / p.l_block] = 1;
+    }
+  }
+}
+
+template <typename T, int PH, bool PIPE>
+cudaError_t launch_gemm(const MlpArgs<T>& p, cudaStream_t stream) {
+  const int ngroups = PH == PH_WO || PH == PH_DOWN ? p.heads : 1;
+  const int k_dim = PH == PH_WO ? p.heads * p.hd : PH == PH_DOWN ? p.ff : p.d;
+  const size_t smem = SmemB(sizeof(T), PH, ngroups, k_dim).total;
+  const auto kernel = mlp_gemm<T, PH, PIPE>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  err = launch_attention<T>(rope, decoded, analog, s, w3, sc3, auxp, delta,
-                            scale, lif, causal, nt, nb, l, d, heads, hd,
-                            l_block, c_block, cp, 0, cw, bits, ctx, counts, memb,
-                            carry, stream);
-  if (err != cudaSuccess) return err;
-  mlp<<<dim3(nlb * tpb, nb), NT, dyn, stream>>>(
-      x, ctx, (const T*)wo, (const T*)w1, (const T*)w2, sco, sc1, sc2, auxo,
-      aux1, aux2, lif, norm_eps, analog, nt, nb, l, d, heads, hd, ff, l_block, s2g,
-      out, counts, flags, mem_in, mem_hid, carry);
+  const int n = PH == PH_WO || PH == PH_DOWN ? p.d : p.ff, ncol = (n + BN - 1) / BN;
+  // pipelined: NSETS row tiles a block (wgmma runs every set)
+  const int rows = PIPE ? NSETS * BM : BM;
+  kernel<<<dim3((p.nb * p.l + rows - 1) / rows, ncol), NTB, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-// The layer program: fused, one launch pair over all T; or pipelined, one
-// launch pair per timestep (A_0, B_0, A_1, B_1, ...), each pair's
-// operands offset to its timestep (x, s, ctx, out, launch A's bit scratch
-// and launch B's flag words (T, B, nlb, 4)), with the rope family's ln2
-// scratch s2g holding one timestep.
+// launch B: wo, (rope) ln2, up, down on one stream
+template <typename T, bool PIPE>
+cudaError_t launch_mlp(const MlpArgs<T>& p, cudaStream_t stream) {
+  cudaError_t err = launch_gemm<T, PH_WO, PIPE>(p, stream);
+  if (err != cudaSuccess) return err;
+  if (p.rope) {
+    const int tasks = p.nt * p.nb * p.l;
+    norm_phase<T><<<min((tasks + NTB / 32 - 1) / (NTB / 32), 4096), NTB, 0, stream>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = launch_gemm<T, PH_UPR, PIPE>(p, stream);
+  } else {
+    err = launch_gemm<T, PH_UP, PIPE>(p, stream);
+  }
+  if (err != cudaSuccess) return err;
+  return launch_gemm<T, PH_DOWN, PIPE>(p, stream);
+}
+
+// The layer program: fused, launch A over all T and launch B's groups of
+// NSETS timesteps; or pipelined, launch A and launch B per timestep (A_0, B_0, A_1, B_1, ...), each pair's operands offset to its
+// timestep (x, s, ctx, out, launch A's bit scratch, launch B's flags),
+// with one timestep's spike bits and (rope) ln2 output, and the
+// membranes in memb / mem_in / mem_hid between the pairs.
 template <typename T>
 cudaError_t launch(int pipeline, const void* x, const void* s, const void* w3,
                    const void* wo, const void* w1, const void* w2,
@@ -1756,25 +2019,32 @@ cudaError_t launch(int pipeline, const void* x, const void* s, const void* w3,
                    int analog, int nt, int nb, int l, int d, int heads, int hd,
                    int ff, int l_block, int decoded, int c_block, int cp, int cw,
                    void* bits, void* ctx, void* s2g, void* out, int* counts,
-                   int* flags, void* memb, void* mem_in, void* mem_hid,
+                   void* flags, void* sbits, void* memb, void* mem_in, void* mem_hid,
                    cudaStream_t stream) {
-  const int nlb = (l + l_block - 1) / l_block;
+  const int nlb = (l + l_block - 1) / l_block, steps = pipeline ? nt : 1;
+  const int held = pipeline ? 1 : nt;
   const BitsLayout lay(nb, l, heads, hd, nlb);
-  if (!pipeline)
-    return launch_pair<T, MAX_T>(
-        (const T*)x, (const T*)s, w3, wo, w1, w2, sc3, sco, sc1, sc2, auxp,
-        auxo, aux1, aux2, delta, scale, lif, norm_eps, rope, causal, analog, nt, nb, l,
-        d, heads, hd, ff, l_block, decoded, c_block, cp, cw, lay.at(bits, nt, 0),
-        (T*)ctx, (T*)s2g, (T*)out, counts, flags, nullptr, nullptr, nullptr, 0, stream);
   const size_t xs = (size_t)nb * l * d, cs = (size_t)nb * l * heads * hd;
-  const size_t fs = (size_t)nb * nlb * 4;
-  for (int t = 0; t < nt; ++t) {
-    const cudaError_t err = launch_pair<T, 1>(
-        (const T*)x + t * xs, (const T*)s + t * xs, w3, wo, w1, w2, sc3, sco,
-        sc1, sc2, auxp, auxo, aux1, aux2, delta, scale, lif, norm_eps, rope,
-        causal, analog, 1, nb, l, d, heads, hd, ff, l_block, decoded, c_block, cp,
-        cw, lay.at(bits, nt, t), (T*)ctx + t * cs, (T*)s2g, (T*)out + t * xs,
-        counts, flags + t * fs, (T*)memb, (T*)mem_in, (T*)mem_hid, t > 0, stream);
+  MlpArgs<T> p{};
+  p.wo = (const T*)wo, p.w1 = (const T*)w1, p.w2 = (const T*)w2;
+  p.sco = sco, p.sc1 = sc1, p.sc2 = sc2, p.auxo = auxo, p.aux1 = aux1, p.aux2 = aux2;
+  p.s2g = (T*)s2g, p.mem_in = (T*)mem_in, p.mem_hid = (T*)mem_hid;
+  p.s2b = (uint32_t*)sbits;
+  p.hb = p.s2b + (size_t)held * (nb * l + (nb * l & 1)) * 2 * ((d + 63) / 64);
+  p.counts = counts, p.lif = lif, p.norm_eps = norm_eps;
+  p.rope = rope, p.analog = analog, p.nt = held, p.nb = nb, p.l = l, p.d = d;
+  p.heads = heads, p.hd = hd, p.ff = ff, p.l_block = l_block;
+  for (int t = 0; t < steps; ++t) {
+    const int t0 = pipeline ? t : 0;
+    p.x = (const T*)x + t0 * xs, p.ctx = (const T*)ctx + t0 * cs, p.out = (T*)out + t0 * xs;
+    p.fl = Flags::at(flags, nt, t0, nb, nlb, heads);
+    p.carry = t > 0;
+    cudaError_t err = launch_attention<T>(
+        rope, decoded, analog, (const T*)s + t0 * xs, w3, sc3, auxp, delta, scale, lif, causal,
+        held, nb, l, d, heads, hd, l_block, c_block, cp, 0, cw, lay.at(bits, nt, t0),
+        (void*)p.ctx, counts, p.fl.ctx, memb, t > 0, stream);
+    if (err != cudaSuccess) return err;
+    err = pipeline ? launch_mlp<T, true>(p, stream) : launch_mlp<T, false>(p, stream);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -1789,14 +2059,14 @@ int forward(int pipeline, const void* x, const void* s, const void* w3,
             float norm_eps, int rope, int causal, int analog, int nt, int nb,
             int l, int d, int heads, int hd, int ff, int l_block, int decoded,
             int c_block, int cp, int cw, void* bits, void* ctx, void* s2g,
-            void* out, void* counts, void* flags, void* memb, void* mem_in,
-            void* mem_hid, void* stream) {
+            void* out, void* counts, void* flags, void* sbits, void* memb,
+            void* mem_in, void* mem_hid, void* stream) {
   const auto f = [](const void* p) { return (const float*)p; };
   return (int)launch<T>(pipeline, x, s, w3, wo, w1, w2, f(sc3), f(sco),
                         f(sc1), f(sc2), f(auxp), f(auxo), f(aux1), f(aux2),
                         f(delta), scale, lif, norm_eps, rope, causal, analog, nt,
                         nb, l, d, heads, hd, ff, l_block, decoded, c_block, cp, cw,
-                        bits, ctx, s2g, out, (int*)counts, (int*)flags, memb,
+                        bits, ctx, s2g, out, (int*)counts, flags, sbits, memb,
                         mem_in, mem_hid, (cudaStream_t)stream);
 }
 
@@ -1813,7 +2083,7 @@ cudaError_t launch_ssa(const void* s, const void* w3, const float* sc3,
   return launch_attention<T>(rope, 0, analog, s, w3, sc3, auxp, delta, scale,
                              lif, causal, nt, nb, l, d, heads, hd, l, 1, d, 1, cw,
                              BitsLayout(nb, l, heads, hd, 1).at(bits, nt, 0), ctx,
-                             counts, nullptr, 0, stream);
+                             counts, nullptr, nullptr, 0, stream);
 }
 
 }  // namespace
@@ -1824,8 +2094,13 @@ cudaError_t launch_ssa(const void* s, const void* w3, const float* sc3,
 // decoded: the decoded q/k/v projections with chunks of c_block
 // compacted slots and padded width cp; cw: launch A's column slice
 // (kernels/fused_layer.py::column_width); bits: launch A's zeroed int32
-// scratch of bits_words(T, B, L, H, hd, nlb) words. Launches 3 kernels;
-// returns a cudaError_t (0 = success).
+// scratch of bits_words(T, B, L, H, hd, nlb) words; flags: launch B's
+// zeroed int32 scratch of flag_words(T, B, nlb, H) words; sbits: launch
+// B's spike bits, spike_words(T, B L, D, F) int32 words, uninitialised;
+// s2g (rope): the ln2 output (T, B, L, D); mem_in (B, L, D) and mem_hid
+// (B, L, F) in the activation dtype: launch B's membranes between its
+// groups of 4 timesteps (T > 4; else unused, may be null). Launches 5
+// kernels (rope 6); returns a cudaError_t (0 = success).
 extern "C" int fused_layer_forward(
     int dtype, const void* x, const void* s, const void* w3, const void* wo,
     const void* w1, const void* w2, const void* sc3, const void* sco,
@@ -1834,22 +2109,23 @@ extern "C" int fused_layer_forward(
     float decay, float vth, int soft_reset, float norm_eps, int rope,
     int causal, int analog, int nt, int nb, int l, int d, int heads, int hd, int ff,
     int l_block, int decoded, int c_block, int cp, int cw, void* bits, void* ctx,
-    void* s2g, void* out, void* counts, void* flags, void* stream) {
+    void* s2g, void* out, void* counts, void* flags, void* sbits, void* mem_in,
+    void* mem_hid, void* stream) {
   const Lif lif{decay, vth, soft_reset};
   auto fwd = dtype == 0 ? forward<float> : forward<__nv_bfloat16>;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   return fwd(0, x, s, w3, wo, w1, w2, sc3, sco, sc1, sc2, auxp, auxo, aux1,
              aux2, delta, scale, lif, norm_eps, rope, causal, analog, nt, nb, l, d,
              heads, hd, ff, l_block, decoded, c_block, cp, cw, bits, ctx, s2g, out,
-             counts, flags, nullptr, nullptr, nullptr, stream);
+             counts, flags, sbits, nullptr, mem_in, mem_hid, stream);
 }
 
 // The pipeline variant (overlap='pipeline'): fused_layer_forward's
-// operands, with ctx (T, B, L, H hd), s2g (B, L, D) (rope; unused by bn),
-// flags (T, B, nlb, 4) int32 zeroed, and the membrane scratch memb
-// (B, L, 3 H hd), mem_in (B, L, D), mem_hid (B, L, F) in the activation
-// dtype (uninitialised: the first timestep does not read it). Launches 3 T
-// kernels on the stream.
+// operands, with s2g (B, L, D) (rope; unused by bn), sbits one timestep's
+// spike_words(1, B L, D, F), and the membrane scratch memb (B, L, 3 H hd),
+// mem_in (B, L, D), mem_hid (B, L, F) in the activation dtype
+// (uninitialised: the first timestep does not read it). Launches 5 T
+// kernels (rope 6 T) on the stream.
 extern "C" int fused_layer_pipeline_forward(
     int dtype, const void* x, const void* s, const void* w3, const void* wo,
     const void* w1, const void* w2, const void* sc3, const void* sco,
@@ -1858,15 +2134,15 @@ extern "C" int fused_layer_pipeline_forward(
     float decay, float vth, int soft_reset, float norm_eps, int rope,
     int causal, int analog, int nt, int nb, int l, int d, int heads, int hd, int ff,
     int l_block, int decoded, int c_block, int cp, int cw, void* bits, void* ctx,
-    void* s2g, void* out, void* counts, void* flags, void* memb, void* mem_in,
-    void* mem_hid, void* stream) {
+    void* s2g, void* out, void* counts, void* flags, void* sbits, void* memb,
+    void* mem_in, void* mem_hid, void* stream) {
   const Lif lif{decay, vth, soft_reset};
   auto fwd = dtype == 0 ? forward<float> : forward<__nv_bfloat16>;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   return fwd(1, x, s, w3, wo, w1, w2, sc3, sco, sc1, sc2, auxp, auxo, aux1,
              aux2, delta, scale, lif, norm_eps, rope, causal, analog, nt, nb, l, d,
              heads, hd, ff, l_block, decoded, c_block, cp, cw, bits, ctx, s2g, out,
-             counts, flags, memb, mem_in, mem_hid, stream);
+             counts, flags, sbits, memb, mem_in, mem_hid, stream);
 }
 
 // The SSA bundle (fused_ssa): s (T, B, L, D) spikes (rope: normed

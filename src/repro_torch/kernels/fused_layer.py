@@ -31,12 +31,15 @@ Three functions of one layer:
   to the next timestep and adds each timestep's executed sub-blocks;
 * :func:`fused_layer` — the wrapper: CPU tensors take the plain version,
   CUDA tensors launch ``csrc/fused_layer.cu`` or raise: through
-  :func:`fused_layer_cuda` three launches (launch A: the q/k/v
-  projections per (w3 column slice, row group), then the attention per
-  (query block, head, (t, b)), the spike bits between them in a device
-  scratch; launch B: wo + MLP per (64-row tile of an L-block, b)); with
+  :func:`fused_layer_cuda` launch A (two kernels: the q/k/v projections
+  per (w3 column slice, row group), then the attention per (query block,
+  head, (t, b)), the spike bits between them in a device scratch) and
+  launch B (three kernels, wo, up and down, each over (64-row, 64-column)
+  tiles of the flattened (b, l) rows for up to four timesteps at once,
+  the rope family's ln2 a fourth between wo and up; the input neuron's
+  and the hidden spikes as bits in a device scratch); with
   ``pipeline=True`` through :func:`fused_layer_pipeline_cuda` the same
-  three a timestep (3 T), the membranes moving between them through
+  launches once a timestep, the membranes moving between them through
   device scratch.
 
 Analog scores (``binarize_scores=False``, Spikformer's raw SSA, which
@@ -96,35 +99,31 @@ N_PHASES = len(LAYER_PHASES)
 
 # kernel launches on the card, by variant (bn tile, bn decoded, rope;
 # fused or pipelined; binarized or analog scores, ``_analog``): each call
-# of the fused CUDA layer program launches three kernels (launch A's
-# project_phase and attend_phase, then launch B's mlp_phase) and counts
-# all three; the pipelined one launches the three once a timestep, 3 T a
-# call
+# of the fused CUDA layer program launches launch A's project_phase and
+# attend_phase, then launch B's wo, up and down kernels (the rope family
+# its ln2 kernel too), and counts every one; the pipelined one launches
+# them once a timestep, T times as many a call
 LAUNCHES = {f"fused_layer{sched}{variant}{scores}": 0
             for sched in ("", "_pipeline")
             for variant in ("", "_decoded", "_rope")
             for scores in ("", "_analog")}
-LAUNCHES_PER_CALL = 3
+LAUNCHES_PER_CALL = {"bn": 5, "rope": 6}
 
 # shape limits of the CUDA kernel (csrc/fused_layer.cu). Launch A keeps
 # the spike bits in device memory (:func:`bits_words`), so it takes any L;
 # a row's q or k bits are at most four 32-bit words (head_dim <= 128), and
 # a block holds its w3 column slice for all of D in shared memory
-# (:func:`smem_a`, :func:`column_width`). Launch B holds T accumulators a
-# slot and its rmsnorm a row in registers, and the spike bit planes of a
-# 64-row tile in shared memory (:func:`smem_b`). The pipelined kernel's
-# launches see one timestep each: its layout is the fused one at T = 1,
-# and T is unbounded
+# (:func:`smem_a`, :func:`column_width`). Launch B holds a block's
+# timesteps in groups and its spike bits and flags in device memory
+# (:func:`spike_words`, :func:`flag_words`): it takes any T, number of
+# heads, D and F
+LAUNCH_B_SETS = 4              # launch B: timesteps a fused block holds at once
 MA = 64                        # launch A: flattened (b, l) rows of a tile
 KCA_BYTES = 256                # launch A: a staged slab chunk's row
 SA = 3                         # launch A: slab chunks in flight
 CW_MAX = 128                   # launch A: columns of a block's w3 slice
 MAX_HEAD_DIM = 128
-MAX_HEADS = 32
-MAX_T = 4
-MAX_D_ROPE = 1024
 SMEM_LIMIT = 232448 - 1024     # per block, less launch A's static arrays
-SMEM_B_LIMIT = 232448 - 35840  # less launch B's static weight / operand tiles
 
 
 def reset_launches() -> None:
@@ -546,11 +545,22 @@ def bits_words(t: int, b: int, l: int, heads: int, head_dim: int,
                 + 2 * b * heads * nlb + b * nlb)
 
 
-def smem_b(t: int, d: int, ff: int, heads: int) -> int:
-    """Launch B's dynamic shared memory in bytes: a 64-row tile's input
-    and hidden spike bit planes for every timestep it holds, and its
-    flags."""
-    return 4 * (t * 64 * (-(-d // 32) + -(-ff // 32)) + t * (2 * heads + 1))
+def spike_words(t: int, m: int, d: int, ff: int) -> int:
+    """int32 words of launch B's spike bits, the input neuron's then the
+    hidden layer's, chunk-major: (T, ceil(D / 64) or ceil(F / 64) pairs of
+    words, B L rows rounded up to even, 2), a row's 64 columns of a
+    K-chunk in one 8-byte pair, so a chunk of rows is contiguous; the
+    pipelined kernel holds one timestep's."""
+    return t * (m + m % 2) * 2 * (-(-d // 64) + -(-ff // 64))
+
+
+def flag_words(t: int, b: int, nlb: int, heads: int) -> int:
+    """int32 words of launch B's flags (``Flags`` in the CUDA source), every
+    timestep's: a (t, b, L-block, head) whose context is live (set by
+    launch A's attention) and one with a hidden spike, each (T, B, nlb,
+    H), then a (t, b, L-block) with an input spike or a non-zero ln2
+    output (T, B, nlb)."""
+    return t * b * nlb * (2 * heads + 1)
 
 
 def membrane_bytes(elem_size: int, t: int, b: int, l: int, d: int,
@@ -564,36 +574,24 @@ def membrane_bytes(elem_size: int, t: int, b: int, l: int, d: int,
 
 
 def check_launch_shapes(elem_size: int, t: int, l: int, d: int, heads: int,
-                        head_dim: int, nlb: int, *, ff: Optional[int] = None,
-                        rope: bool = False, pipeline: bool = False,
+                        head_dim: int, nlb: int, *, rope: bool = False,
                         what: str = "fused_layer") -> None:
-    """Raises ValueError for a shape that launch A (and, given ``ff``,
-    launch B) does not take; ``what`` names the kernel in the message.
-    Launch A takes any T and L. ``pipeline``: the pipelined kernel, whose
-    launches hold one timestep (launch B's layout at T = 1, any T)."""
-    held = 1 if pipeline else t
+    """Raises ValueError for a shape that launch A does not take; ``what``
+    names the kernel in the message. Launch A takes any T and L; launch B
+    any T, number of heads, D and F."""
     if head_dim > MAX_HEAD_DIM or head_dim % 8 or d % 16:
         raise ValueError(f"{what} kernel takes head_dim a multiple of 8 up "
                          f"to {MAX_HEAD_DIM} and D a multiple of 16, got "
                          f"head_dim={head_dim}, D={d}")
     column_width(elem_size, d, heads, head_dim, rope, what)
-    if ff is None:
-        return
-    if held > MAX_T or heads > MAX_HEADS or (ff // heads) % 8 or \
-            (rope and d > MAX_D_ROPE) or \
-            smem_b(held, d, ff, heads) > SMEM_B_LIMIT:
-        t_bound = "" if pipeline else f"T <= {MAX_T}, "
-        raise ValueError(f"{what} kernel takes {t_bound}at most "
-                         f"{MAX_HEADS} heads, F / H a multiple of 8, D at "
-                         f"most {MAX_D_ROPE} for rope and a tile's spike "
-                         f"bits within {SMEM_B_LIMIT} bytes of shared "
-                         f"memory, got T={t}, H={heads}, F={ff}, D={d}")
 
 
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 15
              + [ctypes.c_float] * 3 + [ctypes.c_int] + [ctypes.c_float]
-             + [ctypes.c_int] * 15 + [ctypes.c_void_p] * 6)
-# the pipelined entry adds the three membrane scratch pointers
+             + [ctypes.c_int] * 15 + [ctypes.c_void_p] * 7)
+# the fused entry adds launch B's two membrane scratch pointers, the
+# pipelined one launch A's too
+_FUSED_ARGTYPES = _ARGTYPES + [ctypes.c_void_p] * 2
 _PIPELINE_ARGTYPES = _ARGTYPES + [ctypes.c_void_p] * 3
 
 
@@ -601,7 +599,7 @@ def _library():
     from repro_torch.kernels import _build
     lib = _build.load("fused_layer")
     if lib.fused_layer_forward.argtypes is None:
-        lib.fused_layer_forward.argtypes = _ARGTYPES + [ctypes.c_void_p]
+        lib.fused_layer_forward.argtypes = _FUSED_ARGTYPES + [ctypes.c_void_p]
         lib.fused_layer_forward.restype = ctypes.c_int
         lib.fused_layer_pipeline_forward.argtypes = \
             _PIPELINE_ARGTYPES + [ctypes.c_void_p]
@@ -624,12 +622,18 @@ def fused_layer_cuda(x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
 def fused_layer_pipeline_cuda(x, s, w3, wo, w1, w2, scales, auxp, auxo,
                               aux1, aux2, delta, **kw):
     """Launch the pipelined CUDA layer program (#1d): launch A (two
-    kernels) and launch B once a timestep, A_0, B_0, A_1, B_1, ..., on
-    PyTorch's current stream, with the membranes in device scratch
-    between them; counted, 3 T a call, under ``fused_layer_pipeline``,
+    kernels) and launch B (three, rope four) once a timestep, A_0, B_0,
+    A_1, B_1, ..., on PyTorch's current stream, with the membranes in
+    device scratch between them; counted, T times
+    :data:`LAUNCHES_PER_CALL` a call, under ``fused_layer_pipeline``,
     ``fused_layer_pipeline_decoded`` or ``fused_layer_pipeline_rope``."""
     return _launch(True, x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1,
                    aux2, delta, **kw)
+
+
+def _aligned(a: torch.Tensor) -> torch.Tensor:
+    a = a.contiguous()
+    return a if a.data_ptr() % 16 == 0 else a.clone()
 
 
 def _launch(pipeline, x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
@@ -655,8 +659,10 @@ def _launch(pipeline, x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
     ff = w1.shape[1]
     nlb = -(-l // l_block)
     check_launch_shapes(x.element_size(), t, l, d, num_heads, head_dim, nlb,
-                        ff=ff, rope=rope, pipeline=pipeline)
-    act = tuple(a.contiguous() for a in act)
+                        rope=rope)
+    # the kernels copy 16 bytes at a time: a view off a 16-byte boundary
+    # is copied to fresh (aligned) storage
+    act = tuple(_aligned(a) for a in act)
     f32 = tuple(a.contiguous() for a in f32)
     q_dim = num_heads * head_dim
     new = lambda *shape: torch.empty(shape, dtype=x.dtype,  # noqa: E731
@@ -669,9 +675,12 @@ def _launch(pipeline, x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
     out = torch.empty_like(act[0])
     counts = torch.zeros((num_heads, N_PHASES, nlb), dtype=torch.int32,
                          device=x.device)
-    # launch B's per-(b, L-block) flag words and arrival counts: one group
-    # of 3 T + 1 (fused), or of 4 per timestep (pipelined)
-    flags = torch.zeros((t, b, nlb, 4) if pipeline else (b, nlb, 3 * t + 1),
+    # launch B's flag words (every timestep's) and spike bits (every
+    # timestep's, or the pipelined launches' one; fully written before
+    # they are read)
+    flags = torch.zeros(flag_words(t, b, nlb, num_heads), dtype=torch.int32,
+                        device=x.device)
+    sbits = torch.empty(spike_words(1 if pipeline else t, b * l, d, ff),
                         dtype=torch.int32, device=x.device)
     # launch A's spike bits and count flags, every timestep's (the
     # pipelined launches take their timestep's sections)
@@ -687,7 +696,7 @@ def _launch(pipeline, x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
             t, b, l, d, num_heads,
             head_dim, ff, l_block, int(decoded), c_block, cp, cw,
             bits.data_ptr(), ctx.data_ptr(), s2g.data_ptr(), out.data_ptr(),
-            counts.data_ptr(), flags.data_ptr()]
+            counts.data_ptr(), flags.data_ptr(), sbits.data_ptr()]
     if pipeline:
         # the membranes between launches (q/k/v, input neuron, hidden);
         # the first timestep does not read them
@@ -695,12 +704,16 @@ def _launch(pipeline, x, s, w3, wo, w1, w2, scales, auxp, auxo, aux1, aux2,
         rc = lib.fused_layer_pipeline_forward(
             *args, *(a.data_ptr() for a in scratch), stream)
     else:
-        rc = lib.fused_layer_forward(*args, stream)
+        # launch B's membranes between its groups of timesteps (input
+        # neuron, hidden), when T takes more than one group
+        scratch = (new(b, l, d), new(b, l, ff)) if t > LAUNCH_B_SETS else ()
+        rc = lib.fused_layer_forward(*args, *(a.data_ptr() for a in scratch),
+                                     *(None,) * (2 - len(scratch)), stream)
     if rc != 0:
         raise RuntimeError(f"fused_layer kernel launch failed: "
                            f"{lib.fused_layer_error(rc).decode()}")
     name = "fused_layer_pipeline" if pipeline else "fused_layer"
     name += "_rope" if rope else "_decoded" if decoded else ""
     name += "" if binarize_scores else "_analog"
-    LAUNCHES[name] += LAUNCHES_PER_CALL * (t if pipeline else 1)
+    LAUNCHES[name] += LAUNCHES_PER_CALL[family] * (t if pipeline else 1)
     return out, counts

@@ -182,15 +182,15 @@ def test_unported_variants_raise(variant):
     assert (cnt[:, 3] == t * b).all()
 
 
-@pytest.mark.parametrize("bad", ["wide_head", "long_t", "half", "mixed"])
+@pytest.mark.parametrize("bad", ["wide_head", "d_off_grid", "half", "mixed"])
 def test_kernel_launcher_rejects_operands_before_launching(bad):
     """The CUDA launcher checks shapes and dtypes before it builds or
     calls the kernel, so these raise here too, where there is no card
     (launch A takes head_dim up to 128: a row's q or k bits in four
-    words)."""
-    t = 5 if bad == "long_t" else 2
-    l = 13
-    heads, hd, d, ff = 2, 136 if bad == "wide_head" else 8, 16, 16
+    words, and D a multiple of 16; launch B takes any T)."""
+    t, l = 2, 13
+    heads, hd, ff = 2, 136 if bad == "wide_head" else 8, 16
+    d = 24 if bad == "d_off_grid" else 16
     args, kw = TFL.prepare(*to_torch(layer_ops(7, t, 1, l, d, heads, hd, ff)),
                            num_heads=heads, head_dim=hd,
                            scale=1.0 / math.sqrt(hd), decay=0.5, v_th=1.0,

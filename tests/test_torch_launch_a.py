@@ -6,7 +6,7 @@ memory) as far as the CPU can hold it.
   3745, 8192 and 16384 tokens, 8-512's layer at L 1409 and 4096, in bf16
   and fp32: past what the earlier shared-memory layout took) and
   head_dim a multiple of 8 up to 128, and refuses 136 and head_dims off
-  the grid; launch B's refusals are unchanged;
+  the grid (launch B's bounds: ``test_torch_launch_b.py``);
 * the Python mirrors of the kernel's layouts: ``bits_words`` (the bit
   scratch), ``smem_a`` (a projection block's shared memory) and
   ``column_width`` (the widest w3 column slice that fits), each against
@@ -57,12 +57,9 @@ LONG = [("lm 3745", 4, 3745, 256, 8, 32, 1024, True),
 def test_launcher_takes_any_sequence_length(case, elem_size):
     _, t, l, d, heads, hd, ff, rope = case
     nlb = -(-l // 128)
-    TFL.check_launch_shapes(elem_size, t, l, d, heads, hd, nlb, ff=ff,
-                            rope=rope)
+    TFL.check_launch_shapes(elem_size, t, l, d, heads, hd, nlb, rope=rope)
     TFL.check_launch_shapes(elem_size, t, l, d, heads, hd, 1, rope=rope,
                             what="fused_ssa")
-    TFL.check_launch_shapes(elem_size, t, l, d, heads, hd, nlb, ff=ff,
-                            rope=rope, pipeline=True)
     # the bit scratch of the sequence: a few MB where the old layout held
     # it in one block's 227 KB
     assert TFL.bits_words(t, 1, l, heads, hd, nlb) * 4 < 8 << 20
@@ -78,7 +75,7 @@ def test_launcher_takes_head_dim_up_to_128(head_dim, ok):
     for es in (2, 4):
         for rope in (False, True):
             calls = (lambda: TFL.check_launch_shapes(  # noqa: E731
-                         es, 4, 100, 256, 2, head_dim, 2, ff=512, rope=rope),
+                         es, 4, 100, 256, 2, head_dim, 2, rope=rope),
                      lambda: TFL.check_launch_shapes(  # noqa: E731
                          es, 4, 100, 256, 2, head_dim, 1, rope=rope,
                          what="fused_ssa"))
@@ -89,28 +86,6 @@ def test_launcher_takes_head_dim_up_to_128(head_dim, ok):
                     with pytest.raises(ValueError, match="head_dim a "
                                        "multiple of 8 up to 128"):
                         call()
-
-
-# launch B's refusals (T held, heads, F / H, the rope family's D, a
-# tile's bit planes), each with launch A's part of the shape valid
-LAUNCH_B = {"t5": (4, 5, 64, 256, 8, 32, 1024, False, "T <= 4"),
-            "heads33": (2, 4, 64, 256, 33, 8, 33 * 8, False, "at most 32"),
-            "ff_grid": (2, 4, 64, 512, 8, 64, 8 * 36, False, "F / H"),
-            "rope_d": (2, 4, 64, 1040, 8, 32, 1024, True, "D at most 1024"),
-            "bit_planes": (2, 4, 64, 2048, 8, 64, 24576, False,
-                           "spike bits within")}
-
-
-@pytest.mark.parametrize("case", list(LAUNCH_B))
-def test_launch_b_refusals_unchanged(case):
-    es, t, l, d, heads, hd, ff, rope, msg = LAUNCH_B[case]
-    TFL.check_launch_shapes(es, t, l, d, heads, hd, 1, rope=rope)
-    with pytest.raises(ValueError, match=msg):
-        TFL.check_launch_shapes(es, t, l, d, heads, hd, 1, ff=ff, rope=rope)
-    if case != "t5":              # the pipelined kernel holds one timestep
-        with pytest.raises(ValueError, match=msg):
-            TFL.check_launch_shapes(es, t, l, d, heads, hd, 1, ff=ff,
-                                    rope=rope, pipeline=True)
 
 
 def _padded(n, es):

@@ -319,27 +319,16 @@ def test_rope_decoded_takes_the_tile_projection():
 
 
 def test_rope_launcher_rejects_operands_before_launching():
-    """Launch A holds a row's q or k bits in at most four words and
-    launch B's rmsnorm a row in registers: head_dim 136 or a wider model
-    raises before the kernel is built, here too (launch A takes any
-    sequence length)."""
-    d, ff = 16, 16
-    for heads, hd, wide in ((1, 136, False), (2, 8, True)):
-        l = 13
-        args = rope_layer_ops(1, 2, 1, l, d, heads, hd, ff)
-        if wide:
-            dd = TFL.MAX_D_ROPE + 16
-            args = (np.zeros((2, 1, l, dd), np.float32),) * 2 + (
-                np.zeros((3, dd, heads * hd), np.float32),
-                np.zeros((heads * hd, dd), np.float32),
-                np.zeros((dd, ff), np.float32),
-                np.zeros((ff, dd), np.float32), None, args[7],
-                np.ones((1, dd), np.float32), None, None, args[11])
-        pargs, kw = TFL.prepare(*to_torch(args), **dict(
-            _kw(heads, hd), decay=0.5, v_th=1.0, soft_reset=False,
-            eps=1e-5, l_block=8))
-        with pytest.raises(ValueError):
-            TFL.fused_layer_cuda(*pargs, **kw)
+    """Launch A holds a row's q or k bits in at most four words: head_dim
+    136 raises before the kernel is built, here too (launch A takes any
+    sequence length, launch B any D)."""
+    d, ff, heads, hd, l = 16, 16, 1, 136, 13
+    args = rope_layer_ops(1, 2, 1, l, d, heads, hd, ff)
+    pargs, kw = TFL.prepare(*to_torch(args), **dict(
+        _kw(heads, hd), decay=0.5, v_th=1.0, soft_reset=False,
+        eps=1e-5, l_block=8))
+    with pytest.raises(ValueError):
+        TFL.fused_layer_cuda(*pargs, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -52,7 +52,7 @@ from test_torch_spikingformer import ARCHS, _setup  # noqa: E402
 
 # (t, b, l, d, heads, hd, ff, l_block): a ragged L against l_block with
 # d_ff not a multiple of heads (bn pads it), the SMOKE width, several
-# L-blocks with one dark, and T = 6 (past the fused kernel's MAX_T)
+# L-blocks with one dark, and T = 6 (two of launch B's groups of timesteps)
 SHAPES = {"odd": (2, 2, 13, 16, 2, 8, 21, 8),
           "smoke": (2, 2, 16, 64, 4, 16, 128, 16),
           "multi": (4, 2, 40, 32, 2, 16, 64, 16),
@@ -262,30 +262,25 @@ def test_mixed_trees_under_pipeline_run_the_bundle_as_fused(arch,
 
 @pytest.mark.parametrize("elem_size", [2, 4])
 def test_pipeline_launch_bounds(elem_size):
-    """The pipelined kernel's launches hold one timestep: launch B needs
-    no bound on T (T = 6 and 64 pass where the fused kernel refuses
-    T = 6), and launch A, whose spike bits live in device memory, takes
-    any L: the LM's rope layer (D = 256, 8 heads of 32) past the old
-    one-timestep bound (15008 tokens in bf16, 11328 in fp32) and 8-512's
-    layer at L 40000. head_dim 136 and F / H off the grid are refused as
-    for the fused kernel."""
+    """The pipelined kernel and the fused one take the same shapes:
+    launch B holds groups of timesteps, so any T (T = 4, 6 and 64 pass,
+    as for the fused kernel), and launch A, whose spike bits live in
+    device memory, takes any L: the LM's rope layer (D = 256, 8 heads of
+    32) past the old one-timestep bound (15008 tokens in bf16, 11328 in
+    fp32) and 8-512's layer at L 40000. head_dim 136 is refused; F has no
+    bound (launch B's spike bits are sized by ``spike_words``, here F / H
+    = 36, off the earlier grid of 8)."""
     shape = (196, 512, 8, 64, 2)
     for t in (4, 6, 64):
-        TFL.check_launch_shapes(elem_size, t, *shape, ff=2048,
-                                pipeline=True)
-    with pytest.raises(ValueError, match="T <= 4"):
-        TFL.check_launch_shapes(elem_size, 6, *shape, ff=2048)
+        TFL.check_launch_shapes(elem_size, t, *shape)
     for l in (15009, 11329, 40000):
         TFL.check_launch_shapes(elem_size, 4, l, 256, 8, 32, -(-l // 128),
-                                ff=1024, rope=True, pipeline=True)
-    TFL.check_launch_shapes(elem_size, 6, 40000, 512, 8, 64, 313, ff=2048,
-                            pipeline=True)
+                                rope=True)
+    TFL.check_launch_shapes(elem_size, 6, 40000, 512, 8, 64, 313)
     with pytest.raises(ValueError, match="head_dim"):
-        TFL.check_launch_shapes(elem_size, 6, 196, 512, 8, 136, 2,
-                                ff=2048, pipeline=True)
-    with pytest.raises(ValueError, match="F / H"):
-        TFL.check_launch_shapes(elem_size, 6, 196, 512, 8, 64, 2,
-                                ff=8 * 36, pipeline=True)
+        TFL.check_launch_shapes(elem_size, 6, 196, 512, 8, 136, 2)
+    TFL.check_launch_shapes(elem_size, 6, 196, 512, 8, 64, 2)
+    assert TFL.spike_words(1, 32 * 196, 512, 8 * 36) > 0
 
 
 @pytest.mark.parametrize("bad", ["odd_head_dim", "half", "mixed", "head_dim"])
