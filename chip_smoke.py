@@ -37,15 +37,20 @@ device; exits non-zero without one). It
      share of equal entries logged; timed per product with the
      profiler's device time beside ``torch.matmul``;
    * ``spike_attention`` at BH = 2048, L = 64, d = 32, at an L that is
-     not a multiple of the query block with ``causal=True``, at the bf16
-     LM prefill's causal BH = 256, L = 512, and with analog scores
+     not a multiple of the query block with ``causal=True``, at an 8-512
+     training step's BH = 1024, L = 196, d = 64, at the bf16 LM
+     prefill's causal BH = 256, L = 512, and with analog scores
      (bitwise: both sum them over the keys in ascending order) at a
      ragged shape and at the analog paths' shapes (the 4-256 train
-     step's, an 8-512 request's at d = 64); past its 2048-key chunk
+     step's, an 8-512 request's at d = 64); at long L
      (``LONG_ATTENTION``): L = 2049 causal and not, L = 4608 causal in
      bf16 and fp32, L = 4100 at d = 64 and 128, analog scores at L =
-     3000; timed (with the profiler's device us) at the first and the
-     LM's shape and at L = 4608 causal;
+     3000; at head dims the earlier kernel refused or that are no
+     multiple of 16 (``WIDE_ATTENTION``, bf16 and fp32: d = 160, 256 and
+     300 in column slices and depth chunks, d = 24, causal past 2048
+     keys, analog); timed (cuda_ms and the profiler's device us) at the
+     first, the 8-512 and the LM's shape, at L = 4608 causal and with
+     analog scores at both analog shapes;
    * ``gather_spike_matmul`` (#4, the decoded datapath) at the six
      products of a training layer, on ragged fine-grained spikes (rows
      from empty to dense, all-zero groups), random-normal and dyadic
@@ -200,7 +205,13 @@ device; exits non-zero without one). It
      through ``build_prefill_step`` (past #7's 2048-key chunk: 1 causal
      ``spike_attention`` a layer; past the old launch A's bound: 6
      ``fused_layer_rope`` a layer, 2 ``fused_ssa_rope`` a layer), their
-     logits == through the plain versions, bitwise;
+     logits == through the plain versions, bitwise; an eval layer at
+     head_dim 160, which launch A does not take, through
+     ``core/engine.layer_step`` (4-256's widths) and
+     ``layer_step_causal`` (the LM's, fp32): the sequential composition,
+     1 ``spike_attention`` at d = 160 each (and the vision layer's 6
+     spike products), no fused layer or bundle, == the plain versions
+     bitwise;
    * ``overlap='pipeline'`` through ``build_prefill_step``, each beside
      the same requests under 'fused' in the same run: 4 requests of 64
      images of 4-256 on dyadic weights that fire, 'tile' and 'decoded';
@@ -349,8 +360,10 @@ ROPE_CASES = [("S=512", LM_FULL, 128),
               ("SMOKE width, S=13", (2, 2, 13, 64, 4, 16, 128), 8)]
 LM_REQUESTS, LM_BATCH, LM_PROMPT = 3, 8, 512
 # spike_attention (BH, L, d, causal): the training shape, an L that is not
-# a multiple of the 64-query block, and the bf16 LM prefill's causal shape
+# a multiple of the 64-query block, an 8-512 training step's shape (T x 32
+# images x 8 heads, L 196, d 64) and the bf16 LM prefill's causal shape
 ATTENTION = [(T * B * H, L, HD, False), (64, 77, HD, True),
+             (T * 32 * 8, 196, 64, False),
              (T * LM_BATCH * H, LM_PROMPT, HD, True)]
 # spike_attention past its 2048-key chunk (dtype, BH, L, d, causal,
 # binarize): one key past a chunk, several chunks under causal, d 64 and
@@ -363,8 +376,26 @@ LONG_ATTENTION = [(torch.bfloat16, 8, 2049, HD, False, True),
                   (torch.bfloat16, 2, 4100, 128, True, True),
                   (torch.float32, 4, 3000, HD, False, False),
                   (torch.bfloat16, 4, 3000, HD, True, False)]
+# spike_attention at head dims past 128 (in column slices; 256 with the
+# query tile resident, 300 streamed in depth chunks) or no multiple of 16
+# (24: zero-padded), at ragged L, causal past the key length that takes
+# two warp groups, both dtypes
+WIDE_ATTENTION = [(dt, *case) for dt in (torch.bfloat16, torch.float32)
+                  for case in ((4, 300, 160, True, True),
+                               (2, 2100, 256, False, True),
+                               (2, 2300, 160, True, True),
+                               (6, 333, 24, True, True),
+                               (6, 130, 24, False, True),
+                               (3, 100, 300, True, True),
+                               (4, 300, 160, True, False),
+                               (6, 333, 24, True, False))]
 # one bf16 spikingformer-lm prompt past the chunk, through the prefill step
 LONG_PROMPT = 4096
+# an eval layer that launch A does not take: head_dim 160 (its bound is
+# 128) at 4-256's other widths and T = 4, vision (B images of L = 64) and
+# LM (B x S tokens, fp32 activations, eligible but for that bound)
+WIDE_HEAD = dict(num_heads=8, num_kv_heads=8, head_dim=160)
+WIDE_VISION_B, WIDE_LM_B, WIDE_LM_S = 16, 2, 256
 # the server: slots, requests, prompt lengths, new tokens, cache length
 SERVE_SLOTS, SERVE_REQUESTS, SERVE_NEW, SERVE_MAX_LEN = 8, 16, 32, 1024
 SERVE_PROMPTS = (100, 500)
@@ -1054,27 +1085,41 @@ def check_attention(dtype, bh, l, d, causal, binarize=True):
     return err
 
 
-def time_attention(bh, l, d, causal):
-    """bf16 (cuda_ms). No single PyTorch call computes binarized
-    attention (scaled_dot_product_attention applies a softmax), so there
-    is no library time. Bound: q, k, v read once and the context written
-    once, or both products' multiply-adds at the bf16 tensor peak (with
-    ``causal``, only the query-key pairs on or below the diagonal)."""
+def time_attention(bh, l, d, causal, binarize=True):
+    """bf16: cuda_ms and the profiler's device us of the kernel. No single
+    PyTorch call computes binary attention (scaled_dot_product_attention
+    applies a softmax), so there is no library time. Bound: q, k, v read
+    once and the context written once, or the multiply-adds at their
+    peak: both products at the bf16 tensor peak, an analog context's at
+    the fp32 one (with ``causal``, only the query-key pairs on or below
+    the diagonal). Analog scores also get the floor of their ascending
+    sums on the CUDA cores: one fp32 add a set value bit and query row
+    that sees its key, at the fp32 pipe's 128 a clock an SM (132 SMs at
+    1980 MHz)."""
     q, k, v = attention_operands(7, bh, l, d, torch.bfloat16)
     kw = dict(scale=1.0 / math.sqrt(d),
-              delta=torch.tensor(0.3, device=q.device), causal=causal)
+              delta=torch.tensor(0.3, device=q.device), causal=causal,
+              binarize_scores=binarize)
     ms = cuda_ms(lambda: SA.spike_attention_cuda(q, k, v, **kw))
     plain_ms = cuda_ms(lambda: SA.spike_attention_plain(q, k, v, **kw),
-                       calls=5 if l > 1024 else 20)
+                       calls=5 if l > 1024 or not binarize else 20)
     pairs = l * (l + 1) // 2 if causal else l * l
-    ops_s = 2 * 2 * bh * pairs * d / PEAK_FLOPS[torch.bfloat16]
+    context = PEAK_FLOPS[torch.bfloat16 if binarize else torch.float32]
+    ops_s = 2 * bh * pairs * d * (1 / PEAK_FLOPS[torch.bfloat16]
+                                  + 1 / context)
     bytes_s = 4 * q.numel() * q.element_size() / PEAK_BYTES
     bound = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                  bound_ms=1e3 * max(ops_s, bytes_s),
                  bound_by="operations" if ops_s >= bytes_s else "bytes",
                  device_us=device_us(
                      lambda: SA.spike_attention_cuda(q, k, v, **kw)))
-    log(f"spike_attention bf16 BH={bh} L={l} d={d} causal={causal}: {bound}")
+    if not binarize:
+        sets = v.float().sum(-1)                       # (BH, L) a key's
+        rows = (l - torch.arange(l, device=v.device)) if causal else l
+        adds = float((sets * rows).sum())
+        bound["floor_ms"] = 1e3 * adds / (132 * 128 * 1.98e9)
+    log(f"spike_attention bf16 BH={bh} L={l} d={d} causal={causal} "
+        f"binarize={binarize}: {bound}")
     return bound
 
 
@@ -1418,6 +1463,79 @@ def long_prompt_path(cfg, params, what="bf16"):
         f"the kernels == through the plain versions bitwise, logit std "
         f"{float(got.float().std()):.4f}")
     return ms, counts
+
+
+def wide_head_path():
+    """An eval layer at head_dim 160 (WIDE_HEAD), which launch A does not
+    take, through ``core/engine.layer_step`` (Spikingformer-4-256's widths,
+    bf16, dyadic firing weights) and ``layer_step_causal``
+    (spikingformer-lm's, fp32), each under its config's engine ('auto',
+    so the kernels), the counts reset just before: the engine routes both
+    to the sequential composition, whose attention is #7 at d = 160:
+    ``layer_step`` 1 ``spike_attention`` and its 6 spike products
+    (``spike_matmul`` or ``gather_spike_matmul`` as 'auto' decides, with
+    their staging), ``layer_step_causal`` 1 ``spike_attention`` (its
+    projections are dense), no layer program and no bundle kernel; each
+    output finite, == the same layer through the plain versions,
+    bitwise. Returns {what: (ms, counts)}."""
+    gen = torch.Generator().manual_seed(12)
+    cfg = get_config("spikingformer-4-256").replace(**WIDE_HEAD)
+    params = dyadic_params(registry.init(cfg, seed=5))
+    layer = tree_map(lambda a: a[0], params["blocks"])
+    state = tree_map(lambda a: a[0], registry.init_state(cfg)["blocks"])
+    x = (torch.randint(-64, 224, (T, WIDE_VISION_B, L, D), generator=gen)
+         / 128.0).to(layer["wq"]["w"].dtype).cuda()
+    lcfg = get_config("spikingformer-lm").replace(dtype="float32",
+                                                  **WIDE_HEAD)
+    lm_layer = tree_map(lambda a: a[0], registry.init(lcfg, seed=6)["layers"])
+    h = (torch.randn((T, WIDE_LM_B, WIDE_LM_S, lcfg.d_model), generator=gen)
+         * 0.5).cuda()
+    pos = torch.arange(WIDE_LM_S).cuda()
+    runs = {"layer_step": (cfg, lambda: E.layer_step(layer, state, cfg,
+                                                     x)[0]),
+            "layer_step_causal": (lcfg, lambda: E.layer_step_causal(
+                lm_layer, lcfg, h, pos))}
+    out = {}
+    for what, (c, fn) in runs.items():
+        with use_engine(c.engine):
+            act = x if what == "layer_step" else h
+            if FL.launch_a_takes(act.element_size(), c.d_model, c.num_heads,
+                                 c.head_dim, rope=what != "layer_step"):
+                raise AssertionError(f"{what}: launch A takes head_dim "
+                                     f"{c.head_dim}")
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            got = fn()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            counts = launches()
+            want = dict.fromkeys(counts, 0)
+            want["spike_attention"] = 1
+            if what == "layer_step":
+                tile, dec = sparse_split(c.engine, 6)
+                want.update(spike_matmul=tile, gather_spike_matmul=dec,
+                            gather_stage=dec)
+            if counts != want:
+                raise AssertionError(f"head_dim 160 {what}: launches "
+                                     f"{counts}, expected {want}")
+            with plain_kernels():
+                plain = fn()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()) or got.shape != plain.shape:
+            raise AssertionError(f"head_dim 160 {what}: bad output")
+        if not torch.equal(got, plain):
+            raise AssertionError(
+                f"head_dim 160 {what}: through the kernels != through the "
+                f"plain versions (max abs diff "
+                f"{float((got.float() - plain.float()).abs().max())})")
+        log(f"head_dim 160 eval layer through {what} ({c.name} widths, "
+            f"{tuple(got.shape)} {got.dtype}): the sequential composition, "
+            f"{ms:.3f} ms (first call), launches "
+            f"{ {k: v for k, v in counts.items() if v} }; == the plain "
+            f"versions bitwise, output std {float(got.float().std()):.4f}")
+        out[what] = (ms, counts)
+    return out
 
 
 def serve_path(cfg, params):
@@ -3048,7 +3166,8 @@ def main():
                       for causal in (False, True)]
                    + [check_attention(dt, *case, False, binarize=False)
                       for dt in dtypes for case in ANALOG_ATTENTION]
-                   + [check_attention(*case) for case in LONG_ATTENTION])
+                   + [check_attention(*case)
+                      for case in LONG_ATTENTION + WIDE_ATTENTION])
     gather_err = max(
         [check_gather(dt, what, M_TRAIN, k, n, counts, weights=wk)
          for dt in dtypes for what, k, n, counts in MATMULS
@@ -3075,6 +3194,9 @@ def main():
     attn_timing = time_attention(*ATTENTION[0])
     attn_lm_timing = time_attention(*ATTENTION[-1])
     attn_long_timing = time_attention(*LONG_ATTENTION[2][1:5])
+    attn_8_512_timing = time_attention(*ATTENTION[2])
+    attn_analog_timing = [time_attention(*case, False, binarize=False)
+                          for case in ANALOG_ATTENTION]
 
     # --- the mixed slice's kernels against their plain versions ---------
     quant_err = max(
@@ -3286,6 +3408,7 @@ def main():
     long_ms, long_counts = long_prompt_path(*lm_bf16)
     long_int8 = long_prompt_path(*lm_q, what="int8")
     long_mixed = long_prompt_path(*lm_mixed, what="mixed int8")
+    wide = wide_head_path()
     serve_path(*lm_q)
     vision_int8_path()
 
@@ -3397,6 +3520,12 @@ def main():
                  at_long=dict(attn_long_timing, shape=LONG_ATTENTION[2][1:5],
                               prompt_ms=long_ms,
                               launches=long_counts["spike_attention"]),
+                 at_8_512=dict(attn_8_512_timing, shape=ATTENTION[2]),
+                 analog=[dict(t, shape=case) for t, case in
+                         zip(attn_analog_timing, ANALOG_ATTENTION)],
+                 at_head_dim_160={what: dict(
+                     ms=ms, launches=counts["spike_attention"])
+                     for what, (ms, counts) in wide.items()},
                  **attn_timing),
             dict(name="gather_spike_matmul",
                  source=csrc + "gather_spike_matmul.cu",

@@ -543,6 +543,17 @@ def _layer_program(args, scfg, plan: LayerPlan, engine: EngineConfig, *,
                              spec)
 
 
+def _launch_a_takes(x: torch.Tensor, d: int, heads: int, head_dim: int,
+                    rope: bool = False) -> bool:
+    """Whether launch A of the layer program and the bundle kernel takes
+    a layer of these widths (``kernels/fused_layer.launch_a_takes``). Asked
+    on every device, so a layer it does not take (head_dim above 128, a D
+    too wide for a w3 column slice) takes the sequential composition, whose
+    binary attention takes any head_dim, on the CPU as on the card."""
+    from repro_torch.kernels.fused_layer import launch_a_takes
+    return launch_a_takes(x.element_size(), d, heads, head_dim, rope=rope)
+
+
 def ssa_step(p: Dict[str, Any], st: Dict[str, Any], cfg, s: torch.Tensor, *,
              train: bool = False, engine: Optional[EngineConfig] = None):
     """The vision-family SSA bundle: Q/K/V projections (+ BatchNorm +
@@ -555,7 +566,8 @@ def ssa_step(p: Dict[str, Any], st: Dict[str, Any], cfg, s: torch.Tensor, *,
     version on the CPU) on the stacked weights — int8 codes cast to the
     activation dtype with their (3, q_dim) scales — and the (3, 4, q_dim)
     BN rows, and return the state unchanged; everything else runs the
-    sequential composition below (train mode always)."""
+    sequential composition below (train mode always, and a bundle whose
+    widths the kernel does not take, :func:`_launch_a_takes`)."""
     from repro_torch.core.attention import spiking_attention
     from repro_torch.models import nn
     engine = engine if engine is not None else get_engine()
@@ -564,7 +576,8 @@ def ssa_step(p: Dict[str, Any], st: Dict[str, Any], cfg, s: torch.Tensor, *,
     names = (("q", "wq"), ("k", "wk"), ("v", "wv"))
     quant = ["qw" in p[w] for _, w in names]
     eligible = (not train and (all(quant) or not any(quant))
-                and not any("b" in p[w] for _, w in names))
+                and not any("b" in p[w] for _, w in names)
+                and _launch_a_takes(s, d, heads, hd))
     if eligible and resolve_overlap(engine, s) in ("fused", "pipeline"):
         if all(quant):
             w3, scale3 = _layer_quant_w3(p, [w for _, w in names], d,
@@ -651,8 +664,9 @@ def layer_step(p: Dict[str, Any], st: Dict[str, Any], cfg, x: torch.Tensor,
     projections take the plan's sparse datapath (the L-block tile skip,
     or the decoded gather with ``c_block = block_k`` and ``l_block =
     block_m``, as in JAX). Train mode
-    (batch statistics) and ineligible layers run the sequential
-    composition, which hands the SSA bundle to :func:`ssa_step` and the
+    (batch statistics) and ineligible layers (JAX's terms, and widths
+    that launch A does not take: :func:`_launch_a_takes`) run the
+    sequential composition, which hands the SSA bundle to :func:`ssa_step` and the
     spike products to :func:`spike_linear`, threading the BN state."""
     engine = engine if engine is not None else get_engine()
     heads, hd = cfg.num_heads, cfg.head_dim
@@ -663,7 +677,8 @@ def layer_step(p: Dict[str, Any], st: Dict[str, Any], cfg, x: torch.Tensor,
                 and (all(quant) or not any(quant))
                 and not any("b" in p[w] for w in lin_names)
                 and cfg.spiking.binarize_scores
-                and not cfg.spiking.binarize_context)
+                and not cfg.spiking.binarize_context
+                and _launch_a_takes(x, d, heads, hd))
     s = lif_scan(x, cfg.spiking)[0]
     if not eligible:
         return _sequential_layer(p, st, cfg, x, s, train=train,
@@ -722,7 +737,8 @@ def ssa_step_causal(p: Dict[str, Any], cfg, h: torch.Tensor, positions, *,
     D) normed currents (post ln1); positions: (S,). Returns the pre-wo
     context (T, B, S, q_dim).
 
-    An eligible bundle (JAX's eligibility, term for term) under
+    An eligible bundle (JAX's eligibility, term for term, and widths the
+    kernel takes: :func:`_launch_a_takes`) under
     ``overlap='fused'`` or ``'pipeline'`` runs the bundle kernel's rope
     family (causal) on
     the stacked weights — int8 codes cast to ``h.dtype`` with their
@@ -746,7 +762,8 @@ def ssa_step_causal(p: Dict[str, Any], cfg, h: torch.Tensor, positions, *,
                 and not any("b" in p[w] for w in names)
                 and (all(quant) or h.dtype == torch.float32)
                 and cfg.head_dim % 2 == 0
-                and positions.ndim == 1)
+                and positions.ndim == 1
+                and _launch_a_takes(h, d, heads, hd, rope=True))
     if eligible and resolve_overlap(engine, h) in ("fused", "pipeline"):
         if all(quant):
             w3, scale3 = _layer_quant_w3(p, names, d, h.dtype)
@@ -781,7 +798,8 @@ def layer_step_causal(p: Dict[str, Any], cfg, x: torch.Tensor, positions,
     Eligibility is JAX's: no qk_norm, no GQA, a plain (up, down) MLP,
     all-or-none quantization, bias-free linears, fp32 activations unless
     quantized, even head_dim, 1-D positions, binarized scores with an
-    analog context. An eligible layer runs the sequential oracle
+    analog context; and widths that launch A takes
+    (:func:`_launch_a_takes`). An eligible layer runs the sequential oracle
     ``reference_layer`` (``overlap='off'``) or the layer program
     ``fused_layer`` with family 'rope' (``overlap='fused'`` or
     ``'pipeline'``: the CUDA kernel for CUDA tensors; a 'decoded' plan
@@ -810,7 +828,8 @@ def layer_step_causal(p: Dict[str, Any], cfg, x: torch.Tensor, positions,
                 and hd % 2 == 0
                 and positions.ndim == 1
                 and cfg.spiking.binarize_scores
-                and not cfg.spiking.binarize_context)
+                and not cfg.spiking.binarize_context
+                and _launch_a_takes(x, d, heads, hd, rope=True))
     if not eligible:
         attn = ssa_step_causal(p, cfg, h, positions, engine=engine)
         x = x + nn.linear(p["wo"], attn)

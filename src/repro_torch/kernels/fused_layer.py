@@ -520,17 +520,28 @@ def column_widths(heads: int, head_dim: int) -> list:
 
 
 @functools.lru_cache(maxsize=None)
+def _fitting_width(elem_size: int, d: int, heads: int, head_dim: int,
+                   rope: bool) -> int:
+    """The widest column slice whose w3 rows fit one block's shared
+    memory beside the slab ring (:func:`smem_a`), or 0 when none does.
+    Cached: the wrapper asks on every launch."""
+    for cw in column_widths(heads, head_dim):
+        if smem_a(elem_size, d, head_dim, cw, rope) <= SMEM_LIMIT:
+            return cw
+    return 0
+
+
 def column_width(elem_size: int, d: int, heads: int, head_dim: int,
                  rope: bool = False, what: str = "fused_layer") -> int:
     """The widest column slice whose w3 rows fit one block's shared
     memory beside the slab ring (:func:`smem_a`); raises ValueError when
-    none does (a D too wide for an 8-column slice). Cached: the wrapper
-    asks on every launch."""
-    for cw in column_widths(heads, head_dim):
-        if smem_a(elem_size, d, head_dim, cw, rope) <= SMEM_LIMIT:
-            return cw
-    raise ValueError(f"{what} kernel holds a w3 column slice of all D rows "
-                     f"in shared memory, got D={d}, head_dim={head_dim}")
+    none does (a D too wide for an 8-column slice)."""
+    cw = _fitting_width(elem_size, d, heads, head_dim, rope)
+    if not cw:
+        raise ValueError(f"{what} kernel holds a w3 column slice of all D "
+                         f"rows in shared memory, got D={d}, "
+                         f"head_dim={head_dim}")
+    return cw
 
 
 def bits_words(t: int, b: int, l: int, heads: int, head_dim: int,
@@ -573,13 +584,30 @@ def membrane_bytes(elem_size: int, t: int, b: int, l: int, d: int,
     return (2 * t - 1) * per_step
 
 
+def _head_dim_taken(d: int, head_dim: int) -> bool:
+    """A row's q or k bits in at most four words, 16-byte rows of D."""
+    return head_dim <= MAX_HEAD_DIM and head_dim % 8 == 0 and d % 16 == 0
+
+
+def launch_a_takes(elem_size: int, d: int, heads: int, head_dim: int, *,
+                   rope: bool = False) -> bool:
+    """Whether launch A (the layer program's first half, and the SSA
+    bundle kernel) takes a layer of these widths: the bounds that
+    :func:`check_launch_shapes` raises on. The engine routes a layer it
+    does not take to the sequential composition, on every device, before
+    any launch."""
+    return (_head_dim_taken(d, head_dim)
+            and _fitting_width(elem_size, d, heads, head_dim, rope) > 0)
+
+
 def check_launch_shapes(elem_size: int, t: int, l: int, d: int, heads: int,
                         head_dim: int, nlb: int, *, rope: bool = False,
                         what: str = "fused_layer") -> None:
-    """Raises ValueError for a shape that launch A does not take; ``what``
-    names the kernel in the message. Launch A takes any T and L; launch B
-    any T, number of heads, D and F."""
-    if head_dim > MAX_HEAD_DIM or head_dim % 8 or d % 16:
+    """Raises ValueError for a shape that launch A does not take
+    (:func:`launch_a_takes`); ``what`` names the kernel in the message.
+    Launch A takes any T and L; launch B any T, number of heads, D and
+    F."""
+    if not _head_dim_taken(d, head_dim):
         raise ValueError(f"{what} kernel takes head_dim a multiple of 8 up "
                          f"to {MAX_HEAD_DIM} and D a multiple of 16, got "
                          f"head_dim={head_dim}, D={d}")

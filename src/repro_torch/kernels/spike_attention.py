@@ -12,7 +12,9 @@ in one pass and with no softmax. Three functions:
   counterpart of ``repro.kernels.ref.spike_attention_ref``);
 * :func:`spike_attention` — the wrapper: CPU tensors take the plain
   version, CUDA tensors launch ``csrc/spike_attention.cu`` through
-  :func:`spike_attention_cuda` or raise.
+  :func:`spike_attention_cuda` or raise. The kernel takes any BH, L and
+  d (both products on the tensor cores; keys and values streamed from
+  the operands, one launch a call).
 
 The threshold is the reference's rounding rule: jitted XLA (and the
 Pallas kernel, whose interpret mode runs jitted) contracts ``scores *
@@ -33,11 +35,9 @@ import torch
 from repro_torch.kernels.fused_ssa import (analog_context, analog_scores,
                                            binary_scores)
 
-# kernel launches on the card (one per call of spike_attention_cuda)
+# kernel launches on the card (one per call of spike_attention_cuda; the
+# CUDA kernel, csrc/spike_attention.cu, takes any BH, L and d)
 LAUNCHES = {"spike_attention": 0}
-# head-dim limit of the CUDA kernel (csrc/spike_attention.cu); it takes
-# any L, walking the keys in chunks of 2048
-MAX_HEAD_DIM = 128
 
 
 def reset_launches() -> None:
@@ -113,9 +113,6 @@ def spike_attention_cuda(q, k, v, *, scale: float, delta, causal: bool = False,
             raise ValueError("spike_attention kernel takes contiguous "
                              "operands")
     bh, l, d = q.shape
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"spike_attention kernel takes d <= {MAX_HEAD_DIM},"
-                         f" got d={d}")
     delta_t = torch.as_tensor(delta, dtype=torch.float32, device=q.device
                               ).reshape(1).contiguous()
     out = torch.empty_like(q)

@@ -222,10 +222,15 @@ def test_wrappers_check_operands_and_devices():
         TM.spike_matmul_cuda(s.half(), torch.zeros((8, 3)).half())
     with pytest.raises(ValueError, match="contiguous"):
         TM.spike_matmul_cuda(torch.zeros((8, 4)).t(), torch.zeros((8, 3)))
-    with pytest.raises(ValueError, match="d <= "):
-        TA.spike_attention_cuda(
-            *(torch.zeros((1, 8, TA.MAX_HEAD_DIM + 1)),) * 3,
-            scale=1.0, delta=0.0)
+    # spike_attention's kernel takes any head dim (160 here): what it
+    # refuses is operands it cannot read as one dtype's dense rows
+    wide = torch.zeros((1, 8, 160))
+    with pytest.raises(ValueError, match="one dtype"):
+        TA.spike_attention_cuda(wide, wide.bfloat16(), wide, scale=1.0,
+                                delta=0.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        TA.spike_attention_cuda(wide, wide.transpose(1, 2).contiguous()
+                                .transpose(1, 2), wide, scale=1.0, delta=0.0)
     assert {"spike_matmul", "spike_attention"} <= set(_build.SOURCES)
     assert TM.LAUNCHES["spike_matmul"] == 0
     assert TA.LAUNCHES["spike_attention"] == 0
