@@ -272,13 +272,48 @@ device; exits non-zero without one). It
    ``overlap='fused'`` (the bundle kernel), bitwise; the bf16 LM
    prefill's == plain == the #7 path's, bitwise; the LIF entry's spikes
    == its plain version's, and in fp32 == ``lif_scan``'s, bitwise. It
-   prints ``layer_sparsities`` of one request.
+   prints ``layer_sparsities`` of one request;
+5. drives the paper's third network and the quantization toolchain
+   through the entry points, each with the counts set to 0 just before
+   and read just after:
+   * CIFAR-Net at its published config (T=4, 32x32 images, the
+     1024-channel top, bf16; weights on the 2^-8 grid with BN biases
+     raised by CIFAR_BIAS so every conv fires): ``build_prefill_step``
+     answering 4 requests of 64 images, then 6 AdamW steps of 64 images
+     from random weights (the loss falls, every param leaf moves); it has
+     no engine and launches none of the port's kernels (every count 0,
+     as JAX reaches no Pallas kernel there); its layer sparsities; one
+     request's logits on the card against the port's CPU run: bitwise
+     with cuDNN off and a BN state whose inverse std is exactly 1 (every
+     sum exact), and as the prefill step runs it (cuDNN's rounding
+     algorithms, the devices' rsqrt an ulp apart) within a derived
+     tolerance (the head-input rates' difference through |W|, plus two
+     bf16 roundings) with the argmax equal;
+   * quantization-aware training of Spikingformer-4-256: 6 AdamW steps
+     of 64 images with ``qat='int8'`` ('tile': 24 ``spike_matmul`` and 4
+     ``spike_attention`` a step) and 6 with ``qat='int4'`` ('decoded':
+     24 ``gather_spike_matmul`` with their staging and 4
+     ``spike_attention``), the loss falling; one QAT step of each
+     (loss, every gradient, the new BN state) through the kernels ==
+     through their plain versions, bitwise, on masters whose per-column
+     amax is ``qmax * 2^-e`` (dyadic fake-quantized weights);
+   * PTQ calibration (``quant.calibrate``: one unquantized forward and
+     one per clip ratio) of Spikingformer-4-256 (dyadic weights with the
+     BN-bias raise, 64 images; int8 and int4: 5 fused-layer launches a
+     layer call, every forward) and of the bf16 spikingformer-lm (int8,
+     8 prompts of 512 tokens: 1 causal ``spike_attention`` a layer in
+     the unquantized forward, 6 ``fused_layer_rope`` a layer in each
+     int8 one), each report (the chosen ratio, every candidate's
+     distances) equal through the kernels and through their plain
+     versions.
 
 It prints the card's name and power limit, a JSON line of per-kernel
 numbers (``spike_matmul``'s row also with the 4-256 'tile' train steps'
 and analog 'tile' requests' ms, ``quant_spike_matmul``'s with the mixed
-'tile' requests' ms), and last a JSON line ``{"ok": true, "device":
-{...}}``.
+'tile' requests' ms; the rows of #1, #1b, #1c, #2, #4 and #7 with the
+QAT and calibration paths' launches), the ms of the new paths beside
+the fp train steps, the whole run's seconds, and last a JSON line
+``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import dataclasses
@@ -321,7 +356,9 @@ from repro_torch.models import spikingformer as SF  # noqa: E402
 from repro_torch.models.spikingformer import layer_sparsities  # noqa: E402
 from repro_torch.models.nn import rmsnorm, rope_table  # noqa: E402
 from repro_torch.optim import adamw, warmup_cosine  # noqa: E402
-from repro_torch.quant import quantize_tree, quantize_weight  # noqa: E402
+from repro_torch.quant import (DEFAULT_RATIOS, INT_BITS,  # noqa: E402
+                               calibrate, map_param_dicts, quantize_tree,
+                               quantize_weight)
 from repro_torch.tree import (tree_leaves, tree_map,  # noqa: E402
                                tree_unflatten)
 
@@ -495,6 +532,14 @@ ROPE_D1536 = ("D=1536", (4, 2, 300, 1536, 8, 32, 1024), 128)
 # it: the 4-256 train step's (BH, L, d) and an 8-512 request's
 ANALOG_ATTENTION = [(T * B * H, L, HD), (4 * EIGHT_BATCH * 8, 196, 64)]
 KERNEL_MODULES = (FL, SM, SA, SD, FS, PA, LF)
+# CIFAR-Net at its published config (T=4, 32x32 images, the 1024-channel
+# top, bf16): requests and the batch of each; its inference weights sit on
+# the 2^-8 grid with BN biases raised by CIFAR_BIAS (on the random weights
+# alone the convs from the third on are dark on init_state)
+CIFAR_REQUESTS, CIFAR_BATCH, CIFAR_BIAS = 4, 64, 0.5
+# quantization-aware training of Spikingformer-4-256: each qat dtype with
+# the sparse datapath its steps take (so both #2 and #4 run QAT steps)
+QAT_PATHS = (("int8", "tile"), ("int4", "decoded"))
 
 
 def log(msg):
@@ -1201,16 +1246,18 @@ def inference_path(cfg, params, requests):
     return counts
 
 
-def train_path(cfg):
+def train_path(cfg, qat=None):
     """A training main path: 6 AdamW steps of 64 images, with the launch
     counts of the whole run (24 sparse products a step, through the
     kernel of the datapath each took; 4 binary attentions a step,
     ``spike_attention`` or, with ``binary='popcount'``,
-    ``popcount_scores``); the last loss must be below the first."""
+    ``popcount_scores``; with ``qat`` the same, on the fake-quantized
+    weights; CIFAR-Net, which has no engine, none at all); the last loss
+    must be below the first."""
     dev = torch.device("cuda")
     opt = adamw(warmup_cosine(TRAIN_LR, max(1, TRAIN_STEPS // 20),
                               TRAIN_STEPS))
-    step_fn = steps.build_train_step(cfg, opt)
+    step_fn = steps.build_train_step(cfg, opt, qat=qat)
     params = registry.init(cfg, seed=0)
     opt_state = opt.init(params)
     model_state = registry.init_state(cfg)
@@ -1228,19 +1275,25 @@ def train_path(cfg):
         step_ms.append(1e3 * (time.perf_counter() - t0))
         metrics.append({k: float(v) for k, v in m.items()})
     counts = launches()
-    what = (f"train path, sparse={cfg.engine.sparse!r}, "
-            f"binary={cfg.engine.binary!r}"
-            f"{'' if cfg.spiking.binarize_scores else ', analog scores'}")
-    tile, dec = sparse_split(cfg.engine, 6 * cfg.num_layers * TRAIN_STEPS)
+    want = dict.fromkeys(counts, 0)
+    if cfg.engine is None:
+        what = f"train path, {cfg.name}"
+    else:
+        what = (f"train path, sparse={cfg.engine.sparse!r}, "
+                f"binary={cfg.engine.binary!r}"
+                f"{'' if cfg.spiking.binarize_scores else ', analog scores'}"
+                f"{f', qat={qat!r}' if qat else ''}")
+        tile, dec = sparse_split(cfg.engine,
+                                 6 * cfg.num_layers * TRAIN_STEPS)
+        want.update(spike_matmul=tile, gather_spike_matmul=dec,
+                    gather_stage=dec)
+        want[attention_kernel(cfg)] = cfg.num_layers * TRAIN_STEPS
     log(f"{what}: {TRAIN_STEPS} steps x {TRAIN_BATCH} images on {dev}, "
         f"ms per step {[round(x, 3) for x in step_ms]}, sparse decisions "
         f"{dict(E.SPARSE_DECISIONS)}, launches {counts}")
     log(f"{what}: losses {[round(m['loss'], 4) for m in metrics]}, "
         f"grad norms {[round(m['grad_norm'], 4) for m in metrics]}, "
         f"fire rates {[round(m['fire_rate'], 4) for m in metrics]}")
-    want = dict.fromkeys(counts, 0)
-    want.update(spike_matmul=tile, gather_spike_matmul=dec, gather_stage=dec)
-    want[attention_kernel(cfg)] = cfg.num_layers * TRAIN_STEPS
     if counts != want:
         raise AssertionError(f"{what} launches {counts}, expected {want}")
     if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
@@ -1266,17 +1319,22 @@ def attention_kernel(cfg):
             else "spike_attention")
 
 
-def check_train_gradients(cfg, binary="mxu_kernel"):
+def check_train_gradients(cfg, binary="mxu_kernel", qat=None):
     """One train step's loss, gradients and new BN state through the
     kernels (mode='sparse', the given binary mode, the config's sparse
     datapath) against the same step with the kernels swapped for their
     plain versions, on 8 images with dyadic params: bitwise, since every
     kernel sums in its plain version's order or over exact terms, and
     the backward is the same PyTorch code on the same forward values.
-    Returns the kernels' run: [loss, gradients..., BN state...]."""
+    With ``qat`` the step fake-quantizes the linears, on masters whose
+    per-column amax is ``qmax * 2^-e`` (:func:`qat_masters`), so the
+    weights the kernels see are dyadic too. Returns the kernels' run:
+    [loss, gradients..., BN state...]."""
     cfg = cfg.replace(engine=cfg.engine.replace(mode="sparse",
                                                 binary=binary))
     params = dyadic_params(registry.init(cfg, seed=2))
+    if qat is not None:
+        params = qat_masters(params, qat)
     gen = torch.Generator().manual_seed(3)
     v = cfg.vision
     batch = {"images": (torch.randint(0, 256, (8, v.img_size, v.img_size,
@@ -1290,7 +1348,8 @@ def check_train_gradients(cfg, binary="mxu_kernel"):
     for plain in (False, True):
         reset_counts()
         with (plain_kernels() if plain else contextlib.nullcontext()):
-            loss, aux, grads = steps.value_and_grad(cfg, params, batch, state)
+            loss, aux, grads = steps.value_and_grad(cfg, params, batch,
+                                                    state, qat=qat)
         runs.append([loss] + tree_leaves(grads) + tree_leaves(aux["state"]))
         tile, dec = sparse_split(cfg.engine, 6 * cfg.num_layers)
         want = dict.fromkeys(launches(), 0)
@@ -1308,7 +1367,8 @@ def check_train_gradients(cfg, binary="mxu_kernel"):
     if differ:
         raise AssertionError(f"train step through the kernels != through the "
                              f"plain versions at leaves {differ} (0 = loss)")
-    log(f"check, sparse={cfg.engine.sparse!r}, binary={binary!r}: one train "
+    log(f"check, sparse={cfg.engine.sparse!r}, binary={binary!r}"
+        f"{f', qat={qat!r}' if qat else ''}: one train "
         f"step through the kernels == through the plain versions, bitwise "
         f"(loss {float(runs[0][0]):.6f}, {len(tree_leaves(grads))} "
         f"gradients, {len(tree_leaves(aux['state']))} BN state leaves; "
@@ -3050,9 +3110,232 @@ def check_analog_outputs(cfg, params, batch, what):
             f"{float(got.std()):.4f})")
 
 
+def qat_masters(params, qat):
+    """Params whose linear weights have, in every column, an amax of
+    ``qmax * 2^-e`` (e per leaf, the largest that keeps the leaf's own
+    amax inside): every per-column scale of ``fake_quant`` is then
+    ``2^-e`` exactly and the fake-quantized weights are dyadic, so every
+    sum a kernel makes of them is exact."""
+    qmax = {8: 127, 4: 7}[INT_BITS[qat]]
+
+    def fix(path, node):
+        w = node["w"].float()
+        k, n = w.shape[-2:]
+        e = math.floor(math.log2(qmax / float(w.abs().max())))
+        amax = qmax * 2.0 ** -e
+        w = w.clamp(-amax, amax)
+        cols = torch.arange(n, device=w.device)
+        w[..., (cols * 7) % k, cols] = torch.where(cols % 2 == 0, amax,
+                                                   -amax)
+        return dict(node, w=w.to(node["w"].dtype))
+    return map_param_dicts(params, lambda node: isinstance(node, dict)
+                           and "w" in node and node["w"].ndim in (2, 3),
+                           fix)
+
+
+def cifarnet_params(cfg, seed=0):
+    """CIFAR-Net params on the 2^-8 grid with BN biases raised by
+    CIFAR_BIAS, so every conv fires on init_state."""
+    params = dyadic_grid(registry.init(cfg, seed=seed))
+    for conv in params["convs"]:
+        conv["bn"]["bias"] = conv["bn"]["bias"] + CIFAR_BIAS
+    return params
+
+
+def cifarnet_rate(params, cfg, images):
+    """The head's input of an eval forward on init_state: each conv's
+    spikes (``SF._conv_bn_lif``) pooled, averaged over T in fp32."""
+    state = registry.init_state(cfg, device=images.device)
+    x = images.to(SF.dtype_of(cfg))[None].expand(cfg.spiking.time_steps,
+                                                 *images.shape)
+    for (_, pool), p, st in zip(SF.CIFARNET_SPEC, params["convs"],
+                                state["convs"]):
+        x = SF._pool(SF._conv_bn_lif(p, st, cfg, x, False)[0], pool)
+    return x.float().mean(dim=0)
+
+
+def exact_bn_state(cfg):
+    """CIFAR-Net's init_state with every running variance set to the
+    float v next to 1 - 1e-5 for which ``v + 1e-5 == 1`` in fp32 on the
+    card and on the CPU: BN's inverse std is then exactly 1 on both
+    devices (the card's rsqrt of 1 + 1e-5 is an ulp off the CPU's)."""
+    v = torch.tensor(1.0 - 1e-5, dtype=torch.float32)
+    for _ in range(8):
+        if all(bool(torch.rsqrt(v.to(dev) + 1e-5) == 1.0)
+               for dev in ("cpu", "cuda")):
+            break
+        v = torch.nextafter(v, torch.tensor(1.0))
+    else:
+        raise AssertionError("no variance with an exact inverse std")
+    state = registry.init_state(cfg, device="cpu")
+    for st in state["convs"]:
+        st["var"].fill_(float(v))
+    return state
+
+
+def check_cifarnet_outputs(cfg, params, images):
+    """One CIFAR-Net request's logits on the card against the port's CPU
+    run of the same request (params, images and state copied over), on
+    dyadic weights and k/256 images, twice:
+
+    * provably exact: cuDNN off on the card (PyTorch's own convolution,
+      im2col and a GEMM) and the BN state of :func:`exact_bn_state`. Every
+      convolution is then an exact fp32 sum in any order (below 2^24
+      units of the products' grid), BN is exact, and LIF, the pools and
+      the head are elementwise IEEE operations or exact sums: the logits
+      must be equal bitwise;
+    * as ``build_prefill_step`` runs it (cuDNN, whose FFT and Winograd
+      algorithms round, and init_state, whose rsqrt differs by an ulp
+      between the devices): bitwise if so, else within a derived
+      tolerance. The head is ``rate @ W + b`` with the rate's entries in
+      [0, 1], so a logit moves by at most ``sum_c |delta rate_c| |W_cn|``
+      plus two bf16 roundings (the product and the bias add) of its
+      size; the rates are measured on both devices. The argmax must
+      agree.
+
+    Returns the CPU seconds of one forward."""
+    cpu_params = tree_map(lambda a: a.cpu(), params)
+    exact = exact_bn_state(cfg)
+    with torch.inference_mode():
+        with torch.backends.cudnn.flags(enabled=False):
+            got, _ = registry.forward(params, cfg, {"images": images.cuda()},
+                                      state=tree_map(lambda a: a.cuda(),
+                                                     exact))
+        want, _ = registry.forward(cpu_params, cfg,
+                                   {"images": images.cpu()}, state=exact)
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError(
+            f"cifarnet: the provably exact request on the card != the CPU "
+            f"run (max abs diff {float((got.cpu() - want).abs().max())})")
+    log(f"check, cifarnet: one request's logits ({len(images)} images) on "
+        f"the card (cuDNN off, inverse std exactly 1) == the port's CPU "
+        f"run, bitwise; logit std {float(want.std()):.4f}")
+    with torch.inference_mode():
+        got, _ = registry.forward(params, cfg, {"images": images.cuda()})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, _ = registry.forward(cpu_params, cfg, {"images": images.cpu()})
+        cpu_s = time.perf_counter() - t0
+        rate_gpu = cifarnet_rate(params, cfg, images.cuda()).cpu()
+        rate_cpu = cifarnet_rate(cpu_params, cfg, images.cpu())
+    got = got.cpu()
+    w = cpu_params["head"]["w"].float()
+    big = torch.maximum(got.abs(), want.abs())
+    ulp = torch.pow(2.0, torch.floor(torch.log2(big.clamp_min(2 ** -126)))
+                    - 7)
+    tol = (rate_gpu - rate_cpu).abs() @ w.abs() + 2 * ulp
+    err = (got - want).abs()
+    log(f"check, cifarnet: the same request as the prefill step runs it "
+        f"(cuDNN, init_state) on the card vs the CPU run: bitwise "
+        f"{torch.equal(got, want)}; head-input rates differ in "
+        f"{int((rate_gpu != rate_cpu).sum())} of {rate_gpu.numel()} entries "
+        f"(max {float((rate_gpu - rate_cpu).abs().max())}); logit error max "
+        f"{float(err.max())}, derived tolerance min {float(tol.min())} max "
+        f"{float(tol.max())}; argmax equal "
+        f"{torch.equal(got.argmax(-1), want.argmax(-1))}; CPU {cpu_s:.2f} s")
+    if not bool((err <= tol).all()):
+        raise AssertionError("cifarnet logits outside the derived tolerance")
+    if not torch.equal(got.argmax(-1), want.argmax(-1)):
+        raise AssertionError("cifarnet: the argmax differs card vs CPU")
+    return cpu_s
+
+
+def cifarnet_path():
+    """CIFAR-Net (the paper's third network, Table IV) at its published
+    config through the entry points: ``build_prefill_step`` answering
+    CIFAR_REQUESTS requests of CIFAR_BATCH images (k/256) on firing
+    weights, then ``train_path``'s 6 AdamW steps from random weights. It
+    has no engine and reaches no kernel, as JAX reaches no Pallas kernel
+    there: every launch count stays 0. Logs ms per request, the layer
+    sparsities and the CPU check (:func:`check_cifarnet_outputs`)."""
+    cfg = get_config("cifarnet")
+    params = cifarnet_params(cfg)
+    gen = torch.Generator().manual_seed(12)
+    v = cfg.vision
+    requests = [{"images": torch.randint(
+        0, 256, (CIFAR_BATCH, v.img_size, v.img_size, v.in_channels),
+        generator=gen) / 256.0} for _ in range(CIFAR_REQUESTS)]
+    step = steps.build_prefill_step(cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    outs, req_ms = timed_requests(step, params, requests)
+    counts = launches()
+    log(f"cifarnet inference path: {CIFAR_REQUESTS} requests x {CIFAR_BATCH} "
+        f"images, per-request ms {[round(m, 3) for m in req_ms]}, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if any(counts.values()):
+        raise AssertionError(f"cifarnet launched kernels: {counts}")
+    for logits in outs:
+        if logits.shape != (CIFAR_BATCH, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"bad cifarnet logits {tuple(logits.shape)}")
+    sp = layer_sparsities(params, cfg,
+                          {"images": requests[0]["images"].cuda()})
+    log(f"cifarnet layer sparsities of one request: "
+        f"{[(n, round(x, 4)) for n, x in sp]}")
+    if any(x >= 1.0 for _, x in sp):
+        raise AssertionError(f"cifarnet: an all-dark conv {sp}")
+    cpu_s = check_cifarnet_outputs(cfg, params, requests[0]["images"])
+    train_counts, step_ms = train_path(cfg)
+    if any(train_counts.values()):
+        raise AssertionError(f"cifarnet training launched kernels: "
+                             f"{train_counts}")
+    return dict(request_ms=req_ms, step_ms=step_ms, sparsities=sp,
+                cpu_check_s=cpu_s)
+
+
+def calibrate_path(cfg, params, batch, qdtype, what):
+    """``quant.calibrate`` (one unquantized forward and one per clip
+    ratio) through the kernels, then through their plain versions: the
+    reports (the chosen ratio and every candidate's distances) equal.
+    Launches, counted in the kernels' run: the vision model's every
+    forward runs the layer program (``FL.LAUNCHES_PER_CALL['bn']`` a layer,
+    the variant 'auto' decides); the LM's unquantized bf16 forward is not
+    eligible (1 causal ``spike_attention`` a layer) and each int8 one runs
+    the rope family (6 ``fused_layer_rope`` a layer, 'auto' deciding
+    'tile'). Returns (ms, counts, report)."""
+    ratios = len(DEFAULT_RATIOS)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    _, report = calibrate(cfg, params, batch, qdtype)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts, decisions = launches(), dict(E.SPARSE_DECISIONS)
+    want = dict.fromkeys(counts, 0)
+    if cfg.family == "dense":
+        n = cfg.num_layers * ratios
+        want["spike_attention"] = cfg.num_layers
+        want["fused_layer_rope"] = FL.LAUNCHES_PER_CALL["rope"] * n
+        want_dec = {"tile": n, "decoded": 0}
+    else:
+        tile, dec = sparse_split(cfg.engine, cfg.num_layers * (ratios + 1))
+        want["fused_layer"] = FL.LAUNCHES_PER_CALL["bn"] * tile
+        want["fused_layer_decoded"] = FL.LAUNCHES_PER_CALL["bn"] * dec
+        want_dec = decisions
+    with plain_kernels():
+        _, plain = calibrate(cfg, params, batch, qdtype)
+    log(f"calibrate, {what} {qdtype}: {ms:.3f} ms, launches "
+        f"{ {k: v for k, v in counts.items() if v} }, sparse decisions "
+        f"{decisions}; chosen {report['chosen']}; candidates "
+        f"{[(c['clip_ratio'], c['logit_mae']) for c in report['candidates']]}")
+    if counts != want or decisions != want_dec:
+        raise AssertionError(f"calibrate {what}: launches {counts}, "
+                             f"decisions {decisions}; expected {want}, "
+                             f"{want_dec}")
+    if plain != report:
+        raise AssertionError(f"calibrate {what} {qdtype}: the report "
+                             f"through the kernels {report} != through the "
+                             f"plain versions {plain}")
+    log(f"check, calibrate {what} {qdtype}: the report through the kernels "
+        f"== through the plain versions")
+    return ms, counts, report
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3490,6 +3773,21 @@ def main():
         f"binary='mxu_kernel' (#7), bitwise: loss, every gradient and the "
         f"new BN state ({len(pop_run)} tensors)")
 
+    # --- CIFAR-Net; quantization-aware training and PTQ calibration -----
+    t_new = time.perf_counter()
+    cifar = cifarnet_path()
+    qat_runs = {qat: train_path(engines[sp], qat=qat)
+                for qat, sp in QAT_PATHS}
+    for qat, sp in QAT_PATHS:
+        check_train_gradients(engines[sp], qat=qat)
+    calib = {q: calibrate_path(cfg, dy, {"images": requests[0]["images"]},
+                               q, "spikingformer-4-256")
+             for q in ("int8", "int4")}
+    calib_lm = calibrate_path(*lm_bf16, lm_requests[0], "int8",
+                              "spikingformer-lm")
+    log(f"cifarnet, qat and calibration phases: "
+        f"{time.perf_counter() - t_new:.1f} s")
+
     csrc = "src/repro_torch/kernels/csrc/"
     bf16 = torch.bfloat16
 
@@ -3503,6 +3801,9 @@ def main():
                  replaces="src/repro/kernels/fused_layer.py:420",
                  launches=eval_counts["tile"]["fused_layer"],
                  max_abs_err=layer_err["tile"],
+                 at_calibrate={q: dict(launches=run[1]["fused_layer"],
+                                       ms=run[0])
+                               for q, run in calib.items()},
                  at_8_512=at_8_512(eight_timing["tile"], eight_counts["tile"],
                                    "fused_layer"),
                  **layer_timing["tile", bf16]),
@@ -3510,12 +3811,18 @@ def main():
                  replaces="src/repro/kernels/spike_matmul.py:128",
                  launches=train_counts["tile"]["spike_matmul"],
                  max_abs_err=matmul_err,
+                 at_qat=dict(qat="int8",
+                             launches=qat_runs["int8"][0]["spike_matmul"],
+                             step_ms=qat_runs["int8"][1]),
                  train_step_ms=train_runs["tile"][1],
                  analog_request_ms=analog4["tile"][1], **matmul_timing),
             dict(name="spike_attention", source=csrc + "spike_attention.cu",
                  replaces="src/repro/kernels/spike_attention.py:78",
                  launches=train_counts["tile"]["spike_attention"],
                  max_abs_err=attn_err,
+                 at_qat=dict(launches={q: run[0]["spike_attention"]
+                                       for q, run in qat_runs.items()}),
+                 at_calibrate=dict(launches=calib_lm[1]["spike_attention"]),
                  at_lm=attn_lm_timing,
                  at_long=dict(attn_long_timing, shape=LONG_ATTENTION[2][1:5],
                               prompt_ms=long_ms,
@@ -3532,6 +3839,8 @@ def main():
                  replaces="src/repro/kernels/spike_decode.py:294",
                  launches=train_counts["decoded"]["gather_spike_matmul"],
                  max_abs_err=gather_err,
+                 at_qat=dict(qat="int4", launches=qat_runs["int4"][0][
+                     "gather_spike_matmul"], step_ms=qat_runs["int4"][1]),
                  staging_launches=train_counts["decoded"]["gather_stage"],
                  split={str(dt): parts for dt, parts in gather_parts.items()},
                  floor_ms=gather_floor_ms(),
@@ -3542,6 +3851,8 @@ def main():
                  replaces="src/repro/kernels/fused_layer.py:420",
                  launches=eval_counts["decoded"]["fused_layer_decoded"],
                  max_abs_err=layer_err["decoded"],
+                 at_calibrate={q: dict(launches=run[1][
+                     "fused_layer_decoded"]) for q, run in calib.items()},
                  at_8_512=at_8_512(eight_timing["decoded"],
                                    eight_counts["decoded"],
                                    "fused_layer_decoded"),
@@ -3549,6 +3860,8 @@ def main():
             dict(name="fused_layer_rope", source=csrc + "fused_layer.cu",
                  replaces="src/repro/kernels/fused_layer.py:420",
                  launches=lm_counts["fused_layer_rope"], max_abs_err=rope_err,
+                 at_calibrate=dict(launches=calib_lm[1]["fused_layer_rope"],
+                                   ms=calib_lm[0]),
                  at_long=dict(prompt_ms=long_int8[0], tokens=LONG_PROMPT,
                               launches=long_int8[1]["fused_layer_rope"]),
                  **rope_timing),
@@ -3665,7 +3978,15 @@ def main():
         f"{rounded(analog_lm_ms)} / {rounded(lm_ms)}; 4-256 train ms per "
         f"step (analog, sparse='auto') {rounded(analog_step_ms)}, launches "
         f"{ {k: v for k, v in analog_train_counts.items() if v} }")
+    log(f"cifarnet: ms per request {rounded(cifar['request_ms'])}, ms per "
+        f"step {rounded(cifar['step_ms'])}; qat ms per step: "
+        + "; ".join(f"{q} ({sp}) {rounded(qat_runs[q][1])} against fp "
+                    f"{rounded(train_runs[sp][1])}" for q, sp in QAT_PATHS)
+        + "; calibrate ms: "
+        + ", ".join(f"4-256 {q} {run[0]:.3f}" for q, run in calib.items())
+        + f", LM int8 {calib_lm[0]:.3f}")
     log(json.dumps({"kernels": [dict(route="cuda", **r) for r in rows]}))
+    log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

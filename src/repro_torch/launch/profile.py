@@ -11,6 +11,7 @@
         --arch spikingformer-8-512 --overlap pipeline
     PYTHONPATH=src python -m repro_torch.launch.profile \
         --arch spikingformer-8-512 --analog
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch cifarnet
 
 Spikingformer-4-256 (the default): the published config (seeded random
 weights; ``--sparse`` sets its sparse datapath, 'auto' by default) on
@@ -36,7 +37,11 @@ sets the layer program's schedule (default the config's, 'auto', which
 fuses on the card); with it the prefill alone is profiled (a vision
 model's on weights that fire, BN biases raised), and the run prints the
 layer program's launches per call and, for 'pipeline', the membrane
-bytes it moves beyond the fused schedule. ``--analog`` takes the config
+bytes it moves beyond the fused schedule. CIFAR-Net (``--arch
+cifarnet``, the published config: T=4, 32x32 images, seeded random
+weights) has no engine and takes none of the engine's options: its
+prefill and train step, 64 images a call, are plain PyTorch (cuDNN's
+convolutions and PyTorch's elementwise kernels). ``--analog`` takes the config
 with analog attention scores (its spiking config with
 ``binarize_scores=False``, Spikformer's own SSA), whose layers run the
 sequential composition with the SSA bundle's analog kernel; the prefill
@@ -216,7 +221,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="spikingformer-4-256",
                     choices=["spikingformer-4-256", "spikingformer-8-512",
-                             "spikingformer-lm"])
+                             "spikingformer-lm", "cifarnet"])
     ap.add_argument("--sparse", default=None,
                     choices=["tile", "decoded", "auto"],
                     help="the engine's sparse datapath (default: the "
@@ -239,6 +244,11 @@ def main():
         raise SystemExit("profile: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(args.arch)
+    if cfg.engine is None and (args.sparse or args.overlap or args.analog
+                               or keep_fp or args.quantize != "none"):
+        raise SystemExit(f"profile: {args.arch} has no engine and takes "
+                         f"none of --sparse, --overlap, --analog, "
+                         f"--quantize, --keep-fp")
     if args.sparse is not None:
         cfg = cfg.replace(engine=cfg.engine.replace(sparse=args.sparse))
     if args.overlap is not None:
@@ -270,7 +280,8 @@ def main():
         what += f", overlap={args.overlap!r}"
     if args.analog:
         what += ", analog scores"
-    _profile(args.arch, what, cfg.engine.sparse,
+    sparse = cfg.engine.sparse if cfg.engine is not None else None
+    _profile(args.arch, what, sparse,
              lambda i: prefill(params, {"images": images[i]}))
     if args.overlap is not None:
         _layer_program_traffic(lambda: prefill(params, {"images": images[0]}))
@@ -291,7 +302,7 @@ def main():
         p, o, _, _, st = train_step(carry[0], carry[1], i, batches[i],
                                     carry[2])
         carry[:] = [p, o, st]
-    _profile(args.arch, "train", cfg.engine.sparse, train)
+    _profile(args.arch, "train", sparse, train)
 
 
 if __name__ == "__main__":

@@ -18,6 +18,7 @@ from repro_torch.core.engine import engine_scope
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import registry
 from repro_torch.optim import Optimizer
+from repro_torch.quant import INT_BITS, fake_quant_tree
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 STATEFUL = ("spikingformer", "cifarnet")
@@ -37,11 +38,17 @@ def loss_from_forward(cfg: ModelConfig, logits, batch) -> torch.Tensor:
     return softmax_xent(logits, batch["labels"])
 
 
-def value_and_grad(cfg: ModelConfig, params, batch, model_state
+def value_and_grad(cfg: ModelConfig, params, batch, model_state, *,
+                   qat: Optional[str] = None
                    ) -> Tuple[torch.Tensor, Dict[str, Any], Any]:
     """Train-mode loss of a stateful (vision) model and its gradient with
     respect to every param leaf: (loss, aux, grads) with grads in the
-    params' tree layout and dtypes."""
+    params' tree layout and dtypes. ``qat`` ('int8' | 'int4'): the
+    forward sees the linears fake-quantized (``quant.fake_quant_tree``,
+    applied to the leaves being differentiated), and the straight-through
+    gradients reach the fp masters."""
+    fq = (lambda p: p) if qat is None else \
+        (lambda p: fake_quant_tree(p, qat))
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     # the stem's convolutions run in full fp32, as the reference does, in
     # the backward too: nn.conv2d turns cuDNN's TF32 default off for its
@@ -51,8 +58,9 @@ def value_and_grad(cfg: ModelConfig, params, batch, model_state
                           deterministic=cudnn.deterministic,
                           allow_tf32=False)
     with engine_scope(cfg), torch.enable_grad(), no_tf32:
-        logits, aux = registry.forward(tree_unflatten(params, leaves), cfg,
-                                       batch, train=True, state=model_state)
+        logits, aux = registry.forward(fq(tree_unflatten(params, leaves)),
+                                       cfg, batch, train=True,
+                                       state=model_state)
         loss = loss_from_forward(cfg, logits, batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
@@ -66,14 +74,14 @@ def build_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
     (params, opt_state, step + 1, metrics, model_state) for the stateful
     vision family, on ``device`` (the GPU by default). ``model_state`` is
     the BN running-stats tree; metrics are loss, grad_norm and fire_rate
-    as 0-d tensors."""
+    as 0-d tensors. ``qat`` ('int8' | 'int4') trains quantization-aware:
+    see :func:`value_and_grad`; the optimizer updates the fp masters."""
     if compress:
         raise NotImplementedError("gradient compression is not ported to "
                                   "PyTorch yet (ROADMAP queue 1 item 5)")
-    if qat is not None:
-        raise NotImplementedError("quantization-aware training is not "
-                                  "ported to PyTorch yet (ROADMAP queue 1 "
-                                  "item 6)")
+    if qat is not None and qat not in INT_BITS:
+        raise ValueError(f"unknown qat dtype {qat!r} (expected one of "
+                         f"{sorted(INT_BITS)})")
     if cfg.family not in STATEFUL:
         raise NotImplementedError(
             f"training the {cfg.family} family is not ported to PyTorch yet "
@@ -82,7 +90,8 @@ def build_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
 
     def train_step(params, opt_state, step, batch, model_state):
         batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        loss, aux, grads = value_and_grad(cfg, params, batch, model_state)
+        loss, aux, grads = value_and_grad(cfg, params, batch, model_state,
+                                          qat=qat)
         new_params, new_opt = optimizer.update(grads, opt_state, params,
                                                step)
         metrics = {"loss": loss, "grad_norm": new_opt["grad_norm"],

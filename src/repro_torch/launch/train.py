@@ -1,8 +1,10 @@
-"""Training driver for the vision family.
+"""Training loop for the vision family (Spikingformer, CIFAR-Net).
 
 Runs ``build_train_step`` on deterministic synthetic images with AdamW
 under a warmup-cosine schedule, as ``repro.launch.train`` does, and
-prints the loss of every step. Checkpointing (ROADMAP queue 1 item 8),
+prints the loss of every step; ``--qat int8|int4`` trains
+quantization-aware (the loss sees fake-quantized linears, the fp
+masters take the straight-through gradients). Checkpointing (ROADMAP queue 1 item 8),
 failure injection and the straggler monitor (queue 1 item 10) are still
 to be ported.
 
@@ -13,6 +15,10 @@ Examples:
       --arch spikingformer-4-256 --steps 6 --batch 64      # on the GPU
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch spikingformer-4-256 --steps 6 --batch 64 --sparse decoded
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch spikingformer-4-256 --steps 6 --batch 64 --qat int8
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch cifarnet --steps 6 --batch 64
 """
 from __future__ import annotations
 
@@ -43,24 +49,29 @@ def make_batch_fn(cfg, batch_size: int) -> Callable:
 
 def train(arch: str, smoke: bool, total_steps: int, batch: int, lr: float,
           seed: int = 0, device: DeviceLike = None,
-          sparse: Optional[str] = None) -> List[float]:
+          sparse: Optional[str] = None,
+          qat: Optional[str] = None) -> List[float]:
     """Train ``arch`` from random weights (``seed``) for ``total_steps``
     steps; returns the loss of each step. ``sparse`` overrides the
-    engine's sparse datapath (tile | decoded | auto)."""
+    engine's sparse datapath (tile | decoded | auto); ``qat`` ('int8' |
+    'int4') trains quantization-aware."""
     cfg = get_config(arch, smoke=smoke)
     if sparse is not None:
+        if cfg.engine is None:
+            raise ValueError(f"{arch} has no engine: --sparse does not "
+                             f"apply")
         cfg = cfg.replace(engine=cfg.engine.replace(sparse=sparse))
     dev = resolve_device(device)
     opt = adamw(warmup_cosine(lr, max(1, total_steps // 20), total_steps))
     batch_fn = make_batch_fn(cfg, batch)
-    step_fn = build_train_step(cfg, opt, device=dev)
+    step_fn = build_train_step(cfg, opt, qat=qat, device=dev)
     params = registry.init(cfg, seed, device=dev)
     opt_state = opt.init(params)
     model_state = registry.init_state(cfg, device=dev)
     n_params = sum(p.numel() for p in tree_leaves(params))
     print(f"[train] {cfg.name} ({'smoke' if smoke else 'full'}) on {dev}: "
           f"{n_params / 1e6:.2f}M params, {total_steps} steps, "
-          f"batch={batch}", flush=True)
+          f"batch={batch}{f', qat={qat}' if qat else ''}", flush=True)
     losses = []
     for step in range(total_steps):
         params, opt_state, _, metrics, model_state = step_fn(
@@ -89,9 +100,13 @@ def main():
                     choices=["tile", "decoded", "auto"],
                     help="the engine's sparse datapath (default: the "
                          "config's)")
+    ap.add_argument("--qat", default=None, choices=["int8", "int4"],
+                    help="quantization-aware training: the loss sees "
+                         "fake-quantized linears (STE gradients to the fp "
+                         "masters; repro_torch.quant.qat)")
     args = ap.parse_args()
     train(args.arch, args.smoke, args.steps, args.batch, args.lr, args.seed,
-          args.device, args.sparse)
+          args.device, args.sparse, args.qat)
 
 
 if __name__ == "__main__":

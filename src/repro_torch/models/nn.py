@@ -168,17 +168,17 @@ def batchnorm(p, state, x: torch.Tensor, *, train: bool = False,
 
     Train mode normalises with the batch mean and population variance
     (``unbiased=False``, as ``jnp.var``) and differentiates through them;
-    the running stats become ``momentum * old + (1 - momentum) * batch``
-    and carry no gradient (JAX returns them as aux)."""
+    the running stats become ``momentum * old + (1 - momentum) * batch``,
+    contracted as XLA contracts it (``fma32(momentum, old, (1 - momentum)
+    * batch)``), and carry no gradient (JAX returns them as aux)."""
     x32 = x.float()
     if train:
         axes = tuple(range(x.ndim - 1))
         mu = x32.mean(dim=axes)
         var = x32.var(dim=axes, unbiased=False)
         with torch.no_grad():
-            new_state = {
-                "mean": momentum * state["mean"] + (1 - momentum) * mu,
-                "var": momentum * state["var"] + (1 - momentum) * var}
+            new_state = {k: fma32(state[k], momentum, (1 - momentum) * v)
+                         for k, v in (("mean", mu), ("var", var))}
     else:
         mu, var = state["mean"], state["var"]
         new_state = state

@@ -17,6 +17,7 @@ from repro_torch.device import DeviceLike
 from . import spikingformer, transformer
 
 FAMILIES: Dict[str, ModuleType] = {"spikingformer": spikingformer,
+                                   "cifarnet": spikingformer,
                                    "dense": transformer}
 # families without an autoregressive decode step
 NO_DECODE = {"spikingformer", "cifarnet"}
@@ -27,9 +28,6 @@ SLOTTED_DECODE = {"dense"}
 
 
 def family_module(cfg: ModelConfig) -> ModuleType:
-    if cfg.family == "cifarnet":
-        raise NotImplementedError("the cifarnet family is not ported to "
-                                  "PyTorch yet (ROADMAP queue 1 item 4)")
     try:
         return FAMILIES[cfg.family]
     except KeyError:

@@ -1,13 +1,19 @@
-"""Spikingformer — the paper's evaluated vision workload (§V-A).
+"""Spikingformer and CIFAR-Net — the paper's evaluated vision workloads
+(§V-A).
 
-Mirrors ``repro.models.spikingformer``: SPS conv stem -> encoder blocks
-(each the engine's layer program) -> rate-decoded classification head,
-with pre-neuron residuals. Params and BN state keep the JAX tree layout
-(HWIO conv weights, per-layer block leaves stacked on a leading axis).
+Mirrors ``repro.models.spikingformer``. Spikingformer: SPS conv stem ->
+encoder blocks (each the engine's layer program) -> rate-decoded
+classification head, with pre-neuron residuals. CIFAR-Net (FireFly v2's
+spiking conv network): direct coding over T, then for each conv of
+:data:`CIFARNET_SPEC` the conv, BN, LIF and its pool, and a linear head
+on the fp32 spike rate; it is plain PyTorch (convs through cuDNN with
+TF32 off, ``core.spiking.lif_scan``) and launches no kernel, as JAX's
+reaches no Pallas kernel. Params and BN state keep the JAX tree layout
+(HWIO conv weights, per-layer block leaves stacked on a leading axis;
+CIFAR-Net's ``{"convs": [{"conv", "bn"}, ...], "head"}``).
 ``forward(train=True)`` normalises with batch statistics and threads the
-BN running stats through the stem and the blocks. ``layer_sparsities``
-measures the per-layer spike sparsity (the paper's Fig. 11). The
-CIFAR-Net path is still to be ported.
+BN running stats through. ``layer_sparsities`` measures the per-layer
+spike sparsity (the paper's Fig. 11).
 """
 from __future__ import annotations
 
@@ -42,11 +48,10 @@ def _stack(*leaves):
     return torch.stack(leaves)
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "spikingformer":
-        raise NotImplementedError(
-            f"the {cfg.family} family is not ported to PyTorch yet "
-            f"(ROADMAP queue 1 item 4)")
+# CIFAR-Net conv spec: (channels, pool) per layer; pool in {'', 'mp', 'ap'}
+CIFARNET_SPEC: Tuple[Tuple[int, str], ...] = (
+    (32, ""), (256, ""), (256, "mp"), (256, ""), (256, ""), (256, "mp"),
+    (512, "mp"), (1024, "ap"))
 
 
 # ---------------------------------------------------------------------------
@@ -88,9 +93,10 @@ def init(cfg: ModelConfig, seed: int = 0, *,
          device: DeviceLike = None) -> Dict[str, Any]:
     """Random params from ``seed`` (drawn on the CPU, then moved to the
     device, so a seed gives the same weights on every machine)."""
-    _check_family(cfg)
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
+    if cfg.family == "cifarnet":
+        return tree_map(lambda a: a.to(dev), _init_cifarnet(cfg, gen))
     dt = dtype_of(cfg)
     chans = [cfg.vision.in_channels] + _sps_channels(cfg)
     sps = [{"conv": nn.conv2d_init(gen, chans[i], chans[i + 1], dtype=dt),
@@ -107,12 +113,28 @@ def init(cfg: ModelConfig, seed: int = 0, *,
 
 def init_state(cfg: ModelConfig, *, device: DeviceLike = None
                ) -> Dict[str, Any]:
-    _check_family(cfg)
     dev = resolve_device(device)
+    if cfg.family == "cifarnet":
+        state = {"convs": [nn.batchnorm_state_init(c)
+                           for c, _ in CIFARNET_SPEC]}
+        return tree_map(lambda a: a.to(dev), state)
     state = {"sps": [nn.batchnorm_state_init(c) for c in _sps_channels(cfg)],
              "blocks": tree_map(_stack, *[_block_state(cfg)
                                           for _ in range(cfg.num_layers)])}
     return tree_map(lambda a: a.to(dev), state)
+
+
+def _init_cifarnet(cfg: ModelConfig, gen: torch.Generator):
+    dt = dtype_of(cfg)
+    convs = []
+    c_in = cfg.vision.in_channels
+    for c, _ in CIFARNET_SPEC:
+        convs.append({"conv": nn.conv2d_init(gen, c_in, c, dtype=dt),
+                      "bn": nn.batchnorm_init(c, dt)})
+        c_in = c
+    return {"convs": convs,
+            "head": nn.linear_init(gen, c_in, cfg.vocab_size, bias=True,
+                                   dtype=dt)}
 
 
 # ---------------------------------------------------------------------------
@@ -161,10 +183,12 @@ def forward(params, cfg: ModelConfig, batch, *, train: bool = False,
 
     Images are taken in the config's dtype, as ``launch/steps.
     batch_struct`` declares them in the JAX package."""
-    _check_family(cfg)
     images = batch["images"].to(dtype_of(cfg))
     if state is None:
         state = init_state(cfg, device=images.device)
+    if cfg.family == "cifarnet":
+        return _forward_cifarnet(params, cfg, images, train=train,
+                                 state=state)
     x, sps_state = _sps(params, state, cfg, images, train)
     blocks_state = []
     for i in range(cfg.num_layers):
@@ -180,17 +204,60 @@ def forward(params, cfg: ModelConfig, batch, *, train: bool = False,
                     "fire_rate": spikes.detach().float().mean()}
 
 
+def _conv_bn_lif(p, st, cfg: ModelConfig, x, train: bool):
+    """One CIFAR-Net conv stage before its pool: conv over the folded
+    (T*B) images, BN over every leading axis, LIF over T. Returns
+    (spikes, new BN state)."""
+    x = _fold_t(lambda u: nn.conv2d(p["conv"], u), x)
+    y, new_st = nn.batchnorm(p["bn"], st, x, train=train)
+    return _lif(y, cfg), new_st
+
+
+def _pool(x, pool: str):
+    if pool == "mp":
+        return _fold_t(nn.maxpool2, x)
+    if pool == "ap":
+        return x.mean(dim=(2, 3))                       # (T, B, C)
+    return x
+
+
+def _forward_cifarnet(params, cfg: ModelConfig, images, *, train: bool,
+                      state: Dict):
+    """Direct coding (the image repeated over T), the conv ladder, and
+    the head on the fp32 spike rate averaged over T."""
+    x = images[None].expand(cfg.spiking.time_steps, *images.shape)
+    new_state = []
+    for (_, pool), p, st in zip(CIFARNET_SPEC, params["convs"],
+                                state["convs"]):
+        x, st = _conv_bn_lif(p, st, cfg, x, train)
+        new_state.append(st)
+        x = _pool(x, pool)
+    rate = x.float().mean(dim=0)                        # (B, C)
+    logits = nn.linear(params["head"], rate.to(dtype_of(cfg))).float()
+    return logits, {"state": {"convs": new_state},
+                    "fire_rate": x.detach().float().mean()}
+
+
 def layer_sparsities(params, cfg: ModelConfig, batch,
                      state: Optional[Dict] = None) -> List[Tuple[str, float]]:
     """Per-layer spike sparsity (Fig. 11): [(layer name, 1 - fire rate)]
-    for the stem's output spikes and each encoder layer's input spikes,
-    measured on ``batch`` in eval mode — what the decoded datapath's gain
-    and ``sparse='auto'``'s choice depend on."""
-    _check_family(cfg)
+    for the stem's output spikes and each encoder layer's input spikes
+    (CIFAR-Net: each conv's output spikes, before its pool), measured on
+    ``batch`` in eval mode — what the decoded datapath's gain and
+    ``sparse='auto'``'s choice depend on."""
     images = batch["images"].to(dtype_of(cfg))
     if state is None:
         state = init_state(cfg, device=images.device)
     out: List[Tuple[str, float]] = []
+    if cfg.family == "cifarnet":
+        x = images[None].expand(cfg.spiking.time_steps, *images.shape)
+        with torch.no_grad():
+            for i, ((_, pool), p, st) in enumerate(zip(
+                    CIFARNET_SPEC, params["convs"], state["convs"])):
+                x, _ = _conv_bn_lif(p, st, cfg, x, train=False)
+                out.append((f"conv{i}", float(1.0 - x.mean())))
+                x = _pool(x, pool)
+        return out
     with torch.no_grad():
         x, _ = _sps(params, state, cfg, images, train=False)
         out.append(("sps", float(1.0 - _lif(x, cfg).mean())))

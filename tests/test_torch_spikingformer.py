@@ -244,7 +244,9 @@ def test_unported_layer_paths_raise():
     """Training runs now (train-mode forward and the sequential layer
     step), and so does the fused SSA bundle of an ineligible eval layer
     (equal to the sequential composition); what is still unported raises
-    naming its ROADMAP item: the cifarnet family. overlap='pipeline',
+    naming its ROADMAP item: a non-spiking dense model (the cifarnet
+    family, which raised here before it was ported, now runs:
+    ``test_torch_cifarnet.py``). overlap='pipeline',
     which raised here before it was ported, now runs with either sparse
     path and equals overlap='fused' bitwise."""
     tcfg = get_config("spikingformer-4-256", smoke=True)
@@ -260,8 +262,8 @@ def test_unported_layer_paths_raise():
     assert y.shape == x.shape and set(new_st) == set(st)
     biased = dict(bp, wo=dict(bp["wo"], b=torch.zeros(tcfg.d_model)))
     cases = [
-        lambda: TR.init(get_config("spikingformer-4-256").replace(
-            family="cifarnet"), device="cpu"),
+        lambda: TR.init(get_config("spikingformer-lm", smoke=True).replace(
+            spiking=None), device="cpu"),
     ]
     for case in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -483,7 +483,9 @@ def test_unported_training_modes_raise_naming_roadmap():
     p = {"w": torch.zeros((8, 4))}
     cases = [
         lambda: TS.build_train_step(tcfg, opt, compress=True, device="cpu"),
-        lambda: TS.build_train_step(tcfg, opt, qat="int8", device="cpu"),
+        lambda: TS.build_train_step(get_config("spikingformer-lm",
+                                               smoke=True), opt, qat="int8",
+                                    device="cpu"),
         lambda: make_pipeline(DataConfig(kind="lm", global_batch=2)),
     ]
     for case in cases:
