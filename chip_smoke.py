@@ -307,12 +307,45 @@ device; exits non-zero without one). It
      distances) equal through the kernels and through their plain
      versions.
 
+6. trains spikingformer-lm and Spikingformer-8-512 through the entry
+   points, each with the counts set to 0 just before and read just after:
+   * the published bf16 LM (T=4, D=256, 8 heads of 32, 4 layers, vocab
+     32000) on ``SyntheticLM`` batches of 8 x 512 tokens through
+     ``build_train_step``: 6 AdamW steps, 6 with ``qat='int8'`` and 6
+     with ``compress=True`` (its layers are not eligible for the layer
+     program and take the sequential composition: 1 causal
+     ``spike_attention`` a layer, 4 a step; no fused layer), 6 with
+     ``binary='popcount'`` (4 ``popcount_scores`` a step), and 6 of the
+     LM with ``dtype='float32'`` (eligible: 6 ``fused_layer_rope``
+     launches a layer call, 24 a step, no ``spike_attention``); the loss
+     falling and every param leaf moving in each run; the compressed
+     run's loss gap to the uncompressed one logged;
+   * one LM train step of each route (bf16, fp32, popcount, int8 QAT on
+     masters with power-of-two scales; 2 x 64 tokens, weights on the
+     2^-8 grid) through the kernels == through their plain versions,
+     bitwise (loss and every gradient; deterministic algorithms on, so
+     the embedding's backward adds repeated tokens' rows in one order);
+   * ``launch.train.train`` of the published LM at a small batch with
+     checkpoints in a temporary directory and a failure injected: one
+     restart from the latest checkpoint, the steps after it replayed (as
+     JAX replays them), every restored tree equal bitwise to the tree
+     saved at its step;
+   * Spikingformer-8-512 at published width and depth: 6 AdamW steps of
+     32 images through ``train_path`` ('auto': 6 spike products of the
+     datapath 'auto' picks and 1 ``spike_attention`` a layer; finite
+     metrics and every param leaf moving, the loss logged: with 1000
+     classes and 32 images a batch, the first steps raise it), and one
+     train step through the kernels == through their plain versions,
+     bitwise.
+
 It prints the card's name and power limit, a JSON line of per-kernel
 numbers (``spike_matmul``'s row also with the 4-256 'tile' train steps'
 and analog 'tile' requests' ms, ``quant_spike_matmul``'s with the mixed
 'tile' requests' ms; the rows of #1, #1b, #1c, #2, #4 and #7 with the
 QAT and calibration paths' launches), the ms of the new paths beside
-the fp train steps, the whole run's seconds, and last a JSON line
+the fp train steps (the LM's and 8-512's steps beside 4-256's; the rows
+of #1c, #2, #4, #7 and #8 with the LM and 8-512 train runs' launches),
+the whole run's seconds, and last a JSON line
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -324,6 +357,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -348,14 +382,17 @@ from repro_torch.kernels import popcount_attention as PA  # noqa: E402
 from repro_torch.kernels import spike_attention as SA  # noqa: E402
 from repro_torch.kernels import spike_decode as SD  # noqa: E402
 from repro_torch.kernels import spike_matmul as SM  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager, restore_tree  # noqa
 from repro_torch.launch import steps  # noqa: E402
+from repro_torch.launch import train as train_loop  # noqa: E402
 from repro_torch.launch.serve import BatchedServer, Request  # noqa: E402
 from repro_torch.launch.train import make_batch_fn  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.models import spikingformer as SF  # noqa: E402
 from repro_torch.models.spikingformer import layer_sparsities  # noqa: E402
 from repro_torch.models.nn import rmsnorm, rope_table  # noqa: E402
-from repro_torch.optim import adamw, warmup_cosine  # noqa: E402
+from repro_torch.optim import (adamw, compress_state_init,  # noqa: E402
+                               warmup_cosine)
 from repro_torch.quant import (DEFAULT_RATIOS, INT_BITS,  # noqa: E402
                                calibrate, map_param_dicts, quantize_tree,
                                quantize_weight)
@@ -540,6 +577,15 @@ CIFAR_REQUESTS, CIFAR_BATCH, CIFAR_BIAS = 4, 64, 0.5
 # quantization-aware training of Spikingformer-4-256: each qat dtype with
 # the sparse datapath its steps take (so both #2 and #4 run QAT steps)
 QAT_PATHS = (("int8", "tile"), ("int4", "decoded"))
+# spikingformer-lm training at published width on the token stream's
+# LM_BATCH x LM_PROMPT batches: AdamW steps of each run (bf16, int8 QAT,
+# compressed gradients, popcount, fp32; the first step, at the peak rate,
+# raises the loss, so fewer steps do not show it fall); the supervised
+# loop at a small batch: steps, batch, tokens, checkpoint interval and
+# the step that fails
+LM_TRAIN_STEPS = 6
+LM_CKPT = dict(total_steps=8, batch=2, seq=128, ckpt_every=3,
+               inject_failure_at=5)
 
 
 def log(msg):
@@ -1246,14 +1292,18 @@ def inference_path(cfg, params, requests):
     return counts
 
 
-def train_path(cfg, qat=None):
-    """A training main path: 6 AdamW steps of 64 images, with the launch
-    counts of the whole run (24 sparse products a step, through the
-    kernel of the datapath each took; 4 binary attentions a step,
+def train_path(cfg, qat=None, batch=TRAIN_BATCH, falls=True):
+    """A training main path: 6 AdamW steps of ``batch`` images, with the
+    launch counts of the whole run (6 sparse products a layer, through
+    the kernel of the datapath each took; 1 binary attention a layer,
     ``spike_attention`` or, with ``binary='popcount'``,
     ``popcount_scores``; with ``qat`` the same, on the fake-quantized
-    weights; CIFAR-Net, which has no engine, none at all); the last loss
-    must be below the first."""
+    weights; CIFAR-Net, which has no engine, none at all); with
+    ``falls`` the last loss must be below the first (not asked of a
+    config with many more classes than a batch has images: each batch
+    then holds mostly classes that no earlier step saw and that every
+    earlier step pushed down, so the first steps raise the loss); the
+    metrics must be finite and every param leaf must move."""
     dev = torch.device("cuda")
     opt = adamw(warmup_cosine(TRAIN_LR, max(1, TRAIN_STEPS // 20),
                               TRAIN_STEPS))
@@ -1261,15 +1311,15 @@ def train_path(cfg, qat=None):
     params = registry.init(cfg, seed=0)
     opt_state = opt.init(params)
     model_state = registry.init_state(cfg)
-    batch_fn = make_batch_fn(cfg, TRAIN_BATCH)
+    batch_fn = make_batch_fn(cfg, batch)
     batches = [batch_fn(i) for i in range(TRAIN_STEPS)]
     p = params
     torch.cuda.synchronize()
     reset_counts()
     step_ms, metrics = [], []
-    for i, batch in enumerate(batches):
+    for i, b in enumerate(batches):
         t0 = time.perf_counter()
-        p, opt_state, _, m, model_state = step_fn(p, opt_state, i, batch,
+        p, opt_state, _, m, model_state = step_fn(p, opt_state, i, b,
                                                   model_state)
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
@@ -1279,7 +1329,7 @@ def train_path(cfg, qat=None):
     if cfg.engine is None:
         what = f"train path, {cfg.name}"
     else:
-        what = (f"train path, sparse={cfg.engine.sparse!r}, "
+        what = (f"train path, {cfg.name}, sparse={cfg.engine.sparse!r}, "
                 f"binary={cfg.engine.binary!r}"
                 f"{'' if cfg.spiking.binarize_scores else ', analog scores'}"
                 f"{f', qat={qat!r}' if qat else ''}")
@@ -1288,7 +1338,7 @@ def train_path(cfg, qat=None):
         want.update(spike_matmul=tile, gather_spike_matmul=dec,
                     gather_stage=dec)
         want[attention_kernel(cfg)] = cfg.num_layers * TRAIN_STEPS
-    log(f"{what}: {TRAIN_STEPS} steps x {TRAIN_BATCH} images on {dev}, "
+    log(f"{what}: {TRAIN_STEPS} steps x {batch} images on {dev}, "
         f"ms per step {[round(x, 3) for x in step_ms]}, sparse decisions "
         f"{dict(E.SPARSE_DECISIONS)}, launches {counts}")
     log(f"{what}: losses {[round(m['loss'], 4) for m in metrics]}, "
@@ -1299,7 +1349,7 @@ def train_path(cfg, qat=None):
     if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                for m in metrics):
         raise AssertionError(f"non-finite train metrics {metrics}")
-    if not metrics[-1]["loss"] < metrics[0]["loss"]:
+    if falls and not metrics[-1]["loss"] < metrics[0]["loss"]:
         raise AssertionError(f"{what}: the loss did not fall "
                              f"{[m['loss'] for m in metrics]}")
     still = [i for i, (a, b) in enumerate(zip(tree_leaves(params),
@@ -3332,6 +3382,190 @@ def calibrate_path(cfg, params, batch, qdtype, what):
     return ms, counts, report
 
 
+# --- spikingformer-lm training ----------------------------------------
+
+
+def lm_kernel(cfg):
+    """(the kernel, its launches a layer call) of an LM train step: the
+    layer program's rope family where the layers are eligible (fp32
+    activations), else the sequential composition's binary attention."""
+    if cfg.dtype == "float32":
+        return "fused_layer_rope", FL.LAUNCHES_PER_CALL["rope"]
+    return attention_kernel(cfg), 1
+
+
+def lm_train_path(cfg, what, n_steps=LM_TRAIN_STEPS, qat=None,
+                  compress=False):
+    """A token-family training main path: ``n_steps`` AdamW steps of the
+    published LM from seeded random weights on the token stream's
+    LM_BATCH x LM_PROMPT batches through ``build_train_step``, with the
+    launch counts of the whole run (:func:`lm_kernel` a layer call, no
+    other kernel); the last loss must be below the first and every param
+    leaf must move. Returns (counts, ms per step, losses)."""
+    opt = adamw(warmup_cosine(TRAIN_LR, max(1, n_steps // 20), n_steps))
+    step_fn = steps.build_train_step(cfg, opt, qat=qat, compress=compress)
+    params = registry.init(cfg, seed=0)
+    opt_state = opt.init(params)
+    if compress:
+        opt_state["compress_err"] = compress_state_init(params)
+    batch_fn = make_batch_fn(cfg, LM_BATCH, LM_PROMPT)
+    batches = [batch_fn(i) for i in range(n_steps)]
+    p = params
+    torch.cuda.synchronize()
+    reset_counts()
+    step_ms, metrics = [], []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        p, opt_state, _, m = step_fn(p, opt_state, i, b)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        metrics.append({k: float(v) for k, v in m.items()})
+    counts = launches()
+    kernel, per_call = lm_kernel(cfg)
+    want = dict.fromkeys(counts, 0)
+    want[kernel] = per_call * cfg.num_layers * n_steps
+    what = f"LM train path, {what}"
+    losses = [m["loss"] for m in metrics]
+    log(f"{what}: {n_steps} steps x {LM_BATCH} x {LM_PROMPT} tokens, ms per "
+        f"step {[round(x, 3) for x in step_ms]}, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    log(f"{what}: losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(m['grad_norm'], 4) for m in metrics]}")
+    if counts != want:
+        raise AssertionError(f"{what} launches {counts}, expected {want}")
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               for m in metrics):
+        raise AssertionError(f"non-finite train metrics {metrics}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: the loss did not fall {losses}")
+    still = [n for n, a, b in zip(leaf_paths(params), tree_leaves(params),
+                                  tree_leaves(p)) if torch.equal(a, b)]
+    if still:
+        raise AssertionError(f"{what}: param leaves {still} did not move")
+    return counts, step_ms, losses
+
+
+class deterministic_algorithms:
+    """Within the scope, ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``: ops with a deterministic variant take it (the
+    embedding's backward, an indexed add of the rows of repeated tokens);
+    the rest warn."""
+
+    def __enter__(self):
+        self.saved = (torch.are_deterministic_algorithms_enabled(),
+                      torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def __exit__(self, *exc):
+        torch.use_deterministic_algorithms(self.saved[0],
+                                           warn_only=self.saved[1])
+
+
+def check_lm_train_gradients(cfg, what, qat=None):
+    """One LM train step's loss and gradients (``value_and_grad`` on
+    LM_GRAD_BATCH x LM_GRAD_PROMPT tokens of the token stream, params on
+    the 2^-8 grid; with ``qat`` the masters of :func:`qat_masters`)
+    through the kernels against the same with the kernels swapped for
+    their plain versions: bitwise, since each kernel equals its plain
+    version on these operands and the backward is the same PyTorch code
+    on the same forward values. Returns the kernels' run."""
+    params = dyadic_grid(registry.init(cfg, seed=2))
+    if qat is not None:
+        params = qat_masters(params, qat)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in make_batch_fn(
+        cfg, LM_GRAD_BATCH, LM_GRAD_PROMPT)(3).items()}
+    kernel, per_call = lm_kernel(cfg)
+    runs = []
+    with deterministic_algorithms():
+        for plain in (False, True):
+            reset_counts()
+            with (plain_kernels() if plain else contextlib.nullcontext()):
+                loss, _, grads = steps.value_and_grad(cfg, params, batch,
+                                                      qat=qat)
+            torch.cuda.synchronize()
+            runs.append([loss] + tree_leaves(grads))
+            want = dict.fromkeys(launches(), 0)
+            if not plain:
+                want[kernel] = per_call * cfg.num_layers
+            if launches() != want:
+                raise AssertionError(
+                    f"LM gradient check {what} through the "
+                    f"{'plain versions' if plain else 'kernels'} launched "
+                    f"{launches()}, expected {want}")
+    names = ["loss"] + leaf_paths(params)
+    differ = [n for n, a, b in zip(names, *runs) if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"LM train step {what} through the kernels != "
+                             f"through the plain versions at {differ}")
+    log(f"check, LM {what}: one train step through the kernels ({kernel}, "
+        f"{per_call * cfg.num_layers} launches) == through the plain "
+        f"versions, bitwise (loss {float(runs[0][0]):.6f}, "
+        f"{len(names) - 1} gradients)")
+    return runs[0]
+
+
+def checkpoint_path():
+    """``launch.train.train`` of the published LM at LM_CKPT's small batch,
+    checkpoints in a temporary directory under ``build/``, one failure
+    injected: it must restart once, from the latest checkpoint before the
+    failure, and replay the steps after it, as JAX's loop does; every
+    tree the loop restores equals bitwise the tree it saved at that step
+    (each save's tree recorded on the card when ``save`` is called).
+    Returns (losses, seconds)."""
+    saved, restored = {}, []
+
+    class Recording(CheckpointManager):
+        def save(self, step, tree, extra=None, blocking=False):
+            saved[step] = tree_map(torch.clone, tree)
+            super().save(step, tree, extra, blocking)
+
+        def restore(self, template=None, step=None, *, device=None):
+            out = super().restore(template, step, device=device)
+            restored.append(out)
+            return out
+
+    kw = dict(LM_CKPT)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    real = train_loop.CheckpointManager
+    train_loop.CheckpointManager = Recording
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) \
+                as ckpt_dir:
+            losses = train_loop.train(
+                "spikingformer-lm", False, kw.pop("total_steps"),
+                kw.pop("batch"), TRAIN_LR, ckpt_dir=ckpt_dir, **kw)
+            final = Recording(ckpt_dir).restore(device="cuda")
+    finally:
+        train_loop.CheckpointManager = real
+    seconds = time.perf_counter() - t0
+    total, every, fail = (LM_CKPT[k] for k in ("total_steps", "ckpt_every",
+                                                "inject_failure_at"))
+    resume = fail // every * every
+    if [r[1] for r in restored] != [resume, total] or \
+            len(losses) != total + fail - resume:
+        raise AssertionError(
+            f"checkpoint path: restored steps {[r[1] for r in restored]}, "
+            f"{len(losses)} losses; expected a restore at {resume} (and the "
+            f"final read at {total}), {total + fail - resume} losses")
+    for tree, step, _ in restored:
+        got, want = tree_leaves(tree), tree_leaves(saved[step])
+        if len(got) != len(want) or not all(
+                a.dtype == b.dtype and torch.equal(a, b)
+                for a, b in zip(got, want)):
+            raise AssertionError(f"checkpoint path: the tree restored at "
+                                 f"step {step} != the tree saved there")
+    replay = losses[fail:]
+    log(f"checkpoint path: spikingformer-lm {LM_CKPT}: restarted once from "
+        f"step {resume}, replayed steps {resume}-{fail - 1} (losses "
+        f"{[round(x, 4) for x in losses[resume:fail]]} then "
+        f"{[round(x, 4) for x in replay[:fail - resume]]}), the restored "
+        f"trees ({len(tree_leaves(final[0]))} leaves each, steps "
+        f"{[r[1] for r in restored]}) == the saved ones bitwise; "
+        f"{seconds:.1f} s")
+    return losses, seconds
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -3788,6 +4022,40 @@ def main():
     log(f"cifarnet, qat and calibration phases: "
         f"{time.perf_counter() - t_new:.1f} s")
 
+    # --- training spikingformer-lm and Spikingformer-8-512 --------------
+    t_new = time.perf_counter()
+    lm_train = {
+        "bf16": lm_train_path(lm_bf16[0], "bf16"),
+        "qat int8": lm_train_path(lm_bf16[0], "bf16, qat='int8'",
+                                  qat="int8"),
+        "compressed": lm_train_path(lm_bf16[0], "bf16, compressed gradients",
+                                    compress=True),
+        "popcount": lm_train_path(lm_pop[0], "bf16, binary='popcount'"),
+        "fp32": lm_train_path(lm32, "fp32")}
+    gap = [c - u for c, u in zip(lm_train["compressed"][2],
+                                 lm_train["bf16"][2])]
+    log(f"LM train path: the compressed run's loss minus the uncompressed "
+        f"one's, step by step: {[round(x, 5) for x in gap]}")
+    lm_grads = {what: check_lm_train_gradients(c, what, qat=q)
+                for what, c, q in (("bf16", lm_bf16[0], None),
+                                   ("fp32", lm32, None),
+                                   ("bf16, binary='popcount'", lm_pop[0],
+                                    None),
+                                   ("bf16, qat='int8'", lm_bf16[0], "int8"))}
+    if not all(torch.equal(a, b) for a, b in zip(
+            lm_grads["bf16, binary='popcount'"], lm_grads["bf16"])):
+        raise AssertionError("LM train step with binary='popcount' != with "
+                             "'mxu_kernel'")
+    log("check: one LM train step with binary='popcount' == with "
+        "binary='mxu_kernel' (#7), bitwise: loss and every gradient")
+    _, ckpt_s = checkpoint_path()
+    # 1000 classes, 32 images a batch: the loss need not fall in 6 steps
+    eight_train = train_path(engines8["auto"], batch=EIGHT_BATCH,
+                             falls=False)
+    check_train_gradients(engines8["auto"])
+    log(f"training phases (LM, checkpoints, 8-512): "
+        f"{time.perf_counter() - t_new:.1f} s")
+
     csrc = "src/repro_torch/kernels/csrc/"
     bf16 = torch.bfloat16
 
@@ -3815,6 +4083,7 @@ def main():
                              launches=qat_runs["int8"][0]["spike_matmul"],
                              step_ms=qat_runs["int8"][1]),
                  train_step_ms=train_runs["tile"][1],
+                 at_8_512_train=dict(launches=eight_train[0]["spike_matmul"]),
                  analog_request_ms=analog4["tile"][1], **matmul_timing),
             dict(name="spike_attention", source=csrc + "spike_attention.cu",
                  replaces="src/repro/kernels/spike_attention.py:78",
@@ -3833,6 +4102,13 @@ def main():
                  at_head_dim_160={what: dict(
                      ms=ms, launches=counts["spike_attention"])
                      for what, (ms, counts) in wide.items()},
+                 at_lm_train={what: dict(launches=run[0]["spike_attention"],
+                                         step_ms=run[1])
+                              for what, run in lm_train.items()
+                              if what in ("bf16", "qat int8", "compressed")},
+                 at_8_512_train=dict(
+                     launches=eight_train[0]["spike_attention"],
+                     step_ms=eight_train[1]),
                  **attn_timing),
             dict(name="gather_spike_matmul",
                  source=csrc + "gather_spike_matmul.cu",
@@ -3845,6 +4121,8 @@ def main():
                  split={str(dt): parts for dt, parts in gather_parts.items()},
                  floor_ms=gather_floor_ms(),
                  train_step_ms=train_runs["decoded"][1],
+                 at_8_512_train=dict(
+                     launches=eight_train[0]["gather_spike_matmul"]),
                  analog_request_ms=analog4["decoded"][1],
                  **gather_timing),
             dict(name="fused_layer_decoded", source=csrc + "fused_layer.cu",
@@ -3864,6 +4142,9 @@ def main():
                                    ms=calib_lm[0]),
                  at_long=dict(prompt_ms=long_int8[0], tokens=LONG_PROMPT,
                               launches=long_int8[1]["fused_layer_rope"]),
+                 at_lm_train=dict(
+                     launches=lm_train["fp32"][0]["fused_layer_rope"],
+                     step_ms=lm_train["fp32"][1]),
                  **rope_timing),
             dict(name="quant_spike_matmul", source=csrc + "spike_matmul.cu",
                  replaces="src/repro/kernels/spike_matmul.py:182",
@@ -3906,6 +4187,9 @@ def main():
                                launches=pop8_counts["popcount_scores"]),
                  at_lm=dict(pop_timing["bf16 LM"],
                             launches=lm_pop_counts["popcount_scores"]),
+                 at_lm_train=dict(
+                     launches=lm_train["popcount"][0]["popcount_scores"],
+                     step_ms=lm_train["popcount"][1]),
                  **pop_timing["4-256 train"]),
             dict(name="lif_forward", source=csrc + "lif.cu",
                  replaces="src/repro/kernels/lif.py:38",
@@ -3985,6 +4269,13 @@ def main():
         + "; calibrate ms: "
         + ", ".join(f"4-256 {q} {run[0]:.3f}" for q, run in calib.items())
         + f", LM int8 {calib_lm[0]:.3f}")
+    log("train ms per step beside 4-256's at 64 images ('tile' "
+        f"{rounded(train_runs['tile'][1])}): 8-512 at {EIGHT_BATCH} images "
+        f"('auto') {rounded(eight_train[1])}; spikingformer-lm at "
+        f"{LM_BATCH} x {LM_PROMPT} tokens: "
+        + "; ".join(f"{what} {rounded(run[1])}"
+                    for what, run in lm_train.items())
+        + f"; the checkpointed LM run ({LM_CKPT}) {ckpt_s:.1f} s")
     log(json.dumps({"kernels": [dict(route="cuda", **r) for r in rows]}))
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -60,11 +60,6 @@ BINARY_MODES = ("jnp", "mxu_kernel", "popcount")
 WEIGHT_DATAPATHS = ("fp32", "int8", "int4")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP {item})")
-
-
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Dual-engine dispatch knobs (per model, set on ModelConfig.engine):
@@ -805,11 +800,13 @@ def layer_step_causal(p: Dict[str, Any], cfg, x: torch.Tensor, positions,
     ``'pipeline'``: the CUDA kernel for CUDA tensors; a 'decoded' plan
     takes the tile projection,
     as in JAX, since the projection input is analog). Others run the
-    sequential composition through :func:`ssa_step_causal`. Eval only:
-    the port has no LM training yet (ROADMAP queue 1 item 7)."""
+    sequential composition through :func:`ssa_step_causal`. ``train``
+    changes no route, as in JAX (the eligibility has no train term): an
+    eligible layer trains through :class:`_FusedLayer`, whose backward
+    differentiates ``reference_layer``, or through ``reference_layer``
+    itself under ``overlap='off'``; the sequential composition passes it
+    on to :func:`ssa_step_causal`."""
     from repro_torch.models import nn
-    if train:
-        raise _not_ported("training the token family", "queue 1 item 7")
     engine = engine if engine is not None else get_engine()
     t, b, s_len, d = x.shape
     heads, hd = cfg.num_heads, cfg.head_dim
@@ -831,7 +828,8 @@ def layer_step_causal(p: Dict[str, Any], cfg, x: torch.Tensor, positions,
                 and not cfg.spiking.binarize_context
                 and _launch_a_takes(x, d, heads, hd, rope=True))
     if not eligible:
-        attn = ssa_step_causal(p, cfg, h, positions, engine=engine)
+        attn = ssa_step_causal(p, cfg, h, positions, train=train,
+                               engine=engine)
         x = x + nn.linear(p["wo"], attn)
         h2 = nn.rmsnorm(p["ln2"], x, cfg.norm_eps)
         hidden = lif_scan(nn.linear(mlp["up"], h2), cfg.spiking)[0]

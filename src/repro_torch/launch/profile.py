@@ -30,9 +30,11 @@ published spikingformer-lm (``--quantize int8``: its int8 tree, as
 ``launch/serve.py --quantize int8`` loads it; with ``--keep-fp
 wo,up,down`` the mixed tree of int8 wq, wk, wv and the LM head, whose
 layers run the bundle kernel's rope family) through
-``build_prefill_step`` on 8 x 512 tokens, and through the
-continuous-batching server: one call serves 8 requests of 100-500 prompt
-tokens and 8 new tokens each over 8 slots. ``--overlap fused|pipeline``
+``build_prefill_step`` on 8 x 512 tokens, without ``--quantize``
+through ``build_train_step`` (AdamW, warmup-cosine) on 8 x 512 tokens of
+the synthetic token stream, and through the continuous-batching server:
+one call serves 8 requests of 100-500 prompt tokens and 8 new tokens
+each over 8 slots. ``--overlap fused|pipeline``
 sets the layer program's schedule (default the config's, 'auto', which
 fuses on the card); with it the prefill alone is profiled (a vision
 model's on weights that fire, BN biases raised), and the run prints the
@@ -181,6 +183,17 @@ def _profile_lm(cfg, quantize: str, keep_fp, overlap=None,
         _layer_program_traffic(lambda: prefill(params, {"tokens": tokens[0]}))
     if overlap is not None or prefill_only:
         return
+    if quantize == "none":
+        opt = adamw(warmup_cosine(2e-3, 1, CALLS + 2))
+        train_step = build_train_step(cfg, opt)
+        batch_fn = make_batch_fn(cfg, LM_BATCH, LM_PROMPT)
+        batches = [batch_fn(i) for i in range(CALLS + 2)]
+        carry = [params, opt.init(params)]
+
+        def train(i):
+            carry[:2] = train_step(*carry, i, batches[i])[:2]
+        _profile(arch, "train", cfg.engine.sparse, train,
+                 unit=f"{LM_BATCH} x {LM_PROMPT} tokens")
 
     def serve(i):
         rng = np.random.default_rng(i)
@@ -286,10 +299,9 @@ def main():
     if args.overlap is not None:
         _layer_program_traffic(lambda: prefill(params, {"images": images[0]}))
     if args.quantize != "none" or firing:
-        # an int8 tree takes no train step (QAT is not ported); the 8-512
-        # training step is not part of the port's checked paths yet, and
-        # the layer program's schedule and the analog scores are profiled
-        # on the prefill
+        # an int8 tree takes no train step (QAT trains the fp masters);
+        # the layer program's schedule, the analog scores and 8-512 are
+        # profiled on the prefill
         return
 
     opt = adamw(warmup_cosine(2e-3, 1, CALLS + 2))

@@ -17,7 +17,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import engine_scope
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import registry
-from repro_torch.optim import Optimizer
+from repro_torch.optim import Optimizer, compressed_gradients
 from repro_torch.quant import INT_BITS, fake_quant_tree
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -31,25 +31,27 @@ def softmax_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 
 def loss_from_forward(cfg: ModelConfig, logits, batch) -> torch.Tensor:
-    if cfg.family not in STATEFUL:
-        raise NotImplementedError(
-            f"the {cfg.family} family's loss is not ported to PyTorch yet "
-            f"(ROADMAP queue 1 item 7)")
-    return softmax_xent(logits, batch["labels"])
+    """Cross entropy of the labels (vision) or of each next token (the
+    token family: the logits at positions 0..S-2 against tokens 1..S-1)."""
+    if cfg.family in STATEFUL:
+        return softmax_xent(logits, batch["labels"])
+    return softmax_xent(logits[:, :-1], batch["tokens"][:, 1:])
 
 
-def value_and_grad(cfg: ModelConfig, params, batch, model_state, *,
+def value_and_grad(cfg: ModelConfig, params, batch, model_state=None, *,
                    qat: Optional[str] = None
                    ) -> Tuple[torch.Tensor, Dict[str, Any], Any]:
-    """Train-mode loss of a stateful (vision) model and its gradient with
-    respect to every param leaf: (loss, aux, grads) with grads in the
-    params' tree layout and dtypes. ``qat`` ('int8' | 'int4'): the
+    """Train-mode loss and its gradient with respect to every param leaf:
+    (loss, aux, grads) with grads in the params' tree layout and dtypes.
+    ``model_state`` is the BN running-stats tree of the stateful (vision)
+    family, None for the token family. ``qat`` ('int8' | 'int4'): the
     forward sees the linears fake-quantized (``quant.fake_quant_tree``,
     applied to the leaves being differentiated), and the straight-through
     gradients reach the fp masters."""
     fq = (lambda p: p) if qat is None else \
         (lambda p: fake_quant_tree(p, qat))
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    state = {"state": model_state} if cfg.family in STATEFUL else {}
     # the stem's convolutions run in full fp32, as the reference does, in
     # the backward too: nn.conv2d turns cuDNN's TF32 default off for its
     # forward call only, and autograd runs the backward after it returns
@@ -59,8 +61,7 @@ def value_and_grad(cfg: ModelConfig, params, batch, model_state, *,
                           allow_tf32=False)
     with engine_scope(cfg), torch.enable_grad(), no_tf32:
         logits, aux = registry.forward(fq(tree_unflatten(params, leaves)),
-                                       cfg, batch, train=True,
-                                       state=model_state)
+                                       cfg, batch, train=True, **state)
         loss = loss_from_forward(cfg, logits, batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
@@ -70,33 +71,52 @@ def value_and_grad(cfg: ModelConfig, params, batch, model_state, *,
 def build_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
                      compress: bool = False, qat: Optional[str] = None,
                      device: DeviceLike = None) -> Callable:
-    """(params, opt_state, step, batch, model_state) ->
-    (params, opt_state, step + 1, metrics, model_state) for the stateful
-    vision family, on ``device`` (the GPU by default). ``model_state`` is
-    the BN running-stats tree; metrics are loss, grad_norm and fire_rate
-    as 0-d tensors. ``qat`` ('int8' | 'int4') trains quantization-aware:
-    see :func:`value_and_grad`; the optimizer updates the fp masters."""
-    if compress:
-        raise NotImplementedError("gradient compression is not ported to "
-                                  "PyTorch yet (ROADMAP queue 1 item 5)")
+    """The training step on ``device`` (the GPU by default), as JAX's:
+
+    * the stateful vision family: (params, opt_state, step, batch,
+      model_state) -> (params, opt_state, step + 1, metrics, model_state),
+      ``model_state`` the BN running-stats tree, metrics loss, grad_norm
+      and fire_rate;
+    * the token family: (params, opt_state, step, batch) -> (params,
+      opt_state, step + 1, metrics), metrics loss and grad_norm.
+
+    Metrics are 0-d tensors. ``qat`` ('int8' | 'int4') trains
+    quantization-aware: see :func:`value_and_grad`; the optimizer updates
+    the fp masters. ``compress`` sends the token family's gradients
+    through the int8 round trip with error feedback
+    (``optim.compressed_gradients``), the residuals carried in
+    ``opt_state["compress_err"]`` (``optim.compress_state_init``); the
+    vision step does not read it, as JAX's does not."""
     if qat is not None and qat not in INT_BITS:
         raise ValueError(f"unknown qat dtype {qat!r} (expected one of "
                          f"{sorted(INT_BITS)})")
-    if cfg.family not in STATEFUL:
-        raise NotImplementedError(
-            f"training the {cfg.family} family is not ported to PyTorch yet "
-            f"(ROADMAP queue 1 item 7)")
     dev = resolve_device(device)
 
-    def train_step(params, opt_state, step, batch, model_state):
-        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        loss, aux, grads = value_and_grad(cfg, params, batch, model_state,
-                                          qat=qat)
+    def to_dev(batch):
+        return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+    if cfg.family in STATEFUL:
+        def train_step(params, opt_state, step, batch, model_state):
+            loss, aux, grads = value_and_grad(cfg, params, to_dev(batch),
+                                              model_state, qat=qat)
+            new_params, new_opt = optimizer.update(grads, opt_state, params,
+                                                   step)
+            metrics = {"loss": loss, "grad_norm": new_opt["grad_norm"],
+                       "fire_rate": aux["fire_rate"]}
+            return new_params, new_opt, step + 1, metrics, aux["state"]
+        return train_step
+
+    def train_step(params, opt_state, step, batch):
+        loss, _, grads = value_and_grad(cfg, params, to_dev(batch), qat=qat)
+        if compress:
+            grads, new_err = compressed_gradients(grads,
+                                                  opt_state["compress_err"])
         new_params, new_opt = optimizer.update(grads, opt_state, params,
                                                step)
-        metrics = {"loss": loss, "grad_norm": new_opt["grad_norm"],
-                   "fire_rate": aux["fire_rate"]}
-        return new_params, new_opt, step + 1, metrics, aux["state"]
+        if compress:
+            new_opt["compress_err"] = new_err
+        metrics = {"loss": loss, "grad_norm": new_opt["grad_norm"]}
+        return new_params, new_opt, step + 1, metrics
     return train_step
 
 

@@ -10,6 +10,12 @@ tolerances of ``test_torch_train.py`` (each reason stated there):
   :func:`adamw_bound`);
 * the new BN running stats within 1e-5 of each leaf's scale;
 * every param leaf moved.
+
+The token family (``state=None``: no BN state, no fire rate) takes the
+same tolerances but one: its loss within :data:`DENSE_LOSS_REL` relative.
+Its forward is no exact sum: rmsnorm's rsqrt and the analog projections
+of its output round apart from XLA's (ROADMAP queue 3), so its logits
+agree within 1e-5 (``test_torch_lm.py``), not bitwise.
 """
 import jax
 import jax.numpy as jnp
@@ -26,6 +32,9 @@ from repro_torch.launch import steps as TS
 from repro_torch.optim import adamw, warmup_cosine
 
 SCHED = (2e-3, 2, 10)
+# the token family's loss: logits within 1e-5 of XLA's, through a
+# log-softmax over the vocabulary that sums in another order (see above)
+DENSE_LOSS_REL = 1e-6
 
 
 def rel_close(got, want, rel, what=""):
@@ -53,31 +62,46 @@ def adamw_bound(gj, gt, scale, lr0, eps=1e-8):
 def check_train_step(cfg, tcfg, params, state, batch, qat=None):
     """JAX ``build_train_step(cfg, opt, qat=qat)`` under jit against the
     port's ``build_train_step(tcfg, opt, qat=qat)`` on the CPU, from the
-    same numpy params, BN state and batch. Returns the port's loss."""
+    same numpy params, BN state (None for the token family) and batch.
+    Returns the port's loss."""
+    dense = state is None
+    extra = () if dense else (state,)
     jopt, topt = jadamw(jwarmup_cosine(*SCHED)), adamw(warmup_cosine(*SCHED))
-    jp, _, jstep, jm, jst = jax.jit(JS.build_train_step(cfg, jopt, qat=qat))(
-        params, jopt.init(params), jnp.asarray(0, jnp.int32), batch, state)
+    jp, _, jstep, jm, *jst = jax.jit(JS.build_train_step(cfg, jopt, qat=qat))(
+        params, jopt.init(params), jnp.asarray(0, jnp.int32), batch, *extra)
 
     def jloss(p):
         if qat is not None:
             from repro.quant import fake_quant_tree
             p = fake_quant_tree(p, qat)
         with JE.engine_scope(cfg):
-            logits, _ = JR.forward(p, cfg, batch, train=True, state=state)
+            logits, _ = JR.forward(p, cfg, batch, train=True,
+                                   **({} if dense else {"state": state}))
         return JS.loss_from_forward(cfg, logits, batch)
     jgrads = jax.jit(jax.grad(jloss))(params)
 
     tp = interop.to_torch(params, device="cpu")
-    ts = interop.to_torch(state, device="cpu")
+    ts = None if dense else interop.to_torch(state, device="cpu")
     step = TS.build_train_step(tcfg, topt, qat=qat, device="cpu")
-    np_, _, nstep, tm, nst = step(tp, topt.init(tp), 0, batch, ts)
+    np_, _, nstep, tm, *nst = step(tp, topt.init(tp), 0, batch,
+                                   *(() if dense else (ts,)))
     assert nstep == 1 and int(jstep) == 1
-    assert float(tm["loss"]) == float(jm["loss"])
-    assert float(tm["fire_rate"]) == float(jm["fire_rate"])
+
+    def loss_eq(got, want):
+        if dense:
+            rel_close(got, want, DENSE_LOSS_REL, "loss")
+        else:
+            assert got == want
+    loss_eq(float(tm["loss"]), float(jm["loss"]))
+    if not dense:
+        assert float(tm["fire_rate"]) == float(jm["fire_rate"])
+    else:
+        assert "fire_rate" not in tm
     rel_close(tm["grad_norm"].numpy(), jm["grad_norm"], 1e-6, "grad_norm")
     tb = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
     loss, _, tgrads = TS.value_and_grad(tcfg, tp, tb, ts, qat=qat)
-    assert float(loss) == float(jm["loss"])
+    assert float(loss) == float(tm["loss"])
+    loss_eq(float(loss), float(jm["loss"]))
     paths = [jax.tree_util.keystr(p) for p, _ in
              jax.tree_util.tree_flatten_with_path(params)[0]]
     lr0 = float(warmup_cosine(*SCHED)(0))
@@ -92,11 +116,13 @@ def check_train_step(cfg, tcfg, params, state, batch, qat=None):
         err, bound = np.abs(g - w), next(bounds)
         assert (err <= bound).all(), \
             f"{n}: {err.max()} (bound there {bound.flat[err.argmax()]})"
-    for what, want, got, check in (
-            ("grad", jgrads, tgrads, lambda g, w, n: rel_close(g, w, 1e-4,
-                                                               n)),
-            ("param", jp, np_, param_close),
-            ("state", jst, nst, lambda g, w, n: rel_close(g, w, 1e-5, n))):
+    checks = [("grad", jgrads, tgrads, lambda g, w, n: rel_close(g, w, 1e-4,
+                                                                 n)),
+              ("param", jp, np_, param_close)]
+    if not dense:
+        checks.append(("state", jst[0], nst[0],
+                       lambda g, w, n: rel_close(g, w, 1e-5, n)))
+    for what, want, got, check in checks:
         jl = jax.tree_util.tree_leaves(want)
         tl = jax.tree_util.tree_leaves(interop.to_numpy(got))
         assert len(jl) == len(tl)

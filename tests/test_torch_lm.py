@@ -559,8 +559,17 @@ def test_unported_token_paths_raise():
         with pytest.raises(NotImplementedError, match="item 10"):
             registry.init(bad, 0, device="cpu")
     lp, x, pos = _layer_inputs(cfg)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        E.layer_step_causal(lp, cfg, x, pos, train=True)
+    # training the spiking full-attention LM, which raised here before it
+    # was ported, runs; a sliding-window LM's train step still raises
+    y = E.layer_step_causal(lp, cfg, x, pos, train=True)
+    assert y.shape == x.shape and bool(torch.isfinite(y).all())
+    from repro_torch.optim import adamw
+    tp = registry.init(cfg, 0, device="cpu")
+    opt = adamw(1e-3)
+    step = steps.build_train_step(cfg.replace(attn_type="swa"), opt,
+                                  device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        step(tp, opt.init(tp), 0, {"tokens": np.zeros((2, 5), np.int32)})
     # the fused bundle's rope family, which raised here before it was
     # ported, now runs: under overlap='fused' equal to 'off', bitwise
     h = nn.rmsnorm(lp["ln1"], x, cfg.norm_eps)
