@@ -338,6 +338,49 @@ device; exits non-zero without one). It
      train step through the kernels == through their plain versions,
      bitwise.
 
+7. serves and trains the dense decoder family and the spiking LM's window
+   attention through the entry points (seeded random weights), each
+   phase logged with its host-clock seconds and peak device memory, the
+   last model's memory freed before it, the counts set to 0 just before
+   each path and read just after:
+   * h2o-danube-3-4b at published width and depth (24 layers, bf16,
+     sliding window 4096) through ``BatchedServer``: 4 slots, 6 requests
+     of 4200-5200 prompt tokens (the first of 5200), 16 new tokens each,
+     in bites of 1024, so its rings of 4096 + 1023 entries wrap; tokens
+     per second; no kernel launched; then one int8 request of 4500
+     tokens (``quantize_tree``, every linear through
+     ``dense_quant_linear``);
+   * gemma3-12b at published width and depth (48 layers, 5:1
+     local:global, vocab 262144, tied embeddings, bf16): a prefill of 4
+     prompts of 1536 tokens, then a server of 4 slots and 4 requests of
+     1100-1600 tokens, 16 new each, in bites of 512 (local rings of 1535
+     entries, which wrap);
+   * each server request's first token equal to the argmax of the
+     prefill step's last-position logits wherever their top-2 margin
+     exceeds SERVE_MARGIN;
+   * fp32 at full width, h2o-danube-3-4b cut to 2 layers (2 prompts of
+     4600 tokens in bites of 1024, across the window) and gemma3-12b cut
+     to one local/global group (2 prompts of 1600 in bites of 512, its
+     local rings wrapping): the server's first-token logits against the
+     whole-prompt forward's within the derived tolerance of
+     :func:`tight_check`;
+   * nemotron-4-15b and granite-20b at full width, depth cut to 4
+     layers: one 8 x 512 prefill and a 2-slot server with the
+     first-token check;
+   * 3 AdamW steps of h2o-danube-3-4b at full width, 2 layers, on 4 x
+     512 tokens of the token stream: finite losses and grad norms, every
+     param leaf moving, no kernel launched;
+   * spikingformer-lm at published width with ``attn_type='swa'`` (window
+     256) and ``'local_global'`` (window 256, a full layer every 2), bf16,
+     int8 and fp32 (weights on the 2^-8 grid): 3 prefills of 8 x 512
+     tokens (window layers launch nothing; local_global's full layers 1
+     causal ``spike_attention`` each in bf16 and int8, whose 4-D group
+     weights ``quantize_tree`` leaves unquantized as JAX's does, 6
+     ``fused_layer_rope`` launches each in fp32), one request's logits
+     through the kernels == through the plain versions bitwise, and a
+     server (4 slots, 6 requests of 300-500 tokens in bites of 64, rings
+     of 319 entries) with the first-token check.
+
 It prints the card's name and power limit, a JSON line of per-kernel
 numbers (``spike_matmul``'s row also with the 4-256 'tile' train steps'
 and analog 'tile' requests' ms, ``quant_spike_matmul``'s with the mixed
@@ -350,6 +393,7 @@ the whole run's seconds, and last a JSON line
 """
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -387,8 +431,9 @@ from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch import train as train_loop  # noqa: E402
 from repro_torch.launch.serve import BatchedServer, Request  # noqa: E402
 from repro_torch.launch.train import make_batch_fn  # noqa: E402
-from repro_torch.models import registry  # noqa: E402
+from repro_torch.models import nn, registry  # noqa: E402
 from repro_torch.models import spikingformer as SF  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.spikingformer import layer_sparsities  # noqa: E402
 from repro_torch.models.nn import rmsnorm, rope_table  # noqa: E402
 from repro_torch.optim import (adamw, compress_state_init,  # noqa: E402
@@ -586,6 +631,46 @@ QAT_PATHS = (("int8", "tile"), ("int4", "decoded"))
 LM_TRAIN_STEPS = 6
 LM_CKPT = dict(total_steps=8, batch=2, seq=128, ckpt_every=3,
                inject_failure_at=5)
+# the dense decoder family at published width (seeded random weights, no
+# engine, plain PyTorch: no kernel of the port). Servers: slots, requests,
+# prompt lengths, new tokens, a fixed prefill chunk (the policy's bites of
+# 4-16 tokens would take thousands of waves at these prompts). h2o's
+# prompts pass its 4096 window and its rings of 4096 + 1023 entries wrap;
+# gemma3's local rings hold 1024 + 511
+H2O_SERVE = dict(slots=4, requests=6, prompts=(4200, 5200), new=16,
+                 chunk=1024)
+H2O_INT8_PROMPT = 4500
+GEMMA_PREFILL = (4, 1536)
+GEMMA_SERVE = dict(slots=4, requests=4, prompts=(1100, 1600), new=16,
+                   chunk=512)
+# nemotron-4-15b and granite-20b at full width, depth cut to 4 layers: one
+# 8 x 512 prefill and a 2-slot server
+CUT_LAYERS = 4
+CUT_SERVE = dict(slots=2, requests=2, prompts=(300, 500), new=8, chunk=256)
+# the fp32 checks of the window rings against the whole-prompt forward,
+# at full width: h2o-danube-3-4b cut to 2 layers, 2 prompts of 4600
+# tokens served in bites of 1024 (they cross the window); gemma3-12b cut
+# to one local/global group (6 layers), 2 prompts of 1600 tokens in bites
+# of 512 (its local rings of 1535 entries wrap). The tolerance's
+# probabilistic rounding bound takes lambda = 8 (Higham and Mary: a sum
+# of n fp32 terms lies within lambda sqrt(n) u of the sum of their
+# magnitudes with probability >= 1 - 2 exp(-lambda^2 / 2))
+TIGHT = {"h2o-danube-3-4b": dict(layers=2, prompts=2, length=4600,
+                                 chunk=1024),
+         "gemma3-12b": dict(layers=6, prompts=2, length=1600, chunk=512)}
+TIGHT_LAMBDA = 8.0
+# AdamW steps of h2o-danube-3-4b at full width, 2 layers, on the token
+# stream: (steps, batch, tokens)
+DENSE_TRAIN = (3, 4, 512)
+# spikingformer-lm at published width with window attention: its layers
+# as sliding windows of 256, or local / global with a full layer every 2
+# (layers 2 and 4, the layer program's or #7's); a server in bites of 64
+# (rings of 256 + 63 entries wrap)
+WINDOW_LM = {"swa": dict(attn_type="swa", window=256),
+             "local_global": dict(attn_type="local_global", window=256,
+                                  global_every=2)}
+WINDOW_SERVE = dict(slots=4, requests=6, prompts=(300, 500), new=8,
+                    chunk=64)
 
 
 def log(msg):
@@ -1648,6 +1733,32 @@ def wide_head_path():
     return out
 
 
+def first_token_check(cfg, params, completed, what):
+    """Each request's first generated token == the argmax of the prefill
+    step's last-position logits on its prompt wherever their top-2
+    margin exceeds SERVE_MARGIN. Returns (checked, max abs diff of the
+    first-token logits, decode path against the prefill step)."""
+    prefill = steps.build_prefill_step(cfg)
+    checked, max_diff = 0, 0.0
+    for r in completed:
+        want = prefill(params, {"tokens": torch.from_numpy(r.prompt)[None]
+                                .cuda()})[0, -1]
+        got = torch.from_numpy(r.logit_trace[0]).cuda()
+        max_diff = max(max_diff, float((got - want).abs().max()))
+        top2 = want.topk(2).values
+        if float(top2[0] - top2[1]) > SERVE_MARGIN:
+            checked += 1
+            if r.generated[0] != int(want.argmax()):
+                raise AssertionError(f"{what}, request {r.rid}: first token "
+                                     f"{r.generated[0]} != prefill argmax "
+                                     f"{int(want.argmax())}")
+    log(f"check, {what}: {checked} of {len(completed)} requests with a "
+        f"top-2 margin above {SERVE_MARGIN}: first token == the prefill "
+        f"step's argmax; max abs diff of the first-token logits, decode "
+        f"path vs prefill step: {max_diff}")
+    return checked, max_diff
+
+
 def serve_path(cfg, params):
     """The int8 server at full width: SERVE_REQUESTS requests with random
     prompts of SERVE_PROMPTS tokens over SERVE_SLOTS slots, SERVE_NEW new
@@ -1688,24 +1799,7 @@ def serve_path(cfg, params):
     if len(server.completed) != SERVE_REQUESTS or \
             any(len(r.generated) != SERVE_NEW for r in server.completed):
         raise AssertionError("the server did not complete every request")
-    prefill = steps.build_prefill_step(cfg)
-    checked, max_diff = 0, 0.0
-    for r in server.completed:
-        want = prefill(params, {"tokens": torch.from_numpy(r.prompt)[None]
-                                .cuda()})[0, -1]
-        got = torch.from_numpy(r.logit_trace[0]).cuda()
-        max_diff = max(max_diff, float((got - want).abs().max()))
-        top2 = want.topk(2).values
-        if float(top2[0] - top2[1]) > SERVE_MARGIN:
-            checked += 1
-            if r.generated[0] != int(want.argmax()):
-                raise AssertionError(f"request {r.rid}: first token "
-                                     f"{r.generated[0]} != prefill argmax "
-                                     f"{int(want.argmax())}")
-    log(f"check, serve: {checked} of {len(server.completed)} requests with "
-        f"a top-2 margin above {SERVE_MARGIN}: first token == the prefill "
-        f"step's argmax; max abs diff of the first-token logits, decode "
-        f"path vs prefill step: {max_diff}")
+    first_token_check(cfg, params, server.completed, "serve")
     return row
 
 
@@ -3566,6 +3660,361 @@ def checkpoint_path():
     return losses, seconds
 
 
+PHASES = {}
+
+
+class phase:
+    """A phase of the dense family: device memory freed before it (the
+    last model's tensors are gone once its function returns), its
+    host-clock seconds and peak device memory logged after, beside the
+    card."""
+
+    def __init__(self, what, card):
+        self.what, self.card = what, card
+
+    def __enter__(self):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - self.t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"phase {self.what}: {sec:.1f} s, peak device memory "
+            f"{peak:.2f} GiB ({self.card})")
+        PHASES[self.what] = dict(seconds=sec, peak_gib=peak)
+
+
+
+def dense_requests(cfg, spec, seed):
+    """spec['requests'] random prompts, the first of the longest length
+    spec['prompts'] allows (so a window ring shorter than the cache
+    wraps), the rest drawn between its bounds."""
+    rng = np.random.default_rng(seed)
+    lo, hi = spec["prompts"]
+    lengths = [hi] + [int(rng.integers(lo, hi + 1))
+                      for _ in range(spec["requests"] - 1)]
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(
+        np.int32), max_new_tokens=spec["new"]) for i, n in enumerate(lengths)]
+
+
+def dense_serve(cfg, params, spec, seed, what):
+    """``BatchedServer`` answering :func:`dense_requests` (cache length the
+    longest prompt + new tokens, ``spec['chunk']`` a bite), the counts
+    set to 0 just before and read just after: no kernel launches and no
+    'auto' decision. Tokens per second on the host clock; the rings'
+    shapes; the first-token check. Returns the row."""
+    reqs = dense_requests(cfg, spec, seed)
+    max_len = max(len(r.prompt) for r in reqs) + spec["new"]
+    server = BatchedServer(cfg, params, spec["slots"], max_len,
+                           chunk=spec["chunk"], trace_logits=True)
+    rings = {g: tuple(c["k"].shape) for g, c in server.cache.items()}
+    for r in reqs:
+        server.submit(r)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    waves = server.run()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts, decisions = launches(), dict(E.SPARSE_DECISIONS)
+    n_gen = sum(len(r.generated) for r in server.completed)
+    n_pre = sum(len(r.prompt) for r in server.completed)
+    row = dict(seconds=sec, waves=waves, generated=n_gen, prompt=n_pre,
+               tokens_per_s=(n_gen + n_pre) / sec,
+               generated_per_s=n_gen / sec, max_len=max_len,
+               chunk=spec["chunk"], rings=rings,
+               kv_bytes=server.kv_cache_stats()["kv_bytes"])
+    log(f"serve path, {what}: {row}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if any(counts.values()) or any(decisions.values()):
+        raise AssertionError(f"serve path {what}: launches {counts}, "
+                             f"decisions {decisions}; expected none")
+    if len(server.completed) != len(reqs) or any(
+            len(r.generated) != spec["new"] for r in server.completed):
+        raise AssertionError(f"serve path {what}: not every request was "
+                             f"completed")
+    server.cache = None
+    row["checked"], row["first_token_max_diff"] = first_token_check(
+        cfg, params, server.completed, what)
+    return row
+
+
+def dense_prefill(cfg, params, shape, seed, what):
+    """``build_prefill_step`` on one batch of ``shape`` tokens, the counts
+    set to 0 just before: no launch, finite fp32 logits of the right
+    shape. Returns the ms of the call."""
+    gen = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, shape,
+                                     generator=gen).cuda()}
+    step = steps.build_prefill_step(cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    (logits,), (ms,) = timed_requests(step, params, [batch])
+    counts = launches()
+    if any(counts.values()):
+        raise AssertionError(f"{what} prefill: launches {counts}")
+    if logits.shape != (*shape, cfg.vocab_size) or \
+            logits.dtype != torch.float32 or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{what} prefill: bad logits "
+                             f"{tuple(logits.shape)} {logits.dtype}")
+    log(f"{what} prefill, {shape[0]} x {shape[1]} tokens: {ms:.3f} ms "
+        f"(first call), no launch, logit std {float(logits.std()):.4f}")
+    return ms
+
+
+def h2o_path():
+    """h2o-danube-3-4b at published width and depth (24 layers, bf16)
+    through ``BatchedServer``: H2O_SERVE (prompts past the 4096 window, a
+    fixed chunk of 1024, so the rings hold 4096 + 1023 entries and wrap),
+    then one int8 request (``quantize_tree``, the weights declaration as
+    ``launch/serve.py --quantize int8``: every linear through
+    ``dense_quant_linear``)."""
+    cfg = get_config("h2o-danube-3-4b")
+    params = registry.init(cfg, seed=0)
+    row = dense_serve(cfg, params, H2O_SERVE, 21, "h2o-danube-3-4b bf16")
+    params = quantize_tree(params, "int8")
+    qcfg = cfg.replace(engine=E.EngineConfig(weights="int8"))
+    n_q = sum(1 for leaf in tree_leaves(params) if leaf.dtype == torch.int8)
+    spec = dict(H2O_SERVE, requests=1, slots=1,
+                prompts=(H2O_INT8_PROMPT, H2O_INT8_PROMPT))
+    row["int8"] = dense_serve(qcfg, params, spec, 22,
+                              f"h2o-danube-3-4b int8 ({n_q} int8 leaves)")
+    return row
+
+
+def gemma_path():
+    """gemma3-12b at published width and depth (48 layers, 5:1
+    local:global, vocab 262144, tied embeddings, bf16): a prefill of
+    GEMMA_PREFILL tokens (past the 1024 window), then GEMMA_SERVE."""
+    cfg = get_config("gemma3-12b")
+    params = registry.init(cfg, seed=0)
+    ms = dense_prefill(cfg, params, GEMMA_PREFILL, 23, "gemma3-12b bf16")
+    row = dense_serve(cfg, params, GEMMA_SERVE, 24, "gemma3-12b bf16")
+    row["prefill_ms"] = ms
+    return row
+
+
+def cut_path(arch):
+    """``arch`` at full width, depth cut to CUT_LAYERS (bf16): one
+    LM_BATCH x LM_PROMPT prefill and CUT_SERVE."""
+    cfg = get_config(arch).replace(num_layers=CUT_LAYERS)
+    params = registry.init(cfg, seed=0)
+    ms = dense_prefill(cfg, params, (LM_BATCH, LM_PROMPT), 25,
+                       f"{arch} ({CUT_LAYERS} layers)")
+    row = dense_serve(cfg, params, CUT_SERVE, 26,
+                      f"{arch} ({CUT_LAYERS} layers)")
+    row["prefill_ms"] = ms
+    return row
+
+
+def tight_check(arch):
+    """``arch`` at full width, TIGHT[arch]['layers'] layers, fp32: the
+    server's first-token logits (bites of TIGHT[arch]['chunk'] over window
+    rings of window + chunk - 1 entries) against the whole-prompt
+    forward's last position (the banded attention), on
+    TIGHT[arch]['prompts'] prompts of TIGHT[arch]['length'] tokens.
+
+    The tolerance: both paths compute the same function in fp32 with
+    their sums in other orders. A sum of n products in fp32 lies within
+    lambda sqrt(n) u of the sum of their magnitudes (probabilistic
+    bound, u = 2^-24, lambda = TIGHT_LAMBDA); n is the longest reduction
+    on the path (d_ff, d_model or the keys a query sees). The head's
+    logit v sums S_v = sum_i |h_i W_iv| (h the forward's final hidden
+    state, measured here); each of the 4 * layers reductions before it
+    (attention, wo, the MLP's two) moves h by at most the same relative
+    amount, which reaches logit v through the same |W_iv|. Two
+    evaluations, each within that of the exact value:
+    tol_v = 2 (1 + 4 layers) lambda sqrt(n) u S_v."""
+    layers, n_prompts, length, chunk = (TIGHT[arch][k] for k in (
+        "layers", "prompts", "length", "chunk"))
+    cfg = get_config(arch).replace(num_layers=layers, dtype="float32")
+    params = registry.init(cfg, seed=3)
+    gen = torch.Generator().manual_seed(27)
+    tokens = torch.randint(0, cfg.vocab_size, (n_prompts, length),
+                           generator=gen)
+    server = BatchedServer(cfg, params, n_prompts, length + 1, chunk=chunk,
+                           trace_logits=True)
+    rings = {g: tuple(c["k"].shape) for g, c in server.cache.items()}
+    for i in range(n_prompts):
+        server.submit(Request(rid=i, prompt=tokens[i].numpy().astype(
+            np.int32), max_new_tokens=1))
+    reset_counts()
+    server.run()
+    counts = launches()
+    got = torch.stack([torch.from_numpy(r.logit_trace[0]) for r in sorted(
+        server.completed, key=lambda r: r.rid)]).cuda()
+    server.cache = None
+    want = steps.build_prefill_step(cfg)(params, {"tokens": tokens.cuda()}
+                                         )[:, -1]
+    with torch.inference_mode():
+        x = nn.embed(params["embed"], tokens.cuda())
+        pos = torch.arange(length).cuda()
+        for kind, lp in TT._layers(params, cfg):
+            x = TT.apply_layer(lp, cfg, x, pos, kind, False)
+        h = rmsnorm(params["final_norm"], x[:, -1], cfg.norm_eps)
+        head = params["embed"]["table"].t() if cfg.tie_embeddings \
+            else params["lm_head"]["w"]
+        mag = h.abs() @ head.abs()
+    n = max(cfg.d_ff, cfg.d_model, length)
+    tol = (2 * (1 + 4 * layers) * TIGHT_LAMBDA * math.sqrt(n) * 2.0 ** -24
+           * mag)
+    diff = (got - want).abs()
+    ratio = float((diff / tol).max())
+    log(f"check, fp32 window rings ({arch} width, {layers} "
+        f"layers, rings {rings}, bites of {chunk}, {n_prompts} x {length} "
+        f"tokens): first-token logits vs the whole-prompt forward max abs "
+        f"diff {float(diff.max())}, tolerance {float(tol.min())}.."
+        f"{float(tol.max())} (max diff / tolerance {ratio:.2e}); argmax "
+        f"equal {bool((got.argmax(-1) == want.argmax(-1)).all())}; "
+        f"launches {sum(counts.values())}")
+    if ratio > 1 or any(counts.values()):
+        raise AssertionError(f"fp32 window rings, {arch}: diff / "
+                             f"tolerance {ratio}, launches {counts}")
+    return dict(max_abs_diff=float(diff.max()), ratio=ratio, rings=rings)
+
+
+def dense_train_path():
+    """DENSE_TRAIN AdamW steps of h2o-danube-3-4b at full width, 2 layers
+    (bf16), on the token stream through ``build_train_step``, the counts
+    set to 0 just before: no launch, finite losses and grad norms, every
+    param leaf moved. Returns (ms per step, losses)."""
+    n_steps, batch, seq = DENSE_TRAIN
+    cfg = get_config("h2o-danube-3-4b").replace(num_layers=2)
+    opt = adamw(warmup_cosine(TRAIN_LR, 1, n_steps))
+    step_fn = steps.build_train_step(cfg, opt)
+    params = registry.init(cfg, seed=0)
+    p, opt_state = params, opt.init(params)
+    batch_fn = make_batch_fn(cfg, batch, seq)
+    torch.cuda.synchronize()
+    reset_counts()
+    step_ms, metrics = [], []
+    for i in range(n_steps):
+        b = batch_fn(i)
+        t0 = time.perf_counter()
+        p, opt_state, _, m = step_fn(p, opt_state, i, b)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        metrics.append({k: float(v) for k, v in m.items()})
+    counts = launches()
+    losses = [m["loss"] for m in metrics]
+    log(f"dense train path, h2o-danube-3-4b (2 layers, bf16): {n_steps} "
+        f"steps x {batch} x {seq} tokens, ms per step "
+        f"{[round(x, 3) for x in step_ms]}, losses "
+        f"{[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(m['grad_norm'], 4) for m in metrics]}")
+    if any(counts.values()):
+        raise AssertionError(f"dense train path: launches {counts}")
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               for m in metrics):
+        raise AssertionError(f"dense train path: non-finite {metrics}")
+    still = [n for n, a, b in zip(leaf_paths(params), tree_leaves(params),
+                                  tree_leaves(p)) if torch.equal(a, b)]
+    if still:
+        raise AssertionError(f"dense train path: {still} did not move")
+    return step_ms, losses
+
+
+def window_lm_path(kind, dtype):
+    """The published spikingformer-lm with WINDOW_LM[kind] attention,
+    ``dtype`` 'bf16', 'fp32' (weights on the 2^-8 grid, as the fp32 LM's
+    other kernel checks take them: the layer program's fp32 products then
+    sum as its plain version's) or 'int8' (the bf16 tree through
+    ``quantize_tree``; local_global's 4-D group leaves stay unquantized,
+    in JAX too), through ``build_prefill_step`` on LM_REQUESTS requests
+    of LM_BATCH x LM_PROMPT tokens, the counts set to 0 just before: the
+    window layers launch nothing; local_global's full layers run the
+    layer program's rope family (6 ``fused_layer_rope`` launches a layer
+    call, 'auto' deciding 'tile') where eligible (fp32 or quantized),
+    else 1 causal ``spike_attention``. One request's logits through the
+    kernels == through their plain versions, bitwise. Then WINDOW_SERVE
+    with the first-token check. Returns (counts, ms per request, the
+    server's row)."""
+    cfg = get_config("spikingformer-lm").replace(**WINDOW_LM[kind])
+    if dtype == "fp32":
+        cfg = cfg.replace(dtype="float32")
+    params = registry.init(cfg, seed=0)
+    if dtype == "fp32":
+        params = dyadic_grid(params)
+    if dtype == "int8":
+        params = quantize_tree(params, "int8")
+        cfg = cfg.replace(engine=cfg.engine.replace(weights="int8"))
+    layers = params["groups" if kind == "local_global" else "layers"]
+    quantized = any(leaf.dtype == torch.int8 for leaf in tree_leaves(layers))
+    what = f"spikingformer-lm {kind} {dtype}"
+    gen = torch.Generator().manual_seed(28)
+    requests = [{"tokens": torch.randint(0, cfg.vocab_size,
+                                         (LM_BATCH, LM_PROMPT),
+                                         generator=gen)}
+                for _ in range(LM_REQUESTS)]
+    step = steps.build_prefill_step(cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    outs, req_ms = timed_requests(step, params, requests)
+    counts, decisions = launches(), dict(E.SPARSE_DECISIONS)
+    n_full = cfg.num_layers // cfg.global_every \
+        if kind == "local_global" else 0
+    n = n_full * len(requests)
+    want = dict.fromkeys(counts, 0)
+    want_dec = {"tile": 0, "decoded": 0}
+    if cfg.dtype == "float32" or quantized:
+        want["fused_layer_rope"] = FL.LAUNCHES_PER_CALL["rope"] * n
+        want_dec["tile"] = n
+    else:
+        want["spike_attention"] = n
+    log(f"{what} prefill: {len(requests)} requests x {LM_BATCH} x "
+        f"{LM_PROMPT} tokens, quantized layer linears {quantized}, per-request "
+        f"ms {[round(m, 3) for m in req_ms]}, launches "
+        f"{ {k: v for k, v in counts.items() if v} }, sparse decisions "
+        f"{decisions}")
+    if counts != want or decisions != want_dec:
+        raise AssertionError(f"{what}: launches {counts}, decisions "
+                             f"{decisions}; expected {want}, {want_dec}")
+    for logits in outs:
+        if logits.shape != (LM_BATCH, LM_PROMPT, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{what}: bad logits")
+    batch = {"tokens": requests[0]["tokens"].cuda()}
+    got = step(params, batch)
+    with plain_kernels():
+        plain = step(params, batch)
+    if not torch.equal(got, plain):
+        raise AssertionError(f"{what}: logits through the kernels != "
+                             f"through the plain versions (max abs diff "
+                             f"{float((got - plain).abs().max())})")
+    log(f"check, {what}: logits through the kernels == through the plain "
+        f"versions bitwise on {LM_BATCH} x {LM_PROMPT} tokens, logit std "
+        f"{float(got.std()):.4f}")
+    row = dense_serve(cfg, params, WINDOW_SERVE, 29, what)
+    return counts, req_ms, row
+
+
+def dense_family(card):
+    """The dense family's phases, each with its time and peak memory."""
+    out = {}
+    with phase("h2o-danube-3-4b server (24 layers, bf16; int8)", card):
+        out["h2o"] = h2o_path()
+    with phase("gemma3-12b prefill and server (48 layers, bf16)", card):
+        out["gemma"] = gemma_path()
+    for arch in TIGHT:
+        with phase(f"fp32 window rings, {arch} width", card):
+            out["tight", arch] = tight_check(arch)
+    for arch in ("nemotron-4-15b", "granite-20b"):
+        with phase(f"{arch} ({CUT_LAYERS} layers, bf16)", card):
+            out[arch] = cut_path(arch)
+    with phase("h2o-danube-3-4b train steps (2 layers, bf16)", card):
+        out["train"] = dense_train_path()
+    for kind in WINDOW_LM:
+        for dtype in ("bf16", "int8", "fp32"):
+            with phase(f"spikingformer-lm {kind} {dtype}", card):
+                out[kind, dtype] = window_lm_path(kind, dtype)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -4056,6 +4505,11 @@ def main():
     log(f"training phases (LM, checkpoints, 8-512): "
         f"{time.perf_counter() - t_new:.1f} s")
 
+    # --- the dense decoder family and the spiking LM's window attention --
+    t_dense = time.perf_counter()
+    dense = dense_family(smi)
+    log(f"dense family phases: {time.perf_counter() - t_dense:.1f} s")
+
     csrc = "src/repro_torch/kernels/csrc/"
     bf16 = torch.bfloat16
 
@@ -4276,6 +4730,22 @@ def main():
         + "; ".join(f"{what} {rounded(run[1])}"
                     for what, run in lm_train.items())
         + f"; the checkpointed LM run ({LM_CKPT}) {ckpt_s:.1f} s")
+    log("dense family: tokens/s " + "; ".join(
+        f"{what} {dense[key]['tokens_per_s']:.1f} ({dense[key]['waves']} "
+        f"waves)" for what, key in (("h2o-danube-3-4b", "h2o"),
+                                    ("gemma3-12b", "gemma"),
+                                    ("nemotron-4-15b", "nemotron-4-15b"),
+                                    ("granite-20b", "granite-20b")))
+        + f"; h2o int8 {dense['h2o']['int8']['tokens_per_s']:.1f}; "
+        f"prefill ms: gemma3-12b {GEMMA_PREFILL} "
+        f"{dense['gemma']['prefill_ms']:.3f}, nemotron / granite "
+        f"({CUT_LAYERS} layers) {dense['nemotron-4-15b']['prefill_ms']:.3f}"
+        f" / {dense['granite-20b']['prefill_ms']:.3f}; h2o train ms per "
+        f"step {[round(m, 3) for m in dense['train'][0]]}; spiking window "
+        f"LM prefill ms per request: " + "; ".join(
+            f"{k} {d} {[round(m, 3) for m in dense[k, d][1]]}"
+            for k in WINDOW_LM for d in ("bf16", "int8", "fp32")))
+    log(f"dense family phases: {json.dumps(PHASES)}")
     log(json.dumps({"kernels": [dict(route="cuda", **r) for r in rows]}))
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(smi)

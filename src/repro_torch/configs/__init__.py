@@ -1,17 +1,24 @@
 """Config registry: ``get_config(name)`` for the architectures the port
-runs so far (the two Spikingformer vision configs, the spiking LM and
-CIFAR-Net)."""
-from . import (cifarnet, spikingformer_4_256, spikingformer_8_512,
+runs: the four dense decoders (nemotron-4-15b, gemma3-12b,
+h2o-danube-3-4b, granite-20b), the two Spikingformer vision configs, the
+spiking LM and CIFAR-Net. ``configs.shapes`` holds the LM run shapes."""
+from . import (cifarnet, gemma3_12b, granite_20b, h2o_danube3_4b,
+               nemotron_4_15b, spikingformer_4_256, spikingformer_8_512,
                spikingformer_lm)
 from .base import ModelConfig
 
 _MODULES = {
+    "nemotron-4-15b": nemotron_4_15b,
+    "gemma3-12b": gemma3_12b,
+    "h2o-danube-3-4b": h2o_danube3_4b,
+    "granite-20b": granite_20b,
     "spikingformer-4-256": spikingformer_4_256,
     "spikingformer-8-512": spikingformer_8_512,
     "spikingformer-lm": spikingformer_lm,
     "cifarnet": cifarnet,
 }
 
+DENSE_ARCHS = tuple(list(_MODULES)[:4])
 ALL_ARCHS = tuple(_MODULES)
 
 

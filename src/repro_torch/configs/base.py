@@ -1,6 +1,8 @@
 """Config dataclasses (the subset of ``repro.configs.base`` that the
-vision family and the token family's spiking LM use). Every config module exports ``CONFIG`` (the published
-shape) and ``SMOKE`` (a reduced same-family config for CPU tests)."""
+vision family and the dense token family use, dense or spiking; JAX's
+``remat``, a memory policy that changes no value, has no knob here).
+Every config module exports ``CONFIG`` (the published shape) and
+``SMOKE`` (a reduced same-family config for CPU tests)."""
 from __future__ import annotations
 
 import dataclasses

@@ -12,6 +12,8 @@
     PYTHONPATH=src python -m repro_torch.launch.profile \
         --arch spikingformer-8-512 --analog
     PYTHONPATH=src python -m repro_torch.launch.profile --arch cifarnet
+    PYTHONPATH=src python -m repro_torch.launch.profile \
+        --arch h2o-danube-3-4b      # or gemma3-12b, nemotron-4-15b, ...
 
 Spikingformer-4-256 (the default): the published config (seeded random
 weights; ``--sparse`` sets its sparse datapath, 'auto' by default) on
@@ -43,7 +45,14 @@ bytes it moves beyond the fused schedule. CIFAR-Net (``--arch
 cifarnet``, the published config: T=4, 32x32 images, seeded random
 weights) has no engine and takes none of the engine's options: its
 prefill and train step, 64 images a call, are plain PyTorch (cuDNN's
-convolutions and PyTorch's elementwise kernels). ``--analog`` takes the config
+convolutions and PyTorch's elementwise kernels). The dense decoders
+(``--arch h2o-danube-3-4b``, ``gemma3-12b``, ``nemotron-4-15b``,
+``granite-20b``; published configs, bf16, seeded random weights, no
+engine) run no kernel of the port: their prefill (8 x 512 tokens through
+``build_prefill_step``) and a server call (8 requests of 100-500 prompt
+tokens, 8 new tokens each, over 8 slots, in prefill bites of
+DENSE_CHUNK: the chunk policy's bites of 4-16 tokens would take a wave
+through every layer for each) are plain PyTorch. ``--analog`` takes the config
 with analog attention scores (its spiking config with
 ``binarize_scores=False``, Spikformer's own SSA), whose layers run the
 sequential composition with the SSA bundle's analog kernel; the prefill
@@ -66,7 +75,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import get_config
+from repro_torch.configs import DENSE_ARCHS, get_config
 from repro_torch.kernels import fused_layer as FL
 from repro_torch.launch.steps import build_prefill_step, build_train_step
 from repro_torch.launch.train import make_batch_fn
@@ -78,6 +87,7 @@ CALLS = 3
 TOP = 12
 LM_BATCH, LM_PROMPT = 8, 512
 SERVE_SLOTS, SERVE_REQUESTS, SERVE_NEW, SERVE_MAX_LEN = 8, 8, 8, 1024
+DENSE_CHUNK = 256
 
 
 def _device_us(evt) -> float:
@@ -160,7 +170,6 @@ def _quantized(params, quantize: str, keep_fp):
 
 def _profile_lm(cfg, quantize: str, keep_fp, overlap=None,
                 prefill_only=False) -> None:
-    from repro_torch.launch.serve import BatchedServer, Request
     params = registry.init(cfg, seed=0)
     if quantize != "none":
         params = _quantized(params, quantize, keep_fp)
@@ -195,16 +204,42 @@ def _profile_lm(cfg, quantize: str, keep_fp, overlap=None,
         _profile(arch, "train", cfg.engine.sparse, train,
                  unit=f"{LM_BATCH} x {LM_PROMPT} tokens")
 
+    _profile(arch, "serve", cfg.engine.sparse, _serve_call(cfg, params),
+             unit=f"{SERVE_REQUESTS} requests x {SERVE_NEW} new tokens")
+
+
+def _serve_call(cfg, params, chunk: int = 0):
+    """``call(i)``: one server run of SERVE_REQUESTS requests of 100-500
+    prompt tokens (seed i), SERVE_NEW new tokens each, prefill bites of
+    ``chunk`` (0: the chunk policy's)."""
+    from repro_torch.launch.serve import BatchedServer, Request
+
     def serve(i):
         rng = np.random.default_rng(i)
-        server = BatchedServer(cfg, params, SERVE_SLOTS, SERVE_MAX_LEN)
+        server = BatchedServer(cfg, params, SERVE_SLOTS, SERVE_MAX_LEN,
+                               chunk=chunk)
         for r in range(SERVE_REQUESTS):
             n = int(rng.integers(100, 501))
             server.submit(Request(rid=r, prompt=rng.integers(
                 0, cfg.vocab_size, n).astype(np.int32),
                 max_new_tokens=SERVE_NEW))
         server.run()
-    _profile(arch, "serve", cfg.engine.sparse, serve,
+    return serve
+
+
+def _profile_dense(cfg) -> None:
+    """A dense decoder's prefill and server (no engine, no kernel)."""
+    params = registry.init(cfg, seed=0)
+    arch = f"{cfg.name} ({cfg.dtype})"
+    prefill = build_prefill_step(cfg)
+    gen = torch.Generator().manual_seed(1)
+    tokens = [torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=gen).cuda() for _ in range(CALLS + 2)]
+    _profile(arch, "prefill", None,
+             lambda i: prefill(params, {"tokens": tokens[i]}),
+             unit=f"{LM_BATCH} x {LM_PROMPT} tokens")
+    _profile(arch, f"serve (bites of {DENSE_CHUNK})", None,
+             _serve_call(cfg, params, DENSE_CHUNK),
              unit=f"{SERVE_REQUESTS} requests x {SERVE_NEW} new tokens")
 
 
@@ -234,7 +269,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="spikingformer-4-256",
                     choices=["spikingformer-4-256", "spikingformer-8-512",
-                             "spikingformer-lm", "cifarnet"])
+                             "spikingformer-lm", "cifarnet", *DENSE_ARCHS])
     ap.add_argument("--sparse", default=None,
                     choices=["tile", "decoded", "auto"],
                     help="the engine's sparse datapath (default: the "
@@ -269,6 +304,9 @@ def main():
     if args.analog:
         cfg = cfg.replace(spiking=dataclasses.replace(
             cfg.spiking, binarize_scores=False))
+    if args.arch in DENSE_ARCHS:
+        _profile_dense(cfg)
+        return
     if args.arch == "spikingformer-lm":
         _profile_lm(cfg, args.quantize, keep_fp, args.overlap, args.analog)
         return

@@ -10,6 +10,10 @@ chunked prefill (the port of ``repro.launch.serve``, unsharded).
   rows are padding-masked through ``n_tok``), the width chosen per wave
   by the popcount-aware policy of :func:`choose_chunk`;
 * greedy sampling (argmax);
+* the dense decoders (``--arch h2o-danube-3-4b``, ``gemma3-12b``,
+  ``nemotron-4-15b``, ``granite-20b``) decode against caches in the
+  activation dtype; sliding-window layers against rings of window +
+  chunk - 1 entries, so a bite never evicts what its own queries see;
 * the spiking LM decodes against the bit-packed spike KV cache, and the
   server reports its footprint against the unpacked layout;
 * ``--quantize int8|int4`` quantizes the linears at load
@@ -19,9 +23,11 @@ chunked prefill (the port of ``repro.launch.serve``, unsharded).
   footprint.
 
 Run: ``PYTHONPATH=src python -m repro_torch.launch.serve --arch
-spikingformer-lm --quantize int8`` on the GPU (the published config),
-or with ``--smoke --device cpu`` on the CPU. A device mesh (``--mesh``)
-is not ported (ROADMAP queue 1 item 10).
+spikingformer-lm --quantize int8`` (or ``--arch h2o-danube-3-4b
+--quantize int8 --requests 2 --prompt-len 5000 --max-len 6000 --chunk
+1024``) on the GPU (the published config), or with ``--smoke --device
+cpu`` on the CPU. A device mesh (``--mesh``) is not ported (ROADMAP
+queue 1 item 10).
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """Fault-tolerant training loop, as ``repro.launch.train``.
 
 Runs ``build_train_step`` on deterministic synthetic data (images for
-the vision family, a Markov token stream for spikingformer-lm) with
+the vision family, a Markov token stream for the token family: the
+dense decoders and spikingformer-lm) with
 AdamW under a warmup-cosine schedule, on the GPU unless ``--device``
 names another device, with:
 
@@ -33,6 +34,8 @@ Examples:
       --ckpt-dir build/lm_ck --ckpt-every 10 --inject-failure-at 15
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch cifarnet --steps 6 --batch 64
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch h2o-danube-3-4b --smoke --steps 10 --seq 64 --device cpu
 """
 from __future__ import annotations
 

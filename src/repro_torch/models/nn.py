@@ -1,5 +1,6 @@
-"""Functional NN layers (the subset the spiking vision models and the
-spiking LM use).
+"""Functional NN layers: those of the spiking vision models and the
+token family (norms, RoPE, the MLP and its activations, and the chunked
+attention dataflows of the dense decoders).
 
 Mirrors ``repro.models.nn``: params are nested dicts of tensors made by
 ``*_init`` functions from a ``torch.Generator``; activations keep the
@@ -48,8 +49,9 @@ def bn_affine(y32: torch.Tensor, mean, inv_std, scale, bias) -> torch.Tensor:
 
 
 def normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
-    return (torch.randn(shape, generator=gen, dtype=torch.float32) * std
-            ).to(dtype)
+    """fp32 normal draws on the generator's device, scaled and cast."""
+    return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=gen.device) * std).to(dtype)
 
 
 def linear_init(gen, d_in: int, d_out: int, *, bias: bool = False,
@@ -117,6 +119,245 @@ def mlp_init(gen, d_model: int, d_ff: int, *, gated: bool,
     if gated:
         p["gate"] = linear_init(gen, d_model, d_ff, dtype=dtype)
     return p
+
+
+def activation(name: str):
+    """The MLP nonlinearity: 'silu', 'gelu' (the tanh approximation, as
+    JAX's ``jax.nn.gelu`` defaults to) or 'relu2' (squared ReLU)."""
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu2":
+        return lambda x: torch.relu(x).square()
+    raise ValueError(f"unknown activation {name}")
+
+
+def mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
+    """Gated (``act(gate(x)) * up(x)``) or plain (``act(up(x))``) MLP."""
+    h = linear(p["up"], x)
+    if "gate" in p:
+        h = activation(act)(linear(p["gate"], x)) * h
+    else:
+        h = activation(act)(h)
+    return linear(p["down"], h)
+
+
+# ---------------------------------------------------------------------------
+# chunked attention of the dense decoders: the reference's jnp dataflows
+# with its chunk sizes and masks, so each chunk's reductions cover the
+# same entries. Scores and sums are fp32; outputs in q's dtype.
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def _pad_to(x: torch.Tensor, size: int, dim: int) -> torch.Tensor:
+    """Zero-pad ``x`` along ``dim`` up to ``size``."""
+    pad = size - x.shape[dim]
+    if pad <= 0:
+        return x
+    widths = [0, 0] * (x.ndim - 1 - dim) + [0, pad]
+    return F.pad(x, widths)
+
+
+def _chunks(q, k, v, q_chunk: int, kv_chunk: int):
+    """(q (B, nq, qc, KH, rep, D), k / v (B, nk, kc, KH, D), sizes)
+    zero-padded to whole chunks."""
+    b, lq, h, d = q.shape
+    lk, kh = k.shape[1], k.shape[2]
+    q_chunk, kv_chunk = min(q_chunk, lq), min(kv_chunk, lk)
+    nq, nk = -(-lq // q_chunk), -(-lk // kv_chunk)
+    qp = _pad_to(q, nq * q_chunk, 1).reshape(b, nq, q_chunk, kh, h // kh, d)
+    kp = _pad_to(k, nk * kv_chunk, 1).reshape(b, nk, kv_chunk, kh, d)
+    vp = _pad_to(v, nk * kv_chunk, 1).reshape(b, nk, kv_chunk, kh, d)
+    return qp, kp, vp, q_chunk, kv_chunk
+
+
+def _chunk_mask(qpos, kpos, lk: int, causal: bool, window, kvl):
+    """(B or 1, qc, kc) bool: the keys each query of a chunk sees."""
+    mask = (kpos < lk)[None, None, :].expand(1, qpos.shape[0], -1)
+    if causal:
+        mask = mask & (kpos[None, :] <= qpos[:, None])
+    if window is not None:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    if kvl is not None:
+        mask = mask & (kpos[None, :] < kvl.reshape(-1, 1))[:, None, :]
+    return mask
+
+
+def _scores(q_blk: torch.Tensor, k_blk: torch.Tensor) -> torch.Tensor:
+    """(B, qc, KH, rep, D) x (B, kc, KH, D) -> fp32 (B, qc, KH, rep, kc)."""
+    return torch.einsum("bqgrd,bkgd->bqgrk", q_blk.float(), k_blk.float())
+
+
+def _context(a: torch.Tensor, v_blk: torch.Tensor) -> torch.Tensor:
+    """Weights ``a`` rounded to v's dtype, times v, summed in fp32."""
+    return torch.einsum("bqgrk,bkgd->bqgrd", a.to(v_blk.dtype).float(),
+                        v_blk.float())
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None, q_offset=0,
+                    kv_valid_len=None, scale=None, q_chunk: int = 1024,
+                    kv_chunk: int = 2048) -> torch.Tensor:
+    """Online-softmax attention with GQA grouping.
+
+    q: (B, Lq, H, D); k, v: (B, Lk, KH, D), H % KH == 0. ``q_offset``:
+    absolute position of q[0]; ``kv_valid_len``: keys at or past it are
+    masked (scalar or (B,)); ``window``: sliding-window width (None =
+    full). Every kv chunk is visited, masked or not, as the reference's
+    scan visits it."""
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    qp, kp, vp, qc, kc = _chunks(q, k, v, q_chunk, kv_chunk)
+    dev = q.device
+    kvl = None if kv_valid_len is None else torch.as_tensor(kv_valid_len,
+                                                            device=dev)
+    base = torch.as_tensor(q_offset, device=dev)
+    outs = []
+    for qi in range(qp.shape[1]):
+        q_blk = qp[:, qi]
+        qpos = base + qi * qc + torch.arange(qc, device=dev)
+        m = torch.full(q_blk.shape[:-1], NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l_sum = torch.zeros_like(m)
+        acc = torch.zeros(q_blk.shape, dtype=torch.float32, device=dev)
+        for ki in range(kp.shape[1]):
+            kpos = ki * kc + torch.arange(kc, device=dev)
+            s = _scores(q_blk, kp[:, ki]) * scale
+            mask = _chunk_mask(qpos, kpos, lk, causal, window, kvl)
+            s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l_sum = l_sum * corr + p.sum(-1)
+            acc = acc * corr[..., None] + _context(p, vp[:, ki])
+            m = m_new
+        out = acc / torch.clamp(l_sum[..., None], min=1e-20)
+        outs.append(out.to(q.dtype))
+    out = torch.cat(outs, dim=1).reshape(b, -1, h, d)[:, :lq]
+    return out
+
+
+def banded_flash_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, window: int, scale=None,
+                           q_chunk: int = 512) -> torch.Tensor:
+    """Causal sliding-window self-attention (Lq == Lk, offset 0) with a
+    static band: each q chunk reads only the ``min(Lpad, window +
+    q_chunk)`` keys ending at its last query (the band's start clipped
+    into the sequence padded to whole q chunks, Lpad), one softmax over
+    the band.
+
+    The reference bounds the band by Lk, not Lpad: where window <= Lk <
+    window + q_chunk and Lk is no multiple of q_chunk, its last chunks'
+    bands then start past keys their windows hold, and drop them
+    (ROADMAP queue 3). Bounded by Lpad, the band holds every key a chunk
+    sees; elsewhere the two bands are the same."""
+    b, l, h, d = q.shape
+    lk, kh = k.shape[1], k.shape[2]
+    if l != lk:
+        raise ValueError("banded attention is self-attention (Lq == Lk)")
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    q_chunk = min(q_chunk, l)
+    nq = -(-l // q_chunk)
+    lpad = nq * q_chunk
+    band = min(lpad, window + q_chunk)
+    qp = _pad_to(q, lpad, 1).reshape(b, nq, q_chunk, kh, h // kh, d)
+    kp, vp = _pad_to(k, lpad, 1), _pad_to(v, lpad, 1)
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        q_start = qi * q_chunk
+        start = min(max(q_start + q_chunk - band, 0), lpad - band)
+        k_band = kp[:, start:start + band]
+        v_band = vp[:, start:start + band]
+        qpos = q_start + torch.arange(q_chunk, device=dev)
+        kpos = start + torch.arange(band, device=dev)
+        s = _scores(qp[:, qi], k_band) * scale
+        mask = ((kpos[None, :] <= qpos[:, None])
+                & (kpos[None, :] > qpos[:, None] - window)
+                & (kpos < l)[None, :])
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        out = _context(p, v_band) / torch.clamp(p.sum(-1, keepdim=True),
+                                                 min=1e-20)
+        outs.append(out.to(q.dtype))
+    return torch.cat(outs, dim=1).reshape(b, lpad, h, d)[:, :l]
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, *, entry_pos, cur_pos,
+                     window=None, scale=None) -> torch.Tensor:
+    """A short query span (one decode token or a chunked-prefill bite)
+    against a KV cache, possibly a ring.
+
+    q: (B, Lq, H, D); k_cache, v_cache: (B, S, KH, D); entry_pos: (S,)
+    or (B, S) absolute position of each entry (-1 = empty); cur_pos:
+    each query's position, scalar, (B,) first-query positions or (B, Lq).
+    Causality and the window come from the entry tags alone."""
+    b, lq, h, d = q.shape
+    kh = k_cache.shape[2]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    if entry_pos.ndim == 1:
+        entry_pos = entry_pos[None]
+    qpos = torch.as_tensor(cur_pos, device=q.device)
+    if qpos.ndim == 0:
+        qpos = qpos[None, None]
+    elif qpos.ndim == 1:
+        qpos = qpos[:, None] + torch.arange(lq, device=q.device)
+    qpos = qpos.expand(b, lq)
+    qf = q.reshape(b, lq, kh, h // kh, d)
+    sc = _scores(qf, k_cache) * scale
+    e = entry_pos[:, None, :]
+    valid = (e >= 0) & (e <= qpos[:, :, None])
+    if window is not None:
+        valid = valid & (e > qpos[:, :, None] - window)
+    sc = torch.where(valid[:, :, None, None, :], sc, NEG_INF)
+    out = torch.einsum("bqgrk,bkgd->bqgrd", torch.softmax(sc, dim=-1),
+                       v_cache.float())
+    return out.reshape(b, lq, h, d).to(q.dtype)
+
+
+def binary_flash_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, delta, alpha: float,
+                           causal: bool = True, window=None, q_offset=0,
+                           kv_valid_len=None, scale=None,
+                           binarize_scores: bool = True,
+                           q_chunk: int = 1024,
+                           kv_chunk: int = 2048) -> torch.Tensor:
+    """Chunked binary attention (no softmax, one pass): scores ``Q K^T *
+    scale`` in fp32, thresholded as ``fma32(scores, scale, -delta) >= 0``
+    (the FMA jitted XLA contracts ``scores * scale - delta`` into; its
+    gradient is the surrogate's), or kept analog with
+    ``binarize_scores=False``; masked entries are 0; the context is
+    summed over kv chunks in fp32. Shapes as :func:`flash_attention`."""
+    from repro_torch.core.spiking import spike   # lazy: core imports nn
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    qp, kp, vp, qc, kc = _chunks(q, k, v, q_chunk, kv_chunk)
+    dev = q.device
+    kvl = None if kv_valid_len is None else torch.as_tensor(kv_valid_len,
+                                                            device=dev)
+    base = torch.as_tensor(q_offset, device=dev)
+    delta = torch.as_tensor(delta, dtype=torch.float32, device=dev)
+    outs = []
+    for qi in range(qp.shape[1]):
+        q_blk = qp[:, qi]
+        qpos = base + qi * qc + torch.arange(qc, device=dev)
+        acc = torch.zeros(q_blk.shape, dtype=torch.float32, device=dev)
+        for ki in range(kp.shape[1]):
+            kpos = ki * kc + torch.arange(kc, device=dev)
+            s = _scores(q_blk, kp[:, ki])
+            a = spike(fma32(s, scale, -delta), alpha) if binarize_scores \
+                else s * scale
+            mask = _chunk_mask(qpos, kpos, lk, causal, window, kvl)
+            a = torch.where(mask[:, :, None, None, :], a, 0.0)
+            acc = acc + _context(a, vp[:, ki])
+        outs.append(acc.to(q.dtype))
+    return torch.cat(outs, dim=1).reshape(b, -1, h, d)[:, :lq]
 
 
 def rope_table(positions: torch.Tensor, head_dim: int, theta: float):

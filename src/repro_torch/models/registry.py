@@ -1,4 +1,7 @@
-"""Model registry (the families the port runs so far).
+"""Model registry: the Spikingformer vision family, CIFAR-Net and the
+dense decoder family (dense and spiking). JAX's other families (moe,
+rwkv, hybrid, encdec, vlm) are not ported and raise
+``NotImplementedError``.
 
 Uniform API, as in ``repro.models.registry``:
   init(cfg, seed, device=)                     -> params tree
@@ -19,6 +22,8 @@ from . import spikingformer, transformer
 FAMILIES: Dict[str, ModuleType] = {"spikingformer": spikingformer,
                                    "cifarnet": spikingformer,
                                    "dense": transformer}
+# the JAX package's families that the port does not run yet
+UNPORTED = ("moe", "rwkv", "hybrid", "encdec", "vlm")
 # families without an autoregressive decode step
 NO_DECODE = {"spikingformer", "cifarnet"}
 # families whose decode step carries per-slot state (vector positions,
@@ -28,6 +33,10 @@ SLOTTED_DECODE = {"dense"}
 
 
 def family_module(cfg: ModelConfig) -> ModuleType:
+    if cfg.family in UNPORTED:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported to "
+            f"PyTorch yet (ROADMAP queue 1 item 10)")
     try:
         return FAMILIES[cfg.family]
     except KeyError:

@@ -1,26 +1,36 @@
-"""The dense decoder-only transformer family in spiking mode — the
-spikingformer-lm serve path.
+"""The dense decoder-only transformer family: nemotron-4-15b (full
+attention, squared ReLU), gemma3-12b (5:1 local:global, qk-norm, GeGLU,
+tied embeddings), h2o-danube-3-4b (sliding window), granite-20b (MQA),
+and spikingformer-lm, the family in spiking mode (LIF activations over
+T_s steps, binary attention), with full, sliding-window or local/global
+attention.
 
-Mirrors ``repro.models.transformer`` for the spiking full-attention
-branch: ``init`` in the JAX tree layout (per-layer leaves stacked on a
-leading axis), ``forward`` (train / prefill: every layer is the engine's
-``layer_step_causal``), and the decode path: ``init_cache`` (the
-bit-packed spike KV cache, 32 spike channels a 32-bit word, kept as int32
-words with the uint32 bit pattern), ``decode_step`` (one token or a
-chunked-prefill bite per slot, per-slot positions and validity tags,
-AND-popcount scoring against the packed cache) and ``invalidate_slots``.
-The decode path is plain PyTorch, as it is jnp in JAX. It updates the
-cache in place (JAX returns a new one) and returns it, so a server holds
-one cache of ``max_len`` slots per layer and copies none of it a wave.
+Mirrors ``repro.models.transformer``: ``init`` in the JAX tree layout
+(per-layer leaves stacked on a leading axis, ``local_global``'s on two:
+(groups, global_every)), ``forward`` (train / prefill), and the decode
+path: ``init_cache``, ``decode_step`` (one token or a chunked-prefill
+bite per slot, per-slot positions and validity tags) and
+``invalidate_slots``.
 
-Sliding-window and local/global attention and the non-spiking dense
-models are not ported and raise ``NotImplementedError`` (ROADMAP queue 1
-item 10).
+* A spiking full-attention layer is the engine's ``layer_step_causal``
+  (the layer program's kernels on the card). Every other layer is plain
+  PyTorch, as it is jnp in JAX: the chunked online-softmax
+  ``flash_attention`` (full), ``banded_flash_attention`` (window), and in
+  spiking mode ``binary_flash_attention`` with the window mask.
+* Window layers decode against rings of ``min(window + headroom,
+  max_len)`` entries (:func:`_cache_len`). The spiking cache holds spike
+  K/V bit-packed (32 channels a 32-bit word, kept as int32 words with the
+  uint32 bit pattern) and T*B rows, scored with AND-popcount; the dense
+  one holds K/V in the activation dtype and B rows.
+
+The decode path updates the cache in place (JAX returns a new one) and
+returns it, so a server holds one cache and copies none of it a wave.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from itertools import product
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -35,14 +45,6 @@ from . import nn
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.spiking is None or cfg.attn_type != "full":
-        raise NotImplementedError(
-            f"{cfg.name}: only the spiking full-attention dense family is "
-            f"ported to PyTorch (attn_type={cfg.attn_type!r}, spiking="
-            f"{cfg.spiking is not None}; ROADMAP queue 1 item 10)")
 
 
 # ---------------------------------------------------------------------------
@@ -67,26 +69,44 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig):
     if cfg.qk_norm:
         p["q_norm"] = nn.rmsnorm_init(cfg.head_dim, dt)
         p["k_norm"] = nn.rmsnorm_init(cfg.head_dim, dt)
-    p["delta"] = torch.tensor(cfg.spiking.attn_threshold_init,
-                              dtype=torch.float32)
+    if cfg.spiking is not None:
+        p["delta"] = torch.tensor(cfg.spiking.attn_threshold_init,
+                                  dtype=torch.float32)
     return p
+
+
+def _stacked_layers(gen: torch.Generator, cfg: ModelConfig,
+                    lead: Tuple[int, ...], dev: torch.device):
+    """Layer trees stacked on the leading axes ``lead``, drawn one layer
+    at a time into preallocated leaves (a whole model's layers never
+    exist twice)."""
+    out = None
+    for idx in product(*(range(n) for n in lead)):
+        layer = _layer_init(gen, cfg)
+        if out is None:
+            out = tree_map(lambda a: torch.empty(
+                (*lead, *a.shape), dtype=a.dtype, device=dev), layer)
+        tree_map(lambda o, a: o[idx].copy_(a), out, layer)
+    return out
 
 
 def init(cfg: ModelConfig, seed: int = 0, *,
          device: DeviceLike = None) -> Dict[str, Any]:
-    """Params in the JAX layout from a ``torch.Generator`` seeded with
-    ``seed`` (not JAX's numbers: tests convert JAX's params instead), on
-    ``device`` (the GPU by default)."""
-    _check_ported(cfg)
+    """Params in the JAX layout from a ``torch.Generator`` on ``device``
+    (the GPU by default) seeded with ``seed`` (not JAX's numbers: tests
+    convert JAX's params instead). Each leaf is drawn where it lives."""
     dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     dt = dtype_of(cfg)
     params: Dict[str, Any] = {
         "embed": nn.embedding_init(gen, cfg.vocab_size, cfg.d_model, dt),
         "final_norm": nn.rmsnorm_init(cfg.d_model, dt),
     }
-    layers = [_layer_init(gen, cfg) for _ in range(cfg.num_layers)]
-    params["layers"] = tree_map(lambda *a: torch.stack(a), *layers)
+    if cfg.attn_type == "local_global":
+        lead = (cfg.num_layers // cfg.global_every, cfg.global_every)
+        params["groups"] = _stacked_layers(gen, cfg, lead, dev)
+    else:
+        params["layers"] = _stacked_layers(gen, cfg, (cfg.num_layers,), dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = nn.linear_init(gen, cfg.d_model, cfg.vocab_size,
                                            dtype=dt)
@@ -97,6 +117,20 @@ def _layer(params, i: int):
     return tree_map(lambda a: a[i], params["layers"])
 
 
+def _layers(params, cfg: ModelConfig) -> Iterator[Tuple[str, Any]]:
+    """(kind, layer params) in execution order: ``local_global`` runs
+    each group's ``global_every - 1`` window layers, then its full one."""
+    if cfg.attn_type == "local_global":
+        g, every = cfg.num_layers // cfg.global_every, cfg.global_every
+        for gi, j in product(range(g), range(every)):
+            yield ("full" if j == every - 1 else "window",
+                   tree_map(lambda a: a[gi, j], params["groups"]))
+        return
+    kind = "window" if cfg.attn_type == "swa" else "full"
+    for i in range(cfg.num_layers):
+        yield kind, _layer(params, i)
+
+
 # ---------------------------------------------------------------------------
 # full sequence
 # ---------------------------------------------------------------------------
@@ -105,7 +139,7 @@ def _layer(params, i: int):
 def _project_qkv(p, cfg: ModelConfig, h: torch.Tensor, positions,
                  repeat_kv: bool = False):
     """h: (..., S, D) -> q (..., S, H, hd), k / v (..., S, KH, hd), q and k
-    roped; ``repeat_kv`` repeats the KV heads up to H."""
+    (qk-normed and) roped; ``repeat_kv`` repeats the KV heads up to H."""
     lead, s = h.shape[:-2], h.shape[-2]
     q = nn.linear(p["wq"], h).reshape(*lead, s, cfg.num_heads, cfg.head_dim)
     k = nn.linear(p["wk"], h).reshape(*lead, s, cfg.num_kv_heads,
@@ -126,15 +160,54 @@ def _project_qkv(p, cfg: ModelConfig, h: torch.Tensor, positions,
     return q, k, v
 
 
+def _attend_full_seq(cfg: ModelConfig, kind: str, q, k, v, delta=None):
+    """kind: 'full' | 'window'; q, k, v: (B', S, H, hd), KV heads
+    repeated."""
+    window = cfg.window if kind == "window" else None
+    if cfg.spiking is not None:
+        if window is None:
+            # the binary engine's dispatch, on (B', H, S, hd)
+            from repro_torch.core.attention import spiking_attention
+            swap = lambda u: u.transpose(1, 2)
+            return swap(spiking_attention(swap(q), swap(k), swap(v),
+                                          cfg.spiking, delta_score=delta,
+                                          causal=True))
+        return nn.binary_flash_attention(
+            q, k, v, delta=delta, alpha=cfg.spiking.surrogate_alpha,
+            causal=True, window=window,
+            binarize_scores=cfg.spiking.binarize_scores)
+    if window is not None:
+        return nn.banded_flash_attention(q, k, v, window=window)
+    return nn.flash_attention(q, k, v, causal=True)
+
+
+def _spike(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """LIF over the leading time axis: (T, ...) currents -> spikes."""
+    return lif_scan(x, cfg.spiking)[0]
+
+
 def apply_layer(p, cfg: ModelConfig, x: torch.Tensor, positions, kind: str,
                 train: bool) -> torch.Tensor:
-    """x: (T, B, S, D). The spiking full-attention layer is the engine's
-    layer program (``layer_step_causal``)."""
-    if kind != "full":
-        raise NotImplementedError(f"{kind!r} attention layers are not "
-                                  f"ported to PyTorch yet (ROADMAP queue 1 "
-                                  f"item 10)")
-    return layer_step_causal(p, cfg, x, positions, train=train)
+    """x: (B, S, D), or (T, B, S, D) in spiking mode. A spiking
+    full-attention layer is the engine's layer program
+    (``layer_step_causal``); the rest is the reference's dataflow."""
+    spiking = cfg.spiking is not None
+    if spiking and kind == "full":
+        return layer_step_causal(p, cfg, x, positions, train=train)
+    h = nn.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    q, k, v = _project_qkv(p, cfg, h, positions, repeat_kv=True)
+    if spiking:
+        fold = lambda u: _spike(u, cfg).reshape(-1, *u.shape[2:])
+        attn = _attend_full_seq(cfg, kind, fold(q), fold(k), fold(v),
+                                delta=p["delta"])
+    else:
+        attn = _attend_full_seq(cfg, kind, q, k, v)
+    x = x + nn.linear(p["wo"], attn.reshape(*x.shape[:-1], cfg.q_dim))
+    h2 = nn.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if spiking:
+        up = nn.linear(p["mlp"]["up"], h2)
+        return x + nn.linear(p["mlp"]["down"], _spike(up, cfg))
+    return x + nn.mlp(p["mlp"], h2, cfg.act)
 
 
 def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -146,20 +219,31 @@ def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def forward(params, cfg: ModelConfig, batch, *, train: bool = False):
     """batch: {'tokens': (B, S)}; returns (logits (B, S, V) fp32, {})."""
-    _check_ported(cfg)
-    tokens = batch["tokens"]
-    x = nn.embed(params["embed"], tokens)
-    s = x.shape[-2]
-    positions = torch.arange(s, device=x.device)
-    x = x[None].expand(cfg.spiking.time_steps, *x.shape)
-    for i in range(cfg.num_layers):
-        x = apply_layer(_layer(params, i), cfg, x, positions, "full", train)
-    return _head(params, cfg, x.mean(dim=0)), {}
+    x = nn.embed(params["embed"], batch["tokens"])
+    positions = torch.arange(x.shape[-2], device=x.device)
+    if cfg.spiking is not None:
+        x = x[None].expand(cfg.spiking.time_steps, *x.shape)
+    for kind, lp in _layers(params, cfg):
+        x = apply_layer(lp, cfg, x, positions, kind, train)
+    if cfg.spiking is not None:
+        x = x.mean(dim=0)               # rate decoding over T_s
+    return _head(params, cfg, x), {}
 
 
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
+
+
+def _cache_len(cfg: ModelConfig, kind: str, max_len: int,
+               headroom: int = 0) -> int:
+    """Ring length of a cache of this kind. A window ring gets up to
+    ``headroom`` (chunk - 1) extra entries: a C-token bite is written
+    before it attends, and on a bare window-long ring its later writes
+    would evict entries still inside its earlier queries' windows."""
+    if kind != "window":
+        return max_len
+    return min(cfg.window + headroom, max_len)
 
 
 def _packed_kv(cfg: ModelConfig) -> bool:
@@ -171,25 +255,50 @@ def _packed_kv(cfg: ModelConfig) -> bool:
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, batch=None,
                params=None, chunk_headroom: int = 0, *,
                device: DeviceLike = None) -> Dict[str, Any]:
-    """{'layers': {'k', 'v': (n_layers, T*B, max_len, KH, words) int32
-    words (packed) or (..., hd) activations, 'pos': (n_layers, B,
-    max_len) int32 validity tags, -1 = empty}} on ``device``."""
-    _check_ported(cfg)
+    """{'layers': ...}, or {'local': ..., 'global': ...} for
+    ``local_global`` (its window layers, group by group, then one full
+    layer a group), each {'k', 'v': (n_layers, rows, s, KH, words) int32
+    words (packed spikes) or (..., hd) in the activation dtype, 'pos':
+    (n_layers, B, s) int32 validity tags, -1 = empty}, on ``device``.
+    rows = T*B in spiking mode, B otherwise; s = :func:`_cache_len`
+    (``chunk_headroom``: pass the widest chunked-prefill bite - 1)."""
     dev = resolve_device(device)
-    rows = batch_size * cfg.spiking.time_steps
-    if _packed_kv(cfg):
-        shape = (cfg.num_layers, rows, max_len, cfg.num_kv_heads,
-                 -(-cfg.head_dim // 32))
-        kv_dtype = torch.int32
-    else:
-        shape = (cfg.num_layers, rows, max_len, cfg.num_kv_heads,
-                 cfg.head_dim)
-        kv_dtype = dtype_of(cfg)
-    return {"layers": {
-        "k": torch.zeros(shape, dtype=kv_dtype, device=dev),
-        "v": torch.zeros(shape, dtype=kv_dtype, device=dev),
-        "pos": torch.full((cfg.num_layers, batch_size, max_len), -1,
-                          dtype=torch.int32, device=dev)}}
+    rows = batch_size * (cfg.spiking.time_steps if cfg.spiking else 1)
+    packed = _packed_kv(cfg)
+    tail = -(-cfg.head_dim // 32) if packed else cfg.head_dim
+    kv_dtype = torch.int32 if packed else dtype_of(cfg)
+
+    def kv(n_layers, kind):
+        s = _cache_len(cfg, kind, max_len, chunk_headroom)
+        shape = (n_layers, rows, s, cfg.num_kv_heads, tail)
+        return {"k": torch.zeros(shape, dtype=kv_dtype, device=dev),
+                "v": torch.zeros(shape, dtype=kv_dtype, device=dev),
+                "pos": torch.full((n_layers, batch_size, s), -1,
+                                  dtype=torch.int32, device=dev)}
+
+    if cfg.attn_type == "local_global":
+        g = cfg.num_layers // cfg.global_every
+        return {"local": kv(g * (cfg.global_every - 1), "window"),
+                "global": kv(g, "full")}
+    return {"layers": kv(cfg.num_layers,
+                         "window" if cfg.attn_type == "swa" else "full")}
+
+
+def _cache_layers(cfg: ModelConfig, cache) -> Iterator[Dict[str, Any]]:
+    """Each layer's cache views in :func:`_layers`' order: group g's
+    window layer j reads local entry g * (global_every - 1) + j, its full
+    layer global entry g."""
+    def view(group, i):
+        return {key: leaf[i] for key, leaf in group.items()}
+    if cfg.attn_type == "local_global":
+        n_local = cfg.global_every - 1
+        for gi in range(cfg.num_layers // cfg.global_every):
+            for j in range(n_local):
+                yield view(cache["local"], gi * n_local + j)
+            yield view(cache["global"], gi)
+        return
+    for i in range(cfg.num_layers):
+        yield view(cache["layers"], i)
 
 
 def _scatter_rows(cache: torch.Tensor, new: torch.Tensor,
@@ -204,57 +313,72 @@ def _scatter_rows(cache: torch.Tensor, new: torch.Tensor,
 
 
 def _decode_layer(p, cfg: ModelConfig, x: torch.Tensor, cache_l, pos,
-                  n_tok):
+                  n_tok, kind: str):
     """One decode token or a chunked-prefill bite against this layer's
-    cache (updated in place). x: (T*B, C, D); pos: (B,) position of
-    x[:, 0] per slot; n_tok: (B,) real tokens per slot (the rest of the
-    row is padding, neither written nor tagged)."""
+    cache (updated in place). x: (B', C, D), B' = T*B (spiking,
+    time-major) or B; pos: (B,) position of x[:, 0] per slot; n_tok: (B,)
+    real tokens per slot (the rest of the row is padding, neither
+    written nor tagged); kind: 'full' | 'window'."""
     b = pos.shape[0]
     b_rows, c = x.shape[0], x.shape[1]
-    t = cfg.spiking.time_steps
-    tile = lambda u: u.repeat(t, *([1] * (u.ndim - 1)))
+    reps_t = b_rows // b                 # T_s in spiking mode, else 1
+    tile = (lambda u: u.repeat(reps_t, *([1] * (u.ndim - 1)))) \
+        if reps_t > 1 else (lambda u: u)
     qpos = pos[:, None] + torch.arange(c, device=x.device)       # (B, C)
     h = nn.rmsnorm(p["ln1"], x, cfg.norm_eps)
     q, k, v = _project_qkv(p, cfg, h, tile(qpos))
+    spiking = cfg.spiking is not None
+    if spiking:
+        t = cfg.spiking.time_steps
 
-    def lif_t(u):          # T is folded into rows, time-major
-        return lif_scan(u.reshape(t, -1, *u.shape[1:]), cfg.spiking
-                        )[0].reshape(u.shape)
-    q, k, v = lif_t(q), lif_t(k), lif_t(v)
+        def lif_t(u):      # T is folded into rows, time-major
+            return lif_scan(u.reshape(t, -1, *u.shape[1:]), cfg.spiking
+                            )[0].reshape(u.shape)
+        q, k, v = lif_t(q), lif_t(k), lif_t(v)
+    window = cfg.window if kind == "window" else None
     packed = _packed_kv(cfg)
     if packed:
         k, v = pack_bits(k), pack_bits(v)
     s_len = cache_l["k"].shape[1]
+    # ring write (== the position for full caches); padding -> s_len
     slot = torch.where(torch.arange(c, device=x.device)[None, :]
                        < n_tok[:, None], qpos % s_len,
                        torch.full_like(qpos, s_len))
     k_cache = _scatter_rows(cache_l["k"], k, tile(slot))
     v_cache = _scatter_rows(cache_l["v"], v, tile(slot))
     entry_pos = _scatter_rows(cache_l["pos"], qpos.to(torch.int32), slot)
-    kh, rep = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
-    qf = q.reshape(b_rows, c, kh, rep, cfg.head_dim)
-    if packed:
-        # AND-popcount against the packed cache: exact integer counts
-        qp = pack_bits(qf).permute(0, 2, 1, 3, 4).reshape(
-            b_rows, kh, c * rep, -1)                     # (B', KH, C*rep, W)
-        counts = popcount_matmul(qp, k_cache.transpose(1, 2))
-        counts = counts.reshape(b_rows, kh, c, rep, s_len
-                                ).permute(0, 2, 1, 3, 4)  # (B', C, KH, rep, S)
-        sc = counts.float() / math.sqrt(cfg.head_dim)
+    if spiking:
+        kh, rep = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+        qf = q.reshape(b_rows, c, kh, rep, cfg.head_dim)
+        if packed:
+            # AND-popcount against the packed cache: exact integer counts
+            qp = pack_bits(qf).permute(0, 2, 1, 3, 4).reshape(
+                b_rows, kh, c * rep, -1)                 # (B', KH, C*rep, W)
+            counts = popcount_matmul(qp, k_cache.transpose(1, 2))
+            counts = counts.reshape(b_rows, kh, c, rep, s_len
+                                    ).permute(0, 2, 1, 3, 4)
+            sc = counts.float() / math.sqrt(cfg.head_dim)
+        else:
+            sc = torch.einsum("bcgrd,bkgd->bcgrk", qf.float(),
+                              k_cache.float()) / math.sqrt(cfg.head_dim)
+        a = binarize(sc, p["delta"], cfg.spiking.surrogate_alpha)
+        e = entry_pos[:, None, :]
+        valid = (e >= 0) & (e <= qpos[:, :, None])                # (B, C, S)
+        if window is not None:
+            valid = valid & (e > qpos[:, :, None] - window)
+        a = torch.where(tile(valid)[:, :, None, None, :], a, 0.0)
+        vc = unpack_bits(v_cache, cfg.head_dim) if packed \
+            else v_cache.float()
+        attn = torch.einsum("bcgrk,bkgd->bcgrd", a, vc).to(x.dtype)
     else:
-        sc = torch.einsum("bcgrd,bkgd->bcgrk", qf.float(),
-                          k_cache.float()) / math.sqrt(cfg.head_dim)
-    a = binarize(sc, p["delta"], cfg.spiking.surrogate_alpha)
-    valid = ((entry_pos[:, None, :] >= 0)
-             & (entry_pos[:, None, :] <= qpos[:, :, None]))  # (B, C, S)
-    a = torch.where(tile(valid)[:, :, None, None, :], a, 0.0)
-    vc = unpack_bits(v_cache, cfg.head_dim) if packed else v_cache.float()
-    attn = torch.einsum("bcgrk,bkgd->bcgrd", a, vc)
-    attn = attn.reshape(b_rows, c, cfg.q_dim).to(x.dtype)
-    x = x + nn.linear(p["wo"], attn)
+        attn = nn.decode_attention(q, k_cache, v_cache, entry_pos=entry_pos,
+                                   cur_pos=qpos, window=window)
+    x = x + nn.linear(p["wo"], attn.reshape(b_rows, c, cfg.q_dim))
     h2 = nn.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    up = nn.linear(p["mlp"]["up"], h2)
-    return x + nn.linear(p["mlp"]["down"], lif_t(up))
+    if spiking:
+        up = nn.linear(p["mlp"]["up"], h2)
+        return x + nn.linear(p["mlp"]["down"], lif_t(up))
+    return x + nn.mlp(p["mlp"], h2, cfg.act)
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos,
@@ -263,7 +387,6 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos,
     chunked-prefill bite; pos: scalar or (B,), the position of
     tokens[:, 0] per slot; n_tok: optional (B,) real tokens per row.
     Returns (logits (B, C, V) fp32, cache), the cache updated in place."""
-    _check_ported(cfg)
     dev = params["embed"]["table"].device
     tokens = torch.as_tensor(tokens, device=dev)
     b, c = tokens.shape
@@ -273,13 +396,14 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos,
     n_tok = torch.full((b,), c, dtype=torch.int64, device=dev) \
         if n_tok is None else torch.as_tensor(n_tok, device=dev).long()
     x = nn.embed(params["embed"], tokens)
-    t = cfg.spiking.time_steps
-    x = x[None].expand(t, *x.shape).reshape(-1, *x.shape[1:])
-    layers = cache["layers"]
-    for i in range(cfg.num_layers):
-        cache_l = {key: leaf[i] for key, leaf in layers.items()}
-        x = _decode_layer(_layer(params, i), cfg, x, cache_l, pos, n_tok)
-    x = x.reshape(t, -1, *x.shape[1:]).mean(dim=0)
+    if cfg.spiking is not None:
+        t = cfg.spiking.time_steps
+        x = x[None].expand(t, *x.shape).reshape(-1, *x.shape[1:])
+    for (kind, lp), cache_l in zip(_layers(params, cfg),
+                                   _cache_layers(cfg, cache)):
+        x = _decode_layer(lp, cfg, x, cache_l, pos, n_tok, kind)
+    if cfg.spiking is not None:
+        x = x.reshape(t, -1, *x.shape[1:]).mean(dim=0)
     return _head(params, cfg, x), cache
 
 

@@ -551,25 +551,41 @@ def test_mixed_tree_bundle_fused_matches_off_and_jax(monkeypatch):
     np.testing.assert_allclose(got["fused"].numpy(), want, rtol=0, atol=1e-5)
 
 
-def test_unported_token_paths_raise():
+@pytest.mark.parametrize("family", registry.UNPORTED)
+def test_unported_token_paths_raise(family):
     cfg = get_config(ARCH, smoke=True)
-    for bad in (cfg.replace(attn_type="swa"),
-                cfg.replace(attn_type="local_global"),
+    # sliding-window and local/global spiking LMs and the non-spiking
+    # dense family, which raised here before they were ported, run
+    tokens = {"tokens": torch.zeros((2, 5), dtype=torch.long)}
+    for now in (cfg.replace(attn_type="swa", window=3),
+                cfg.replace(attn_type="local_global", window=3,
+                            global_every=2),
                 cfg.replace(spiking=None)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            registry.init(bad, 0, device="cpu")
+        logits, _ = registry.forward(registry.init(now, 0, device="cpu"),
+                                     now, tokens)
+        assert logits.shape == (2, 5, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all())
+    # a family the port does not run, and a serving mesh, still raise,
+    # naming ROADMAP item 10
+    with pytest.raises(NotImplementedError, match="item 10"):
+        registry.init(cfg.replace(family=family), 0, device="cpu")
+    from repro_torch.launch.serve import BatchedServer
+    with pytest.raises(NotImplementedError, match="item 10"):
+        BatchedServer(cfg, registry.init(cfg, 0, device="cpu"), 2, 16,
+                      device="cpu", mesh=object())
     lp, x, pos = _layer_inputs(cfg)
     # training the spiking full-attention LM, which raised here before it
-    # was ported, runs; a sliding-window LM's train step still raises
+    # was ported, runs; so does a sliding-window LM's train step
     y = E.layer_step_causal(lp, cfg, x, pos, train=True)
     assert y.shape == x.shape and bool(torch.isfinite(y).all())
     from repro_torch.optim import adamw
     tp = registry.init(cfg, 0, device="cpu")
     opt = adamw(1e-3)
-    step = steps.build_train_step(cfg.replace(attn_type="swa"), opt,
-                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        step(tp, opt.init(tp), 0, {"tokens": np.zeros((2, 5), np.int32)})
+    step = steps.build_train_step(cfg.replace(attn_type="swa", window=3),
+                                  opt, device="cpu")
+    _, _, nstep, m = step(tp, opt.init(tp), 0,
+                          {"tokens": np.zeros((2, 5), np.int32)})
+    assert nstep == 1 and np.isfinite(float(m["loss"]))
     # the fused bundle's rope family, which raised here before it was
     # ported, now runs: under overlap='fused' equal to 'off', bitwise
     h = nn.rmsnorm(lp["ln1"], x, cfg.norm_eps)

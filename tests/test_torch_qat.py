@@ -164,11 +164,13 @@ def test_qat_train_step_against_the_jitted_jax_step(qdtype):
     assert loss != fp_loss
 
 
-def test_qat_refused_outside_the_stateful_family():
-    """The LM's QAT, refused here before it was ported, takes a step;
-    QAT of an LM config the port does not run (sliding-window attention)
-    still raises, naming its ROADMAP item, and so does an unknown qat
-    dtype."""
+@pytest.mark.parametrize("family", ["moe", "rwkv", "hybrid", "encdec",
+                                    "vlm"])
+def test_qat_refused_outside_the_stateful_family(family):
+    """The LM's QAT, refused here before it was ported, takes a step, and
+    so does a sliding-window LM's, refused before this slice; QAT of a
+    family the port does not run still raises, naming its ROADMAP item,
+    as does a serving mesh, and so does an unknown qat dtype."""
     lm = get_config("spikingformer-lm", smoke=True)
     opt = adamw(1e-3)
     tp = interop.to_torch(jax.tree_util.tree_map(
@@ -178,10 +180,17 @@ def test_qat_refused_outside_the_stateful_family():
     _, _, nstep, m = TS.build_train_step(lm, opt, qat="int8", device="cpu")(
         tp, opt.init(tp), 0, tokens)
     assert nstep == 1 and np.isfinite(float(m["loss"]))
-    swa = TS.build_train_step(lm.replace(attn_type="swa"), opt, qat="int8",
+    swa = TS.build_train_step(lm.replace(attn_type="swa", window=3), opt,
+                              qat="int8", device="cpu")
+    _, _, nstep, m = swa(tp, opt.init(tp), 0, tokens)
+    assert nstep == 1 and np.isfinite(float(m["loss"]))
+    bad = TS.build_train_step(lm.replace(family=family), opt, qat="int8",
                               device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
-        swa(tp, opt.init(tp), 0, tokens)
+        bad(tp, opt.init(tp), 0, tokens)
+    from repro_torch.launch.serve import BatchedServer
+    with pytest.raises(NotImplementedError, match="item 10"):
+        BatchedServer(lm, tp, 2, 16, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="int2"):
         TS.build_train_step(get_config("spikingformer-4-256", smoke=True),
                             adamw(1e-3), qat="int2", device="cpu")

@@ -244,9 +244,10 @@ def test_unported_layer_paths_raise():
     """Training runs now (train-mode forward and the sequential layer
     step), and so does the fused SSA bundle of an ineligible eval layer
     (equal to the sequential composition); what is still unported raises
-    naming its ROADMAP item: a non-spiking dense model (the cifarnet
-    family, which raised here before it was ported, now runs:
-    ``test_torch_cifarnet.py``). overlap='pipeline',
+    naming its ROADMAP item: a family the port does not run (the
+    cifarnet family and a non-spiking dense model, which raised here
+    before they were ported, now run: ``test_torch_cifarnet.py``,
+    ``test_torch_dense.py``). overlap='pipeline',
     which raised here before it was ported, now runs with either sparse
     path and equals overlap='fused' bitwise."""
     tcfg = get_config("spikingformer-4-256", smoke=True)
@@ -261,9 +262,10 @@ def test_unported_layer_paths_raise():
     y, new_st = TE.layer_step(bp, st, tcfg, x, train=True)
     assert y.shape == x.shape and set(new_st) == set(st)
     biased = dict(bp, wo=dict(bp["wo"], b=torch.zeros(tcfg.d_model)))
+    dense = get_config("spikingformer-lm", smoke=True).replace(spiking=None)
+    assert "delta" not in TR.init(dense, device="cpu")["layers"]
     cases = [
-        lambda: TR.init(get_config("spikingformer-lm", smoke=True).replace(
-            spiking=None), device="cpu"),
+        lambda: TR.init(dense.replace(family="moe"), device="cpu"),
     ]
     for case in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):

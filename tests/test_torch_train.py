@@ -476,7 +476,8 @@ def test_kernel_modes_equal_plain_modes_on_the_cpu():
                                   res["dense"].numpy())
 
 
-def test_unported_training_modes_raise_naming_roadmap():
+@pytest.mark.parametrize("family", TR.UNPORTED)
+def test_unported_training_modes_raise_naming_roadmap(family):
     tcfg = get_config(ARCH, smoke=True)
     opt = adamw(1e-3)
     s = torch.zeros((2, 1, 4, 8))
@@ -492,13 +493,23 @@ def test_unported_training_modes_raise_naming_roadmap():
                                     vocab_size=lm.vocab_size))
     tokens = data.batch_at(0)
     assert tokens["tokens"].shape == (2, 4)
-    # training an LM config the port does not run still raises, naming
-    # ROADMAP: sliding-window attention, a non-spiking dense model
+    # training a sliding-window LM and a non-spiking dense model, which
+    # raised here before they were ported, takes a step; training a
+    # family the port does not run still raises, naming ROADMAP item 10,
+    # and so does a serving mesh
+    for now in (lm.replace(attn_type="swa", window=3),
+                lm.replace(spiking=None)):
+        now_params = TR.init(now, 0, device="cpu")
+        _, _, nstep, m = TS.build_train_step(now, opt, device="cpu")(
+            now_params, opt.init(now_params), 0, tokens)
+        assert nstep == 1 and np.isfinite(float(m["loss"]))
     lm_params = TR.init(lm, 0, device="cpu")
-    for bad in (lm.replace(attn_type="swa"), lm.replace(spiking=None)):
-        step = TS.build_train_step(bad, opt, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            step(lm_params, opt.init(lm_params), 0, tokens)
+    step = TS.build_train_step(lm.replace(family=family), opt, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+        step(lm_params, opt.init(lm_params), 0, tokens)
+    from repro_torch.launch.serve import BatchedServer
+    with pytest.raises(NotImplementedError, match="item 10"):
+        BatchedServer(lm, lm_params, 2, 16, device="cpu", mesh=object())
     # the popcount mode of the binary engine is ported (#8): the folded
     # entry and the engine's dispatch run, equal to the MXU mode
     a = (torch.rand((2, 1, 4, 8), generator=torch.Generator().manual_seed(2))
