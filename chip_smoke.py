@@ -381,13 +381,44 @@ device; exits non-zero without one). It
      server (4 slots, 6 requests of 300-500 tokens in bites of 64, rings
      of 319 entries) with the first-token check.
 
+8. serves, checks and trains the MoE family through the entry points
+   (seeded random weights; the expert products ``torch.bmm`` in the
+   activation dtype), each phase logged with its host-clock seconds and
+   peak device memory, the counts set to 0 just before each path and read
+   just after:
+   * deepseek-moe-16b at published width and depth (28 layers, 64 experts
+     top-6 + 2 shared, bf16, 16.4B parameters): two prefills of 4 x 512
+     tokens through ``build_prefill_step`` (finite logits, bitwise equal:
+     the combine adds no float atomically; ``moe_aux`` finite), then 4
+     prompts of 64 tokens fed a token a step through ``build_serve_step``
+     and 32 greedy tokens each (ms a step, tokens/s); no kernel launched;
+   * fp32 at deepseek's width, 2 layers, the capacity factor raised to
+     num_experts / top_k: 2 prompts of 64 tokens decoded token by token
+     against the forward at every position within a derived tolerance
+     (:func:`moe_tight_check`), routing ids equal wherever the margin
+     clears MOE_MARGIN, and the dispatch against the per-token expert
+     mixture on 64 tokens (:func:`moe_oracle_check`);
+   * the spiking deepseek-moe-16b (T=4, 28 layers, bf16): a prefill of 2 x
+     256 tokens, one causal ``spike_attention`` (#7) a layer, and with
+     ``binary='popcount'`` one ``popcount_scores`` (#8) a layer; logits
+     through the kernels == through the plain versions, and the #8 run's
+     == the #7 run's, bitwise;
+   * kimi-k2-1t-a32b at published width cut to 2 layers (one dense, one
+     MoE of 384 experts; 19.9B parameters): two prefills of 2 x 512
+     tokens, 16 decode steps;
+   * deepseek-moe-16b at full width, 2 layers: 3 AdamW steps of 4 x 512
+     tokens (loss, ``moe_aux``, grad norm; every leaf moves), one
+     ``qat='int8'`` step, one int8 PTQ request (``quantize_tree``: 15 int8
+     leaves; expert stacks and router fp).
+
 It prints the card's name and power limit, a JSON line of per-kernel
 numbers (``spike_matmul``'s row also with the 4-256 'tile' train steps'
 and analog 'tile' requests' ms, ``quant_spike_matmul``'s with the mixed
 'tile' requests' ms; the rows of #1, #1b, #1c, #2, #4 and #7 with the
 QAT and calibration paths' launches), the ms of the new paths beside
 the fp train steps (the LM's and 8-512's steps beside 4-256's; the rows
-of #1c, #2, #4, #7 and #8 with the LM and 8-512 train runs' launches),
+of #1c, #2, #4, #7 and #8 with the LM and 8-512 train runs' launches;
+those of #7 and #8 with the spiking MoE prefill's),
 the whole run's seconds, and last a JSON line
 ``{"ok": true, "device": {...}}``.
 """
@@ -433,6 +464,7 @@ from repro_torch.launch.serve import BatchedServer, Request  # noqa: E402
 from repro_torch.launch.train import make_batch_fn  # noqa: E402
 from repro_torch.models import nn, registry  # noqa: E402
 from repro_torch.models import spikingformer as SF  # noqa: E402
+from repro_torch.models import moe as TM  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.spikingformer import layer_sparsities  # noqa: E402
 from repro_torch.models.nn import rmsnorm, rope_table  # noqa: E402
@@ -4015,12 +4047,437 @@ def dense_family(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the MoE family
+# ---------------------------------------------------------------------------
+
+DEEPSEEK = "deepseek-moe-16b"
+KIMI = "kimi-k2-1t-a32b"
+# deepseek-moe-16b at published width and depth: a prefill of 4 x 512
+# tokens, then 4 prompts of 64 tokens fed token by token and 32 new
+# tokens each, greedy, through build_serve_step
+MOE_PREFILL = (4, 512)
+MOE_SERVE = dict(rows=4, prompt=64, new=32)
+# the fp32 decode-against-forward check at deepseek's width, 2 layers (one
+# dense, one MoE), the capacity factor raised to num_experts / top_k so
+# that no choice drops: 2 prompts of 64 tokens; routing ids compared
+# wherever the forward's K-th and (K+1)-th probabilities differ by more
+# than MOE_MARGIN; the dispatch against the per-token mixture on
+# MOE_ORACLE tokens. Reductions a layer on the chain to the head:
+# attention's scores and context, wo, the experts' up / gate and down, the
+# router's weights, the combine, the shared experts' sum beside them
+MOE_TIGHT = dict(layers=2, rows=2, length=64)
+MOE_TIGHT_REDUCTIONS = 8
+MOE_MARGIN = 1e-5
+MOE_ORACLE = 64
+# the spiking deepseek-moe-16b (T=4, the engine's defaults: #7 on the
+# card; #8 with binary='popcount'): a prefill of 2 x 256 tokens
+SPIKING_MOE = dict(t=4, shape=(2, 256))
+# kimi-k2-1t-a32b at published width, cut to 2 layers (1 dense + 1 MoE of
+# 384 experts: 19.9B parameters, 39.9 GB in bf16; a third layer does not
+# fit beside the activations): a prefill of 2 x 512 tokens, then 16 decode
+# steps of 2 rows
+KIMI_CUT = dict(layers=2, prefill=(2, 512), steps=16)
+# AdamW steps of deepseek-moe-16b at full width, 2 layers, on the token
+# stream: (steps, batch, tokens)
+MOE_TRAIN = (3, 4, 512)
+
+
+class route_recorder:
+    """Within the scope, every ``moe.router_topk`` call records its
+    expert ids and each token's margin between the K-th and (K+1)-th
+    probabilities (``moe_ffn`` calls it through the module)."""
+
+    def __enter__(self):
+        self.real, self.calls = TM.router_topk, []
+
+        def record(x2d, router_w, m):
+            out = self.real(x2d, router_w, m)
+            probs = torch.softmax(x2d.float() @ router_w, dim=-1)
+            top = probs.topk(m.top_k + 1, dim=-1).values
+            self.calls.append((out[1].clone(),
+                               top[:, m.top_k - 1] - top[:, m.top_k]))
+            return out
+        TM.router_topk = record
+        return self
+
+    def __exit__(self, *exc):
+        TM.router_topk = self.real
+
+
+def decode_tokens(cfg, params, prompts, new, what):
+    """``build_serve_step`` from an empty cache: ``prompts`` (B, P) fed a
+    token a step, then ``new`` greedy tokens, the counts set to 0 just
+    before: no launch, finite logits. Returns (logits of every step
+    (B, P + new, V), ms a step, tokens/s)."""
+    b, p = prompts.shape
+    n = p + new
+    serve = steps.build_serve_step(cfg)
+    cache = registry.init_cache(cfg, b, n)
+    torch.cuda.synchronize()
+    reset_counts()
+    outs, tok = [], prompts[:, :1]
+    t0 = time.perf_counter()
+    for pos in range(n):
+        logits, cache = serve(params, cache, tok, pos)
+        outs.append(logits)
+        tok = prompts[:, pos + 1:pos + 2] if pos + 1 < p else \
+            logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = launches()
+    logits = torch.cat(outs, dim=1)
+    if any(counts.values()):
+        raise AssertionError(f"{what} decode: launches {counts}")
+    if logits.shape != (b, n, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{what} decode: bad logits")
+    ms, rate = 1e3 * sec / n, b * n / sec
+    log(f"{what} decode: {b} rows x {n} steps ({p} prompt tokens fed a "
+        f"step, {new} greedy), {ms:.3f} ms a step, {rate:.1f} tokens/s, "
+        f"no launch, cache {tuple(cache['layers']['k'].shape)} a group")
+    return logits, ms, rate
+
+
+def moe_prefill(cfg, params, shape, seed, what):
+    """``build_prefill_step`` twice on one batch of ``shape`` tokens, the
+    counts set to 0 just before: no launch, finite fp32 logits of the
+    right shape, the two calls bitwise equal (the combine adds no float
+    atomically); ``registry.forward``'s ``moe_aux`` finite. Returns (ms of
+    each call, moe_aux, the tokens, the logits)."""
+    gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, shape, generator=gen).cuda()
+    step = steps.build_prefill_step(cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    outs, ms = timed_requests(step, params, [{"tokens": tokens}] * 2)
+    counts = launches()
+    if any(counts.values()):
+        raise AssertionError(f"{what} prefill: launches {counts}")
+    for logits in outs:
+        if logits.shape != (*shape, cfg.vocab_size) or \
+                logits.dtype != torch.float32 or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{what} prefill: bad logits "
+                                 f"{tuple(logits.shape)} {logits.dtype}")
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError(f"{what} prefill: two calls differ (max abs "
+                             f"diff {float((outs[0] - outs[1]).abs().max())})")
+    with torch.inference_mode():
+        _, aux = registry.forward(params, cfg, {"tokens": tokens})
+    moe_aux = float(aux["moe_aux"])
+    if not math.isfinite(moe_aux):
+        raise AssertionError(f"{what}: moe_aux {moe_aux}")
+    log(f"{what} prefill, {shape[0]} x {shape[1]} tokens: ms "
+        f"{[round(m, 3) for m in ms]}, no launch, two calls bitwise equal, "
+        f"logit std {float(outs[0].std()):.4f}, moe_aux {moe_aux:.6f}")
+    return ms, moe_aux, tokens, outs[0]
+
+
+def deepseek_path():
+    """deepseek-moe-16b at published width and depth (28 layers, bf16):
+    MOE_PREFILL through ``build_prefill_step`` (twice, bitwise equal),
+    then MOE_SERVE through ``build_serve_step``."""
+    cfg = get_config(DEEPSEEK)
+    params = registry.init(cfg, seed=0)
+    n_params = sum(leaf.numel() for leaf in tree_leaves(params))
+    log(f"{DEEPSEEK}: {n_params / 1e9:.3f} B parameters on the card")
+    ms, moe_aux, _, _ = moe_prefill(cfg, params, MOE_PREFILL, 41,
+                                    f"{DEEPSEEK} bf16")
+    gen = torch.Generator().manual_seed(42)
+    prompts = torch.randint(0, cfg.vocab_size, (MOE_SERVE["rows"],
+                                                MOE_SERVE["prompt"]),
+                            generator=gen).cuda()
+    _, step_ms, rate = decode_tokens(cfg, params, prompts, MOE_SERVE["new"],
+                                     f"{DEEPSEEK} bf16")
+    return dict(params=n_params, prefill_ms=ms, moe_aux=moe_aux,
+                decode_step_ms=step_ms, decode_tokens_per_s=rate)
+
+
+def moe_oracle_check(cfg, lp):
+    """``_dispatch_local`` on MOE_ORACLE random tokens at ``cfg``'s width
+    (fp32, every choice held) against the explicit per-token mixture of
+    JAX's ``tests/test_models.py`` (each choice's expert FFN on its token,
+    weighted, summed). Tolerance: both compute the same sums in other
+    orders; a sum of n fp32 terms lies within lambda sqrt(n) u of the sum
+    of their magnitudes (TIGHT_LAMBDA); the magnitude of an output is the
+    weighted mixture of |h| @ |down| with h's own error bound (|u| |x| @
+    |gate| silu's slope 1.1 + |silu(g)| |x| @ |up|) in |h|'s place; two
+    evaluations, and the combine's k terms."""
+    m = cfg.moe
+    gen = torch.Generator().manual_seed(43)
+    x = torch.randn((MOE_ORACLE, cfg.d_model), generator=gen).cuda()
+    w, idx, _, _ = TM.router_topk(x, lp["router"], m)
+    got = TM._dispatch_local(x, w, idx, lp["up"], lp["gate"], lp["down"], m,
+                             cfg.act, m.num_experts, 0)
+    want = torch.zeros_like(got)
+    mag = torch.zeros_like(got)
+    act = nn.activation(cfg.act)
+    for j in range(m.top_k):
+        e = idx[:, j]
+        up, gate, down = lp["up"][e], lp["gate"][e], lp["down"][e]
+        xr = x[:, None, :]
+        u, g = torch.bmm(xr, up), torch.bmm(xr, gate)
+        h = act(g) * u
+        bound = (h.abs() + 1.1 * u.abs() * torch.bmm(xr.abs(), gate.abs())
+                 + act(g).abs() * torch.bmm(xr.abs(), up.abs()))
+        want = want + w[:, j, None] * torch.bmm(h, down)[:, 0]
+        mag = mag + w[:, j, None] * torch.bmm(bound, down.abs())[:, 0]
+    n = max(cfg.d_model, m.d_ff_expert)
+    tol = 2 * TIGHT_LAMBDA * (math.sqrt(n) + m.top_k) * 2.0 ** -24 * mag
+    diff = (got - want).abs()
+    ratio = float((diff / tol).max())
+    log(f"check, {DEEPSEEK} dispatch against the per-token mixture "
+        f"({MOE_ORACLE} tokens at width {cfg.d_model}, {m.num_experts} "
+        f"experts, top-{m.top_k}, fp32): max abs diff {float(diff.max())}, "
+        f"max diff / tolerance {ratio:.2e}")
+    if ratio > 1:
+        raise AssertionError(f"dispatch vs per-token mixture: diff / "
+                             f"tolerance {ratio}")
+    return ratio
+
+
+def moe_tight_check():
+    """deepseek-moe-16b at full width, MOE_TIGHT['layers'] layers, fp32,
+    capacity factor num_experts / top_k (no choice drops): the decode
+    steps' logits of MOE_TIGHT prompts fed token by token against the
+    forward's at every position, within the derived tolerance of
+    :func:`tight_check` with MOE_TIGHT_REDUCTIONS reductions a layer and
+    n the longest reduction; the routing ids equal wherever the forward's
+    margin clears MOE_MARGIN; two prefill calls bitwise equal; the
+    dispatch against the per-token mixture (:func:`moe_oracle_check`)."""
+    base = get_config(DEEPSEEK)
+    m = base.moe
+    layers, rows, length = (MOE_TIGHT[k] for k in ("layers", "rows",
+                                                   "length"))
+    cfg = base.replace(num_layers=layers, dtype="float32",
+                       moe=dataclasses.replace(
+                           m, capacity_factor=m.num_experts / m.top_k))
+    params = registry.init(cfg, seed=3)
+    with route_recorder() as fwd:
+        ms, _, tokens, want = moe_prefill(
+            cfg, params, (rows, length), 44,
+            f"{DEEPSEEK} fp32 ({layers} layers)")
+    with route_recorder() as dec:
+        got, _, _ = decode_tokens(cfg, params, tokens, 0,
+                                  f"{DEEPSEEK} fp32 ({layers} layers)")
+    with torch.inference_mode():
+        x = nn.embed(params["embed"], tokens)
+        pos = torch.arange(length).cuda()
+        for i in range(m.first_k_dense):
+            x = TM._dense_layer(TM._stack_layer(params["dense_layers"], i),
+                                cfg, x, pos, False)
+        for i in range(layers - m.first_k_dense):
+            x, _ = TM._moe_layer(TM._stack_layer(params["layers"], i), cfg,
+                                 x, pos, False)
+        h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        mag = h.abs() @ params["lm_head"]["w"].abs()
+    n = max(m.first_dense_ff, cfg.d_model, m.d_ff_expert, length)
+    tol = (2 * (1 + MOE_TIGHT_REDUCTIONS * layers) * TIGHT_LAMBDA
+           * math.sqrt(n) * 2.0 ** -24 * mag)
+    diff = (got - want).abs()
+    ratio = float((diff / tol).max())
+    # routing: forward call i (MoE layer i) row b * length + s == decode
+    # step s's call i row b
+    n_moe = layers - m.first_k_dense
+    compared = differ = 0
+    for i in range(n_moe):
+        f_idx, f_margin = fwd.calls[-n_moe + i]
+        for s in range(length):
+            d_idx, _ = dec.calls[s * n_moe + i]
+            rows_f = torch.arange(rows).cuda() * length + s
+            clear = f_margin[rows_f] > MOE_MARGIN
+            compared += int(clear.sum())
+            differ += int((f_idx[rows_f][clear] != d_idx[clear]).any(-1).sum())
+    log(f"check, {DEEPSEEK} fp32 decode against forward ({layers} layers, "
+        f"capacity factor {cfg.moe.capacity_factor:.3f}, {rows} x {length} "
+        f"tokens): max abs diff {float(diff.max())}, tolerance "
+        f"{float(tol.min())}..{float(tol.max())} (max diff / tolerance "
+        f"{ratio:.2e}); argmax equal "
+        f"{bool((got.argmax(-1) == want.argmax(-1)).all())}; routing ids "
+        f"equal on {compared - differ} of {compared} tokens whose margin "
+        f"clears {MOE_MARGIN}")
+    if ratio > 1 or differ:
+        raise AssertionError(f"fp32 MoE decode vs forward: diff / tolerance "
+                             f"{ratio}, {differ} tokens routed apart")
+    oracle = moe_oracle_check(cfg, TM._stack_layer(params["layers"]["moe"],
+                                                   0))
+    return dict(max_abs_diff=float(diff.max()), ratio=ratio,
+                routed_compared=compared, oracle_ratio=oracle,
+                prefill_ms=ms)
+
+
+def spiking_moe_path():
+    """The spiking deepseek-moe-16b at published width and depth (T =
+    SPIKING_MOE['t'], bf16, the engine's defaults) through
+    ``build_prefill_step`` on SPIKING_MOE['shape'] tokens, the counts set
+    to 0 just before: one causal ``spike_attention`` (#7) a layer (dense
+    and MoE), no other launch; then with ``binary='popcount'``: one
+    ``popcount_scores`` (#8) a layer. Logits through the kernels ==
+    through the plain versions, and the #8 run's == the #7 run's,
+    bitwise. Returns {mode: (counts, ms)}."""
+    base = get_config(DEEPSEEK)
+    cfg = base.replace(spiking=SpikingConfig(time_steps=SPIKING_MOE["t"]),
+                       engine=E.EngineConfig())
+    params = registry.init(cfg, seed=0)
+    gen = torch.Generator().manual_seed(45)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, SPIKING_MOE["shape"],
+                                     generator=gen).cuda()}
+    out, logits = {}, {}
+    for binary, kernel in (("mxu_kernel", "spike_attention"),
+                           ("popcount", "popcount_scores")):
+        c = cfg.replace(engine=cfg.engine.replace(binary=binary))
+        step = steps.build_prefill_step(c)
+        what = f"spiking {DEEPSEEK} (T={SPIKING_MOE['t']}, binary={binary!r})"
+        torch.cuda.synchronize()
+        reset_counts()
+        (got,), (ms,) = timed_requests(step, params, [batch])
+        counts = launches()
+        want = dict.fromkeys(counts, 0)
+        want[kernel] = cfg.num_layers
+        log(f"{what} prefill, {SPIKING_MOE['shape'][0]} x "
+            f"{SPIKING_MOE['shape'][1]} tokens: {ms:.3f} ms, launches "
+            f"{ {k: v for k, v in counts.items() if v} } (one a layer)")
+        if counts != want:
+            raise AssertionError(f"{what}: launches {counts}; expected "
+                                 f"{want}")
+        if got.shape != (*SPIKING_MOE["shape"], cfg.vocab_size) or \
+                not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{what}: bad logits")
+        with plain_kernels():
+            plain = step(params, batch)
+        if not torch.equal(got, plain):
+            raise AssertionError(f"{what}: logits through the kernels != "
+                                 f"through the plain versions (max abs diff "
+                                 f"{float((got - plain).abs().max())})")
+        log(f"check, {what}: logits through the kernels == through the "
+            f"plain versions bitwise, logit std {float(got.std()):.4f}")
+        out[binary], logits[binary] = (counts, ms), got
+    if not torch.equal(logits["popcount"], logits["mxu_kernel"]):
+        raise AssertionError("spiking MoE prefill: binary='popcount' != "
+                             "binary='mxu_kernel'")
+    log(f"check, spiking {DEEPSEEK}: the #8 run's logits == the #7 run's, "
+        f"bitwise")
+    return out
+
+
+def kimi_path():
+    """kimi-k2-1t-a32b at published width, KIMI_CUT['layers'] layers
+    (bf16): a prefill of KIMI_CUT['prefill'] tokens (twice, bitwise
+    equal), then KIMI_CUT['steps'] decode steps of its rows (the first
+    tokens of its prompts, fed a step)."""
+    cfg = get_config(KIMI).replace(num_layers=KIMI_CUT["layers"])
+    params = registry.init(cfg, seed=0)
+    n_params = sum(leaf.numel() for leaf in tree_leaves(params))
+    log(f"{KIMI} ({KIMI_CUT['layers']} layers): {n_params / 1e9:.3f} B "
+        f"parameters on the card")
+    what = f"{KIMI} bf16 ({KIMI_CUT['layers']} layers)"
+    ms, moe_aux, tokens, _ = moe_prefill(cfg, params, KIMI_CUT["prefill"],
+                                         46, what)
+    _, step_ms, rate = decode_tokens(cfg, params,
+                                     tokens[:, :KIMI_CUT["steps"]], 0, what)
+    return dict(params=n_params, prefill_ms=ms, moe_aux=moe_aux,
+                decode_step_ms=step_ms, decode_tokens_per_s=rate)
+
+
+def moe_train_path():
+    """MOE_TRAIN AdamW steps of deepseek-moe-16b at full width, 2 layers
+    (bf16), on the token stream through ``build_train_step``, then one
+    ``qat='int8'`` step, the counts set to 0 just before each: no launch,
+    finite losses, ``moe_aux`` and grad norms, every param leaf moved by
+    the plain steps; then one int8 PTQ request (``quantize_tree``: 15 int8
+    leaves, the expert stacks and the router fp) through
+    ``build_prefill_step``."""
+    n_steps, batch, seq = MOE_TRAIN
+    cfg = get_config(DEEPSEEK).replace(num_layers=2)
+    opt = adamw(warmup_cosine(TRAIN_LR, 1, n_steps))
+    params = registry.init(cfg, seed=0)
+    batch_fn = make_batch_fn(cfg, batch, seq)
+    rows = {}
+    for qat, count in ((None, n_steps), ("int8", 1)):
+        step_fn = steps.build_train_step(cfg, opt, qat=qat)
+        p, opt_state = params, opt.init(params)
+        torch.cuda.synchronize()
+        reset_counts()
+        step_ms, metrics = [], []
+        for i in range(count):
+            t0 = time.perf_counter()
+            p, opt_state, _, m = step_fn(p, opt_state, i, batch_fn(i))
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            metrics.append({k: float(v) for k, v in m.items()})
+        counts = launches()
+        what = f"{DEEPSEEK} (2 layers, bf16{', qat=int8' if qat else ''})"
+        log(f"MoE train path, {what}: {count} steps x {batch} x {seq} "
+            f"tokens, ms per step {[round(x, 3) for x in step_ms]}, losses "
+            f"{[round(m['loss'], 4) for m in metrics]}, moe_aux "
+            f"{[round(m['moe_aux'], 5) for m in metrics]}, grad norms "
+            f"{[round(m['grad_norm'], 4) for m in metrics]}")
+        if any(counts.values()):
+            raise AssertionError(f"MoE train path: launches {counts}")
+        if not all(math.isfinite(v) for m in metrics for v in m.values()):
+            raise AssertionError(f"MoE train path: non-finite {metrics}")
+        if qat is None:
+            still = [n for n, a, b in zip(leaf_paths(params),
+                                          tree_leaves(params),
+                                          tree_leaves(p)) if torch.equal(a, b)]
+            if still:
+                raise AssertionError(f"MoE train path: {still} did not move")
+        rows[qat or "bf16"] = dict(step_ms=step_ms, metrics=metrics)
+        del p, opt_state
+    q = quantize_tree(params, "int8")
+    n_q = sum(1 for leaf in tree_leaves(q) if leaf.dtype == torch.int8)
+    if n_q != 15 or q["layers"]["moe"]["up"].dtype == torch.int8 or \
+            q["layers"]["moe"]["router"].dtype != torch.float32:
+        raise AssertionError(f"int8 MoE tree: {n_q} int8 leaves")
+    gen = torch.Generator().manual_seed(47)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
+                           generator=gen).cuda()
+    step = steps.build_prefill_step(cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    (got,), (ms,) = timed_requests(step, q, [{"tokens": tokens}])
+    counts = launches()
+    ref = step(params, {"tokens": tokens})
+    log(f"int8 PTQ request, {DEEPSEEK} (2 layers, {n_q} int8 leaves): "
+        f"{batch} x {seq} tokens, {ms:.3f} ms, no launch, max abs diff to "
+        f"the bf16 tree's logits {float((got - ref).abs().max()):.4f} "
+        f"(information)")
+    if any(counts.values()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"int8 MoE request: launches {counts} or "
+                             f"non-finite logits")
+    rows["int8_request_ms"] = ms
+    return rows
+
+
+def moe_family(card):
+    """The MoE family's phases, each with its time and peak memory."""
+    out = {}
+    with phase(f"{DEEPSEEK} prefill and decode (28 layers, bf16)", card):
+        out["deepseek"] = deepseek_path()
+    with phase(f"{DEEPSEEK} fp32 decode against forward (2 layers, full "
+               f"width)", card):
+        out["tight"] = moe_tight_check()
+    with phase(f"spiking {DEEPSEEK} prefill (28 layers, bf16, "
+               f"T={SPIKING_MOE['t']})", card):
+        out["spiking"] = spiking_moe_path()
+    with phase(f"{KIMI} prefill and decode ({KIMI_CUT['layers']} layers, "
+               f"bf16)", card):
+        out["kimi"] = kimi_path()
+    with phase(f"{DEEPSEEK} train and int8 (2 layers, bf16)", card):
+        out["train"] = moe_train_path()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products (the MoE experts) sum in fp32, as the reference's
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -4510,6 +4967,11 @@ def main():
     dense = dense_family(smi)
     log(f"dense family phases: {time.perf_counter() - t_dense:.1f} s")
 
+    # --- the MoE family ---------------------------------------------------
+    t_moe = time.perf_counter()
+    moe = moe_family(smi)
+    log(f"MoE family phases: {time.perf_counter() - t_moe:.1f} s")
+
     csrc = "src/repro_torch/kernels/csrc/"
     bf16 = torch.bfloat16
 
@@ -4563,6 +5025,9 @@ def main():
                  at_8_512_train=dict(
                      launches=eight_train[0]["spike_attention"],
                      step_ms=eight_train[1]),
+                 at_moe=dict(launches=moe["spiking"]["mxu_kernel"][0][
+                     "spike_attention"], request_ms=moe["spiking"][
+                         "mxu_kernel"][1]),
                  **attn_timing),
             dict(name="gather_spike_matmul",
                  source=csrc + "gather_spike_matmul.cu",
@@ -4644,6 +5109,9 @@ def main():
                  at_lm_train=dict(
                      launches=lm_train["popcount"][0]["popcount_scores"],
                      step_ms=lm_train["popcount"][1]),
+                 at_moe=dict(launches=moe["spiking"]["popcount"][0][
+                     "popcount_scores"], request_ms=moe["spiking"][
+                         "popcount"][1]),
                  **pop_timing["4-256 train"]),
             dict(name="lif_forward", source=csrc + "lif.cu",
                  replaces="src/repro/kernels/lif.py:38",
@@ -4745,7 +5213,19 @@ def main():
         f"LM prefill ms per request: " + "; ".join(
             f"{k} {d} {[round(m, 3) for m in dense[k, d][1]]}"
             for k in WINDOW_LM for d in ("bf16", "int8", "fp32")))
-    log(f"dense family phases: {json.dumps(PHASES)}")
+    log("MoE family: " + "; ".join(
+        f"{what} prefill ms {[round(m, 3) for m in moe[key]['prefill_ms']]}"
+        f", decode {moe[key]['decode_step_ms']:.3f} ms a step, "
+        f"{moe[key]['decode_tokens_per_s']:.1f} tokens/s"
+        for what, key in ((DEEPSEEK, "deepseek"), (KIMI, "kimi")))
+        + f"; fp32 decode vs forward {moe['tight']['ratio']:.2e} of its "
+        f"tolerance, dispatch vs mixture {moe['tight']['oracle_ratio']:.2e}; "
+        f"spiking prefill ms #7 {moe['spiking']['mxu_kernel'][1]:.3f}, #8 "
+        f"{moe['spiking']['popcount'][1]:.3f}; train ms per step "
+        f"{[round(m, 3) for m in moe['train']['bf16']['step_ms']]}, qat "
+        f"{[round(m, 3) for m in moe['train']['int8']['step_ms']]}, int8 "
+        f"request {moe['train']['int8_request_ms']:.3f}")
+    log(f"dense and MoE family phases: {json.dumps(PHASES)}")
     log(json.dumps({"kernels": [dict(route="cuda", **r) for r in rows]}))
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -1,17 +1,20 @@
 """Config registry: ``get_config(name)`` for the architectures the port
 runs: the four dense decoders (nemotron-4-15b, gemma3-12b,
-h2o-danube-3-4b, granite-20b), the two Spikingformer vision configs, the
-spiking LM and CIFAR-Net. ``configs.shapes`` holds the LM run shapes."""
-from . import (cifarnet, gemma3_12b, granite_20b, h2o_danube3_4b,
-               nemotron_4_15b, spikingformer_4_256, spikingformer_8_512,
-               spikingformer_lm)
-from .base import ModelConfig
+h2o-danube-3-4b, granite-20b), the two MoE decoders (kimi-k2-1t-a32b,
+deepseek-moe-16b), the two Spikingformer vision configs, the spiking LM
+and CIFAR-Net. ``configs.shapes`` holds the LM run shapes."""
+from . import (cifarnet, deepseek_moe_16b, gemma3_12b, granite_20b,
+               h2o_danube3_4b, kimi_k2_1t_a32b, nemotron_4_15b,
+               spikingformer_4_256, spikingformer_8_512, spikingformer_lm)
+from .base import ModelConfig, MoEConfig
 
 _MODULES = {
     "nemotron-4-15b": nemotron_4_15b,
     "gemma3-12b": gemma3_12b,
     "h2o-danube-3-4b": h2o_danube3_4b,
     "granite-20b": granite_20b,
+    "kimi-k2-1t-a32b": kimi_k2_1t_a32b,
+    "deepseek-moe-16b": deepseek_moe_16b,
     "spikingformer-4-256": spikingformer_4_256,
     "spikingformer-8-512": spikingformer_8_512,
     "spikingformer-lm": spikingformer_lm,
@@ -19,6 +22,7 @@ _MODULES = {
 }
 
 DENSE_ARCHS = tuple(list(_MODULES)[:4])
+MOE_ARCHS = tuple(list(_MODULES)[4:6])
 ALL_ARCHS = tuple(_MODULES)
 
 

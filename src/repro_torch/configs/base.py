@@ -1,6 +1,7 @@
 """Config dataclasses (the subset of ``repro.configs.base`` that the
-vision family and the dense token family use, dense or spiking; JAX's
-``remat``, a memory policy that changes no value, has no knob here).
+vision family, the dense token family, dense or spiking, and the MoE
+family use; JAX's ``remat``, a memory policy that changes no value, has
+no knob here).
 Every config module exports ``CONFIG`` (the published shape) and
 ``SMOKE`` (a reduced same-family config for CPU tests)."""
 from __future__ import annotations
@@ -17,6 +18,20 @@ ACTIVATIONS = ("silu", "gelu", "relu2")
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    num_shared: int = 0
+    first_k_dense: int = 0          # leading dense layers (deepseek/kimi style)
+    first_dense_ff: int = 0         # d_ff of those dense layers
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    router_z_weight: float = 1e-3
+    normalize_topk: bool = True     # renormalize top-k routing weights
+
+
+@dataclasses.dataclass(frozen=True)
 class VisionSpec:
     """Spikingformer / CIFAR-Net image input."""
     img_size: int = 32
@@ -27,7 +42,7 @@ class VisionSpec:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # spikingformer | cifarnet | dense
+    family: str                      # spikingformer | cifarnet | dense | moe
     num_layers: int
     d_model: int
     num_heads: int
@@ -46,6 +61,7 @@ class ModelConfig:
     gated: bool = True
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
     vision: Optional[VisionSpec] = None
     spiking: Optional[SpikingConfig] = None
     # dual-engine dispatch installed around the forward by the step

@@ -14,6 +14,8 @@
     PYTHONPATH=src python -m repro_torch.launch.profile --arch cifarnet
     PYTHONPATH=src python -m repro_torch.launch.profile \
         --arch h2o-danube-3-4b      # or gemma3-12b, nemotron-4-15b, ...
+    PYTHONPATH=src python -m repro_torch.launch.profile \
+        --arch deepseek-moe-16b     # or kimi-k2-1t-a32b (2 layers)
 
 Spikingformer-4-256 (the default): the published config (seeded random
 weights; ``--sparse`` sets its sparse datapath, 'auto' by default) on
@@ -52,7 +54,16 @@ engine) run no kernel of the port: their prefill (8 x 512 tokens through
 ``build_prefill_step``) and a server call (8 requests of 100-500 prompt
 tokens, 8 new tokens each, over 8 slots, in prefill bites of
 DENSE_CHUNK: the chunk policy's bites of 4-16 tokens would take a wave
-through every layer for each) are plain PyTorch. ``--analog`` takes the config
+through every layer for each) are plain PyTorch. The MoE decoders
+(``--arch deepseek-moe-16b`` at published width and depth,
+``kimi-k2-1t-a32b`` at published width cut to MOE_LAYERS of its 61
+layers, one dense and one MoE, which is what one card holds; bf16,
+seeded random weights, no engine) run no kernel of the port either:
+their prefill (MOE_PREFILL = 4 x 512 tokens through
+``build_prefill_step``) and a decode loop (``build_serve_step``: a call
+feeds MOE_DECODE steps of 4 rows from an empty cache) are plain PyTorch,
+the expert products ``torch.bmm`` in bf16 (the MoE family has no
+continuous-batching server, as in JAX). ``--analog`` takes the config
 with analog attention scores (its spiking config with
 ``binarize_scores=False``, Spikformer's own SSA), whose layers run the
 sequential composition with the SSA bundle's analog kernel; the prefill
@@ -75,9 +86,10 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import DENSE_ARCHS, get_config
+from repro_torch.configs import DENSE_ARCHS, MOE_ARCHS, get_config
 from repro_torch.kernels import fused_layer as FL
-from repro_torch.launch.steps import build_prefill_step, build_train_step
+from repro_torch.launch.steps import (build_prefill_step, build_serve_step,
+                                      build_train_step)
 from repro_torch.launch.train import make_batch_fn
 from repro_torch.models import registry
 from repro_torch.optim import adamw, warmup_cosine
@@ -88,6 +100,9 @@ TOP = 12
 LM_BATCH, LM_PROMPT = 8, 512
 SERVE_SLOTS, SERVE_REQUESTS, SERVE_NEW, SERVE_MAX_LEN = 8, 8, 8, 1024
 DENSE_CHUNK = 256
+MOE_PREFILL = (4, 512)
+MOE_DECODE = 32
+MOE_LAYERS = {"kimi-k2-1t-a32b": 2}
 
 
 def _device_us(evt) -> float:
@@ -243,6 +258,30 @@ def _profile_dense(cfg) -> None:
              unit=f"{SERVE_REQUESTS} requests x {SERVE_NEW} new tokens")
 
 
+def _profile_moe(cfg) -> None:
+    """An MoE decoder's prefill and decode loop (no engine, no kernel)."""
+    layers = MOE_LAYERS.get(cfg.name, cfg.num_layers)
+    cfg = cfg.replace(num_layers=layers)
+    params = registry.init(cfg, seed=0)
+    arch = f"{cfg.name} ({cfg.dtype}, {layers} layers)"
+    prefill = build_prefill_step(cfg)
+    gen = torch.Generator().manual_seed(1)
+    tokens = [torch.randint(0, cfg.vocab_size, MOE_PREFILL,
+                            generator=gen).cuda() for _ in range(CALLS + 2)]
+    _profile(arch, "prefill", None,
+             lambda i: prefill(params, {"tokens": tokens[i]}),
+             unit=f"{MOE_PREFILL[0]} x {MOE_PREFILL[1]} tokens")
+    serve = build_serve_step(cfg)
+    rows = MOE_PREFILL[0]
+
+    def decode(i):
+        cache = registry.init_cache(cfg, rows, MOE_DECODE)
+        for pos in range(MOE_DECODE):
+            _, cache = serve(params, cache, tokens[i][:, pos:pos + 1], pos)
+    _profile(arch, "decode loop", None, decode,
+             unit=f"{rows} rows x {MOE_DECODE} steps")
+
+
 def _firing_vision(cfg):
     """The vision params of seed 0 with every BN bias raised by 1/4, so
     layer inputs fire."""
@@ -269,7 +308,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="spikingformer-4-256",
                     choices=["spikingformer-4-256", "spikingformer-8-512",
-                             "spikingformer-lm", "cifarnet", *DENSE_ARCHS])
+                             "spikingformer-lm", "cifarnet", *DENSE_ARCHS,
+                             *MOE_ARCHS])
     ap.add_argument("--sparse", default=None,
                     choices=["tile", "decoded", "auto"],
                     help="the engine's sparse datapath (default: the "
@@ -291,6 +331,9 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    # bf16 products (the MoE experts) sum in fp32, as the reference's
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
     cfg = get_config(args.arch)
     if cfg.engine is None and (args.sparse or args.overlap or args.analog
                                or keep_fp or args.quantize != "none"):
@@ -306,6 +349,9 @@ def main():
             cfg.spiking, binarize_scores=False))
     if args.arch in DENSE_ARCHS:
         _profile_dense(cfg)
+        return
+    if args.arch in MOE_ARCHS:
+        _profile_moe(cfg)
         return
     if args.arch == "spikingformer-lm":
         _profile_lm(cfg, args.quantize, keep_fp, args.overlap, args.analog)

@@ -44,10 +44,13 @@ def value_and_grad(cfg: ModelConfig, params, batch, model_state=None, *,
     """Train-mode loss and its gradient with respect to every param leaf:
     (loss, aux, grads) with grads in the params' tree layout and dtypes.
     ``model_state`` is the BN running-stats tree of the stateful (vision)
-    family, None for the token family. ``qat`` ('int8' | 'int4'): the
-    forward sees the linears fake-quantized (``quant.fake_quant_tree``,
-    applied to the leaves being differentiated), and the straight-through
-    gradients reach the fp masters."""
+    family, None for the token family. The MoE family's router losses
+    (``aux['moe_aux']``, detached there) are part of the loss, as in JAX.
+    ``qat`` ('int8' | 'int4'): the forward sees the linears
+    fake-quantized (``quant.fake_quant_tree``, applied to the leaves being
+    differentiated; the MoE expert stacks and router, bare arrays, stay
+    fp, as in JAX), and the straight-through gradients reach the fp
+    masters."""
     fq = (lambda p: p) if qat is None else \
         (lambda p: fake_quant_tree(p, qat))
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
@@ -63,6 +66,9 @@ def value_and_grad(cfg: ModelConfig, params, batch, model_state=None, *,
         logits, aux = registry.forward(fq(tree_unflatten(params, leaves)),
                                        cfg, batch, train=True, **state)
         loss = loss_from_forward(cfg, logits, batch)
+        if "moe_aux" in aux:
+            loss = loss + aux["moe_aux"]
+            aux = dict(aux, moe_aux=aux["moe_aux"].detach())
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
     return loss.detach(), aux, tree_unflatten(params, grads)
@@ -78,7 +84,8 @@ def build_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
       ``model_state`` the BN running-stats tree, metrics loss, grad_norm
       and fire_rate;
     * the token family: (params, opt_state, step, batch) -> (params,
-      opt_state, step + 1, metrics), metrics loss and grad_norm.
+      opt_state, step + 1, metrics), metrics loss and grad_norm (and the
+      MoE family's ``moe_aux``, which the loss includes).
 
     Metrics are 0-d tensors. ``qat`` ('int8' | 'int4') trains
     quantization-aware: see :func:`value_and_grad`; the optimizer updates
@@ -107,7 +114,8 @@ def build_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
         return train_step
 
     def train_step(params, opt_state, step, batch):
-        loss, _, grads = value_and_grad(cfg, params, to_dev(batch), qat=qat)
+        loss, aux, grads = value_and_grad(cfg, params, to_dev(batch),
+                                          qat=qat)
         if compress:
             grads, new_err = compressed_gradients(grads,
                                                   opt_state["compress_err"])
@@ -116,6 +124,8 @@ def build_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
         if compress:
             new_opt["compress_err"] = new_err
         metrics = {"loss": loss, "grad_norm": new_opt["grad_norm"]}
+        if "moe_aux" in aux:
+            metrics["moe_aux"] = aux["moe_aux"]
         return new_params, new_opt, step + 1, metrics
     return train_step
 

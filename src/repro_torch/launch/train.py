@@ -2,7 +2,7 @@
 
 Runs ``build_train_step`` on deterministic synthetic data (images for
 the vision family, a Markov token stream for the token family: the
-dense decoders and spikingformer-lm) with
+dense and MoE decoders and spikingformer-lm) with
 AdamW under a warmup-cosine schedule, on the GPU unless ``--device``
 names another device, with:
 
@@ -36,6 +36,11 @@ Examples:
       --arch cifarnet --steps 6 --batch 64
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch h2o-danube-3-4b --smoke --steps 10 --seq 64 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch deepseek-moe-16b --smoke --steps 10 --seq 64 --device cpu
+
+The MoE family logs its router losses (``moe_aux``, part of the loss)
+beside the loss.
 """
 from __future__ import annotations
 
@@ -155,6 +160,8 @@ def train(arch: str, smoke: bool, total_steps: int, batch: int, lr: float,
             if step % log_every == 0 or step == total_steps - 1:
                 extra = f" fire={float(metrics['fire_rate']):.3f}" \
                     if "fire_rate" in metrics else ""
+                if "moe_aux" in metrics:
+                    extra += f" moe_aux={float(metrics['moe_aux']):.4f}"
                 print(f"[train] step {step:5d} loss {loss:.4f} "
                       f"gnorm {float(metrics['grad_norm']):.3f}{extra}",
                       flush=True)

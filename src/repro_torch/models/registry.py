@@ -1,6 +1,6 @@
-"""Model registry: the Spikingformer vision family, CIFAR-Net and the
-dense decoder family (dense and spiking). JAX's other families (moe,
-rwkv, hybrid, encdec, vlm) are not ported and raise
+"""Model registry: the Spikingformer vision family, CIFAR-Net, the dense
+decoder family (dense and spiking) and the MoE family. JAX's other
+families (rwkv, hybrid, encdec, vlm) are not ported and raise
 ``NotImplementedError``.
 
 Uniform API, as in ``repro.models.registry``:
@@ -17,18 +17,20 @@ from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
-from . import spikingformer, transformer
+from . import moe, spikingformer, transformer
 
 FAMILIES: Dict[str, ModuleType] = {"spikingformer": spikingformer,
                                    "cifarnet": spikingformer,
-                                   "dense": transformer}
+                                   "dense": transformer,
+                                   "moe": moe}
 # the JAX package's families that the port does not run yet
-UNPORTED = ("moe", "rwkv", "hybrid", "encdec", "vlm")
+UNPORTED = ("rwkv", "hybrid", "encdec", "vlm")
 # families without an autoregressive decode step
 NO_DECODE = {"spikingformer", "cifarnet"}
 # families whose decode step carries per-slot state (vector positions,
 # validity tags, chunked bites, slot invalidation): what the
-# continuous-batching server needs
+# continuous-batching server needs (JAX's also holds "vlm"; "moe" decodes
+# one token a row at a scalar position, through build_serve_step)
 SLOTTED_DECODE = {"dense"}
 
 

@@ -76,13 +76,14 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig):
 
 
 def _stacked_layers(gen: torch.Generator, cfg: ModelConfig,
-                    lead: Tuple[int, ...], dev: torch.device):
-    """Layer trees stacked on the leading axes ``lead``, drawn one layer
-    at a time into preallocated leaves (a whole model's layers never
-    exist twice)."""
+                    lead: Tuple[int, ...], dev: torch.device,
+                    layer_init=_layer_init):
+    """Layer trees of ``layer_init`` stacked on the leading axes ``lead``,
+    drawn one layer at a time into preallocated leaves (a whole model's
+    layers never exist twice)."""
     out = None
     for idx in product(*(range(n) for n in lead)):
-        layer = _layer_init(gen, cfg)
+        layer = layer_init(gen, cfg)
         if out is None:
             out = tree_map(lambda a: torch.empty(
                 (*lead, *a.shape), dtype=a.dtype, device=dev), layer)

@@ -12,7 +12,8 @@ tolerances of ``test_torch_train.py`` (each reason stated there):
 * every param leaf moved.
 
 The token family (``state=None``: no BN state, no fire rate) takes the
-same tolerances but one: its loss within :data:`DENSE_LOSS_REL` relative.
+same tolerances but one: its loss within :data:`DENSE_LOSS_REL` relative
+(the MoE family's with its router losses, as JAX's step adds them).
 Its forward is no exact sum: rmsnorm's rsqrt and the analog projections
 of its output round apart from XLA's (ROADMAP queue 3), so its logits
 agree within 1e-5 (``test_torch_lm.py``), not bitwise.
@@ -75,9 +76,11 @@ def check_train_step(cfg, tcfg, params, state, batch, qat=None):
             from repro.quant import fake_quant_tree
             p = fake_quant_tree(p, qat)
         with JE.engine_scope(cfg):
-            logits, _ = JR.forward(p, cfg, batch, train=True,
-                                   **({} if dense else {"state": state}))
-        return JS.loss_from_forward(cfg, logits, batch)
+            logits, aux = JR.forward(p, cfg, batch, train=True,
+                                     **({} if dense else {"state": state}))
+        loss = JS.loss_from_forward(cfg, logits, batch)
+        # the MoE family's router losses, as JAX's train step adds them
+        return loss + aux["moe_aux"] if "moe_aux" in aux else loss
     jgrads = jax.jit(jax.grad(jloss))(params)
 
     tp = interop.to_torch(params, device="cpu")

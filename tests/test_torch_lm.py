@@ -551,7 +551,8 @@ def test_mixed_tree_bundle_fused_matches_off_and_jax(monkeypatch):
     np.testing.assert_allclose(got["fused"].numpy(), want, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("family", registry.UNPORTED)
+@pytest.mark.parametrize("family", ["moe", "rwkv", "hybrid", "encdec",
+                                    "vlm"])
 def test_unported_token_paths_raise(family):
     cfg = get_config(ARCH, smoke=True)
     # sliding-window and local/global spiking LMs and the non-spiking
@@ -565,10 +566,19 @@ def test_unported_token_paths_raise(family):
                                      now, tokens)
         assert logits.shape == (2, 5, cfg.vocab_size)
         assert bool(torch.isfinite(logits).all())
-    # a family the port does not run, and a serving mesh, still raise,
+    # the MoE family, which raised here before it was ported, runs; a
+    # family the port does not run, and a serving mesh, still raise,
     # naming ROADMAP item 10
-    with pytest.raises(NotImplementedError, match="item 10"):
-        registry.init(cfg.replace(family=family), 0, device="cpu")
+    if family == "moe":
+        moe = get_config("deepseek-moe-16b", smoke=True)
+        logits, aux = registry.forward(registry.init(moe, 0, device="cpu"),
+                                       moe, tokens)
+        assert logits.shape == (2, 5, moe.vocab_size)
+        assert bool(torch.isfinite(logits).all()) and float(
+            aux["moe_aux"]) > 0
+    else:
+        with pytest.raises(NotImplementedError, match="item 10"):
+            registry.init(cfg.replace(family=family), 0, device="cpu")
     from repro_torch.launch.serve import BatchedServer
     with pytest.raises(NotImplementedError, match="item 10"):
         BatchedServer(cfg, registry.init(cfg, 0, device="cpu"), 2, 16,

@@ -265,7 +265,7 @@ def test_unported_layer_paths_raise():
     dense = get_config("spikingformer-lm", smoke=True).replace(spiking=None)
     assert "delta" not in TR.init(dense, device="cpu")["layers"]
     cases = [
-        lambda: TR.init(dense.replace(family="moe"), device="cpu"),
+        lambda: TR.init(dense.replace(family="rwkv"), device="cpu"),
     ]
     for case in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
