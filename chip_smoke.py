@@ -411,6 +411,27 @@ device; exits non-zero without one). It
      ``qat='int8'`` step, one int8 PTQ request (``quantize_tree``: 15 int8
      leaves; expert stacks and router fp).
 
+9. serves, checks and trains the rwkv, hybrid, encoder-decoder and
+   vision-language families through the entry points at published width
+   and depth (seeded random weights, bf16; no kernel launched), each
+   phase logged with its seconds and peak device memory:
+   * rwkv6-3b (32 layers): two prefills of 4 x 1024 tokens (the chunked
+     WKV), then 4 rows decoded 32 steps through ``build_serve_step``;
+   * hymba-1.5b (32 layers): two prefills of 2 x 512 tokens, then 32
+     decode steps of 2 rows;
+   * whisper-small (12 + 12 layers): two prefills of 2 x (1500 stub
+     frames + 64 tokens), then 64 decode steps against the cross K / V
+     that ``init_cache`` computed (positions under 448);
+   * llava-next-mistral-7b (32 layers): a prefill of 2880 stub patches +
+     128 tokens, then a 4-slot ``BatchedServer`` serving 8 text
+     continuations of 64-256 prompt tokens, 16 new tokens each;
+   * fp32 at each family's width cut to 2 layers: token-by-token decode
+     against the forward within a derived tolerance
+     (:func:`family_tight_check`);
+   * 2 AdamW steps of each at its width cut to 2 layers (llava with
+     patches, whisper with frames) on one batch: finite losses, the
+     second not above the first.
+
 It prints the card's name and power limit, a JSON line of per-kernel
 numbers (``spike_matmul``'s row also with the 4-256 'tile' train steps'
 and analog 'tile' requests' ms, ``quant_spike_matmul``'s with the mixed
@@ -1769,7 +1790,10 @@ def first_token_check(cfg, params, completed, what):
     """Each request's first generated token == the argmax of the prefill
     step's last-position logits on its prompt wherever their top-2
     margin exceeds SERVE_MARGIN. Returns (checked, max abs diff of the
-    first-token logits, decode path against the prefill step)."""
+    first-token logits, decode path against the prefill step). A vlm's
+    text prompts take its backbone's prefill (the dense family's)."""
+    if cfg.family == "vlm":
+        cfg = cfg.replace(family="dense")
     prefill = steps.build_prefill_step(cfg)
     checked, max_diff = 0, 0.0
     for r in completed:
@@ -4105,15 +4129,17 @@ class route_recorder:
         TM.router_topk = self.real
 
 
-def decode_tokens(cfg, params, prompts, new, what):
-    """``build_serve_step`` from an empty cache: ``prompts`` (B, P) fed a
-    token a step, then ``new`` greedy tokens, the counts set to 0 just
-    before: no launch, finite logits. Returns (logits of every step
-    (B, P + new, V), ms a step, tokens/s)."""
+def decode_tokens(cfg, params, prompts, new, what, batch=None):
+    """``build_serve_step`` from an empty cache (with ``batch``, the one
+    ``init_cache`` fills from it: whisper's cross K / V): ``prompts`` (B,
+    P) fed a token a step, then ``new`` greedy tokens, the counts set to
+    0 just before: no launch, finite logits. Returns (logits of every
+    step (B, P + new, V), ms a step, tokens/s)."""
     b, p = prompts.shape
     n = p + new
     serve = steps.build_serve_step(cfg)
-    cache = registry.init_cache(cfg, b, n)
+    cache = registry.init_cache(cfg, b, n, batch=batch,
+                                params=None if batch is None else params)
     torch.cuda.synchronize()
     reset_counts()
     outs, tok = [], prompts[:, :1]
@@ -4135,7 +4161,7 @@ def decode_tokens(cfg, params, prompts, new, what):
     ms, rate = 1e3 * sec / n, b * n / sec
     log(f"{what} decode: {b} rows x {n} steps ({p} prompt tokens fed a "
         f"step, {new} greedy), {ms:.3f} ms a step, {rate:.1f} tokens/s, "
-        f"no launch, cache {tuple(cache['layers']['k'].shape)} a group")
+        f"no launch, cache {tree_map(lambda a: tuple(a.shape), cache)}")
     return logits, ms, rate
 
 
@@ -4466,6 +4492,243 @@ def moe_family(card):
         out["kimi"] = kimi_path()
     with phase(f"{DEEPSEEK} train and int8 (2 layers, bf16)", card):
         out["train"] = moe_train_path()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the rwkv, hybrid, encoder-decoder and vision-language families
+# ---------------------------------------------------------------------------
+
+RWKV, HYMBA, WHISPER, LLAVA = ("rwkv6-3b", "hymba-1.5b", "whisper-small",
+                               "llava-next-mistral-7b")
+# published width and depth, bf16: (rows, prompt tokens) of each prefill
+# (twice; whisper's tokens follow its 1500 stub frames, llava's its 2880
+# stub patches, once), then (prompt tokens fed a step, greedy tokens) of
+# the decode loop through build_serve_step on the prefill's first rows
+OTHER_PREFILL = {RWKV: (4, 1024), HYMBA: (2, 512), WHISPER: (2, 64),
+                 LLAVA: (1, 128)}
+OTHER_DECODE = {RWKV: (16, 16), HYMBA: (16, 16), WHISPER: (32, 32)}
+# llava's server: text continuations over 4 slots in bites of 64
+LLAVA_SERVE = dict(slots=4, requests=8, prompts=(64, 256), new=16, chunk=64)
+# the fp32 decode-against-forward check at each width, 2 layers: 2 rows
+# of 64 tokens; reductions a layer on the chain to the head (see
+# family_tight_check) and the longest reduction n
+OTHER_TIGHT = dict(layers=2, rows=2, length=64)
+OTHER_REDUCTIONS = {RWKV: 10, HYMBA: 10, WHISPER: 8, LLAVA: 4}
+# 2 AdamW steps at each width, 2 layers, on one batch of (rows, tokens)
+OTHER_TRAIN = {RWKV: (2, 512), HYMBA: (2, 512), WHISPER: (2, 64),
+               LLAVA: (1, 128)}
+OTHER_TRAIN_LR = 1e-4
+
+
+def cut(cfg, layers):
+    """``cfg`` at its width with ``layers`` layers (whisper: encoder and
+    decoder alike)."""
+    out = cfg.replace(num_layers=layers)
+    return out.replace(encoder_layers=layers) if cfg.encoder_layers else out
+
+
+def stub_batch(cfg, rows, tokens, seed):
+    """Tokens and the family's stub embeddings (normal, std 0.02, in the
+    model's dtype), made on the card from ``seed``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (rows, tokens),
+                                     generator=gen, device="cuda")}
+    dt = getattr(torch, cfg.dtype)
+    if cfg.family == "vlm":
+        fr = cfg.frontend
+        batch["patch_embeds"] = 0.02 * torch.randn(
+            (rows, fr.num_embeds, fr.embed_dim), generator=gen,
+            device="cuda").to(dt)
+    if cfg.family == "encdec":
+        batch["audio_embeds"] = 0.02 * torch.randn(
+            (rows, cfg.encoder_seq, cfg.d_model), generator=gen,
+            device="cuda").to(dt)
+    return batch
+
+
+def other_prefill(cfg, params, batch, what, calls=2):
+    """``build_prefill_step`` ``calls`` times on ``batch``, the counts set
+    to 0 just before: no launch, finite fp32 logits of the right shape.
+    Returns (ms of each call, the logits)."""
+    step = steps.build_prefill_step(cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    outs, ms = timed_requests(step, params, [batch] * calls)
+    counts = launches()
+    rows, s = batch["tokens"].shape
+    if cfg.family == "vlm":
+        s += batch["patch_embeds"].shape[1]
+    for logits in outs:
+        if logits.shape != (rows, s, cfg.vocab_size) or \
+                logits.dtype != torch.float32 or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{what} prefill: bad logits "
+                                 f"{tuple(logits.shape)} {logits.dtype}")
+    if any(counts.values()):
+        raise AssertionError(f"{what} prefill: launches {counts}")
+    tokens = rows * s
+    log(f"{what} prefill, {rows} x {s} positions: ms "
+        f"{[round(m, 3) for m in ms]} ({tokens / min(ms) * 1e3:.1f} "
+        f"positions/s), no launch, logit std {float(outs[0].std()):.4f}")
+    return ms, outs[0]
+
+
+def other_path(arch):
+    """``arch`` at published width and depth (bf16): OTHER_PREFILL, then
+    the decode loop of OTHER_DECODE (llava: LLAVA_SERVE through
+    ``BatchedServer``)."""
+    cfg = get_config(arch)
+    params = registry.init(cfg, seed=0)
+    n_params = sum(leaf.numel() for leaf in tree_leaves(params))
+    log(f"{arch}: {n_params / 1e9:.3f} B parameters on the card")
+    what = f"{arch} bf16 ({cfg.num_layers} layers)"
+    batch = stub_batch(cfg, *OTHER_PREFILL[arch], 61)
+    ms, _ = other_prefill(cfg, params, batch, what,
+                          calls=1 if arch == LLAVA else 2)
+    row = dict(params=n_params, prefill_ms=ms)
+    if arch == LLAVA:
+        row["serve"] = dense_serve(cfg, params, LLAVA_SERVE, 62,
+                                   f"{arch} bf16 (text continuations)")
+        return row
+    fed, new = OTHER_DECODE[arch]
+    _, row["decode_step_ms"], row["decode_tokens_per_s"] = decode_tokens(
+        cfg, params, batch["tokens"][:, :fed], new, what,
+        batch=batch if cfg.family == "encdec" else None)
+    return row
+
+
+class head_input:
+    """Within the scope, records the LM head's input (the final norm's
+    output): the ``x`` of ``nn.linear`` on ``params['lm_head']`` or of
+    ``nn.unembed`` (whisper's tied head)."""
+
+    def __init__(self, params):
+        self.head = params.get("lm_head")
+
+    def __enter__(self):
+        self.linear, self.unembed, self.x = nn.linear, nn.unembed, None
+
+        def linear(p, x, **kw):
+            if p is self.head:
+                self.x = x
+            return self.linear(p, x, **kw)
+
+        def unembed(p, x):
+            self.x = x
+            return self.unembed(p, x)
+        nn.linear, nn.unembed = linear, unembed
+        return self
+
+    def __exit__(self, *exc):
+        nn.linear, nn.unembed = self.linear, self.unembed
+
+
+def family_tight_check(arch):
+    """``arch`` at its width, OTHER_TIGHT['layers'] layers, fp32: the
+    decode steps' logits of OTHER_TIGHT prompts fed token by token
+    against the forward's at every position (llava: text prompts against
+    its backbone's forward; whisper: frames of std 0.02, positions under
+    448, the cross K / V of ``init_cache``), within the tolerance of
+    :func:`tight_check` with OTHER_REDUCTIONS[arch] reductions a layer on
+    the chain to the head and n the longest reduction (d_ff, d_model,
+    d_inner, the prompt or whisper's 1500 frames). The reductions a
+    layer: rwkv the token shift's two LoRA products, r / k / v / g, the
+    decay's LoRA, the WKV sums over the head and over the tokens, wo,
+    the channel mix's three; hymba attention's scores and context, wo,
+    in_proj, x_proj, dt_proj, the scan over the tokens and its C sum,
+    out_proj, the MLP; whisper self attention's two, its wo, cross
+    attention's two (1500 frames), its wo, the MLP's two; llava the dense
+    family's four. The two paths' WKV differ in form as well (the
+    forward's chunks of 32, the decode's scan), exact in real numbers."""
+    layers, rows, length = (OTHER_TIGHT[k] for k in ("layers", "rows",
+                                                      "length"))
+    cfg = cut(get_config(arch), layers).replace(dtype="float32")
+    params = registry.init(cfg, seed=3)
+    batch = stub_batch(cfg, rows, length, 63)
+    fwd_cfg = cfg.replace(family="dense") if arch == LLAVA else cfg
+    fwd_batch = {"tokens": batch["tokens"]} if arch == LLAVA else batch
+    with head_input(params) as rec:
+        _, want = other_prefill(fwd_cfg, params, fwd_batch,
+                                f"{arch} fp32 ({layers} layers)", calls=1)
+    head = params["lm_head"]["w"] if "lm_head" in params else \
+        params["embed"]["table"].t()
+    mag = rec.x.abs().float() @ head.abs().float()
+    got, _, _ = decode_tokens(cfg, params, batch["tokens"], 0,
+                              f"{arch} fp32 ({layers} layers)",
+                              batch=batch if arch == WHISPER else None)
+    di = cfg.ssm.expand * cfg.d_model if cfg.ssm else 0
+    n = max(cfg.d_ff, cfg.d_model, di, length,
+            cfg.encoder_seq if cfg.encoder_layers else 0)
+    tol = (2 * (1 + OTHER_REDUCTIONS[arch] * layers) * TIGHT_LAMBDA
+           * math.sqrt(n) * 2.0 ** -24 * mag)
+    diff = (got - want).abs()
+    ratio = float((diff / tol).max())
+    log(f"check, {arch} fp32 decode against forward ({layers} layers, "
+        f"{rows} x {length} tokens, n {n}): max abs diff "
+        f"{float(diff.max())}, tolerance {float(tol.min())}.."
+        f"{float(tol.max())} (max diff / tolerance {ratio:.2e}); argmax "
+        f"equal {bool((got.argmax(-1) == want.argmax(-1)).all())}")
+    if ratio > 1:
+        raise AssertionError(f"fp32 {arch} decode vs forward: diff / "
+                             f"tolerance {ratio}")
+    return dict(max_abs_diff=float(diff.max()), ratio=ratio)
+
+
+def other_train_path(arch):
+    """2 AdamW steps of ``arch`` at its width, 2 layers (bf16), on one
+    batch of OTHER_TRAIN[arch] (``make_batch_fn``'s: tokens and the
+    family's fp32 stub embeddings), through ``build_train_step``, the
+    counts set to 0 just before: no launch, finite losses and grad
+    norms, the second loss not above the first (the same batch after one
+    step at OTHER_TRAIN_LR). Returns (ms per step, losses)."""
+    rows, seq = OTHER_TRAIN[arch]
+    cfg = cut(get_config(arch), 2)
+    opt = adamw(warmup_cosine(OTHER_TRAIN_LR, 1, 2))
+    step_fn = steps.build_train_step(cfg, opt)
+    params = registry.init(cfg, seed=0)
+    p, opt_state = params, opt.init(params)
+    batch = make_batch_fn(cfg, rows, seq)(0)
+    torch.cuda.synchronize()
+    reset_counts()
+    step_ms, metrics = [], []
+    for i in range(2):
+        t0 = time.perf_counter()
+        p, opt_state, _, m = step_fn(p, opt_state, i, batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        metrics.append({k: float(v) for k, v in m.items()})
+    counts = launches()
+    losses = [m["loss"] for m in metrics]
+    log(f"train path, {arch} (2 layers, bf16): 2 steps x {rows} x {seq} "
+        f"tokens{' + stub embeddings' if arch in (WHISPER, LLAVA) else ''}"
+        f", ms per step {[round(x, 3) for x in step_ms]}, losses "
+        f"{[round(x, 5) for x in losses]}, grad norms "
+        f"{[round(m['grad_norm'], 4) for m in metrics]}")
+    if any(counts.values()):
+        raise AssertionError(f"{arch} train path: launches {counts}")
+    if not all(math.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"{arch} train path: non-finite {metrics}")
+    if losses[1] > losses[0]:
+        raise AssertionError(f"{arch} train path: loss rose {losses}")
+    return step_ms, losses
+
+
+def other_families(card):
+    """The rwkv, hybrid, encdec and vlm families' phases, each with its
+    time and peak memory."""
+    out = {}
+    for arch in (RWKV, HYMBA, WHISPER, LLAVA):
+        depth = get_config(arch).num_layers
+        with phase(f"{arch} prefill and decode ({depth} layers, bf16)",
+                   card):
+            out[arch] = other_path(arch)
+    for arch in (RWKV, HYMBA, WHISPER, LLAVA):
+        with phase(f"{arch} fp32 decode against forward (2 layers, full "
+                   f"width)", card):
+            out["tight", arch] = family_tight_check(arch)
+        with phase(f"{arch} train steps (2 layers, bf16)", card):
+            out["train", arch] = other_train_path(arch)
     return out
 
 
@@ -4972,6 +5235,12 @@ def main():
     moe = moe_family(smi)
     log(f"MoE family phases: {time.perf_counter() - t_moe:.1f} s")
 
+    # --- the rwkv, hybrid, encdec and vlm families ------------------------
+    t_other = time.perf_counter()
+    other = other_families(smi)
+    log(f"rwkv, hybrid, encdec and vlm phases: "
+        f"{time.perf_counter() - t_other:.1f} s")
+
     csrc = "src/repro_torch/kernels/csrc/"
     bf16 = torch.bfloat16
 
@@ -5225,7 +5494,18 @@ def main():
         f"{[round(m, 3) for m in moe['train']['bf16']['step_ms']]}, qat "
         f"{[round(m, 3) for m in moe['train']['int8']['step_ms']]}, int8 "
         f"request {moe['train']['int8_request_ms']:.3f}")
-    log(f"dense and MoE family phases: {json.dumps(PHASES)}")
+    log("rwkv, hybrid, encdec and vlm families: " + "; ".join(
+        f"{arch} prefill ms "
+        f"{[round(m, 3) for m in other[arch]['prefill_ms']]}"
+        + (f", decode {other[arch]['decode_step_ms']:.3f} ms a step, "
+           f"{other[arch]['decode_tokens_per_s']:.1f} tokens/s"
+           if "decode_step_ms" in other[arch] else
+           f", server {other[arch]['serve']['tokens_per_s']:.1f} tokens/s")
+        + f"; fp32 decode vs forward {other['tight', arch]['ratio']:.2e} of "
+        f"its tolerance; train ms per step "
+        f"{[round(m, 3) for m in other['train', arch][0]]}"
+        for arch in (RWKV, HYMBA, WHISPER, LLAVA)))
+    log(f"family phases: {json.dumps(PHASES)}")
     log(json.dumps({"kernels": [dict(route="cuda", **r) for r in rows]}))
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(smi)

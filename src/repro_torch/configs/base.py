@@ -1,7 +1,7 @@
-"""Config dataclasses (the subset of ``repro.configs.base`` that the
-vision family, the dense token family, dense or spiking, and the MoE
-family use; JAX's ``remat``, a memory policy that changes no value, has
-no knob here).
+"""Config dataclasses (those of ``repro.configs.base``: the vision
+family, the dense token family, dense or spiking, the MoE family, and
+the rwkv, hybrid, encdec and vlm families; JAX's ``remat``, a memory
+policy that changes no value, has no knob here).
 Every config module exports ``CONFIG`` (the published shape) and
 ``SMOKE`` (a reduced same-family config for CPU tests)."""
 from __future__ import annotations
@@ -32,6 +32,31 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0                # 0 -> ceil(d_model / 16)
+
+
+@dataclasses.dataclass(frozen=True)
+class RWKVConfig:
+    head_size: int = 64
+    lora_mix: int = 32              # rank of data-dependent token-shift LoRA
+    lora_decay: int = 64            # rank of data-dependent decay LoRA
+    wkv_chunk: int = 0              # 0 = per-token scan; >0 = chunk-parallel
+                                    # WKV (exact; see models/rwkv)
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontendConfig:
+    kind: str                        # 'audio' | 'vision'
+    num_embeds: int                  # frames / patches the stub provides
+    embed_dim: int                   # pre-projector embedding dim
+    projector_layers: int = 2        # mm projector MLP depth (vision)
+
+
+@dataclasses.dataclass(frozen=True)
 class VisionSpec:
     """Spikingformer / CIFAR-Net image input."""
     img_size: int = 32
@@ -42,7 +67,7 @@ class VisionSpec:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # spikingformer | cifarnet | dense | moe
+    family: str                      # a key of models/registry.FAMILIES
     num_layers: int
     d_model: int
     num_heads: int
@@ -61,8 +86,14 @@ class ModelConfig:
     gated: bool = True
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    max_position_embeddings: int = 0  # >0 -> learned positions (whisper dec)
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rwkv: Optional[RWKVConfig] = None
+    frontend: Optional[FrontendConfig] = None
     vision: Optional[VisionSpec] = None
+    encoder_layers: int = 0          # whisper encoder depth
+    encoder_seq: int = 1500          # whisper frame count (stubbed frontend)
     spiking: Optional[SpikingConfig] = None
     # dual-engine dispatch installed around the forward by the step
     # builders (core/engine.py); None = no engine

@@ -16,6 +16,8 @@
         --arch h2o-danube-3-4b      # or gemma3-12b, nemotron-4-15b, ...
     PYTHONPATH=src python -m repro_torch.launch.profile \
         --arch deepseek-moe-16b     # or kimi-k2-1t-a32b (2 layers)
+    PYTHONPATH=src python -m repro_torch.launch.profile \
+        --arch rwkv6-3b   # or hymba-1.5b, whisper-small, llava-next-...
 
 Spikingformer-4-256 (the default): the published config (seeded random
 weights; ``--sparse`` sets its sparse datapath, 'auto' by default) on
@@ -63,8 +65,15 @@ their prefill (MOE_PREFILL = 4 x 512 tokens through
 ``build_prefill_step``) and a decode loop (``build_serve_step``: a call
 feeds MOE_DECODE steps of 4 rows from an empty cache) are plain PyTorch,
 the expert products ``torch.bmm`` in bf16 (the MoE family has no
-continuous-batching server, as in JAX). ``--analog`` takes the config
-with analog attention scores (its spiking config with
+continuous-batching server, as in JAX). rwkv6-3b, hymba-1.5b,
+whisper-small and llava-next-mistral-7b (published configs, bf16,
+seeded random weights, no engine) run no kernel of the port either:
+a prefill through ``build_prefill_step`` and a decode loop through
+``build_serve_step`` from a fresh cache, at OTHER_SHAPES' rows, prompt
+tokens and steps (whisper's prompt follows its 1500 stub frames, whose
+cross K / V ``init_cache`` computes inside each decode call; llava's its
+2880 stub patches, and its decode continues text). ``--analog`` takes
+the config with analog attention scores (its spiking config with
 ``binarize_scores=False``, Spikformer's own SSA), whose layers run the
 sequential composition with the SSA bundle's analog kernel; the prefill
 alone is profiled (a vision model's on weights that fire; the LM's
@@ -86,7 +95,8 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import DENSE_ARCHS, MOE_ARCHS, get_config
+from repro_torch.configs import (DENSE_ARCHS, MOE_ARCHS, OTHER_ARCHS,
+                                 get_config)
 from repro_torch.kernels import fused_layer as FL
 from repro_torch.launch.steps import (build_prefill_step, build_serve_step,
                                       build_train_step)
@@ -103,6 +113,11 @@ DENSE_CHUNK = 256
 MOE_PREFILL = (4, 512)
 MOE_DECODE = 32
 MOE_LAYERS = {"kimi-k2-1t-a32b": 2}
+# (rows, prompt tokens, decode steps) of the rwkv, hybrid, encdec and vlm
+# archs
+OTHER_SHAPES = {"rwkv6-3b": (4, 1024, 32), "hymba-1.5b": (2, 512, 32),
+                "whisper-small": (2, 64, 64),
+                "llava-next-mistral-7b": (1, 128, 16)}
 
 
 def _device_us(evt) -> float:
@@ -282,6 +297,41 @@ def _profile_moe(cfg) -> None:
              unit=f"{rows} rows x {MOE_DECODE} steps")
 
 
+def _profile_other(cfg) -> None:
+    """rwkv6-3b, hymba-1.5b, whisper-small or llava-next-mistral-7b: a
+    prefill and a decode loop (no engine, no kernel)."""
+    rows, prompt, n_steps = OTHER_SHAPES[cfg.name]
+    params = registry.init(cfg, seed=0)
+    arch = f"{cfg.name} ({cfg.dtype})"
+    batch_fn = make_batch_fn(cfg, rows, prompt)
+    batches = []
+    for i in range(CALLS + 2):
+        b = {k: torch.from_numpy(v).cuda() for k, v in batch_fn(i).items()}
+        for key in ("patch_embeds", "audio_embeds"):
+            if key in b:
+                b[key] = b[key].to(getattr(torch, cfg.dtype))
+        batches.append(b)
+    unit = f"{rows} x {prompt} tokens"
+    if cfg.family == "vlm":
+        unit += f" + {cfg.frontend.num_embeds} patches"
+    elif cfg.family == "encdec":
+        unit += f" + {cfg.encoder_seq} frames"
+    prefill = build_prefill_step(cfg)
+    _profile(arch, "prefill", None, lambda i: prefill(params, batches[i]),
+             unit=unit)
+    serve = build_serve_step(cfg)
+
+    def decode(i):
+        cross = batches[i] if cfg.family == "encdec" else None
+        cache = registry.init_cache(cfg, rows, n_steps, batch=cross,
+                                    params=params)
+        for pos in range(n_steps):
+            _, cache = serve(params, cache,
+                             batches[i]["tokens"][:, pos:pos + 1], pos)
+    _profile(arch, "decode loop", None, decode,
+             unit=f"{rows} rows x {n_steps} steps")
+
+
 def _firing_vision(cfg):
     """The vision params of seed 0 with every BN bias raised by 1/4, so
     layer inputs fire."""
@@ -309,7 +359,7 @@ def main():
     ap.add_argument("--arch", default="spikingformer-4-256",
                     choices=["spikingformer-4-256", "spikingformer-8-512",
                              "spikingformer-lm", "cifarnet", *DENSE_ARCHS,
-                             *MOE_ARCHS])
+                             *MOE_ARCHS, *OTHER_ARCHS])
     ap.add_argument("--sparse", default=None,
                     choices=["tile", "decoded", "auto"],
                     help="the engine's sparse datapath (default: the "
@@ -352,6 +402,9 @@ def main():
         return
     if args.arch in MOE_ARCHS:
         _profile_moe(cfg)
+        return
+    if args.arch in OTHER_ARCHS:
+        _profile_other(cfg)
         return
     if args.arch == "spikingformer-lm":
         _profile_lm(cfg, args.quantize, keep_fp, args.overlap, args.analog)

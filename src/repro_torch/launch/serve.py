@@ -14,6 +14,11 @@ chunked prefill (the port of ``repro.launch.serve``, unsharded).
   ``nemotron-4-15b``, ``granite-20b``) decode against caches in the
   activation dtype; sliding-window layers against rings of window +
   chunk - 1 entries, so a bite never evicts what its own queries see;
+* llava-next-mistral-7b (the vlm family) serves text continuations
+  through its mistral backbone's decode, as a dense decoder; the other
+  token families (MoE, rwkv, hybrid, encdec) carry no per-slot state and
+  are refused, as in JAX: they decode through
+  ``launch/steps.build_serve_step``;
 * the spiking LM decodes against the bit-packed spike KV cache, and the
   server reports its footprint against the unpacked layout;
 * ``--quantize int8|int4`` quantizes the linears at load

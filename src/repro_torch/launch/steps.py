@@ -32,10 +32,16 @@ def softmax_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 def loss_from_forward(cfg: ModelConfig, logits, batch) -> torch.Tensor:
     """Cross entropy of the labels (vision) or of each next token (the
-    token family: the logits at positions 0..S-2 against tokens 1..S-1)."""
+    token family: the logits at positions 0..S-2 against tokens 1..S-1;
+    the vlm family's text tokens against the logits from the last patch
+    on, so no patch position is a target)."""
     if cfg.family in STATEFUL:
         return softmax_xent(logits, batch["labels"])
-    return softmax_xent(logits[:, :-1], batch["tokens"][:, 1:])
+    tokens = batch["tokens"]
+    if cfg.family == "vlm":
+        n_patch = cfg.frontend.num_embeds
+        return softmax_xent(logits[:, n_patch - 1:-1], tokens)
+    return softmax_xent(logits[:, :-1], tokens[:, 1:])
 
 
 def value_and_grad(cfg: ModelConfig, params, batch, model_state=None, *,

@@ -2,9 +2,10 @@
 
 Runs ``build_train_step`` on deterministic synthetic data (images for
 the vision family, a Markov token stream for the token family: the
-dense and MoE decoders and spikingformer-lm) with
-AdamW under a warmup-cosine schedule, on the GPU unless ``--device``
-names another device, with:
+dense and MoE decoders, rwkv6-3b, hymba-1.5b and spikingformer-lm, with
+stub frame embeddings for whisper-small and stub patch embeddings for
+llava-next-mistral-7b, as JAX's) with AdamW under a warmup-cosine
+schedule, on the GPU unless ``--device`` names another device, with:
 
 * ``--qat int8|int4``: quantization-aware training (the loss sees
   fake-quantized linears, the fp masters take the straight-through
@@ -38,6 +39,9 @@ Examples:
       --arch h2o-danube-3-4b --smoke --steps 10 --seq 64 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch deepseek-moe-16b --smoke --steps 10 --seq 64 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch whisper-small --smoke --steps 10 --seq 32 --device cpu \\
+      --qat int8       # or rwkv6-3b, hymba-1.5b, llava-next-mistral-7b
 
 The MoE family logs its router losses (``moe_aux``, part of the loss)
 beside the loss.
@@ -47,6 +51,8 @@ from __future__ import annotations
 import argparse
 import time
 from typing import Callable, List, Optional
+
+import numpy as np
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ALL_ARCHS, get_config
@@ -62,17 +68,33 @@ from repro_torch.tree import tree_leaves
 
 def make_batch_fn(cfg, batch_size: int, seq_len: int = 128) -> Callable:
     """step -> numpy batch: {'images', 'labels'} of the vision family,
-    {'tokens'} (batch_size, seq_len) of the token family."""
+    {'tokens'} (batch_size, seq_len) of the token family, with the vlm
+    family's 'patch_embeds' (batch_size, num_embeds, embed_dim) and the
+    encdec family's 'audio_embeds' (batch_size, encoder_seq, d_model):
+    fp32 normal draws of std 0.02 from a generator seeded with the step,
+    as JAX's."""
     if cfg.family in STATEFUL:
-        data = make_pipeline(DataConfig(
+        return make_pipeline(DataConfig(
             kind="images", global_batch=batch_size,
             img_size=cfg.vision.img_size, channels=cfg.vision.in_channels,
-            num_classes=cfg.vocab_size))
+            num_classes=cfg.vocab_size)).batch_at
+    lm_batch = make_pipeline(DataConfig(
+        kind="lm", global_batch=batch_size, seq_len=seq_len,
+        vocab_size=cfg.vocab_size)).batch_at
+    if cfg.family == "vlm":
+        key, shape = "patch_embeds", (cfg.frontend.num_embeds,
+                                      cfg.frontend.embed_dim)
+    elif cfg.family == "encdec":
+        key, shape = "audio_embeds", (cfg.encoder_seq, cfg.d_model)
     else:
-        data = make_pipeline(DataConfig(kind="lm", global_batch=batch_size,
-                                        seq_len=seq_len,
-                                        vocab_size=cfg.vocab_size))
-    return data.batch_at
+        return lm_batch
+
+    def batch_at(step):
+        b = lm_batch(step)
+        b[key] = np.random.default_rng(step).normal(
+            0, 0.02, (batch_size, *shape)).astype(np.float32)
+        return b
+    return batch_at
 
 
 def train(arch: str, smoke: bool, total_steps: int, batch: int, lr: float,

@@ -1,6 +1,8 @@
 """Functional NN layers: those of the spiking vision models and the
-token family (norms, RoPE, the MLP and its activations, and the chunked
-attention dataflows of the dense decoders).
+token family (norms, RoPE, the MLP and its activations, the chunked
+attention dataflows of the dense decoders, and the layer norms,
+sinusoid positions and causal depthwise conv of the rwkv, hybrid and
+encoder-decoder families).
 
 Mirrors ``repro.models.nn``: params are nested dicts of tensors made by
 ``*_init`` functions from a ``torch.Generator``; activations keep the
@@ -97,6 +99,36 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+def layernorm_init(d: int, dtype=torch.bfloat16):
+    return {"scale": torch.ones((d,), dtype=dtype),
+            "bias": torch.zeros((d,), dtype=dtype)}
+
+
+def _normalize(x32: torch.Tensor, eps: float) -> torch.Tensor:
+    """(x - mean) * rsqrt(var + eps) over the last axis, the variance the
+    mean of the centred squares (as ``jnp.var``)."""
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    return (x32 - mu) * torch.rsqrt(var + eps)
+
+
+def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    y = _normalize(x.float(), eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def groupnorm(p, x: torch.Tensor, groups: int, eps: float = 1e-5
+              ) -> torch.Tensor:
+    """GroupNorm over the last dim split into ``groups`` (RWKV's head
+    norm)."""
+    d = x.shape[-1]
+    x32 = x.float().reshape(*x.shape[:-1], groups, d // groups)
+    y = _normalize(x32, eps).reshape(*x.shape[:-1], d)
+    y = y * p["scale"].float() + p["bias"].float()
     return y.to(x.dtype)
 
 
@@ -454,3 +486,27 @@ def maxpool2(x: torch.Tensor) -> torch.Tensor:
     """2x2 / stride-2 VALID max pool on NHWC."""
     y = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2)
     return y.permute(0, 2, 3, 1)
+
+
+def causal_depthwise_conv1d(x: torch.Tensor, w: torch.Tensor
+                            ) -> torch.Tensor:
+    """x: (B, L, C); w: (K, C) depthwise causal conv (mamba's front
+    conv): fp32 taps summed in order, cast back to x's dtype."""
+    k = w.shape[0]
+    xpad = F.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(k):
+        out = out + xpad[:, i:i + x.shape[1]].float() * w[i].float()
+    return out.to(x.dtype)
+
+
+def sinusoid_positions(length: int, d: int, *, device=None) -> torch.Tensor:
+    """(length, d) fp32 [sin | cos] table: the angles ``pos / 10000^(2i /
+    d)`` in fp32 as the reference forms them, their sin and cos in
+    float64 rounded once (XLA's fp32 power differs from torch's by an
+    ulp on some exponents, which moves an angle by up to two ulps)."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = (pos / torch.pow(torch.tensor(10000.0, device=device),
+                           2 * dim / d)).double()
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).float()

@@ -1,7 +1,7 @@
-"""Model registry: the Spikingformer vision family, CIFAR-Net, the dense
-decoder family (dense and spiking) and the MoE family. JAX's other
-families (rwkv, hybrid, encdec, vlm) are not ported and raise
-``NotImplementedError``.
+"""Model registry: every family of the JAX package. The Spikingformer
+vision family, CIFAR-Net, the dense decoder family (dense and spiking),
+the MoE family, RWKV, the attention / SSM hybrid, the encoder-decoder
+and the vision-language model.
 
 Uniform API, as in ``repro.models.registry``:
   init(cfg, seed, device=)                     -> params tree
@@ -13,32 +13,33 @@ Uniform API, as in ``repro.models.registry``:
 from __future__ import annotations
 
 from types import ModuleType
-from typing import Dict
+from typing import Dict, Tuple
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
-from . import moe, spikingformer, transformer
+from . import encdec, hybrid, moe, rwkv, spikingformer, transformer, vlm
 
 FAMILIES: Dict[str, ModuleType] = {"spikingformer": spikingformer,
                                    "cifarnet": spikingformer,
                                    "dense": transformer,
-                                   "moe": moe}
-# the JAX package's families that the port does not run yet
-UNPORTED = ("rwkv", "hybrid", "encdec", "vlm")
+                                   "moe": moe,
+                                   "rwkv": rwkv,
+                                   "hybrid": hybrid,
+                                   "encdec": encdec,
+                                   "vlm": vlm}
+# the JAX package's families that the port does not run: none since
+# every family landed (the list callers read stays, empty)
+UNPORTED: Tuple[str, ...] = ()
 # families without an autoregressive decode step
 NO_DECODE = {"spikingformer", "cifarnet"}
 # families whose decode step carries per-slot state (vector positions,
 # validity tags, chunked bites, slot invalidation): what the
-# continuous-batching server needs (JAX's also holds "vlm"; "moe" decodes
-# one token a row at a scalar position, through build_serve_step)
-SLOTTED_DECODE = {"dense"}
+# continuous-batching server needs, as JAX's (the other token families
+# decode one token a row at a scalar position, through build_serve_step)
+SLOTTED_DECODE = {"dense", "vlm"}
 
 
 def family_module(cfg: ModelConfig) -> ModuleType:
-    if cfg.family in UNPORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            f"PyTorch yet (ROADMAP queue 1 item 10)")
     try:
         return FAMILIES[cfg.family]
     except KeyError:

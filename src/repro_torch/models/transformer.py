@@ -218,9 +218,13 @@ def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return nn.linear(params["lm_head"], x).float()
 
 
-def forward(params, cfg: ModelConfig, batch, *, train: bool = False):
-    """batch: {'tokens': (B, S)}; returns (logits (B, S, V) fp32, {})."""
-    x = nn.embed(params["embed"], batch["tokens"])
+def forward(params, cfg: ModelConfig, batch, *, train: bool = False,
+            inputs_embeds: Optional[torch.Tensor] = None):
+    """batch: {'tokens': (B, S)} (``inputs_embeds`` (B, S, D) in place of
+    the lookup: the vlm family's patches and text); returns (logits (B, S,
+    V) fp32, {})."""
+    x = nn.embed(params["embed"], batch["tokens"]) if inputs_embeds is None \
+        else inputs_embeds
     positions = torch.arange(x.shape[-2], device=x.device)
     if cfg.spiking is not None:
         x = x[None].expand(cfg.spiking.time_steps, *x.shape)

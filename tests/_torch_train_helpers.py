@@ -33,6 +33,10 @@ from repro_torch.launch import steps as TS
 from repro_torch.optim import adamw, warmup_cosine
 
 SCHED = (2e-3, 2, 10)
+# a SMOKE arch of each token family past the dense one
+FAMILY_ARCHS = {"moe": "deepseek-moe-16b", "rwkv": "rwkv6-3b",
+                "hybrid": "hymba-1.5b", "encdec": "whisper-small",
+                "vlm": "llava-next-mistral-7b"}
 # the token family's loss: logits within 1e-5 of XLA's, through a
 # log-softmax over the vocabulary that sums in another order (see above)
 DENSE_LOSS_REL = 1e-6
@@ -139,3 +143,11 @@ def check_train_step(cfg, tcfg, params, state, batch, qat=None):
         jax.tree_util.tree_leaves(interop.to_numpy(np_)))]
     assert all(moved)
     return float(loss)
+
+
+def family_batch(cfg, batch: int, seq: int, step: int = 0):
+    """``launch/train.make_batch_fn``'s batch of ``step`` (tokens, and the
+    vlm / encdec families' stub embeddings) as CPU tensors."""
+    from repro_torch.launch.train import make_batch_fn
+    return {k: torch.from_numpy(v) for k, v in
+            make_batch_fn(cfg, batch, seq)(step).items()}

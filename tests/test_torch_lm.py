@@ -43,6 +43,7 @@ from repro.quant import quantize_tree as jquantize_tree  # noqa: E402
 from repro.sim.balance_sim import binary_block_schedule  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from _torch_train_helpers import FAMILY_ARCHS, family_batch  # noqa: E402
 from repro_torch.core import bitpack as TB  # noqa: E402
 from repro_torch.core import engine as E  # noqa: E402
 from repro_torch.core.spiking import SpikingConfig  # noqa: E402
@@ -566,19 +567,18 @@ def test_unported_token_paths_raise(family):
                                      now, tokens)
         assert logits.shape == (2, 5, cfg.vocab_size)
         assert bool(torch.isfinite(logits).all())
-    # the MoE family, which raised here before it was ported, runs; a
-    # family the port does not run, and a serving mesh, still raise,
-    # naming ROADMAP item 10
+    # the MoE, rwkv, hybrid, encdec and vlm families, which raised here
+    # before they were ported, run (vlm's logits cover its patches too);
+    # a serving mesh still raises, naming ROADMAP item 10
+    other = get_config(FAMILY_ARCHS[family], smoke=True)
+    batch = family_batch(other, 2, 5)
+    logits, aux = registry.forward(registry.init(other, 0, device="cpu"),
+                                   other, batch)
+    n_patch = batch["patch_embeds"].shape[1] if family == "vlm" else 0
+    assert logits.shape == (2, 5 + n_patch, other.vocab_size)
+    assert bool(torch.isfinite(logits).all())
     if family == "moe":
-        moe = get_config("deepseek-moe-16b", smoke=True)
-        logits, aux = registry.forward(registry.init(moe, 0, device="cpu"),
-                                       moe, tokens)
-        assert logits.shape == (2, 5, moe.vocab_size)
-        assert bool(torch.isfinite(logits).all()) and float(
-            aux["moe_aux"]) > 0
-    else:
-        with pytest.raises(NotImplementedError, match="item 10"):
-            registry.init(cfg.replace(family=family), 0, device="cpu")
+        assert float(aux["moe_aux"]) > 0
     from repro_torch.launch.serve import BatchedServer
     with pytest.raises(NotImplementedError, match="item 10"):
         BatchedServer(cfg, registry.init(cfg, 0, device="cpu"), 2, 16,

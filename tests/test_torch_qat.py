@@ -40,7 +40,8 @@ from repro_torch.launch import steps as TS  # noqa: E402
 from repro_torch.models import registry as TMR  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 
-from _torch_train_helpers import check_train_step  # noqa: E402
+from _torch_train_helpers import (FAMILY_ARCHS, check_train_step,  # noqa: E402
+                                  family_batch)
 
 QMAX = {"int8": 127, "int4": 7}
 
@@ -169,10 +170,10 @@ def test_qat_train_step_against_the_jitted_jax_step(qdtype):
                                     "vlm"])
 def test_qat_refused_outside_the_stateful_family(family):
     """The LM's QAT, refused here before it was ported, takes a step, and
-    so does a sliding-window LM's and (the ``moe`` case) an MoE model's,
-    refused before their slices; QAT of a family the port does not run
-    still raises, naming its ROADMAP item, as does a serving mesh, and so
-    does an unknown qat dtype."""
+    so does a sliding-window LM's and the case's family's (an MoE, rwkv,
+    hybrid, encdec or vlm SMOKE model), refused before their slices; a
+    serving mesh still raises, naming its ROADMAP item, and so does an
+    unknown qat dtype."""
     lm = get_config("spikingformer-lm", smoke=True)
     opt = adamw(1e-3)
     tp = interop.to_torch(jax.tree_util.tree_map(
@@ -186,19 +187,14 @@ def test_qat_refused_outside_the_stateful_family(family):
                               qat="int8", device="cpu")
     _, _, nstep, m = swa(tp, opt.init(tp), 0, tokens)
     assert nstep == 1 and np.isfinite(float(m["loss"]))
+    other = get_config(FAMILY_ARCHS[family], smoke=True)
+    mp = TMR.init(other, 0, device="cpu")
+    _, _, nstep, m = TS.build_train_step(other, opt, qat="int8",
+                                         device="cpu")(
+        mp, opt.init(mp), 0, family_batch(other, 2, 5))
+    assert nstep == 1 and np.isfinite(float(m["loss"]))
     if family == "moe":
-        moe = get_config("deepseek-moe-16b", smoke=True)
-        mp = TMR.init(moe, 0, device="cpu")
-        _, _, nstep, m = TS.build_train_step(moe, opt, qat="int8",
-                                             device="cpu")(
-            mp, opt.init(mp), 0, tokens)
-        assert nstep == 1 and np.isfinite(float(m["loss"]))
         assert float(m["moe_aux"]) > 0
-    else:
-        bad = TS.build_train_step(lm.replace(family=family), opt,
-                                  qat="int8", device="cpu")
-        with pytest.raises(NotImplementedError, match="item 10"):
-            bad(tp, opt.init(tp), 0, tokens)
     from repro_torch.launch.serve import BatchedServer
     with pytest.raises(NotImplementedError, match="item 10"):
         BatchedServer(lm, tp, 2, 16, device="cpu", mesh=object())

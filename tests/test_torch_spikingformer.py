@@ -243,11 +243,10 @@ def _block_leaves(tcfg):
 def test_unported_layer_paths_raise():
     """Training runs now (train-mode forward and the sequential layer
     step), and so does the fused SSA bundle of an ineligible eval layer
-    (equal to the sequential composition); what is still unported raises
-    naming its ROADMAP item: a family the port does not run (the
-    cifarnet family and a non-spiking dense model, which raised here
-    before they were ported, now run: ``test_torch_cifarnet.py``,
-    ``test_torch_dense.py``). overlap='pipeline',
+    (equal to the sequential composition). The cifarnet family, a
+    non-spiking dense model and an rwkv model, which raised here before
+    they were ported, now build (``test_torch_cifarnet.py``,
+    ``test_torch_dense.py``, ``test_torch_rwkv.py``). overlap='pipeline',
     which raised here before it was ported, now runs with either sparse
     path and equals overlap='fused' bitwise."""
     tcfg = get_config("spikingformer-4-256", smoke=True)
@@ -264,12 +263,14 @@ def test_unported_layer_paths_raise():
     biased = dict(bp, wo=dict(bp["wo"], b=torch.zeros(tcfg.d_model)))
     dense = get_config("spikingformer-lm", smoke=True).replace(spiking=None)
     assert "delta" not in TR.init(dense, device="cpu")["layers"]
-    cases = [
-        lambda: TR.init(dense.replace(family="rwkv"), device="cpu"),
-    ]
-    for case in cases:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            case()
+    # the rwkv family, which raised here before it was ported, builds its
+    # tree (its forward is held against JAX in test_torch_rwkv.py)
+    rwkv = get_config("rwkv6-3b", smoke=True)
+    tree = TR.init(rwkv, device="cpu")
+    assert set(tree["layers"]) == {"ln1", "tm", "ln2", "cm"}
+    assert tree["layers"]["tm"]["u"].shape == (
+        rwkv.num_layers, rwkv.d_model // rwkv.rwkv.head_size,
+        rwkv.rwkv.head_size)
     for sparse in ("decoded", "tile"):
         runs = [TE.layer_step(bp, st, tcfg, x, engine=TE.EngineConfig(
             overlap=ov, sparse=sparse))[0] for ov in ("pipeline", "fused")]

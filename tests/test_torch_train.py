@@ -40,6 +40,7 @@ from repro.optim import adamw as jadamw  # noqa: E402
 from repro.optim import warmup_cosine as jwarmup_cosine  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from _torch_train_helpers import FAMILY_ARCHS, family_batch  # noqa: E402
 from repro_torch.core import attention as TAt  # noqa: E402
 from repro_torch.core import engine as TE  # noqa: E402
 from repro_torch.core import spiking as TSp  # noqa: E402
@@ -495,9 +496,9 @@ def test_unported_training_modes_raise_naming_roadmap(family):
     tokens = data.batch_at(0)
     assert tokens["tokens"].shape == (2, 4)
     # training a sliding-window LM and a non-spiking dense model, which
-    # raised here before they were ported, takes a step; training a
-    # family the port does not run still raises, naming ROADMAP item 10,
-    # and so does a serving mesh
+    # raised here before they were ported, takes a step, and so does
+    # training the case's family (MoE, rwkv, hybrid, encdec, vlm); a
+    # serving mesh still raises, naming ROADMAP item 10
     for now in (lm.replace(attn_type="swa", window=3),
                 lm.replace(spiking=None)):
         now_params = TR.init(now, 0, device="cpu")
@@ -505,21 +506,15 @@ def test_unported_training_modes_raise_naming_roadmap(family):
             now_params, opt.init(now_params), 0, tokens)
         assert nstep == 1 and np.isfinite(float(m["loss"]))
     lm_params = TR.init(lm, 0, device="cpu")
-    if family == "moe":
-        # training the MoE family, which raised here before it was
-        # ported, takes a step with its router losses in the metrics
-        moe = get_config("deepseek-moe-16b", smoke=True)
-        moe_params = TR.init(moe, 0, device="cpu")
-        _, _, nstep, m = TS.build_train_step(moe, opt, device="cpu")(
-            moe_params, opt.init(moe_params), 0, tokens)
-        assert nstep == 1 and np.isfinite(float(m["loss"]))
-        assert float(m["moe_aux"]) > 0
-    else:
-        step = TS.build_train_step(lm.replace(family=family), opt,
-                                   device="cpu")
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 10"):
-            step(lm_params, opt.init(lm_params), 0, tokens)
+    # the families that raised here before they were ported take a step
+    # (the MoE family with its router losses in the metrics)
+    other = get_config(FAMILY_ARCHS[family], smoke=True)
+    other_params = TR.init(other, 0, device="cpu")
+    _, _, nstep, m = TS.build_train_step(other, opt, device="cpu")(
+        other_params, opt.init(other_params), 0,
+        family_batch(other, 2, 4))
+    assert nstep == 1 and np.isfinite(float(m["loss"]))
+    assert ("moe_aux" in m) == (family == "moe")
     from repro_torch.launch.serve import BatchedServer
     with pytest.raises(NotImplementedError, match="item 10"):
         BatchedServer(lm, lm_params, 2, 16, device="cpu", mesh=object())
