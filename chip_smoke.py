@@ -432,6 +432,38 @@ device; exits non-zero without one). It
      patches, whisper with frames) on one batch: finite losses, the
      second not above the first.
 
+10. runs the distributed layer on ranks that ``launch.mesh.launch``
+    starts (the kernels built here first, so the ranks only load them):
+    * the int8 spikingformer-lm server (published config, the 16
+      requests and 8 slots of ``serve_path``) on (data x model) meshes
+      1x1 (one NCCL rank), 1x2, 2x1 and 2x2 (gloo ranks sharing the card,
+      their collectives through host memory): every mesh generates the
+      unsharded server's tokens, request by request; no rank launches a
+      kernel; logged: tokens/s, each rank's bytes of params and KV
+      against the totals, each rank's peak memory, its collectives;
+    * deepseek-moe-16b at published width and depth on (data 1, model 2),
+      sharded as ``_MOE``'s specs say (``moe.mesh_specs``: attention
+      heads, the dense layer's and the shared experts' d_ff, the vocab
+      and the routed experts over 'model'; a rank draws only its slices,
+      each expert stack cut as it is drawn), the routed experts
+      expert-parallel (``use_ep_mesh``): a 4 x 512 prefill and 32 decode
+      steps of 4 rows through ``build_serve_step``, at the published
+      capacity factor and at E / K; here first the unsharded run, the EP
+      arithmetic (``ep_emulation``: each MoE call within its bound of the
+      unsharded combine, from the bf16 roundings of each rank's partial
+      and of their sum) and the sharded ranks' arithmetic on threads of
+      this process (``thread_ranks``), then the ranks, whose logits equal
+      the threads' bitwise (sha256); the spiking deepseek prefill (T=4)
+      on each rank: one #7 a layer on its 8 heads (one #8 under
+      ``binary='popcount'``), == the plain versions bitwise, #8 == #7.
+
+``spike_matmul``'s analog mode (``analog=True``: wo on the
+analog context of an analog-score layer, summed in ascending k on CUDA
+cores) is held bitwise against its plain version at the wo shape and
+ragged shapes, timed beside ``torch.matmul``, and
+``check_analog_outputs`` asserts the analog models' logits through the
+kernels equal the plain versions' bitwise.
+
 It prints the card's name and power limit, a JSON line of per-kernel
 numbers (``spike_matmul``'s row also with the 4-256 'tile' train steps'
 and analog 'tile' requests' ms, ``quant_spike_matmul``'s with the mixed
@@ -439,7 +471,8 @@ and analog 'tile' requests' ms, ``quant_spike_matmul``'s with the mixed
 QAT and calibration paths' launches), the ms of the new paths beside
 the fp train steps (the LM's and 8-512's steps beside 4-256's; the rows
 of #1c, #2, #4, #7 and #8 with the LM and 8-512 train runs' launches;
-those of #7 and #8 with the spiking MoE prefill's),
+those of #7 and #8 with the spiking MoE prefill's and each EP rank's;
+the row of #2's analog mode with the analog requests' launches),
 the whole run's seconds, and last a JSON line
 ``{"ok": true, "device": {...}}``.
 """
@@ -489,6 +522,7 @@ from repro_torch.models import moe as TM  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.spikingformer import layer_sparsities  # noqa: E402
 from repro_torch.models.nn import rmsnorm, rope_table  # noqa: E402
+from repro_torch.parallel import spmd  # noqa: E402
 from repro_torch.optim import (adamw, compress_state_init,  # noqa: E402
                                warmup_cosine)
 from repro_torch.quant import (DEFAULT_RATIOS, INT_BITS,  # noqa: E402
@@ -934,6 +968,25 @@ def launches():
     return counts
 
 
+def fold_analog(counts, engine, n_wo, what):
+    """The launch counts with #2's analog-mode launches (the wo products
+    of an analog-score layer) folded into ``spike_matmul``'s: the tile
+    datapath's calls, checked against ``sparse_split``. The analog mode
+    must have run on exactly the wo products the tile path took: all
+    ``n_wo`` of them under sparse='tile', none under 'decoded', at most
+    ``n_wo`` under 'auto'."""
+    out = dict(counts)
+    analog = out.pop("spike_matmul_analog")
+    bad = {"tile": analog != n_wo, "decoded": analog != 0,
+           "auto": analog > n_wo}[engine.sparse]
+    if bad:
+        raise AssertionError(f"{what}: {analog} analog-mode launches for "
+                             f"{n_wo} wo products (sparse="
+                             f"{engine.sparse!r})")
+    out["spike_matmul"] += analog
+    return out
+
+
 def sparse_split(engine, n):
     """(tile, decoded) datapath calls among ``n``: from the engine's
     explicit path, or for 'auto' from the decisions it recorded, which
@@ -1077,6 +1130,63 @@ def check_matmul(dtype, what, m, k, n, counts=False, bias=False,
     occ = SM.block_occupancy(F.pad(s, (0, -k % tk, 0, -m % tm)), tm, tk)
     log(f"{name}: {how}; live skip tiles {int(occ.sum())}/{occ.numel()}")
     return err
+
+
+def check_matmul_analog(dtype, what, m, k, n, bias=False, values="analog",
+                        weights="normal", misaligned=False):
+    """spike_matmul's analog mode (``analog=True``: every output summed in
+    ascending k on CUDA cores) against its plain version on the same
+    operands: bitwise on any weights and values, the mode's contract."""
+    s, w, b = matmul_operands(9, m, k, n, dtype, bias=bias, weights=weights,
+                              values=values)
+    if misaligned:
+        s, w = offset_by_one(s), offset_by_one(w)
+    got = SM.spike_matmul_cuda(s, w, b, analog=True)
+    want = SM.spike_matmul_plain(s, w, b, analog=True)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    name = (f"spike_matmul analog mode {dtype} {what} M={m} K={k} N={n} "
+            f"{weights} {values}{' bias' if bias else ''}"
+            f"{' misaligned' if misaligned else ''}")
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: kernel != plain version (max abs "
+                             f"diff {err})")
+    log(f"{name}: bitwise equal to the plain version")
+    return err
+
+
+def matmul_analog_bound_ms(s, w, out):
+    """Bytes: s and w read once, the output written once; operations: the
+    multiply-adds of the live chunks (64 rows x 32 k) at the fp32 CUDA
+    cores' peak, where the analog mode runs in any dtype."""
+    m, k = s.shape
+    occ = SM.block_occupancy(F.pad(s, (0, -k % 32, 0, -m % 64)), 64, 32)
+    ops_s = 2 * float(occ.sum()) * 64 * 32 * w.shape[1] / \
+        PEAK_FLOPS[torch.float32]
+    n_bytes = (s.numel() * s.element_size() + w.numel() * w.element_size()
+               + out.numel() * out.element_size())
+    bytes_s = n_bytes / PEAK_BYTES
+    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def time_matmul_analog():
+    """The analog mode at the wo product of a 4-256 analog-score layer
+    (M = 16384, K = N = 256, bf16, analog context), timed (cuda_ms):
+    kernel, plain version (a PyTorch add a k), ``torch.matmul``."""
+    s, w, _ = matmul_operands(9, M_TRAIN, H * HD, D, torch.bfloat16,
+                              weights="normal", values="analog")
+    out = SM.spike_matmul_cuda(s, w, analog=True)
+    row = dict(ms=cuda_ms(lambda: SM.spike_matmul_cuda(s, w, analog=True)),
+               plain_ms=cuda_ms(lambda: SM.spike_matmul_plain(
+                   s, w, analog=True), calls=3, repeats=3),
+               library_ms=cuda_ms(lambda: torch.matmul(s, w)))
+    row["bound_ms"], row["bound_by"] = matmul_analog_bound_ms(s, w, out)
+    row["device_us"] = device_us(lambda: SM.spike_matmul_cuda(s, w,
+                                                              analog=True))
+    log(f"spike_matmul analog mode, bf16 wo M={M_TRAIN} K={H * HD} N={D} "
+        f"on an analog context: {row}")
+    return row
 
 
 def gather_schedule(s, block_m=128, c_block=128):
@@ -1482,7 +1592,14 @@ def train_path(cfg, qat=None, batch=TRAIN_BATCH, falls=True):
     log(f"{what}: losses {[round(m['loss'], 4) for m in metrics]}, "
         f"grad norms {[round(m['grad_norm'], 4) for m in metrics]}, "
         f"fire rates {[round(m['fire_rate'], 4) for m in metrics]}")
-    if counts != want:
+    if cfg.engine is not None:
+        counts_tile = fold_analog(counts, cfg.engine,
+                                  0 if cfg.spiking.binarize_scores
+                                  else cfg.num_layers * TRAIN_STEPS, what)
+        want.pop("spike_matmul_analog")
+    else:
+        counts_tile = counts
+    if counts_tile != want:
         raise AssertionError(f"{what} launches {counts}, expected {want}")
     if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                for m in metrics):
@@ -1815,20 +1932,26 @@ def first_token_check(cfg, params, completed, what):
     return checked, max_diff
 
 
-def serve_path(cfg, params):
-    """The int8 server at full width: SERVE_REQUESTS requests with random
-    prompts of SERVE_PROMPTS tokens over SERVE_SLOTS slots, SERVE_NEW new
-    tokens each, cache SERVE_MAX_LEN. Tokens per second on the host clock
-    around the synchronised run; the run launches no kernel and makes no
-    'auto' decision. Each request's first generated token
-    equals the argmax of the prefill step's last-position logits on its
-    prompt wherever their top-2 margin exceeds SERVE_MARGIN."""
+def serve_requests(cfg):
+    """SERVE_REQUESTS requests with random prompts of SERVE_PROMPTS tokens,
+    SERVE_NEW new tokens each (seed 5)."""
     rng = np.random.default_rng(5)
-    reqs = [Request(rid=i, prompt=rng.integers(
+    return [Request(rid=i, prompt=rng.integers(
         0, cfg.vocab_size, int(rng.integers(SERVE_PROMPTS[0],
                                             SERVE_PROMPTS[1] + 1))
     ).astype(np.int32), max_new_tokens=SERVE_NEW)
         for i in range(SERVE_REQUESTS)]
+
+
+def serve_path(cfg, params):
+    """The int8 server at full width: ``serve_requests`` over SERVE_SLOTS
+    slots, cache SERVE_MAX_LEN. Tokens per second on the host clock
+    around the synchronised run; the run launches no kernel and makes no
+    'auto' decision. Each request's first generated token
+    equals the argmax of the prefill step's last-position logits on its
+    prompt wherever their top-2 margin exceeds SERVE_MARGIN. Returns
+    (the row, {rid: generated tokens})."""
+    reqs = serve_requests(cfg)
     server = BatchedServer(cfg, params, SERVE_SLOTS, SERVE_MAX_LEN,
                            trace_logits=True)
     for r in reqs:
@@ -1856,7 +1979,7 @@ def serve_path(cfg, params):
             any(len(r.generated) != SERVE_NEW for r in server.completed):
         raise AssertionError("the server did not complete every request")
     first_token_check(cfg, params, server.completed, "serve")
-    return row
+    return row, {r.rid: r.generated for r in server.completed}
 
 
 def vision_int8_path():
@@ -3185,10 +3308,11 @@ def analog_vision_path(cfg, params, requests, what):
     n = cfg.num_layers * len(requests)
     tile, dec = sparse_split(cfg.engine, 3 * n)
     name = f"analog path, {what}, sparse={cfg.engine.sparse!r}"
-    want = dict.fromkeys(counts, 0)
+    folded = fold_analog(counts, cfg.engine, n, name)
+    want = dict.fromkeys(folded, 0)
     want.update(fused_ssa_analog=FS.LAUNCHES_PER_CALL * n, spike_matmul=tile,
                 gather_spike_matmul=dec, gather_stage=dec)
-    if counts != want:
+    if folded != want:
         raise AssertionError(f"{name}: launches {counts}, expected {want}")
     n_img = len(requests[0]["images"])
     for logits in outs:
@@ -3227,23 +3351,14 @@ def check_analog_outputs(cfg, params, batch, what):
       spike products, #7's analog mode, the same wo, w1, w2), bitwise:
       the projections of spikes on dyadic weights are exact, and both
       attention kernels sum the same rounded scores in the same order;
-    * the logits through the kernels against through their plain
-      versions, with a derived tolerance. On dyadic weights every
-      product is exact in any order except wo on the analog context, and
-      so is that one wherever its sums stay in range: its terms ctx * w
-      are multiples of 2^(e_ctx + e_w) (the least set bits of the
-      operands), so every partial sum, in any order, is exact in fp32
-      while sum_k |ctx_k w_kn| < 2^(24 + e_ctx + e_w). The script checks
-      that bound on every #2 wo product of the kernels' run (#4 sums in
-      ascending k, as its plain version) and compares each such product
-      with its plain version on the same operands: where every one is
-      exact by the bound or equal bitwise, the kernels' run and the
-      plain versions' compute the same values layer by layer, so the
-      derived tolerance on the logits is 0 and they must be bitwise
-      equal. Each #2 wo product is also held against its plain version
-      within 2 (K - 1) 2^-24 sum_k |ctx_k w_kn| (two fp32 orders of a
-      K-term sum) plus, in bf16, one bf16 ulp of the output, 2^-7 |y|
-      (the two sums may round to neighbouring bf16 values)."""
+    * the logits through the kernels == through their plain versions,
+      bitwise. Every product but wo is exact in any order on dyadic
+      weights; wo on the analog context is exact in none, and takes one
+      order on both sides: #2's analog mode (``analog=True``, chosen from
+      the config's ``binarize_scores=False``) and #4 sum it in ascending
+      k, as their plain versions do. Each #2 call on a non-integer left
+      operand is checked to be an analog-mode call, and held against its
+      plain version bitwise."""
     acfg = analog_cfg(cfg)
     for sparse in ("auto", "tile", "decoded"):
         eng = acfg.engine.replace(sparse=sparse)
@@ -3252,10 +3367,11 @@ def check_analog_outputs(cfg, params, batch, what):
         calls = []
         real = SM.spike_matmul_cuda
 
-        def spy(s, w, bias=None):
-            out = real(s, w, bias)
-            if not bool((s == s.round()).all()):     # the analog context
-                calls.append((s, w, bias, out))
+        def spy(s, w, bias=None, *, analog=False):
+            out = real(s, w, bias, analog=analog)
+            # the analog mode's calls, and any call on a non-integer context
+            if analog or not bool((s == s.round()).all()):
+                calls.append((s, w, bias, analog, out))
             return out
         with use_engine(eng.replace(overlap="fused")), \
                 torch.inference_mode():
@@ -3274,39 +3390,30 @@ def check_analog_outputs(cfg, params, batch, what):
                 cfg.num_layers or \
                 any(n for k, n in counts.items() if k.startswith("fused_layer")):
             raise AssertionError(f"{name}: launches {counts}")
+        if counts["spike_matmul_analog"] != len(calls) or \
+                not all(c[3] for c in calls) or \
+                (sparse == "tile" and len(calls) != cfg.num_layers):
+            raise AssertionError(f"{name}: {len(calls)} #2 products on the "
+                                 f"analog context, analog-mode launches "
+                                 f"{counts['spike_matmul_analog']}")
         if not torch.equal(got, off):
             raise AssertionError(f"{name}: 'fused' logits != 'off' (max abs "
                                  f"diff {float((got - off).abs().max())})")
-        exact, worst, same = True, 0.0, 0
-        for s, w, bias, out in calls:
-            want = SM.spike_matmul_plain(s, w, bias)
-            tol, mag = matmul_bound(s, w, want)
-            diff = (out.double() - want.double()).abs()
-            if bool((diff > tol).any()):
-                raise AssertionError(f"{name}: a wo product on the analog "
-                                     f"context outside its bound (max abs "
-                                     f"diff {float(diff.max())})")
-            room = 2.0 ** (24 + least_bit(s) + least_bit(w))
-            worst = max(worst, float(mag.max()) / room)
-            bitwise = torch.equal(out, want)
-            same += bitwise
-            exact &= float(mag.max()) < room or bitwise
-        diff = float((got - plain).abs().max())
-        if exact and not torch.equal(got, plain):
-            raise AssertionError(f"{name}: logits through the kernels != "
-                                 f"through the plain versions though every "
-                                 f"wo product equals its plain version "
-                                 f"(max abs diff {diff})")
-        tol = "0 (every wo product exact or equal)" if exact else \
-            "not derived (a wo product differs: compared as information)"
+        for s, w, bias, _, out in calls:
+            if not torch.equal(out, SM.spike_matmul_plain(s, w, bias,
+                                                          analog=True)):
+                raise AssertionError(f"{name}: an analog-mode wo product != "
+                                     f"its plain version")
+        if not torch.equal(got, plain):
+            raise AssertionError(
+                f"{name}: logits through the kernels != through the plain "
+                f"versions (max abs diff {float((got - plain).abs().max())})")
         log(f"check, {name}: logits under 'fused' (launches "
             f"{ {k: v for k, v in counts.items() if v} }) == 'off', bitwise; "
-            f"{len(calls)} #2 wo products on the analog context, each within "
-            f"its bound of the plain version, {same} of them equal to it "
-            f"bitwise, the largest sum_k |ctx w| at {worst:.4g} of 2^(24 + "
-            f"e_ctx + e_w); derived tolerance on the logits through the "
-            f"kernels vs the plain versions: {tol}; max abs diff {diff} "
-            f"(fire rate {float(aux['fire_rate']):.4f}, logit std "
+            f"{len(calls)} #2 wo products on the analog context, each in "
+            f"the analog mode and equal to its plain version bitwise; the "
+            f"logits through the kernels == through the plain versions, "
+            f"bitwise (fire rate {float(aux['fire_rate']):.4f}, logit std "
             f"{float(got.std()):.4f})")
 
 
@@ -4732,6 +4839,485 @@ def other_families(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the distributed layer: the mesh server and expert parallelism, on ranks
+# that launch.mesh starts (NCCL for one rank on the card, gloo for ranks
+# that share it: their collectives go through host memory, so their times
+# say nothing of NVLink)
+# ---------------------------------------------------------------------------
+
+# (data, model) meshes of the int8 spikingformer-lm server
+MESH_SERVE = ((1, 1), (1, 2), (2, 1), (2, 2))
+# deepseek-moe-16b expert-parallel over (data 1, model 2): a prefill of
+# MOE_PREFILL tokens, then EP_DECODE_STEPS decode steps of its rows fed
+# fixed tokens, at the published capacity factor and at E / K (nothing
+# drops)
+EP_MESH = (1, 2)
+EP_DECODE_STEPS = 32
+
+
+def gathered(mesh, info):
+    """Every rank's ``info`` (a small dict), in rank order."""
+    import torch.distributed as dist
+    every = [None] * int(np.prod(mesh.devices.shape))
+    dist.all_gather_object(every, info)
+    return every
+
+
+def mesh_serve_rank(mesh, cfg, host):
+    """One rank of the int8 spikingformer-lm server on ``mesh``: the
+    published config's tree (``lm_config``) handed over in host memory,
+    of which the rank copies only its slices to the card;
+    ``serve_requests`` over SERVE_SLOTS slots, the counts set to 0 just
+    before the run. ``peak_gib``: the rank's peak device memory over its
+    whole life (its slices, its cache, the run)."""
+    from repro_torch.parallel import collectives as PC
+    server = BatchedServer(cfg, host, SERVE_SLOTS, SERVE_MAX_LEN, mesh=mesh)
+    for r in serve_requests(cfg):
+        server.submit(r)
+    torch.cuda.synchronize()
+    reset_counts()
+    PC.reset_counts()
+    t0 = time.perf_counter()
+    waves = server.run()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    n_tok = sum(len(r.generated) + len(r.prompt) for r in server.completed)
+    info = dict(rank=mesh.rank, coords=mesh.coords, seconds=sec,
+                waves=waves, tokens_per_s=n_tok / sec,
+                launches={k: v for k, v in launches().items() if v},
+                params=server.param_bytes(), kv=server.kv_cache_stats(),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                collectives=dict(PC.COUNTS),
+                collective_bytes=dict(PC.BYTES))
+    return dict(backend=mesh.backend, ranks=gathered(mesh, info),
+                generated={r.rid: r.generated for r in server.completed})
+
+
+def mesh_serve_path(serve_gen, card):
+    """The int8 spikingformer-lm server on MESH_SERVE: the 1x1 mesh on one
+    NCCL rank, the others on gloo ranks sharing the card. Each generates
+    what the unsharded server (``serve_path``) generated, request by
+    request; no rank launches a kernel (the decode step is plain
+    PyTorch); each rank holds 1 / (data x model) of the KV cache and its
+    params' spec share. The tree is drawn here, as ``serve_path`` draws
+    it, and handed to the ranks in host memory. Logged: tokens/s (host
+    clock; gloo ranks share the card and reach each other through host
+    memory), the bytes a rank holds against the totals, each rank's peak
+    device memory over its life."""
+    from repro_torch.launch.mesh import launch
+    cfg, params = lm_config(quantize=True)
+    host = tree_map(lambda a: a.cpu(), params)
+    del params
+    torch.cuda.empty_cache()
+    out = {}
+    for d, m in MESH_SERVE:
+        t0 = time.perf_counter()
+        run = launch(mesh_serve_rank, d, m, cfg, host)
+        wall = time.perf_counter() - t0
+        name = f"mesh server {d}x{m} ({run['backend']})"
+        if run["generated"] != serve_gen:
+            bad = [rid for rid in serve_gen
+                   if run["generated"].get(rid) != serve_gen[rid]]
+            raise AssertionError(f"{name}: requests {bad} generated other "
+                                 f"tokens than the unsharded server")
+        for r in run["ranks"]:
+            if r["launches"]:
+                raise AssertionError(f"{name} rank {r['rank']}: launches "
+                                     f"{r['launches']}")
+            if r["kv"]["kv_bytes_rank"] * d * m != r["kv"]["kv_bytes"]:
+                raise AssertionError(f"{name} rank {r['rank']}: kv {r['kv']}")
+        out[d, m] = dict(run, wall_s=wall)
+        r0 = run["ranks"][0]
+        log(f"check, {name}: {len(serve_gen)} requests generated the "
+            f"unsharded server's tokens, request by request; no launch; "
+            f"tokens/s {[round(r['tokens_per_s'], 1) for r in run['ranks']]}"
+            f" ({r0['waves']} waves, {r0['seconds']:.2f} s), kv "
+            f"{r0['kv']['kv_bytes_rank']} of {r0['kv']['kv_bytes']} bytes a "
+            f"rank, params {[r['params']['rank'] for r in run['ranks']]} of "
+            f"{r0['params']['total']} bytes, peak GiB "
+            f"{[round(r['peak_gib'], 3) for r in run['ranks']]}, rank 0's "
+            f"collectives {r0['collectives']} ({r0['collective_bytes']} "
+            f"bytes sent), launch and run {wall:.1f} s ({card})")
+    return out
+
+
+def half_ulp_bf16(v):
+    """Half a bf16 ulp of each fp32 value (0 at 0): the largest error of
+    rounding it to bf16."""
+    _, e = torch.frexp(v.float())
+    return torch.where(v == 0, torch.zeros_like(v.float()),
+                       torch.ldexp(torch.ones_like(v.float()), e - 9))
+
+
+class ep_emulation:
+    """Within the scope, ``moe.moe_ffn`` computes in one process what
+    ``ep`` expert-parallel ranks compute (each rank's ``_dispatch_local``
+    on its E / ep experts, its fp32 combine rounded to the activation
+    dtype, the ranks' results added in rank order in that dtype), and
+    holds it against the unsharded combine (all experts, one fp32 sum
+    rounded once) on the same input, element by element, within the
+    bound that those roundings give: half a bf16 ulp of each rank's
+    partial P_r, of their sum and of the unsharded result, plus 2^-20 of
+    sum_r |P_r| + |S| for the fp32 sums taken in two groupings (at most
+    K = 6 terms a token, each rounding within 2^-24 of its partial)."""
+
+    def __init__(self, ep):
+        self.ep, self.calls, self.worst = ep, 0, 0.0
+
+    def __enter__(self):
+        self.real = TM.moe_ffn
+
+        def emulated(p, x, cfg):
+            m = cfg.moe
+            x2d = x.reshape(-1, x.shape[-1])
+            w, idx, aux_lb, aux_z = TM.router_topk(x2d, p["router"], m)
+            e_loc = m.num_experts // self.ep
+            parts = [TM._dispatch_local(
+                x2d, w, idx, p["up"][o:o + e_loc], p["gate"][o:o + e_loc],
+                p["down"][o:o + e_loc], m, cfg.act, e_loc, o,
+                out_dtype=torch.float32)
+                for o in range(0, m.num_experts, e_loc)]
+            y = parts[0].to(x.dtype)
+            for part in parts[1:]:
+                y = y + part.to(x.dtype)
+            full = TM._dispatch_local(x2d, w, idx, p["up"], p["gate"],
+                                      p["down"], m, cfg.act, m.num_experts,
+                                      0, out_dtype=torch.float32)
+            un = full.to(x.dtype).float()
+            bound = sum(half_ulp_bf16(t) for t in parts) + \
+                half_ulp_bf16(y.float()) + half_ulp_bf16(un) + \
+                2.0 ** -20 * (sum(t.abs() for t in parts) + full.abs())
+            diff = (y.float() - un).abs()
+            ratio = float((diff / bound.clamp(min=1e-30)).max())
+            self.calls += 1
+            self.worst = max(self.worst, ratio)
+            if bool((diff > bound).any()):
+                raise AssertionError(f"EP combine outside its bound of the "
+                                     f"unsharded one (worst ratio {ratio})")
+            aux = m.router_aux_weight * aux_lb + m.router_z_weight * aux_z
+            y = y.reshape(x.shape)
+            if m.num_shared:
+                y = y + nn.mlp(p["shared"], x, cfg.act)
+            return y, aux
+        TM.moe_ffn = emulated
+        return self
+
+    def __exit__(self, *exc):
+        TM.moe_ffn = self.real
+
+
+class thread_ranks:
+    """The ranks of a (1, n) mesh as ``n`` threads of this process on the
+    card, each with a ``launch.mesh.Mesh`` of its own coordinates, and
+    the collectives (``parallel.collectives``) exchanged through process
+    memory in rank order: each thread runs what the gloo rank of its
+    coordinates runs (the same operations on the same shapes, its
+    params the views of its slices of one whole tree, a copy where a
+    slice is not contiguous, as the rank's own copy is), so the ranks'
+    results can be held against it bitwise."""
+
+    def __init__(self, n):
+        import itertools
+        import threading
+        from repro_torch.launch.mesh import Mesh
+        self.n = n
+        self.meshes = []
+        for rank in range(n):
+            mesh = Mesh.__new__(Mesh)
+            mesh.axis_names, mesh.shape = ("data", "model"), {"data": 1,
+                                                              "model": n}
+            mesh.devices = np.arange(n).reshape(1, n)
+            mesh.rank, mesh.coords = rank, {"data": 0, "model": rank}
+            mesh.device, mesh.backend = torch.device("cuda"), "threads"
+            mesh.device_mesh = None
+            mesh._groups = {axes: axes for k in (1, 2) for axes in
+                            itertools.combinations(mesh.axis_names, k)}
+            self.meshes.append(mesh)
+        self.barrier = threading.Barrier(n)
+        self.slots, self.seq = {}, [0] * n
+
+    def _gather_list(self, x, mesh, axes):
+        _, n = mesh.group(axes)
+        if n == 1:
+            return None
+        key = self.seq[mesh.rank]
+        self.seq[mesh.rank] += 1
+        self.slots[key, mesh.rank] = x.detach().contiguous().clone()
+        self.barrier.wait()
+        parts = [self.slots[key, r] for r in range(n)]
+        self.barrier.wait()
+        del self.slots[key, mesh.rank]
+        return parts
+
+    def run(self, fn, *args):
+        """[fn(mesh of rank r, *args) for every rank r], run together."""
+        import threading
+        from repro_torch.parallel import collectives as PC
+        out, errors = [None] * self.n, []
+
+        def body(rank):
+            try:
+                out[rank] = fn(self.meshes[rank], *args)
+            except BaseException as e:      # noqa: BLE001 - re-raised
+                errors.append(e)
+                self.barrier.abort()
+        real = PC._gather_list
+        PC._gather_list = self._gather_list
+        try:
+            threads = [threading.Thread(target=body, args=(r,))
+                       for r in range(self.n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        finally:
+            PC._gather_list = real
+        if errors:
+            raise errors[0]
+        return out
+
+
+def ep_sharded_thread(mesh, cfg, params, prefill, fed):
+    """``ep_rank``'s prefill and decode on one ``thread_ranks`` rank:
+    digests of the logits (rank 0: the logits too)."""
+    from repro_torch.parallel.sharding import local_slice
+    specs = TM.mesh_specs(cfg, mesh)
+
+    def mine(a, spec):
+        v = local_slice(a, spec, mesh)
+        return v if v.is_contiguous() else v.clone()
+    local = tree_map(mine, params, specs)
+    with TM.use_ep_mesh(mesh, token_axes=("data",)), \
+            spmd.use_mesh(spmd.MeshScope(mesh, cfg, specs)):
+        pre, dec, _, _ = ep_run(cfg, local, prefill, fed)
+    return dict(prefill=digest(pre), decode=digest(dec),
+                logits=(pre, dec) if mesh.rank == 0 else None)
+
+
+def digest(t):
+    """sha256 of a tensor's bytes (bitwise identity across processes)."""
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().contiguous().view(torch.uint8)
+                          .numpy().tobytes()).hexdigest()
+
+
+def ep_cfgs():
+    """deepseek-moe-16b at the published capacity factor and at E / K."""
+    base = get_config(DEEPSEEK)
+    ek = base.moe.num_experts / base.moe.top_k
+    return {cf: base.replace(moe=dataclasses.replace(base.moe,
+                                                     capacity_factor=cf))
+            for cf in (base.moe.capacity_factor, ek)}
+
+
+def ep_tokens(cfg):
+    gen = torch.Generator().manual_seed(48)
+    prefill = torch.randint(0, cfg.vocab_size, MOE_PREFILL, generator=gen)
+    fed = torch.randint(0, cfg.vocab_size, (MOE_PREFILL[0],
+                                            EP_DECODE_STEPS), generator=gen)
+    return prefill.cuda(), fed.cuda()
+
+
+def ep_run(cfg, params, prefill, fed):
+    """(prefill logits, decode logits (rows, steps, V), prefill ms, ms a
+    decode step) through ``build_prefill_step`` and ``build_serve_step``
+    (fixed tokens fed a step from an empty cache)."""
+    step = steps.build_prefill_step(cfg)
+    serve = steps.build_serve_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = step(params, {"tokens": prefill})
+    torch.cuda.synchronize()
+    pre_ms = 1e3 * (time.perf_counter() - t0)
+    cache = registry.init_cache(cfg, fed.shape[0], fed.shape[1])
+    outs = []
+    t0 = time.perf_counter()
+    for pos in range(fed.shape[1]):
+        lg, cache = serve(params, cache, fed[:, pos:pos + 1], pos)
+        outs.append(lg)
+    torch.cuda.synchronize()
+    dec_ms = 1e3 * (time.perf_counter() - t0) / fed.shape[1]
+    return logits, torch.cat(outs, dim=1), pre_ms, dec_ms
+
+
+def ep_reference():
+    """In this process, at published width and depth: for each capacity
+    factor, the unsharded run, the EP arithmetic (``ep_emulation``) and
+    the sharded ranks' arithmetic (``thread_ranks``). The gates: each
+    MoE layer's EP combine within its derived bound of the unsharded
+    combine on the same input, and, in ``ep_path``, the ranks' logits
+    equal to the threads' bitwise. Through 28 layers of random weights
+    no bound on the logits follows from the per-call one (a routing
+    choice flips on a rounding), so the runs' logits apart (max abs
+    difference, argmax agreement) are logged as information only.
+    Returns {cf: the threads' digests and the unsharded run's times}."""
+    cfgs = ep_cfgs()
+    any_cfg = next(iter(cfgs.values()))
+    params = registry.init(any_cfg, seed=0)
+    prefill, fed = ep_tokens(any_cfg)
+    out = {}
+    for cf, cfg in cfgs.items():
+        un = ep_run(cfg, params, prefill, fed)
+        with ep_emulation(EP_MESH[1]) as emu:
+            em = ep_run(cfg, params, prefill, fed)
+        sharded = thread_ranks(EP_MESH[1]).run(ep_sharded_thread, cfg,
+                                               params, prefill, fed)
+        sh = sharded[0].pop("logits")
+        if any(r["prefill"] != sharded[0]["prefill"] or
+               r["decode"] != sharded[0]["decode"] for r in sharded):
+            raise AssertionError(f"{DEEPSEEK} sharded threads: the ranks' "
+                                 f"gathered logits differ")
+        stats = []
+        for run, got in (("EP arithmetic", em), ("sharded", sh)):
+            for what, a, b in (("prefill", un[0], got[0]),
+                               ("decode", un[1], got[1])):
+                d = (a - b).abs().amax(-1)
+                same = a.argmax(-1) == b.argmax(-1)
+                stats.append(f"{run} {what} max abs diff "
+                             f"{float(d.max()):.4g}, argmax equal at "
+                             f"{float(same.float().mean()):.4f} of "
+                             f"{same.numel()} positions")
+        log(f"check, {DEEPSEEK} EP arithmetic (ep={EP_MESH[1]}, capacity "
+            f"{cf:.4g}) in one process: {emu.calls} MoE calls, each within "
+            f"its bound of the unsharded combine (worst ratio "
+            f"{emu.worst:.3g}); against the unsharded run (information): "
+            + "; ".join(stats) + f"; unsharded prefill {un[2]:.1f} ms, "
+            f"{un[3]:.3f} ms a decode step")
+        out[cf] = dict(sharded[0], unsharded_prefill_ms=un[2],
+                       unsharded_step_ms=un[3])
+        del un, em, sh, sharded
+    del params
+    return out
+
+
+def ep_rank(mesh):
+    """One rank of deepseek-moe-16b sharded as ``_MOE``'s specs say
+    (``moe.mesh_specs``: attention heads, the dense layer's and the
+    shared experts' d_ff, the vocab and the routed experts over 'model'),
+    under a ``MeshScope`` and ``use_ep_mesh`` (token axes ('data',)):
+    params drawn with ``ep_keep`` (this rank's slice of every leaf, each
+    expert stack cut as it is drawn); for each capacity factor the
+    prefill and decode run (digests, times); then the spiking deepseek
+    prefill (T = SPIKING_MOE['t']) under #7 and under #8, the counts set
+    to 0 just before each: one launch a layer on this rank's 8 heads,
+    logits == through ``plain_kernels()`` bitwise, #8 == #7."""
+    scfg = get_config(DEEPSEEK).replace(
+        spiking=SpikingConfig(time_steps=SPIKING_MOE["t"]),
+        engine=E.EngineConfig())
+    specs = TM.mesh_specs(scfg, mesh)
+    params = TM.init(scfg, 0, keep=TM.ep_keep(scfg, mesh))
+    gc.collect()
+    torch.cuda.empty_cache()
+    info = dict(rank=mesh.rank, experts=tuple(params["layers"]["moe"]["up"]
+                                              .shape),
+                param_gib=sum(a.numel() * a.element_size()
+                              for a in tree_leaves(params)) / 2 ** 30,
+                init_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    torch.cuda.reset_peak_memory_stats()
+    with TM.use_ep_mesh(mesh, token_axes=("data",)), \
+            spmd.use_mesh(spmd.MeshScope(mesh, scfg, specs)):
+        for cf, cfg in ep_cfgs().items():
+            prefill, fed = ep_tokens(cfg)
+            reset_counts()
+            pre, dec, pre_ms, dec_ms = ep_run(cfg, params, prefill, fed)
+            info[cf] = dict(prefill=digest(pre), decode=digest(dec),
+                            prefill_ms=pre_ms, step_ms=dec_ms,
+                            launches={k: v for k, v in launches().items()
+                                      if v})
+            del pre, dec
+        gen = torch.Generator().manual_seed(45)
+        batch = {"tokens": torch.randint(0, scfg.vocab_size,
+                                         SPIKING_MOE["shape"],
+                                         generator=gen).cuda()}
+        spiking = {}
+        for binary, kernel in (("mxu_kernel", "spike_attention"),
+                               ("popcount", "popcount_scores")):
+            c = scfg.replace(engine=scfg.engine.replace(binary=binary))
+            step = steps.build_prefill_step(c)
+            torch.cuda.synchronize()
+            reset_counts()
+            (got,), (ms,) = timed_requests(step, params, [batch])
+            counts = {k: v for k, v in launches().items() if v}
+            with plain_kernels():
+                plain = step(params, batch)
+            spiking[binary] = dict(ms=ms, launches=counts,
+                                   plain_equal=bool(torch.equal(got, plain)),
+                                   finite=bool(torch.isfinite(got).all()),
+                                   digest=digest(got))
+        info["spiking"] = spiking
+    info["run_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return gathered(mesh, info)
+
+
+def ep_path(card):
+    """deepseek-moe-16b at published width and depth, sharded over
+    EP_MESH (gloo ranks sharing the card): ``ep_reference`` here first
+    (freed before the ranks start), then the ranks, whose prefill and
+    decode logits must equal the thread ranks' bitwise on every rank,
+    and whose spiking prefill launches #7 (and #8 under popcount) once a
+    layer on each rank, equal to the plain versions bitwise."""
+    from repro_torch.launch.mesh import launch
+    ref = ep_reference()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(ep_rank, *EP_MESH)
+    wall = time.perf_counter() - t0
+    layers = get_config(DEEPSEEK).num_layers
+    for r in ranks:
+        name = f"{DEEPSEEK} EP rank {r['rank']}"
+        for cf, want in ref.items():
+            got = r[cf]
+            if got["prefill"] != want["prefill"] or \
+                    got["decode"] != want["decode"]:
+                raise AssertionError(f"{name}, capacity {cf}: logits != the "
+                                     f"thread ranks'")
+            if got["launches"]:
+                raise AssertionError(f"{name}: launches {got['launches']}")
+        sp = r["spiking"]
+        for binary, kernel in (("mxu_kernel", "spike_attention"),
+                               ("popcount", "popcount_scores")):
+            if sp[binary]["launches"] != {kernel: layers} or \
+                    not sp[binary]["plain_equal"] or \
+                    not sp[binary]["finite"]:
+                raise AssertionError(f"{name} spiking {binary}: "
+                                     f"{sp[binary]}")
+        if sp["popcount"]["digest"] != sp["mxu_kernel"]["digest"]:
+            raise AssertionError(f"{name}: spiking #8 logits != #7's")
+    spiking_ms = [{b: round(v["ms"], 1) for b, v in r["spiking"].items()}
+                  for r in ranks]
+    log(f"check, {DEEPSEEK} sharded over {EP_MESH} (gloo ranks on "
+        f"{card}): every rank's prefill and {EP_DECODE_STEPS} decode steps "
+        f"== the thread ranks' bitwise at capacity "
+        f"{[round(cf, 4) for cf in ref]}; experts a rank "
+        f"{[r['experts'] for r in ranks]}, params GiB a rank "
+        f"{[round(r['param_gib'], 3) for r in ranks]}, peak GiB while "
+        f"drawing (a whole expert stack before its slice is kept) "
+        f"{[round(r['init_peak_gib'], 3) for r in ranks]} and after "
+        f"{[round(r['run_peak_gib'], 3) for r in ranks]}; prefill ms "
+        f"{[[round(r[cf]['prefill_ms'], 1) for cf in ref] for r in ranks]}, "
+        f"ms a decode step "
+        f"{[[round(r[cf]['step_ms'], 2) for cf in ref] for r in ranks]}; "
+        f"spiking prefill: {layers} #7 and {layers} #8 launches a rank, "
+        f"logits == plain bitwise, #8 == #7, ms {spiking_ms}; launch and "
+        f"run {wall:.1f} s")
+    return dict(ranks=ranks, reference=ref, wall_s=wall)
+
+
+def distributed_layer(serve_gen, card):
+    """The distributed layer's phases, each with its time and peak memory
+    (the parent's; the ranks log their own)."""
+    out = {}
+    with phase("mesh server, int8 spikingformer-lm (1x1 NCCL; 1x2, 2x1, "
+               "2x2 gloo)", card):
+        out["serve"] = mesh_serve_path(serve_gen, card)
+    with phase(f"{DEEPSEEK} expert-parallel over {EP_MESH} (28 layers)",
+               card):
+        out["ep"] = ep_path(card)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -4845,6 +5431,16 @@ def main():
                         values="dark") for dt in dtypes]
         + [check_matmul(dt, "ragged", m, k, n, bias=True, misaligned=True)
            for dt in dtypes for m, k, n in MATMUL_RAGGED])
+    matmul_analog_err = max(
+        [check_matmul_analog(dt, "wo", M_TRAIN, H * HD, D, values=v,
+                             weights=wk)
+         for dt in dtypes for wk in ("normal", "dyadic")
+         for v in ("analog", "analog normal", "spikes", "dark")]
+        + [check_matmul_analog(dt, "ragged", m, k, n, bias=True,
+                               misaligned=mis)
+           for dt in dtypes for m, k, n in MATMUL_RAGGED
+           for mis in (False, True)])
+    matmul_analog_timing = time_matmul_analog()
     attn_err = max([check_attention(dt, *case) for dt in dtypes
                     for case in ATTENTION]
                    + [check_attention(torch.float32, 16, 40, HD, causal,
@@ -5095,7 +5691,7 @@ def main():
     long_int8 = long_prompt_path(*lm_q, what="int8")
     long_mixed = long_prompt_path(*lm_mixed, what="mixed int8")
     wide = wide_head_path()
-    serve_path(*lm_q)
+    serve_row, serve_gen = serve_path(*lm_q)
     vision_int8_path()
 
     # --- overlap='pipeline' (#1d) through build_prefill_step ------------
@@ -5241,6 +5837,12 @@ def main():
     log(f"rwkv, hybrid, encdec and vlm phases: "
         f"{time.perf_counter() - t_other:.1f} s")
 
+    # --- the distributed layer: the mesh server and expert parallelism --
+    t_dist = time.perf_counter()
+    dist_out = distributed_layer(serve_gen, smi)
+    log(f"distributed layer phases: {time.perf_counter() - t_dist:.1f} s")
+    ep_ranks = dist_out["ep"]["ranks"]
+
     csrc = "src/repro_torch/kernels/csrc/"
     bf16 = torch.bfloat16
 
@@ -5270,6 +5872,14 @@ def main():
                  train_step_ms=train_runs["tile"][1],
                  at_8_512_train=dict(launches=eight_train[0]["spike_matmul"]),
                  analog_request_ms=analog4["tile"][1], **matmul_timing),
+            dict(name="spike_matmul_analog", source=csrc + "spike_matmul.cu",
+                 replaces="src/repro/kernels/spike_matmul.py:128 (an analog "
+                          "left operand: binarize_scores=False's wo)",
+                 launches=analog4["tile"][0]["spike_matmul_analog"],
+                 max_abs_err=matmul_analog_err,
+                 at_train=dict(launches=analog_train_counts[
+                     "spike_matmul_analog"], sparse="auto"),
+                 **matmul_analog_timing),
             dict(name="spike_attention", source=csrc + "spike_attention.cu",
                  replaces="src/repro/kernels/spike_attention.py:78",
                  launches=train_counts["tile"]["spike_attention"],
@@ -5297,6 +5907,10 @@ def main():
                  at_moe=dict(launches=moe["spiking"]["mxu_kernel"][0][
                      "spike_attention"], request_ms=moe["spiking"][
                          "mxu_kernel"][1]),
+                 at_ep=dict(mesh=EP_MESH, launches_per_rank=[
+                     r["spiking"]["mxu_kernel"]["launches"]["spike_attention"]
+                     for r in ep_ranks], request_ms_per_rank=[
+                         r["spiking"]["mxu_kernel"]["ms"] for r in ep_ranks]),
                  **attn_timing),
             dict(name="gather_spike_matmul",
                  source=csrc + "gather_spike_matmul.cu",
@@ -5381,6 +5995,10 @@ def main():
                  at_moe=dict(launches=moe["spiking"]["popcount"][0][
                      "popcount_scores"], request_ms=moe["spiking"][
                          "popcount"][1]),
+                 at_ep=dict(mesh=EP_MESH, launches_per_rank=[
+                     r["spiking"]["popcount"]["launches"]["popcount_scores"]
+                     for r in ep_ranks], request_ms_per_rank=[
+                         r["spiking"]["popcount"]["ms"] for r in ep_ranks]),
                  **pop_timing["4-256 train"]),
             dict(name="lif_forward", source=csrc + "lif.cu",
                  replaces="src/repro/kernels/lif.py:38",

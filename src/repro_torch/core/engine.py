@@ -280,13 +280,11 @@ def dense_quant_linear(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     int codes cast to the activation dtype, the per-output-channel scale
     (+ bias, as one fused multiply-add, the jitted reference's rounding)
     in the epilogue, cast back to the activation dtype. On analog inputs
-    this is weight-only quantized compute."""
-    from repro_torch.models.nn import fma32
-    qw = _unpacked_qw(p, x.shape[-1])
-    acc = x.float() @ qw.to(x.dtype).float()
-    if "b" in p:        # jitted XLA contracts acc * scale + b into an FMA
-        return fma32(acc, p["scale"].float(), p["b"].float()).to(x.dtype)
-    return (acc * p["scale"].float()).to(x.dtype)
+    this is weight-only quantized compute (``nn.linear_acc`` then
+    ``nn.linear_epilogue``, the split a mesh's row-split product sums
+    between)."""
+    from repro_torch.models.nn import linear_acc, linear_epilogue
+    return linear_epilogue(p, linear_acc(p, x), x.dtype)
 
 
 class _SparseMatmul(torch.autograd.Function):
@@ -298,14 +296,15 @@ class _SparseMatmul(torch.autograd.Function):
     cotangent of that rounding is the upcast ``g``, as in JAX)."""
 
     @staticmethod
-    def forward(ctx, s2d, w, b, path, block_m, block_k):
+    def forward(ctx, s2d, w, b, path, block_m, block_k, analog=False):
         ctx.save_for_backward(s2d, w, b)
         if path == "decoded":
+            # sums in ascending k on any values: no analog mode of its own
             from repro_torch.kernels.spike_decode import gather_spike_matmul
             return gather_spike_matmul(s2d, w, b, block_m=block_m,
                                        c_block=block_k)
         from repro_torch.kernels.spike_matmul import spike_matmul
-        return spike_matmul(s2d, w, b)
+        return spike_matmul(s2d, w, b, analog=analog)
 
     @staticmethod
     def backward(ctx, g):
@@ -314,7 +313,7 @@ class _SparseMatmul(torch.autograd.Function):
         ds = (g32 @ w.float().t()).to(s2d.dtype)
         dw = (s2d.float().t() @ g32).to(w.dtype)
         db = None if b is None else g32.sum(dim=0).to(b.dtype)
-        return ds, dw, db, None, None, None
+        return ds, dw, db, None, None, None, None
 
 
 class _QuantSparseMatmul(torch.autograd.Function):
@@ -353,12 +352,14 @@ class _QuantSparseMatmul(torch.autograd.Function):
 
 def spike_linear(p: Dict[str, Any], x: torch.Tensor, *,
                  engine: Optional[EngineConfig] = None,
-                 counts: bool = False) -> torch.Tensor:
+                 counts: bool = False, analog: bool = False) -> torch.Tensor:
     """Dual-engine linear layer for spike inputs ({0,1} spikes, or with
     ``counts=True`` the integer counts of a binary-attention context,
-    which only the quantized datapath treats differently). Leading dims
-    fold into the sparse engine's M; the fp32 accumulator is rounded once
-    to ``x.dtype`` (JAX's cast, fused into the kernel's store).
+    which only the quantized datapath treats differently; ``analog=True``:
+    the analog context of a ``binarize_scores=False`` layer, which the
+    tile path sums in ascending k, ``spike_matmul``'s analog mode). Leading
+    dims fold into the sparse engine's M; the fp32 accumulator is rounded
+    once to ``x.dtype`` (JAX's cast, fused into the kernel's store).
     ``engine=None`` uses the ambient engine; no engine means dense."""
     engine = engine if engine is not None else get_engine()
     quantized = "qw" in p
@@ -389,7 +390,7 @@ def spike_linear(p: Dict[str, Any], x: torch.Tensor, *,
             path, engine.block_m, engine.block_k, counts, x.dtype)
     else:
         out = _SparseMatmul.apply(x2d, p["w"], p.get("b"), path,
-                                  engine.block_m, engine.block_k)
+                                  engine.block_m, engine.block_k, analog)
     return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
@@ -712,8 +713,10 @@ def _sequential_layer(p, st, cfg, x, s, *, train, engine):
 
     def linear_bn(u, w, bn):
         # ctx carries integer counts, not {0,1} spikes: dark blocks are
-        # dark all the same, so it rides the sparse engine too
-        y = nn.linear(p[w], u, spikes=True, counts=w == "wo")
+        # dark all the same, so it rides the sparse engine too; with
+        # analog scores it is an analog context (the config says so)
+        y = nn.linear(p[w], u, spikes=True, counts=w == "wo",
+                      analog=w == "wo" and not cfg.spiking.binarize_scores)
         y, new_st[bn] = nn.batchnorm(p[bn], st[bn], y.reshape(-1, y.shape[-1]),
                                      train=train)
         return y.reshape(*u.shape[:-1], -1)

@@ -738,6 +738,102 @@ int launch_quant(int out_dtype, const void* s, const void* w,
   return (int)cudaErrorInvalidValue;
 }
 
+// #2's analog mode: a left operand that is no spike and no count (the
+// analog context of a binarize_scores=False layer, the wo product) makes
+// sums that are exact in no order, so they take one order, the plain
+// version's (spike_matmul.py: fused_ssa.seq_matmul): every output is an
+// fp32 chain over ascending k, one __fmul_rn product and one __fadd_rn sum
+// a term (a bf16 x bf16 product is exact in fp32), the bias added after
+// the last term, rounded once to the dtype. On CUDA cores, as launch B's
+// wo on an analog context (fused_layer.cu, mlp_gemm's chain path). A block
+// of 256 threads owns a 64 x 64 output tile (each thread 4 x 4, strided by
+// 16 so a warp's loads from the staged chunks are conflict-free) and walks
+// K in 32-deep chunks staged as fp32 in shared memory; a chunk of s whose
+// 64 rows are all zero (0.0 or -0.0) costs no weight copy and no product,
+// which changes no sum: its terms are zeros, and a chain that starts at
+// +0.0 never holds -0.0.
+constexpr int AT = 64;   // rows and columns of an analog output tile
+constexpr int AK = 32;   // a chunk of K
+constexpr int ANT = 256;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void from_f32(float* o, float v) { *o = v; }
+__device__ __forceinline__ void from_f32(__nv_bfloat16* o, float v) {
+  *o = __float2bfloat16_rn(v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ANT)
+    analog_product(const T* __restrict__ s, const T* __restrict__ w,
+                   const float* __restrict__ bias, T* __restrict__ out, int m,
+                   int k, int n) {
+  __shared__ float ss[AK][AT + 1];   // the chunk of s, k-major
+  __shared__ float ws[AK][AT];       // the chunk of w
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int m0 = blockIdx.x * AT, n0 = blockIdx.y * AT;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < k; k0 += AK) {
+    int any = 0;
+    for (int e = threadIdx.x; e < AT * AK; e += ANT) {
+      const int r = e / AK, c = e % AK, gm = m0 + r, gk = k0 + c;
+      const float v = gm < m && gk < k ? to_f32(s[(size_t)gm * k + gk]) : 0.f;
+      ss[c][r] = v;
+      any |= v != 0.f;
+    }
+    if (__syncthreads_or(any)) {   // the block's vote: a live chunk
+      for (int e = threadIdx.x; e < AK * AT; e += ANT) {
+        const int c = e / AT, col = e % AT, gk = k0 + c, gn = n0 + col;
+        ws[c][col] = gk < k && gn < n ? to_f32(w[(size_t)gk * n + gn]) : 0.f;
+      }
+      __syncthreads();
+      const int kc = min(AK, k - k0);
+      for (int c = 0; c < kc; ++c) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = ss[c][ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = ws[c][tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(a[i], b[j]));
+      }
+    }
+    __syncthreads();   // the chunk is consumed before the next is staged
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + ty + 16 * i;
+    if (row >= m) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx + 16 * j;
+      if (col >= n) continue;
+      const float y = bias ? __fadd_rn(acc[i][j], bias[col]) : acc[i][j];
+      from_f32(out + (size_t)row * n + col, y);
+    }
+  }
+}
+
+template <typename T>
+int launch_analog(const void* s, const void* w, const float* bias, void* out,
+                  int m, int k, int n, cudaStream_t stream) {
+  const long long mt = (m + AT - 1) / AT, nt = (n + AT - 1) / AT;
+  if (mt > 0x7FFFFFFFLL || nt > 65535) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)mt, (unsigned)nt);
+  analog_product<T><<<grid, ANT, 0, stream>>>((const T*)s, (const T*)w, bias,
+                                              (T*)out, m, k, n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (s, w and out); bias: fp32 (n,) or null;
@@ -752,6 +848,20 @@ extern "C" int spike_matmul_forward(int dtype, const void* s, const void* w,
   if (dtype == 1)
     return launch<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, 0>(
         s, w, nullptr, b, out, m, k, n, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// #2's analog mode (launch_analog): dtype, s, w, bias, out as
+// spike_matmul_forward.
+extern "C" int spike_matmul_analog_forward(int dtype, const void* s,
+                                           const void* w, const void* bias,
+                                           void* out, int m, int k, int n,
+                                           void* stream) {
+  const float* b = (const float*)bias;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) return launch_analog<float>(s, w, b, out, m, k, n, st);
+  if (dtype == 1)
+    return launch_analog<__nv_bfloat16>(s, w, b, out, m, k, n, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -28,6 +28,14 @@ operands' dtype — the JAX kernel's default ``out_dtype``
 cast that JAX's engine applies to the kernel's fp32 output is fused
 into the kernel's store (``core/engine.spike_linear``).
 
+An analog left operand (``analog=True``: the wo product on the analog
+context of a ``binarize_scores=False`` layer, exact in no order) takes
+the analog mode: both versions sum every output in ascending k, one fp32
+product and one fp32 sum a term (``fused_ssa.seq_matmul``), the bias
+after the last term, so the kernel (``csrc/spike_matmul.cu``'s
+``analog_product``, CUDA cores) and the plain version agree bitwise. The
+caller chooses the mode from the config, never from the values.
+
 The quantized product ``y = (s @ qw) * scale (+ b)`` takes spikes on
 int8 lanes (or, with ``counts=True``, binary-attention counts on int32
 lanes) against int8 weight codes, sums in int32 (exact in any order)
@@ -51,9 +59,10 @@ from typing import Optional
 
 import torch
 
-# kernel launches on the card (one per call of spike_matmul_cuda or
-# quant_spike_matmul_cuda)
-LAUNCHES = {"spike_matmul": 0, "quant_spike_matmul": 0}
+# kernel launches on the card (one per call of spike_matmul_cuda, in its
+# analog mode under its own name, or quant_spike_matmul_cuda)
+LAUNCHES = {"spike_matmul": 0, "spike_matmul_analog": 0,
+            "quant_spike_matmul": 0}
 # the CUDA kernels' skip tile of s: the rows of an output tile and the
 # depth of a contraction chunk (csrc/spike_matmul.cu BM, BK)
 SKIP_TILE = (128, 32)
@@ -74,20 +83,28 @@ def block_occupancy(s: torch.Tensor, block_m: int, block_k: int
 
 
 def spike_matmul_plain(s: torch.Tensor, w: torch.Tensor,
-                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       bias: Optional[torch.Tensor] = None, *,
+                       analog: bool = False) -> torch.Tensor:
     """Plain version of the kernel: (M, N) ``s @ w`` (+ bias) accumulated
-    in fp32, rounded once to ``s.dtype``."""
-    y = s.float() @ w.float()
+    in fp32, rounded once to ``s.dtype``; with ``analog`` summed in
+    ascending k, one rounded product and one rounded sum a term."""
+    if analog:
+        from repro_torch.kernels.fused_ssa import seq_matmul
+        y = seq_matmul(s, w)
+    else:
+        y = s.float() @ w.float()
     if bias is not None:
         y = y + bias.float()
     return y.to(s.dtype)
 
 
 def spike_matmul(s: torch.Tensor, w: torch.Tensor,
-                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 bias: Optional[torch.Tensor] = None, *,
+                 analog: bool = False) -> torch.Tensor:
     """y = s @ w (+ bias) -> (M, N) in ``s.dtype``, accumulated in fp32.
-    s: (M, K) {0,1} spikes or non-negative integer counts; w: (K, N);
-    bias: (N,) or None."""
+    s: (M, K) {0,1} spikes or non-negative integer counts, or with
+    ``analog`` any values (summed in ascending k); w: (K, N); bias: (N,)
+    or None."""
     if s.dim() != 2 or w.dim() != 2 or s.shape[1] != w.shape[0]:
         raise ValueError(f"spike_matmul takes s (M, K) and w (K, N), got "
                          f"{tuple(s.shape)} and {tuple(w.shape)}")
@@ -95,11 +112,11 @@ def spike_matmul(s: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"bias has shape {tuple(bias.shape)}, expected "
                          f"({w.shape[1]},)")
     if s.device.type == "cpu":
-        return spike_matmul_plain(s, w, bias)
+        return spike_matmul_plain(s, w, bias, analog=analog)
     if s.device.type != "cuda":
         raise ValueError(f"spike_matmul runs on CPU or CUDA tensors, not "
                          f"{s.device.type}")
-    return spike_matmul_cuda(s, w, bias)
+    return spike_matmul_cuda(s, w, bias, analog=analog)
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -113,6 +130,9 @@ def _library():
             [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
             + [ctypes.c_void_p])
         lib.spike_matmul_forward.restype = ctypes.c_int
+        lib.spike_matmul_analog_forward.argtypes = \
+            lib.spike_matmul_forward.argtypes
+        lib.spike_matmul_analog_forward.restype = ctypes.c_int
         lib.quant_spike_matmul_forward.argtypes = (
             [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
             + [ctypes.c_void_p])
@@ -123,10 +143,11 @@ def _library():
 
 
 def spike_matmul_cuda(s: torch.Tensor, w: torch.Tensor,
-                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream. s and w share
-    one dtype (float32 or bfloat16), which the output takes, and are
-    contiguous."""
+                      bias: Optional[torch.Tensor] = None, *,
+                      analog: bool = False) -> torch.Tensor:
+    """Launch the CUDA kernel on PyTorch's current stream (with
+    ``analog``, its analog mode). s and w share one dtype (float32 or
+    bfloat16), which the output takes, and are contiguous."""
     if s.dtype not in _DTYPES or w.dtype != s.dtype:
         raise ValueError(f"spike_matmul kernel takes s and w of one dtype, "
                          f"float32 or bfloat16, got {s.dtype} and {w.dtype}")
@@ -145,14 +166,15 @@ def spike_matmul_cuda(s: torch.Tensor, w: torch.Tensor,
         return out
     lib = _library()
     stream = torch.cuda.current_stream(s.device).cuda_stream
-    rc = lib.spike_matmul_forward(
-        _DTYPES[s.dtype], s.data_ptr(), w.data_ptr(),
-        None if b32 is None else b32.data_ptr(), out.data_ptr(), m, k, n,
-        stream)
+    forward = lib.spike_matmul_analog_forward if analog \
+        else lib.spike_matmul_forward
+    rc = forward(_DTYPES[s.dtype], s.data_ptr(), w.data_ptr(),
+                 None if b32 is None else b32.data_ptr(), out.data_ptr(), m,
+                 k, n, stream)
     if rc != 0:
         raise RuntimeError(f"spike_matmul kernel launch failed: "
                            f"{lib.spike_matmul_error(rc).decode()}")
-    LAUNCHES["spike_matmul"] += 1
+    LAUNCHES["spike_matmul_analog" if analog else "spike_matmul"] += 1
     return out
 
 

@@ -25,14 +25,21 @@ chunked prefill (the port of ``repro.launch.serve``, unsharded).
   (``repro_torch.quant``); the decode path's products then run
   ``dense_quant_linear`` (the prefill step's layers run the fused layer
   program's rope family on the card) and the server reports the weight
-  footprint.
+  footprint;
+* mesh-sharded decode: given a ``launch.mesh.Mesh`` (one rank a mesh
+  position), slots shard over 'data' and heads / d_ff / vocab over
+  'model' by the ``parallel/rules.py`` tables; every rank holds its
+  slices of the params and the cache, runs the same host loop and
+  samples the same tokens (the logits are gathered over the mesh), and
+  only rank 0 prints. ``--mesh DATAxMODEL`` starts the ranks itself
+  (``launch.mesh.launch``): NCCL where each has a GPU of its own, gloo
+  where they share one (or with ``--device cpu``).
 
 Run: ``PYTHONPATH=src python -m repro_torch.launch.serve --arch
 spikingformer-lm --quantize int8`` (or ``--arch h2o-danube-3-4b
 --quantize int8 --requests 2 --prompt-len 5000 --max-len 6000 --chunk
 1024``) on the GPU (the published config), or with ``--smoke --device
-cpu`` on the CPU. A device mesh (``--mesh``) is not ported (ROADMAP
-queue 1 item 10).
+cpu`` on the CPU; ``--mesh 2x2`` on four ranks.
 """
 from __future__ import annotations
 
@@ -46,10 +53,17 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ALL_ARCHS, get_config
+from repro_torch.configs.base import RunShape
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.mesh import Mesh, launch, parse_mesh
 from repro_torch.models import registry
+from repro_torch.parallel import rules as prules
+from repro_torch.parallel import spmd
+from repro_torch.parallel.sharding import (local_shape, shard_put,
+                                           spec_axes, spec_entries)
 from repro_torch.sim import decoder_sim
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclass
@@ -109,15 +123,20 @@ class BatchedServer:
     ``chunk``: prefill bite width; 0 = auto (:func:`choose_chunk` per
     wave). Wave widths are rounded up to powers of two, as in JAX (where
     that bounds the compiled shapes). ``device``: where the cache lives
-    and the step runs (the GPU by default; ``params`` must be there)."""
+    and the step runs (the GPU by default; ``params`` must be there).
+    ``mesh``: a ``launch.mesh.Mesh`` with ('data', 'model') axes, built
+    inside the ranks; ``params`` is then the whole tree, on any device
+    (the host, so that no rank's device ever holds it whole), of which
+    this rank copies its slices (``param_specs``) to its device; the
+    cache holds this rank's slots and heads, and the step runs on the
+    mesh's device."""
 
     def __init__(self, cfg, params, slots: int, max_len: int, *,
                  chunk: int = 0, mesh=None, trace_logits: bool = False,
                  device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError("a sharded serving mesh is not ported "
-                                      "to PyTorch yet (ROADMAP queue 1 "
-                                      "item 10)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a launch.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
         if not registry.supports_slots(cfg):
             raise ValueError(
                 f"{cfg.name} ({cfg.family}) has no per-slot decode state; "
@@ -132,11 +151,17 @@ class BatchedServer:
         self.fixed_chunk = chunk > 0
         self.trace_logits = trace_logits
         self.params = params
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
         self.headroom = 0 if cfg.attn_type == "full" else self.max_chunk - 1
-        self.cache = registry.init_cache(cfg, slots, max_len,
-                                         chunk_headroom=self.headroom,
-                                         device=self.device)
+        self.scope = self.param_specs = self.cache_specs = None
+        if mesh is None:
+            self.cache = registry.init_cache(cfg, slots, max_len,
+                                             chunk_headroom=self.headroom,
+                                             device=self.device)
+        else:
+            self._shard(params)
         self._step = steps_lib.build_batched_serve_step(cfg,
                                                         device=self.device)
         self.slot_req: List[Optional[Request]] = [None] * slots
@@ -145,13 +170,74 @@ class BatchedServer:
         self.completed: List[Request] = []
         self.waves = 0
 
+    def _shard(self, params):
+        """The mesh's layout: param and cache specs from the rules, this
+        rank's param slices, its slots' and heads' cache (checked against
+        the cache spec's local shape), and the model code's scope."""
+        cfg, mesh = self.cfg, self.mesh
+        shape = RunShape("serve", self.max_len, self.slots, "decode")
+        self.param_specs = prules.params_partition(
+            cfg, tree_map(lambda a: a.to("meta"), params), mesh)
+        full = registry.init_cache(cfg, self.slots, self.max_len,
+                                   chunk_headroom=self.headroom,
+                                   device="meta")
+        self.cache_specs = prules.cache_partition(cfg, shape, mesh, full)
+        for spec in tree_leaves(self.cache_specs):
+            if "data" in spec_axes(spec_entries(spec, 3)[2]):
+                raise ValueError(
+                    f"{self.slots} slots on data={mesh.shape['data']}: the "
+                    f"cache spec shards the sequence (long-context KV), "
+                    f"which the server does not run; give it at least as "
+                    f"many slots as 'data'")
+        dp = prules.batch_axes(shape, mesh)
+        self.scope = spmd.MeshScope(mesh, cfg, self.param_specs, dp)
+        self.rows = self.scope.rows(self.slots)
+        self.params = shard_put(params, self.param_specs, mesh)
+        self.cache = registry.init_cache(
+            self.scope.local_cfg, self.rows.stop - self.rows.start,
+            self.max_len, chunk_headroom=self.headroom, device=self.device)
+        want = tree_map(lambda a, s: local_shape(a.shape, s, mesh), full,
+                        self.cache_specs)
+        got = tree_map(lambda a: tuple(a.shape), self.cache)
+        if want != got:
+            raise AssertionError(f"local cache {got} != its spec's {want}")
+
+    def _bytes(self, tree, specs=None) -> Dict[str, int]:
+        """{'total': the whole (logical) tree's bytes, 'rank': this rank's
+        share} of a tree of this rank's leaves under ``specs``."""
+        def n(leaf):
+            return leaf.numel() * leaf.element_size()
+
+        def copies(leaf, spec):
+            k = 1
+            for part in spec_entries(spec, leaf.ndim):
+                for a in spec_axes(part):
+                    k *= self.mesh.shape.get(a, 1)
+            return k
+        rank = sum(n(leaf) for leaf in tree_leaves(tree))
+        if specs is None:
+            return {"total": rank, "rank": rank}
+        total = sum(n(leaf) * copies(leaf, spec) for leaf, spec in zip(
+            tree_leaves(tree), tree_leaves(specs)))
+        return {"total": total, "rank": rank}
+
+    def param_bytes(self) -> Dict[str, int]:
+        """The params' bytes: the whole tree's and this rank's share."""
+        return self._bytes(self.params, self.param_specs)
+
     def kv_cache_stats(self) -> Dict[str, float]:
         """Measured KV footprint; 'compression' is the ratio against the
         same entries unpacked in the activation dtype (32x a word on the
-        packed spiking path, 1.0 otherwise)."""
-        kv = [leaf for group in self.cache.values()
-              for key, leaf in group.items() if key in ("k", "v")]
-        kv_bytes = sum(leaf.numel() * leaf.element_size() for leaf in kv)
+        packed spiking path, 1.0 otherwise). On a mesh 'kv_bytes' is the
+        whole cache's (what the unsharded server holds) and
+        'kv_bytes_rank' this rank's share."""
+        pick = lambda tree: {g: {k: v for k, v in leaves.items()
+                                 if k in ("k", "v")}
+                             for g, leaves in tree.items()}
+        kv = tree_leaves(pick(self.cache))
+        got = self._bytes(pick(self.cache), None if self.mesh is None
+                          else pick(self.cache_specs))
+        kv_bytes = got["total"]
         act_bytes = getattr(torch, self.cfg.dtype).itemsize
         packed = any(leaf.dtype == torch.int32 for leaf in kv)
         if packed:
@@ -159,8 +245,11 @@ class BatchedServer:
             unpacked = kv_bytes // 4 // words * self.cfg.head_dim * act_bytes
         else:
             unpacked = kv_bytes
-        return {"kv_bytes": kv_bytes, "packed": packed,
-                "compression": unpacked / max(1, kv_bytes)}
+        stats = {"kv_bytes": kv_bytes, "packed": packed,
+                 "compression": unpacked / max(1, kv_bytes)}
+        if self.mesh is not None:
+            stats["kv_bytes_rank"] = got["rank"]
+        return stats
 
     def submit(self, req: Request):
         if len(req.prompt) == 0:
@@ -183,9 +272,11 @@ class BatchedServer:
                 fresh[s] = True
         if fresh.any():
             # a re-admitted slot must not attend over the previous
-            # occupant's K/V: its validity tags go to -1
+            # occupant's K/V: its validity tags go to -1 (on a mesh, in
+            # this rank's slots)
+            mine = fresh if self.scope is None else fresh[self.rows]
             registry.invalidate_slots(self.cfg, self.cache,
-                                      torch.from_numpy(fresh))
+                                      torch.from_numpy(mine))
 
     def step(self) -> bool:
         """One wave: admit queued requests into free slots, issue a
@@ -217,10 +308,11 @@ class BatchedServer:
                 tokens[s, :n] = req.prompt[p:p + n]
             else:
                 tokens[s, 0] = req.generated[-1]
-        logits, self.cache = self._step(
-            self.params, self.cache, torch.from_numpy(tokens),
-            torch.from_numpy(self.slot_pos.astype(np.int32)),
-            torch.from_numpy(n_tok))
+        with spmd.use_mesh(self.scope):
+            logits, self.cache = self._step(
+                self.params, self.cache, torch.from_numpy(tokens),
+                torch.from_numpy(self.slot_pos.astype(np.int32)),
+                torch.from_numpy(n_tok))
         nxt = logits.argmax(dim=-1).cpu().numpy()        # (slots, width)
         for s in active:
             req, n = self.slot_req[s], int(n_tok[s])
@@ -247,6 +339,77 @@ class BatchedServer:
         return self.waves
 
 
+def load(args, dev: torch.device):
+    """The CLI's model: (cfg, params drawn from seed 0 on ``dev`` and
+    quantized as ``--quantize`` asks, the weight footprint report or
+    None)."""
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if not registry.has_decode(cfg):
+        raise SystemExit(f"{args.arch} has no decode step")
+    params = registry.init(cfg, 0, device=dev)
+    wrep = None
+    if args.quantize != "none":
+        from repro_torch.core.engine import EngineConfig
+        from repro_torch.quant import footprint_report, quantize_tree
+        qparams = quantize_tree(params, args.quantize)
+        wrep = footprint_report(params, qparams)
+        eng = cfg.engine if cfg.engine is not None else EngineConfig()
+        cfg = cfg.replace(engine=eng.replace(weights=args.quantize))
+        params = qparams
+    return cfg, params, wrep
+
+
+def serve(args, mesh: Optional[Mesh] = None, model=None
+          ) -> Dict[str, object]:
+    """The CLI's run on one process, or on one rank of ``mesh`` (only
+    rank 0 prints); ``model``: :func:`load`'s result, made here when
+    None. Returns the generations and the report's numbers."""
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    cfg, params, wrep = model if model is not None else load(args, dev)
+    server = BatchedServer(cfg, params, args.slots, args.max_len,
+                           chunk=args.chunk, device=dev, mesh=mesh)
+    del params
+    rng = np.random.default_rng(0)
+    for i in range(args.requests):
+        server.submit(Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                       args.prompt_len).astype(np.int32),
+            max_new_tokens=args.max_new))
+    kv = server.kv_cache_stats()
+    pb = server.param_bytes()
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
+        else str(dev)
+    on = "" if mesh is None else (
+        f", mesh={args.mesh} ({mesh.backend}, {mesh.devices.size} ranks on "
+        f"{where}): {kv['kv_bytes_rank']/1024:.1f} KiB of it and "
+        f"{pb['rank']/1024:.1f} of {pb['total']/1024:.1f} KiB of params "
+        f"a rank")
+    say(f"[serve] kv cache {kv['kv_bytes']/1024:.1f} KiB "
+        f"(packed={kv['packed']}, {kv['compression']:.0f}x vs unpacked)"
+        + on)
+    if wrep is not None:
+        say(f"[serve] weights {wrep['quant_weight_bytes']/1024:.1f} KiB "
+            f"({args.quantize}): {wrep['compression']:.2f}x vs "
+            f"{cfg.dtype} linears "
+            f"({wrep['total_compression']:.2f}x whole tree)")
+    t0 = time.perf_counter()
+    steps = server.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    n_gen = sum(len(r.generated) for r in server.completed)
+    n_pre = sum(len(r.prompt) for r in server.completed)
+    say(f"[serve] {len(server.completed)} requests, {n_gen} generated "
+        f"(+{n_pre} prompt) tokens, {steps} waves in {dt:.2f}s "
+        f"({(n_gen + n_pre)/dt:.1f} tok/s on {where}"
+        + ("" if mesh is None else f", {mesh.backend}") + ")")
+    for r in server.completed[:3]:
+        say(f"  req {r.rid}: {r.generated}")
+    return {"generated": {r.rid: r.generated for r in server.completed},
+            "seconds": dt, "waves": steps, "kv": kv, "params": pb}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="spikingformer-lm",
@@ -263,61 +426,30 @@ def main(argv=None):
     ap.add_argument("--chunk", type=int, default=0,
                     help="prefill chunk width; 0 = popcount-aware policy")
     ap.add_argument("--mesh", default="",
-                    help="DATAxMODEL serving mesh (not ported)")
+                    help="DATAxMODEL serving mesh, e.g. 2x2: starts that "
+                         "many ranks ('' = unsharded)")
     ap.add_argument("--quantize", default="none",
                     choices=["none", "int8", "int4"],
                     help="quantize linear weights at load; reports the "
                          "measured footprint compression")
     args = ap.parse_args(argv)
-
-    if args.mesh:
-        raise NotImplementedError("--mesh: a sharded serving mesh is not "
-                                  "ported to PyTorch yet (ROADMAP queue 1 "
-                                  "item 10)")
-    cfg = get_config(args.arch, smoke=args.smoke)
-    if not registry.has_decode(cfg):
-        raise SystemExit(f"{args.arch} has no decode step")
+    if not args.mesh:
+        return serve(args)
+    d, m = parse_mesh(args.mesh)
     dev = resolve_device(args.device)
-    params = registry.init(cfg, 0, device=dev)
-    wrep = None
-    if args.quantize != "none":
-        from repro_torch.core.engine import EngineConfig
-        from repro_torch.quant import footprint_report, quantize_tree
-        qparams = quantize_tree(params, args.quantize)
-        wrep = footprint_report(params, qparams)
-        eng = cfg.engine if cfg.engine is not None else EngineConfig()
-        cfg = cfg.replace(engine=eng.replace(weights=args.quantize))
-        params = qparams
-    server = BatchedServer(cfg, params, args.slots, args.max_len,
-                           chunk=args.chunk, device=dev)
-    rng = np.random.default_rng(0)
-    for i in range(args.requests):
-        server.submit(Request(
-            rid=i, prompt=rng.integers(0, cfg.vocab_size,
-                                       args.prompt_len).astype(np.int32),
-            max_new_tokens=args.max_new))
-    kv = server.kv_cache_stats()
-    print(f"[serve] kv cache {kv['kv_bytes']/1024:.1f} KiB "
-          f"(packed={kv['packed']}, {kv['compression']:.0f}x vs unpacked)")
-    if wrep is not None:
-        print(f"[serve] weights {wrep['quant_weight_bytes']/1024:.1f} KiB "
-              f"({args.quantize}): {wrep['compression']:.2f}x vs "
-              f"{cfg.dtype} linears "
-              f"({wrep['total_compression']:.2f}x whole tree)")
-    t0 = time.perf_counter()
-    steps = server.run()
+    # drawn once, where the unsharded run draws it (the same tokens), and
+    # handed to the ranks in host memory: a rank's device holds only its
+    # slices, never the whole tree
+    cfg, params, wrep = load(args, dev)
+    host = tree_map(lambda a: a.cpu(), params)
+    del params
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    dt = time.perf_counter() - t0
-    n_gen = sum(len(r.generated) for r in server.completed)
-    n_pre = sum(len(r.prompt) for r in server.completed)
-    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
-        else str(dev)
-    print(f"[serve] {len(server.completed)} requests, {n_gen} generated "
-          f"(+{n_pre} prompt) tokens, {steps} waves in {dt:.2f}s "
-          f"({(n_gen + n_pre)/dt:.1f} tok/s on {where})")
-    for r in server.completed[:3]:
-        print(f"  req {r.rid}: {r.generated}")
+        torch.cuda.empty_cache()
+    return launch(_serve_rank, d, m, args, (cfg, host, wrep), device=dev)
+
+
+def _serve_rank(mesh: Mesh, args, model):
+    return serve(args, mesh, model)
 
 
 if __name__ == "__main__":

@@ -13,7 +13,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, RunShape
 from repro_torch.core.engine import engine_scope
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import registry
@@ -22,6 +22,54 @@ from repro_torch.quant import INT_BITS, fake_quant_tree
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 STATEFUL = ("spikingformer", "cifarnet")
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs: meta tensors, shaped as JAX's ShapeDtypeStructs (no
+# allocation), for the spec tables of parallel/rules.py
+# ---------------------------------------------------------------------------
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_struct(cfg: ModelConfig, shape: RunShape) -> Dict[str, Any]:
+    """Abstract batch for forward / train at this run shape."""
+    b, s = shape.global_batch, shape.seq_len
+    dt = getattr(torch, cfg.dtype)
+    if cfg.family == "vlm":
+        n_patch = cfg.frontend.num_embeds
+        return {"tokens": _meta((b, s - n_patch), torch.int32),
+                "patch_embeds": _meta((b, n_patch, cfg.frontend.embed_dim),
+                                      dt)}
+    if cfg.family == "encdec":
+        return {"tokens": _meta((b, s), torch.int32),
+                "audio_embeds": _meta((b, cfg.encoder_seq, cfg.d_model), dt)}
+    if cfg.family in STATEFUL:
+        v = cfg.vision
+        return {"images": _meta((b, v.img_size, v.img_size, v.in_channels),
+                                dt),
+                "labels": _meta((b,), torch.int32)}
+    return {"tokens": _meta((b, s), torch.int32)}
+
+
+def cache_struct(cfg: ModelConfig, shape: RunShape):
+    """Abstract decode cache (``init_cache`` on the meta device)."""
+    return registry.init_cache(cfg, shape.global_batch, shape.seq_len,
+                               device="meta")
+
+
+def decode_inputs_struct(cfg: ModelConfig, shape: RunShape):
+    return (cache_struct(cfg, shape),
+            _meta((shape.global_batch, 1), torch.int32),
+            _meta((), torch.int32))
+
+
+def abstract_params(cfg: ModelConfig, seed: int = 0):
+    """The params tree on the meta device: shapes and dtypes, no
+    storage."""
+    return registry.init(cfg, seed, device="meta")
 
 
 def softmax_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

@@ -79,7 +79,7 @@ def init(cfg: ModelConfig, seed: int = 0, *,
     by default) seeded with ``seed`` (not JAX's numbers: tests convert
     JAX's params)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = nn.generator(dev).manual_seed(seed)
     dt = dtype_of(cfg)
     params = {
         "enc_layers": _stacked_layers(gen, cfg, (cfg.encoder_layers,), dev,

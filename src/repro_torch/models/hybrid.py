@@ -62,7 +62,7 @@ def init(cfg: ModelConfig, seed: int = 0, *,
     from a ``torch.Generator`` on ``device`` (the GPU by default) seeded
     with ``seed`` (not JAX's numbers: tests convert JAX's params)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = nn.generator(dev).manual_seed(seed)
     dt = dtype_of(cfg)
     params = {
         "embed": nn.embedding_init(gen, cfg.vocab_size, cfg.d_model, dt),

@@ -1,9 +1,23 @@
 """Mixture-of-Experts decoder LM (deepseek-moe-16b, kimi-k2-1t-a32b).
 
-Mirrors ``repro.models.moe`` without its mesh context: every expert is
-local (``moe_ffn`` is JAX's ``mesh is None`` branch), while
-``_dispatch_local`` keeps its ``e_local`` / ``local_offset`` arguments
-for expert parallelism. The routed FFN is sort-based capacity dispatch:
+Mirrors ``repro.models.moe``, its expert parallelism included: under
+:class:`use_ep_mesh` (a ``launch.mesh.Mesh`` of ranks) ``moe_ffn`` runs
+JAX's ``shard_map`` branch on each rank: the tokens split over the token
+axes (dim 0) and replicated over the expert axis, ``E / ep`` experts a
+rank from ``local_offset = rank_in_axis * e_local`` (a rank holds only
+them, or the whole stack, of which it reads its slice), capacity from
+the rank's tokens, each rank's combine cast to the activation dtype and
+summed over the expert axis in that dtype (JAX's bf16 ``psum``), the
+router losses averaged over the token axes, the output gathered back
+over them. With whole params everything else runs replicated on every
+rank, as JAX's ``use_ep_mesh`` leaves unsharded params; with a rank's
+slices under :func:`mesh_specs` (``_MOE``'s table; :func:`ep_keep` draws
+only them) and a ``parallel.spmd.MeshScope``, the rest runs as GSPMD
+runs those specs: attention on this rank's heads, the dense layers' and
+shared experts' d_ff columns, wo and the down products summed over
+'model' before their epilogues, the vocab-sharded lookup and head.
+Without a mesh every expert is local. The routed FFN is sort-based
+capacity dispatch:
 a stable argsort of the (token, choice) pairs by expert id, a
 capacity-bounded gather of each expert's tokens, the batched expert
 products, and a combine that adds each token's weighted expert outputs
@@ -40,6 +54,7 @@ back in fp32.
 from __future__ import annotations
 
 import math
+import threading
 from itertools import product
 from typing import Any, Dict, Optional
 
@@ -47,10 +62,72 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.parallel import collectives, spmd
+from repro_torch.parallel.rules import dp_part, params_partition
+from repro_torch.parallel.sharding import P, local_slice, tree_map_with_path
 from repro_torch.tree import tree_map
 from . import nn
-from .transformer import (_attend_full_seq, _project_qkv, _spike,
-                          _stacked_layers, dtype_of)
+from .transformer import (_attend_full_seq, _head_sharded, _mlp,
+                          _project_qkv, _row, _spike, _stacked_layers,
+                          dtype_of)
+
+
+# ---------------------------------------------------------------------------
+# Mesh context for EP (installed by the launch layer)
+# ---------------------------------------------------------------------------
+
+_ctx = threading.local()
+
+
+def set_ep_mesh(mesh, token_axes=("pod", "data"), expert_axis="model"):
+    _ctx.mesh = mesh
+    _ctx.token_axes = token_axes
+    _ctx.expert_axis = expert_axis
+
+
+def clear_ep_mesh():
+    _ctx.mesh = None
+
+
+def get_ep_mesh():
+    return getattr(_ctx, "mesh", None), \
+        getattr(_ctx, "token_axes", ("pod", "data")), \
+        getattr(_ctx, "expert_axis", "model")
+
+
+class use_ep_mesh:
+    def __init__(self, mesh, token_axes=("pod", "data"), expert_axis="model"):
+        self.args = (mesh, token_axes, expert_axis)
+
+    def __enter__(self):
+        self.prev = get_ep_mesh()
+        set_ep_mesh(*self.args)
+
+    def __exit__(self, *exc):
+        set_ep_mesh(*self.prev)
+
+
+def mesh_specs(cfg: ModelConfig, mesh):
+    """The param spec tree of ``cfg`` on ``mesh``: ``parallel/rules.py``'s
+    ``_MOE`` table (the routed experts over 'model', attention heads, the
+    dense and shared experts' d_ff and the vocab over 'model', FSDP over
+    'data'), on the meta-device tree."""
+    return params_partition(cfg, init(cfg, 0, device="meta"), mesh)
+
+
+def ep_keep(cfg: ModelConfig, mesh):
+    """An ``init(keep=...)`` that keeps this rank's slice of every leaf
+    under :func:`mesh_specs`: the routed expert stacks as each is drawn,
+    so a rank never holds the other ranks' experts, the rest once drawn.
+    Run the model on the result under a ``spmd.MeshScope`` with those
+    specs and :class:`use_ep_mesh`."""
+    flat = {}
+    tree_map_with_path(lambda path, spec: flat.__setitem__(path, spec),
+                       mesh_specs(cfg, mesh))
+
+    def keep(path, leaf):
+        return local_slice(leaf, flat[path], mesh).clone()
+    return keep
 
 
 # ---------------------------------------------------------------------------
@@ -108,29 +185,35 @@ def _dense_layer_init(gen: torch.Generator, cfg: ModelConfig):
 
 
 def _expert_stacks(gen: torch.Generator, cfg: ModelConfig, n: int,
-                   dev: torch.device):
+                   dev: torch.device, keep):
     """{up, gate, down}: (n, E, ...) expert stacks, drawn expert by expert
     into their slices (a kimi layer's experts, 34 GB in bf16, never exist
-    twice)."""
+    twice), each passed through ``keep`` as soon as it is drawn."""
     dt = dtype_of(cfg)
     stacks = {}
     for name, (shape, std) in _expert_shapes(cfg).items():
-        stacks[name] = torch.empty((n, cfg.moe.num_experts, *shape),
-                                   dtype=dt, device=dev)
+        full = torch.empty((n, cfg.moe.num_experts, *shape), dtype=dt,
+                           device=dev)
         for i, e in product(range(n), range(cfg.moe.num_experts)):
-            stacks[name][i, e].copy_(nn.normal(gen, shape, std, dt))
+            full[i, e].copy_(nn.normal(gen, shape, std, dt))
+        stacks[name] = keep(f"layers/moe/{name}", full)
+        del full
     return stacks
 
 
 def init(cfg: ModelConfig, seed: int = 0, *,
-         device: DeviceLike = None) -> Dict[str, Any]:
+         device: DeviceLike = None, keep=None) -> Dict[str, Any]:
     """Params in the JAX layout (``dense_layers`` and ``layers`` stacked
     on a leading axis; ``moe.{router, up, gate, down, shared}``) from a
     ``torch.Generator`` on ``device`` (the GPU by default) seeded with
     ``seed`` (not JAX's numbers: tests convert JAX's params instead). Each
-    leaf is drawn where it lives."""
+    leaf is drawn where it lives. ``keep(path, leaf)`` (e.g.
+    :func:`ep_keep`) maps each routed expert stack as soon as it is drawn,
+    before the next is, and the other leaves once the tree is drawn: the
+    draws are the same whatever it keeps."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    keep = keep if keep is not None else (lambda path, leaf: leaf)
+    gen = nn.generator(dev).manual_seed(seed)
     dt = dtype_of(cfg)
     m = cfg.moe
     params: Dict[str, Any] = {
@@ -146,11 +229,14 @@ def init(cfg: ModelConfig, seed: int = 0, *,
     layers = _stacked_layers(gen, cfg, (n_moe,), dev, _moe_layer_init)
     ffn = layers["moe"]
     layers["moe"] = {"router": ffn["router"],
-                     **_expert_stacks(gen, cfg, n_moe, dev),
+                     **_expert_stacks(gen, cfg, n_moe, dev, keep),
                      **({"shared": ffn["shared"]} if "shared" in ffn
                         else {})}
     params["layers"] = layers
-    return tree_map(lambda a: a.to(dev), params)
+    kept = {f"layers/moe/{name}" for name in _expert_shapes(cfg)}
+    return tree_map_with_path(
+        lambda path, a: a if path in kept else keep(path, a.to(dev)),
+        params)
 
 
 # ---------------------------------------------------------------------------
@@ -187,11 +273,12 @@ def _local_expert_ffn(xg: torch.Tensor, up, gate, down,
 
 def _dispatch_local(x2d: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
                     up, gate, down, m: MoEConfig, act: str, e_local: int,
-                    local_offset) -> torch.Tensor:
+                    local_offset, out_dtype=None) -> torch.Tensor:
     """Sort-based capacity dispatch for the local expert slice.
 
     x2d (T, D); w / idx (T, K); expert weights (E_loc, ...). Choices of
-    non-local experts are ignored here (another shard owns them)."""
+    non-local experts are ignored here (another shard owns them). The
+    fp32 combine is returned in ``out_dtype`` (default x2d's)."""
     t, d = x2d.shape
     k = m.top_k
     dev = x2d.device
@@ -240,21 +327,45 @@ def _dispatch_local(x2d: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
         ok = s < sentinel
         y = y_flat[s.clamp(max=sentinel - 1)].float() * w_of[:, j, None]
         out = out + torch.where(ok[:, None], y, 0.0)
-    return out.to(x2d.dtype)
+    return out.to(x2d.dtype if out_dtype is None else out_dtype)
 
 
 def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig):
-    """x: (..., S, D) -> (y, aux_loss): the routed experts (all local)
-    plus the shared experts."""
+    """x: (..., S, D) -> (y, aux_loss): the routed experts plus the shared
+    experts; expert-parallel over the ranks of an installed EP mesh."""
     m = cfg.moe
-    x2d = x.reshape(-1, x.shape[-1])
-    w, idx, aux_lb, aux_z = router_topk(x2d, p["router"], m)
-    y = _dispatch_local(x2d, w, idx, p["up"], p["gate"], p["down"], m,
-                        cfg.act, m.num_experts, 0)
-    aux = m.router_aux_weight * aux_lb + m.router_z_weight * aux_z
-    y = y.reshape(x.shape)
+    mesh, token_axes, expert_axis = get_ep_mesh()
+    if mesh is None and spmd.current() is not None:
+        raise ValueError("a MoE on a mesh scope runs its routed experts "
+                         "expert-parallel: install use_ep_mesh too")
+
+    def run(x_loc, up, gate, down, e_local, offset):
+        x2d = x_loc.reshape(-1, x_loc.shape[-1])
+        w, idx, aux_lb, aux_z = router_topk(x2d, p["router"], m)
+        y = _dispatch_local(x2d, w, idx, up, gate, down, m, cfg.act,
+                            e_local, offset)
+        aux = m.router_aux_weight * aux_lb + m.router_z_weight * aux_z
+        return y.reshape(x_loc.shape), aux
+
+    if mesh is None:
+        y, aux = run(x, p["up"], p["gate"], p["down"], m.num_experts, 0)
+    else:
+        e_local = m.num_experts // mesh.shape[expert_axis]
+        offset = mesh.coords[expert_axis] * e_local
+        experts = [p[k] if p[k].shape[0] == e_local
+                   else p[k][offset:offset + e_local]
+                   for k in ("up", "gate", "down")]
+        axes = tuple(a for a in token_axes if a in mesh.axis_names)
+        x_loc = local_slice(x, P(dp_part(axes)), mesh)
+        y, aux = run(x_loc, *experts, e_local, offset)
+        # each rank's combine, already in the activation dtype, summed over
+        # the expert axis in that dtype (JAX's bf16 psum)
+        y = collectives.all_reduce(y.to(x.dtype), mesh, expert_axis)
+        if axes:
+            aux = collectives.pmean(aux, mesh, axes)
+            y = collectives.all_gather(y, mesh, axes, 0)
     if m.num_shared:
-        y = y + nn.mlp(p["shared"], x, cfg.act)
+        y = y + _mlp(p["shared"], x, cfg.act, "shared")
     return y, aux
 
 
@@ -275,7 +386,7 @@ def _attn_block(p, cfg: ModelConfig, x: torch.Tensor, positions,
     else:
         attn = _attend_full_seq(cfg, "full", q, k, v)
     attn = attn.reshape(*x.shape[:-1], cfg.q_dim)
-    return x + nn.linear(p["wo"], attn)
+    return x + _row(p["wo"], attn, "attn")
 
 
 def _moe_layer(p, cfg: ModelConfig, x: torch.Tensor, positions,
@@ -290,37 +401,74 @@ def _dense_layer(p, cfg: ModelConfig, x: torch.Tensor, positions,
                  train: bool) -> torch.Tensor:
     x = _attn_block(p, cfg, x, positions, train)
     h = nn.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + nn.mlp(p["mlp"], h, cfg.act)
+    return x + _mlp(p["mlp"], h, cfg.act)
 
 
 def _stack_layer(stack, i: int):
     return tree_map(lambda a: a[i], stack)
 
 
+def _layer(params, key: str, i: int):
+    """Layer ``i`` of the stack ``params[key]``; under a mesh scope in the
+    layout it runs in (``MeshScope.layer``)."""
+    lp = _stack_layer(params[key], i)
+    scope = spmd.current()
+    if scope is None:
+        return lp
+    return scope.layer(lp, tree_map(lambda a, s: spmd.drop_lead(s, a.ndim, 1),
+                                    params[key], scope.specs[key]))
+
+
+def _embed(params, tokens):
+    scope = spmd.current()
+    if scope is None:
+        return nn.embed(params["embed"], tokens)
+    return scope.embed(params["embed"], scope.specs["embed"], tokens)
+
+
+def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    scope = spmd.current()
+    if scope is not None:
+        return _head_sharded(params, cfg, x, scope)
+    x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return nn.linear(params["lm_head"], x).float()
+
+
+def _local_cfg(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` with this rank's heads under a mesh scope."""
+    scope = spmd.current()
+    if scope is None:
+        return cfg
+    if scope.kv_index is not None:
+        raise ValueError(f"{cfg.name}: its {cfg.num_kv_heads} KV heads do "
+                         f"not divide 'model'={scope.plan.m}")
+    return scope.local(cfg)
+
+
 def forward(params, cfg: ModelConfig, batch, *, train: bool = False,
             inputs_embeds: Optional[torch.Tensor] = None):
     """batch: {'tokens': (B, S)} (``inputs_embeds`` (B, S, D) in place of
     the lookup); returns (logits (B, S, V) fp32, {'moe_aux': the router
-    losses summed over the MoE layers})."""
-    tokens = batch["tokens"]
-    x = nn.embed(params["embed"], tokens) if inputs_embeds is None \
+    losses summed over the MoE layers}). Under a mesh scope the params
+    are this rank's slices, every rank runs the whole batch on its heads
+    and d_ff columns, and ``moe_ffn`` splits the tokens itself."""
+    x = _embed(params, batch["tokens"]) if inputs_embeds is None \
         else inputs_embeds
+    lcfg = _local_cfg(cfg)
     positions = torch.arange(x.shape[-2], device=x.device)
     if cfg.spiking is not None:
         x = x[None].expand(cfg.spiking.time_steps, *x.shape)
     for i in range(cfg.moe.first_k_dense):
-        x = _dense_layer(_stack_layer(params["dense_layers"], i), cfg, x,
+        x = _dense_layer(_layer(params, "dense_layers", i), lcfg, x,
                          positions, train)
     auxes = []
     for i in range(cfg.num_layers - cfg.moe.first_k_dense):
-        x, aux = _moe_layer(_stack_layer(params["layers"], i), cfg, x,
+        x, aux = _moe_layer(_layer(params, "layers", i), lcfg, x,
                             positions, train)
         auxes.append(aux)
     if cfg.spiking is not None:
         x = x.mean(dim=0)               # rate decoding over T_s
-    x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = nn.linear(params["lm_head"], x).float()
-    return logits, {"moe_aux": torch.stack(auxes).sum()}
+    return _logits(params, cfg, x), {"moe_aux": torch.stack(auxes).sum()}
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, batch=None,
@@ -329,7 +477,9 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, batch=None,
     """{'layers': ..., 'dense_layers': ...}, each {'k', 'v': (n_layers,
     rows, max_len, KH, hd) in the activation dtype, 'pos': (n_layers,
     max_len) int32 tags, -1 = empty}, on ``device``; rows = T*B in spiking
-    mode (as JAX sizes it), B otherwise."""
+    mode (as JAX sizes it), B otherwise; under a mesh scope this rank's
+    heads."""
+    cfg = _local_cfg(cfg)
     dev = resolve_device(device)
     dt = dtype_of(cfg)
     b = batch_size * (cfg.spiking.time_steps if cfg.spiking else 1)
@@ -358,7 +508,7 @@ def _decode_attn(p, cfg: ModelConfig, x: torch.Tensor, cache_l,
     cache_l["pos"].index_copy_(0, slot, pos.reshape(1).to(torch.int32))
     attn = nn.decode_attention(q, cache_l["k"], cache_l["v"],
                                entry_pos=cache_l["pos"], cur_pos=pos)
-    return x + nn.linear(p["wo"], attn.reshape(x.shape[0], 1, cfg.q_dim))
+    return x + _row(p["wo"], attn.reshape(x.shape[0], 1, cfg.q_dim), "attn")
 
 
 def _cache_layer(group, i: int):
@@ -382,18 +532,18 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos,
     dev = params["embed"]["table"].device
     tokens = torch.as_tensor(tokens, device=dev)
     pos = torch.as_tensor(pos, dtype=torch.int64, device=dev).reshape(())
-    x = nn.embed(params["embed"], tokens)
+    x = _embed(params, tokens)
+    lcfg = _local_cfg(cfg)
     for i in range(cfg.moe.first_k_dense):
-        lp = _stack_layer(params["dense_layers"], i)
-        x = _decode_attn(lp, cfg, x, _cache_layer(cache["dense_layers"], i),
+        lp = _layer(params, "dense_layers", i)
+        x = _decode_attn(lp, lcfg, x, _cache_layer(cache["dense_layers"], i),
                          pos)
         h = nn.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + nn.mlp(lp["mlp"], h, cfg.act)
+        x = x + _mlp(lp["mlp"], h, cfg.act)
     for i in range(cfg.num_layers - cfg.moe.first_k_dense):
-        lp = _stack_layer(params["layers"], i)
-        x = _decode_attn(lp, cfg, x, _cache_layer(cache["layers"], i), pos)
+        lp = _layer(params, "layers", i)
+        x = _decode_attn(lp, lcfg, x, _cache_layer(cache["layers"], i), pos)
         h = nn.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        y, _ = moe_ffn(lp["moe"], h, cfg)
+        y, _ = moe_ffn(lp["moe"], h, lcfg)
         x = x + y
-    x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return nn.linear(params["lm_head"], x).float(), cache
+    return _logits(params, cfg, x), cache

@@ -50,8 +50,27 @@ def bn_affine(y32: torch.Tensor, mean, inv_std, scale, bias) -> torch.Tensor:
     return fma32((y32 - mean) * inv_std, scale, bias)
 
 
+class _MetaGenerator:
+    """The generator of an init on the meta device: its draws are shapes
+    only, so an abstract params tree allocates nothing."""
+    device = torch.device("meta")
+
+    def manual_seed(self, seed: int) -> "_MetaGenerator":
+        return self
+
+
+def generator(device: torch.device):
+    """A ``torch.Generator`` on ``device``, or on the meta device a
+    stand-in whose :func:`normal` draws allocate nothing."""
+    if device.type == "meta":
+        return _MetaGenerator()
+    return torch.Generator(device=device)
+
+
 def normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
     """fp32 normal draws on the generator's device, scaled and cast."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=gen.device) * std).to(dtype)
 
@@ -66,26 +85,43 @@ def linear_init(gen, d_in: int, d_out: int, *, bias: bool = False,
 
 
 def linear(p, x: torch.Tensor, *, spikes: bool = False,
-           counts: bool = False) -> torch.Tensor:
+           counts: bool = False, analog: bool = False) -> torch.Tensor:
     """Linear layer in the activation dtype (fp32 accumulation).
 
     ``spikes=True`` marks a {0,1} spike input (``counts=True``: the
-    integer counts binary attention emits); with an engine installed such
+    integer counts binary attention emits; ``analog=True``: an analog
+    attention context in their place); with an engine installed such
     call sites go through the sparse engine's dispatch
-    (``core.engine.spike_linear``). Otherwise this is the plain dense
-    path."""
-    if "qw" in p:
-        # quantized dicts: spike inputs take the engine's dispatch, analog
-        # inputs the weight-only quantized reference
-        from repro_torch.core import engine as _engine  # lazy: no cycle
-        if spikes and _engine.get_engine() is not None:
-            return _engine.spike_linear(p, x, counts=counts)
-        return _engine.dense_quant_linear(p, x)
+    (``core.engine.spike_linear``; a quantized dict ignores ``analog``).
+    Otherwise this is the plain dense path, on a quantized dict the
+    weight-only quantized reference (``dense_quant_linear``)."""
     if spikes:
         from repro_torch.core import engine as _engine  # lazy: no cycle
         if _engine.get_engine() is not None:
-            return _engine.spike_linear(p, x, counts=counts)
-    y = (x.float() @ p["w"].float()).to(x.dtype)
+            return _engine.spike_linear(p, x, counts=counts, analog=analog)
+    return linear_epilogue(p, linear_acc(p, x), x.dtype)
+
+
+def linear_acc(p, x: torch.Tensor) -> torch.Tensor:
+    """The dense path's fp32 accumulator (fp weights, or int8 / int4 codes
+    cast to ``x.dtype``), before its epilogue; a row-split product's
+    partial sum on a mesh (``parallel.spmd``)."""
+    if "qw" in p:
+        from repro_torch.core.engine import _unpacked_qw  # lazy: no cycle
+        return x.float() @ _unpacked_qw(p, x.shape[-1]).to(x.dtype).float()
+    return x.float() @ p["w"].float()
+
+
+def linear_epilogue(p, acc: torch.Tensor, dtype) -> torch.Tensor:
+    """The dense path's epilogue on an fp32 accumulator, rounded once to
+    ``dtype``: int8 / int4 codes' per-output-channel scale (+ bias, one
+    fused multiply-add, the jitted reference's contraction), or the fp
+    cast then the bias. :func:`linear` and ``dense_quant_linear`` are
+    ``linear_epilogue(p, linear_acc(p, x), x.dtype)``."""
+    if "qw" in p:
+        from repro_torch.kernels.spike_matmul import quant_epilogue
+        return quant_epilogue(acc, p["scale"], p.get("b")).to(dtype)
+    y = acc.to(dtype)
     if "b" in p:
         y = y + p["b"]
     return y

@@ -46,8 +46,10 @@ def family_module(cfg: ModelConfig) -> ModuleType:
         raise ValueError(f"unknown family {cfg.family!r}") from None
 
 
-def init(cfg: ModelConfig, seed: int = 0, *, device: DeviceLike = None):
-    return family_module(cfg).init(cfg, seed, device=device)
+def init(cfg: ModelConfig, seed: int = 0, *, device: DeviceLike = None,
+         **kw):
+    """``kw``: the family's own init options (MoE: ``keep``)."""
+    return family_module(cfg).init(cfg, seed, device=device, **kw)
 
 
 def forward(params, cfg: ModelConfig, batch, *, train: bool = False, **kw):

@@ -25,6 +25,11 @@ bite per slot, per-slot positions and validity tags) and
 
 The decode path updates the cache in place (JAX returns a new one) and
 returns it, so a server holds one cache and copies none of it a wave.
+Under a mesh (``parallel.spmd.use_mesh``, installed by the server) the
+decode step runs on this rank's slots, heads and d_ff columns: the
+vocab-sharded lookup, each layer's weights gathered over 'data' once, wo
+and down summed over 'model' before their epilogues, the logits gathered
+over 'model' and the slots over 'data'.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from repro_torch.core.bitpack import pack_bits, popcount_matmul, unpack_bits
 from repro_torch.core.engine import layer_step_causal
 from repro_torch.core.spiking import binarize, lif_scan
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.parallel import spmd
 from repro_torch.tree import tree_map
 from . import nn
 
@@ -97,7 +103,7 @@ def init(cfg: ModelConfig, seed: int = 0, *,
     (the GPU by default) seeded with ``seed`` (not JAX's numbers: tests
     convert JAX's params instead). Each leaf is drawn where it lives."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = nn.generator(dev).manual_seed(seed)
     dt = dtype_of(cfg)
     params: Dict[str, Any] = {
         "embed": nn.embedding_init(gen, cfg.vocab_size, cfg.d_model, dt),
@@ -116,6 +122,40 @@ def init(cfg: ModelConfig, seed: int = 0, *,
 
 def _layer(params, i: int):
     return tree_map(lambda a: a[i], params["layers"])
+
+
+def _layer_specs(params, specs, cfg: ModelConfig) -> Iterator[Any]:
+    """One layer's spec tree at a time, in :func:`_layers`' order (the
+    stacked leaves' specs without their leading layer entries)."""
+    key, lead = ("groups", 2) if cfg.attn_type == "local_global" \
+        else ("layers", 1)
+    one = tree_map(lambda a, s: spmd.drop_lead(s, a.ndim, lead),
+                   params[key], specs[key])
+    for _ in range(cfg.num_layers):
+        yield one
+
+
+def _row(p, x: torch.Tensor, part: str) -> torch.Tensor:
+    """A product whose input channels a mesh may split over 'model' (wo:
+    ``part`` 'attn', down: 'mlp'): summed over the ranks before its
+    epilogue; without a mesh :func:`nn.linear`."""
+    scope = spmd.current()
+    if scope is None:
+        return nn.linear(p, x)
+    return scope.row_linear(p, x, getattr(scope.plan, part))
+
+
+def _mlp(p, x: torch.Tensor, act: str, part: str = "mlp") -> torch.Tensor:
+    """:func:`nn.mlp` with its down product through :func:`_row` (``part``
+    'mlp', or a MoE's 'shared' experts)."""
+    if spmd.current() is None:
+        return nn.mlp(p, x, act)
+    h = nn.linear(p["up"], x)
+    if "gate" in p:
+        h = nn.activation(act)(nn.linear(p["gate"], x)) * h
+    else:
+        h = nn.activation(act)(h)
+    return _row(p["down"], h, part)
 
 
 def _layers(params, cfg: ModelConfig) -> Iterator[Tuple[str, Any]]:
@@ -352,8 +392,15 @@ def _decode_layer(p, cfg: ModelConfig, x: torch.Tensor, cache_l, pos,
     k_cache = _scatter_rows(cache_l["k"], k, tile(slot))
     v_cache = _scatter_rows(cache_l["v"], v, tile(slot))
     entry_pos = _scatter_rows(cache_l["pos"], qpos.to(torch.int32), slot)
+    scope = spmd.current()
+    if scope is not None and scope.kv_index is not None:
+        # all KV heads cached, this rank's query heads read their own
+        idx = scope.kv_index.to(x.device)
+        k_cache, v_cache = k_cache.index_select(2, idx), \
+            v_cache.index_select(2, idx)
     if spiking:
-        kh, rep = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+        kh = k_cache.shape[2]
+        rep = cfg.num_heads // kh
         qf = q.reshape(b_rows, c, kh, rep, cfg.head_dim)
         if packed:
             # AND-popcount against the packed cache: exact integer counts
@@ -378,12 +425,26 @@ def _decode_layer(p, cfg: ModelConfig, x: torch.Tensor, cache_l, pos,
     else:
         attn = nn.decode_attention(q, k_cache, v_cache, entry_pos=entry_pos,
                                    cur_pos=qpos, window=window)
-    x = x + nn.linear(p["wo"], attn.reshape(b_rows, c, cfg.q_dim))
+    x = x + _row(p["wo"], attn.reshape(b_rows, c, cfg.q_dim), "attn")
     h2 = nn.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if spiking:
         up = nn.linear(p["mlp"]["up"], h2)
-        return x + nn.linear(p["mlp"]["down"], lif_t(up))
-    return x + nn.mlp(p["mlp"], h2, cfg.act)
+        return x + _row(p["mlp"]["down"], lif_t(up), "mlp")
+    return x + _mlp(p["mlp"], h2, cfg.act)
+
+
+def _head_sharded(params, cfg: ModelConfig, x: torch.Tensor,
+                  scope) -> torch.Tensor:
+    """:func:`_head` on a rank: the head's vocab columns it holds, the
+    logits gathered over 'model' and the slots over 'data'."""
+    x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        table = scope.whole(params["embed"], scope.specs["embed"])["table"]
+        logits = nn.unembed({"table": table}, x)
+    else:
+        head = scope.whole(params["lm_head"], scope.specs["lm_head"])
+        logits = nn.linear(head, x).float()
+    return scope.logits(logits)
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos,
@@ -400,15 +461,29 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos,
         pos = pos.expand(b)
     n_tok = torch.full((b,), c, dtype=torch.int64, device=dev) \
         if n_tok is None else torch.as_tensor(n_tok, device=dev).long()
-    x = nn.embed(params["embed"], tokens)
+    scope = spmd.current()
+    if scope is not None:
+        # this rank's slots; its cache holds only them
+        rows = scope.rows(b)
+        tokens, pos, n_tok = tokens[rows], pos[rows], n_tok[rows]
+        x = scope.embed(params["embed"], scope.specs["embed"], tokens)
+        lcfg = scope.local_cfg
+        specs = _layer_specs(params, scope.specs, cfg)
+    else:
+        x = nn.embed(params["embed"], tokens)
+        lcfg, specs = cfg, None
     if cfg.spiking is not None:
         t = cfg.spiking.time_steps
         x = x[None].expand(t, *x.shape).reshape(-1, *x.shape[1:])
     for (kind, lp), cache_l in zip(_layers(params, cfg),
                                    _cache_layers(cfg, cache)):
-        x = _decode_layer(lp, cfg, x, cache_l, pos, n_tok, kind)
+        if scope is not None:
+            lp = scope.layer(lp, next(specs))
+        x = _decode_layer(lp, lcfg, x, cache_l, pos, n_tok, kind)
     if cfg.spiking is not None:
         x = x.reshape(t, -1, *x.shape[1:]).mean(dim=0)
+    if scope is not None:
+        return _head_sharded(params, cfg, x, scope), cache
     return _head(params, cfg, x), cache
 
 

@@ -32,7 +32,7 @@ def init(cfg: ModelConfig, seed: int = 0, *,
     (vision_dim -> d_model, then d_model -> d_model)."""
     dev = resolve_device(device)
     params = transformer.init(cfg, seed, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(seed + _PROJECTOR_SEED)
+    gen = nn.generator(dev).manual_seed(seed + _PROJECTOR_SEED)
     dt = transformer.dtype_of(cfg)
     fr = cfg.frontend
     proj = [nn.linear_init(gen, fr.embed_dim, cfg.d_model, bias=True,

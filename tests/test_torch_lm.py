@@ -569,7 +569,7 @@ def test_unported_token_paths_raise(family):
         assert bool(torch.isfinite(logits).all())
     # the MoE, rwkv, hybrid, encdec and vlm families, which raised here
     # before they were ported, run (vlm's logits cover its patches too);
-    # a serving mesh still raises, naming ROADMAP item 10
+    # the server refuses a mesh that is no launch.mesh.Mesh
     other = get_config(FAMILY_ARCHS[family], smoke=True)
     batch = family_batch(other, 2, 5)
     logits, aux = registry.forward(registry.init(other, 0, device="cpu"),
@@ -580,7 +580,7 @@ def test_unported_token_paths_raise(family):
     if family == "moe":
         assert float(aux["moe_aux"]) > 0
     from repro_torch.launch.serve import BatchedServer
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="Mesh"):
         BatchedServer(cfg, registry.init(cfg, 0, device="cpu"), 2, 16,
                       device="cpu", mesh=object())
     lp, x, pos = _layer_inputs(cfg)

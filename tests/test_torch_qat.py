@@ -172,8 +172,8 @@ def test_qat_refused_outside_the_stateful_family(family):
     """The LM's QAT, refused here before it was ported, takes a step, and
     so does a sliding-window LM's and the case's family's (an MoE, rwkv,
     hybrid, encdec or vlm SMOKE model), refused before their slices; a
-    serving mesh still raises, naming its ROADMAP item, and so does an
-    unknown qat dtype."""
+    server refuses a mesh that is no ``launch.mesh.Mesh``, and an unknown
+    qat dtype is refused."""
     lm = get_config("spikingformer-lm", smoke=True)
     opt = adamw(1e-3)
     tp = interop.to_torch(jax.tree_util.tree_map(
@@ -196,7 +196,7 @@ def test_qat_refused_outside_the_stateful_family(family):
     if family == "moe":
         assert float(m["moe_aux"]) > 0
     from repro_torch.launch.serve import BatchedServer
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="Mesh"):
         BatchedServer(lm, tp, 2, 16, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="int2"):
         TS.build_train_step(get_config("spikingformer-4-256", smoke=True),

@@ -137,7 +137,7 @@ def test_kv_stats_and_request_checks_match_jax(setup):
     with pytest.raises(ValueError):
         server.submit(TS.Request(rid=0, prompt=_prompt(cfg, 3, 0),
                                  max_new_tokens=0))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="Mesh"):
         TS.BatchedServer(cfg, tp, 2, 32, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="slotted"):
         TS.BatchedServer(get_config("spikingformer-4-256", smoke=True), tp,
@@ -151,5 +151,5 @@ def test_cli_serves_the_quantized_smoke_model(capsys):
     out = capsys.readouterr().out
     assert "kv cache" in out and "packed=True" in out
     assert "(int4)" in out and "3 requests, 6 generated" in out
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TS.main(["--smoke", "--device", "cpu", "--mesh", "2x2"])
+    with pytest.raises(ValueError, match="DATAxMODEL"):
+        TS.main(["--smoke", "--device", "cpu", "--mesh", "2by2"])

@@ -17,6 +17,9 @@ redesign is checked on:
   ulp of the output — the bound the card's check applies;
 * binary-attention counts up to 196 (Spikingformer-8-512's wo, L = 196)
   in bf16, where every count is an exact bf16 value: bitwise;
+* the analog mode (``analog=True``), which sums in ascending k, one
+  rounded product and one rounded sum a term: bitwise against that order
+  restated in numpy, and against the Pallas kernel as above;
 
 and that ``_build.library_path`` names a new library when a header in
 ``csrc/`` changes (the sources include ``int8_lanes.cuh``), so a stale
@@ -122,6 +125,49 @@ def test_analog_context_on_normal_weights_within_bound(dtype, shape):
     if dtype == "bfloat16":
         tol = tol + 2.0 ** -7 * np.abs(want)
     assert (np.abs(got.astype(np.float64) - want) <= tol).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_analog_mode_sums_in_ascending_k(dtype, shape):
+    """The analog mode (``analog=True``, the wo product on the analog
+    context of a ``binarize_scores=False`` layer): every output an fp32
+    chain over ascending k, one rounded product and one rounded sum a
+    term, the bias after the last, rounded once to the dtype, which is
+    the order the CUDA kernel's analog mode takes. Bitwise against that
+    order restated in numpy, through the wrapper too; against the
+    interpret-mode Pallas kernel bitwise on dyadic weights with a bias
+    (the sums are exact) and, without one, within the two-order bound on
+    random-normal weights."""
+    m, k, n = shape
+    rng = np.random.default_rng(5 * m + k)
+    s = _analog(rng, (m, k))
+    cases = (((rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32),
+              None, False),
+             (dyadic(rng, (k, n)), dyadic(rng, (n,)), True))
+    for w, b, exact in cases:
+        _, ts = _both(s, dtype)
+        _, tw = _both(w, dtype)
+        tb = None if b is None else _both(b, dtype)[1]
+        got = TM.spike_matmul_plain(ts, tw, tb, analog=True)
+        assert got.dtype == DTYPES[dtype][1]
+        assert torch.equal(got, TM.spike_matmul(ts, tw, tb, analog=True))
+        s32, w32 = ts.float().numpy(), tw.float().numpy()
+        acc = np.zeros((m, n), np.float32)
+        for kk in range(k):
+            acc = acc + s32[:, kk:kk + 1] * w32[kk]
+        if tb is not None:
+            acc = acc + tb.float().numpy()
+        assert torch.equal(got, torch.from_numpy(acc).to(got.dtype))
+        want = _jax(s, w, b, dtype).astype(np.float64)
+        if exact:
+            np.testing.assert_array_equal(got.float().numpy(), want)
+            continue
+        tol = 2 * (k - 1) * 2.0 ** -24 * (np.abs(s32.astype(np.float64))
+                                          @ np.abs(w32.astype(np.float64)))
+        if dtype == "bfloat16":
+            tol = tol + 2.0 ** -7 * np.abs(want)
+        assert (np.abs(got.float().numpy() - want) <= tol).all()
 
 
 @pytest.mark.parametrize("bias", [False, True])

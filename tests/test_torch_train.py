@@ -497,8 +497,8 @@ def test_unported_training_modes_raise_naming_roadmap(family):
     assert tokens["tokens"].shape == (2, 4)
     # training a sliding-window LM and a non-spiking dense model, which
     # raised here before they were ported, takes a step, and so does
-    # training the case's family (MoE, rwkv, hybrid, encdec, vlm); a
-    # serving mesh still raises, naming ROADMAP item 10
+    # training the case's family (MoE, rwkv, hybrid, encdec, vlm); the
+    # server refuses a mesh that is no launch.mesh.Mesh
     for now in (lm.replace(attn_type="swa", window=3),
                 lm.replace(spiking=None)):
         now_params = TR.init(now, 0, device="cpu")
@@ -516,7 +516,7 @@ def test_unported_training_modes_raise_naming_roadmap(family):
     assert nstep == 1 and np.isfinite(float(m["loss"]))
     assert ("moe_aux" in m) == (family == "moe")
     from repro_torch.launch.serve import BatchedServer
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="Mesh"):
         BatchedServer(lm, lm_params, 2, 16, device="cpu", mesh=object())
     # the popcount mode of the binary engine is ported (#8): the folded
     # entry and the engine's dispatch run, equal to the MXU mode
